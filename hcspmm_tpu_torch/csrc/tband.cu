@@ -1,0 +1,162 @@
+// Transposed-band SpMM for Hopper (sm_90a), bound from Python with ctypes.
+//
+// Replaces the Pallas kernels hcspmm_tpu/kernels/tband.py:tband_spmm_direct
+// (pallas_call at :217) and :tband_spmm_bucket (:246), pack=1.  Thread
+// block b of superwindow i computes a DT-row slab of
+//
+//     Y^T[d0:d0+DT, c_i*bh : c_i*bh+bh] = X^T[d0:d0+DT, st[i] : st[i]+W] @ A_t[i]
+//
+// with A_t[i] an int8 0/1 block [W, bh] and c_i = sw[i] (direct mode, the
+// superwindow's own output columns) or c_i = i (bucket mode, fp32 output in
+// bucket order that the caller scatters).  Sums run in fp32 with plain FMAs
+// on the CUDA cores: no tensor cores and no TF32, the counterpart of the
+// reference's Precision.HIGHEST (tband.py:166-168).  bf16 inputs are
+// widened with __bfloat162float; outputs are rounded to nearest.
+//
+// Departures from the Pallas kernel: a direct-mode entry with
+// sw[i] == num_sw (capacity padding, format/plan.py) writes nothing, so no
+// trash block is allocated and none is sliced off.  A warp skips each row of
+// the staged A_t block in which its 32 columns are all zero, so an absent
+// edge adds nothing even where x is not finite (as in a CSR product), where
+// the Pallas kernel's dense dot would spread a NaN over the superwindow.  The
+// 4-slot DMA ring of the TPU kernel (tband.py:103-150) is not copied:
+// several blocks resident on each SM hide the load latency instead.
+//
+// What bounds it.  At the DD-scale stand-in (Sb 1312, W 768, bh 256, dt 32,
+// fp32) one apply reads 258 MB of A_t and 129 MB of X^T slices and writes
+// 43 MB: 0.13 ms at 3.35 TB/s.  Multiplying the dense 0/1 block would take
+// 8.3 G FMAs (0.25 ms at the card's 67 TFLOP/s fp32 peak) plus a
+// shared-memory load and an int8-to-float conversion per element; the
+// stand-in's A_t is 0.65% non-zero, so the row skip above removes most of
+// that work.  What is left, the per-row vote and the staging of A_t and X^T
+// (not double-buffered), binds it: instruction issue and load latency, not
+// bytes.  Blocks that share a superwindow are adjacent in the grid, so the
+// second reads A_t from L2.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int KT = 64;  // contraction rows of A_t and X^T staged per step
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// Grid: one block per (superwindow i, DT-row chunk), chunk fastest.
+// Block: bh threads; thread j owns output column j of the superwindow.
+// Shared memory: x_s [KT][DT] fp32, then a_s [KT][bh] int8.
+template <typename TX, typename TO, int DT>
+__global__ void __launch_bounds__(512)
+tband_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
+             const int8_t* __restrict__ at, const TX* __restrict__ xt,
+             TO* __restrict__ out, int w, int bh, int nchunk, long long m,
+             long long out_cols, int num_sw) {
+  const int i = blockIdx.x / nchunk;
+  const int d0 = (blockIdx.x % nchunk) * DT;
+  const int j = threadIdx.x;
+  long long col0 = (long long)i * bh;
+  if (sw != nullptr) {
+    const int s = sw[i];
+    if (s >= num_sw) return;  // capacity padding: nothing to write
+    col0 = (long long)s * bh;
+  }
+  const long long st = starts[i];
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* x_s = reinterpret_cast<float*>(smem);
+  int8_t* a_s = reinterpret_cast<int8_t*>(smem + KT * DT * sizeof(float));
+
+  float acc[DT];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) acc[d] = 0.f;
+
+  const int8_t* a_blk = at + (long long)i * w * bh;
+  const int nvec = KT * bh / 16;
+  for (int k0 = 0; k0 < w; k0 += KT) {
+    // A_t rows [k0, k0+KT): KT*bh contiguous bytes, 16 bytes per load
+    const int4* a_src = reinterpret_cast<const int4*>(a_blk + (long long)k0 * bh);
+    int4* a_dst = reinterpret_cast<int4*>(a_s);
+    for (int v = j; v < nvec; v += blockDim.x) a_dst[v] = a_src[v];
+    // X^T[d0+dd, st+k0+kk] -> x_s[kk][dd]; neighbouring threads read
+    // neighbouring columns of one feature row
+    for (int e = j; e < KT * DT; e += blockDim.x) {
+      const int kk = e % KT;
+      const int dd = e / KT;
+      x_s[kk * DT + dd] = to_f32(xt[(long long)(d0 + dd) * m + st + k0 + kk]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < KT; ++kk) {
+      const int8_t av = a_s[kk * bh + j];
+      // A_t is a sparse 0/1 block: a warp whose 32 columns are all zero in
+      // this row skips it (the branch is uniform across the warp)
+      if (!__any_sync(0xffffffffu, av != 0)) continue;
+      const float a = static_cast<float>(av);
+      const float4* xv = reinterpret_cast<const float4*>(x_s + kk * DT);
+#pragma unroll
+      for (int q = 0; q < DT / 4; ++q) {
+        const float4 x4 = xv[q];  // same address for the whole warp
+        acc[4 * q + 0] = fmaf(x4.x, a, acc[4 * q + 0]);
+        acc[4 * q + 1] = fmaf(x4.y, a, acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(x4.z, a, acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(x4.w, a, acc[4 * q + 3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int d = 0; d < DT; ++d) store(out + (long long)(d0 + d) * out_cols + col0 + j, acc[d]);
+}
+
+template <typename TX, typename TO, int DT>
+cudaError_t launch(const void* starts, const void* sw, const void* at, const void* xt,
+                   void* out, int sb, int w, int bh, int dt, long long m,
+                   long long out_cols, int num_sw, cudaStream_t stream) {
+  const int nchunk = dt / DT;
+  const size_t smem = KT * DT * sizeof(float) + (size_t)KT * bh;
+  tband_kernel<TX, TO, DT><<<(unsigned)sb * nchunk, bh, smem, stream>>>(
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
+      static_cast<const int8_t*>(at), static_cast<const TX*>(xt), static_cast<TO*>(out),
+      w, bh, nchunk, m, out_cols, num_sw);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TO>
+cudaError_t dispatch_dt(const void* starts, const void* sw, const void* at, const void* xt,
+                        void* out, int sb, int w, int bh, int dt, long long m,
+                        long long out_cols, int num_sw, cudaStream_t stream) {
+  if (dt % 32 == 0)
+    return launch<TX, TO, 32>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, stream);
+  return launch<TX, TO, 16>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, stream);
+}
+
+}  // namespace
+
+// starts, sw: int32 [sb] (sw may be null: bucket mode); at: int8 [sb, w, bh];
+// xt: [dt, m] fp32 (x_bf16 == 0) or bf16; out: [dt, out_cols], fp32 when
+// out_f32 != 0, else the type of xt.  Returns a cudaError_t (0 = launched).
+// The caller guarantees st + w <= m for every entry and that every output
+// block it reads is written by exactly one entry.
+extern "C" int hcspmm_tband_spmm(const void* starts, const void* sw, const void* at,
+                                 const void* xt, void* out, int sb, int w, int bh, int dt,
+                                 long long m, long long out_cols, int num_sw, int x_bf16,
+                                 int out_f32, void* stream) {
+  if (sb <= 0) return 0;
+  if (dt <= 0 || dt % 16 || w <= 0 || w % KT || bh <= 0 || bh % 32 || bh > 512)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!x_bf16) {
+    if (!out_f32) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_dt<float, float>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
+                                          num_sw, s);
+  }
+  if (out_f32)
+    return (int)dispatch_dt<__nv_bfloat16, float>(starts, sw, at, xt, out, sb, w, bh, dt, m,
+                                                  out_cols, num_sw, s);
+  return (int)dispatch_dt<__nv_bfloat16, __nv_bfloat16>(starts, sw, at, xt, out, sb, w, bh, dt,
+                                                        m, out_cols, num_sw, s);
+}

@@ -1,0 +1,101 @@
+"""GCN / GIN / SAGE networks (reference: the ``Net`` classes in
+HC-SpMM_main.py:66-110); port of hcspmm_tpu/models/net.py.
+
+Topology: first layer (fixed=1) -> ReLU -> dropout -> (num_layers - 2)
+hidden layers (fixed=0) each followed by ReLU -> final layer (fixed=2) ->
+log_softmax.  Dropout p=0.5 (F.dropout, HC-SpMM_main.py:82).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from hcspmm_tpu_torch.models.layers import (
+    FIXED_FINAL,
+    FIXED_FIRST,
+    FIXED_HIDDEN,
+    GCNConv,
+    GINConv,
+    SAGEConv,
+    init_conv_params,
+    init_sage_params,
+)
+
+
+@dataclasses.dataclass
+class Net:
+    """Static network description; parameters live in a separate list."""
+
+    model: str          # 'gcn' | 'gin' | 'sage'
+    num_features: int
+    hidden: int
+    num_classes: int
+    num_layers: int
+    dropout: float = 0.5
+
+    def layer_dims(self) -> List:
+        dims = [(self.num_features, self.hidden, FIXED_FIRST)]
+        for _ in range(self.num_layers - 2):
+            dims.append((self.hidden, self.hidden, FIXED_HIDDEN))
+        dims.append((self.hidden, self.num_classes, FIXED_FINAL))
+        return dims
+
+    def conv(self, fixed: int):
+        if self.model == "gcn":
+            return GCNConv(fixed)
+        if self.model == "sage":
+            return SAGEConv(fixed)
+        return GINConv(fixed)
+
+
+def _leaf(t, device) -> torch.Tensor:
+    return t.to(device).requires_grad_(True)
+
+
+def init_net_params(net: Net, gen: torch.Generator, init: str = "randn",
+                    device="cpu") -> List[Dict[str, torch.Tensor]]:
+    """Per-layer parameter dicts, drawn on the host from ``gen`` and moved
+    to ``device`` as leaf tensors that require grad."""
+    make = init_sage_params if net.model == "sage" else init_conv_params
+    return [{k: _leaf(v, device) for k, v in make(gen, din, dout, init).items()}
+            for din, dout, _ in net.layer_dims()]
+
+
+def params_from_jax(params, device="cpu") -> List[Dict[str, torch.Tensor]]:
+    """The JAX package's parameter list (dicts of ``weights`` or
+    ``w_self``/``w_neigh`` arrays, as numpy or jax arrays) as this
+    package's parameters: float32 leaf tensors on ``device``."""
+    return [{k: _leaf(torch.from_numpy(np.array(v, dtype=np.float32)), device)
+             for k, v in layer.items()} for layer in params]
+
+
+def net_forward(net: Net, params: List[Dict], spmm: Callable, x: torch.Tensor,
+                dropout_gen: Optional[torch.Generator] = None, train: bool = False,
+                out_slice=None) -> torch.Tensor:
+    """Log-probabilities [N, classes] (F.log_softmax, main.py:87).
+
+    ``out_slice=(rows, cols)`` slices the final activation before the
+    softmax (padded class columns must not enter its normalization); a
+    callable ``out_slice`` maps the final activation to logits itself
+    (ops.spmm.HybridSpMM.unpad_output).  Dropout draws from
+    ``dropout_gen``, which must live on ``x``'s device."""
+    h = x
+    for i, (_, _, fixed) in enumerate(net.layer_dims()):
+        h = net.conv(fixed)(params[i], spmm, h)
+        if fixed != FIXED_FINAL:
+            h = torch.relu(h)
+        if fixed == FIXED_FIRST and train and net.dropout > 0:
+            if dropout_gen is None:
+                raise ValueError("train=True requires dropout_gen")
+            keep = 1.0 - net.dropout
+            mask = torch.rand(h.shape, generator=dropout_gen, device=h.device) < keep
+            h = torch.where(mask, h / keep, torch.zeros_like(h))
+    if callable(out_slice):
+        h = out_slice(h)
+    elif out_slice is not None:
+        h = h[: out_slice[0], : out_slice[1]]
+    return torch.log_softmax(h, dim=-1)

@@ -1,0 +1,121 @@
+"""Training loop (reference: HC-SpMM_main.py:113-166); port of
+hcspmm_tpu/train/loop.py.
+
+Parity: Adam lr=0.01 (main.py:115; ``torch.optim.Adam`` has optax.adam's
+defaults and update), loss = NLL of the log-softmax output against the
+all-ones labels over every node (main.py:125), 9 warm-up epochs, then the
+timed epochs (main.py:157-166).  Activations run in the operator's
+transposed padded layout; only the final logits are sliced (by
+``unpad_output``) before the softmax.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward
+from hcspmm_tpu_torch.utils.logging import MetricLogger
+
+
+def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """F.nll_loss: mean negative log-probability of the label."""
+    return -log_probs.gather(1, labels[:, None]).mean()
+
+
+class Bound:
+    """The operator with its plan arrays bound, in its padded layout: what
+    the layers call (``gcn_fused``/``gin_fused``/``mean``/``dense``)."""
+
+    def __init__(self, spmm):
+        self._op = spmm
+        self._arrs = spmm.arrays
+
+    def __call__(self, x):
+        return self._op.apply_padded(self._arrs, x)
+
+    def gcn_fused(self, x, w):
+        return self._op.gcn_apply_padded(self._arrs, x, w)
+
+    def gin_fused(self, x, w):
+        return self._op.gin_apply_padded(self._arrs, x, w)
+
+    def mean(self, x):
+        return self._op.mean_apply_padded(self._arrs, x)
+
+    def dense(self, x, w):
+        return self._op.dense_padded(x, w)
+
+
+def make_train_step(net: Net, spmm, optimizer: torch.optim.Optimizer):
+    """``step(params, x, y, gen) -> loss`` for a HybridSpMM ``spmm``:
+    forward, NLL, backward and one optimizer step.  ``x`` is raw [N, d]
+    or already padded; ``gen`` draws the dropout mask (None needs
+    ``net.dropout == 0``).  The loss comes back as a device tensor, so the
+    step never waits for the device."""
+    bound = Bound(spmm)
+
+    def out_slice(h):
+        return spmm.unpad_output(h, net.num_classes)
+
+    def train_step(params, x, y, gen=None):
+        if x.shape[1] != spmm.padded_rows:
+            x = spmm.pad_input(x)
+        optimizer.zero_grad(set_to_none=True)
+        logp = net_forward(net, params, bound, x, dropout_gen=gen,
+                           train=True, out_slice=out_slice)
+        loss = nll_loss(logp, y)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+def train(net: Net, spmm, x, y, epochs: int = 200, lr: float = 0.01,
+          seed: int = 0, warmup_epochs: int = 9,
+          logger: Optional[MetricLogger] = None,
+          init_params: Optional[List[Dict]] = None) -> Dict:
+    """Runs warm-up + timed epochs on ``spmm.device``; returns params and
+    timing.  ``epoch_ms`` is the timed epochs' host time, ended by
+    ``torch.cuda.synchronize()`` on a CUDA device, over ``epochs``;
+    ``warmup_s`` the warm-up epochs' time, first-call costs included.
+    Per-epoch losses are logged after the timed loop, so logging adds no
+    device wait inside it."""
+    device = spmm.device
+    x = spmm.pad_input(x)  # one-time layout conversion
+    y = torch.as_tensor(y).to(device=device, dtype=torch.int64)
+    params = (init_params if init_params is not None
+              else init_net_params(net, torch.Generator().manual_seed(seed),
+                                   device=device))
+    optimizer = torch.optim.Adam([t for layer in params for t in layer.values()],
+                                 lr=lr)
+    step = make_train_step(net, spmm, optimizer)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    start = time.perf_counter()
+    for _ in range(warmup_epochs):  # main.py:157-159 dry-run epochs
+        step(params, x, y, gen)
+    sync()
+    warmup_s = time.perf_counter() - start
+    start = time.perf_counter()
+    losses = [step(params, x, y, gen) for _ in range(epochs)]
+    sync()
+    total = time.perf_counter() - start
+    losses = [float(v) for v in losses]
+    if logger is not None:
+        for e, v in enumerate(losses):
+            logger.log(epoch=e, loss=v)
+    return {
+        "params": params,
+        "final_loss": losses[-1] if losses else float("nan"),
+        "epoch_ms": total * 1e3 / max(epochs, 1),
+        "total_s": total,
+        "warmup_s": warmup_s,
+    }

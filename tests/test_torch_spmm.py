@@ -1,0 +1,206 @@
+"""The port's differentiable SpMM (hcspmm_tpu_torch/ops/spmm.py) against
+the JAX package's HybridSpMM on the same graphs: values and gradients in
+the transposed padded layout and the row layout, the normalized and mean
+variants, the transposed backward plan of a directed graph, and the gate
+that refuses every plan whose edges it would not all apply.
+
+Tolerance: fp32 within 1e-5 of max|ref| (the order of fp32 sums only).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hcspmm_tpu.config import PlanConfig as JaxPlanConfig
+from hcspmm_tpu.ops.spmm import HybridSpMM as JaxHybridSpMM
+
+from hcspmm_tpu_torch.config import PlanConfig
+from hcspmm_tpu_torch.kernels import tband
+from hcspmm_tpu_torch.ops.spmm import HybridSpMM, spmm_reference_dense
+
+from conftest import small_graph
+
+RTOL = 1e-5
+TBAND = dict(impl="pallas", band_impl="tband", band_h=128, band_mode="always")
+
+
+def rel_err(got, ref):
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    return np.abs(got - ref).max() / (np.abs(ref).max() + 1e-30)
+
+
+def both(rp, ci, nn, **kw):
+    """The port's operator and the JAX package's, on one graph and config."""
+    fields = dict(TBAND, **kw.pop("cfg", {}))
+    return (HybridSpMM(rp, ci, nn, PlanConfig(**fields), **kw),
+            JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**fields), **kw))
+
+
+def dense_a(rp, ci, nn):
+    return spmm_reference_dense(rp, ci, nn, np.eye(nn))
+
+
+def test_padded_closure_matches_jax_and_oracle():
+    """pad_input -> apply_padded twice -> unpad_output == A @ (A @ X)."""
+    rp, ci, nn = small_graph(300, 6)
+    op, jop = both(rp, ci, nn)
+    d = 32
+    x = np.random.RandomState(3).randn(nn, d).astype(np.float32)
+    xp = op.pad_input(torch.from_numpy(x))
+    assert xp.shape == (32, op.plan.padded_rows)
+    got = op.unpad_output(op.apply_padded(op.arrays, op.apply_padded(op.arrays, xp)), d)
+    jxp = jop.pad_input(jnp.asarray(x))
+    want = jop.unpad_output(jop.apply_padded(jop.arrays, jop.apply_padded(jop.arrays, jxp)), d)
+    assert rel_err(got, want) < RTOL
+    a = dense_a(rp, ci, nn)
+    assert rel_err(got, a @ (a @ x)) < RTOL
+
+
+@pytest.mark.parametrize("d", [8, 20])
+def test_normalized_and_mean_match_jax(d):
+    rp, ci, nn = small_graph(200, 5)
+    op, jop = both(rp, ci, nn, normalize=True)
+    x = np.random.RandomState(6).randn(nn, d).astype(np.float32)
+    xp, jxp = op.pad_input(torch.from_numpy(x)), jop.pad_input(jnp.asarray(x))
+    got = op.unpad_output(op.apply_padded(op.arrays, xp), d)
+    want = jop.unpad_output(jop.apply_padded(jop.arrays, jxp), d)
+    assert rel_err(got, want) < RTOL
+    a = dense_a(rp, ci, nn)
+    deg = np.maximum(a.sum(1), 1.0)
+    assert rel_err(got, (a @ (x / np.sqrt(deg)[:, None])) / np.sqrt(deg)[:, None]) < RTOL
+    got_m = op.unpad_output(op.mean_apply_padded(op.arrays, xp), d)
+    want_m = jop.unpad_output(jop.mean_apply_padded(jop.arrays, jxp), d)
+    assert rel_err(got_m, want_m) < RTOL
+    assert rel_err(got_m, (a @ x) / deg[:, None]) < RTOL
+    assert rel_err(op.mean(torch.from_numpy(x)), jop.mean(jnp.asarray(x))) < RTOL
+    assert rel_err(op(torch.from_numpy(x)), jop(jnp.asarray(x))) < RTOL
+
+
+def _grads(op, jop, x, cot, layout):
+    """d/dX of sum(A X * cot) through the port (torch autograd) and the
+    JAX package (custom_vjp), in the padded or the row layout."""
+    d = x.shape[1]
+    xv = torch.from_numpy(x).requires_grad_(True)
+    if layout == "padded":
+        out = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(xv)), d)
+    else:
+        out = op.apply(op.arrays, xv)
+    (out * torch.from_numpy(cot)).sum().backward()
+
+    def loss(v):
+        if layout == "padded":
+            o = jop.unpad_output(jop.apply_padded(jop.arrays, jop.pad_input(v)), d)
+        else:
+            o = jop.apply(jop.arrays, v)
+        return jnp.sum(o * cot)
+
+    return xv.grad.numpy(), np.asarray(jax.grad(loss)(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("layout", ["padded", "rows"])
+def test_spmm_gradient_matches_jax_custom_vjp(layout):
+    rp, ci, nn = small_graph(200, 5)
+    op, jop = both(rp, ci, nn)
+    rs = np.random.RandomState(5)
+    x = rs.randn(nn, 16).astype(np.float32)
+    cot = rs.randn(nn, 16).astype(np.float32)
+    got, want = _grads(op, jop, x, cot, layout)
+    assert rel_err(got, want) < RTOL
+    assert rel_err(got, dense_a(rp, ci, nn).T @ cot) < RTOL
+
+
+@pytest.mark.parametrize("layout", ["padded", "rows"])
+def test_directed_graph_backward_uses_transposed_plan(layout):
+    rp, ci, nn = small_graph(300, 6, symmetric=False)
+    op, jop = both(rp, ci, nn, symmetric=False)
+    assert op.plan_bwd is not None and op.arrays["b"] is not op.arrays["f"]
+    a = dense_a(rp, ci, nn)
+    assert not np.array_equal(a, a.T), "the test graph must be directed"
+    rs = np.random.RandomState(8)
+    x = rs.randn(nn, 16).astype(np.float32)
+    cot = rs.randn(nn, 16).astype(np.float32)
+    got, want = _grads(op, jop, x, cot, layout)
+    assert rel_err(got, want) < RTOL
+    assert rel_err(got, a.T @ cot) < RTOL
+    assert rel_err(op(torch.from_numpy(x)), a @ x) < RTOL
+
+
+@pytest.mark.parametrize("core", ["gcn", "gin"])
+def test_layer_cores_values_and_grads_match_jax(core):
+    rp, ci, nn = small_graph(300, 6)
+    op, jop = both(rp, ci, nn)
+    d, h = 24, 12
+    rs = np.random.RandomState(4)
+    x = rs.randn(nn, d).astype(np.float32)
+    w = (rs.randn(d, h) * 0.1).astype(np.float32)
+    xv = torch.from_numpy(x).requires_grad_(True)
+    wv = torch.from_numpy(w).requires_grad_(True)
+    apply = getattr(op, f"{core}_apply_padded")
+    out = op.unpad_output(apply(op.arrays, op.pad_input(xv), wv), h)
+    (out ** 2).sum().backward()
+
+    japply = getattr(jop, f"{core}_apply_padded")
+
+    def loss(xj, wj):
+        return jnp.sum(jop.unpad_output(japply(jop.arrays, jop.pad_input(xj), wj), h) ** 2)
+
+    jout = jop.unpad_output(japply(jop.arrays, jop.pad_input(jnp.asarray(x)),
+                                   jnp.asarray(w)), h)
+    gx, gw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    assert rel_err(out.detach(), jout) < RTOL
+    assert rel_err(xv.grad, gx) < RTOL
+    assert rel_err(wv.grad, gw) < RTOL
+
+
+def test_spill_plan_raises():
+    rp, ci, nn = small_graph(500, 8, span=400)
+    with pytest.raises(NotImplementedError, match="A.3"):
+        HybridSpMM(rp, ci, nn, PlanConfig(**dict(TBAND, band_widths=(128,),
+                                                 band_mode="auto")))
+
+
+def test_partial_cover_plan_raises():
+    """Missing superwindows ride the spill population: their plans raise,
+    and the gate refuses partial cover on its own too."""
+    rp, ci, nn = small_graph(700, 10, span=500)
+    with pytest.raises(NotImplementedError):
+        HybridSpMM(rp, ci, nn, PlanConfig(**dict(TBAND, band_widths=(128, 256),
+                                                 band_mode="auto")))
+    rp, ci, nn = small_graph(300, 6)
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**TBAND))
+    partial = dataclasses.replace(op.plan, band_sw_ids=[op.plan.band_sw_ids[0][1:]])
+    with pytest.raises(NotImplementedError, match="cover"):
+        tband.check_plan(partial)
+    with pytest.raises(NotImplementedError, match="cover"):
+        tband.spmm_tband_padded(op.arrays["f"], op.pad_input(torch.zeros(nn, 16)),
+                                partial, torch.float32)
+
+
+@pytest.mark.parametrize("pack", [2, 8])
+def test_packed_a_raises(pack):
+    rp, ci, nn = small_graph(300, 6)
+    with pytest.raises(NotImplementedError, match="tband_pack"):
+        HybridSpMM(rp, ci, nn, PlanConfig(**dict(TBAND, tband_pack=pack)))
+
+
+@pytest.mark.parametrize("band_impl", ["wide", "tiled"])
+def test_other_layouts_raise(band_impl):
+    rp, ci, nn = small_graph(300, 6)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        HybridSpMM(rp, ci, nn, PlanConfig(band_impl=band_impl, band_h=128))
+
+
+def test_prefer_fused_kernel_raises():
+    rp, ci, nn = small_graph(300, 6)
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**TBAND))
+    op.plan.prefer_fused_kernel = True
+    xp = op.pad_input(torch.zeros(nn, 16))
+    w = torch.zeros(16, 8)
+    for core in (op.gcn_apply_padded, op.gin_apply_padded):
+        with pytest.raises(NotImplementedError, match="tband_fused_direct"):
+            core(op.arrays, xp, w)

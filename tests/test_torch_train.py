@@ -1,0 +1,172 @@
+"""The port's models, training step and command line against the JAX
+package (hcspmm_tpu_torch/models, train): forward passes with weights
+carried across by ``params_from_jax``, Adam steps, the CLI on the CPU,
+and the port's independence from JAX."""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from hcspmm_tpu.config import PlanConfig as JaxPlanConfig
+from hcspmm_tpu.models.net import Net as JaxNet
+from hcspmm_tpu.models.net import init_net_params as jax_init_net_params
+from hcspmm_tpu.models.net import net_forward as jax_net_forward
+from hcspmm_tpu.ops.spmm import HybridSpMM as JaxHybridSpMM
+from hcspmm_tpu.train.loop import make_train_step as jax_make_train_step
+
+from hcspmm_tpu_torch.config import PlanConfig
+from hcspmm_tpu_torch.graphs import io
+from hcspmm_tpu_torch.models.net import Net, net_forward, params_from_jax
+from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+from hcspmm_tpu_torch.train import cli
+from hcspmm_tpu_torch.train.loop import Bound, make_train_step
+
+from conftest import small_graph
+
+TBAND = dict(impl="pallas", band_impl="tband", band_h=128, band_mode="always")
+DIMS = dict(num_features=24, hidden=16, num_classes=5, num_layers=3)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def rel_err(got, ref):
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    return np.abs(got - ref).max() / (np.abs(ref).max() + 1e-30)
+
+
+def setup(model, dropout=0.5):
+    rp, ci, nn = small_graph(300, 6)
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**TBAND))
+    jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**TBAND))
+    jnet = JaxNet(model=model, dropout=dropout, **DIMS)
+    net = Net(model=model, dropout=dropout, **DIMS)
+    jparams = jax_init_net_params(jnet, jax.random.PRNGKey(0), init="glorot")
+    x = np.random.RandomState(0).randn(nn, DIMS["num_features"]).astype(np.float32)
+    return op, jop, net, jnet, jparams, x
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin", "sage"])
+def test_net_forward_matches_jax(model):
+    """Log-probabilities of the port's padded-layout forward against the
+    JAX package's, same weights (fp32, within 1e-5 of max|ref|)."""
+    op, jop, net, jnet, jparams, x = setup(model)
+    want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
+    with torch.no_grad():
+        got = net_forward(net, params_from_jax(jparams), Bound(op), op.pad_input(x),
+                          out_slice=lambda h: op.unpad_output(h, net.num_classes))
+    assert got.shape == want.shape == (x.shape[0], DIMS["num_classes"])
+    assert rel_err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_adam_steps_match_jax_train_step(model):
+    """Three Adam steps (lr 0.01, dropout 0): torch.optim.Adam against
+    optax.adam through JAX's make_train_step; losses and parameters within
+    rtol 1e-4."""
+    op, jop, net, jnet, jparams, x = setup(model, dropout=0.0)
+    y = np.ones(x.shape[0], dtype=np.int64)
+    opt = optax.adam(0.01)
+    jstep = jax_make_train_step(jnet, jop, opt)
+    jstate = opt.init(jparams)
+    params = params_from_jax(jparams)
+    step = make_train_step(net, op, torch.optim.Adam(
+        [t for layer in params for t in layer.values()], lr=0.01))
+    key = jax.random.PRNGKey(1)
+    for _ in range(3):
+        jparams, jstate, jloss = jstep(jparams, jstate, jnp.asarray(x), jnp.asarray(y), key)
+        loss = step(params, torch.from_numpy(x), torch.from_numpy(y))
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
+    for layer, jlayer in zip(params, jparams):
+        for k in jlayer:
+            np.testing.assert_allclose(layer[k].detach().numpy(), np.asarray(jlayer[k]),
+                                       rtol=1e-4, atol=1e-6)
+
+
+def _npz_graph(tmp_path):
+    src, dst, n = io.synthetic_blocks(1500, 5, 100, seed=7)
+    path = str(tmp_path / "g.npz")
+    io.save_edges_npz(path, src, dst, n)
+    return path
+
+
+def _records(out):
+    return [json.loads(v) for v in out.splitlines() if v.startswith("{")]
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_cli_trains_on_cpu(tmp_path, capsys, model):
+    path = _npz_graph(tmp_path)
+    assert cli.main(["--dataset", path, "--reorder", "rcm", "--model", model,
+                     "--dim", "24", "--hidden", "16", "--classes", "5",
+                     "--num_layers", "3", "--epochs", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Prep. (ms):" in out
+    done = [r for r in _records(out) if r.get("event") == "done"]
+    assert len(done) == 1 and np.isfinite(done[0]["final_loss"])
+    assert done[0]["device"] == "cpu"
+    assert [r["epoch"] for r in _records(out) if "epoch" in r] == [0, 1]
+
+
+def test_cli_single_kernel_on_cpu(tmp_path, capsys):
+    path = _npz_graph(tmp_path)
+    assert cli.main(["--dataset", path, "--reorder", "rcm", "--dim", "32",
+                     "--single_kernel", "--device", "cpu"]) == 0
+    sag = [r for r in _records(capsys.readouterr().out) if r.get("event") == "sag"]
+    assert len(sag) == 1 and sag[0]["avg_ms"] > 0 and sag[0]["device"] == "cpu"
+
+
+@pytest.mark.parametrize("flags", [
+    ["--impl", "xla"], ["--band-impl", "wide"], ["--hidden", "96"],
+    ["--checkpoint", "c.npz"], ["--resume", "c.npz"], ["--checkpoint-every", "1"],
+    ["--fault-epoch", "1"], ["--dataset", "karate"],
+])
+def test_cli_unported_flags_raise(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["--synthetic-nodes", "500", "--epochs", "1", "--device", "cpu", *flags])
+
+
+def test_cli_device_auto_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--synthetic-nodes", "500", "--epochs", "1"])
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter that builds a plan and runs one forward pass
+    through the port has imported neither JAX, optax nor hcspmm_tpu."""
+    code = """
+import sys
+import numpy as np
+import torch
+from hcspmm_tpu_torch.config import PlanConfig
+from hcspmm_tpu_torch.graphs import io
+from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward
+from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+from hcspmm_tpu_torch.train.loop import Bound
+import hcspmm_tpu_torch.train.cli
+src, dst, n = io.synthetic_blocks(400, 5, 50, seed=1)
+rp, ci = io.to_csr(src, dst, n)
+op = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband", band_h=128))
+net = Net("gcn", 8, 16, 4, 2)
+params = init_net_params(net, torch.Generator().manual_seed(0))
+x = np.random.RandomState(0).randn(n, 8).astype(np.float32)
+lp = net_forward(net, params, Bound(op), op.pad_input(x),
+                 out_slice=lambda h: op.unpad_output(h, 4))
+assert lp.shape == (n, 4) and bool(torch.isfinite(lp).all())
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "hcspmm_tpu"))
+print("BAD", bad)
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
