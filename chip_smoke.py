@@ -2,23 +2,37 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure:
+Phases, each of which raises on failure, with its seconds printed:
 
 1. versions of Python, PyTorch, CUDA and nvcc, and the card's name and
    power limit as nvidia-smi reports them;
-2. builds csrc/tband.cu with nvcc for sm_90a;
+2. builds csrc/tband.cu and csrc/tspill.cu with nvcc for sm_90a, one nvcc
+   each, started together, and prints ptxas's register and shared-memory
+   lines;
 3. holds the band kernel against its plain PyTorch version: at the shape
-   the DD-scale stand-in's plan gives it (Sb 1312, W 768, bh 256, dt 32),
-   at small odd shapes (dt 16, 48, 96; capacity-padded entries) and on a
-   two-bucket full-cover plan; fp32 within 1e-5 and bf16 within 1e-2 of
-   max|ref|; both timed with CUDA events;
-4. holds ``HybridSpMM.apply_padded`` on the stand-in against scipy CSR @ X
-   in float64, at fp32 and bf16;
-5. trains the 6-layer GCN (dim 96, hidden 32, classes 22) for 3 epochs on
-   the stand-in through ``cli.main`` and checks, with the kernel's launch
-   counter, that every SpMM of the run went through the CUDA kernel; a
-   small graph's forward pass on the card is held against the CPU's;
-6. profiles one SpMM at dim 32 through ``cli.main --single_kernel``.
+   the DD-scale blocks stand-in's plan gives it (Sb 1312, W 768, bh 256,
+   dt 32), at small odd shapes (dt 16, 48, 96; capacity-padded entries)
+   and on a two-bucket full-cover plan; fp32 within 1e-5 and bf16 within
+   1e-2 of max|ref|; both timed with CUDA events;
+4. holds the spill kernels (zero_lane_blocks, mxgather_lanes,
+   tbstream_merge) against their plain versions at small odd shapes:
+   dt 16/48/96, merge groups 4/8/16/32, chunk widths 128-1024, empty id
+   lists, a block run of many chunks; the merge must be bitwise
+   deterministic;
+5. holds ``HybridSpMM.apply_padded`` on the blocks stand-in against scipy
+   CSR @ X in float64, at fp32 and bf16;
+6. on the paper's DD, YS and GH stand-ins at full size (seed 7, cluster
+   reorder): prints each plan's spill edges, missing superwindows and
+   which of hub/T1/T2 it builds; holds each spill kernel against its
+   plain version at the plan's own shapes (timed), and apply_padded at
+   dim 32 against scipy;
+7. trains the 6-layer GCN (dim 96, hidden 32, classes 22) for 3 epochs
+   through ``cli.main`` on the blocks stand-in (rcm) and on DD and GH
+   (cluster), and checks with the kernels' launch counters that every
+   SpMM of each run went through the CUDA kernels; a small graph's
+   forward pass on the card is held against the CPU's;
+8. profiles one SpMM at dim 32 through ``cli.main --single_kernel`` on
+   the blocks stand-in and on GH.
 
 The second-to-last line is a JSON object with the kernel table; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -38,12 +52,32 @@ import tempfile
 import time
 
 STANDIN = dict(num_nodes=334_928, avg_degree=5.03, block_size=300, seed=7)
+REAL = ("DD", "YS", "GH")  # io.reference_standin keys: Table II graphs
+REAL_SEED = 7
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 WARMUP_EPOCHS = 9  # train.loop.train's dry-run epochs
+GCN = ["--model", "gcn", "--dim", "96", "--hidden", "32", "--classes", "22",
+       "--num_layers", "6"]
+SPMMS_PER_STEP = 12  # a 6-layer GCN step: 6 forward and 6 backward SpMMs
+DEV = "cuda"  # the kernels' checks run here (a CPU rehearsal may point it elsewhere)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Phase:
+    """``with Phase("name"):`` prints the phase's name and its seconds."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        log(f"== {self.name}")
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        log(f"   ({self.name.split('.')[0]}: {time.perf_counter() - self.t0:.1f} s)")
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -67,11 +101,17 @@ def rel_err(got, ref) -> tuple:
 
     got = np.asarray(got, dtype=np.float64)
     ref = np.asarray(ref, dtype=np.float64)
-    err = float(np.abs(got - ref).max())
-    return err, err / max(float(np.abs(ref).max()), 1e-30)
+    err = float(np.abs(got - ref).max()) if got.size else 0.0
+    return err, err / max(float(np.abs(ref).max()) if ref.size else 0.0, 1e-30)
 
 
 def check(name: str, got, ref, dtype: str) -> float:
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got = got.float().cpu()
+    if isinstance(ref, torch.Tensor):
+        ref = ref.float().cpu()
     err, rel = rel_err(got, ref)
     log(f"  {name}: max_abs_err {err:.3e} rel {rel:.3e} (tol {TOL[dtype]:g})")
     if not rel <= TOL[dtype]:
@@ -125,18 +165,201 @@ def records(lines, event):
     return found[-1]
 
 
+def zero_counts():
+    from hcspmm_tpu_torch.kernels import tband, tspill
+
+    tband.launches = 0
+    for k in tspill.launches:
+        tspill.launches[k] = 0
+
+
+def read_counts() -> dict:
+    from hcspmm_tpu_torch.kernels import tband, tspill
+
+    return dict(tband_spmm=tband.launches, **tspill.launches)
+
+
+def train_and_count(path, reorder, need) -> tuple:
+    """Train the 6-layer GCN 3 epochs through cli.main with every launch
+    count set to 0 just before and read just after; ``need`` maps a
+    kernel to its least launches per SpMM."""
+    epochs = 3
+    zero_counts()
+    lines = run_cli(["--dataset", path, "--reorder", reorder, *GCN, "--epochs", str(epochs)])
+    counts = read_counts()
+    done = records(lines, "done")
+    prep = records(lines, "preprocess")
+    spmms = SPMMS_PER_STEP * (WARMUP_EPOCHS + epochs)
+    log(f"  epoch_ms {done['epoch_ms']:.3f}; warm-up {done['warmup_s']:.2f} s; "
+        f"prep {prep['prep_ms']:.0f} ms; spill {prep['spill_nnz']}; final_loss "
+        f"{done['final_loss']}; launches {counts} over {spmms} SpMMs")
+    if not math.isfinite(done["final_loss"]):
+        raise AssertionError(f"loss is not finite: {done['final_loss']}")
+    for k, per in need.items():
+        if counts[k] < per * spmms:
+            raise AssertionError(f"{k}: {counts[k]} launches < {per} per SpMM x {spmms}")
+    return counts, done
+
+
+def real_graph(key):
+    """(src, dst, rp, ci, n): the Table II stand-in, cluster-reordered."""
+    from hcspmm_tpu_torch.format import reorder
+    from hcspmm_tpu_torch.graphs import io as gio
+
+    src, dst, n, _ = gio.reference_standin(key, seed=REAL_SEED)
+    rp, ci = gio.to_csr(src, dst, n)
+    rp, ci = reorder.apply_permutation(rp, ci, n, reorder.cluster_reorder(rp, ci, n))
+    return src, dst, rp, ci, n
+
+
+def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
+    """Each spill kernel against its plain version at this plan's shapes,
+    on a seeded X^T [32, M]; times both; results go into ``out``."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import tspill
+
+    dev = torch.device(DEV)
+    m, bh = plan.padded_rows, plan.band_h
+    xt = torch.randn((32, m), generator=gen).to(dev, dtype)
+    base = torch.randn((32, m), generator=gen).to(dev, dtype)
+
+    def record(name, label, err, fn_k, fn_p, reps=20):
+        k_ms = cuda_time_ms(fn_k, reps)
+        p_ms = cuda_time_ms(fn_p, max(reps // 4, 2))
+        log(f"    {key} {label} {cd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        out.setdefault((name, cd), []).append(dict(graph=key, shape=label, err=err, ms=k_ms,
+                                                   plain_ms=p_ms))
+
+    for ids_key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
+        ids = arrs.get(ids_key)
+        if ids is None or not ids.shape[0]:
+            continue
+        label = f"zero {ids.shape[0]} x [32, {w}]"
+        got = tspill.zero_lane_blocks(base.clone(), ids, w)
+        ref = tspill.zero_lane_blocks_plain(base.clone(), ids, w)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{key} {label}: kernel and plain version differ")
+        log(f"  {key} {label} {cd}: equal")
+        buf = base.clone()
+        record("zero_lane_blocks", label, 0.0, lambda: tspill.zero_lane_blocks(buf, ids, w),
+               lambda: tspill.zero_lane_blocks_plain(buf, ids, w))
+
+    tables = {}
+    for lo_key, rel_key, what in (("hub_lo", "hub_rel", "hub"), ("ts_lo", "ts_rel", "T1")):
+        if lo_key not in arrs:
+            continue
+        lo, rel = arrs[lo_key], arrs[rel_key]
+        label = f"{what} mxgather {lo.shape[0]} chunks x k {rel.shape[2]}, span {plan.ts_span}"
+        got = tspill.mxgather_lanes(xt, lo, rel, span=plan.ts_span)
+        ref = tspill.mxgather_lanes_plain(xt, lo, rel)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{key} {label}: kernel and plain version differ")
+        log(f"  {key} {label} {cd}: equal")
+        tables[what] = got
+        record("mxgather_lanes", label, 0.0,
+               lambda: tspill.mxgather_lanes(xt, lo, rel, span=plan.ts_span),
+               lambda: tspill.mxgather_lanes_plain(xt, lo, rel))
+
+    streams = []
+    if "hub_lo" in arrs:
+        streams.append(("hot", tables["hub"].index_select(1, arrs["ds_h_laneg"]),
+                        arrs["ds_h_tlocal"], arrs["ds_h_lblk"], arrs["ds_h_lrun"],
+                        plan.ds_hgroup))
+    src = tables.get("T1", xt)
+    if "ts2_ranks" in arrs and plan.ts2_segs:
+        g = tspill.segmented_gather(src, arrs["ts2_ranks"], arrs["ds_laneg"], plan.ts2_segs,
+                                    plan.ts2_pieces, bw=arrs["ds_tlocal"].shape[1])
+    else:
+        g = src.index_select(1, arrs["ds_laneg"])
+    streams.append(("cold" if "hub_lo" in arrs else "lane", g, arrs["ds_tlocal"],
+                    arrs["ds_lblk"], arrs["ds_lrun"], plan.ds_lgroup))
+    for what, g, local, blk, runs, group in streams:
+        label = (f"{what} merge {blk.shape[0]} chunks x bw {local.shape[1]}, group {group}, "
+                 f"{runs.shape[0] - 1} blocks")
+        got = tspill.tbstream_merge(g, local, blk, base.clone(), group=group, runs=runs)
+        again = tspill.tbstream_merge(g, local, blk, base.clone(), group=group, runs=runs)
+        ref = tspill.tbstream_merge_plain(g, local, blk, base.clone(), group=group)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{key} {label}: two kernel runs differ")
+        err = check(f"{key} {label} {cd} (bitwise repeatable)", got, ref, cd)
+        buf = base.clone()
+        record("tbstream_merge", label, err,
+               lambda: tspill.tbstream_merge(g, local, blk, buf, group=group, runs=runs),
+               lambda: tspill.tbstream_merge_plain(g, local, blk, buf, group=group))
+
+
+def small_spill_checks(gen) -> None:
+    """The spill kernels against their plain versions at small odd shapes."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.format.streams import build_bstream, build_mx_chunks
+    from hcspmm_tpu_torch.kernels import tspill
+
+    dev = torch.device(DEV)
+    rng = np.random.RandomState(11)
+    before = dict(tspill.launches)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    probe = torch.randn((16, 1024), device=dev)
+    if tspill.zero_lane_blocks(probe, empty, 128) is not probe or tspill.launches != before:
+        raise AssertionError("an empty id list must launch nothing")
+    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for dt in (16, 48, 96):
+            m = 16384
+            xt = torch.randn((dt, m), generator=gen).to(dev, dtype)
+            for w in (128, 256, 2048):
+                ids = torch.from_numpy(rng.choice(m // w, 3, replace=False).astype(np.int32))
+                got = tspill.zero_lane_blocks(xt.clone(), ids.to(dev), w)
+                if not torch.equal(got, tspill.zero_lane_blocks_plain(xt.clone(), ids.to(dev),
+                                                                      w)):
+                    raise AssertionError(f"zero_lane_blocks dt {dt} w {w} {cd} differs")
+            for span, k, ncols in ((512, 32, 37), (2048, 128, 3000), (2048, 256, 900)):
+                lo, rel, _ = build_mx_chunks(np.unique(rng.randint(0, m, ncols)), span, k, m)
+                lo, rel = torch.from_numpy(lo).to(dev), torch.from_numpy(rel).to(dev)
+                if not torch.equal(tspill.mxgather_lanes(xt, lo, rel, span=span),
+                                   tspill.mxgather_lanes_plain(xt, lo, rel)):
+                    raise AssertionError(f"mxgather_lanes dt {dt} span {span} k {k} {cd} "
+                                         "differs")
+            for group in (4, 8, 16, 32):
+                for bw in (128, 256, 512, 1024):
+                    e = int(rng.randint(1, 6000))
+                    rows = np.sort(rng.randint(0, m, e))
+                    if group == 32 and bw == 128:
+                        rows = np.sort(rng.randint(0, 4096, e))  # one block, many chunks
+                    gcols, local, blk, grp = build_bstream(rows, np.arange(e), m, pad_col=e,
+                                                           group=group, chunk_edges=bw)
+                    g = torch.randn((dt, len(gcols)), generator=gen).to(dev, dtype)
+                    t = [torch.from_numpy(v.astype(np.int32)).to(dev) for v in (local, blk)]
+                    xb = xt.clone()
+                    got = tspill.tbstream_merge(g, *t, xt.clone(), group=grp)
+                    again = tspill.tbstream_merge(g, *t, xt.clone(), group=grp)
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"merge dt {dt} group {group} bw {bw} {cd}: "
+                                             "two runs differ")
+                    ref = tspill.tbstream_merge_plain(g, *t, xb, group=grp)
+                    err, rel = rel_err(got.float().cpu(), ref.float().cpu())
+                    if not rel <= TOL[cd]:
+                        raise AssertionError(f"merge dt {dt} group {group} bw {bw} {cd}: "
+                                             f"rel err {rel:.3e}")
+        log(f"  {cd}: zero-fill, mxgather (exact) and merge (within {TOL[cd]:g}, bitwise "
+            "repeatable) at dt 16/48/96, groups 4-32, bw 128-1024: pass")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     from hcspmm_tpu_torch.config import PlanConfig
     from hcspmm_tpu_torch.format import reorder
     from hcspmm_tpu_torch.graphs import io as gio
-    from hcspmm_tpu_torch.kernels import _build, tband
+    from hcspmm_tpu_torch.kernels import _build, tband, tspill
     from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward
     from hcspmm_tpu_torch.ops.spmm import HybridSpMM
     from hcspmm_tpu_torch.train.loop import Bound
@@ -144,168 +367,225 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
-    # ---- 1. versions and the card ----
-    log("== 1. versions")
-    nvcc = _build.nvcc_path()
-    nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
-                              check=True).stdout.strip().splitlines()[-1]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-        f"cuda {torch.version.cuda}  nvcc {nvcc_ver}")
-    log(smi)
+    with Phase("1. versions"):
+        nvcc = _build.nvcc_path()
+        nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                                  check=True).stdout.strip().splitlines()[-1]
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[0]
+        log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+            f"cuda {torch.version.cuda}  nvcc {nvcc_ver}")
+        log(smi)
 
-    # ---- 2. build ----
-    log("== 2. build csrc/tband.cu")
-    t0 = time.perf_counter()
-    tband._lib()
-    log(f"  built and loaded in {time.perf_counter() - t0:.2f} s")
-    with open(_build.library_path("tband") + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  " + line.strip())
+    with Phase("2. build csrc/tband.cu and csrc/tspill.cu"):
+        with ThreadPoolExecutor(2) as pool:
+            for f in [pool.submit(tband._lib), pool.submit(tspill._lib)]:
+                f.result()
+        for name in ("tband", "tspill"):
+            with open(_build.library_path(name) + ".log") as f:
+                for line in f:
+                    if any(w in line for w in ("Compiling", "registers", "spill")):
+                        log(f"  {name}: " + line.strip())
+        log("  tspill merge_kernel dynamic shared memory at dt 32: " + ", ".join(
+            f"span {sp} {tspill.merge_warps(sp, 32) * (sp + 32) * 4} B"
+            for sp in (512, 1024, 2048, 4096)))
 
-    # ---- the stand-in graph and its operators ----
-    t0 = time.perf_counter()
-    src, dst, n = gio.synthetic_blocks(STANDIN["num_nodes"], STANDIN["avg_degree"],
-                                       STANDIN["block_size"], seed=STANDIN["seed"])
-    rp, ci = gio.to_csr(src, dst, n)
-    rp, ci = reorder.apply_permutation(rp, ci, n, reorder.rcm_reorder(rp, ci, n))
-    ops = {cd: HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband", compute_dtype=cd),
-                          device=dev) for cd in ("float32", "bfloat16")}
-    plan = ops["float32"].plan
-    m = plan.padded_rows
-    log(f"stand-in: {n} nodes, {int(rp[-1])} nnz, widths {plan.band_widths}, "
-        f"band_h {plan.band_h}, {len(plan.band_sw_ids[0])} superwindows, M {m}, "
-        f"spill {plan.spill_nnz} ({time.perf_counter() - t0:.1f} s with upload)")
-
-    # ---- 3. kernel vs plain ----
-    log("== 3. kernel vs plain version")
     gen = torch.Generator().manual_seed(0)
-    arrs = ops["float32"].arrays["f"]
-    st, sw, at = arrs["band0_start"], arrs["band0_sw"], arrs["band0_at"]
-    num_sw = m // plan.band_h
-    shape = f"Sb {at.shape[0]}, W {at.shape[1]}, bh {at.shape[2]}, dt 32"
-    slice_res = {}
-    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        xt = torch.randn((32, m), generator=gen).to(dev, dtype)
-        got = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)
-        ref = tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, dtype)
-        err = check(f"direct {cd} at {shape}", got.float().cpu(), ref.float().cpu(), cd)
-        check(f"bucket {cd} at {shape}", tband.tband_spmm_bucket(st, at, xt).cpu(),
-              tband.tband_spmm_bucket_plain(st, at, xt).cpu(), cd)
-        k_ms = cuda_time_ms(lambda: tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype), 50)
-        p_ms = cuda_time_ms(lambda: tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw,
-                                                                  dtype), 10)
-        kb_ms = cuda_time_ms(lambda: tband.tband_spmm_bucket(st, at, xt), 50)
-        pb_ms = cuda_time_ms(lambda: tband.tband_spmm_bucket_plain(st, at, xt), 10)
-        log(f"  {cd}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
-            f"bucket kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms")
-        slice_res[cd] = dict(err=err, ms=k_ms, plain_ms=p_ms, bucket_ms=kb_ms,
-                             bucket_plain_ms=pb_ms)
+    with Phase("3. band kernel vs plain version"):
+        t0 = time.perf_counter()
+        src, dst, n = gio.synthetic_blocks(STANDIN["num_nodes"], STANDIN["avg_degree"],
+                                           STANDIN["block_size"], seed=STANDIN["seed"])
+        rp, ci = gio.to_csr(src, dst, n)
+        rp, ci = reorder.apply_permutation(rp, ci, n, reorder.rcm_reorder(rp, ci, n))
+        ops = {cd: HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband", compute_dtype=cd),
+                              device=dev) for cd in ("float32", "bfloat16")}
+        plan = ops["float32"].plan
+        m = plan.padded_rows
+        log(f"blocks stand-in: {n} nodes, {int(rp[-1])} nnz, widths {plan.band_widths}, "
+            f"band_h {plan.band_h}, {len(plan.band_sw_ids[0])} superwindows, M {m}, "
+            f"spill {plan.spill_nnz} ({time.perf_counter() - t0:.1f} s with upload)")
+        arrs = ops["float32"].arrays["f"]
+        st, sw, at = arrs["band0_start"], arrs["band0_sw"], arrs["band0_at"]
+        num_sw = m // plan.band_h
+        shape = f"Sb {at.shape[0]}, W {at.shape[1]}, bh {at.shape[2]}, dt 32"
+        slice_res = {}
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            xt = torch.randn((32, m), generator=gen).to(dev, dtype)
+            got = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)
+            ref = tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, dtype)
+            err = check(f"direct {cd} at {shape}", got, ref, cd)
+            check(f"bucket {cd} at {shape}", tband.tband_spmm_bucket(st, at, xt),
+                  tband.tband_spmm_bucket_plain(st, at, xt), cd)
+            k_ms = cuda_time_ms(lambda: tband.tband_spmm_direct(sw, st, at, xt, num_sw,
+                                                                dtype), 50)
+            p_ms = cuda_time_ms(lambda: tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw,
+                                                                      dtype), 10)
+            log(f"  {cd}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            slice_res[cd] = dict(err=err, ms=k_ms, plain_ms=p_ms)
 
-    for dt in (16, 48, 96):
-        for bh in (128, 256):
-            sb, w, mm, trash = 7, 256, 1024, 2
-            at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
-            st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128)
-            sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
-                              torch.full((trash,), sb - trash)])
-            st_s, sw_s = st_s.to(dev, torch.int32), sw_s.to(dev, torch.int32)
+        for dt in (16, 48, 96):
+            for bh in (128, 256):
+                sb, w, mm, trash = 7, 256, 1024, 2
+                at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
+                st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128)
+                sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
+                                  torch.full((trash,), sb - trash)])
+                st_s, sw_s = st_s.to(dev, torch.int32), sw_s.to(dev, torch.int32)
+                for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                    xt = torch.randn((dt, mm), generator=gen).to(dev, dtype)
+                    check(f"direct {cd} dt {dt} bh {bh} +{trash} padded entries",
+                          tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash, dtype),
+                          tband.tband_spmm_direct_plain(sw_s, st_s, at_s, xt, sb - trash,
+                                                        dtype), cd)
+                    check(f"bucket {cd} dt {dt} bh {bh}",
+                          tband.tband_spmm_bucket(st_s, at_s, xt),
+                          tband.tband_spmm_bucket_plain(st_s, at_s, xt), cd)
+
+        rp2, ci2, n2 = banded_graph(600, 4, 10, 100)
+        cfg2 = PlanConfig(band_impl="tband", band_h=128, band_widths=(128, 384),
+                          band_spill="never", band_mode="always")
+        op2 = HybridSpMM(rp2, ci2, n2, cfg2, device=dev)
+        if [len(s) > 0 for s in op2.plan.band_sw_ids] != [True, True]:
+            raise AssertionError("the two-bucket plan must fill both buckets")
+        x2 = np.random.RandomState(1).randn(n2, 48).astype(np.float32)
+        with torch.no_grad():
+            out2 = op2.unpad_output(op2.apply_padded(op2.arrays, op2.pad_input(
+                torch.from_numpy(x2))), 48)
+        check("two-bucket plan apply_padded vs scipy", out2, csr_matmul(rp2, ci2, n2, x2),
+              "float32")
+
+    with Phase("4. spill kernels vs plain versions, small odd shapes"):
+        small_spill_checks(gen)
+
+    with Phase("5. apply_padded on the blocks stand-in vs scipy float64"):
+        x = np.random.RandomState(0).randn(n, 32).astype(np.float32)
+        ref = csr_matmul(rp, ci, n, x)
+        for cd, op in ops.items():
+            with torch.no_grad():
+                out = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(
+                    torch.from_numpy(x))), 32)
+            check(f"apply_padded {cd}", out, ref, cd)
+        del ops, arrs, st, sw, at
+        torch.cuda.empty_cache()
+
+    spill_res = {}
+    real_edges = {}
+    with Phase("6. the DD, YS and GH stand-ins: spill kernels and apply_padded vs scipy"):
+        for key in REAL:
+            t0 = time.perf_counter()
+            s_e, d_e, rpk, cik, nk = real_graph(key)
+            real_edges[key] = (s_e, d_e, nk)
+            t_graph = time.perf_counter() - t0
+            x = np.random.RandomState(0).randn(nk, 32).astype(np.float32)
+            ref = csr_matmul(rpk, cik, nk, x)
             for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-                xt = torch.randn((dt, mm), generator=gen).to(dev, dtype)
-                check(f"direct {cd} dt {dt} bh {bh} +{trash} padded entries",
-                      tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash, dtype)
-                      .float().cpu(),
-                      tband.tband_spmm_direct_plain(sw_s, st_s, at_s, xt, sb - trash, dtype)
-                      .float().cpu(), cd)
-                check(f"bucket {cd} dt {dt} bh {bh}",
-                      tband.tband_spmm_bucket(st_s, at_s, xt).cpu(),
-                      tband.tband_spmm_bucket_plain(st_s, at_s, xt).cpu(), cd)
+                t0 = time.perf_counter()
+                op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="tband", compute_dtype=cd),
+                                device=dev)
+                p = op.plan
+                arrs = op.arrays["f"]
+                hub, t1, t2 = p.hub_lo is not None, p.ts_lo is not None, bool(p.ts2_segs)
+                log(f"  {key} {cd}: {nk} nodes, {int(rpk[-1])} nnz; W {p.band_widths}, "
+                    f"bh {p.band_h}, {sum(len(v) for v in p.band_sw_ids)} of "
+                    f"{p.padded_rows // p.band_h} superwindows covered, "
+                    f"{len(p.band_missing_sw)} missing "
+                    f"({len(arrs['band_missing_sw8'])} runs of 8 + "
+                    f"{len(arrs['band_missing_sw'])}); spill {p.spill_nnz} edges, merge "
+                    f"group {p.ds_lgroup} bw {p.ds_tlocal.shape[1]}; hub {hub} "
+                    f"(group {p.ds_hgroup}), T1 {t1}, T2 {t2}"
+                    f"{f' ({len(p.ts2_segs)} segments, {len(p.ts2_pieces)} pieces)' if t2 else ''}"
+                    f"; graph {t_graph:.1f} s, plan and upload {time.perf_counter() - t0:.1f} s")
+                if key == "YS" and not t1:
+                    raise AssertionError("the YS plan must build the mxgather T1 table")
+                if key == "GH" and not (hub and t1 and t2):
+                    raise AssertionError("the GH plan must build hub, T1 and T2")
+                spill_kernels_vs_plain(key, arrs, p, dtype, cd, gen, spill_res)
+                with torch.no_grad():
+                    xp = op.pad_input(torch.from_numpy(x))
+                    out = op.unpad_output(op.apply_padded(op.arrays, xp), 32)
+                    check(f"{key} apply_padded {cd} vs scipy", out, ref, cd)
+                    ms = cuda_time_ms(lambda: op.apply_padded(op.arrays, xp), 10)
+                log(f"  {key} {cd}: apply_padded {ms:.4f} ms (dim 32)")
+                del op, arrs, xp
+                torch.cuda.empty_cache()
 
-    rp2, ci2, n2 = banded_graph(600, 4, 10, 100)
-    cfg2 = PlanConfig(band_impl="tband", band_h=128, band_widths=(128, 384),
-                      band_spill="never", band_mode="always")
-    op2 = HybridSpMM(rp2, ci2, n2, cfg2, device=dev)
-    if [len(s) > 0 for s in op2.plan.band_sw_ids] != [True, True]:
-        raise AssertionError("the two-bucket plan must fill both buckets")
-    x2 = np.random.RandomState(1).randn(n2, 48).astype(np.float32)
-    with torch.no_grad():
-        out2 = op2.unpad_output(op2.apply_padded(op2.arrays, op2.pad_input(
-            torch.from_numpy(x2))), 48).cpu()
-    check("two-bucket plan apply_padded vs scipy", out2, csr_matmul(rp2, ci2, n2, x2),
-          "float32")
-
-    # ---- 4. HybridSpMM vs scipy on the stand-in ----
-    log("== 4. apply_padded on the stand-in vs scipy float64")
-    x = np.random.RandomState(0).randn(n, 32).astype(np.float32)
-    ref = csr_matmul(rp, ci, n, x)
-    for cd, op in ops.items():
-        with torch.no_grad():
-            out = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(
-                torch.from_numpy(x))), 32).float().cpu()
-        check(f"apply_padded {cd}", out, ref, cd)
-    del ops, arrs, st, sw, at
-    torch.cuda.empty_cache()
-
-    # ---- 5. training through the command line ----
-    log("== 5. GCN training through cli.main")
+    launch_runs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "dd_standin.npz")
-        gio.save_edges_npz(path, src, dst, n)
-        epochs = 3
-        tband.launches = 0
-        lines = run_cli(["--dataset", path, "--reorder", "rcm", "--model", "gcn",
-                         "--dim", "96", "--hidden", "32", "--classes", "22",
-                         "--num_layers", "6", "--epochs", str(epochs)])
-        launches = tband.launches
-        done = records(lines, "done")
-        prep = [v for v in lines if v.startswith("Prep. (ms)")]
-        steps = WARMUP_EPOCHS + epochs
-        log(f"  {prep[-1] if prep else 'no Prep. line'}; epoch_ms {done['epoch_ms']:.3f}; "
-            f"warm-up {done['warmup_s']:.2f} s; final_loss {done['final_loss']}; "
-            f"kernel launches {launches} in {steps} steps")
-        if not math.isfinite(done["final_loss"]):
-            raise AssertionError(f"loss is not finite: {done['final_loss']}")
-        if launches < 12 * steps:
-            raise AssertionError(f"{launches} kernel launches < 12 per step x {steps}")
+        with Phase("7. GCN training through cli.main"):
+            path = os.path.join(tmp, "blocks_standin.npz")
+            gio.save_edges_npz(path, src, dst, n)
+            log("  blocks stand-in, rcm:")
+            launch_runs["blocks"], _ = train_and_count(path, "rcm", {"tband_spmm": 1})
+            paths = {}
+            for key, need in (("DD", {"tband_spmm": 1, "zero_lane_blocks": 2,
+                                      "tbstream_merge": 1}),
+                              ("GH", {"tband_spmm": 1, "zero_lane_blocks": 1,
+                                      "mxgather_lanes": 2, "tbstream_merge": 2})):
+                paths[key] = os.path.join(tmp, f"{key}_standin.npz")
+                gio.save_edges_npz(paths[key], *real_edges[key])
+                log(f"  {key} stand-in, cluster:")
+                launch_runs[key], _ = train_and_count(paths[key], "cluster", need)
 
-        net = Net("gcn", 48, 32, 22, 6)
-        params = init_net_params(net, torch.Generator().manual_seed(0), init="glorot")
-        op2c = HybridSpMM(rp2, ci2, n2, cfg2, device="cpu")
-        with torch.no_grad():
-            lp_cpu = net_forward(net, params, Bound(op2c), op2c.pad_input(x2),
-                                 out_slice=lambda h: op2c.unpad_output(h, 22))
-            params_dev = [{k: v.to(dev) for k, v in p.items()} for p in params]
-            lp_dev = net_forward(net, params_dev, Bound(op2), op2.pad_input(x2),
-                                 out_slice=lambda h: op2.unpad_output(h, 22)).cpu()
-        check("6-layer GCN log-probs, card vs CPU, small graph", lp_dev, lp_cpu, "float32")
+            net = Net("gcn", 48, 32, 22, 6)
+            params = init_net_params(net, torch.Generator().manual_seed(0), init="glorot")
+            op2c = HybridSpMM(rp2, ci2, n2, cfg2, device="cpu")
+            with torch.no_grad():
+                lp_cpu = net_forward(net, params, Bound(op2c), op2c.pad_input(x2),
+                                     out_slice=lambda h: op2c.unpad_output(h, 22))
+                params_dev = [{k: v.to(dev) for k, v in p.items()} for p in params]
+                lp_dev = net_forward(net, params_dev, Bound(op2), op2.pad_input(x2),
+                                     out_slice=lambda h: op2.unpad_output(h, 22))
+            check("6-layer GCN log-probs, card vs CPU, small graph", lp_dev, lp_cpu,
+                  "float32")
 
-        # ---- 6. one SpMM profiled ----
-        log("== 6. --single_kernel at dim 32")
-        sag = records(run_cli(["--dataset", path, "--reorder", "rcm", "--dim", "32",
-                               "--single_kernel"]), "sag")
-        log(f"  avg_ms {sag['avg_ms']:.4f}, {sag['gnnz_per_s']:.3f} Gnnz/s")
+        with Phase("8. --single_kernel at dim 32"):
+            sag = {}
+            for name, pth, ro in (("blocks", path, "rcm"), ("GH", paths["GH"], "cluster")):
+                sag[name] = records(run_cli(["--dataset", pth, "--reorder", ro, "--dim", "32",
+                                             "--single_kernel"]), "sag")
+                log(f"  {name}: avg_ms {sag[name]['avg_ms']:.4f}, "
+                    f"{sag[name]['gnnz_per_s']:.3f} Gnnz/s")
 
+    def launches(name):
+        return sum(run[name] for run in launch_runs.values())
+
+    def at(name, graph, label):
+        return next(r for r in spill_res[(name, "float32")]
+                    if r["graph"] == graph and label in r["shape"])
+
+    zero, mxg, merge = (at("zero_lane_blocks", "DD", "x [32, 2048]"),
+                        at("mxgather_lanes", "GH", "T1"), at("tbstream_merge", "GH", "cold"))
     kernels = [{
         "name": "tband_spmm",
         "route": "cuda",
         "source": "hcspmm_tpu_torch/csrc/tband.cu",
         "replaces": "hcspmm_tpu/kernels/tband.py:217",
         "also_replaces": "hcspmm_tpu/kernels/tband.py:246",
-        "launches": launches,
+        "launches": launches("tband_spmm"),
         "max_abs_err": slice_res["float32"]["err"],
         "ms": slice_res["float32"]["ms"],
         "plain_ms": slice_res["float32"]["plain_ms"],
         "shape": shape + ", float32, direct write",
-        "bucket_ms": slice_res["float32"]["bucket_ms"],
-        "bucket_plain_ms": slice_res["float32"]["bucket_plain_ms"],
-        "bf16_ms": slice_res["bfloat16"]["ms"],
-        "bf16_plain_ms": slice_res["bfloat16"]["plain_ms"],
-    }]
-    log(json.dumps({"kernels": kernels}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "hcspmm_tpu_torch/csrc/tspill.cu",
+        "replaces": replaces,
+        "launches": launches(name),
+        "max_abs_err": max(r["err"] for r in spill_res[(name, "float32")]),
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "shape": f"{r['graph']} {r['shape']}, dt 32, float32",
+    } for name, replaces, r in (
+        ("zero_lane_blocks", "hcspmm_tpu/kernels/tspill.py:55", zero),
+        ("mxgather_lanes", "hcspmm_tpu/kernels/tspill.py:280", mxg),
+        ("tbstream_merge", "hcspmm_tpu/kernels/tspill.py:151", merge))]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(smi)
+    log(json.dumps({"kernels": kernels, "launches_by_run": launch_runs}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

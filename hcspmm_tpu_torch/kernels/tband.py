@@ -17,9 +17,10 @@ and chip_smoke.py hold the kernel against.  A wrapper takes the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.
 
-Only plans whose every superwindow block is written by exactly one band
-entry run here (``check_plan``): missing superwindows, the spill chain and
-packed A_t encodings are not ported yet, and such plans raise instead of
+After the band product, missing superwindows are zeroed and the spill
+chain adds the edges the band does not hold (``_tband_apply_spill``,
+kernels/tspill.py).  ``check_plan`` admits the plans the reference's
+``spmm_padded_supported`` admits on this layout; the rest raise instead of
 losing edges.
 """
 
@@ -31,6 +32,7 @@ import functools
 import numpy as np
 import torch
 
+from hcspmm_tpu_torch.kernels import tspill
 from hcspmm_tpu_torch.kernels._build import load_library
 
 #: Launches of the CUDA kernel of csrc/tband.cu, counted where a wrapper
@@ -54,9 +56,12 @@ def _lib() -> ctypes.CDLL:
 
 def check_plan(plan) -> None:
     """Raise NotImplementedError unless ``plan`` runs here with no edge
-    dropped: a tband plan, int8 A_t (``tband_pack == 1``), band entries
-    covering every superwindow of the padded layout, and no spill, dense
-    or sparse population."""
+    dropped: a square tband plan with int8 A_t (``tband_pack == 1``),
+    band and spill populations only, every superwindow either covered by
+    one band entry or listed as missing (its block is zeroed and its edges
+    spill), band slices inside the padded layout, and a spill population
+    (if any) on the lane path or the take path.  These are the plans the
+    reference's ``spmm_padded_supported`` admits on this layout."""
     if not getattr(plan, "tband", False):
         raise NotImplementedError(
             "hcspmm_tpu_torch runs band_impl='tband' plans only; the wide "
@@ -65,21 +70,34 @@ def check_plan(plan) -> None:
         raise NotImplementedError(
             f"tband_pack={plan.tband_pack}: the nibble and 1-bit A_t "
             "encodings are ROADMAP A.2")
-    if plan.has_spill or plan.spill_nnz:
-        raise NotImplementedError(
-            f"plan spills {plan.spill_nnz} edges: the tband spill chain "
-            "(zero_lane_blocks, mxgather_lanes, tbstream_merge) is ROADMAP A.3")
     if plan.dense_nnz or plan.sparse_nnz:
         raise NotImplementedError(
             "tband plans carry band and spill populations only "
             f"(dense_nnz={plan.dense_nnz}, sparse_nnz={plan.sparse_nnz})")
-    num_sw = plan.padded_rows // plan.band_h
-    covered = sum(len(s) for s in plan.band_sw_ids)
-    if covered != num_sw:
+    if not plan.band_widths or plan.num_cols != plan.num_nodes:
         raise NotImplementedError(
-            f"band entries cover {covered} of {num_sw} superwindows: "
-            "missing superwindows and the spill chain that carries their "
-            "edges are ROADMAP A.3")
+            "the transposed padded layout needs a square plan with band "
+            "buckets; row-partitioned plans are ROADMAP A.10")
+    m = plan.padded_rows
+    num_sw = m // plan.band_h
+    covered = sum(len(s) for s in plan.band_sw_ids)
+    missing = len(plan.band_missing_sw)
+    if covered + missing != num_sw:
+        raise NotImplementedError(
+            f"band entries cover {covered} and {missing} are missing of "
+            f"{num_sw} superwindows: a plan whose blocks do not all have "
+            "one owner would leave output unset")
+    if plan.has_spill and plan.ds_tlocal is None and plan.ds_blk is not None:
+        raise NotImplementedError(
+            "spill_lane='off' with spill_impl='dstream': the row-layout "
+            "merge (bstream_merge, dstream_merge) is ROADMAP A.6")
+    for s, w in enumerate(plan.band_widths):
+        st = plan.band_starts[s][: len(plan.band_sw_ids[s])]
+        if (len(st) and int(st.max()) + w > m) or (
+                len(plan.band_starts[s]) > len(st) and w > m):
+            raise NotImplementedError(
+                f"bucket {s}: band slices of width {w} leave the padded "
+                f"layout of {m} lanes")
     if plan.band_h > _MAX_BH or plan.band_h % 32:
         raise NotImplementedError(
             f"band_h={plan.band_h}: csrc/tband.cu takes a multiple of 32 "
@@ -209,11 +227,59 @@ def tband_spmm_bucket(starts, at, xt):
 # ---------------------------------------------------------------------------
 
 
+def _spill_take(buf, arrs, xt, plan):
+    """The take form of the legacy spill path (``spill_impl='take'``;
+    hcspmm_tpu/kernels/block_spmm.py:729-765), transposed: gather each
+    spilled edge's column (clip mode), segment-sum by spill row in fp32,
+    and add each row's sum to its lane of ``buf``; padded rows (real rows
+    come first, checked on upload) are dropped."""
+    dt, m = buf.shape
+    xe = xt.index_select(1, arrs["spill_edge_col"].clamp(max=m - 1))
+    seg = torch.zeros((dt, plan.num_spill_rows + 1), dtype=torch.float32,
+                      device=xt.device)
+    seg.index_add_(1, arrs["spill_edge_seg"], xe.float())
+    real = int(np.count_nonzero(plan.spill_rows < m))
+    return buf.index_add_(1, arrs["spill_rows"][:real],
+                          seg[:, :real].to(buf.dtype))
+
+
+def _tband_apply_spill(buf, arrs, xt, plan):
+    """Add the spill population onto ``buf`` in place (port of
+    hcspmm_tpu/kernels/tband.py:343).  Lane path (``ds_tlocal`` present):
+    the hub stream first (mxgather hub table -> take -> merge), then the
+    cold stream from the mxgather T1 table (``ts_lo``) or from xt itself,
+    through the segmented T2 tables (``ts2_ranks``) or one take, merged
+    into ``buf``.  Otherwise the take path."""
+    if not (plan.has_spill and "spill_rows" in arrs):
+        return buf
+    if "ds_tlocal" not in arrs:
+        return _spill_take(buf, arrs, xt, plan)
+    if "hub_lo" in arrs:
+        h = tspill.mxgather_lanes(xt, arrs["hub_lo"], arrs["hub_rel"], span=plan.ts_span)
+        buf = tspill.tbstream_merge(h.index_select(1, arrs["ds_h_laneg"]),
+                                    arrs["ds_h_tlocal"], arrs["ds_h_lblk"], buf,
+                                    group=plan.ds_hgroup, runs=arrs.get("ds_h_lrun"))
+    if "ts_lo" in arrs:
+        src = tspill.mxgather_lanes(xt, arrs["ts_lo"], arrs["ts_rel"], span=plan.ts_span)
+    else:
+        src = xt
+    if "ts2_ranks" in arrs and getattr(plan, "ts2_segs", None):
+        gathered = tspill.segmented_gather(src, arrs["ts2_ranks"], arrs["ds_laneg"],
+                                           plan.ts2_segs, plan.ts2_pieces,
+                                           bw=arrs["ds_tlocal"].shape[1])
+    else:
+        gathered = src.index_select(1, arrs["ds_laneg"])
+    return tspill.tbstream_merge(gathered, arrs["ds_tlocal"], arrs["ds_lblk"], buf,
+                                 group=plan.ds_lgroup, runs=arrs.get("ds_lrun"))
+
+
 def spmm_tband_padded(arrs, xt, plan, compute_dtype):
     """SpMM over the transposed padded layout: xt [dt, M] -> [dt, M]
     (M = plan.padded_rows).  The most populated bucket writes the whole
     buffer directly; each other bucket's blocks are scattered over the
-    blocks it owns (unset by the direct write)."""
+    blocks it owns (unset by the direct write); the missing superwindows'
+    blocks are zeroed; the spill population is added last.  With no band
+    entry at all the buffer starts as zeros."""
     check_plan(plan)
     xt = xt.to(compute_dtype).contiguous()
     dt, m = xt.shape
@@ -223,6 +289,9 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
     num_sw = m // bh
     nonempty = [i for i in range(len(plan.band_widths))
                 if arrs[f"band{i}_start"].shape[0] > 0]
+    if not nonempty:
+        buf = torch.zeros((dt, m), dtype=xt.dtype, device=xt.device)
+        return _tband_apply_spill(buf, arrs, xt, plan)
     s_main = max(nonempty, key=lambda i: len(plan.band_sw_ids[i]))
     buf = tband_spmm_direct(arrs[f"band{s_main}_sw"], arrs[f"band{s_main}_start"],
                             arrs[f"band{s_main}_at"], xt, num_sw, xt.dtype)
@@ -234,7 +303,12 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
         real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
         b3.index_copy_(1, arrs[f"band{i}_sw"][:real].long(),
                        part.view(dt, -1, bh)[:, :real].to(buf.dtype))
-    return buf
+    # uncovered superwindows (their edges ride the spill): aligned runs of
+    # eight as single [dt, 8*bh] blocks, then the rest
+    for key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
+        if key in arrs:
+            buf = tspill.zero_lane_blocks(buf, arrs[key], w)
+    return _tband_apply_spill(buf, arrs, xt, plan)
 
 
 def sublane_pad(d: int) -> int:

@@ -1,0 +1,347 @@
+"""Lane-oriented spill chain of the transposed-band layout, on one H100.
+
+Port of hcspmm_tpu/kernels/tspill.py.  Activations are X^T [dt, M]; the
+tband spill chain (kernels/tband.py ``_tband_apply_spill``) runs
+
+    T     = mxgather_lanes(xt, lo, rel)         # compact unique-column table
+    G     = take(T or xt, laneg)                # per-edge columns, [dt, C*bw]
+    buf   = tbstream_merge(G, local, blk, buf)  # block-wide scatter-add
+
+and missing superwindows are zeroed by ``zero_lane_blocks`` before it.
+The three kernels are ``csrc/tspill.cu``; each wrapper here launches its
+kernel for CUDA tensors (or raises) and runs the plain PyTorch version
+beside it for CPU tensors, and counts its launches in ``launches``.
+``segmented_gather`` (the T2 tables) is plain torch index ops on any
+device: its takes are glue, not kernels.
+
+``check_spill_arrays`` checks every spill index array on the host before
+upload; the kernels read them unchecked.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from hcspmm_tpu_torch.kernels._build import load_library
+
+#: Launches of each kernel of csrc/tspill.cu, counted where its wrapper
+#: launches it (never by the plain versions).  chip_smoke.py zeroes them
+#: before a run of the main path and reads them after.
+launches = {"zero_lane_blocks": 0, "mxgather_lanes": 0, "tbstream_merge": 0}
+
+_MX_NB = 4             # the reference's chunks per grid step: the table's
+#                        chunk count is padded to a multiple of it
+_MAX_SPAN = 16 * 1024  # csrc/tspill.cu merge: one fp32 row of the block
+#                        per warp, at most 64 KB of shared memory per block
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load_library("tspill")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hcspmm_zero_lane_blocks.argtypes = [vp, vp, i32, i32, i64, i32, i32, vp]
+    lib.hcspmm_mxgather_lanes.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i64, i32, vp]
+    lib.hcspmm_tbstream_merge.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i64, i32, i64,
+                                          i32, i32, vp]
+    for fn in (lib.hcspmm_zero_lane_blocks, lib.hcspmm_mxgather_lanes,
+               lib.hcspmm_tbstream_merge):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _run(name: str, fn, *args) -> None:
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"csrc/tspill.cu {name} launch failed: cudaError {rc}")
+    launches[name] += 1
+
+
+def _check_cuda(ref: torch.Tensor, **named) -> None:
+    """Every tensor on ref's CUDA device and contiguous; index tensors
+    int32; float tensors fp32 or bf16."""
+    dev = ref.device
+    if dev.type != "cuda":
+        raise ValueError(f"tensors lie on {dev}: the spill kernels take CUDA or CPU "
+                         "tensors")
+    for name, t in named.items():
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+        if t.is_floating_point():
+            if t.dtype not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"{name} dtype {t.dtype}: float32 or bfloat16 only")
+        elif t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, not {t.dtype}")
+
+
+def mx_width(chunks: int, k: int) -> int:
+    """Lanes of an mxgather table: the chunk count padded to _MX_NB."""
+    return -(-chunks // _MX_NB) * _MX_NB * k
+
+
+def block_runs(blk) -> np.ndarray:
+    """int32 [R+1]: the first chunk of each run of equal ids in the
+    nondecreasing ``blk``, then len(blk)."""
+    blk = np.asarray(blk)
+    starts = np.flatnonzero(np.diff(blk)) + 1
+    return np.concatenate([[0], starts, [len(blk)]]).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (tests, CPU tensors, and the kernels' check)
+# ---------------------------------------------------------------------------
+
+
+def zero_lane_blocks_plain(buf, ids, w: int):
+    """In place: lanes [ids[i]*w, ids[i]*w + w) of buf [dt, M] set to 0."""
+    buf.view(buf.shape[0], -1, w).index_fill_(1, ids.long(), 0)
+    return buf
+
+
+def mxgather_lanes_plain(xt, lo, rel):
+    """[dt, mx_width(C, k)]: column c*k+j = xt[:, lo[c]+rel[c,0,j]], zero
+    where rel == -1 and in the tail chunks."""
+    c, k = rel.shape[0], rel.shape[2]
+    r = rel.reshape(c, k).long()
+    idx = (lo.long()[:, None] + r.clamp(min=0)).reshape(-1)
+    vals = xt.index_select(1, idx)
+    out = torch.zeros((xt.shape[0], mx_width(c, k)), dtype=xt.dtype, device=xt.device)
+    out[:, : c * k] = torch.where((r >= 0).reshape(1, -1), vals, out[:, : c * k])
+    return out
+
+
+def tbstream_merge_plain(gathered, local_t, blk, buf, *, group: int):
+    """In place: buf[:, blk[c]*span + local_t[c, j]] += gathered[:, c*bw + j]
+    for local_t < span = group*128; fp32 sums over an fp32 copy of the
+    touched blocks, written back once in buf's dtype."""
+    dt, m = buf.shape
+    span = group * 128
+    bw = local_t.shape[1]
+    c = blk.shape[0]
+    if c == 0:
+        return buf
+    ublk, inv = torch.unique_consecutive(blk.long(), return_inverse=True)
+    loc = local_t[:c].reshape(-1).long()
+    keep = loc < span
+    dest = (inv.repeat_interleave(bw) * span + loc)[keep]
+    b3 = buf.view(dt, m // span, span)
+    acc = b3[:, ublk].float().reshape(dt, -1)
+    acc.index_add_(1, dest, gathered[:, : c * bw][:, keep].float())
+    b3[:, ublk] = acc.view(dt, -1, span).to(buf.dtype)
+    return buf
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def zero_lane_blocks(buf, ids, w: int):
+    """Zero lanes [ids[i]*w, ids[i]*w + w) of buf [dt, M] in place and
+    return buf (port of hcspmm_tpu/kernels/tspill.py:55).  ``w`` is
+    ``bh`` for single missing superwindows, ``8*bh`` for aligned runs of
+    eight.  An empty ``ids`` launches nothing."""
+    if ids.shape[0] == 0:
+        return buf
+    if buf.device.type == "cpu":
+        return zero_lane_blocks_plain(buf, ids, w)
+    _check_cuda(buf, buf=buf, ids=ids)
+    dt, m = buf.shape
+    if w <= 0 or m % w or (w * buf.element_size()) % 16:
+        raise ValueError(f"block width {w} must divide M={m} and fill 16-byte rows")
+    with torch.cuda.device(buf.device):
+        _run("zero_lane_blocks", _lib().hcspmm_zero_lane_blocks, buf.data_ptr(),
+             ids.data_ptr(), ids.shape[0], dt, m, w, buf.element_size())
+    return buf
+
+
+def mxgather_lanes(xt, lo, rel, *, span: int):
+    """Compact table [dt, mx_width(C, k)] in xt's dtype: column c*k+j =
+    xt[:, lo[c]+rel[c,0,j]], exact zeros where rel == -1 and in the tail
+    chunks (port of hcspmm_tpu/kernels/tspill.py:280).  lo: int32 [C]
+    128-aligned slab bases with lo + span <= M; rel: int32 [C, 1, k] in
+    [-1, span), checked on the host (``check_spill_arrays``)."""
+    if xt.device.type == "cpu":
+        return mxgather_lanes_plain(xt, lo, rel)
+    _check_cuda(xt, xt=xt, lo=lo, rel=rel)
+    c, k = rel.shape[0], rel.shape[2]
+    if tuple(lo.shape) != (c,) or rel.dim() != 3 or rel.shape[1] != 1:
+        raise ValueError(f"lo must be [C] and rel [C, 1, k]: {tuple(lo.shape)}, "
+                         f"{tuple(rel.shape)}")
+    if span > xt.shape[1]:
+        raise ValueError(f"span {span} exceeds M={xt.shape[1]}")
+    dt, m = xt.shape
+    out = torch.empty((dt, mx_width(c, k)), dtype=xt.dtype, device=xt.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(xt.device):
+        _run("mxgather_lanes", _lib().hcspmm_mxgather_lanes, xt.data_ptr(), lo.data_ptr(),
+             rel.data_ptr(), out.data_ptr(), c, out.shape[1] // k, k, dt, m,
+             xt.element_size())
+    return out
+
+
+def merge_warps(span: int, dt: int) -> int:
+    """Warps per thread block of the merge kernel: one feature row each,
+    at most 16 and at most 64 KB of fp32 rows, a power of two dividing dt."""
+    nw = 16
+    while nw > 1 and (nw * span > _MAX_SPAN or dt % nw):
+        nw //= 2
+    return nw
+
+
+def tbstream_merge(gathered, local_t, blk, buf, *, group: int, runs=None):
+    """``buf += scatter-add of gathered columns by destination lane``, in
+    place; returns buf (port of hcspmm_tpu/kernels/tspill.py:151).
+
+    gathered: [dt, C*bw], buf's dtype; local_t: int32 [ceil(C/8)*8, bw],
+    each slot's lane within its ``group*128``-lane block (the sentinel
+    ``group*128`` drops it); blk: int32 [C] nondecreasing block ids;
+    buf: [dt, M].  ``runs``: ``block_runs(blk)`` as an int32 tensor on
+    buf's device (computed here when None).  Each block is summed in fp32
+    and written once; the kernel's sums are deterministic."""
+    if buf.device.type == "cpu":
+        return tbstream_merge_plain(gathered, local_t, blk, buf, group=group)
+    if runs is None:
+        runs = torch.from_numpy(block_runs(blk.cpu().numpy())).to(buf.device)
+    _check_cuda(buf, gathered=gathered, local_t=local_t, blk=blk, buf=buf, runs=runs)
+    dt, m = buf.shape
+    span = group * 128
+    c = blk.shape[0]
+    bw = local_t.shape[1]
+    if gathered.dtype != buf.dtype:
+        raise ValueError(f"gathered is {gathered.dtype}, buf {buf.dtype}")
+    if (span > _MAX_SPAN or m % span or bw % 128 or local_t.shape[0] < c
+            or gathered.shape != (dt, c * bw) or runs.dim() != 1):
+        raise ValueError(f"unsupported shapes: gathered {tuple(gathered.shape)}, local "
+                         f"{tuple(local_t.shape)}, blk [{c}], buf {tuple(buf.shape)}, "
+                         f"group {group}")
+    nw = merge_warps(span, dt)
+    with torch.cuda.device(buf.device):
+        _run("tbstream_merge", _lib().hcspmm_tbstream_merge, gathered.data_ptr(),
+             local_t.data_ptr(), blk.data_ptr(), runs.data_ptr(), buf.data_ptr(),
+             runs.shape[0] - 1, span, bw, gathered.shape[1], dt, m, nw,
+             int(buf.dtype == torch.bfloat16))
+    return buf
+
+
+def segmented_gather(t1, ranks, laneg, segs, pieces, bw: int):
+    """Per-edge spill gather through destination-segment tables (port of
+    hcspmm_tpu/kernels/tspill.py:200), in torch index ops.
+
+    t1: [dt, T1w] mxgather table; ranks: int32 piece-relative T1 slots in
+    piece-major order; laneg: int32 [C*bw] segment-relative positions;
+    segs/pieces: the plan's static ``ts2_segs``/``ts2_pieces``.  Returns
+    [dt, C*bw] in merge-chunk order.  Indices are checked on the host
+    (``check_spill_arrays``), so no clamp is needed."""
+    piece_res = [t1[:, p_lo: p_lo + p_w].index_select(1, ranks[r0: r0 + cnt])
+                 for (p_lo, p_w, r0, cnt) in pieces]
+    parts = []
+    for s in segs:
+        tparts = [piece_res[pi][:, off: off + cnt] for (pi, off, cnt) in s["parts"] if cnt]
+        seg_tbl = tparts[0] if len(tparts) == 1 else torch.cat(tparts, dim=1)
+        parts.append(seg_tbl.index_select(1, laneg[s["chunk_lo"] * bw: s["chunk_hi"] * bw]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# host checks of a plan's spill arrays
+# ---------------------------------------------------------------------------
+
+
+def _need(ok, msg: str) -> None:
+    if not ok:
+        raise ValueError(msg)
+
+
+def _check_in(name: str, a, lo: int, hi: int) -> None:
+    a = np.asarray(a)
+    _need(not a.size or (a.min() >= lo and a.max() < hi),
+          f"{name} must lie in [{lo}, {hi})")
+
+
+def _check_stream(host: dict, local: str, blk: str, group: int, m: int) -> None:
+    """One merge stream: blocks nondecreasing and inside M, local lanes in
+    [0, span] (span drops), the 8-row padded [ceil(C/8)*8, bw] layout."""
+    span = group * 128
+    _need(group > 0 and m % span == 0, f"merge group {group}: span must divide M={m}")
+    b = np.asarray(host[blk], dtype=np.int64)
+    lt = np.asarray(host[local])
+    _need(lt.ndim == 2 and lt.shape[1] % 128 == 0
+          and lt.shape[0] == -(-len(b) // 8) * 8,
+          f"{local} must be [ceil(C/8)*8, bw], bw a multiple of 128: {lt.shape}")
+    _need(not (np.diff(b) < 0).any(), f"{blk} must not decrease")
+    _check_in(blk, b, 0, m // span)
+    _check_in(local, lt, 0, span + 1)
+
+
+def _check_mx(host: dict, lo: str, rel: str, span: int, m: int) -> int:
+    """mxgather slabs inside M; returns the table's width."""
+    lo_a = np.asarray(host[lo], dtype=np.int64)
+    rel_a = np.asarray(host[rel])
+    _need(0 < span <= m and rel_a.ndim == 3 and rel_a.shape[:2] == (len(lo_a), 1),
+          f"{rel} must be [C, 1, k] for span {span} <= M={m}")
+    _need(not (lo_a % 128).any(), f"{lo} must be 128-aligned")
+    _check_in(lo, lo_a, 0, m - span + 1)
+    _check_in(rel, rel_a, -1, span)
+    return mx_width(len(lo_a), rel_a.shape[2])
+
+
+def check_spill_arrays(host: dict, plan) -> dict:
+    """Check the spill and missing-superwindow arrays of ``host`` (a
+    plan's ``device_arrays``) for ``plan``; raise ValueError on anything
+    a kernel or a take would read out of bounds.  Returns the extra arrays
+    the port's merge needs: the block runs ``ds_lrun``/``ds_h_lrun``."""
+    m = plan.padded_rows
+    num_sw = m // plan.band_h
+    if "band_missing_sw8" in host:
+        _check_in("band_missing_sw8", host["band_missing_sw8"], 0, num_sw // 8)
+    if "band_missing_sw" in host:
+        _check_in("band_missing_sw", host["band_missing_sw"], 0, num_sw)
+    extra = {}
+    if not plan.has_spill:
+        return extra
+    if "ds_tlocal" not in host:  # the take path: clip-mode gather, dropped pads
+        rows = np.asarray(host["spill_rows"], dtype=np.int64)
+        real = rows < m
+        _need(real[: int(real.sum())].all(),
+              "spill_rows: the real rows must precede the padding")
+        _check_in("spill_rows", rows[real], 0, m)
+        _check_in("spill_edge_seg", host["spill_edge_seg"], 0, len(rows) + 1)
+        return extra
+    bw = host["ds_tlocal"].shape[1]
+    _check_stream(host, "ds_tlocal", "ds_lblk", plan.ds_lgroup, m)
+    extra["ds_lrun"] = block_runs(host["ds_lblk"])
+    laneg = np.asarray(host["ds_laneg"])
+    _need(laneg.shape == (len(host["ds_lblk"]) * bw,), "ds_laneg must be [C*bw]")
+    if "hub_lo" in host:
+        hub_w = _check_mx(host, "hub_lo", "hub_rel", plan.ts_span, m)
+        _check_stream(host, "ds_h_tlocal", "ds_h_lblk", plan.ds_hgroup, m)
+        extra["ds_h_lrun"] = block_runs(host["ds_h_lblk"])
+        h_laneg = np.asarray(host["ds_h_laneg"])
+        _need(h_laneg.shape == (len(host["ds_h_lblk"]) * host["ds_h_tlocal"].shape[1],),
+              "ds_h_laneg must be [C_hub*bw_hub]")
+        _check_in("ds_h_laneg", h_laneg, 0, hub_w)
+    src_w = _check_mx(host, "ts_lo", "ts_rel", plan.ts_span, m) if "ts_lo" in host else m
+    if "ts2_ranks" in host and getattr(plan, "ts2_segs", None):
+        ranks = np.asarray(host["ts2_ranks"])
+        for p_lo, p_w, r0, cnt in plan.ts2_pieces:
+            _need(0 <= p_lo and p_lo + p_w <= src_w and r0 + cnt <= len(ranks),
+                  "ts2_pieces must slice T1 and ts2_ranks in bounds")
+            _check_in("ts2_ranks", ranks[r0: r0 + cnt], 0, p_w)
+        lo = 0
+        for s in plan.ts2_segs:
+            _need(s["chunk_lo"] == lo, "ts2_segs must tile the merge chunks in order")
+            lo = s["chunk_hi"]
+            for pi, off, cnt in s["parts"]:
+                _need(0 <= off and off + cnt <= plan.ts2_pieces[pi][3],
+                      "ts2_segs parts must slice their piece in bounds")
+            _check_in("ds_laneg", laneg[s["chunk_lo"] * bw: s["chunk_hi"] * bw], 0,
+                      sum(cnt for _, _, cnt in s["parts"]))
+        _need(lo == len(host["ds_lblk"]), "ts2_segs must cover every merge chunk")
+    else:
+        _check_in("ds_laneg", laneg, 0, src_w)
+    return extra

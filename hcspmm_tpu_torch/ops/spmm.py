@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.format.plan import ExecutionPlan, build_plan, transpose_csr
-from hcspmm_tpu_torch.kernels import tband
+from hcspmm_tpu_torch.kernels import tband, tspill
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -81,13 +81,22 @@ def make_spmm(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
     return spmm
 
 
+#: row-layout merge arrays the transposed spill path never reads
+_ROW_SPILL_KEYS = ("ds_gcols", "ds_local", "ds_blk", "ds_lt", "ds_ucols")
+
+
 def _to_device(plan: ExecutionPlan, device) -> dict:
     """Plan arrays as tensors on ``device``: plain copies of
-    ``device_arrays(dense_band=False)`` plus the dense int8 A_t blocks,
-    each bucket's band entries checked on the host first."""
+    ``device_arrays(dense_band=False)`` (less the row-layout merge
+    arrays) plus the dense int8 A_t blocks and the merge's block runs.
+    The band entries and every spill index array are checked on the host
+    first: the kernels read them unchecked."""
     m = plan.padded_rows
     num_sw = m // plan.band_h
     host = plan.device_arrays(dense_band=False)
+    for k in _ROW_SPILL_KEYS:
+        host.pop(k, None)
+    host.update(tspill.check_spill_arrays(host, plan))
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
            for k, v in host.items()}
     for s, w in enumerate(plan.band_widths):

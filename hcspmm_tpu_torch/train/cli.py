@@ -57,8 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--spill-impl", type=str, default="dstream",
                    choices=["take", "dstream"],
-                   help="spill formulation recorded in the plan (spill plans "
-                        "are not ported: ROADMAP A.3)")
+                   help="spill formulation: 'dstream' builds the lane-path merge "
+                        "streams (CUDA kernels), 'take' a gather + segment-sum")
     p.add_argument("--bucket-widths", type=str, default="32,64,96,128,192,256",
                    help="comma-separated dense window width buckets")
     p.add_argument("--reorder", type=str, default="none",
@@ -109,22 +109,22 @@ def load_dataset(args) -> GraphDataset:
     )
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    print(args)
-    _check_ported(args)
-    if args.device == "auto":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device auto needs a CUDA device; pass "
-                               "--device cpu to run the plain versions")
-        device = torch.device("cuda")
-        # float32 products in full float32, as the reference's HIGHEST
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    else:
-        device = torch.device("cpu")
-    logger = stdout_logger(dataset=args.dataset, model=args.model)
+def resolve_device(args) -> torch.device:
+    """``--device auto``: the CUDA device (raises without one), with
+    float32 products in full float32 as the reference's HIGHEST."""
+    if args.device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("--device auto needs a CUDA device; pass "
+                           "--device cpu to run the plain versions")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
 
+
+def prepare(args, device, logger):
+    """Dataset, reorder and plan for ``args``: returns (dataset, operator)
+    and logs the preprocessing record (with "Prep. (ms)")."""
     ds = load_dataset(args)
     band_impl = args.band_impl
     if band_impl == "auto":
@@ -165,8 +165,20 @@ def main(argv=None) -> int:
         num_nodes=ds.num_nodes, nnz=ds.nnz,
         dense_windows=op.plan.num_dense_windows,
         sparse_rows=op.plan.num_sparse_rows,
+        spill_nnz=op.plan.spill_nnz,
+        missing_supers=len(op.plan.band_missing_sw),
         device=str(device),
     )
+    return ds, op
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    print(args)
+    _check_ported(args)
+    device = resolve_device(args)
+    logger = stdout_logger(dataset=args.dataset, model=args.model)
+    ds, op = prepare(args, device, logger)
 
     if args.single_kernel:
         res = SAG(op).profile(ds.x)

@@ -1,8 +1,9 @@
 """The port's differentiable SpMM (hcspmm_tpu_torch/ops/spmm.py) against
 the JAX package's HybridSpMM on the same graphs: values and gradients in
 the transposed padded layout and the row layout, the normalized and mean
-variants, the transposed backward plan of a directed graph, and the gate
-that refuses every plan whose edges it would not all apply.
+variants, the transposed backward plan of a directed graph, plans that
+spill or leave superwindows uncovered, and the gate that refuses every
+plan whose edges it would not all apply.
 
 Tolerance: fp32 within 1e-5 of max|ref| (the order of fp32 sums only).
 """
@@ -16,9 +17,11 @@ import pytest
 import torch
 
 from hcspmm_tpu.config import PlanConfig as JaxPlanConfig
+from hcspmm_tpu.graphs import io as jax_io
 from hcspmm_tpu.ops.spmm import HybridSpMM as JaxHybridSpMM
 
 from hcspmm_tpu_torch.config import PlanConfig
+from hcspmm_tpu_torch.graphs import io
 from hcspmm_tpu_torch.kernels import tband
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM, spmm_reference_dense
 
@@ -157,20 +160,47 @@ def test_layer_cores_values_and_grads_match_jax(core):
     assert rel_err(wv.grad, gw) < RTOL
 
 
+SPILL = dict(TBAND, band_widths=(128,), band_mode="auto")
+
+
 def test_spill_plan_raises():
+    """A plan that spills now runs: once in the padded layout and once in
+    the row layout, against the JAX package and the dense oracle.  What
+    still raises is the legacy row-layout merge (``spill_lane='off'``
+    with ``spill_impl='dstream'``), naming A.6."""
     rp, ci, nn = small_graph(500, 8, span=400)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        HybridSpMM(rp, ci, nn, PlanConfig(**dict(TBAND, band_widths=(128,),
-                                                 band_mode="auto")))
+    op, jop = both(rp, ci, nn, cfg=dict(SPILL, band_mode="auto"))
+    assert op.plan.spill_nnz > 0 and op.plan.ds_tlocal is not None
+    x = np.random.RandomState(1).randn(nn, 16).astype(np.float32)
+    got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 16)
+    want = jop.unpad_output(jax.jit(jop.apply_padded)(jop.arrays, jop.pad_input(jnp.asarray(x))),
+                            16)
+    assert rel_err(got, want) < RTOL
+    assert rel_err(got, dense_a(rp, ci, nn) @ x) < RTOL
+    assert rel_err(op(torch.from_numpy(x)), jax.jit(jop)(jnp.asarray(x))) < RTOL
+    with pytest.raises(NotImplementedError, match="A.6"):
+        HybridSpMM(rp, ci, nn, PlanConfig(**dict(SPILL, spill_lane="off", spill_impl="dstream",
+                                                 ds_kind="tile")))
 
 
 def test_partial_cover_plan_raises():
-    """Missing superwindows ride the spill population: their plans raise,
-    and the gate refuses partial cover on its own too."""
+    """Plans whose missing superwindows ride the spill population run and
+    match; the gate still refuses a plan whose blocks do not all have one
+    owner (a hand-broken cover)."""
     rp, ci, nn = small_graph(700, 10, span=500)
-    with pytest.raises(NotImplementedError):
-        HybridSpMM(rp, ci, nn, PlanConfig(**dict(TBAND, band_widths=(128, 256),
-                                                 band_mode="auto")))
+    op, jop = both(rp, ci, nn, cfg=dict(SPILL, band_widths=(128, 256)))
+    x = np.random.RandomState(2).randn(nn, 24).astype(np.float32)
+    assert rel_err(op(torch.from_numpy(x)), jax.jit(jop)(jnp.asarray(x))) < RTOL
+    rs = np.random.RandomState(5120)
+    src, dst = rs.randint(0, 4096, 1024), rs.randint(0, 4096, 1024)
+    g = io.to_csr(np.concatenate([src, dst]).astype(np.int32),
+                  np.concatenate([dst, src]).astype(np.int32), 4096)
+    op, jop = both(*g, 4096, cfg=SPILL)
+    assert len(op.plan.band_missing_sw) > 0
+    x = np.random.RandomState(3).randn(4096, 8).astype(np.float32)
+    assert rel_err(op(torch.from_numpy(x)), jax.jit(jop)(jnp.asarray(x))) < RTOL
+    assert rel_err(op(torch.from_numpy(x)), dense_a(*g, 4096) @ x) < RTOL
+
     rp, ci, nn = small_graph(300, 6)
     op = HybridSpMM(rp, ci, nn, PlanConfig(**TBAND))
     partial = dataclasses.replace(op.plan, band_sw_ids=[op.plan.band_sw_ids[0][1:]])
@@ -179,6 +209,49 @@ def test_partial_cover_plan_raises():
     with pytest.raises(NotImplementedError, match="cover"):
         tband.spmm_tband_padded(op.arrays["f"], op.pad_input(torch.zeros(nn, 16)),
                                 partial, torch.float32)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_fuzz_spill_chain_tiny_caps_matches_jax(seed):
+    """tests/test_fuzz.py:66's first three seeds: random graphs under tiny
+    caps so the mxgather T1, segmented T2 and hub split trigger at toy
+    scale; the port against the JAX package (interpret mode) and the dense
+    oracle, in the row layout and the padded one."""
+    rng = np.random.RandomState(100 + seed)
+    n = int(rng.randint(600, 1800))
+    src, dst, nn = jax_io.synthetic_graph(n, float(rng.uniform(4, 10)), seed=seed,
+                                          span=int(rng.randint(300, max(301, n))))
+    rp, ci = jax_io.to_csr(src, dst, nn)
+    cap_slots = int(rng.choice([32, 48, 96]))
+    hub_slots = int(rng.choice([0, 32, 64]))
+    cfg = dict(TBAND, band_mode="auto", band_widths=(128,), ts_table_mb=1e-3, ts_span=256,
+               ts_k=int(rng.choice([16, 32])), ts2_table_mb=cap_slots * 64 / 1e6,
+               spill_hub_mb=hub_slots * 64 / 1e6, spill_hub_min_cov=0.01,
+               spill_hub_min_reuse=0.0, compute_dtype="float32")
+    dim = int(rng.randint(3, 40))
+    x = rng.randn(nn, dim).astype(np.float32)
+    op, jop = both(rp, ci, nn, cfg=cfg)
+    assert op.plan.spill_nnz > 0 and op.plan.ts_lo is not None
+    got = op(torch.from_numpy(x))
+    assert rel_err(got, jax.jit(jop)(jnp.asarray(x))) < RTOL
+    assert rel_err(got, spmm_reference_dense(rp, ci, nn, x)) < RTOL
+    got_p = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), dim)
+    assert rel_err(got_p, got) < RTOL
+
+
+@pytest.mark.parametrize("layout", ["padded", "rows"])
+def test_spill_plan_gradient_matches_jax_custom_vjp(layout):
+    """d/dX through a spilling plan with missing superwindows: the backward
+    runs the spill chain too (symmetric plan)."""
+    rp, ci, nn = small_graph(500, 8, span=400)
+    op, jop = both(rp, ci, nn, cfg=SPILL)
+    assert op.plan.spill_nnz > 0
+    rs = np.random.RandomState(6)
+    x = rs.randn(nn, 16).astype(np.float32)
+    cot = rs.randn(nn, 16).astype(np.float32)
+    got, want = _grads(op, jop, x, cot, layout)
+    assert rel_err(got, want) < RTOL
+    assert rel_err(got, dense_a(rp, ci, nn).T @ cot) < RTOL
 
 
 @pytest.mark.parametrize("pack", [2, 8])

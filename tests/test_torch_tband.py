@@ -9,6 +9,7 @@ Tolerance: fp32 within 1e-5 of max|ref|, which only the order of the fp32
 sums may use up.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,6 +116,96 @@ def test_spmm_tband_padded_matches_jax_and_scipy(name, dt):
     assert not got[:, n:].any()  # padded lanes stay zero: the layout closes
 
 
+def random_graph(n, e, seed):
+    """Symmetric uniform random graph of 2e edges: at low degree its tband
+    plan leaves superwindows uncovered (or, sparse enough, all of them)."""
+    rs = np.random.RandomState(seed)
+    src, dst = rs.randint(0, n, e), rs.randint(0, n, e)
+    s = np.concatenate([src, dst]).astype(np.int32)
+    d = np.concatenate([dst, src]).astype(np.int32)
+    return (*io.to_csr(s, d, n), n)
+
+
+SPILL = dict(impl="pallas", band_impl="tband", band_h=128, band_widths=(128,),
+             band_mode="auto")
+TINY_CAPS = dict(SPILL, ts_table_mb=1e-3, ts_span=256, ts_k=32, ts2_table_mb=48 * 64 / 1e6)
+
+# the reference's own spill plans (tests/test_tband.py:53, 65, 97, 118),
+# partial and empty band cover, and the take form of the spill
+SPILL_PLANS = {
+    "spill": (lambda: small_graph(500, 8, span=400), SPILL),
+    "t1_t2": (lambda: small_graph(1400, 9, span=1300), TINY_CAPS),
+    "hub_split": (lambda: small_graph(1400, 9, span=1300),
+                  dict(TINY_CAPS, spill_hub_mb=64 * 64 / 1e6, spill_hub_min_cov=0.01,
+                       spill_hub_min_reuse=0.0)),
+    "two_buckets": (lambda: small_graph(700, 10, span=500),
+                    dict(SPILL, band_widths=(128, 256))),
+    "missing_supers": (lambda: random_graph(4096, 1024, 5120), SPILL),
+    "no_cover": (lambda: random_graph(16384, 4096, 20480), SPILL),
+    "take": (lambda: small_graph(500, 8, span=400), dict(SPILL, spill_impl="take")),
+}
+
+
+def spill_case(name, dt, dtype, with_jax=True):
+    """(port output, JAX output or None, scipy float64 oracle, plan) for
+    one plan of SPILL_PLANS on a seeded X^T."""
+    graph, fields = SPILL_PLANS[name]
+    rp, ci, n = graph()
+    op = HybridSpMM(rp, ci, n, PlanConfig(**dict(fields, compute_dtype=dtype)))
+    plan = op.plan
+    xt = np.zeros((dt, plan.padded_rows), np.float32)
+    xt[:, :n] = np.random.RandomState(7).randn(dt, n)
+    cd = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    got = tband.spmm_tband_padded(op.arrays["f"], torch.from_numpy(xt), plan, cd)
+    want = None
+    if with_jax:
+        jplan = jax_build_plan(rp, ci, n, JaxPlanConfig(**dict(fields, compute_dtype=dtype)))
+        jarrs = {k: jnp.asarray(v) for k, v in jplan.device_arrays().items()}
+        jcd = getattr(jnp, dtype)
+        want = np.asarray(jax.jit(lambda a, x: jax_tband.spmm_tband_padded(a, x, jplan, jcd))(
+            jarrs, jnp.asarray(xt)).astype(jnp.float32))
+    a = sp.csr_matrix((np.ones(len(ci)), ci, rp), shape=(n, n))
+    xr = xt[:, :n] if dtype == "float32" else torch.from_numpy(xt[:, :n]).to(cd).float().numpy()
+    oracle = (a @ xr.T.astype(np.float64)).T
+    return got.float(), want, oracle, plan
+
+
+@pytest.mark.parametrize("name", sorted(SPILL_PLANS))
+def test_spill_plans_match_jax_and_scipy(name):
+    got, want, oracle, plan = spill_case(name, 16, "float32")
+    n = plan.num_nodes
+    assert plan.spill_nnz > 0
+    assert plan.band_nnz + plan.spill_nnz == plan.nnz  # every edge applied once
+    if name == "t1_t2":
+        assert plan.ts_lo is not None and len(plan.ts2_segs) > 1
+    if name == "hub_split":
+        assert plan.hub_lo is not None and plan.ds_h_laneg is not None
+    if name == "missing_supers":
+        arrs = plan.device_arrays(dense_band=False)
+        assert len(arrs["band_missing_sw8"]) and len(arrs["band_missing_sw"])
+    if name == "no_cover":
+        assert not any(len(s) for s in plan.band_sw_ids)
+    if name == "take":
+        assert plan.ds_tlocal is None and plan.ds_blk is None
+    assert got.shape == want.shape == (16, plan.padded_rows)
+    assert rel_err(got, want) < RTOL
+    assert rel_err(got[:, :n], oracle) < RTOL
+    assert not got[:, n:].any()  # padded lanes stay zero: the layout closes
+
+
+@pytest.mark.parametrize("name", ["spill", "two_buckets", "missing_supers", "hub_split"])
+def test_spill_plans_bf16_match_jax_and_scipy(name):
+    """bf16: the band output is rounded first, the merge adds in fp32 and
+    rounds once, as the reference does; within 1e-2 of max|ref|.  The JAX
+    package cannot run its bf16 mxgather on the CPU (XLA's CPU dot has no
+    bf16 x bf16 -> f32), so the hub split is held against scipy only."""
+    with_jax = name != "hub_split"
+    got, want, oracle, plan = spill_case(name, 32, "bfloat16", with_jax=with_jax)
+    if with_jax:
+        assert rel_err(got, want) < 1e-2
+    assert rel_err(got[:, :plan.num_nodes], oracle) < 1e-2
+
+
 def test_check_band_arrays_rejects_out_of_range_slices():
     st = np.array([0, 128], np.int32)
     sw = np.array([0, 1], np.int32)
@@ -151,3 +242,20 @@ def test_cuda_kernel_matches_plain(dtype):
     ref = tband.tband_spmm_direct_plain(*t, num_sw, dtype)
     assert rel_err(got.float().cpu(), ref.float().cpu()) < tol
     assert rel_err(got_b.cpu(), tband.tband_spmm_bucket_plain(t[1], t[2], t[3]).cpu()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hub_split", "missing_supers", "no_cover"])
+def test_cuda_spill_chain_matches_cpu(name):
+    """The whole padded SpMM through the CUDA kernels against the CPU run
+    of the same plan (plain versions), fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    graph, fields = SPILL_PLANS[name]
+    rp, ci, n = graph()
+    ops = [HybridSpMM(rp, ci, n, PlanConfig(**fields), device=d) for d in ("cpu", "cuda")]
+    x = np.random.RandomState(2).randn(n, 24).astype(np.float32)
+    with torch.no_grad():
+        out = [op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 24).cpu()
+               for op in ops]
+    assert rel_err(out[1], out[0]) < RTOL

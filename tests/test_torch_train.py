@@ -42,10 +42,10 @@ def rel_err(got, ref):
     return np.abs(got - ref).max() / (np.abs(ref).max() + 1e-30)
 
 
-def setup(model, dropout=0.5):
-    rp, ci, nn = small_graph(300, 6)
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**TBAND))
-    jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**TBAND))
+def setup(model, dropout=0.5, graph=lambda: small_graph(300, 6), cfg=TBAND):
+    rp, ci, nn = graph()
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg))
+    jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg))
     jnet = JaxNet(model=model, dropout=dropout, **DIMS)
     net = Net(model=model, dropout=dropout, **DIMS)
     jparams = jax_init_net_params(jnet, jax.random.PRNGKey(0), init="glorot")
@@ -71,7 +71,19 @@ def test_adam_steps_match_jax_train_step(model):
     """Three Adam steps (lr 0.01, dropout 0): torch.optim.Adam against
     optax.adam through JAX's make_train_step; losses and parameters within
     rtol 1e-4."""
-    op, jop, net, jnet, jparams, x = setup(model, dropout=0.0)
+    _adam_steps_match(*setup(model, dropout=0.0))
+
+
+def test_adam_steps_on_spill_plan_match_jax_train_step():
+    """The same three Adam steps on a plan whose spill chain runs in every
+    forward and backward SpMM."""
+    case = setup("gcn", dropout=0.0, graph=lambda: small_graph(500, 8, span=400),
+                 cfg=dict(TBAND, band_widths=(128,), band_mode="auto"))
+    assert case[0].plan.spill_nnz > 0
+    _adam_steps_match(*case)
+
+
+def _adam_steps_match(op, jop, net, jnet, jparams, x):
     y = np.ones(x.shape[0], dtype=np.int64)
     opt = optax.adam(0.01)
     jstep = jax_make_train_step(jnet, jop, opt)
@@ -113,6 +125,18 @@ def test_cli_trains_on_cpu(tmp_path, capsys, model):
     assert len(done) == 1 and np.isfinite(done[0]["final_loss"])
     assert done[0]["device"] == "cpu"
     assert [r["epoch"] for r in _records(out) if "epoch" in r] == [0, 1]
+
+
+def test_cli_default_example_trains_on_cpu(capsys):
+    """The CLI's default synthetic graph: at 4096 nodes its tband plan
+    spills (merge group 4, chunks of 512) and trains to a finite loss."""
+    assert cli.main(["--synthetic-nodes", "4096", "--hidden", "16", "--classes", "5",
+                     "--num_layers", "2", "--epochs", "2", "--device", "cpu"]) == 0
+    recs = _records(capsys.readouterr().out)
+    prep = [r for r in recs if r.get("event") == "preprocess"]
+    assert len(prep) == 1 and prep[0]["spill_nnz"] > 0
+    done = [r for r in recs if r.get("event") == "done"]
+    assert len(done) == 1 and np.isfinite(done[0]["final_loss"])
 
 
 def test_cli_single_kernel_on_cpu(tmp_path, capsys):
