@@ -6,9 +6,9 @@ Phases, each of which raises on failure, with its seconds printed:
 
 1. versions of Python, PyTorch, CUDA and nvcc, and the card's name and
    power limit as nvidia-smi reports them;
-2. builds csrc/tband.cu and csrc/tspill.cu with nvcc for sm_90a, one nvcc
-   each, started together, and prints ptxas's register and shared-memory
-   lines;
+2. builds csrc/tband.cu, csrc/tspill.cu, csrc/block_spmm.cu and
+   csrc/dstream.cu with nvcc for sm_90a, one nvcc each, started together,
+   and prints ptxas's register and shared-memory lines;
 3. holds the band kernel against its plain PyTorch version: at the shape
    the DD-scale blocks stand-in's plan gives it (Sb 1312, W 768, bh 256,
    dt 32), at small odd shapes (dt 16, 48, 96; capacity-padded entries)
@@ -32,7 +32,25 @@ Phases, each of which raises on failure, with its seconds printed:
    SpMM of each run went through the CUDA kernels; a small graph's
    forward pass on the card is held against the CPU's;
 8. profiles one SpMM at dim 32 through ``cli.main --single_kernel`` on
-   the blocks stand-in and on GH.
+   the blocks stand-in and on GH;
+9. the wide padded layout [M, dp]: holds the row-layout band kernel
+   against its plain version at the DD wide plan's shape (Sb 1190, Bb 640,
+   bh 256, dp 128 and 256) and at small odd shapes (dp 128/256/384, bh
+   128/256, 16-aligned starts, capacity-padded entries), fp32 and bf16,
+   timed;
+10. holds the row zero-fill and both row merges (block and tile form)
+    against their plain versions at small odd shapes; the merges must be
+    bitwise deterministic;
+11. on the wide plans of the blocks stand-in, DD, YS and GH: apply_padded
+    at dims 128 and 256 against scipy, and the zero-fill and the merge at
+    the plan's own arrays (dp 256, fp32 and bf16, timed, deterministic);
+    on DD also a forced tile-form plan, a column-range stream built from
+    its spill edges, and the legacy tband ``spill_lane='off'`` path (tile
+    form), so that ``dstream_merge`` runs on the card;
+12. trains GCN and GIN (dim 128, hidden 256, classes 40, 3 layers: the
+    OGB ogbn-arxiv baseline's widths) for 3 epochs through ``cli.main`` on
+    the blocks stand-in (rcm), DD and GH (cluster), counting launches as
+    in 7, and profiles one SpMM with ``--single_kernel --hidden 256``.
 
 The second-to-last line is a JSON object with the kernel table; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -59,6 +77,9 @@ WARMUP_EPOCHS = 9  # train.loop.train's dry-run epochs
 GCN = ["--model", "gcn", "--dim", "96", "--hidden", "32", "--classes", "22",
        "--num_layers", "6"]
 SPMMS_PER_STEP = 12  # a 6-layer GCN step: 6 forward and 6 backward SpMMs
+WIDE = ["--dim", "128", "--hidden", "256", "--classes", "40", "--num_layers", "3"]
+WIDE_SPMMS = {"gcn": 6, "gin": 5}  # per step: GIN's first layer needs no input gradient
+WIDE_DIMS = (128, 256)
 DEV = "cuda"  # the kernels' checks run here (a CPU rehearsal may point it elsewhere)
 
 
@@ -166,38 +187,46 @@ def records(lines, event):
 
 
 def zero_counts():
-    from hcspmm_tpu_torch.kernels import tband, tspill
+    from hcspmm_tpu_torch.kernels import block_spmm, dstream, tband, tspill
 
     tband.launches = 0
-    for k in tspill.launches:
-        tspill.launches[k] = 0
+    block_spmm.launches = 0
+    for counts in (tspill.launches, dstream.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_counts() -> dict:
-    from hcspmm_tpu_torch.kernels import tband, tspill
+    from hcspmm_tpu_torch.kernels import block_spmm, dstream, tband, tspill
 
-    return dict(tband_spmm=tband.launches, **tspill.launches)
+    return dict(tband_spmm=tband.launches, band_spmm=block_spmm.launches, **tspill.launches,
+                **dstream.launches)
 
 
-def train_and_count(path, reorder, need) -> tuple:
-    """Train the 6-layer GCN 3 epochs through cli.main with every launch
-    count set to 0 just before and read just after; ``need`` maps a
-    kernel to its least launches per SpMM."""
+def check_counts(counts, need, spmms) -> None:
+    for k, per in need.items():
+        if counts[k] < per * spmms:
+            raise AssertionError(f"{k}: {counts[k]} launches < {per} per SpMM x {spmms}")
+
+
+def train_and_count(path, reorder, need, model_args=GCN, per_step=SPMMS_PER_STEP) -> tuple:
+    """Train a model (the 6-layer GCN by default) 3 epochs through
+    cli.main with every launch count set to 0 just before and read just
+    after; ``need`` maps a kernel to its least launches per SpMM."""
     epochs = 3
     zero_counts()
-    lines = run_cli(["--dataset", path, "--reorder", reorder, *GCN, "--epochs", str(epochs)])
+    lines = run_cli(["--dataset", path, "--reorder", reorder, *model_args,
+                     "--epochs", str(epochs)])
     counts = read_counts()
     done = records(lines, "done")
     prep = records(lines, "preprocess")
-    spmms = SPMMS_PER_STEP * (WARMUP_EPOCHS + epochs)
+    spmms = per_step * (WARMUP_EPOCHS + epochs)
     log(f"  epoch_ms {done['epoch_ms']:.3f}; warm-up {done['warmup_s']:.2f} s; "
         f"prep {prep['prep_ms']:.0f} ms; spill {prep['spill_nnz']}; final_loss "
         f"{done['final_loss']}; launches {counts} over {spmms} SpMMs")
     if not math.isfinite(done["final_loss"]):
         raise AssertionError(f"loss is not finite: {done['final_loss']}")
-    for k, per in need.items():
-        if counts[k] < per * spmms:
-            raise AssertionError(f"{k}: {counts[k]} launches < {per} per SpMM x {spmms}")
+    check_counts(counts, need, spmms)
     return counts, done
 
 
@@ -346,6 +375,209 @@ def small_spill_checks(gen) -> None:
             "repeatable) at dt 16/48/96, groups 4-32, bw 128-1024: pass")
 
 
+def wide_band_checks(op, gen, out) -> None:
+    """The row-layout band kernel against its plain version at ``op``'s
+    plan shape (dp 128 and 256, fp32 and bf16, timed; results into
+    ``out``) and at small odd shapes with capacity-padded entries."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+
+    dev = torch.device(DEV)
+    p = op.plan
+    arrs = op.arrays["f"]
+    st, sw, a = arrs["band0_start"], arrs["band0_sw"], arrs["band0_a"]
+    m, num_sw = p.padded_rows, p.padded_rows // p.band_h
+    owned = sw[sw < num_sw].long()  # the blocks of missing superwindows stay unset
+    for dp in WIDE_DIMS:
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            shape = f"Sb {a.shape[0]}, Bb {a.shape[2]}, bh {a.shape[1]}, dp {dp}"
+            xp = torch.randn((m, dp), generator=gen).to(dev, dtype)
+            got = block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, dtype)
+            ref = block_spmm.band_bucket_spmm_direct_plain(sw, st, a, xp, num_sw, dtype)
+            err = check(f"wide direct {cd} at {shape} ({len(owned)} owned blocks)",
+                        got[owned], ref[owned], cd)
+            del got, ref
+            k_ms = cuda_time_ms(lambda: block_spmm.band_bucket_spmm_direct(
+                sw, st, a, xp, num_sw, dtype), 20)
+            p_ms = cuda_time_ms(lambda: block_spmm.band_bucket_spmm_direct_plain(
+                sw, st, a, xp, num_sw, dtype), 3)
+            log(f"  {cd} dp {dp}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            out[(dp, cd)] = dict(err=err, ms=k_ms, plain_ms=p_ms, shape=shape)
+            if dp == 128 and cd == "float32":
+                check(f"wide bucket {cd} at {shape}", block_spmm.band_bucket_spmm(st, a, xp),
+                      block_spmm.band_bucket_spmm_plain(st, a, xp), cd)
+            del xp
+    for bh in (128, 256):
+        for dp in (128, 256, 384):
+            sb, bb, mm, trash = 7, 640, 2048, 2
+            a_s = (torch.rand((sb, bh, bb), generator=gen) < 0.05).to(torch.int8).to(dev)
+            st_s = torch.randint(0, (mm - bb) // 16 + 1, (sb,), generator=gen) * 16
+            sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
+                              torch.full((trash,), sb - trash)])
+            st_s, sw_s = st_s.to(dev, torch.int32), sw_s.to(dev, torch.int32)
+            for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                xp = torch.randn((mm, dp), generator=gen).to(dev, dtype)
+                check(f"wide direct {cd} bh {bh} dp {dp} +{trash} padded entries",
+                      block_spmm.band_bucket_spmm_direct(sw_s, st_s, a_s, xp, sb - trash, dtype),
+                      block_spmm.band_bucket_spmm_direct_plain(sw_s, st_s, a_s, xp, sb - trash,
+                                                               dtype), cd)
+                check(f"wide bucket {cd} bh {bh} dp {dp}",
+                      block_spmm.band_bucket_spmm(st_s, a_s, xp),
+                      block_spmm.band_bucket_spmm_plain(st_s, a_s, xp), "float32")
+
+
+def merge_pair(kind):
+    from hcspmm_tpu_torch.kernels import dstream
+
+    if kind == "block":
+        return dstream.bstream_merge, dstream.bstream_merge_plain
+    return dstream.dstream_merge, dstream.dstream_merge_plain
+
+
+def small_row_checks(gen) -> None:
+    """The row zero-fill and both row merges against their plain versions
+    at small odd shapes: dp 32/48/128/256, groups 1-8, 5 to 20000 edges
+    with a third on a few hub rows (multi-chunk blocks and tiles), pad
+    columns past the table (clip mode)."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.format.streams import build_bstream, build_dstream
+    from hcspmm_tpu_torch.kernels import tspill
+
+    dev = torch.device(DEV)
+    rng = np.random.RandomState(12)
+    before = dict(tspill.launches)
+    probe = torch.randn((1024, 128), device=dev)
+    if (tspill.zero_row_blocks(probe, torch.zeros(0, dtype=torch.int32, device=dev), 128)
+            is not probe or tspill.launches != before):
+        raise AssertionError("an empty id list must launch nothing")
+    m = 8192
+    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for dp in (32, 48, 128, 256):
+            x = torch.randn((m, dp), generator=gen).to(dev, dtype)
+            base = torch.randn((m, dp), generator=gen).to(dev, dtype)
+            for w in (128, 256, 1024):
+                ids = torch.from_numpy(rng.choice(m // w, 3, replace=False).astype(np.int32))
+                if dp * w * x.element_size() % 16 == 0 and not torch.equal(
+                        tspill.zero_row_blocks(base.clone(), ids.to(dev), w),
+                        tspill.zero_row_blocks_plain(base.clone(), ids.to(dev), w)):
+                    raise AssertionError(f"zero_row_blocks dp {dp} w {w} {cd} differs")
+            for e in (5, 3000, 20000):
+                rows = rng.randint(0, m, e)
+                rows[: e // 3] = rng.randint(0, 300, e // 3)
+                rows, cols = np.sort(rows), rng.randint(0, m, e)
+                for group in (1, 2, 4, 8):
+                    for kind, built in (
+                            ("block", build_bstream(rows, cols, m, pad_col=m, group=group)[:3]),
+                            ("tile", build_dstream(rows, cols, m, pad_col=m, group=group)[:4])):
+                        t = [torch.from_numpy(v.astype(np.int32)).to(dev) for v in built]
+                        fn, plain = merge_pair(kind)
+                        got = fn(*t, x, base.clone(), group=group)
+                        again = fn(*t, x, base.clone(), group=group)
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{kind} merge dp {dp} e {e} group {group} "
+                                                 f"{cd}: two runs differ")
+                        err, rel = rel_err(got.float().cpu(),
+                                           plain(*t, x, base.clone(), group=group).float().cpu())
+                        if not rel <= TOL[cd]:
+                            raise AssertionError(f"{kind} merge dp {dp} e {e} group {group} "
+                                                 f"{cd}: rel err {rel:.3e}")
+        log(f"  {cd}: row zero-fill (exact) and block/tile merges (within {TOL[cd]:g}, "
+            "bitwise repeatable) at dp 32-256, groups 1-8: pass")
+
+
+def row_kernels_vs_plain(key, op, gen, out, dp=256) -> None:
+    """The row zero-fill and the plan's merge against their plain versions
+    at the wide plan's own arrays, on a seeded [M, dp] table, fp32 and
+    bf16, timed; results go into ``out``."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import tspill
+
+    dev = torch.device(DEV)
+    p = op.plan
+    arrs = op.arrays["f"]
+    m, bh = p.padded_rows, p.band_h
+
+    def record(name, cd, label, err, fn_k, fn_p, reps=10):
+        k_ms = cuda_time_ms(fn_k, reps)
+        p_ms = cuda_time_ms(fn_p, 2)
+        log(f"    {key} {label} {cd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        out.setdefault((name, cd), []).append(dict(graph=key, shape=label, err=err, ms=k_ms,
+                                                   plain_ms=p_ms))
+
+    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x = torch.randn((m, dp), generator=gen).to(dev, dtype)
+        base = torch.randn((m, dp), generator=gen).to(dev, dtype)
+        for ids_key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
+            ids = arrs.get(ids_key)
+            if ids is None or not ids.shape[0]:
+                continue
+            label = f"zero {ids.shape[0]} x [{w}, {dp}]"
+            if not torch.equal(tspill.zero_row_blocks(base.clone(), ids, w),
+                               tspill.zero_row_blocks_plain(base.clone(), ids, w)):
+                raise AssertionError(f"{key} {label} {cd}: kernel and plain version differ")
+            buf = base.clone()
+            record("zero_row_blocks", cd, label, 0.0,
+                   lambda: tspill.zero_row_blocks(buf, ids, w),
+                   lambda: tspill.zero_row_blocks_plain(buf, ids, w))
+        if p.ds_blk is None or p.ds_meta is not None:
+            continue
+        kind = p.ds_kind
+        fn, plain = merge_pair(kind)
+        t = [arrs["ds_gcols"], arrs["ds_local"], arrs["ds_blk"]]
+        if kind != "block":
+            t.append(arrs["ds_lt"])
+        src = x.index_select(0, arrs["ds_ucols"]) if "ds_ucols" in arrs else x
+        runs = arrs["ds_run"]
+        name = "bstream_merge" if kind == "block" else "dstream_merge"
+        label = (f"{kind} merge {arrs['ds_gcols'].shape[0] // 128} chunks, group "
+                 f"{p.ds_group}, {runs.shape[0] - 1} blocks, dp {dp}"
+                 f"{f', ucols {src.shape[0]}' if 'ds_ucols' in arrs else ''}")
+        got = fn(*t, src, base.clone(), group=p.ds_group, runs=runs)
+        again = fn(*t, src, base.clone(), group=p.ds_group, runs=runs)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{key} {label} {cd}: two kernel runs differ")
+        err = check(f"{key} {label} {cd} (bitwise repeatable)", got,
+                    plain(*t, src, base.clone(), group=p.ds_group), cd)
+        del got, again
+        buf = base.clone()
+        record(name, cd, label, err,
+               lambda: fn(*t, src, buf, group=p.ds_group, runs=runs),
+               lambda: plain(*t, src, buf, group=p.ds_group))
+        del x, base, buf, src
+
+
+def longest_run(arrs) -> int:
+    """Chunks in the longest run of the row merge (one thread block walks a
+    run), or 0 without one."""
+    runs = arrs.get("ds_run")
+    return 0 if runs is None else int((runs[1:] - runs[:-1]).max())
+
+
+def ranges_plan(plan, num_ranges=3):
+    """``plan`` with its spill re-chunked as a column-range tile stream
+    (the reference's build_dstream_ranges, as format/plan.py builds it when
+    the table outgrows ``ds_table_mb``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hcspmm_tpu_torch.format.streams import build_dstream_ranges
+
+    m = plan.padded_rows
+    rows = np.asarray(plan.spill_rows, dtype=np.int64)
+    seg = np.asarray(plan.spill_edge_seg, dtype=np.int64)
+    real = seg < int(np.count_nonzero(rows < m))
+    g, local, blk, lt, grp, meta = build_dstream_ranges(
+        rows[seg[real]], np.asarray(plan.spill_edge_col)[real], m, pad_col=plan.num_cols,
+        num_ranges=num_ranges, range_rows=-(-m // (128 * num_ranges)) * 128)
+    return dataclasses.replace(plan, ds_gcols=g, ds_local=local, ds_blk=blk, ds_lt=lt,
+                               ds_group=grp, ds_meta=meta, ds_kind="tile", ds_ucols=None)
+
+
 def main() -> int:
     import torch
 
@@ -359,9 +591,9 @@ def main() -> int:
     from hcspmm_tpu_torch.config import PlanConfig
     from hcspmm_tpu_torch.format import reorder
     from hcspmm_tpu_torch.graphs import io as gio
-    from hcspmm_tpu_torch.kernels import _build, tband, tspill
+    from hcspmm_tpu_torch.kernels import _build, block_spmm, dstream, tband, tspill
     from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward
-    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM, _to_device
     from hcspmm_tpu_torch.train.loop import Bound
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -380,11 +612,12 @@ def main() -> int:
             f"cuda {torch.version.cuda}  nvcc {nvcc_ver}")
         log(smi)
 
-    with Phase("2. build csrc/tband.cu and csrc/tspill.cu"):
-        with ThreadPoolExecutor(2) as pool:
-            for f in [pool.submit(tband._lib), pool.submit(tspill._lib)]:
+    with Phase("2. build the four CUDA sources"):
+        libs = (tband, tspill, block_spmm, dstream)
+        with ThreadPoolExecutor(len(libs)) as pool:
+            for f in [pool.submit(mod._lib) for mod in libs]:
                 f.result()
-        for name in ("tband", "tspill"):
+        for name in ("tband", "tspill", "block_spmm", "dstream"):
             with open(_build.library_path(name) + ".log") as f:
                 for line in f:
                     if any(w in line for w in ("Compiling", "registers", "spill")):
@@ -549,6 +782,122 @@ def main() -> int:
                 log(f"  {name}: avg_ms {sag[name]['avg_ms']:.4f}, "
                     f"{sag[name]['gnnz_per_s']:.3f} Gnnz/s")
 
+        with Phase("9. wide band kernel vs plain version"):
+            t0 = time.perf_counter()
+            s_e, d_e, nk = real_edges["DD"]
+            rpk, cik = gio.to_csr(s_e, d_e, nk)
+            rpk, cik = reorder.apply_permutation(rpk, cik, nk,
+                                                 reorder.cluster_reorder(rpk, cik, nk))
+            op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="wide"), device=dev)
+            log(f"  DD wide plan ({time.perf_counter() - t0:.1f} s)")
+            wide_res = {}
+            wide_band_checks(op, gen, wide_res)
+            del op
+            torch.cuda.empty_cache()
+
+        with Phase("10. row zero-fill and merges vs plain versions, small odd shapes"):
+            small_row_checks(gen)
+
+        row_res = {}
+        with Phase("11. wide plans: apply_padded vs scipy, row kernels at the plans' arrays"):
+            graphs = {"blocks": (rp, ci, n)}
+            for key in REAL:
+                s_e, d_e, nk = real_edges[key]
+                rpk, cik = gio.to_csr(s_e, d_e, nk)
+                graphs[key] = (*reorder.apply_permutation(
+                    rpk, cik, nk, reorder.cluster_reorder(rpk, cik, nk)), nk)
+            cases = [(key, {}) for key in graphs] + [("DD", dict(ds_kind="tile"))]
+            for key, extra in cases:
+                rpk, cik, nk = graphs[key]
+                t0 = time.perf_counter()
+                op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="wide", **extra), device=dev)
+                p = op.plan
+                arrs = op.arrays["f"]
+                name = key + (" tile" if extra else "")
+                log(f"  {name}: W {p.band_widths}, bh {p.band_h}, "
+                    f"{sum(len(v) for v in p.band_sw_ids)} of {p.padded_rows // p.band_h} "
+                    f"superwindows, {len(p.band_missing_sw)} missing "
+                    f"({len(arrs['band_missing_sw8'])} runs of 8 + "
+                    f"{len(arrs['band_missing_sw'])}); spill {p.spill_nnz} edges, "
+                    f"kind {p.ds_kind if p.ds_blk is not None else 'take'}, group "
+                    f"{p.ds_group}, chunks {len(p.ds_gcols) // 128 if p.ds_blk is not None else 0}"
+                    f" (longest block run {longest_run(arrs)})"
+                    f", ucols {None if p.ds_ucols is None else len(p.ds_ucols)}; plan and "
+                    f"upload {time.perf_counter() - t0:.1f} s")
+                if key in ("DD", "YS", "GH") and not (p.spill_nnz and len(p.band_missing_sw)):
+                    raise AssertionError(f"the {key} wide plan must spill and miss superwindows")
+                if extra and p.ds_kind != "tile":
+                    raise AssertionError("the forced plan must take the tile form")
+                if key != "blocks":
+                    row_kernels_vs_plain(name, op, gen, row_res)
+                for d in WIDE_DIMS if not extra else (128,):
+                    x = np.random.RandomState(0).randn(nk, d).astype(np.float32)
+                    zero_counts()
+                    with torch.no_grad():
+                        xp = op.pad_input(torch.from_numpy(x))
+                        out = op.unpad_output(op.apply_padded(op.arrays, xp), d)
+                    counts = read_counts()
+                    check(f"{name} wide apply_padded dim {d} vs scipy", out,
+                          csr_matmul(rpk, cik, nk, x), "float32")
+                    if extra:
+                        check_counts(counts, {"band_spmm": 1, "dstream_merge": 1}, 1)
+                        launch_runs["DD tile"] = counts
+                    del out
+                    ms = cuda_time_ms(lambda: op.apply_padded(op.arrays, xp), 5)
+                    log(f"  {name}: apply_padded {ms:.4f} ms (dim {d}, fp32)")
+                    del xp
+                if key == "DD" and not extra:
+                    pr = ranges_plan(p)
+                    arrs_r = _to_device(pr, dev)
+                    x = np.random.RandomState(0).randn(nk, 128).astype(np.float32)
+                    zero_counts()
+                    with torch.no_grad():
+                        out = block_spmm.spmm_wide_padded(arrs_r, op.pad_input(x), pr,
+                                                          torch.float32)[:nk]
+                    launch_runs["DD ranges"] = read_counts()
+                    check_counts(launch_runs["DD ranges"], {"dstream_merge": 1}, 1)
+                    check(f"DD column-range stream ({len(pr.ds_meta['r0'])} ranges, "
+                          f"{len(pr.ds_gcols) // 128} chunks) vs scipy", out,
+                          csr_matmul(rpk, cik, nk, x), "float32")
+                    del arrs_r, out
+                del op, arrs
+                torch.cuda.empty_cache()
+            rpk, cik, nk = graphs["DD"]
+            op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="tband", spill_lane="off",
+                                                     ds_kind="tile"), device=dev)
+            x = np.random.RandomState(0).randn(nk, 32).astype(np.float32)
+            zero_counts()
+            with torch.no_grad():
+                out = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 32)
+            launch_runs["DD tband legacy"] = read_counts()
+            log(f"  DD tband spill_lane='off', ds_kind 'tile': launches "
+                f"{launch_runs['DD tband legacy']}")
+            check("DD tband legacy row-merge spill vs scipy", out,
+                  csr_matmul(rpk, cik, nk, x), "float32")
+            check_counts(launch_runs["DD tband legacy"],
+                         {"tband_spmm": 1, "zero_lane_blocks": 1, "dstream_merge": 1}, 1)
+            del op, out, graphs
+            torch.cuda.empty_cache()
+
+        with Phase("12. GCN and GIN at hidden 256 (wide layout) through cli.main"):
+            for key, pth, ro, need in (
+                    ("blocks", path, "rcm", {"band_spmm": 1}),
+                    ("DD", paths["DD"], "cluster", {"band_spmm": 1, "zero_row_blocks": 2,
+                                                    "bstream_merge": 1}),
+                    ("GH", paths["GH"], "cluster", {"band_spmm": 1, "zero_row_blocks": 1,
+                                                    "bstream_merge": 1})):
+                for model in ("gcn", "gin"):
+                    log(f"  {key} {model}, hidden 256:")
+                    launch_runs[f"{key} {model} wide"], _ = train_and_count(
+                        pth, ro, need, ["--model", model, *WIDE], WIDE_SPMMS[model])
+            zero_counts()
+            rec = records(run_cli(["--dataset", path, "--reorder", "rcm", "--dim", "32",
+                                   "--hidden", "256", "--single_kernel"]), "sag")
+            launch_runs["blocks sag wide"] = read_counts()
+            check_counts(launch_runs["blocks sag wide"], {"band_spmm": 1}, 210)
+            log(f"  blocks --single_kernel --hidden 256: avg_ms {rec['avg_ms']:.4f}, "
+                f"{rec['gnnz_per_s']:.3f} Gnnz/s")
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -556,8 +905,12 @@ def main() -> int:
         return next(r for r in spill_res[(name, "float32")]
                     if r["graph"] == graph and label in r["shape"])
 
+    def row_at(name, graph):
+        return next(r for r in row_res[(name, "float32")] if r["graph"] == graph)
+
     zero, mxg, merge = (at("zero_lane_blocks", "DD", "x [32, 2048]"),
                         at("mxgather_lanes", "GH", "T1"), at("tbstream_merge", "GH", "cold"))
+    wide = wide_res[(256, "float32")]
     kernels = [{
         "name": "tband_spmm",
         "route": "cuda",
@@ -582,7 +935,34 @@ def main() -> int:
     } for name, replaces, r in (
         ("zero_lane_blocks", "hcspmm_tpu/kernels/tspill.py:55", zero),
         ("mxgather_lanes", "hcspmm_tpu/kernels/tspill.py:280", mxg),
-        ("tbstream_merge", "hcspmm_tpu/kernels/tspill.py:151", merge))]
+        ("tbstream_merge", "hcspmm_tpu/kernels/tspill.py:151", merge))] + [{
+        "name": "band_spmm",
+        "route": "cuda",
+        "source": "hcspmm_tpu_torch/csrc/block_spmm.cu",
+        "replaces": "hcspmm_tpu/kernels/block_spmm.py:459",
+        "also_replaces": "hcspmm_tpu/kernels/block_spmm.py:317",
+        "launches": launches("band_spmm"),
+        "max_abs_err": max(v["err"] for (_, cd), v in wide_res.items() if cd == "float32"),
+        "ms": wide["ms"],
+        "plain_ms": wide["plain_ms"],
+        "shape": f"DD wide plan {wide['shape']}, float32, direct write",
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches(name),
+        "max_abs_err": max(v["err"] for v in row_res[(name, "float32")]),
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "shape": f"{r['graph']} wide plan {r['shape']}, float32",
+    } for name, source, replaces, r in (
+        ("zero_row_blocks", "hcspmm_tpu_torch/csrc/tspill.cu",
+         "hcspmm_tpu/kernels/tspill.py:101", row_at("zero_row_blocks", "GH")),
+        ("bstream_merge", "hcspmm_tpu_torch/csrc/dstream.cu",
+         "hcspmm_tpu/kernels/dstream.py:283", row_at("bstream_merge", "GH")),
+        ("dstream_merge", "hcspmm_tpu_torch/csrc/dstream.cu",
+         "hcspmm_tpu/kernels/dstream.py:457", row_at("dstream_merge", "DD tile")))]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels, "launches_by_run": launch_runs}))

@@ -1,12 +1,18 @@
 // Spill chain of the transposed-band SpMM for Hopper (sm_90a), bound from
 // Python with ctypes (kernels/tspill.py holds the wrappers and the plain
-// PyTorch versions).  Three kernels, each replacing one Pallas kernel of
+// PyTorch versions).  Four kernels, each replacing one Pallas kernel of
 // hcspmm_tpu/kernels/tspill.py:
 //
 // zero_kernel     <- zero_lane_blocks (:55).  Zero lanes [ids[i]*w, +w) of
 //   every row of buf [dt, M], in place.  One block per (id, 8-row slab),
 //   16-byte stores.  Pure writes: 2*dt*w*n_ids*4 bytes at fp32 is well
 //   under a microsecond of bandwidth at the real plans, so launch cost binds.
+//
+// zero_rows_kernel <- zero_row_blocks (:84), the wide layout's twin.  Zero
+//   rows [ids[i]*w, +w) of buf [M, dp], in place: the rows of one id are
+//   one contiguous w*dp-element range, so a grid over (id, slice) writes it
+//   with 16-byte stores.  At GH's wide plan (105 runs of 8 x 256 rows, dp
+//   256, fp32) that is 220 MB: about 70 us at 3.35 TB/s.
 //
 // mxgather_kernel <- mxgather_lanes (:280).  Compact table
 //   out[:, c*k+j] = xt[:, lo[c] + rel[c, j]], 0 where rel == -1, in xt's
@@ -65,6 +71,22 @@ __global__ void zero_kernel(const int32_t* __restrict__ ids, uint4* __restrict__
     const int r = e / w_vecs;
     buf[(long long)(r0 + r) * row_vecs + col0 + (e - r * w_vecs)] = z;
   }
+}
+
+// ---------------------------------------------------------------------------
+// zero_row_blocks
+// ---------------------------------------------------------------------------
+
+constexpr int ZSLICES = 64;  // thread blocks per id at most
+
+// Grid: (n ids, slices); each id's range is blk_vecs 16-byte vectors.
+__global__ void zero_rows_kernel(const int32_t* __restrict__ ids, uint4* __restrict__ buf,
+                                 long long blk_vecs) {
+  uint4* base = buf + (long long)ids[blockIdx.x] * blk_vecs;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  for (long long e = (long long)blockIdx.y * blockDim.x + threadIdx.x; e < blk_vecs;
+       e += (long long)gridDim.y * blockDim.x)
+    base[e] = z;
 }
 
 // ---------------------------------------------------------------------------
@@ -185,6 +207,22 @@ extern "C" int hcspmm_zero_lane_blocks(void* buf, const void* ids, int n, int dt
   zero_kernel<<<dim3((unsigned)n, (unsigned)((dt + ZROWS - 1) / ZROWS)), 256, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<uint4*>(buf), rb / 16, (int)(wb / 16), dt);
+  return (int)cudaGetLastError();
+}
+
+// buf: [m, dp] of elem_bytes-wide elements; ids: int32 [n]; zeroes rows
+// [ids[i]*w, ids[i]*w + w).  w * dp * elem_bytes must be a multiple of 16.
+extern "C" int hcspmm_zero_row_blocks(void* buf, const void* ids, int n, long long dp, int w,
+                                      int elem_bytes, void* stream) {
+  if (n <= 0 || dp <= 0) return 0;
+  const long long bytes = (long long)w * dp * elem_bytes;
+  if (w <= 0 || bytes % 16) return (int)cudaErrorInvalidValue;
+  const long long vecs = bytes / 16;
+  const int threads = 256;
+  const long long slices = (vecs + threads - 1) / threads;
+  zero_rows_kernel<<<dim3((unsigned)n, (unsigned)(slices < ZSLICES ? slices : ZSLICES)),
+                     threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ids), static_cast<uint4*>(buf), vecs);
   return (int)cudaGetLastError();
 }
 

@@ -18,10 +18,11 @@ version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.
 
 After the band product, missing superwindows are zeroed and the spill
-chain adds the edges the band does not hold (``_tband_apply_spill``,
-kernels/tspill.py).  ``check_plan`` admits the plans the reference's
-``spmm_padded_supported`` admits on this layout; the rest raise instead of
-losing edges.
+chain adds the edges the band does not hold (``_tband_apply_spill``:
+kernels/tspill.py, or the legacy path through the row layout's merge in
+kernels/block_spmm.py and kernels/dstream.py).  ``check_plan`` admits the
+plans the reference's ``spmm_padded_supported`` admits on this layout;
+the rest raise instead of losing edges.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from hcspmm_tpu_torch.kernels import tspill
+from hcspmm_tpu_torch.kernels import block_spmm, tspill
 from hcspmm_tpu_torch.kernels._build import load_library
 
 #: Launches of the CUDA kernel of csrc/tband.cu, counted where a wrapper
@@ -60,12 +62,13 @@ def check_plan(plan) -> None:
     band and spill populations only, every superwindow either covered by
     one band entry or listed as missing (its block is zeroed and its edges
     spill), band slices inside the padded layout, and a spill population
-    (if any) on the lane path or the take path.  These are the plans the
-    reference's ``spmm_padded_supported`` admits on this layout."""
+    (if any) on the lane path, the legacy row merge or the take path.  These
+    are the plans the reference's ``spmm_padded_supported`` admits on this
+    layout."""
     if not getattr(plan, "tband", False):
         raise NotImplementedError(
-            "hcspmm_tpu_torch runs band_impl='tband' plans only; the wide "
-            "padded layout is ROADMAP A.6 and the row layout A.7")
+            "not a band_impl='tband' plan: the wide padded layout runs it "
+            "(kernels/block_spmm.py); the row layout is ROADMAP A.7")
     if plan.tband_pack != 1:
         raise NotImplementedError(
             f"tband_pack={plan.tband_pack}: the nibble and 1-bit A_t "
@@ -87,10 +90,6 @@ def check_plan(plan) -> None:
             f"band entries cover {covered} and {missing} are missing of "
             f"{num_sw} superwindows: a plan whose blocks do not all have "
             "one owner would leave output unset")
-    if plan.has_spill and plan.ds_tlocal is None and plan.ds_blk is not None:
-        raise NotImplementedError(
-            "spill_lane='off' with spill_impl='dstream': the row-layout "
-            "merge (bstream_merge, dstream_merge) is ROADMAP A.6")
     for s, w in enumerate(plan.band_widths):
         st = plan.band_starts[s][: len(plan.band_sw_ids[s])]
         if (len(st) and int(st.max()) + w > m) or (
@@ -227,33 +226,43 @@ def tband_spmm_bucket(starts, at, xt):
 # ---------------------------------------------------------------------------
 
 
-def _spill_take(buf, arrs, xt, plan):
-    """The take form of the legacy spill path (``spill_impl='take'``;
-    hcspmm_tpu/kernels/block_spmm.py:729-765), transposed: gather each
-    spilled edge's column (clip mode), segment-sum by spill row in fp32,
-    and add each row's sum to its lane of ``buf``; padded rows (real rows
-    come first, checked on upload) are dropped."""
+# Spill population size above which the legacy row-layout spill path pads
+# its [M, dt] operands to 128 columns, unless the padded table would exceed
+# the size limit below (the reference's constants, measured on a TPU;
+# hcspmm_tpu/kernels/tband.py:339-340).
+_SPILL_WIDE_MIN_EDGES = 100_000
+_SPILL_WIDE_MAX_TABLE_MB = 256.0
+
+
+def _row_spill(buf, arrs, xt, plan):
+    """The legacy spill path (``spill_lane='off'``, or ``spill_impl=
+    'take'``; hcspmm_tpu/kernels/tband.py:391-406): both operands go to the
+    row layout [M, dt] (padded to 128 columns for large spills), the row
+    layout's ``apply_spill`` adds the population (the row merge when the
+    plan carries its streams, else the take path), and the result comes
+    back transposed."""
     dt, m = buf.shape
-    xe = xt.index_select(1, arrs["spill_edge_col"].clamp(max=m - 1))
-    seg = torch.zeros((dt, plan.num_spill_rows + 1), dtype=torch.float32,
-                      device=xt.device)
-    seg.index_add_(1, arrs["spill_edge_seg"], xe.float())
-    real = int(np.count_nonzero(plan.spill_rows < m))
-    return buf.index_add_(1, arrs["spill_rows"][:real],
-                          seg[:, :real].to(buf.dtype))
+    tbl_mb = m * 128 * xt.element_size() / 1e6
+    wide = (plan.spill_nnz >= _SPILL_WIDE_MIN_EDGES and dt < 128
+            and tbl_mb <= _SPILL_WIDE_MAX_TABLE_MB)
+    pad = (0, 128 - dt) if wide else (0, 0)
+    out_u = F.pad(buf.T, pad).contiguous()
+    x_u = F.pad(xt.T, pad).contiguous()
+    out_u = block_spmm.apply_spill(out_u, arrs, x_u, plan)
+    return out_u[:, :dt].T.contiguous()
 
 
 def _tband_apply_spill(buf, arrs, xt, plan):
-    """Add the spill population onto ``buf`` in place (port of
-    hcspmm_tpu/kernels/tband.py:343).  Lane path (``ds_tlocal`` present):
-    the hub stream first (mxgather hub table -> take -> merge), then the
+    """Add the spill population onto ``buf`` (port of
+    hcspmm_tpu/kernels/tband.py:343).  Lane path (``ds_tlocal`` present, in
+    place): the hub stream first (mxgather hub table -> take -> merge), then the
     cold stream from the mxgather T1 table (``ts_lo``) or from xt itself,
     through the segmented T2 tables (``ts2_ranks``) or one take, merged
-    into ``buf``.  Otherwise the take path."""
+    into ``buf``.  Otherwise the legacy row-layout path."""
     if not (plan.has_spill and "spill_rows" in arrs):
         return buf
     if "ds_tlocal" not in arrs:
-        return _spill_take(buf, arrs, xt, plan)
+        return _row_spill(buf, arrs, xt, plan)
     if "hub_lo" in arrs:
         h = tspill.mxgather_lanes(xt, arrs["hub_lo"], arrs["hub_rel"], span=plan.ts_span)
         buf = tspill.tbstream_merge(h.index_select(1, arrs["ds_h_laneg"]),

@@ -7,8 +7,9 @@ tband spill chain (kernels/tband.py ``_tband_apply_spill``) runs
     G     = take(T or xt, laneg)                # per-edge columns, [dt, C*bw]
     buf   = tbstream_merge(G, local, blk, buf)  # block-wide scatter-add
 
-and missing superwindows are zeroed by ``zero_lane_blocks`` before it.
-The three kernels are ``csrc/tspill.cu``; each wrapper here launches its
+and missing superwindows are zeroed by ``zero_lane_blocks`` before it;
+``zero_row_blocks`` is the wide layout's [M, dp] twin of the zero-fill.
+The four kernels are ``csrc/tspill.cu``; each wrapper here launches its
 kernel for CUDA tensors (or raises) and runs the plain PyTorch version
 beside it for CPU tensors, and counts its launches in ``launches``.
 ``segmented_gather`` (the T2 tables) is plain torch index ops on any
@@ -31,7 +32,8 @@ from hcspmm_tpu_torch.kernels._build import load_library
 #: Launches of each kernel of csrc/tspill.cu, counted where its wrapper
 #: launches it (never by the plain versions).  chip_smoke.py zeroes them
 #: before a run of the main path and reads them after.
-launches = {"zero_lane_blocks": 0, "mxgather_lanes": 0, "tbstream_merge": 0}
+launches = {"zero_lane_blocks": 0, "zero_row_blocks": 0, "mxgather_lanes": 0,
+            "tbstream_merge": 0}
 
 _MX_NB = 4             # the reference's chunks per grid step: the table's
 #                        chunk count is padded to a multiple of it
@@ -44,11 +46,12 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("tspill")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hcspmm_zero_lane_blocks.argtypes = [vp, vp, i32, i32, i64, i32, i32, vp]
+    lib.hcspmm_zero_row_blocks.argtypes = [vp, vp, i32, i64, i32, i32, vp]
     lib.hcspmm_mxgather_lanes.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i64, i32, vp]
     lib.hcspmm_tbstream_merge.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i64, i32, i64,
                                           i32, i32, vp]
-    for fn in (lib.hcspmm_zero_lane_blocks, lib.hcspmm_mxgather_lanes,
-               lib.hcspmm_tbstream_merge):
+    for fn in (lib.hcspmm_zero_lane_blocks, lib.hcspmm_zero_row_blocks,
+               lib.hcspmm_mxgather_lanes, lib.hcspmm_tbstream_merge):
         fn.restype = ctypes.c_int
     return lib
 
@@ -98,6 +101,12 @@ def block_runs(blk) -> np.ndarray:
 def zero_lane_blocks_plain(buf, ids, w: int):
     """In place: lanes [ids[i]*w, ids[i]*w + w) of buf [dt, M] set to 0."""
     buf.view(buf.shape[0], -1, w).index_fill_(1, ids.long(), 0)
+    return buf
+
+
+def zero_row_blocks_plain(buf, ids, w: int):
+    """In place: rows [ids[i]*w, ids[i]*w + w) of buf [M, dp] set to 0."""
+    buf.view(-1, w, buf.shape[1]).index_fill_(0, ids.long(), 0)
     return buf
 
 
@@ -155,6 +164,25 @@ def zero_lane_blocks(buf, ids, w: int):
     with torch.cuda.device(buf.device):
         _run("zero_lane_blocks", _lib().hcspmm_zero_lane_blocks, buf.data_ptr(),
              ids.data_ptr(), ids.shape[0], dt, m, w, buf.element_size())
+    return buf
+
+
+def zero_row_blocks(buf, ids, w: int):
+    """Zero rows [ids[i]*w, ids[i]*w + w) of buf [M, dp] in place and
+    return buf (port of hcspmm_tpu/kernels/tspill.py:84, the wide layout's
+    twin of ``zero_lane_blocks``); ``w`` is ``bh`` or ``8*bh``.  An empty
+    ``ids`` launches nothing."""
+    if ids.shape[0] == 0:
+        return buf
+    if buf.device.type == "cpu":
+        return zero_row_blocks_plain(buf, ids, w)
+    _check_cuda(buf, buf=buf, ids=ids)
+    m, dp = buf.shape
+    if w <= 0 or m % w or (w * dp * buf.element_size()) % 16:
+        raise ValueError(f"block height {w} must divide M={m} and fill 16-byte rows")
+    with torch.cuda.device(buf.device):
+        _run("zero_row_blocks", _lib().hcspmm_zero_row_blocks, buf.data_ptr(),
+             ids.data_ptr(), ids.shape[0], dp, w, buf.element_size())
     return buf
 
 

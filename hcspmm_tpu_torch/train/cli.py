@@ -52,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--band-impl", type=str, default="auto",
                    choices=["auto", "wide", "tiled", "tband", "ring"],
                    help="band layout; 'auto' picks the transposed band when "
-                        "hidden and classes are at most 64 (the only one ported)")
+                        "hidden and classes are at most 64, else 'wide'")
     p.add_argument("--compute-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--spill-impl", type=str, default="dstream",
@@ -129,11 +129,16 @@ def prepare(args, device, logger):
     band_impl = args.band_impl
     if band_impl == "auto":
         # the transposed band when every dim the model touches fits the
-        # dim <= 64 regime (the input dim may exceed it)
+        # dim <= 64 regime (the input dim may exceed it), else the wide
+        # padded layout
         band_impl = "tband" if max(args.hidden, args.classes) <= 64 else "wide"
-    if band_impl != "tband":
-        raise NotImplementedError(f"band layout {band_impl!r}: only the "
-                                  "transposed band is ported (wide: ROADMAP A.6)")
+    if band_impl == "tiled":
+        raise NotImplementedError("band layout 'tiled': the tiled band kernel is "
+                                  "ROADMAP A.11")
+    if band_impl == "ring":
+        raise NotImplementedError("band layout 'ring': the reference deleted its "
+                                  "kernel and builds wide plans for it (ROADMAP A.12); "
+                                  "pass --band-impl wide")
     cfg = PlanConfig(
         bucket_widths=tuple(int(v) for v in args.bucket_widths.split(",")),
         loi_mode=args.loi_mode,

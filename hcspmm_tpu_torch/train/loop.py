@@ -4,9 +4,9 @@ hcspmm_tpu/train/loop.py.
 Parity: Adam lr=0.01 (main.py:115; ``torch.optim.Adam`` has optax.adam's
 defaults and update), loss = NLL of the log-softmax output against the
 all-ones labels over every node (main.py:125), 9 warm-up epochs, then the
-timed epochs (main.py:157-166).  Activations run in the operator's
-transposed padded layout; only the final logits are sliced (by
-``unpad_output``) before the softmax.
+timed epochs (main.py:157-166).  Activations run in the operator's padded
+layout (transposed [dt, M] or wide [M, dp]); only the final logits are
+sliced (by ``unpad_output``) before the softmax.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def make_train_step(net: Net, spmm, optimizer: torch.optim.Optimizer):
         return spmm.unpad_output(h, net.num_classes)
 
     def train_step(params, x, y, gen=None):
-        if x.shape[1] != spmm.padded_rows:
+        if not spmm.is_padded(x):
             x = spmm.pad_input(x)
         optimizer.zero_grad(set_to_none=True)
         logp = net_forward(net, params, bound, x, dropout_gen=gen,

@@ -25,10 +25,11 @@ from hcspmm_tpu_torch.utils.logging import stdout_logger
 
 #: kernel-name fragments -> group, first match wins
 GROUPS = (
-    ("tband_kernel", "band kernel"),
+    ("band_kernel", "band kernel"),
     ("merge_kernel", "spill merge"),
     ("mxgather_kernel", "mxgather"),
     ("zero_kernel", "zero-fill"),
+    ("zero_rows_kernel", "zero-fill"),
     ("index", "takes and scatters"),
     ("gather", "takes and scatters"),
     ("gemm", "dense products"),

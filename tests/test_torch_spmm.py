@@ -163,24 +163,26 @@ def test_layer_cores_values_and_grads_match_jax(core):
 SPILL = dict(TBAND, band_widths=(128,), band_mode="auto")
 
 
-def test_spill_plan_raises():
-    """A plan that spills now runs: once in the padded layout and once in
-    the row layout, against the JAX package and the dense oracle.  What
-    still raises is the legacy row-layout merge (``spill_lane='off'``
-    with ``spill_impl='dstream'``), naming A.6."""
+@pytest.mark.parametrize("ds_kind", ["tile", "block"])
+def test_spill_plan_matches_jax_on_lane_and_legacy_paths(ds_kind):
+    """A plan that spills runs: once in the padded layout and once in the
+    row layout, against the JAX package and the dense oracle, on the lane
+    path and on the legacy row-layout merge (``spill_lane='off'`` with
+    ``spill_impl='dstream'``, tile and block chunks)."""
     rp, ci, nn = small_graph(500, 8, span=400)
-    op, jop = both(rp, ci, nn, cfg=dict(SPILL, band_mode="auto"))
-    assert op.plan.spill_nnz > 0 and op.plan.ds_tlocal is not None
     x = np.random.RandomState(1).randn(nn, 16).astype(np.float32)
-    got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 16)
-    want = jop.unpad_output(jax.jit(jop.apply_padded)(jop.arrays, jop.pad_input(jnp.asarray(x))),
-                            16)
-    assert rel_err(got, want) < RTOL
-    assert rel_err(got, dense_a(rp, ci, nn) @ x) < RTOL
-    assert rel_err(op(torch.from_numpy(x)), jax.jit(jop)(jnp.asarray(x))) < RTOL
-    with pytest.raises(NotImplementedError, match="A.6"):
-        HybridSpMM(rp, ci, nn, PlanConfig(**dict(SPILL, spill_lane="off", spill_impl="dstream",
-                                                 ds_kind="tile")))
+    for cfg in (dict(SPILL, band_mode="auto"),
+                dict(SPILL, spill_lane="off", spill_impl="dstream", ds_kind=ds_kind)):
+        op, jop = both(rp, ci, nn, cfg=cfg)
+        assert op.plan.spill_nnz > 0
+        assert (op.plan.ds_tlocal is None) == (cfg.get("spill_lane") == "off")
+        got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 16)
+        want = jop.unpad_output(jax.jit(jop.apply_padded)(jop.arrays,
+                                                          jop.pad_input(jnp.asarray(x))), 16)
+        assert rel_err(got, want) < RTOL
+        assert rel_err(got, dense_a(rp, ci, nn) @ x) < RTOL
+        assert rel_err(op(torch.from_numpy(x)), jax.jit(jop)(jnp.asarray(x))) < RTOL
+    assert op.plan.ds_kind == ds_kind and "ds_gcols" in op.arrays["f"]
 
 
 def test_partial_cover_plan_raises():
@@ -263,9 +265,20 @@ def test_packed_a_raises(pack):
 
 @pytest.mark.parametrize("band_impl", ["wide", "tiled"])
 def test_other_layouts_raise(band_impl):
+    """The wide padded layout runs (ROADMAP A.6); the tiled band still
+    raises naming its ROADMAP item."""
     rp, ci, nn = small_graph(300, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HybridSpMM(rp, ci, nn, PlanConfig(band_impl=band_impl, band_h=128))
+    if band_impl == "tiled":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+            HybridSpMM(rp, ci, nn, PlanConfig(band_impl=band_impl, band_h=128))
+        return
+    op, jop = both(rp, ci, nn, cfg=dict(band_impl=band_impl))
+    assert not op.transposed
+    x = np.random.RandomState(0).randn(nn, 16).astype(np.float32)
+    got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 16)
+    assert rel_err(got, jop.unpad_output(jop.apply_padded(
+        jop.arrays, jop.pad_input(jnp.asarray(x))), 16)) < RTOL
+    assert rel_err(got, dense_a(rp, ci, nn) @ x) < RTOL
 
 
 def test_prefer_fused_kernel_raises():

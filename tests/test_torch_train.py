@@ -24,7 +24,7 @@ from hcspmm_tpu.train.loop import make_train_step as jax_make_train_step
 
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.graphs import io
-from hcspmm_tpu_torch.models.net import Net, net_forward, params_from_jax
+from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward, params_from_jax
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
 from hcspmm_tpu_torch.train import cli
 from hcspmm_tpu_torch.train.loop import Bound, make_train_step
@@ -42,14 +42,14 @@ def rel_err(got, ref):
     return np.abs(got - ref).max() / (np.abs(ref).max() + 1e-30)
 
 
-def setup(model, dropout=0.5, graph=lambda: small_graph(300, 6), cfg=TBAND):
+def setup(model, dropout=0.5, graph=lambda: small_graph(300, 6), cfg=TBAND, dims=DIMS):
     rp, ci, nn = graph()
     op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg))
     jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg))
-    jnet = JaxNet(model=model, dropout=dropout, **DIMS)
-    net = Net(model=model, dropout=dropout, **DIMS)
+    jnet = JaxNet(model=model, dropout=dropout, **dims)
+    net = Net(model=model, dropout=dropout, **dims)
     jparams = jax_init_net_params(jnet, jax.random.PRNGKey(0), init="glorot")
-    x = np.random.RandomState(0).randn(nn, DIMS["num_features"]).astype(np.float32)
+    x = np.random.RandomState(0).randn(nn, dims["num_features"]).astype(np.float32)
     return op, jop, net, jnet, jparams, x
 
 
@@ -58,6 +58,20 @@ def test_net_forward_matches_jax(model):
     """Log-probabilities of the port's padded-layout forward against the
     JAX package's, same weights (fp32, within 1e-5 of max|ref|)."""
     op, jop, net, jnet, jparams, x = setup(model)
+    want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
+    with torch.no_grad():
+        got = net_forward(net, params_from_jax(jparams), Bound(op), op.pad_input(x),
+                          out_slice=lambda h: op.unpad_output(h, net.num_classes))
+    assert got.shape == want.shape == (x.shape[0], DIMS["num_classes"])
+    assert rel_err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin", "sage"])
+def test_net_forward_on_wide_plan_matches_jax(model):
+    """The same forward pass in the wide padded layout [M, dp], hidden 130
+    (two 128-column blocks)."""
+    op, jop, net, jnet, jparams, x = setup(model, cfg=dict(impl="pallas", band_impl="wide"),
+                                           dims=dict(DIMS, hidden=130))
     want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
     with torch.no_grad():
         got = net_forward(net, params_from_jax(jparams), Bound(op), op.pad_input(x),
@@ -81,6 +95,43 @@ def test_adam_steps_on_spill_plan_match_jax_train_step():
                  cfg=dict(TBAND, band_widths=(128,), band_mode="auto"))
     assert case[0].plan.spill_nnz > 0
     _adam_steps_match(*case)
+
+
+WIDE = dict(impl="pallas", band_impl="wide")
+
+
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+def test_adam_steps_on_wide_plan_match_jax_train_step(model):
+    """The same three Adam steps in the wide padded layout [M, dp]."""
+    case = setup(model, dropout=0.0, cfg=WIDE)
+    assert not case[0].transposed
+    _adam_steps_match(*case)
+
+
+def test_adam_steps_on_wide_spill_plan_match_jax_train_step():
+    """Three Adam steps on a wide plan whose row merge runs in every
+    forward and backward SpMM."""
+    case = setup("gcn", dropout=0.0, graph=lambda: small_graph(500, 8, span=400),
+                 cfg=dict(WIDE, band_h=128, band_widths=(128,), ds_kind="block"))
+    assert case[0].plan.spill_nnz > 0 and case[0].plan.ds_kind == "block"
+    _adam_steps_match(*case)
+
+
+def test_train_step_takes_a_padded_wide_input():
+    """make_train_step pads a raw [N, d] input and leaves an input already
+    in the wide layout [M, dp] as it is (it once padded it again)."""
+    op = HybridSpMM(*small_graph(300, 6), PlanConfig(**WIDE))
+    net = Net(model="gcn", dropout=0.0, **DIMS)
+    x = np.random.RandomState(0).randn(op.plan.num_nodes, DIMS["num_features"]).astype(np.float32)
+    y = torch.ones(x.shape[0], dtype=torch.int64)
+    losses = []
+    for xin in (torch.from_numpy(x), op.pad_input(x)):
+        params = init_net_params(net, torch.Generator().manual_seed(0))
+        step = make_train_step(net, op, torch.optim.Adam(
+            [t for layer in params for t in layer.values()], lr=0.01))
+        losses.append(float(step(params, xin, y)))
+    assert op.is_padded(op.pad_input(x)) and not op.is_padded(torch.from_numpy(x))
+    assert losses[0] == losses[1]
 
 
 def _adam_steps_match(op, jop, net, jnet, jparams, x):
@@ -139,6 +190,21 @@ def test_cli_default_example_trains_on_cpu(capsys):
     assert len(done) == 1 and np.isfinite(done[0]["final_loss"])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--band-impl", "wide", "--model", "gcn"],
+    ["--hidden", "96", "--model", "gin"],
+    ["--hidden", "96", "--model", "sage", "--reorder", "none"],
+])
+def test_cli_trains_wide_layout_on_cpu(tmp_path, capsys, flags):
+    """The wide padded layout through the CLI: picked by ``--band-impl
+    wide`` or by a hidden dim above 64, trained to a finite loss."""
+    path = _npz_graph(tmp_path)
+    assert cli.main(["--dataset", path, "--reorder", "rcm", "--dim", "24", "--classes", "5",
+                     "--num_layers", "3", "--epochs", "2", "--device", "cpu", *flags]) == 0
+    done = [r for r in _records(capsys.readouterr().out) if r.get("event") == "done"]
+    assert len(done) == 1 and np.isfinite(done[0]["final_loss"])
+
+
 def test_cli_single_kernel_on_cpu(tmp_path, capsys):
     path = _npz_graph(tmp_path)
     assert cli.main(["--dataset", path, "--reorder", "rcm", "--dim", "32",
@@ -148,7 +214,7 @@ def test_cli_single_kernel_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--impl", "xla"], ["--band-impl", "wide"], ["--hidden", "96"],
+    ["--impl", "xla"], ["--band-impl", "tiled"], ["--band-impl", "ring"],
     ["--checkpoint", "c.npz"], ["--resume", "c.npz"], ["--checkpoint-every", "1"],
     ["--fault-epoch", "1"], ["--dataset", "karate"],
 ])
