@@ -6,9 +6,9 @@ Phases, each of which raises on failure, with its seconds printed:
 
 1. versions of Python, PyTorch, CUDA and nvcc, and the card's name and
    power limit as nvidia-smi reports them;
-2. builds csrc/tband.cu, csrc/tspill.cu, csrc/block_spmm.cu and
-   csrc/dstream.cu with nvcc for sm_90a, one nvcc each, started together,
-   and prints ptxas's register and shared-memory lines;
+2. builds csrc/tband.cu, csrc/tspill.cu, csrc/block_spmm.cu, csrc/rows.cu
+   and csrc/dstream.cu with nvcc for sm_90a, one nvcc each, started
+   together, and prints ptxas's register and shared-memory lines;
 3. holds the band kernel against its plain PyTorch version: at the shape
    the DD-scale blocks stand-in's plan gives it (Sb 1312, W 768, bh 256,
    dt 32), at small odd shapes (dt 16, 48, 96; capacity-padded entries)
@@ -50,11 +50,30 @@ Phases, each of which raises on failure, with its seconds printed:
 12. trains GCN and GIN (dim 128, hidden 256, classes 40, 3 layers: the
     OGB ogbn-arxiv baseline's widths) for 3 epochs through ``cli.main`` on
     the blocks stand-in (rcm), DD and GH (cluster), counting launches as
-    in 7, and profiles one SpMM with ``--single_kernel --hidden 256``.
+    in 7, and profiles one SpMM with ``--single_kernel --hidden 256``;
+13. the row layout's kernels (dense windows, ELL rows, and the ELL
+    kernel's CSR mode for the residual rows) against their plain versions
+    at small odd shapes (Kb 32-256, De 4-256, D 1-256, fp32 and bf16, pad
+    rows and columns, empty buckets); bitwise repeatable;
+14. the row layout on the full-size DD stand-in (cluster order,
+    ``band_mode='never'``, intended and calibrated selectors): each kernel
+    at the plan's arrays (D 32 and 256, fp32 and bf16; timed at D 32 with
+    F.embedding_bag as the yardstick), ``apply`` against scipy (bitwise
+    repeatable), the SpMM at dim 32 beside torch.sparse.mm, and the 6-layer
+    GCN and GIN trained 3 epochs through ``train.loop.train`` with the
+    launch counters checked;
+15. trains the 6-layer GCN 2 epochs through ``cli.main --impl xla`` (the
+    plain form, row layout) on the blocks stand-in.
 
-The second-to-last line is a JSON object with the kernel table; the last
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
-a checkout of the repository, it exits non-zero and prints no result.
+The second-to-last line is a JSON object with the kernel table: for each
+kernel its launches on the main paths run here, its time, its plain
+version's, one library call's where PyTorch has one (torch.sparse.mm,
+torch.sparse.addmm, index_fill_, index_add_, F.embedding_bag), and its
+bound: the larger of the bytes it must move (each input read once, each
+output written once) at 3.35 TB/s and its fp32 operations at 67 TFLOP/s,
+computed from this run's arrays.  The last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or outside a checkout of the
+repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -80,6 +99,11 @@ SPMMS_PER_STEP = 12  # a 6-layer GCN step: 6 forward and 6 backward SpMMs
 WIDE = ["--dim", "128", "--hidden", "256", "--classes", "40", "--num_layers", "3"]
 WIDE_SPMMS = {"gcn": 6, "gin": 5}  # per step: GIN's first layer needs no input gradient
 WIDE_DIMS = (128, 256)
+ROW_DIMS = (32, 256)
+ROW_SELECTORS = ("intended", "calibrated")  # LOI selectors of the row-layout plans
+ROW_KERNEL = {"dense_bucket_spmm": "dense_rows_kernel", "ell_bucket_spmm": "ell_rows_kernel"}
+H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA's data sheet (SXM)
+H100_FP32_OPS_PER_S = 67e12    # fp32 outside the tensor cores
 DEV = "cuda"  # the kernels' checks run here (a CPU rehearsal may point it elsewhere)
 
 
@@ -191,7 +215,7 @@ def zero_counts():
 
     tband.launches = 0
     block_spmm.launches = 0
-    for counts in (tspill.launches, dstream.launches):
+    for counts in (tspill.launches, dstream.launches, block_spmm.row_launches):
         for k in counts:
             counts[k] = 0
 
@@ -200,7 +224,7 @@ def read_counts() -> dict:
     from hcspmm_tpu_torch.kernels import block_spmm, dstream, tband, tspill
 
     return dict(tband_spmm=tband.launches, band_spmm=block_spmm.launches, **tspill.launches,
-                **dstream.launches)
+                **dstream.launches, **block_spmm.row_launches)
 
 
 def check_counts(counts, need, spmms) -> None:
@@ -253,12 +277,18 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
     xt = torch.randn((32, m), generator=gen).to(dev, dtype)
     base = torch.randn((32, m), generator=gen).to(dev, dtype)
 
-    def record(name, label, err, fn_k, fn_p, reps=20):
+    elt = xt.element_size()
+
+    def record(name, label, err, fn_k, fn_p, nbytes, ops=0, fn_lib=None, reps=20):
         k_ms = cuda_time_ms(fn_k, reps)
         p_ms = cuda_time_ms(fn_p, max(reps // 4, 2))
-        log(f"    {key} {label} {cd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        lib_ms = None if fn_lib is None else cuda_time_ms(fn_lib, max(reps // 4, 2))
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"    {key} {label} {cd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.4f} ms by {b_by}")
         out.setdefault((name, cd), []).append(dict(graph=key, shape=label, err=err, ms=k_ms,
-                                                   plain_ms=p_ms))
+                                                   plain_ms=p_ms, library_ms=lib_ms,
+                                                   bound_ms=b_ms, bound_by=b_by))
 
     for ids_key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
         ids = arrs.get(ids_key)
@@ -271,8 +301,10 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
             raise AssertionError(f"{key} {label}: kernel and plain version differ")
         log(f"  {key} {label} {cd}: equal")
         buf = base.clone()
+        lanes = (ids.long()[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
         record("zero_lane_blocks", label, 0.0, lambda: tspill.zero_lane_blocks(buf, ids, w),
-               lambda: tspill.zero_lane_blocks_plain(buf, ids, w))
+               lambda: tspill.zero_lane_blocks_plain(buf, ids, w),
+               ids.shape[0] * 32 * w * elt, fn_lib=lambda: buf.index_fill_(1, lanes, 0))
 
     tables = {}
     for lo_key, rel_key, what in (("hub_lo", "hub_rel", "hub"), ("ts_lo", "ts_rel", "T1")):
@@ -286,9 +318,11 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
             raise AssertionError(f"{key} {label}: kernel and plain version differ")
         log(f"  {key} {label} {cd}: equal")
         tables[what] = got
+        real = int((rel >= 0).sum())
         record("mxgather_lanes", label, 0.0,
                lambda: tspill.mxgather_lanes(xt, lo, rel, span=plan.ts_span),
-               lambda: tspill.mxgather_lanes_plain(xt, lo, rel))
+               lambda: tspill.mxgather_lanes_plain(xt, lo, rel),
+               real * 32 * elt + got.numel() * elt + rel.numel() * 4 + lo.numel() * 4)
 
     streams = []
     if "hub_lo" in arrs:
@@ -313,9 +347,17 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
             raise AssertionError(f"{key} {label}: two kernel runs differ")
         err = check(f"{key} {label} {cd} (bitwise repeatable)", got, ref, cd)
         buf = base.clone()
+        span = group * 128
+        loc = local[: blk.shape[0]].long()
+        keep = loc < span
+        lanes = (blk.long()[:, None] * span + loc)[keep]
+        g_real = g[:, keep.reshape(-1)]
         record("tbstream_merge", label, err,
                lambda: tspill.tbstream_merge(g, local, blk, buf, group=group, runs=runs),
-               lambda: tspill.tbstream_merge_plain(g, local, blk, buf, group=group))
+               lambda: tspill.tbstream_merge_plain(g, local, blk, buf, group=group),
+               g.numel() * elt + loc.numel() * 4 + blk.numel() * 4
+               + 2 * (runs.shape[0] - 1) * 32 * span * elt, ops=g_real.numel(),
+               fn_lib=lambda: buf.index_add_(1, lanes, g_real))
 
 
 def small_spill_checks(gen) -> None:
@@ -389,6 +431,8 @@ def wide_band_checks(op, gen, out) -> None:
     st, sw, a = arrs["band0_start"], arrs["band0_sw"], arrs["band0_a"]
     m, num_sw = p.padded_rows, p.padded_rows // p.band_h
     owned = sw[sw < num_sw].long()  # the blocks of missing superwindows stay unset
+    band_csr = block_csr(a, st, sw, num_sw, m)
+    nnz = int(band_csr.values().numel())
     for dp in WIDE_DIMS:
         for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             shape = f"Sb {a.shape[0]}, Bb {a.shape[2]}, bh {a.shape[1]}, dp {dp}"
@@ -402,8 +446,16 @@ def wide_band_checks(op, gen, out) -> None:
                 sw, st, a, xp, num_sw, dtype), 20)
             p_ms = cuda_time_ms(lambda: block_spmm.band_bucket_spmm_direct_plain(
                 sw, st, a, xp, num_sw, dtype), 3)
-            log(f"  {cd} dp {dp}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-            out[(dp, cd)] = dict(err=err, ms=k_ms, plain_ms=p_ms, shape=shape)
+            b_ms, b_by = bound(a.numel() + m * dp * xp.element_size()
+                               + num_sw * a.shape[1] * dp * xp.element_size() + 8 * a.shape[0],
+                               2 * nnz * dp)
+            lib_ms = None
+            if cd == "float32":
+                lib_ms = cuda_time_ms(lambda: torch.sparse.mm(band_csr, xp), 5)
+            log(f"  {cd} dp {dp}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"torch.sparse.mm {lib_ms} ms, bound {b_ms:.4f} ms by {b_by}")
+            out[(dp, cd)] = dict(err=err, ms=k_ms, plain_ms=p_ms, shape=shape, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms)
             if dp == 128 and cd == "float32":
                 check(f"wide bucket {cd} at {shape}", block_spmm.band_bucket_spmm(st, a, xp),
                       block_spmm.band_bucket_spmm_plain(st, a, xp), cd)
@@ -501,12 +553,16 @@ def row_kernels_vs_plain(key, op, gen, out, dp=256) -> None:
     arrs = op.arrays["f"]
     m, bh = p.padded_rows, p.band_h
 
-    def record(name, cd, label, err, fn_k, fn_p, reps=10):
+    def record(name, cd, label, err, fn_k, fn_p, nbytes, ops=0, fn_lib=None, reps=10):
         k_ms = cuda_time_ms(fn_k, reps)
         p_ms = cuda_time_ms(fn_p, 2)
-        log(f"    {key} {label} {cd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        lib_ms = None if fn_lib is None else cuda_time_ms(fn_lib, 3)
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"    {key} {label} {cd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.4f} ms by {b_by}")
         out.setdefault((name, cd), []).append(dict(graph=key, shape=label, err=err, ms=k_ms,
-                                                   plain_ms=p_ms))
+                                                   plain_ms=p_ms, library_ms=lib_ms,
+                                                   bound_ms=b_ms, bound_by=b_by))
 
     for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         x = torch.randn((m, dp), generator=gen).to(dev, dtype)
@@ -520,9 +576,12 @@ def row_kernels_vs_plain(key, op, gen, out, dp=256) -> None:
                                tspill.zero_row_blocks_plain(base.clone(), ids, w)):
                 raise AssertionError(f"{key} {label} {cd}: kernel and plain version differ")
             buf = base.clone()
+            rows = (ids.long()[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
             record("zero_row_blocks", cd, label, 0.0,
                    lambda: tspill.zero_row_blocks(buf, ids, w),
-                   lambda: tspill.zero_row_blocks_plain(buf, ids, w))
+                   lambda: tspill.zero_row_blocks_plain(buf, ids, w),
+                   ids.shape[0] * w * dp * x.element_size(),
+                   fn_lib=lambda: buf.index_fill_(0, rows, 0))
         if p.ds_blk is None or p.ds_meta is not None:
             continue
         kind = p.ds_kind
@@ -544,10 +603,55 @@ def row_kernels_vs_plain(key, op, gen, out, dp=256) -> None:
                     plain(*t, src, base.clone(), group=p.ds_group), cd)
         del got, again
         buf = base.clone()
+        dest, gc = merge_slots(kind, *t, p.ds_group)
+        elt = x.element_size()
+        nbytes = (gc.numel() * dp * elt + sum(v.numel() * 4 for v in t)
+                  + 2 * (runs.shape[0] - 1) * p.ds_group * 128 * dp * elt)
+        fn_lib = None
+        if cd == "float32":
+            s_csr = torch.sparse_coo_tensor(torch.stack([dest, gc]), torch.ones(
+                dest.numel(), device=dev), (m, src.shape[0])).coalesce().to_sparse_csr()
+            fn_lib = lambda: torch.sparse.addmm(buf, s_csr, src)  # noqa: E731
         record(name, cd, label, err,
                lambda: fn(*t, src, buf, group=p.ds_group, runs=runs),
-               lambda: plain(*t, src, buf, group=p.ds_group))
+               lambda: plain(*t, src, buf, group=p.ds_group), nbytes,
+               ops=gc.numel() * dp, fn_lib=fn_lib)
         del x, base, buf, src
+
+
+def merge_slots(kind, gcols, local, blk, *rest):
+    """(destination row, source row) of every real slot of a row merge
+    stream (block or tile form; sentinel slots dropped), for the library
+    yardstick ``torch.sparse.addmm``."""
+    import torch
+
+    group = rest[-1]
+    span = group * 128
+    chunks = blk.shape[0] if kind == "block" else rest[0].shape[0]
+    loc = local.reshape(-1)[: chunks * 128].long().view(chunks, 128)
+    if kind == "block":
+        keep = loc < span
+        dest = blk.long()[:, None] * span + loc
+    else:
+        lt = rest[0].long()
+        keep = loc < 128
+        step = torch.arange(chunks, device=blk.device) // group
+        dest = (blk.long()[step] * span + lt * 128)[:, None] + loc
+    return dest[keep], gcols[: chunks * 128].long().view(chunks, 128)[keep]
+
+
+def block_csr(a, starts, sw, num_sw, m):
+    """The band blocks of ``a`` (owned entries only) as one CSR matrix
+    [num_sw*bh, m] on the card: the library yardstick's operand."""
+    import torch
+
+    i, r, k = a.nonzero(as_tuple=True)
+    keep = sw.long()[i] < num_sw
+    i, r, k = i[keep], r[keep], k[keep]
+    rows = sw.long()[i] * a.shape[1] + r
+    cols = starts.long()[i] + k
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), torch.ones(
+        rows.numel(), device=a.device), (num_sw * a.shape[1], m)).coalesce().to_sparse_csr()
 
 
 def longest_run(arrs) -> int:
@@ -576,6 +680,328 @@ def ranges_plan(plan, num_ranges=3):
         num_ranges=num_ranges, range_rows=-(-m // (128 * num_ranges)) * 128)
     return dataclasses.replace(plan, ds_gcols=g, ds_local=local, ds_blk=blk, ds_lt=lt,
                                ds_group=grp, ds_meta=meta, ds_kind="tile", ds_ucols=None)
+
+
+def median_ms(fn, reps: int, trials: int = 7) -> tuple:
+    """(median, 2nd, 6th) of ``trials`` CUDA-event timings of ``reps`` calls."""
+    v = sorted(cuda_time_ms(fn, reps) for _ in range(trials))
+    return v[len(v) // 2], v[1], v[-2]
+
+
+def device_ms(fn, reps: int, frag: str) -> float:
+    """Device-busy ms per call of ``fn`` in the kernels whose names hold
+    ``frag`` (torch.profiler), without the host's launch overhead that a
+    CUDA-event time of back-to-back small launches includes."""
+    import torch
+
+    act = torch.profiler.ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and frag in e.name)
+    if not busy:
+        raise AssertionError(f"torch.profiler saw no device time in kernels named *{frag}*")
+    return busy / 1e3 / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms, what bounds it) for moving ``nbytes`` at the H100's
+    3.35 TB/s and doing ``ops`` fp32 operations at its 67 TFLOP/s outside
+    the tensor cores (the kernels sum on the CUDA cores in fp32)."""
+    t_b, t_o = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_FP32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def small_row_kernel_checks(gen) -> None:
+    """The dense and ELL kernels (and the ELL kernel's CSR mode) against
+    their plain versions at small odd shapes: Kb 32/64/96/256, De 4-256, D
+    1/20/32/96/256, fp32 and bf16 tables, pad columns past the table, pad
+    rows and all-pad windows, empty buckets, a residual with an empty row
+    and a 5000-edge hub row; every result bitwise repeatable."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+
+    dev = torch.device(DEV)
+    rng = np.random.RandomState(13)
+    before = dict(block_spmm.row_launches)
+    x0 = torch.randn((100, 32), device=dev)
+    none = torch.zeros((0, 32), dtype=torch.int32, device=dev)
+    if (block_spmm.dense_bucket_spmm(none, torch.zeros((0, 16, 32), dtype=torch.int8, device=dev),
+                                     x0).shape != (0, 16, 32)
+            or block_spmm.ell_bucket_spmm(none, x0).shape != (0, 32)
+            or block_spmm.row_launches != before):
+        raise AssertionError("an empty bucket must launch nothing")
+    n = 3000
+
+    def pads(shape, frac):
+        c = rng.randint(0, n, shape)
+        c[rng.rand(*shape) < frac] = n  # past the table: the reference's zero row
+        return c
+
+    def same(name, fn, plain):
+        got, again = fn(), fn()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two kernel runs differ")
+        err, rel = rel_err(got.cpu(), plain().cpu())
+        if not rel <= TOL["float32"]:
+            raise AssertionError(f"{name}: rel err {rel:.3e} > {TOL['float32']:g}")
+
+    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for d in (1, 20, 32, 96, 256):
+            x = torch.randn((n, d), generator=gen).to(dev, dtype)
+            for kb in (32, 64, 96, 256):
+                wb = 19
+                cols = pads((wb, kb), 0.2)
+                cols[wb - 1] = n  # an all-pad window (capacity padding)
+                a = (rng.rand(wb, 16, kb) < 0.1).astype(np.int8)
+                a[np.broadcast_to(cols[:, None, :] == n, a.shape)] = 0
+                c_t = torch.from_numpy(cols.astype(np.int32)).to(dev)
+                a_t = torch.from_numpy(a).to(dev)
+                same(f"dense Kb {kb} D {d} {cd}", lambda: block_spmm.dense_bucket_spmm(c_t, a_t, x),
+                     lambda: block_spmm.dense_bucket_spmm_plain(c_t, a_t, x))
+            for de in (4, 8, 16, 32, 64, 128, 256):
+                rb = 53
+                cols = rng.randint(0, n, (rb, de))
+                cols[np.arange(de)[None, :] >= rng.randint(1, de + 1, rb)[:, None]] = n
+                cols[rb - 3:] = n  # pad rows
+                c_t = torch.from_numpy(cols.astype(np.int32)).to(dev)
+                same(f"ELL De {de} D {d} {cd}", lambda: block_spmm.ell_bucket_spmm(c_t, x),
+                     lambda: block_spmm.ell_bucket_spmm_plain(c_t, x))
+            lens = np.array([3, 0, 5000, 1, 600, 17])
+            ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)).to(dev)
+            cols = torch.from_numpy(pads((int(lens.sum()) + 9,), 0.05).astype(np.int32)).to(dev)
+            same(f"residual D {d} {cd}", lambda: block_spmm.ell_residual_spmm(ptr, cols, x),
+                 lambda: block_spmm.ell_residual_spmm_plain(ptr, cols, x))
+        log(f"  {cd} tables: dense (Kb 32-256), ELL (De 4-256) and residual rows at D "
+            f"1/20/32/96/256 within {TOL['float32']:g} of their plain versions, bitwise "
+            "repeatable: pass")
+
+
+def row_population(plan) -> str:
+    """The dense and ELL buckets and the residual of a row-layout plan."""
+    import numpy as np
+
+    dense = ", ".join(f"Kb {kb}: {len(w)}/{c.shape[0]}" for kb, w, c in zip(
+        plan.bucket_widths, plan.bucket_window_ids, plan.bucket_cols) if c.shape[0])
+    ell = ", ".join(f"De {de}: {len(r)}/{c.shape[0]}" for de, r, c in zip(
+        plan.ell_widths, plan.ell_row_ids, plan.ell_cols) if c.shape[0])
+    seg = plan.sparse_edge_seg[plan.sparse_edge_seg < plan.num_sparse_rows]
+    return (f"dense windows {plan.num_dense_windows} ({dense}; real/capacity), "
+            f"{plan.dense_nnz} nnz; ELL rows ({ell}); residual {len(np.unique(seg))} rows / "
+            f"{len(seg)} edges; sparse nnz {plan.sparse_nnz}")
+
+
+def row_kernels_at_plan(key, op, gen, out) -> None:
+    """Each row kernel against its plain version at ``op``'s own plan
+    arrays, at D 32 and 256, fp32 and bf16 tables; at D 32 in fp32 the whole
+    population's launches (and the plain versions and the one-call library
+    yardstick, F.embedding_bag) are timed, with the bound computed from
+    these arrays.  Results go into ``out``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+
+    p, arrs = op.plan, op.arrays["f"]
+    n, wh = p.num_nodes, p.window_h
+    dense = [(arrs[f"b{b}_cols"], arrs[f"b{b}_a"], p.bucket_cols[b])
+             for b in range(len(p.bucket_widths)) if p.bucket_cols[b].shape[0]]
+    ell = [(arrs[f"e{e}_cols"], p.ell_cols[e]) for e in range(len(p.ell_widths))
+           if p.ell_cols[e].shape[0]]
+    ptr, rcols = arrs["sparse_seg_ptr"], arrs["sparse_edge_col"]
+    for d in ROW_DIMS:
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x = torch.randn((n, d), generator=gen).to(DEV, dtype)
+            errs = {}
+            for name, runs in (
+                    ("dense_bucket_spmm", [(lambda c=c, a=a: block_spmm.dense_bucket_spmm(c, a, x),
+                                            lambda c=c, a=a: block_spmm.dense_bucket_spmm_plain(
+                                                c, a, x)) for c, a, _ in dense]),
+                    ("ell_bucket_spmm", [(lambda c=c: block_spmm.ell_bucket_spmm(c, x),
+                                          lambda c=c: block_spmm.ell_bucket_spmm_plain(c, x))
+                                         for c, _ in ell]),
+                    ("ell_residual", [(lambda: block_spmm.ell_residual_spmm(ptr, rcols, x),
+                                       lambda: block_spmm.ell_residual_spmm_plain(ptr, rcols, x))])):
+                err = 0.0
+                for fn, plain in runs:
+                    got = fn()
+                    if not torch.equal(got, fn()):
+                        raise AssertionError(f"{key} {name} D {d} {cd}: two kernel runs differ")
+                    err = max(err, check(f"{key} {name} D {d} {cd}", got, plain(), "float32"))
+                errs[name] = err
+            if (d, cd) != (32, "float32"):
+                continue
+            xz = torch.cat([x, torch.zeros((1, d), device=DEV)])
+            elt = x.element_size()
+
+            def uniq(cols):
+                v = np.unique(np.concatenate([c.ravel() for c in cols] + [[n]]))
+                return int(np.count_nonzero(v < n))
+
+            shapes = {
+                "dense_bucket_spmm": dict(
+                    kernel=lambda: [block_spmm.dense_bucket_spmm(c, a, x) for c, a, _ in dense],
+                    plain=lambda: [block_spmm.dense_bucket_spmm_plain(c, a, x)
+                                   for c, a, _ in dense],
+                    library=[(c.long()[:, None, :].expand(-1, wh, -1).reshape(-1, c.shape[1]),
+                              a.float().reshape(-1, c.shape[1])) for c, a, _ in dense],
+                    nbytes=uniq([h for _, _, h in dense]) * d * elt + sum(
+                        h.size * (4 + wh) + h.shape[0] * wh * d * 4 for _, _, h in dense),
+                    ops=2 * p.dense_nnz * d,
+                    shape="; ".join(f"Wb {h.shape[0]} x Kb {h.shape[1]}" for _, _, h in dense)),
+                "ell_bucket_spmm": dict(
+                    kernel=lambda: [block_spmm.ell_bucket_spmm(c, x) for c, _ in ell],
+                    plain=lambda: [block_spmm.ell_bucket_spmm_plain(c, x) for c, _ in ell],
+                    library=[(c.long(), None) for c, _ in ell],
+                    nbytes=uniq([h for _, h in ell]) * d * elt + sum(
+                        h.size * 4 + h.shape[0] * d * 4 for _, h in ell),
+                    ops=sum(int(np.count_nonzero(h < n)) for _, h in ell) * d,
+                    shape="; ".join(f"Rb {h.shape[0]} x De {h.shape[1]}" for _, h in ell)),
+            }
+            for name, s in shapes.items():
+                if not s["library"]:
+                    continue  # an empty population
+                wall, lo, hi = median_ms(s["kernel"], 20)
+                ms = device_ms(s["kernel"], 20, ROW_KERNEL[name])
+                p_ms = cuda_time_ms(s["plain"], 3)
+                lib_ms = cuda_time_ms(lambda: [F.embedding_bag(i, xz, per_sample_weights=w,
+                                                               mode="sum")
+                                               for i, w in s["library"]], 10)
+                b_ms, b_by = bound(s["nbytes"], s["ops"])
+                log(f"    {key} {name} D 32 fp32 ({s['shape']}): kernel {ms:.4f} ms of device "
+                    f"time ({wall:.4f} ms [{lo:.4f}-{hi:.4f}] with the host's launches), plain "
+                    f"{p_ms:.4f}, embedding_bag {lib_ms:.4f}, bound {b_ms:.4f} ms by {b_by} "
+                    f"({s['nbytes'] / 1e6:.1f} MB)")
+                out[(key, name)] = dict(err=errs[name], ms=ms, wall_ms=wall, plain_ms=p_ms,
+                                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                                        shape=s["shape"])
+            del x, xz
+
+
+def profile_epochs(net, op, x, y, params, epochs: int = 5) -> tuple:
+    """(wall ms, device-busy ms, busy ms by kernel group) per epoch of
+    ``epochs`` training steps under torch.profiler, grouped as
+    ``utils/epoch_profile.py`` groups them."""
+    import torch
+
+    from hcspmm_tpu_torch.train.loop import layout_input, make_train_step
+    from hcspmm_tpu_torch.utils.epoch_profile import group_of
+
+    step = make_train_step(net, op, torch.optim.Adam(
+        [t for layer in params for t in layer.values()], lr=0.01))
+    x = layout_input(op, x)
+    y = torch.as_tensor(y).to(op.device)
+    gen = torch.Generator(device=op.device).manual_seed(0)
+    step(params, x, y, gen)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            step(params, x, y, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / epochs
+    groups = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = group_of(e.name)
+            groups[g] = groups.get(g, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / epochs
+    groups = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+    return wall, sum(groups.values()), groups
+
+
+def row_layout_phase(rp, ci, n, gen, out, launch_runs) -> None:
+    """The row layout on a full-size graph (``band_mode='never'``, the
+    intended and the calibrated selector): plan populations, ``apply``
+    against scipy in fp32 and bf16 (bitwise repeatable), the SpMM's time at
+    dim 32 beside torch.sparse.mm, the 6-layer GCN and GIN trained 3 epochs
+    through ``train.loop.train`` with the launch counters zeroed before and
+    read after; then, once every host-clock time is taken, the profiled
+    parts: each kernel at the plan's arrays, the SpMM's device-busy time,
+    an epoch's breakdown, and the SpMM's time again."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.models.net import Net
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+    from hcspmm_tpu_torch.train.loop import train
+
+    dev = torch.device(DEV)
+    xd = torch.from_numpy(np.random.RandomState(0).randn(n, 32).astype(np.float32)).to(dev)
+    ref = csr_matmul(rp, ci, n, xd.cpu().numpy())
+    a_csr = torch.sparse_csr_tensor(torch.from_numpy(rp.astype(np.int64)),
+                                    torch.from_numpy(ci.astype(np.int64)),
+                                    torch.ones(len(ci)), size=(n, n)).to(dev)
+    xin = torch.from_numpy(np.random.RandomState(1).randn(n, 96).astype(np.float32))
+    y = np.ones(n, dtype=np.int64)
+    ops, gcn_params = {}, {}
+    for sel in ROW_SELECTORS:
+        for cd in ("bfloat16", "float32"):
+            t0 = time.perf_counter()
+            op = HybridSpMM(rp, ci, n, PlanConfig(band_mode="never", loi_mode=sel,
+                                                  compute_dtype=cd), device=dev)
+            if op.supports_padded:
+                raise AssertionError("a band_mode='never' plan has no padded path")
+            log(f"  DD {sel} {cd}: {row_population(op.plan)}; plan and upload "
+                f"{time.perf_counter() - t0:.1f} s")
+            with torch.no_grad():
+                got = op(xd)
+                if not torch.equal(got, op(xd)):
+                    raise AssertionError(f"DD {sel} {cd}: two row SpMMs differ")
+            check(f"DD {sel} {cd} apply vs scipy (bitwise repeatable)", got, ref, cd)
+        ops[sel] = op  # the float32 operator
+
+    def spmm_time(sel):
+        op = ops[sel]
+        with torch.no_grad():
+            ms, lo, hi = median_ms(lambda: op(xd), 10)
+        log(f"  DD {sel}: row SpMM {ms:.4f} ms [{lo:.4f}-{hi:.4f}] at dim 32 fp32 "
+            f"({op.plan.nnz / ms / 1e6:.3f} Gnnz/s)")
+        return ms
+
+    for sel, op in ops.items():
+        sp_ms, _, _ = median_ms(lambda: torch.sparse.mm(a_csr, xd), 10)
+        log(f"  torch.sparse.mm {sp_ms:.4f} ms ({op.plan.nnz / sp_ms / 1e6:.3f} Gnnz/s)")
+        out[("spmm", sel)] = dict(ms=spmm_time(sel), sparse_mm_ms=sp_ms)
+        for model, per_step in (("gcn", 12), ("gin", 11)):
+            net = Net(model, 96, 32, 22, 6)
+            zero_counts()
+            res = train(net, op, xin, y, epochs=3)
+            counts = read_counts()
+            spmms = per_step * (WARMUP_EPOCHS + 3)
+            log(f"  DD {sel} {model}: epoch_ms {res['epoch_ms']:.3f}, final_loss "
+                f"{res['final_loss']}; launches {counts} over {spmms} SpMMs")
+            if not math.isfinite(res["final_loss"]):
+                raise AssertionError(f"DD {sel} {model}: loss is not finite")
+            check_counts(counts, {"dense_bucket_spmm": 1, "ell_bucket_spmm": 1}, spmms)
+            launch_runs[f"DD rows {sel} {model}"] = counts
+            if model == "gcn":
+                gcn_params[sel] = (net, res["params"])
+
+    for sel, op in ops.items():  # torch.profiler from here on
+        row_kernels_at_plan(f"DD {sel}", op, gen, out)
+        with torch.no_grad():
+            busy = device_ms(lambda: op(xd), 10, "")
+        log(f"  DD {sel}: row SpMM device busy {busy:.4f} ms")
+        out[("spmm", sel)]["busy_ms"] = busy
+        net, params = gcn_params[sel]
+        wall, busy, groups = profile_epochs(net, op, xin, y, params)
+        log(f"  DD {sel} gcn, 5 profiled epochs: wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms ({1 - busy / wall:.1%} idle); busy ms per epoch "
+            + ", ".join(f"{g} {v:.3f}" for g, v in groups.items()))
+        out[("epoch", sel)] = dict(wall_ms=wall, busy_ms=busy, groups=groups)
+        log(f"  DD {sel}, after the profiler sessions:")
+        out[("spmm", sel)]["after_profiler_ms"] = spmm_time(sel)
+    del ops, gcn_params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -612,12 +1038,12 @@ def main() -> int:
             f"cuda {torch.version.cuda}  nvcc {nvcc_ver}")
         log(smi)
 
-    with Phase("2. build the four CUDA sources"):
-        libs = (tband, tspill, block_spmm, dstream)
+    with Phase("2. build the five CUDA sources"):
+        libs = (tband._lib, tspill._lib, block_spmm._lib, block_spmm._rows_lib, dstream._lib)
         with ThreadPoolExecutor(len(libs)) as pool:
-            for f in [pool.submit(mod._lib) for mod in libs]:
+            for f in [pool.submit(load) for load in libs]:
                 f.result()
-        for name in ("tband", "tspill", "block_spmm", "dstream"):
+        for name in ("tband", "tspill", "block_spmm", "rows", "dstream"):
             with open(_build.library_path(name) + ".log") as f:
                 for line in f:
                     if any(w in line for w in ("Compiling", "registers", "spill")):
@@ -645,6 +1071,10 @@ def main() -> int:
         num_sw = m // plan.band_h
         shape = f"Sb {at.shape[0]}, W {at.shape[1]}, bh {at.shape[2]}, dt 32"
         slice_res = {}
+        nnz = int(at.count_nonzero())
+        a_csr = torch.sparse_csr_tensor(torch.from_numpy(rp.astype(np.int64)),
+                                        torch.from_numpy(ci.astype(np.int64)),
+                                        torch.ones(len(ci)), size=(n, n)).to(dev)
         for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             xt = torch.randn((32, m), generator=gen).to(dev, dtype)
             got = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)
@@ -656,8 +1086,17 @@ def main() -> int:
                                                                 dtype), 50)
             p_ms = cuda_time_ms(lambda: tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw,
                                                                       dtype), 10)
-            log(f"  {cd}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-            slice_res[cd] = dict(err=err, ms=k_ms, plain_ms=p_ms)
+            elt = xt.element_size()
+            b_ms, b_by = bound(at.numel() + xt.numel() * elt + 32 * num_sw * plan.band_h * elt
+                               + 8 * at.shape[0], 2 * nnz * 32)
+            lib_ms = None
+            if cd == "float32":
+                x_rows = xt[:, :n].T.contiguous()
+                lib_ms = cuda_time_ms(lambda: torch.sparse.mm(a_csr, x_rows), 10)
+            log(f"  {cd}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm "
+                f"{lib_ms} ms, bound {b_ms:.4f} ms by {b_by}")
+            slice_res[cd] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms)
 
         for dt in (16, 48, 96):
             for bh in (128, 256):
@@ -788,6 +1227,7 @@ def main() -> int:
             rpk, cik = gio.to_csr(s_e, d_e, nk)
             rpk, cik = reorder.apply_permutation(rpk, cik, nk,
                                                  reorder.cluster_reorder(rpk, cik, nk))
+            dd_graph = (rpk, cik, nk)
             op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="wide"), device=dev)
             log(f"  DD wide plan ({time.perf_counter() - t0:.1f} s)")
             wide_res = {}
@@ -898,6 +1338,24 @@ def main() -> int:
             log(f"  blocks --single_kernel --hidden 256: avg_ms {rec['avg_ms']:.4f}, "
                 f"{rec['gnnz_per_s']:.3f} Gnnz/s")
 
+        with Phase("13. row kernels (dense, ELL, residual) vs plain versions, small odd shapes"):
+            small_row_kernel_checks(gen)
+
+        rows_res = {}
+        with Phase("14. the row layout on DD (band_mode='never'): kernels, apply, training"):
+            row_layout_phase(*dd_graph, gen, rows_res, launch_runs)
+
+        with Phase("15. --impl xla through cli.main on the blocks stand-in"):
+            zero_counts()
+            lines = run_cli(["--dataset", path, "--reorder", "rcm", *GCN, "--epochs", "2",
+                             "--impl", "xla"])
+            done, prep = records(lines, "done"), records(lines, "preprocess")
+            if prep["layout"] != "rows" or not math.isfinite(done["final_loss"]):
+                raise AssertionError(f"--impl xla: layout {prep['layout']}, final_loss "
+                                     f"{done['final_loss']}")
+            log(f"  epoch_ms {done['epoch_ms']:.3f}, final_loss {done['final_loss']}; "
+                f"launches {read_counts()} (the plain form launches none)")
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -908,61 +1366,45 @@ def main() -> int:
     def row_at(name, graph):
         return next(r for r in row_res[(name, "float32")] if r["graph"] == graph)
 
+    def entry(name, source, replaces, r, shape, err=None, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces, **extra,
+                    launches=launches(name), max_abs_err=r["err"] if err is None else err,
+                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"], shape=shape)
+
     zero, mxg, merge = (at("zero_lane_blocks", "DD", "x [32, 2048]"),
                         at("mxgather_lanes", "GH", "T1"), at("tbstream_merge", "GH", "cold"))
     wide = wide_res[(256, "float32")]
-    kernels = [{
-        "name": "tband_spmm",
-        "route": "cuda",
-        "source": "hcspmm_tpu_torch/csrc/tband.cu",
-        "replaces": "hcspmm_tpu/kernels/tband.py:217",
-        "also_replaces": "hcspmm_tpu/kernels/tband.py:246",
-        "launches": launches("tband_spmm"),
-        "max_abs_err": slice_res["float32"]["err"],
-        "ms": slice_res["float32"]["ms"],
-        "plain_ms": slice_res["float32"]["plain_ms"],
-        "shape": shape + ", float32, direct write",
-    }] + [{
-        "name": name,
-        "route": "cuda",
-        "source": "hcspmm_tpu_torch/csrc/tspill.cu",
-        "replaces": replaces,
-        "launches": launches(name),
-        "max_abs_err": max(r["err"] for r in spill_res[(name, "float32")]),
-        "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-        "shape": f"{r['graph']} {r['shape']}, dt 32, float32",
-    } for name, replaces, r in (
-        ("zero_lane_blocks", "hcspmm_tpu/kernels/tspill.py:55", zero),
-        ("mxgather_lanes", "hcspmm_tpu/kernels/tspill.py:280", mxg),
-        ("tbstream_merge", "hcspmm_tpu/kernels/tspill.py:151", merge))] + [{
-        "name": "band_spmm",
-        "route": "cuda",
-        "source": "hcspmm_tpu_torch/csrc/block_spmm.cu",
-        "replaces": "hcspmm_tpu/kernels/block_spmm.py:459",
-        "also_replaces": "hcspmm_tpu/kernels/block_spmm.py:317",
-        "launches": launches("band_spmm"),
-        "max_abs_err": max(v["err"] for (_, cd), v in wide_res.items() if cd == "float32"),
-        "ms": wide["ms"],
-        "plain_ms": wide["plain_ms"],
-        "shape": f"DD wide plan {wide['shape']}, float32, direct write",
-    }] + [{
-        "name": name,
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": launches(name),
-        "max_abs_err": max(v["err"] for v in row_res[(name, "float32")]),
-        "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-        "shape": f"{r['graph']} wide plan {r['shape']}, float32",
-    } for name, source, replaces, r in (
-        ("zero_row_blocks", "hcspmm_tpu_torch/csrc/tspill.cu",
-         "hcspmm_tpu/kernels/tspill.py:101", row_at("zero_row_blocks", "GH")),
-        ("bstream_merge", "hcspmm_tpu_torch/csrc/dstream.cu",
-         "hcspmm_tpu/kernels/dstream.py:283", row_at("bstream_merge", "GH")),
-        ("dstream_merge", "hcspmm_tpu_torch/csrc/dstream.cu",
-         "hcspmm_tpu/kernels/dstream.py:457", row_at("dstream_merge", "DD tile")))]
+    dense, ell = rows_res[("DD calibrated", "dense_bucket_spmm")], rows_res[
+        ("DD intended", "ell_bucket_spmm")]
+    csrc = "hcspmm_tpu_torch/csrc/"
+    tpu = "hcspmm_tpu/kernels/"
+    kernels = [
+        entry("tband_spmm", csrc + "tband.cu", tpu + "tband.py:217", slice_res["float32"],
+              shape + ", float32, direct write", also_replaces=tpu + "tband.py:246"),
+        *[entry(name, csrc + "tspill.cu", tpu + replaces, r,
+                f"{r['graph']} {r['shape']}, dt 32, float32",
+                err=max(v["err"] for v in spill_res[(name, "float32")]))
+          for name, replaces, r in (("zero_lane_blocks", "tspill.py:75", zero),
+                                    ("mxgather_lanes", "tspill.py:351", mxg),
+                                    ("tbstream_merge", "tspill.py:189", merge))],
+        entry("band_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:459", wide,
+              f"DD wide plan {wide['shape']}, float32, direct write",
+              err=max(v["err"] for (_, cd), v in wide_res.items() if cd == "float32"),
+              also_replaces=tpu + "block_spmm.py:317"),
+        *[entry(name, csrc + source, tpu + replaces, r,
+                f"{r['graph']} wide plan {r['shape']}, float32",
+                err=max(v["err"] for v in row_res[(name, "float32")]))
+          for name, source, replaces, r in (
+              ("zero_row_blocks", "tspill.cu", "tspill.py:101", row_at("zero_row_blocks", "GH")),
+              ("bstream_merge", "dstream.cu", "dstream.py:283", row_at("bstream_merge", "GH")),
+              ("dstream_merge", "dstream.cu", "dstream.py:457",
+               row_at("dstream_merge", "DD tile")))],
+        entry("dense_bucket_spmm", csrc + "rows.cu", tpu + "block_spmm.py:127", dense,
+              f"DD calibrated row plan, {dense['shape']}, D 32, float32, all buckets"),
+        entry("ell_bucket_spmm", csrc + "rows.cu", tpu + "block_spmm.py:178", ell,
+              f"DD intended row plan, {ell['shape']}, D 32, float32, all buckets"),
+    ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels, "launches_by_run": launch_runs}))

@@ -1,7 +1,8 @@
-"""Band SpMM over the wide padded layout [M, dp], on one H100.
+"""Hybrid SpMM on one H100: the wide padded layout [M, dp] and the row
+layout [N, d].
 
-Port of the wide band path of hcspmm_tpu/kernels/block_spmm.py.
-Activations are row-major ``[M, dp]`` (M = plan.padded_rows, dp the
+Port of hcspmm_tpu/kernels/block_spmm.py.  In the wide padded layout,
+activations are row-major ``[M, dp]`` (M = plan.padded_rows, dp the
 feature dim rounded up to 128; rows past num_nodes and columns past the
 feature dim are zero), and superwindow i computes
 
@@ -23,9 +24,19 @@ CPU; for a CUDA tensor it launches the kernel or raises.
 the main bucket's direct write, the other buckets' blocks scattered over
 theirs, the missing superwindows zeroed (``tspill.zero_row_blocks``), and
 the spill population added by ``apply_spill`` (``dstream.dstream_spill``,
-or the take path).  ``check_plan`` admits exactly the plans the
-reference's ``spmm_padded_supported`` admits on this layout; the rest raise
-instead of losing edges.
+or the take path).  ``spmm_padded_supported`` is the reference's test of
+which plans have that path; ``check_plan`` raises for any other plan.
+
+``spmm_rows`` is one SpMM in the row layout [N, d] -> [N, d] (the
+reference's ``spmm_pallas``, HC-SpMM's own hybrid): band buckets through
+the band kernel, then the dense windows (``dense_bucket_spmm``, the
+reference's tensor-core population), the ELL rows (``ell_bucket_spmm``,
+its CUDA-core warp-per-row loop) and the residual hub rows (the ELL
+kernel's CSR mode, ``ell_residual_spmm``), each writing its rows of one
+fp32 buffer that the ``out_perm`` merge (a torch ``index_select``) puts in
+row order; spill is added by the take path.  The two kernels are
+``csrc/rows.cu``; ``rows_check`` raises for the plans the row layout does
+not run here.
 """
 
 from __future__ import annotations
@@ -44,6 +55,10 @@ from hcspmm_tpu_torch.kernels._build import load_library
 #: zeroes it before a run of the main path and reads it after.
 launches = 0
 
+#: Launches of the two kernels of csrc/rows.cu, counted where a wrapper
+#: launches one (``ell_residual`` is the ELL kernel in its CSR mode).
+row_launches = {"dense_bucket_spmm": 0, "ell_bucket_spmm": 0, "ell_residual": 0}
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -54,9 +69,65 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _rows_lib() -> ctypes.CDLL:
+    lib = load_library("rows")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hcspmm_dense_bucket_spmm.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64, i32, i32, vp]
+    lib.hcspmm_ell_spmm.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, i32, vp]
+    for fn in (lib.hcspmm_dense_bucket_spmm, lib.hcspmm_ell_spmm):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def lane_pad(d: int) -> int:
     """Feature dim padded to the wide layout's 128 columns."""
     return max(128, -(-d // 128) * 128)
+
+
+def spmm_padded_supported(plan) -> bool:
+    """The reference's ``spmm_padded_supported`` (hcspmm_tpu/kernels/
+    block_spmm.py:768): True when the closed padded layout can run
+    ``plan`` — every superwindow owned by one band bucket, or a partial
+    cover whose uncovered edges all ride the spill population (no dense,
+    ELL or residual rows) — with every band slice inside M.  Other plans
+    run in the row layout."""
+    if getattr(plan, "tiled", False):
+        return True
+    if plan.band_padded_ok:
+        num_sw = plan.padded_rows // plan.band_h
+        if sum(len(s) for s in plan.band_sw_ids) == num_sw:
+            return True
+    if not (plan.band_widths and plan.num_cols == plan.num_nodes
+            and plan.dense_nnz == 0 and plan.sparse_nnz == 0):
+        return False
+    m = plan.padded_rows
+    for s, w in enumerate(plan.band_widths):
+        st = plan.band_starts[s][: len(plan.band_sw_ids[s])]
+        if len(st) and int(st.max()) + w > m:
+            return False
+        if len(plan.band_starts[s]) > len(plan.band_sw_ids[s]) and w > m:
+            return False
+    return True
+
+
+def rows_check(plan, a_dtype: str = "int8") -> None:
+    """Raise NotImplementedError for the non-tband plans this package does
+    not run: row-partitioned (rectangular or shard-uniform) plans, the
+    tiled band and int4 band blocks.  Every other plan runs in the row
+    layout (``spmm_rows``) and, where ``spmm_padded_supported``, also in
+    the wide padded layout."""
+    if plan.num_cols != plan.num_nodes or getattr(plan, "shard_uniform", False):
+        raise NotImplementedError(
+            "rectangular and shard plans: the row-partitioned distributed "
+            "SpMM (hcspmm_tpu/parallel) is ROADMAP A.10")
+    if getattr(plan, "tiled", False):
+        raise NotImplementedError(
+            "band_impl='tiled': the tiled band kernel (hcspmm_tpu/kernels/"
+            "block_spmm.py:band_tiled_spmm) is ROADMAP A.11")
+    if a_dtype == "int4":
+        raise NotImplementedError("a_dtype='int4' band blocks are not ported "
+                                  "(ROADMAP A.12)")
 
 
 def check_plan(plan) -> None:
@@ -65,21 +136,18 @@ def check_plan(plan) -> None:
     band and spill populations only, every superwindow either covered by
     one band entry or listed as missing (its block is zeroed and its edges
     spill), and band slices inside the padded layout.  These are the plans
-    the reference's ``spmm_padded_supported`` admits here."""
-    if getattr(plan, "tiled", False):
-        raise NotImplementedError(
-            "band_impl='tiled': the tiled band kernel (hcspmm_tpu/kernels/"
-            "block_spmm.py:band_tiled_spmm) is ROADMAP A.11")
+    the reference's ``spmm_padded_supported`` admits here (a cover it
+    would accept with blocks that no entry owns raises)."""
+    rows_check(plan)
     if plan.dense_nnz or plan.sparse_nnz:
         raise NotImplementedError(
             "the dense and sparse row-merge populations (dense_nnz="
             f"{plan.dense_nnz}, sparse_nnz={plan.sparse_nnz}) and their "
-            "out_perm merge are the row layout, ROADMAP A.7")
-    if not plan.band_widths or plan.num_cols != plan.num_nodes:
+            "out_perm merge run in the row layout (spmm_rows)")
+    if not plan.band_widths:
         raise NotImplementedError(
-            "the wide padded layout needs a square plan with band buckets; "
-            "other plans run in the row layout (ROADMAP A.7) or are "
-            "row-partitioned (A.10)")
+            "the wide padded layout needs band buckets; this plan runs in "
+            "the row layout (spmm_rows)")
     m = plan.padded_rows
     num_sw = m // plan.band_h
     covered = sum(len(s) for s in plan.band_sw_ids)
@@ -88,14 +156,11 @@ def check_plan(plan) -> None:
         raise NotImplementedError(
             f"band entries cover {covered} and {missing} are missing of "
             f"{num_sw} superwindows: a plan whose blocks do not all have "
-            "one owner would leave output unset (ROADMAP A.7)")
-    for s, w in enumerate(plan.band_widths):
-        st = plan.band_starts[s][: len(plan.band_sw_ids[s])]
-        if (len(st) and int(st.max()) + w > m) or (
-                len(plan.band_starts[s]) > len(st) and w > m):
-            raise NotImplementedError(
-                f"bucket {s}: band slices of width {w} leave the padded "
-                f"layout of {m} rows (ROADMAP A.7)")
+            "one owner would leave output unset")
+    if not spmm_padded_supported(plan):
+        raise NotImplementedError(
+            f"band slices leave the padded layout of {m} rows: this plan runs "
+            "in the row layout (spmm_rows)")
 
 
 def check_band_arrays(starts: np.ndarray, sw_ids: np.ndarray, w: int, m: int,
@@ -133,6 +198,50 @@ def band_bucket_spmm_direct_plain(sw_ids, starts, a, xp, num_sw, out_dtype):
     keep = sw_ids < num_sw
     out[sw_ids[keep].long()] = part[keep].to(out_dtype)
     return out
+
+
+def _gather_rows(xp, idx):
+    """fp32 rows ``xp[idx]``; an index outside [0, R) gives a zero row (the
+    reference's zero row for pad columns)."""
+    r = xp.shape[0]
+    idx = idx.long()
+    ok = (idx >= 0) & (idx < r)
+    if r == 0:
+        return torch.zeros(idx.shape + xp.shape[1:], dtype=torch.float32, device=xp.device)
+    rows = xp.index_select(0, idx.clamp(0, r - 1).reshape(-1)).float()
+    rows = rows.reshape(idx.shape + xp.shape[1:])
+    return torch.where(ok[..., None], rows, torch.zeros((), device=xp.device))
+
+
+def _into(out, res):
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def dense_bucket_spmm_plain(cols, a, xp, out=None):
+    """fp32 [Wb, wh, D]: ``out[w] = a[w] @ xp[cols[w]]`` (index_select, then
+    an fp32 einsum)."""
+    return _into(out, torch.einsum("wrk,wkd->wrd", a.float(), _gather_rows(xp, cols)))
+
+
+def ell_bucket_spmm_plain(cols, xp, out=None):
+    """fp32 [Rb, D]: ``out[r] = sum_k xp[cols[r, k]]`` (index_select, then an
+    fp32 sum)."""
+    return _into(out, _gather_rows(xp, cols).sum(1))
+
+
+def ell_residual_spmm_plain(ptr, cols, xp, out=None):
+    """fp32 [Rs, D]: ``out[r] = sum of xp[cols[e]]`` over ``ptr[r] <= e <
+    ptr[r+1]`` (``index_add_`` by row)."""
+    rows = ptr.shape[0] - 1
+    lens = (ptr[1:] - ptr[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(rows, device=xp.device), lens)
+    lo = int(ptr[0]) if rows else 0
+    edges = cols[lo: lo + seg.shape[0]]
+    res = torch.zeros((rows,) + xp.shape[1:], dtype=torch.float32, device=xp.device)
+    return _into(out, res.index_add_(0, seg, _gather_rows(xp, edges)))
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +325,111 @@ def band_direct_dispatch(arrs, s, xp, num_sw, out_dtype):
                                    arrs[f"band{s}_a"], xp, num_sw, out_dtype)
 
 
+_MAX_WH = 16  # csrc/rows.cu dense: 4 warps x 4 rows a thread
+
+
+def _row_args(xp, out, shape, named):
+    """Check the row kernels' arguments on the card; returns ``out`` (a new
+    fp32 tensor when None)."""
+    dev = xp.device
+    if dev.type != "cuda":
+        raise ValueError(f"xp lies on {dev}: the row kernels take CUDA or CPU tensors")
+    if xp.dtype not in (torch.float32, torch.bfloat16) or xp.dim() != 2:
+        raise ValueError(f"xp must be float32 or bfloat16 [R, D], got {xp.dtype} "
+                         f"{tuple(xp.shape)}")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    named = dict(named, xp=xp, out=out)
+    for name, t in named.items():
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+        if name not in ("xp", "out", "a") and t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32")
+    if out.dtype != torch.float32 or tuple(out.shape) != tuple(shape):
+        raise ValueError(f"out must be float32 {tuple(shape)}")
+    return out
+
+
+def _run_rows(name, fn, *args):
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"csrc/rows.cu {name} launch failed: cudaError {rc}")
+    row_launches[name] += 1
+
+
+def dense_bucket_spmm(cols, a, xp, out=None):
+    """``out[w] = a[w] @ xp[cols[w]]`` for one width bucket (port of the
+    Pallas kernel at hcspmm_tpu/kernels/block_spmm.py:101).
+
+    cols: int32 [Wb, Kb] neighbour rows (pad columns point at a zero row
+    of xp or past its end: an index outside [0, R) adds nothing); a: int8
+    0/1 [Wb, wh, Kb]; xp: [R, D] float32 or bfloat16.  Returns fp32
+    [Wb, wh, D], written into ``out`` when given."""
+    if xp.device.type == "cpu":
+        return dense_bucket_spmm_plain(cols, a, xp, out)
+    wb, kb = cols.shape
+    if a.dtype != torch.int8 or a.dim() != 3 or (a.shape[0], a.shape[2]) != (wb, kb):
+        raise ValueError(f"a must be int8 [{wb}, wh, {kb}]")
+    wh, d = a.shape[1], xp.shape[1]
+    if wh > _MAX_WH:
+        raise ValueError(f"window height {wh}: csrc/rows.cu takes at most {_MAX_WH}")
+    out = _row_args(xp, out, (wb, wh, d), dict(cols=cols, a=a))
+    if wb and d:
+        with torch.cuda.device(xp.device):
+            _run_rows("dense_bucket_spmm", _rows_lib().hcspmm_dense_bucket_spmm,
+                      cols.data_ptr(), a.data_ptr(), xp.data_ptr(), out.data_ptr(), wb, wh,
+                      kb, xp.shape[0], d, int(xp.dtype == torch.bfloat16))
+    return out
+
+
+def _ell_launch(name, ptr, cols, xp, out, rows, de, split):
+    d = xp.shape[1]
+    if not rows or not d:
+        return out
+    # 16-byte lanes when every row starts 16-byte aligned, else one float a lane
+    if d % 4 == 0 and d >= 128 and xp.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0:
+        vec, nj = 4, min(2, -(-d // 128))
+    else:
+        vec, nj = 1, min(8, 1 << max(0, -(-d // 32) - 1).bit_length())
+    with torch.cuda.device(xp.device):
+        _run_rows(name, _rows_lib().hcspmm_ell_spmm,
+                  None if ptr is None else ptr.data_ptr(), cols.data_ptr(), xp.data_ptr(),
+                  out.data_ptr(), rows, de, int(split), xp.shape[0], d, vec, nj,
+                  int(xp.dtype == torch.bfloat16))
+    return out
+
+
+_ELL_SPLIT = 64  # ELL widths from which a block of 8 warps shares each row
+
+
+def ell_bucket_spmm(cols, xp, out=None):
+    """``out[r] = sum_k xp[cols[r, k]]`` for one ELL degree bucket (port of
+    the Pallas kernel at hcspmm_tpu/kernels/block_spmm.py:161).
+
+    cols: int32 [Rb, De] (pad entries point at a zero row or past the
+    table); xp: [R, D] float32 or bfloat16.  Returns fp32 [Rb, D]."""
+    if xp.device.type == "cpu":
+        return ell_bucket_spmm_plain(cols, xp, out)
+    rb, de = cols.shape
+    out = _row_args(xp, out, (rb, xp.shape[1]), dict(cols=cols))
+    return _ell_launch("ell_bucket_spmm", None, cols, xp, out, rb, de, de >= _ELL_SPLIT)
+
+
+def ell_residual_spmm(ptr, cols, xp, out=None):
+    """The residual rows (degree above every ELL width; the reference's
+    segment-sum, block_spmm.py:1020-1029): ``out[r] = sum of xp[cols[e]]``
+    for ``ptr[r] <= e < ptr[r+1]``, in edge order, by the ELL kernel in its
+    CSR mode (a block of 8 warps a row).
+
+    ptr: int32 [Rs + 1] nondecreasing, inside cols; cols: int32 [Es].
+    Returns fp32 [Rs, D]."""
+    if xp.device.type == "cpu":
+        return ell_residual_spmm_plain(ptr, cols, xp, out)
+    rows = ptr.shape[0] - 1
+    out = _row_args(xp, out, (rows, xp.shape[1]), dict(ptr=ptr, cols=cols))
+    return _ell_launch("ell_residual", ptr, cols, xp, out, rows, 0, True)
+
+
 # ---------------------------------------------------------------------------
 # full SpMM over the wide padded layout (+ glue for [N, d] callers)
 # ---------------------------------------------------------------------------
@@ -283,12 +497,132 @@ def spmm_wide_padded(arrs, xp, plan, compute_dtype):
     return apply_spill(buf, arrs, xp, plan)
 
 
-def spmm_wide(arrs, x, plan, compute_dtype):
-    """[N, d] -> [N, d] glue around the wide padded core (one pad in, one
-    slice out, as the reference's tiled path does; padded callers chain
-    ``spmm_wide_padded``).  The row layout's own populations and its
-    out_perm merge are ROADMAP A.7."""
+# ---------------------------------------------------------------------------
+# full SpMM in the row layout [N, d] (HC-SpMM's hybrid)
+# ---------------------------------------------------------------------------
+
+
+def band_table_rows(plan) -> int:
+    """Rows of the row layout's band table: X, its zero row, and zero rows
+    up to the plan's ``xp_rows`` and the padded layout's M, so that every
+    band slice (capacity padding included) lies inside it."""
+    return max(plan.xp_rows, plan.num_nodes + 1, plan.padded_rows)
+
+
+def _band_table(xr, plan):
+    """[band_table_rows, 128-multiple] copy of ``xr`` for the band kernel."""
+    n, d = xr.shape
+    xb = torch.zeros((band_table_rows(plan), lane_pad(d)), dtype=xr.dtype, device=xr.device)
+    xb[:n, :d] = xr
+    return xb
+
+
+def row_population_rows(plan) -> int:
+    """Rows of the buffer the row populations write (band buckets, dense
+    windows, ELL rows, residual rows, in that order); ``out_perm`` indexes
+    it, and its zero row follows them."""
+    return (sum(int(s.shape[0]) * plan.band_h for s in plan.band_starts)
+            + sum(int(c.shape[0]) * plan.window_h for c in plan.bucket_cols)
+            + sum(int(c.shape[0]) for c in plan.ell_cols) + plan.num_sparse_rows)
+
+
+def spmm_rows(arrs, x, plan, compute_dtype):
+    """SpMM in the row layout: x [N, d] -> [N, d] in x's dtype (port of
+    hcspmm_tpu/kernels/block_spmm.py:897 ``spmm_pallas`` on non-tband
+    plans).
+
+    Full band cover: the most populated band bucket writes every
+    superwindow's block directly, the other buckets' blocks are scattered
+    over theirs, and the spill is added onto the [N, d] slice.  Otherwise
+    each population writes its rows of one fp32 buffer: band buckets
+    (bucket order), dense windows (``dense_bucket_spmm``), ELL rows
+    (``ell_bucket_spmm``) and residual rows (``ell_residual_spmm``); the
+    ``out_perm`` merge takes each node's row from it (or its zero row), and
+    the spill population is added by the take path.  The row kernels read
+    ``x`` in the compute dtype with no padding (pad columns point past it);
+    only the band kernel gets a 128-column table."""
+    rows_check(plan)
     n, d = plan.num_nodes, x.shape[1]
-    xp = torch.zeros((plan.padded_rows, lane_pad(d)), dtype=compute_dtype, device=x.device)
-    xp[: x.shape[0], :d] = x.to(compute_dtype)
-    return spmm_wide_padded(arrs, xp, plan, compute_dtype)[:n, :d].to(x.dtype)
+    if x.shape[0] != n:
+        raise ValueError(f"x has {x.shape[0]} rows, the plan {n}")
+    xr = x.to(compute_dtype).contiguous()
+    nonempty = [s for s in range(len(plan.band_widths))
+                if arrs[f"band{s}_start"].shape[0] > 0]
+    num_sw = max(plan.band_num_sw, -(-n // plan.band_h)) if plan.band_widths else 0
+    if (plan.band_full_cover and nonempty
+            and sum(len(plan.band_sw_ids[s]) for s in nonempty) == num_sw):
+        xb = _band_table(xr, plan)
+        od = x.dtype if x.dtype in (xr.dtype, torch.float32) else torch.float32
+        s_main = max(nonempty, key=lambda s: len(plan.band_sw_ids[s]))
+        b3 = band_direct_dispatch(arrs, s_main, xb, num_sw, od)
+        for s in nonempty:
+            if s != s_main:
+                part = band_bucket_spmm(arrs[f"band{s}_start"], arrs[f"band{s}_a"], xb)
+                real = len(plan.band_sw_ids[s])
+                b3.index_copy_(0, arrs[f"band{s}_sw"][:real].long(), part[:real].to(od))
+        out = b3.view(-1, xb.shape[1])[:n, :d].contiguous()
+        if plan.has_spill and "spill_rows" in arrs:
+            out = _spill_take(out, arrs, xr, plan)
+        return out.to(x.dtype)
+
+    total = row_population_rows(plan)
+    allrows = torch.empty((total + 1, d), dtype=torch.float32, device=x.device)
+    allrows[total] = 0
+    off = 0
+    xb = _band_table(xr, plan) if nonempty else None
+    for s in range(len(plan.band_widths)):
+        rows = arrs[f"band{s}_start"].shape[0] * plan.band_h
+        if rows:
+            part = band_bucket_spmm(arrs[f"band{s}_start"], arrs[f"band{s}_a"], xb)
+            allrows[off: off + rows] = part.view(rows, -1)[:, :d]
+        off += rows
+    wh = plan.window_h
+    for b in range(len(plan.bucket_widths)):
+        wb = arrs[f"b{b}_cols"].shape[0]
+        if wb:
+            dense_bucket_spmm(arrs[f"b{b}_cols"], arrs[f"b{b}_a"], xr,
+                              out=allrows[off: off + wb * wh].view(wb, wh, d))
+        off += wb * wh
+    for e in range(len(plan.ell_widths)):
+        rb = arrs[f"e{e}_cols"].shape[0]
+        if rb:
+            ell_bucket_spmm(arrs[f"e{e}_cols"], xr, out=allrows[off: off + rb])
+        off += rb
+    ell_residual_spmm(arrs["sparse_seg_ptr"], arrs["sparse_edge_col"], xr,
+                      out=allrows[off: off + plan.num_sparse_rows])
+    out = allrows.index_select(0, arrs["out_perm"])
+    if plan.has_spill and "spill_rows" in arrs:
+        out = _spill_take(out, arrs, xr, plan)
+    return out.to(x.dtype)
+
+
+def sparse_seg_ptr(seg, rs: int) -> np.ndarray:
+    """int32 [rs + 1] row starts of the residual edges, whose rows ``seg``
+    are sorted (padding edges carry row ``rs`` and fall past the last
+    start)."""
+    seg = np.asarray(seg, dtype=np.int64)
+    if len(seg) and ((np.diff(seg) < 0).any() or seg.min() < 0 or seg.max() > rs):
+        raise ValueError(f"sparse_edge_seg must be sorted in [0, {rs}]")
+    return np.searchsorted(seg, np.arange(rs + 1), side="left").astype(np.int32)
+
+
+def check_row_arrays(host: dict, plan) -> dict:
+    """Host check of the row populations' index arrays before upload (the
+    row kernels and the merge read them unchecked); returns the residual's
+    row starts (``sparse_seg_ptr``) to upload beside them."""
+    c = plan.num_cols
+    for key in [f"b{b}_cols" for b in range(len(plan.bucket_widths))] + [
+            f"e{e}_cols" for e in range(len(plan.ell_widths))] + ["sparse_edge_col"]:
+        v = np.asarray(host[key])
+        if v.size and (v.min() < 0 or v.max() > c):
+            raise ValueError(f"{key} must lie in [0, {c}] ({c}: the zero row)")
+    for b, kb in enumerate(plan.bucket_widths):
+        cols, a = host[f"b{b}_cols"], host[f"b{b}_a"]
+        if cols.shape[1:] != (kb,) or a.shape != (cols.shape[0], plan.window_h, kb):
+            raise ValueError(f"b{b}_cols and b{b}_a must be [Wb, {kb}] and "
+                             f"[Wb, {plan.window_h}, {kb}]")
+    perm = np.asarray(host["out_perm"])
+    total = row_population_rows(plan)
+    if len(perm) != plan.num_nodes or (perm.size and (perm.min() < 0 or perm.max() > total)):
+        raise ValueError(f"out_perm must hold {plan.num_nodes} rows in [0, {total}]")
+    return {"sparse_seg_ptr": sparse_seg_ptr(host["sparse_edge_seg"], plan.num_sparse_rows)}

@@ -1,20 +1,25 @@
 """Differentiable hybrid SpMM ``Z = A @ X`` for a binary adjacency A.
 
-Port of hcspmm_tpu/ops/spmm.py over its two padded layouts: the
-transposed band (``plan.tband``, X^T [dt, M], kernels/tband.py) and the
-wide layout (every other band plan, [M, dp], kernels/block_spmm.py).
+Port of hcspmm_tpu/ops/spmm.py over its three layouts: the row layout
+[N, d] (every plan; ``kernels/block_spmm.py:spmm_rows`` with its dense,
+ELL and residual populations, ``tband.spmm_tband`` on tband plans) and
+the two padded layouts, the transposed band (``plan.tband``, X^T [dt, M],
+kernels/tband.py) and the wide layout ([M, dp], kernels/block_spmm.py),
+which plans with the closed padded path use.  ``impl='xla'`` is the
+reference's gather + einsum + segment-sum form in plain torch ops
+(``_spmm_xla``), with no kernel.
+
 Forward and backward aggregation are the same operator: the backward of
 ``A @ X`` is ``A^T @ dZ``, which is the forward SpMM on the same plan when
 the graph is symmetric (the reference's assumption) or on a plan built over
 A^T (``symmetric=False``).  The GCN and GIN layer cores compose the SpMM
-with ``torch.matmul`` for the dense update (``W^T X^T`` transposed,
-``X pad(W)`` wide), as the JAX package's composed default does with
-``jnp.dot``; autograd then yields its backward dataflow.
+with ``torch.matmul`` for the dense update, as the JAX package's composed
+default does with ``jnp.dot``; autograd then yields its backward dataflow
+(GCN: dX = (A^T dZ) W^T, dW = X^T (A^T dZ); GIN: the aggregate is kept for
+dW).
 
-Only plans that the layout's ``check_plan`` accepts run here; any other
-plan raises NotImplementedError at construction instead of losing edges.
-The row layout [N, d] goes through the padded core with one pad in and one
-slice out; the row layout's own populations are ROADMAP A.7.
+Plans this package does not run raise NotImplementedError at construction
+instead of losing edges.
 """
 
 from __future__ import annotations
@@ -49,27 +54,148 @@ class _SpMM(torch.autograd.Function):
         return ctx.bwd(g.contiguous()).to(ctx.x_dtype), None, None
 
 
-def _layout(plan):
-    """(check_plan, padded core, row-layout glue) of ``plan``'s layout."""
+# ---------------------------------------------------------------------------
+# impl='xla': the reference's plain form (gather + einsum + segment-sum)
+# ---------------------------------------------------------------------------
+
+
+def _band_path_xla(arrs, xp, plan):
+    """Band buckets: the contiguous X slice of each superwindow as a
+    gather, one fp32 batched product per bucket -> [Sb*bh, D] each."""
+    outs = []
+    for s in range(len(plan.band_widths)):
+        a = arrs[f"band{s}_a"]
+        sb, bh, bb = a.shape
+        idx = arrs[f"band{s}_start"].long()[:, None] + torch.arange(bb, device=xp.device)
+        part = torch.einsum("sbk,skd->sbd", a.float(), xp[idx].float())
+        outs.append(part.reshape(sb * bh, xp.shape[1]))
+    return outs
+
+
+def _dense_path_xla(arrs, xp, plan):
+    """Dense windows: per-bucket gather + one fp32 batched product (the
+    reference's WMMA path, .cu:1385-1472) -> [Wb*wh, D] each."""
+    outs = []
+    for b in range(len(plan.bucket_widths)):
+        a = arrs[f"b{b}_a"]
+        part = torch.einsum("wrk,wkd->wrd", a.float(), xp[arrs[f"b{b}_cols"].long()].float())
+        outs.append(part.reshape(a.shape[0] * plan.window_h, xp.shape[1]))
+    return outs
+
+
+def _sparse_path_xla(arrs, xp, plan):
+    """ELL rows (gather + axis sum, the warp-per-row loop of .cu:964-1036)
+    and the residual rows (sorted segment-sum) -> [Rb, D] each, then
+    [Rs, D]."""
+    outs = [xp[arrs[f"e{e}_cols"].long()].float().sum(1) for e in range(len(plan.ell_widths))]
+    rs = plan.num_sparse_rows
+    seg = torch.zeros((rs + 1, xp.shape[1]), dtype=torch.float32, device=xp.device)
+    seg.index_add_(0, arrs["sparse_edge_seg"], xp[arrs["sparse_edge_col"].long()].float())
+    outs.append(seg[:rs])
+    return outs
+
+
+def _spmm_xla(arrs, x, plan, compute_dtype):
+    """[N, d] -> [N, d] in x's dtype (port of hcspmm_tpu/ops/spmm.py:127):
+    X with zero rows up to the plan's ``xp_rows`` (the pad columns' zero row
+    and band slices near the top), every population in fp32, the
+    ``out_perm`` merge, and the spill population by the take path."""
+    n, d = x.shape
+    xp = torch.cat([x, torch.zeros((max(plan.xp_rows - n, 1), d), dtype=x.dtype,
+                                   device=x.device)]).to(compute_dtype)
+    allrows = torch.cat(_band_path_xla(arrs, xp, plan) + _dense_path_xla(arrs, xp, plan)
+                        + _sparse_path_xla(arrs, xp, plan)
+                        + [torch.zeros((1, d), device=x.device)])
+    out = allrows.index_select(0, arrs["out_perm"])
+    if plan.has_spill and "spill_rows" in arrs:
+        out = block_spmm._spill_take(out, arrs, xp, plan)
+    return out.to(x.dtype)
+
+
+def _rows_impl(plan, cd, impl):
+    """The row-layout SpMM ``fn(arrs, x [N, d])`` of one plan."""
+    if impl == "xla":
+        if getattr(plan, "tband", False):
+            raise ValueError("impl='xla' runs band_impl='wide' plans (the reference's "
+                             "CLI builds them under xla); tband plans have no xla form")
+        block_spmm.rows_check(plan)
+        return lambda arrs, x: _spmm_xla(arrs, x, plan, cd)
+    if impl != "pallas":
+        raise ValueError(f"unknown impl: {impl}")
     if getattr(plan, "tband", False):
-        return tband.check_plan, tband.spmm_tband_padded, tband.spmm_tband
-    return block_spmm.check_plan, block_spmm.spmm_wide_padded, block_spmm.spmm_wide
+        tband.check_plan(plan)
+        return lambda arrs, x: tband.spmm_tband(arrs, x, plan, cd)
+    block_spmm.rows_check(plan)
+    return lambda arrs, x: block_spmm.spmm_rows(arrs, x, plan, cd)
+
+
+def _build_impls(plan, pb, cd, impl):
+    """(forward, backward) row-layout SpMMs: ``spmm_rows`` (tband plans:
+    ``spmm_tband``) for 'pallas', ``_spmm_xla`` for 'xla'."""
+    return _rows_impl(plan, cd, impl), _rows_impl(pb, cd, impl)
+
+
+def make_spmm(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
+              compute_dtype: str = "float32", impl: str = "pallas"):
+    """Differentiable row-layout SpMM ``spmm(arrs_f, arrs_b, x [N, d]) ->
+    [N, d]``.  ``plan_bwd=None`` reuses the forward plan in the backward
+    (symmetric structure)."""
+    pb = plan if plan_bwd is None else plan_bwd
+    fwd, bwd = _build_impls(plan, pb, _dtype(compute_dtype), impl)
+
+    def spmm(arrs_f, arrs_b, x):
+        return _SpMM.apply(x, lambda v: fwd(arrs_f, v), lambda g: bwd(arrs_b, g))
+
+    return spmm
+
+
+def _dot(x, w):
+    """``jnp.dot(x, w, preferred_element_type=f32).astype(x.dtype)``."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def make_fused_ops(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
+                   compute_dtype: str = "float32", impl: str = "pallas"):
+    """The GCN and GIN layer cores in the row layout (port of
+    hcspmm_tpu/ops/spmm.py:522), composed: ``gcn(arrs_f, arrs_b, x, w) =
+    A (x w)`` and ``gin(...) = (A x) w``.  Under autograd the GCN backward
+    is one SpMM of dZ and two products, dX = (A^T dZ) w^T and dW = x^T
+    (A^T dZ); the GIN backward keeps the aggregate for dW and runs one SpMM
+    of dZ w^T, as the reference's custom VJPs do."""
+    spmm = make_spmm(plan, plan_bwd, compute_dtype, impl)
+
+    def gcn(arrs_f, arrs_b, x, w):
+        return spmm(arrs_f, arrs_b, _dot(x, w))
+
+    def gin(arrs_f, arrs_b, x, w):
+        return _dot(spmm(arrs_f, arrs_b, x), w)
+
+    return {"gcn": gcn, "gin": gin}
 
 
 def make_spmm_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
                      compute_dtype: str = "float32"):
-    """Differentiable SpMM over the plan's padded layout (transposed [dt, M]
-    or wide [M, dp]) -> the same layout: ``spmm_p(arrs_f, arrs_b, xp)``.
-    ``plan_bwd=None`` reuses the forward plan in the backward (symmetric
-    structure)."""
+    """Differentiable SpMM over the plan's closed padded layout (transposed
+    [dt, M] or wide [M, dp]) -> the same layout: ``spmm_p(arrs_f, arrs_b,
+    xp)``; None when the plans lack that path (as the reference's
+    ``make_spmm_padded``: the caller uses the row layout).  Raises
+    NotImplementedError for a plan this package does not run."""
     pb = plan if plan_bwd is None else plan_bwd
-    if getattr(pb, "tband", False) != getattr(plan, "tband", False):
-        raise ValueError("forward and backward plans must share the padded layout")
-    check, core, _ = _layout(plan)
     for p in (plan, pb):
-        check(p)
-    if pb.padded_rows != plan.padded_rows:
-        raise ValueError("forward and backward plans must share the padded layout")
+        if getattr(p, "tband", False):
+            tband.check_plan(p)
+        else:
+            block_spmm.rows_check(p)
+    if not (getattr(pb, "tband", False) == getattr(plan, "tband", False)
+            and pb.padded_rows == plan.padded_rows
+            and all(block_spmm.spmm_padded_supported(p) for p in (plan, pb))):
+        return None
+    if getattr(plan, "tband", False):
+        core = tband.spmm_tband_padded
+    else:
+        core = block_spmm.spmm_wide_padded
+        for p in (plan, pb):
+            block_spmm.check_plan(p)
     cd = _dtype(compute_dtype)
 
     def spmm_p(arrs_f, arrs_b, xp):
@@ -77,22 +203,6 @@ def make_spmm_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = No
                            lambda g: core(arrs_b, g, pb, cd))
 
     return spmm_p
-
-
-def make_spmm(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
-              compute_dtype: str = "float32"):
-    """Row-layout form ``spmm(arrs_f, arrs_b, x [N, d]) -> [N, d]`` through
-    the layout's glue around the padded core; the plans are checked where
-    they are applied."""
-    pb = plan if plan_bwd is None else plan_bwd
-    glue_f, glue_b = _layout(plan)[2], _layout(pb)[2]
-    cd = _dtype(compute_dtype)
-
-    def spmm(arrs_f, arrs_b, x):
-        return _SpMM.apply(x, lambda v: glue_f(arrs_f, v, plan, cd),
-                           lambda g: glue_b(arrs_b, g, pb, cd))
-
-    return spmm
 
 
 #: row-layout merge arrays the transposed lane path never reads
@@ -103,10 +213,11 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     """Plan arrays as tensors on ``device``: plain copies of
     ``device_arrays(dense_band=False)`` plus the dense int8 band blocks
     (``band{s}_at`` [Sb, W, bh] transposed, ``band{s}_a`` [Sb, bh, Bb]
-    wide) and the merges' block runs.  A tband plan on the lane path drops
-    the row merge arrays it never reads.  The band entries and every spill
-    index array are checked on the host first: the kernels read them
-    unchecked."""
+    wide), the merges' block runs and the residual's row starts
+    (``sparse_seg_ptr``).  A tband plan on the lane path drops the row
+    merge arrays it never reads.  The band entries, the row populations'
+    indices, ``out_perm`` and every spill index array are checked on the
+    host first: the kernels read them unchecked."""
     m = plan.padded_rows
     num_sw = m // plan.band_h
     transposed = getattr(plan, "tband", False)
@@ -116,8 +227,12 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
             host.pop(k, None)
     host.update(tspill.check_spill_arrays(host, plan))
     host.update(dstream.check_row_spill_arrays(host, plan))
+    host.update(block_spmm.check_row_arrays(host, plan))
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
            for k, v in host.items()}
+    # band slices must fit the padded layout where it runs, else the row
+    # layout's band table
+    limit = m if block_spmm.spmm_padded_supported(plan) else block_spmm.band_table_rows(plan)
     for s, w in enumerate(plan.band_widths):
         if transposed:
             tband.check_band_arrays(host[f"band{s}_start"], host[f"band{s}_sw"],
@@ -125,7 +240,7 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
             out[f"band{s}_at"] = torch.from_numpy(plan.band_at_dense(s)).to(device)
         else:
             block_spmm.check_band_arrays(host[f"band{s}_start"], host[f"band{s}_sw"],
-                                         int(w), m, num_sw)
+                                         int(w), limit, num_sw)
             out[f"band{s}_a"] = torch.from_numpy(plan.band_a_dense(s)).to(device)
     return out
 
@@ -135,9 +250,11 @@ class HybridSpMM:
 
     The analog of the reference flow ``HYGNN.preprocess(...)`` +
     ``HCSPMM.forward*``: construction runs preprocessing and uploads the
-    plan arrays; ``apply_padded`` aggregates in the plan's padded layout
-    (transposed X^T [dt, M] for tband plans, wide [M, dp] otherwise),
-    ``apply``/``__call__`` in the row layout [N, d].
+    plan arrays; ``apply``/``__call__`` aggregate in the row layout [N, d];
+    ``apply_padded`` in the plan's padded layout (transposed X^T [dt, M]
+    for tband plans, wide [M, dp] otherwise), through the row op when the
+    plan lacks the closed padded path (``supports_padded`` False: dense,
+    ELL or residual populations, or ``impl='xla'``).
     """
 
     def __init__(self, row_pointers: np.ndarray, column_index: np.ndarray,
@@ -156,10 +273,15 @@ class HybridSpMM:
         else:
             rp_t, ci_t = transpose_csr(row_pointers, column_index, num_nodes)
             self.plan_bwd = build_plan(rp_t, ci_t, num_nodes, config)
+        for p in (self.plan, self.plan_bwd):
+            if p is not None and not getattr(p, "tband", False):
+                block_spmm.rows_check(p, config.a_dtype)
         # raises NotImplementedError for a plan that would drop edges
-        self._fn_padded = make_spmm_padded(self.plan, self.plan_bwd,
-                                           config.compute_dtype)
-        self._fn = make_spmm(self.plan, self.plan_bwd, config.compute_dtype)
+        self._fn = make_spmm(self.plan, self.plan_bwd, config.compute_dtype, config.impl)
+        self._fused = make_fused_ops(self.plan, self.plan_bwd, config.compute_dtype,
+                                     config.impl)
+        self._fn_padded = (make_spmm_padded(self.plan, self.plan_bwd, config.compute_dtype)
+                           if config.impl == "pallas" else None)
         arrs_f = _to_device(self.plan, self.device)
         arrs_b = arrs_f if self.plan_bwd is None else _to_device(self.plan_bwd,
                                                                  self.device)
@@ -175,14 +297,22 @@ class HybridSpMM:
     # ---- padded layout: [dt, M] -> [dt, M] or [M, dp] -> [M, dp] ----
 
     @property
+    def supports_padded(self) -> bool:
+        """True when ``apply_padded`` runs the closed padded path; False
+        when it falls back to the row op (train.loop then trains in the
+        row layout [N, d])."""
+        return self._fn_padded is not None
+
+    @property
     def padded_rows(self) -> int:
         return self.plan.padded_rows
 
     @property
     def transposed(self) -> bool:
         """True when the padded layout is the tband X^T [dt, M]; False for
-        the wide [M, dp]."""
-        return bool(getattr(self.plan, "tband", False))
+        the wide [M, dp] (and for a plan without the padded path, whose
+        fallback slices rows)."""
+        return bool(getattr(self.plan, "tband", False)) and self.supports_padded
 
     def is_padded(self, x) -> bool:
         """True when ``x`` already has the padded layout's shape (an [N, d]
@@ -192,8 +322,8 @@ class HybridSpMM:
         return x.shape[0] == self.padded_rows and x.shape[1] % 128 == 0
 
     def _check_fused(self):
-        if getattr(self.plan, "prefer_fused_kernel", False):
-            name = ("tband.py:tband_fused_direct" if self.transposed
+        if getattr(self.plan, "prefer_fused_kernel", False) and self.config.impl == "pallas":
+            name = ("tband.py:tband_fused_direct" if getattr(self.plan, "tband", False)
                     else "block_spmm.py:band_fused_spmm_direct")
             raise NotImplementedError(
                 f"prefer_fused_kernel: the fused band kernel (hcspmm_tpu/kernels/{name}) "
@@ -202,7 +332,8 @@ class HybridSpMM:
     def pad_input(self, x) -> torch.Tensor:
         """[N, d] -> the padded layout in the compute dtype on the
         operator's device (one-time cost; the layout then stays closed):
-        [dt, M] transposed, [M, dp] wide."""
+        [dt, M] transposed, [M, dp] otherwise (also without the padded
+        path, whose fallback slices its first N rows)."""
         x = torch.as_tensor(x)
         n, d = x.shape
         dtype = _dtype(self.config.compute_dtype)
@@ -211,7 +342,7 @@ class HybridSpMM:
             xp = torch.zeros((tband.sublane_pad(d), m), dtype=dtype, device=self.device)
             xp[:d, :n] = x.T.to(device=self.device, dtype=dtype)
         else:
-            xp = torch.zeros((m, block_spmm.lane_pad(d)), dtype=dtype, device=self.device)
+            xp = torch.zeros((m, -(-d // 128) * 128), dtype=dtype, device=self.device)
             xp[:n, :d] = x.to(device=self.device, dtype=dtype)
         return xp
 
@@ -260,7 +391,12 @@ class HybridSpMM:
         return self._padded_core(arrays, xp)
 
     def _padded_core(self, arrays, xp):
-        return self._fn_padded(arrays["f"], arrays["b"], xp)
+        if self._fn_padded is not None:
+            return self._fn_padded(arrays["f"], arrays["b"], xp)
+        # no closed padded path: the row op on the first N rows, re-padded
+        n = self.plan.num_nodes
+        out = self._fn(arrays["f"], arrays["b"], xp[:n])
+        return F.pad(out.to(xp.dtype), (0, 0, 0, xp.shape[0] - n))
 
     def gcn_apply_padded(self, arrays, xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """GCN layer core A (X W) in the padded layout; backward: one SpMM
@@ -296,6 +432,26 @@ class HybridSpMM:
             xs = (x * inv).to(x.dtype)
             return (self._fn(arrays["f"], arrays["b"], xs) * inv).to(x.dtype)
         return self._fn(arrays["f"], arrays["b"], x)
+
+    def gcn_apply(self, arrays, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """GCN layer core A (x w) in the row layout (composed through
+        ``apply`` in normalized mode)."""
+        self._check_fused()
+        if "inv_sqrt_deg" in arrays:
+            return self.apply(arrays, _dot(x, w))
+        return self._fused["gcn"](arrays["f"], arrays["b"], x, w)
+
+    def gin_apply(self, arrays, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """GIN layer core (A x) w in the row layout; the aggregate is kept
+        for dW."""
+        self._check_fused()
+        if "inv_sqrt_deg" in arrays:
+            return _dot(self.apply(arrays, x), w)
+        return self._fused["gin"](arrays["f"], arrays["b"], x, w)
+
+    def dense(self, x, w):
+        """Dense update ``x w`` in the row layout."""
+        return _dot(x, w)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.arrays, x)

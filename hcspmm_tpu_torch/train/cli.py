@@ -5,8 +5,9 @@ HC-SpMM_main.py:18-64); port of hcspmm_tpu/train/cli.py with its flags.
 
 ``--device auto`` runs on the CUDA device and raises when there is none;
 ``--device cpu`` runs the kernels' plain PyTorch versions on the host.
-Flags whose feature is not ported yet raise NotImplementedError naming the
-ROADMAP item.
+``--impl xla`` runs the reference's plain gather + segment-sum form (torch
+ops, no kernel) in the row layout [N, d].  Flags whose feature is not
+ported yet raise NotImplementedError naming the ROADMAP item.
 
 Dataset resolution: a path ending in .txt loads that file ("dst,src"
 1-indexed text per dataset.py:52-53), another existing path goes through
@@ -48,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["intended", "degenerate", "calibrated",
                             "all_dense", "all_sparse"])
     p.add_argument("--impl", type=str, default="pallas", choices=["xla", "pallas"],
-                   help="'pallas' = the hand-written kernels (here: CUDA)")
+                   help="'pallas' = the hand-written kernels (here: CUDA); 'xla' = "
+                        "the plain torch gather + segment-sum form")
     p.add_argument("--band-impl", type=str, default="auto",
                    choices=["auto", "wide", "tiled", "tband", "ring"],
                    help="band layout; 'auto' picks the transposed band when "
@@ -81,8 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.impl == "xla":
-        raise NotImplementedError("--impl xla (gather + segment-sum path): ROADMAP A.7")
     for flag, value in (("--checkpoint", args.checkpoint),
                         ("--resume", args.resume),
                         ("--checkpoint-every", args.checkpoint_every),
@@ -127,7 +127,11 @@ def prepare(args, device, logger):
     and logs the preprocessing record (with "Prep. (ms)")."""
     ds = load_dataset(args)
     band_impl = args.band_impl
-    if band_impl == "auto":
+    if args.impl == "xla":
+        # the plain form: wide plans in the row layout [N, d], as the
+        # reference's CLI builds them under xla
+        band_impl = "wide"
+    elif band_impl == "auto":
         # the transposed band when every dim the model touches fits the
         # dim <= 64 regime (the input dim may exceed it), else the wide
         # padded layout
@@ -172,6 +176,7 @@ def prepare(args, device, logger):
         sparse_rows=op.plan.num_sparse_rows,
         spill_nnz=op.plan.spill_nnz,
         missing_supers=len(op.plan.band_missing_sw),
+        layout=("tband" if op.transposed else "wide") if op.supports_padded else "rows",
         device=str(device),
     )
     return ds, op

@@ -5,8 +5,11 @@ Parity: Adam lr=0.01 (main.py:115; ``torch.optim.Adam`` has optax.adam's
 defaults and update), loss = NLL of the log-softmax output against the
 all-ones labels over every node (main.py:125), 9 warm-up epochs, then the
 timed epochs (main.py:157-166).  Activations run in the operator's padded
-layout (transposed [dt, M] or wide [M, dp]); only the final logits are
-sliced (by ``unpad_output``) before the softmax.
+layout (transposed [dt, M] or wide [M, dp]) where it has the closed padded
+path, and only the final logits are sliced (by ``unpad_output``) before
+the softmax; otherwise (``supports_padded`` False: dense, ELL or residual
+populations, or ``impl='xla'``) they stay [N, d] in the row layout, as
+hcspmm_tpu/train/loop.py:54-140 does.
 """
 
 from __future__ import annotations
@@ -26,43 +29,66 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 class Bound:
-    """The operator with its plan arrays bound, in its padded layout: what
-    the layers call (``gcn_fused``/``gin_fused``/``mean``/``dense``)."""
+    """The operator with its plan arrays bound, in its padded layout when
+    it has the closed padded path, else in the row layout: what the layers
+    call (``gcn_fused``/``gin_fused``/``mean``/``dense``)."""
 
     def __init__(self, spmm):
         self._op = spmm
         self._arrs = spmm.arrays
+        self.padded_layout = spmm.supports_padded
 
     def __call__(self, x):
-        return self._op.apply_padded(self._arrs, x)
+        if self.padded_layout:
+            return self._op.apply_padded(self._arrs, x)
+        return self._op.apply(self._arrs, x)
 
     def gcn_fused(self, x, w):
-        return self._op.gcn_apply_padded(self._arrs, x, w)
+        if self.padded_layout:
+            return self._op.gcn_apply_padded(self._arrs, x, w)
+        return self._op.gcn_apply(self._arrs, x, w)
 
     def gin_fused(self, x, w):
-        return self._op.gin_apply_padded(self._arrs, x, w)
+        if self.padded_layout:
+            return self._op.gin_apply_padded(self._arrs, x, w)
+        return self._op.gin_apply(self._arrs, x, w)
 
     def mean(self, x):
-        return self._op.mean_apply_padded(self._arrs, x)
+        if self.padded_layout:
+            return self._op.mean_apply_padded(self._arrs, x)
+        return self._op.mean_apply(self._arrs, x)
 
     def dense(self, x, w):
-        return self._op.dense_padded(x, w)
+        if self.padded_layout:
+            return self._op.dense_padded(x, w)
+        return self._op.dense(x, w)
+
+
+def layout_input(spmm, x) -> torch.Tensor:
+    """``x`` in the layout the loop trains in, on ``spmm.device``: the
+    padded layout when the operator has it (an input already padded stays
+    as it is), else [N, d] as given."""
+    if spmm.supports_padded:
+        return x if spmm.is_padded(x) else spmm.pad_input(x)
+    return torch.as_tensor(x).to(spmm.device)
 
 
 def make_train_step(net: Net, spmm, optimizer: torch.optim.Optimizer):
     """``step(params, x, y, gen) -> loss`` for a HybridSpMM ``spmm``:
     forward, NLL, backward and one optimizer step.  ``x`` is raw [N, d]
-    or already padded; ``gen`` draws the dropout mask (None needs
-    ``net.dropout == 0``).  The loss comes back as a device tensor, so the
-    step never waits for the device."""
+    or already in the training layout (``layout_input``); ``gen`` draws the
+    dropout mask (None needs ``net.dropout == 0``).  The loss comes back as
+    a device tensor, so the step never waits for the device."""
     bound = Bound(spmm)
 
     def out_slice(h):
         return spmm.unpad_output(h, net.num_classes)
 
+    if not bound.padded_layout:
+        out_slice = None  # row layout: the logits are [N, classes] already
+
     def train_step(params, x, y, gen=None):
-        if not spmm.is_padded(x):
-            x = spmm.pad_input(x)
+        x = layout_input(spmm, x)
         optimizer.zero_grad(set_to_none=True)
         logp = net_forward(net, params, bound, x, dropout_gen=gen,
                            train=True, out_slice=out_slice)
@@ -85,7 +111,7 @@ def train(net: Net, spmm, x, y, epochs: int = 200, lr: float = 0.01,
     Per-epoch losses are logged after the timed loop, so logging adds no
     device wait inside it."""
     device = spmm.device
-    x = spmm.pad_input(x)  # one-time layout conversion
+    x = layout_input(spmm, x)  # one-time layout conversion
     y = torch.as_tensor(y).to(device=device, dtype=torch.int64)
     params = (init_params if init_params is not None
               else init_net_params(net, torch.Generator().manual_seed(seed),

@@ -20,12 +20,14 @@ import torch
 
 from hcspmm_tpu_torch.models.net import Net, init_net_params
 from hcspmm_tpu_torch.train import cli
-from hcspmm_tpu_torch.train.loop import make_train_step
+from hcspmm_tpu_torch.train.loop import layout_input, make_train_step
 from hcspmm_tpu_torch.utils.logging import stdout_logger
 
 #: kernel-name fragments -> group, first match wins
 GROUPS = (
     ("band_kernel", "band kernel"),
+    ("dense_rows_kernel", "dense bucket kernel"),
+    ("ell_rows_kernel", "ELL kernel"),
     ("merge_kernel", "spill merge"),
     ("mxgather_kernel", "mxgather"),
     ("zero_kernel", "zero-fill"),
@@ -57,7 +59,7 @@ def main(argv=None) -> int:
     params = init_net_params(net, torch.Generator().manual_seed(args.seed), device=device)
     step = make_train_step(net, op, torch.optim.Adam(
         [t for layer in params for t in layer.values()], lr=0.01))
-    x = op.pad_input(ds.x)
+    x = layout_input(op, ds.x)
     y = torch.as_tensor(ds.y).to(device=device, dtype=torch.int64)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     for _ in range(9):

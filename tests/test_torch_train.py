@@ -213,8 +213,24 @@ def test_cli_single_kernel_on_cpu(tmp_path, capsys):
     assert len(sag) == 1 and sag[0]["avg_ms"] > 0 and sag[0]["device"] == "cpu"
 
 
+@pytest.mark.parametrize("model", ["gcn", "gin", "sage"])
+def test_cli_impl_xla_trains_on_cpu(tmp_path, capsys, model):
+    """``--impl xla``: the plain gather + segment-sum form on a wide plan in
+    the row layout (the reference's CLI picks wide under xla)."""
+    path = _npz_graph(tmp_path)
+    assert cli.main(["--dataset", path, "--reorder", "rcm", "--dim", "24", "--classes", "5",
+                     "--num_layers", "3", "--epochs", "2", "--device", "cpu", "--impl", "xla",
+                     "--model", model]) == 0
+    recs = _records(capsys.readouterr().out)
+    prep = [r for r in recs if r.get("event") == "preprocess"]
+    done = [r for r in recs if r.get("event") == "done"]
+    assert prep[0]["layout"] == "rows" and "dense_windows" in prep[0]
+    assert "sparse_rows" in prep[0]
+    assert len(done) == 1 and np.isfinite(done[0]["final_loss"])
+
+
 @pytest.mark.parametrize("flags", [
-    ["--impl", "xla"], ["--band-impl", "tiled"], ["--band-impl", "ring"],
+    ["--band-impl", "tiled"], ["--band-impl", "ring"],
     ["--checkpoint", "c.npz"], ["--resume", "c.npz"], ["--checkpoint-every", "1"],
     ["--fault-epoch", "1"], ["--dataset", "karate"],
 ])

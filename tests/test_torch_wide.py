@@ -576,12 +576,18 @@ def test_bf16_and_fp32_plans_match_oracle(cd):
 
 
 def test_gate_refuses_what_the_wide_layout_would_not_apply():
-    """Dense or sparse row-merge populations name A.7; a hand-broken cover
-    and the tiled band raise too; no partial answer is computed."""
+    """Plans with dense or sparse row-merge populations have no wide padded
+    path: the gate refuses them, and the operator runs them in the row
+    layout and matches the oracle.  A hand-broken cover and the tiled band
+    raise; no partial answer is computed."""
     rp, ci, nn = small_graph(300, 6)
+    x = np.random.RandomState(7).randn(nn, 20).astype(np.float32)
     for cfg in (dict(band_mode="never"), dict(band_mode="never", loi_mode="all_dense")):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, **cfg)))
+        op = HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, **cfg)))
+        assert not op.supports_padded
+        with pytest.raises(NotImplementedError, match="row layout"):
+            block_spmm.check_plan(op.plan)
+        assert rel_err(op(torch.from_numpy(x)), dense_a(rp, ci, nn) @ x) < RTOL
     op = HybridSpMM(rp, ci, nn, PlanConfig(**WIDE))
     partial = dataclasses.replace(op.plan, band_sw_ids=[op.plan.band_sw_ids[0][1:]])
     with pytest.raises(NotImplementedError, match="cover"):
