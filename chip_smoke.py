@@ -12,8 +12,11 @@ Phases, each of which raises on failure, with its seconds printed:
 3. holds the band kernel against its plain PyTorch version: at the shape
    the DD-scale blocks stand-in's plan gives it (Sb 1312, W 768, bh 256,
    dt 32), at small odd shapes (dt 16, 48, 96; capacity-padded entries)
-   and on a two-bucket full-cover plan; fp32 within 1e-5 and bf16 within
-   1e-2 of max|ref|; both timed with CUDA events;
+   and on two-bucket full-cover plans (tband and wide: the bucket modes'
+   path); fp32 within 1e-5 and bf16 within 1e-2 of max|ref|; both timed
+   with CUDA events; the tband fused kernel and the bucket mode at the
+   stand-in plan's arrays, timed, with the Table VI analog (fused vs the
+   composed pair, interleaved) at dim 32;
 4. holds the spill kernels (zero_lane_blocks, mxgather_lanes,
    tbstream_merge) against their plain versions at small odd shapes:
    dt 16/48/96, merge groups 4/8/16/32, chunk widths 128-1024, empty id
@@ -63,15 +66,35 @@ Phases, each of which raises on failure, with its seconds printed:
     GCN and GIN trained 3 epochs through ``train.loop.train`` with the
     launch counters checked;
 15. trains the 6-layer GCN 2 epochs through ``cli.main --impl xla`` (the
-    plain form, row layout) on the blocks stand-in.
+    plain form, row layout) on the blocks stand-in;
+16. the fused kernels (tband and wide), the tiled band and the grouped band
+    against their plain versions at small odd shapes (dt 16-96 with ht !=
+    dt, dp 128-384 with hp != dp, capacity-padded entries, pair streams and
+    tiled plans with empty superwindows at ring slots 2/4/16, G 1/2/4/8),
+    fp32 and bf16, bitwise repeatable;
+17. at the blocks stand-in's wide plan: the wide fused kernel (dp 128 and
+    256, hp 256) timed beside the composed pair and the Table VI analog at
+    dim 96, the bucket mode, the grouped band and the grouped A/B (direct
+    vs G = 1, 2, 4, 8, the port of tools/ab_grouped.py); at its tiled plan,
+    the tiled band at dp 128 and 256;
+18. the kernel-fusion mode (``op.plan.prefer_fused_kernel = True``): the
+    6-layer GCN and GIN on the tband plan and the 3-layer GCN and GIN at
+    hidden 256 on the wide plan, trained through ``train.loop.train`` beside
+    the composed runs, with the fused launches counted;
+19. ``cli.main --band-impl tiled``: GCN and GIN at hidden 256 and
+    ``--single_kernel`` on the blocks stand-in, every SpMM through the
+    tiled kernel, and ``apply_padded`` on the tiled plan against scipy.
 
-The second-to-last line is a JSON object with the kernel table: for each
-kernel its launches on the main paths run here, its time, its plain
-version's, one library call's where PyTorch has one (torch.sparse.mm,
-torch.sparse.addmm, index_fill_, index_add_, F.embedding_bag), and its
-bound: the larger of the bytes it must move (each input read once, each
-output written once) at 3.35 TB/s and its fp32 operations at 67 TFLOP/s,
-computed from this run's arrays.  The last line is ``{"ok": true,
+The second-to-last line is a JSON object with the kernel table (all
+sixteen TPU kernels' counterparts): for each kernel its launches on the
+main paths run here, its time, its plain version's, one library call's
+where PyTorch has one (torch.sparse.mm, torch.sparse.addmm, index_fill_,
+index_add_, F.embedding_bag) or, for the fused kernels, the composed pair
+they replace, and its bound: the larger of the bytes it must move (each
+input read once, each output written once) at 3.35 TB/s and its fp32
+operations at 67 TFLOP/s, computed from this run's arrays; beside it the
+Table VI analog, the grouped A/B and the fused training runs.  The last
+line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result.
 """
@@ -79,6 +102,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -215,7 +239,8 @@ def zero_counts():
 
     tband.launches = 0
     block_spmm.launches = 0
-    for counts in (tspill.launches, dstream.launches, block_spmm.row_launches):
+    for counts in (tspill.launches, dstream.launches, block_spmm.row_launches,
+                   tband.kernel_launches, block_spmm.kernel_launches):
         for k in counts:
             counts[k] = 0
 
@@ -224,7 +249,8 @@ def read_counts() -> dict:
     from hcspmm_tpu_torch.kernels import block_spmm, dstream, tband, tspill
 
     return dict(tband_spmm=tband.launches, band_spmm=block_spmm.launches, **tspill.launches,
-                **dstream.launches, **block_spmm.row_launches)
+                **dstream.launches, **block_spmm.row_launches, **tband.kernel_launches,
+                **block_spmm.kernel_launches)
 
 
 def check_counts(counts, need, spmms) -> None:
@@ -1004,6 +1030,459 @@ def row_layout_phase(rp, ci, n, gen, out, launch_runs) -> None:
     torch.cuda.empty_cache()
 
 
+def hold(name: str, got, ref, cd: str) -> float:
+    """rel_err of ``got`` against ``ref`` on the host; raises above TOL[cd]."""
+    import torch
+
+    err, rel = rel_err(got.float().cpu() if isinstance(got, torch.Tensor) else got,
+                       ref.float().cpu() if isinstance(ref, torch.Tensor) else ref)
+    if not rel <= TOL[cd]:
+        raise AssertionError(f"{name}: rel err {rel:.3e} > {TOL[cd]:g}")
+    return err
+
+
+def hold_repeatable(name: str, fn, plain, cd: str) -> float:
+    """Runs ``fn`` twice (the results must be bitwise equal) and holds each
+    of its outputs against ``plain()``'s; returns the largest max_abs_err."""
+    import torch
+
+    got, again, ref = fn(), fn(), plain()
+    got, again, ref = ((v,) if isinstance(v, torch.Tensor) else v for v in (got, again, ref))
+    err = 0.0
+    for i, (g, a, r) in enumerate(zip(got, again, ref)):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name} (output {i}): two kernel runs differ")
+        err = max(err, hold(f"{name} (output {i})", g, r, cd))
+    return err
+
+
+def interleaved_ms(fns: dict, reps: int, trials: int = 7) -> dict:
+    """Median CUDA-event ms per call of each of ``fns`` over ``trials``
+    rounds in which the functions take turns (forwards, then backwards):
+    one process, interleaved, medians, as tools/ab_grouped.py and
+    tools/ablate_fusion.py compare variants."""
+    times = {k: [] for k in fns}
+    for t in range(trials):
+        for k in (list(fns) if t % 2 == 0 else list(reversed(fns))):
+            times[k].append(cuda_time_ms(fns[k], reps))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def timed(label, fn_k, fn_p, nbytes, ops, fn_lib=None, reps=20, err=0.0) -> dict:
+    """The kernel's, the plain version's and the yardstick's CUDA-event
+    times and the bound, logged and returned as a kernel-table row."""
+    k_ms = cuda_time_ms(fn_k, reps)
+    p_ms = cuda_time_ms(fn_p, max(reps // 5, 2))
+    lib_ms = None if fn_lib is None else cuda_time_ms(fn_lib, max(reps // 4, 2))
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"    {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, yardstick "
+        f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.4f} ms by {b_by}")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, shape=label)
+
+
+def tiled_arrays(counts, bh, tiles, gen):
+    """A tiled pair stream on the card: superwindow s owns ``counts[s]``
+    pairs of consecutive 128-row tiles from a random first tile, or, where
+    the count is 0, one zero-A pair that reuses the previous pair's tile (as
+    format/plan.py pads an empty superwindow); the scalar arrays carry the
+    plan's 8 pad entries."""
+    import torch
+
+    from hcspmm_tpu_torch.config import TILED_SCALAR_PAD
+
+    tile, blocks, ptr = [], [], [0]
+    for c in counts:
+        if c == 0:
+            tile.append(tile[-1] if tile else 0)
+            blocks.append(torch.zeros((1, bh, 128), dtype=torch.int8))
+        else:
+            t0 = int(torch.randint(0, tiles - c + 1, (1,), generator=gen))
+            tile.extend(range(t0, t0 + c))
+            blocks.append((torch.rand((c, bh, 128), generator=gen) < 0.05).to(torch.int8))
+        ptr.append(len(tile))
+    tile += [tile[-1]] * TILED_SCALAR_PAD
+    return {"tp_ptr": torch.tensor(ptr, dtype=torch.int32, device=DEV),
+            "tp_tile": torch.tensor(tile, dtype=torch.int32, device=DEV),
+            "tp_a": torch.cat(blocks).to(DEV)}
+
+
+def small_new_kernel_checks(gen) -> None:
+    """The two fused kernels, the tiled band and the grouped band against
+    their plain versions at small odd shapes, fp32 and bf16, every output
+    bitwise repeatable: tband fused at dt 16/32/48/96 with ht != dt; wide
+    fused at dp 128/256/384 with hp != dp (and one hp that is no
+    128-multiple); both at bh 128 and 256 with capacity-padded entries; the
+    tiled band at dp 128/256/384 on a pair stream with empty superwindows,
+    and on the tiled plans of a small graph at ring slots 2 and 16 and of a
+    graph with empty superwindows (apply_padded vs scipy); the grouped band
+    at G 1/2/4/8 on 16 entries and on 12 (G halves until it divides), with
+    entries past num_sw."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.format import reorder
+    from hcspmm_tpu_torch.graphs import io as gio
+    from hcspmm_tpu_torch.kernels import block_spmm, tband
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+
+    dev = torch.device(DEV)
+    dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    for bh in (128, 256):
+        sb, trash = 7, 2
+        sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
+                          torch.full((trash,), sb - trash)]).to(dev, torch.int32)
+        w, mm = 256, 1024
+        at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
+        st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128).to(
+            dev, torch.int32)
+        for dt, ht in ((16, 48), (32, 96), (48, 16), (96, 32)):
+            for cd, dtype in dtypes:
+                xt = torch.randn((dt, mm), generator=gen).to(dev, dtype)
+                wt = torch.randn((ht, dt), generator=gen).to(dev, dtype)
+                hold_repeatable(
+                    f"tband fused {cd} dt {dt} ht {ht} bh {bh} +{trash} padded entries",
+                    lambda: tband.tband_fused_direct(sw_s, st_s, at_s, xt, wt, sb - trash, dtype),
+                    lambda: tband.tband_fused_direct_plain(sw_s, st_s, at_s, xt, wt, sb - trash,
+                                                           dtype), cd)
+        bb, mm = 640, 2048
+        a_s = (torch.rand((sb, bh, bb), generator=gen) < 0.05).to(torch.int8).to(dev)
+        st_s = (torch.randint(0, (mm - bb) // 16 + 1, (sb,), generator=gen) * 16).to(
+            dev, torch.int32)
+        for dp, hp in ((128, 256), (256, 256), (256, 128), (384, 128), (256, 200)):
+            for cd, dtype in dtypes:
+                xp = torch.randn((mm, dp), generator=gen).to(dev, dtype)
+                wp = torch.randn((dp, hp), generator=gen).to(dev, dtype)
+                hold_repeatable(
+                    f"wide fused {cd} dp {dp} hp {hp} bh {bh} +{trash} padded entries",
+                    lambda: block_spmm.band_fused_spmm_direct(sw_s, st_s, a_s, xp, wp,
+                                                              sb - trash, dtype),
+                    lambda: block_spmm.band_fused_spmm_direct_plain(sw_s, st_s, a_s, xp, wp,
+                                                                    sb - trash, dtype), cd)
+        counts = [0, 3, 1, 6, 2, 0, 4, 5, 1]
+        m = len(counts) * bh
+        arrs = tiled_arrays(counts, bh, m // 128, gen)
+        plan = types.SimpleNamespace(band_h=bh)
+        for dp in (128, 256, 384):
+            for cd, dtype in dtypes:
+                xp = torch.randn((m, dp), generator=gen).to(dev, dtype)
+                hold_repeatable(f"tiled {cd} dp {dp} bh {bh}, {len(counts)} superwindows",
+                                lambda: block_spmm.band_tiled_spmm(arrs, xp, plan, dtype),
+                                lambda: block_spmm.band_tiled_spmm_plain(arrs, xp, plan, dtype),
+                                cd)
+        for sb_g in (16, 12):
+            a_g = (torch.rand((sb_g, bh, bb), generator=gen) < 0.05).to(torch.int8).to(dev)
+            st_g = (torch.randint(0, (mm - bb) // 16 + 1, (sb_g,), generator=gen) * 16).to(
+                dev, torch.int32)
+            for group in (1, 2, 4, 8):
+                for cd, dtype in dtypes:
+                    xp = torch.randn((mm, 256), generator=gen).to(dev, dtype)
+                    hold_repeatable(
+                        f"grouped {cd} G {group} Sb {sb_g} bh {bh}, 3 past num_sw",
+                        lambda: block_spmm.band_bucket_spmm_grouped(st_g, a_g, xp, sb_g - 3,
+                                                                    dtype, group),
+                        lambda: block_spmm.band_bucket_spmm_grouped_plain(
+                            st_g, a_g, xp, sb_g - 3, dtype, group), cd)
+    log("  tband fused (dt 16-96, ht != dt), wide fused (dp 128-384, hp != dp), tiled (dp "
+        "128-384, empty superwindows) and grouped (G 1-8) at bh 128 and 256, fp32 and bf16, "
+        "within tolerance of their plain versions and bitwise repeatable: pass")
+
+    src, dst, nn = gio.synthetic_blocks(512, 4, 48, seed=5)
+    rp, ci = gio.to_csr(src, dst, nn)
+    rp, ci = reorder.apply_permutation(rp, ci, nn, reorder.rcm_reorder(rp, ci, nn))
+    rp_e = np.zeros(401, np.int32)  # rows 199.. empty: empty superwindows
+    rp_e[1:200] = np.arange(1, 200)
+    rp_e[200:] = 199
+    ci_e = (np.arange(199) % 150).astype(np.int32)
+    for name, (rpk, cik, nk), slots in (("blocks-512", (rp, ci, nn), 2),
+                                        ("blocks-512", (rp, ci, nn), 16),
+                                        ("empty superwindows", (rp_e, ci_e, 400), 4)):
+        op = HybridSpMM(rpk, cik, nk, PlanConfig(band_mode="always", band_h=128,
+                                                 band_widths=(512,) if nk == nn else (256,),
+                                                 band_impl="tiled", band_tile_slots=slots),
+                        device=dev)
+        if not op.plan.tiled:
+            raise AssertionError(f"{name}: the plan must be tiled")
+        x = np.random.RandomState(1).randn(nk, 24).astype(np.float32)
+        with torch.no_grad():
+            out = op.apply_padded(op.arrays, op.pad_input(x))
+        if (out[nk:] != 0).any():
+            raise AssertionError(f"{name}: padded rows must stay zero")
+        hold(f"tiled plan {name} slots {slots}", op.unpad_output(out, 24),
+             csr_matmul(rpk, cik, nk, x), "float32")
+    log("  tiled plans (slots 2 and 16; empty superwindows) apply_padded vs scipy: pass")
+
+
+def tband_fused_at_plan(op, gen, out) -> None:
+    """At the blocks stand-in's tband plan (dt 32, ht 32, the Table VI
+    analog's tband shape): tband_fused_direct against its plain version,
+    fp32 and bf16, bitwise repeatable; timed beside the composed pair it
+    replaces (tband_spmm_direct, then torch.matmul of W^T by the aggregate)
+    and its bound, with fused and composed also interleaved (medians); and
+    the band kernel's bucket mode timed at the same arrays.  Results go
+    into ``out``."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import tband
+    from hcspmm_tpu_torch.ops.spmm import _dot
+
+    p, arrs = op.plan, op.arrays["f"]
+    st, sw, at = arrs["band0_start"], arrs["band0_sw"], arrs["band0_at"]
+    m, num_sw, bh = p.padded_rows, p.padded_rows // p.band_h, p.band_h
+    nnz = int(at.count_nonzero())
+    shape = f"Sb {at.shape[0]}, W {at.shape[1]}, bh {bh}, dt 32, ht 32"
+    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        xt = torch.randn((32, m), generator=gen).to(DEV, dtype)
+        wt = (torch.randn((32, 32), generator=gen) * 0.1).to(DEV, dtype)
+
+        def fused():
+            return tband.tband_fused_direct(sw, st, at, xt, wt, num_sw, dtype)
+
+        def composed():
+            agg = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)
+            return _dot(wt, agg), agg
+
+        err = hold_repeatable(f"tband fused {cd} at {shape}", fused,
+                              lambda: tband.tband_fused_direct_plain(sw, st, at, xt, wt, num_sw,
+                                                                     dtype), cd)
+        elt = xt.element_size()
+        row = timed(f"tband fused {cd} at {shape} (yardstick: the composed pair)", fused,
+                    lambda: tband.tband_fused_direct_plain(sw, st, at, xt, wt, num_sw, dtype),
+                    at.numel() + xt.numel() * elt + wt.numel() * elt + 2 * 32 * m * elt
+                    + 8 * at.shape[0], 2 * nnz * 32 + 2 * 32 * 32 * m, fn_lib=composed, err=err)
+        ab = interleaved_ms({"fused": fused, "composed": composed}, 20)
+        row["table6"] = ab
+        log(f"    Table VI analog, tband dim 32 {cd}: fused {ab['fused']:.4f} ms, composed "
+            f"{ab['composed']:.4f} ms (medians of 7 interleaved rounds; fused is "
+            f"{(ab['composed'] - ab['fused']) / ab['composed']:+.1%} faster)")
+        out[("tband_fused_direct", cd)] = row
+        if cd == "float32":
+            err = hold("tband bucket fp32", tband.tband_spmm_bucket(st, at, xt),
+                       tband.tband_spmm_bucket_plain(st, at, xt), cd)
+            sb = at.shape[0]
+            bucket_csr = block_csr(at.transpose(1, 2), st, torch.arange(sb, device=DEV), sb, m)
+            x_rows = xt.T.contiguous()
+            out[("tband_spmm_bucket", cd)] = timed(
+                f"tband bucket mode fp32 at Sb {sb}, W {at.shape[1]}, bh {bh}, dt 32 "
+                "(yardstick: torch.sparse.mm)",
+                lambda: tband.tband_spmm_bucket(st, at, xt),
+                lambda: tband.tband_spmm_bucket_plain(st, at, xt),
+                at.numel() + xt.numel() * elt + 32 * sb * bh * 4 + 4 * sb, 2 * nnz * 32,
+                fn_lib=lambda: torch.sparse.mm(bucket_csr, x_rows), err=err)
+            del bucket_csr, x_rows
+        del xt
+
+
+def wide_new_kernels_at_plan(op_w, op_t, gen, out, launch_runs) -> None:
+    """At the blocks stand-in's wide plan (one full-cover bucket): the wide
+    fused kernel at (dp, hp) (128, 256) and (256, 256) against its plain
+    version, fp32 and bf16, timed beside the composed pair (the direct band
+    kernel, then torch.matmul) and its bound, and the Table VI analog at
+    dim 96 (dp 128, W [128, 128]: fused and composed interleaved, medians);
+    the band kernel's bucket mode timed at dp 256; the grouped band against
+    its plain version at G 1/2/4/8 and the grouped A/B (direct vs G = 1, 2,
+    4, 8 at dim 96, interleaved, medians; the launch counters zeroed just
+    before and read just after).  At the tiled plan: the tiled band at dp
+    128 and 256 against its plain version, timed beside torch.sparse.mm of
+    its pairs as one CSR matrix.  Results go into ``out``."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+    from hcspmm_tpu_torch.ops.spmm import _dot
+
+    p, arrs = op_w.plan, op_w.arrays["f"]
+    m, bh = p.padded_rows, p.band_h
+    num_sw = m // bh
+    s = block_spmm.single_full_bucket(arrs, p, num_sw)
+    if s is None or p.has_spill:
+        raise AssertionError("the blocks stand-in's wide plan must have one full-cover "
+                             "bucket and no spill")
+    st, sw, a = arrs[f"band{s}_start"], arrs[f"band{s}_sw"], arrs[f"band{s}_a"]
+    band_csr = block_csr(a, st, sw, num_sw, m)
+    nnz = int(band_csr.values().numel())
+    label = f"Sb {a.shape[0]}, Bb {a.shape[2]}, bh {bh}"
+    log(f"  blocks wide plan: {label}, {num_sw} superwindows, {nnz} band nnz")
+    for dp, hp in ((128, 256), (256, 256)):
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            xp = torch.randn((m, dp), generator=gen).to(DEV, dtype)
+            wp = (torch.randn((dp, hp), generator=gen) * 0.1).to(DEV, dtype)
+
+            def fused():
+                return block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, dtype)
+
+            def plain():
+                return block_spmm.band_fused_spmm_direct_plain(sw, st, a, xp, wp, num_sw, dtype)
+
+            def composed():
+                agg = block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, dtype)
+                return _dot(agg.view(m, dp), wp), agg
+
+            shape = f"{label}, dp {dp}, hp {hp}"
+            err = hold_repeatable(f"wide fused {cd} at {shape}", fused, plain, cd)
+            if cd == "float32":
+                elt = xp.element_size()
+                out[("band_fused_spmm_direct", dp)] = timed(
+                    f"wide fused {cd} at {shape} (yardstick: the composed pair)", fused, plain,
+                    a.numel() + m * dp * elt + dp * hp * elt + m * (dp + hp) * elt
+                    + 8 * a.shape[0], 2 * nnz * dp + 2 * m * dp * hp, fn_lib=composed,
+                    reps=10, err=err)
+            del xp, wp
+    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        xp = torch.randn((m, 128), generator=gen).to(DEV, dtype)
+        wp = (torch.randn((128, 128), generator=gen) * 0.1).to(DEV, dtype)
+        ab = interleaved_ms({
+            "fused": lambda: block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, dtype),
+            "composed": lambda: _dot(block_spmm.band_bucket_spmm_direct(
+                sw, st, a, xp, num_sw, dtype).view(m, 128), wp)}, 10)
+        out[("table6 wide", cd)] = ab
+        log(f"    Table VI analog, wide dim 96 (dp 128, W [128, 128]) {cd}: fused "
+            f"{ab['fused']:.4f} ms, composed {ab['composed']:.4f} ms (medians of 7 interleaved "
+            f"rounds; fused is {(ab['composed'] - ab['fused']) / ab['composed']:+.1%} faster)")
+
+    xp = torch.randn((m, 256), generator=gen).to(DEV, torch.float32)
+    err = hold("wide bucket fp32 dp 256", block_spmm.band_bucket_spmm(st, a, xp),
+               block_spmm.band_bucket_spmm_plain(st, a, xp), "float32")
+    out[("band_bucket_spmm", 256)] = timed(
+        f"wide bucket mode fp32 at {label}, dp 256 (yardstick: torch.sparse.mm)",
+        lambda: block_spmm.band_bucket_spmm(st, a, xp),
+        lambda: block_spmm.band_bucket_spmm_plain(st, a, xp),
+        a.numel() + m * 256 * 4 + a.shape[0] * bh * 256 * 4 + 4 * a.shape[0], 2 * nnz * 256,
+        fn_lib=lambda: torch.sparse.mm(band_csr, xp), reps=10, err=err)
+
+    xp = torch.randn((m, 128), generator=gen).to(DEV, torch.float32)
+    err = 0.0
+    for group in (1, 2, 4, 8):
+        err = max(err, hold_repeatable(
+            f"grouped fp32 G {group} at {label}, dp 128",
+            lambda: block_spmm.band_bucket_spmm_grouped(st, a, xp, num_sw, torch.float32, group),
+            lambda: block_spmm.band_bucket_spmm_grouped_plain(st, a, xp, num_sw, torch.float32,
+                                                              group), "float32"))
+    xb = xp.to(torch.bfloat16)
+    hold_repeatable(f"grouped bf16 G 4 at {label}, dp 128",
+                    lambda: block_spmm.band_bucket_spmm_grouped(st, a, xb, num_sw, xb.dtype),
+                    lambda: block_spmm.band_bucket_spmm_grouped_plain(st, a, xb, num_sw,
+                                                                      xb.dtype), "bfloat16")
+    del xb
+    variants = {"direct": lambda: block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw,
+                                                                     xp.dtype)}
+    for group in (1, 2, 4, 8):
+        variants[f"G{group}"] = (lambda g=group: block_spmm.band_bucket_spmm_grouped(
+            st, a, xp, num_sw, xp.dtype, g))
+    zero_counts()
+    ab = interleaved_ms(variants, 10)
+    launch_runs["grouped A/B"] = read_counts()
+    check_counts(launch_runs["grouped A/B"], {"band_bucket_spmm_grouped": 4}, 1)
+    log("    grouped A/B at dim 96 (dp 128) fp32, medians of 7 interleaved rounds: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ab.items()))
+    row = timed(f"grouped G 4 fp32 at {label}, dp 128 (yardstick: torch.sparse.mm)",
+                variants["G4"],
+                lambda: block_spmm.band_bucket_spmm_grouped_plain(st, a, xp, num_sw,
+                                                                  torch.float32, 4),
+                a.numel() + m * 128 * 4 + min(a.shape[0], num_sw) * bh * 128 * 4
+                + 4 * a.shape[0], 2 * nnz * 128, fn_lib=lambda: torch.sparse.mm(band_csr, xp),
+                reps=10, err=err)
+    row["ab"] = ab
+    out[("band_bucket_spmm_grouped", 128)] = row
+    del xp, band_csr
+
+    p, arrs = op_t.plan, op_t.arrays["f"]
+    ptr, tile, ta = arrs["tp_ptr"], arrs["tp_tile"], arrs["tp_a"]
+    pairs = ta.shape[0]
+    i, r, k = ta.nonzero(as_tuple=True)
+    owner = torch.repeat_interleave(torch.arange(num_sw, device=DEV), (ptr[1:] - ptr[:-1]).long())
+    t_csr = torch.sparse_coo_tensor(
+        torch.stack([owner[i] * bh + r, tile.long()[i] * 128 + k]),
+        torch.ones(i.numel(), device=DEV), (m, m)).coalesce().to_sparse_csr()
+    t_nnz = int(i.numel())
+    del i, r, k, owner
+    runs = (ptr[1:] - ptr[:-1]).long()
+    log(f"  blocks tiled plan: {pairs} pairs, at most {int(runs.max())} a superwindow, "
+        f"{int((runs == 1).sum())} superwindows of one pair, {t_nnz} nnz, slots {p.tile_slots}")
+    for dp in WIDE_DIMS:
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            xp = torch.randn((m, dp), generator=gen).to(DEV, dtype)
+            err = hold_repeatable(
+                f"tiled {cd} at {pairs} pairs, bh {bh}, dp {dp}",
+                lambda: block_spmm.band_tiled_spmm(arrs, xp, p, dtype),
+                lambda: block_spmm.band_tiled_spmm_plain(arrs, xp, p, dtype), cd)
+            if cd == "float32":
+                out[("band_tiled_spmm", dp)] = timed(
+                    f"tiled fp32 at {pairs} pairs, bh {bh}, dp {dp} (yardstick: "
+                    "torch.sparse.mm)",
+                    lambda: block_spmm.band_tiled_spmm(arrs, xp, p, dtype),
+                    lambda: block_spmm.band_tiled_spmm_plain(arrs, xp, p, dtype),
+                    ta.numel() + m * dp * 4 + m * dp * 4 + 4 * (pairs + num_sw + 1),
+                    2 * t_nnz * dp, fn_lib=lambda: torch.sparse.mm(t_csr, xp), reps=10,
+                    err=err)
+            del xp
+    del t_csr
+
+
+def train_fused_mode(rp, ci, n, gen, launch_runs, fused_res) -> None:
+    """The kernel-fusion mode trained through ``train.loop.train`` on the
+    blocks stand-in: the 6-layer GCN and GIN on the tband plan (dim 96,
+    hidden 32, classes 22) and the 3-layer GCN and GIN on the wide plan (dim
+    128, hidden 256, classes 40), 3 epochs each with no warm-up, composed
+    and then with ``op.plan.prefer_fused_kernel = True`` from the same
+    weights; the launch counters are zeroed just before each fused run and
+    read just after: one fused launch per GCN layer's backward and per GIN
+    layer's forward; the first epoch's loss equals the composed run's within
+    1e-5 relative.  One untimed epoch in each mode first keeps first-call
+    costs out of the epoch times."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.models.net import Net
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+    from hcspmm_tpu_torch.train.loop import train
+
+    class Losses:
+        def __init__(self):
+            self.v = []
+
+        def log(self, **rec):
+            self.v.append(rec["loss"])
+
+    y = np.ones(n, dtype=np.int64)
+    for layout, dims, kernel in (("tband", (96, 32, 22, 6), "tband_fused_direct"),
+                                 ("wide", (128, 256, 40, 3), "band_fused_spmm_direct")):
+        op = HybridSpMM(rp, ci, n, PlanConfig(band_impl=layout), device=DEV)
+        xin = torch.from_numpy(np.random.RandomState(1).randn(n, dims[0]).astype(np.float32))
+        for model in ("gcn", "gin"):
+            net = Net(model, *dims)
+            for fused in (False, True):  # first-call costs out of the timed runs
+                op.plan.prefer_fused_kernel = fused
+                train(net, op, xin, y, epochs=1, warmup_epochs=0, seed=3)
+            runs = {}
+            for fused in (False, True):
+                op.plan.prefer_fused_kernel = fused
+                losses = Losses()
+                zero_counts()
+                res = train(net, op, xin, y, epochs=3, warmup_epochs=0, seed=3, logger=losses)
+                counts = read_counts()
+                runs[fused] = (losses.v, res["epoch_ms"], counts)
+            op.plan.prefer_fused_kernel = False
+            (lc, ms_c, _), (lf, ms_f, counts) = runs[False], runs[True]
+            rel0 = abs(lf[0] - lc[0]) / abs(lc[0])
+            rel_last = abs(lf[-1] - lc[-1]) / abs(lc[-1])
+            log(f"  blocks {layout} {model} {dims}: composed losses {lc}, epoch_ms "
+                f"{ms_c:.3f}; fused losses {lf}, epoch_ms {ms_f:.3f}; first-epoch rel diff "
+                f"{rel0:.2e}, last {rel_last:.2e}; fused run's launches {counts}")
+            if not all(math.isfinite(v) for v in lf) or rel0 > 1e-5 or rel_last > 1e-3:
+                raise AssertionError(f"{layout} {model}: the fused run's losses {lf} differ "
+                                     f"from the composed run's {lc}")
+            check_counts(counts, {kernel: 1}, dims[3] * 3)
+            launch_runs[f"blocks {layout} {model} fused"] = counts
+            fused_res[(layout, model)] = dict(composed_ms=ms_c, fused_ms=ms_f, rel0=rel0,
+                                              launches=counts[kernel])
+        del op
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1116,18 +1595,29 @@ def main() -> int:
                           tband.tband_spmm_bucket(st_s, at_s, xt),
                           tband.tband_spmm_bucket_plain(st_s, at_s, xt), cd)
 
+        new_res = {}
+        tband_fused_at_plan(ops["float32"], gen, new_res)
+
         rp2, ci2, n2 = banded_graph(600, 4, 10, 100)
         cfg2 = PlanConfig(band_impl="tband", band_h=128, band_widths=(128, 384),
                           band_spill="never", band_mode="always")
-        op2 = HybridSpMM(rp2, ci2, n2, cfg2, device=dev)
-        if [len(s) > 0 for s in op2.plan.band_sw_ids] != [True, True]:
-            raise AssertionError("the two-bucket plan must fill both buckets")
         x2 = np.random.RandomState(1).randn(n2, 48).astype(np.float32)
-        with torch.no_grad():
-            out2 = op2.unpad_output(op2.apply_padded(op2.arrays, op2.pad_input(
-                torch.from_numpy(x2))), 48)
-        check("two-bucket plan apply_padded vs scipy", out2, csr_matmul(rp2, ci2, n2, x2),
-              "float32")
+        launch_runs = {}
+        for layout, cfg in (("tband", cfg2), ("wide", dataclasses.replace(cfg2,
+                                                                          band_impl="wide"))):
+            op2 = HybridSpMM(rp2, ci2, n2, cfg, device=dev)
+            if [len(s) > 0 for s in op2.plan.band_sw_ids] != [True, True]:
+                raise AssertionError(f"the two-bucket {layout} plan must fill both buckets")
+            zero_counts()
+            with torch.no_grad():
+                out2 = op2.unpad_output(op2.apply_padded(op2.arrays, op2.pad_input(
+                    torch.from_numpy(x2))), 48)
+            launch_runs[f"two-bucket {layout}"] = read_counts()
+            check(f"two-bucket {layout} plan apply_padded vs scipy", out2,
+                  csr_matmul(rp2, ci2, n2, x2), "float32")
+            check_counts(launch_runs[f"two-bucket {layout}"],
+                         {"tband_spmm_bucket" if layout == "tband" else "band_bucket_spmm": 1}, 1)
+        op2 = HybridSpMM(rp2, ci2, n2, cfg2, device=dev)
 
     with Phase("4. spill kernels vs plain versions, small odd shapes"):
         small_spill_checks(gen)
@@ -1184,7 +1674,6 @@ def main() -> int:
                 del op, arrs, xp
                 torch.cuda.empty_cache()
 
-    launch_runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("7. GCN training through cli.main"):
             path = os.path.join(tmp, "blocks_standin.npz")
@@ -1356,6 +1845,62 @@ def main() -> int:
             log(f"  epoch_ms {done['epoch_ms']:.3f}, final_loss {done['final_loss']}; "
                 f"launches {read_counts()} (the plain form launches none)")
 
+        with Phase("16. fused, tiled and grouped kernels vs plain versions, small odd shapes"):
+            small_new_kernel_checks(gen)
+
+        with Phase("17. fused, bucket, grouped and tiled kernels at the blocks stand-in's "
+                   "wide and tiled plans; the grouped A/B"):
+            t0 = time.perf_counter()
+            op_w = HybridSpMM(rp, ci, n, PlanConfig(band_impl="wide"), device=dev)
+            op_t = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tiled"), device=dev)
+            if not op_t.plan.tiled or "band0_a" in op_t.arrays["f"]:
+                raise AssertionError("the blocks stand-in's tiled plan must be tiled and "
+                                     "upload no dense band blocks")
+            log(f"  wide and tiled plans ({time.perf_counter() - t0:.1f} s with upload)")
+            wide_new_kernels_at_plan(op_w, op_t, gen, new_res, launch_runs)
+            del op_w, op_t
+            torch.cuda.empty_cache()
+
+        fused_res = {}
+        with Phase("18. the kernel-fusion mode trained through train.loop.train"):
+            train_fused_mode(rp, ci, n, gen, launch_runs, fused_res)
+
+        with Phase("19. the tiled band through cli.main --band-impl tiled"):
+            for model in ("gcn", "gin"):
+                log(f"  blocks {model}, hidden 256, --band-impl tiled:")
+                zero_counts()
+                lines = run_cli(["--dataset", path, "--reorder", "rcm", "--model", model, *WIDE,
+                                 "--epochs", "3", "--band-impl", "tiled"])
+                counts = read_counts()
+                prep, done = records(lines, "preprocess"), records(lines, "done")
+                spmms = WIDE_SPMMS[model] * (WARMUP_EPOCHS + 3)
+                log(f"  epoch_ms {done['epoch_ms']:.3f}; layout {prep['layout']}; final_loss "
+                    f"{done['final_loss']}; launches {counts} over {spmms} SpMMs")
+                if prep["layout"] != "tiled" or not math.isfinite(done["final_loss"]):
+                    raise AssertionError(f"--band-impl tiled: layout {prep['layout']}, "
+                                         f"final_loss {done['final_loss']}")
+                check_counts(counts, {"band_tiled_spmm": 1}, spmms)
+                if counts["band_spmm"]:
+                    raise AssertionError("a tiled plan must launch no band kernel")
+                launch_runs[f"blocks {model} tiled"] = counts
+            zero_counts()
+            rec = records(run_cli(["--dataset", path, "--reorder", "rcm", "--dim", "32",
+                                   "--hidden", "256", "--single_kernel", "--band-impl", "tiled"]),
+                          "sag")
+            launch_runs["blocks sag tiled"] = read_counts()
+            check_counts(launch_runs["blocks sag tiled"], {"band_tiled_spmm": 1}, 210)
+            log(f"  blocks --single_kernel --band-impl tiled: avg_ms {rec['avg_ms']:.4f}, "
+                f"{rec['gnnz_per_s']:.3f} Gnnz/s")
+            op_t = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tiled"), device=dev)
+            for d in WIDE_DIMS:
+                x = np.random.RandomState(0).randn(n, d).astype(np.float32)
+                with torch.no_grad():
+                    out = op_t.unpad_output(op_t.apply_padded(op_t.arrays, op_t.pad_input(x)), d)
+                check(f"blocks tiled apply_padded dim {d} vs scipy", out,
+                      csr_matmul(rp, ci, n, x), "float32")
+            del op_t, out
+            torch.cuda.empty_cache()
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -1379,9 +1924,29 @@ def main() -> int:
         ("DD intended", "ell_bucket_spmm")]
     csrc = "hcspmm_tpu_torch/csrc/"
     tpu = "hcspmm_tpu/kernels/"
+    tb_bucket, tb_fused = new_res[("tband_spmm_bucket", "float32")], new_res[(
+        "tband_fused_direct", "float32")]
+    wide_bucket, wide_fused = new_res[("band_bucket_spmm", 256)], new_res[(
+        "band_fused_spmm_direct", 256)]
+    grouped, tiled = new_res[("band_bucket_spmm_grouped", 128)], new_res[("band_tiled_spmm", 256)]
     kernels = [
         entry("tband_spmm", csrc + "tband.cu", tpu + "tband.py:217", slice_res["float32"],
-              shape + ", float32, direct write", also_replaces=tpu + "tband.py:246"),
+              shape + ", float32, direct write"),
+        entry("tband_spmm_bucket", csrc + "tband.cu", tpu + "tband.py:246", tb_bucket,
+              tb_bucket["shape"]),
+        entry("tband_fused_direct", csrc + "tband.cu", tpu + "tband.py:309", tb_fused,
+              tb_fused["shape"], err=max(v["err"] for (k, _), v in new_res.items()
+                                         if k == "tband_fused_direct")),
+        entry("band_bucket_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:317",
+              wide_bucket, wide_bucket["shape"]),
+        entry("band_bucket_spmm_grouped", csrc + "block_spmm.cu", tpu + "block_spmm.py:414",
+              grouped, grouped["shape"]),
+        entry("band_tiled_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:597", tiled,
+              tiled["shape"], err=max(v["err"] for (k, _), v in new_res.items()
+                                      if k == "band_tiled_spmm")),
+        entry("band_fused_spmm_direct", csrc + "block_spmm.cu", tpu + "block_spmm.py:666",
+              wide_fused, wide_fused["shape"], err=max(
+                  v["err"] for (k, _), v in new_res.items() if k == "band_fused_spmm_direct")),
         *[entry(name, csrc + "tspill.cu", tpu + replaces, r,
                 f"{r['graph']} {r['shape']}, dt 32, float32",
                 err=max(v["err"] for v in spill_res[(name, "float32")]))
@@ -1390,8 +1955,7 @@ def main() -> int:
                                     ("tbstream_merge", "tspill.py:189", merge))],
         entry("band_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:459", wide,
               f"DD wide plan {wide['shape']}, float32, direct write",
-              err=max(v["err"] for (_, cd), v in wide_res.items() if cd == "float32"),
-              also_replaces=tpu + "block_spmm.py:317"),
+              err=max(v["err"] for (_, cd), v in wide_res.items() if cd == "float32")),
         *[entry(name, csrc + source, tpu + replaces, r,
                 f"{r['graph']} wide plan {r['shape']}, float32",
                 err=max(v["err"] for v in row_res[(name, "float32")]))
@@ -1407,7 +1971,18 @@ def main() -> int:
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    log(json.dumps({"kernels": kernels, "launches_by_run": launch_runs}))
+    if len(kernels) != 16:
+        raise AssertionError(f"the kernel table has {len(kernels)} entries, not 16")
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"no path run here launched {idle}")
+    table6 = {"tband dim 32 " + cd: new_res[("tband_fused_direct", cd)]["table6"]
+              for cd in ("float32", "bfloat16")}
+    table6.update({"wide dim 96 " + cd: new_res[("table6 wide", cd)]
+                   for cd in ("float32", "bfloat16")})
+    log(json.dumps({"kernels": kernels, "launches_by_run": launch_runs, "table6": table6,
+                    "grouped_ab": grouped["ab"],
+                    "fused_training": {f"{k[0]} {k[1]}": v for k, v in fused_res.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

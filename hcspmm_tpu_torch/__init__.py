@@ -7,8 +7,9 @@ JAX nor hcspmm_tpu:
 - ``graphs``  : graph loading, CSR building, datasets (NumPy).
 - ``format``  : window analysis, LOI selector, execution plans, reordering
                 (NumPy host side carried from hcspmm_tpu, so both packages
-                build identical plans; the C++ passes are compiled from
-                hcspmm_tpu/native by file path).
+                build identical plans).
+- ``native``  : the package's copy of the C++ host passes (window analysis,
+                LOA and cluster reordering), compiled with g++ at first use.
 - ``kernels`` : hand-written CUDA kernels (``csrc/``), built with nvcc at
                 first use, each beside its plain PyTorch version.
 - ``ops``     : the differentiable SpMM (``torch.autograd.Function``) and

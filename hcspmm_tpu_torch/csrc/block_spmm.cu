@@ -1,38 +1,57 @@
 // Row-layout band SpMM for Hopper (sm_90a), bound from Python with ctypes
 // (kernels/block_spmm.py holds the wrappers and the plain PyTorch versions).
 //
-// Replaces the Pallas kernels hcspmm_tpu/kernels/block_spmm.py:
-// band_bucket_spmm_direct (pallas_call at :459) and band_bucket_spmm (:317),
-// which differ only in where a result lands.  Entry i of a band bucket
-// computes
-//
-//     out[c_i*bh : c_i*bh + bh, :] = A[i] @ X[st[i] : st[i] + Bb, :dp]
-//
-// with A[i] an int8 0/1 block [bh, Bb] and c_i = sw[i] (direct mode: the
-// superwindow's own rows, in X's dtype or fp32) or c_i = i (bucket mode:
-// fp32 blocks in bucket order, which the caller scatters).  Sums run in fp32
+// Four kernels share one inner loop, ``add_row``: a warp owns one output row
+// and adds, for each non-zero of that row of an int8 0/1 block of A, the X
+// row it names.  It reads the row of A as 4-byte words (32 lanes = 128
+// columns per step), votes which words hold a non-zero, and for each
+// non-zero byte, in column order, adds that X row's slice with fp32 FMAs
+// (lane l owns columns 4l..4l+3 of each 128-column group).  Sums run in fp32
 // with plain FMAs on the CUDA cores, no tensor cores and no TF32: the
 // counterpart of the reference's Precision.HIGHEST in fp32; bf16 inputs are
 // widened with __bfloat162float, as the reference's DEFAULT-precision bf16
-// dot accumulates exact 0/1 x bf16 products in fp32.  Outputs are rounded to
-// nearest once.
+// dot accumulates exact 0/1 x bf16 products in fp32.  Outputs are rounded
+// to nearest once.  Every output element is summed by one thread in a fixed
+// order, so results are bitwise repeatable.  An absent edge adds nothing even
+// where X is not finite (as in a CSR product), where the Pallas kernels'
+// dense dots would spread a NaN over the superwindow.
 //
-// The blocks are under 1% non-zero (DD's wide plan: 1.38 M edges in
-// 1190 x 256 x 640 bytes of A), so the kernel does not multiply the dense
-// block.  A warp owns one output row at a time: it reads the row of A as
-// 4-byte words (32 lanes = 128 columns per step), votes which words hold a
-// non-zero, and for each non-zero byte, in column order, adds that X row's
-// slice (lane l owns columns 4l..4l+3 of each 128-column group).  A row of X
-// is read once per non-zero of A; the superwindow's band (Bb rows) is small
-// enough to stay in L2 while its bh rows are computed.  An absent edge adds
-// nothing even where X is not finite (as in a CSR product), where the Pallas
-// kernel's dense dot would spread a NaN over the superwindow.
+// band_kernel replaces hcspmm_tpu/kernels/block_spmm.py:
+//   band_bucket_spmm_direct (pallas_call at :459), band_bucket_spmm (:317)
+//   and band_bucket_spmm_grouped (:414), which differ only in where a result
+//   lands and how many entries a grid step owns.  Entry i computes
 //
-// Departures from the Pallas kernel: a direct-mode entry with
-// sw[i] == num_sw (capacity padding, format/plan.py) writes nothing, so no
-// trash block is allocated and none is sliced off; the 4-deep DMA ring of
-// the TPU kernel (block_spmm.py:_band_body_deep) is not copied: many warps
-// resident on each SM hide the load latency instead.
+//       out[c_i*bh : c_i*bh + bh, :] = A[i] @ X[st[i] : st[i] + Bb, :dp]
+//
+//   with c_i = sw[i] (direct mode: the superwindow's own rows, in X's dtype
+//   or fp32), or c_i = i (bucket mode: fp32 blocks in bucket order, which the
+//   caller scatters; grouped mode: identity order, one thread block owning
+//   ``group`` consecutive entries, as a grid step of the Pallas kernel owns
+//   G superwindows).  An entry whose c_i >= num_sw (capacity padding,
+//   format/plan.py) writes nothing, so no trash block is allocated.
+// tiled_kernel replaces band_tiled_spmm (pallas_call at :597): superwindow s
+//   sums its run of (superwindow, 128-row X tile) pairs, ptr[s] <= p <
+//   ptr[s+1], each pair's A tile [bh, 128] against X[tile[p]*128 : +128], in
+//   pair order, and writes its block once.  The TPU kernel's ring-cache
+//   fetch schedule (tp_fetch / tp_late) changes no value and is not used:
+//   consecutive superwindows read overlapping tiles, which L2 keeps.
+// fused_kernel replaces band_fused_spmm_direct (pallas_call at :666): the
+//   band aggregate agg = A[i] @ X[st : st+Bb] of a 32-row chunk is written
+//   out and kept in shared memory, rounded to W's type as the reference's
+//   ``agg.astype(w.dtype)`` does, then multiplied by W [dp, hp] read through
+//   L2: out = agg @ W, summed in fp32 in k order.
+//
+// What bounds them.  The blocks are under 1% non-zero (DD's wide plan:
+// 1.38 M edges in 1190 x 256 x 640 bytes of A), so no kernel multiplies the
+// dense block; a row of X is read once per non-zero of A and the
+// superwindow's band (Bb rows) stays in L2 while its bh rows are computed.
+// Reading A (every byte, to find the non-zeros) is the bytes floor; the
+// per-non-zero gathers and the instruction issue of the vote loop keep the
+// kernels above it.  The fused kernel's W product is dense: 2*bh*dp*hp
+// operations per superwindow on the CUDA cores, which at hidden 256 bounds
+// it by operations, not bytes.  The 4-deep DMA ring of the TPU kernels
+// (block_spmm.py:_band_body_deep) is not copied: many warps resident on each
+// SM hide the load latency instead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +61,7 @@ namespace {
 
 constexpr int WARPS = 8;          // warps per thread block
 constexpr int ROWS = 32;          // output rows of one entry per thread block
+constexpr int TILE = 128;         // X rows (A columns) of one tiled pair
 
 struct F4 {
   float v[4];
@@ -70,115 +90,348 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   q.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = q;
 }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// v rounded to T and widened back: the reference's agg.astype(w.dtype)
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
-// Grid: x = (entry i, 32-row chunk of its bh rows), chunk fastest; y = slab
-// of NG*128 output columns.  Block: WARPS warps; warp w computes rows
-// w, w + WARPS, ... of the chunk.
+// acc += A_row @ X[0 : bb] for one row of an int8 block (bb bytes, a
+// multiple of 4, 4-byte aligned); xb points at X's first band row, offset to
+// this lane's first column (rows dp elements apart).
+template <typename TX, int NG>
+__device__ __forceinline__ void add_row(const int8_t* __restrict__ arow, int bb,
+                                        const TX* __restrict__ xb, long long dp, int lane,
+                                        float (&acc)[NG][4]) {
+  for (int k0 = 0; k0 < bb; k0 += 128) {
+    const int k = k0 + 4 * lane;
+    const uint32_t word = k < bb ? *reinterpret_cast<const uint32_t*>(arow + k) : 0u;
+    // words in column order; the loop below is uniform across the warp
+    for (unsigned nz = __ballot_sync(0xffffffffu, word != 0u); nz; nz &= nz - 1) {
+      const int src = __ffs(nz) - 1;
+      const uint32_t w = __shfl_sync(0xffffffffu, word, src);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int av = static_cast<int8_t>((w >> (8 * b)) & 0xffu);
+        if (av == 0) continue;
+        const float af = static_cast<float>(av);
+        const TX* xr = xb + (long long)(k0 + 4 * src + b) * dp;
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const F4 v = load4(xr + g * 128);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[g][q] = fmaf(v.v[q], af, acc[g][q]);
+        }
+      }
+    }
+  }
+}
+
+// Grid: x = (group of entries, 32-row chunk of their bh rows), chunk
+// fastest; y = slab of NG*128 output columns.  Block: WARPS warps; warp w
+// computes rows w, w + WARPS, ... of the chunk, for each entry of its group.
 template <typename TX, typename TO, int NG>
 __global__ void __launch_bounds__(WARPS * 32)
 band_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
             const int8_t* __restrict__ a, const TX* __restrict__ x, TO* __restrict__ out,
-            int bh, int bb, int dp, int nchunk, int num_sw) {
-  const int i = blockIdx.x / nchunk;
+            int bh, int bb, int dp, int nchunk, int num_sw, int group) {
+  const int gi = blockIdx.x / nchunk;
   const int r_lo = (blockIdx.x % nchunk) * ROWS;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  long long blk = i;
-  if (sw != nullptr) {
-    blk = sw[i];
-    if (blk >= num_sw) return;  // capacity padding: nothing to write
-  }
-  const long long st = starts[i];
   const int col0 = blockIdx.y * NG * 128 + 4 * lane;
   const int r_hi = min(r_lo + ROWS, bh);
 
-  for (int r = r_lo + warp; r < r_hi; r += WARPS) {
-    const int8_t* arow = a + ((long long)i * bh + r) * bb;
-    float acc[NG][4];
+  for (int j = 0; j < group; ++j) {
+    const long long i = (long long)gi * group + j;
+    const long long blk = sw != nullptr ? sw[i] : i;
+    if (blk >= num_sw) continue;  // capacity padding: nothing to write
+    const long long st = starts[i];
+    for (int r = r_lo + warp; r < r_hi; r += WARPS) {
+      float acc[NG][4] = {};
+      add_row<TX, NG>(a + (i * bh + r) * bb, bb, x + st * dp + col0, dp, lane, acc);
+      TO* orow = out + (blk * bh + r) * dp + col0;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[g][q] = 0.f;
-
-    for (int k0 = 0; k0 < bb; k0 += 128) {
-      const int k = k0 + 4 * lane;
-      const uint32_t word = k < bb ? *reinterpret_cast<const uint32_t*>(arow + k) : 0u;
-      // words in column order; the loop below is uniform across the warp
-      for (unsigned nz = __ballot_sync(0xffffffffu, word != 0u); nz; nz &= nz - 1) {
-        const int src = __ffs(nz) - 1;
-        const uint32_t w = __shfl_sync(0xffffffffu, word, src);
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int av = static_cast<int8_t>((w >> (8 * b)) & 0xffu);
-          if (av == 0) continue;
-          const float af = static_cast<float>(av);
-          const TX* xr = x + (st + k0 + 4 * src + b) * dp + col0;
-#pragma unroll
-          for (int g = 0; g < NG; ++g) {
-            const F4 v = load4(xr + g * 128);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[g][q] = fmaf(v.v[q], af, acc[g][q]);
-          }
-        }
-      }
+      for (int g = 0; g < NG; ++g) store4(orow + g * 128, acc[g]);
     }
-    TO* orow = out + (blk * bh + r) * dp + col0;
+  }
+}
+
+// Grid: x = (superwindow s, 32-row chunk), chunk fastest; y = column slab.
+template <typename TX, typename TO, int NG>
+__global__ void __launch_bounds__(WARPS * 32)
+tiled_kernel(const int32_t* __restrict__ ptr, const int32_t* __restrict__ tile,
+             const int8_t* __restrict__ a, const TX* __restrict__ x, TO* __restrict__ out,
+             int bh, int dp, int nchunk) {
+  const long long s = blockIdx.x / nchunk;
+  const int r_lo = (blockIdx.x % nchunk) * ROWS;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col0 = blockIdx.y * NG * 128 + 4 * lane;
+  const int r_hi = min(r_lo + ROWS, bh);
+  const int p0 = ptr[s];
+  const int p1 = ptr[s + 1];
+
+  for (int r = r_lo + warp; r < r_hi; r += WARPS) {
+    float acc[NG][4] = {};
+    for (int p = p0; p < p1; ++p)
+      add_row<TX, NG>(a + ((long long)p * bh + r) * TILE, TILE,
+                      x + (long long)tile[p] * TILE * dp + col0, dp, lane, acc);
+    TO* orow = out + (s * bh + r) * dp + col0;
 #pragma unroll
     for (int g = 0; g < NG; ++g) store4(orow + g * 128, acc[g]);
   }
 }
 
+// Grid: x = (entry i, 32-row chunk), chunk fastest.  Block: WARPS warps.
+// Shared memory: agg_s [ROWS][dp] fp32.  Phase 1 (warp per row, NG*128
+// columns at a time): the aggregate rows, written to ``agg`` and, rounded to
+// W's type, to agg_s.  Phase 2: thread t owns column c0 + (t % 128) of out
+// and 16 of the chunk's rows (t / 128 picks which half), and sums agg_s[r, k]
+// * W[k, c] over k in order; the warp's threads read the same agg_s words
+// (a broadcast) and neighbouring W columns.
 template <typename TX, typename TO, int NG>
-cudaError_t launch(const void* starts, const void* sw, const void* a, const void* x, void* out,
-                   int sb, int bh, int bb, int dp, int num_sw, cudaStream_t stream) {
+__global__ void __launch_bounds__(WARPS * 32)
+fused_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
+             const int8_t* __restrict__ a, const TX* __restrict__ x, const TX* __restrict__ w,
+             TO* __restrict__ agg, TO* __restrict__ out, int bh, int bb, int dp, int hp,
+             int nchunk, int num_sw) {
+  const int i = blockIdx.x / nchunk;
+  const int r_lo = (blockIdx.x % nchunk) * ROWS;
+  const long long blk = sw[i];
+  if (blk >= num_sw) return;  // capacity padding: nothing to write
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows = min(ROWS, bh - r_lo);
+  const long long st = starts[i];
+  extern __shared__ __align__(16) float agg_s[];
+
+  for (int c = 0; c < dp; c += NG * 128) {
+    const int col = c + 4 * lane;
+    for (int r = warp; r < ROWS; r += WARPS) {
+      float acc[NG][4] = {};
+      if (r < rows) {
+        add_row<TX, NG>(a + ((long long)i * bh + r_lo + r) * bb, bb, x + st * dp + col, dp,
+                        lane, acc);
+        TO* arow = agg + (blk * bh + r_lo + r) * dp + col;
+#pragma unroll
+        for (int g = 0; g < NG; ++g) store4(arow + g * 128, acc[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        *reinterpret_cast<float4*>(agg_s + r * dp + col + g * 128) =
+            make_float4(round_as(acc[g][0], w), round_as(acc[g][1], w),
+                        round_as(acc[g][2], w), round_as(acc[g][3], w));
+    }
+  }
+  __syncthreads();
+
+  const int half = threadIdx.x >> 7;
+  const float* as = agg_s + half * 16 * dp;
+  for (int c0 = 0; c0 < hp; c0 += 128) {
+    const int c = c0 + (threadIdx.x & 127);
+    const bool on = c < hp;
+    float o[16] = {};
+    for (int k = 0; k < dp; k += 4) {
+      float wk[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wk[q] = on ? to_f32(w[(long long)(k + q) * hp + c]) : 0.f;
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr) {
+        const float4 av = *reinterpret_cast<const float4*>(as + rr * dp + k);
+        o[rr] = fmaf(av.x, wk[0], o[rr]);
+        o[rr] = fmaf(av.y, wk[1], o[rr]);
+        o[rr] = fmaf(av.z, wk[2], o[rr]);
+        o[rr] = fmaf(av.w, wk[3], o[rr]);
+      }
+    }
+    if (on) {
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = half * 16 + rr;
+        if (r < rows) store1(out + (blk * bh + r_lo + r) * hp + c, o[rr]);
+      }
+    }
+  }
+}
+
+template <typename TX, typename TO, int NG>
+cudaError_t launch_band(const void* starts, const void* sw, const void* a, const void* x,
+                        void* out, int sb, int bh, int bb, int dp, int num_sw, int group,
+                        cudaStream_t stream) {
   const int nchunk = (bh + ROWS - 1) / ROWS;
-  const dim3 grid((unsigned)sb * nchunk, (unsigned)(dp / (NG * 128)));
+  const dim3 grid((unsigned)(sb / group) * nchunk, (unsigned)(dp / (NG * 128)));
   band_kernel<TX, TO, NG><<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
       static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<TO*>(out), bh, bb,
-      dp, nchunk, num_sw);
+      dp, nchunk, num_sw, group);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TO, int NG>
+cudaError_t launch_tiled(const void* ptr, const void* tile, const void* a, const void* x,
+                         void* out, int num_sw, int bh, int dp, cudaStream_t stream) {
+  const int nchunk = (bh + ROWS - 1) / ROWS;
+  const dim3 grid((unsigned)num_sw * nchunk, (unsigned)(dp / (NG * 128)));
+  tiled_kernel<TX, TO, NG><<<grid, WARPS * 32, 0, stream>>>(
+      static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(tile),
+      static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<TO*>(out), bh, dp,
+      nchunk);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TO, int NG>
+cudaError_t launch_fused(const void* starts, const void* sw, const void* a, const void* x,
+                         const void* w, void* agg, void* out, int sb, int bh, int bb, int dp,
+                         int hp, int num_sw, cudaStream_t stream) {
+  const int nchunk = (bh + ROWS - 1) / ROWS;
+  const size_t smem = (size_t)ROWS * dp * sizeof(float);
+  auto kernel = fused_kernel<TX, TO, NG>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<(unsigned)sb * nchunk, WARPS * 32, smem, stream>>>(
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
+      static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<const TX*>(w),
+      static_cast<TO*>(agg), static_cast<TO*>(out), bh, bb, dp, hp, nchunk, num_sw);
   return cudaGetLastError();
 }
 
 // The widest column slab (at most 4 groups of 128, so each lane keeps 16
-// fp32 sums) whose group count divides dp / 128.
-template <typename TX, typename TO>
-cudaError_t dispatch_ng(const void* starts, const void* sw, const void* a, const void* x,
-                        void* out, int sb, int bh, int bb, int dp, int num_sw,
-                        cudaStream_t stream) {
+// fp32 sums) whose group count divides dp / 128; calls F::template
+// run<NG>().
+template <typename F>
+cudaError_t dispatch_ng(int dp, F f) {
   const int groups = dp / 128;
-  if (groups % 4 == 0)
-    return launch<TX, TO, 4>(starts, sw, a, x, out, sb, bh, bb, dp, num_sw, stream);
-  if (groups % 3 == 0)
-    return launch<TX, TO, 3>(starts, sw, a, x, out, sb, bh, bb, dp, num_sw, stream);
-  if (groups % 2 == 0)
-    return launch<TX, TO, 2>(starts, sw, a, x, out, sb, bh, bb, dp, num_sw, stream);
-  return launch<TX, TO, 1>(starts, sw, a, x, out, sb, bh, bb, dp, num_sw, stream);
+  if (groups % 4 == 0) return f.template run<4>();
+  if (groups % 3 == 0) return f.template run<3>();
+  if (groups % 2 == 0) return f.template run<2>();
+  return f.template run<1>();
 }
+
+// The (X, out) type pairs the kernels are built for: fp32 -> fp32,
+// bf16 -> bf16 and bf16 -> fp32.  Calls F::template run<TX, TO>().
+template <typename F>
+cudaError_t dispatch_types(int x_bf16, int out_f32, F f) {
+  if (!x_bf16) {
+    if (!out_f32) return cudaErrorInvalidValue;
+    return f.template run<float, float>();
+  }
+  if (out_f32) return f.template run<__nv_bfloat16, float>();
+  return f.template run<__nv_bfloat16, __nv_bfloat16>();
+}
+
+struct BandArgs {
+  const void *starts, *sw, *a, *x;
+  void* out;
+  int sb, bh, bb, dp, num_sw, group;
+  cudaStream_t stream;
+  template <typename TX, typename TO>
+  struct ByNg {
+    const BandArgs& b;
+    template <int NG>
+    cudaError_t run() const {
+      return launch_band<TX, TO, NG>(b.starts, b.sw, b.a, b.x, b.out, b.sb, b.bh, b.bb, b.dp,
+                                     b.num_sw, b.group, b.stream);
+    }
+  };
+  template <typename TX, typename TO>
+  cudaError_t run() const { return dispatch_ng(dp, ByNg<TX, TO>{*this}); }
+};
+
+struct TiledArgs {
+  const void *ptr, *tile, *a, *x;
+  void* out;
+  int num_sw, bh, dp;
+  cudaStream_t stream;
+  template <typename TX, typename TO>
+  struct ByNg {
+    const TiledArgs& t;
+    template <int NG>
+    cudaError_t run() const {
+      return launch_tiled<TX, TO, NG>(t.ptr, t.tile, t.a, t.x, t.out, t.num_sw, t.bh, t.dp,
+                                      t.stream);
+    }
+  };
+  template <typename TX, typename TO>
+  cudaError_t run() const { return dispatch_ng(dp, ByNg<TX, TO>{*this}); }
+};
+
+struct FusedArgs {
+  const void *starts, *sw, *a, *x, *w;
+  void *agg, *out;
+  int sb, bh, bb, dp, hp, num_sw;
+  cudaStream_t stream;
+  template <typename TX, typename TO>
+  struct ByNg {
+    const FusedArgs& f;
+    template <int NG>
+    cudaError_t run() const {
+      return launch_fused<TX, TO, NG>(f.starts, f.sw, f.a, f.x, f.w, f.agg, f.out, f.sb, f.bh,
+                                      f.bb, f.dp, f.hp, f.num_sw, f.stream);
+    }
+  };
+  template <typename TX, typename TO>
+  cudaError_t run() const { return dispatch_ng(dp, ByNg<TX, TO>{*this}); }
+};
 
 }  // namespace
 
-// starts, sw: int32 [sb] (sw may be null: bucket mode); a: int8 [sb, bh, bb];
-// x: [m, dp] fp32 (x_bf16 == 0) or bf16; out: [rows, dp], fp32 when
-// out_f32 != 0, else the type of x.  Returns a cudaError_t (0 = launched).
-// The caller checks on the host that st + bb <= m for every entry, that
-// sw lies in [0, num_sw], and that every output block it reads is written
-// by exactly one entry.
+// starts, sw: int32 [sb] (sw may be null: block id = entry index);
+// a: int8 [sb, bh, bb]; x: [m, dp] fp32 (x_bf16 == 0) or bf16; out:
+// [rows, dp], fp32 when out_f32 != 0, else the type of x.  Entries whose
+// block id is >= num_sw write nothing; a thread block owns ``group``
+// consecutive entries (sb % group == 0).  Returns a cudaError_t (0 =
+// launched).  The caller checks on the host that st + bb <= m for every
+// entry, that sw lies in [0, num_sw], and that every output block it reads
+// is written by exactly one entry.
 extern "C" int hcspmm_band_spmm(const void* starts, const void* sw, const void* a,
                                 const void* x, void* out, int sb, int bh, int bb, int dp,
-                                int num_sw, int x_bf16, int out_f32, void* stream) {
+                                int num_sw, int group, int x_bf16, int out_f32, void* stream) {
   if (sb <= 0) return 0;
-  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 ||
-      (long long)sb * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
+  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || group <= 0 || sb % group ||
+      (long long)(sb / group) * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!x_bf16) {
-    if (!out_f32) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_ng<float, float>(starts, sw, a, x, out, sb, bh, bb, dp, num_sw, s);
-  }
-  if (out_f32)
-    return (int)dispatch_ng<__nv_bfloat16, float>(starts, sw, a, x, out, sb, bh, bb, dp, num_sw,
-                                                  s);
-  return (int)dispatch_ng<__nv_bfloat16, __nv_bfloat16>(starts, sw, a, x, out, sb, bh, bb, dp,
-                                                        num_sw, s);
+  const BandArgs args{starts, sw, a, x, out, sb, bh, bb, dp, num_sw, group,
+                      static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_types(x_bf16, out_f32, args);
+}
+
+// ptr: int32 [num_sw + 1] pair runs (non-decreasing, ptr[num_sw] = pairs);
+// tile: int32 [pairs] 128-row X tile of each pair; a: int8 [pairs, bh, 128];
+// x: [m, dp]; out: [num_sw, bh, dp] (types as hcspmm_band_spmm).  The caller
+// checks on the host that every tile lies inside x and every run is
+// non-empty (an empty superwindow has one zero pair).
+extern "C" int hcspmm_tiled_spmm(const void* ptr, const void* tile, const void* a,
+                                 const void* x, void* out, int num_sw, int bh, int dp,
+                                 int x_bf16, int out_f32, void* stream) {
+  if (num_sw <= 0) return 0;
+  if (bh <= 0 || dp <= 0 || dp % 128 ||
+      (long long)num_sw * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const TiledArgs args{ptr, tile, a, x, out, num_sw, bh, dp, static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_types(x_bf16, out_f32, args);
+}
+
+// starts, sw: int32 [sb]; a: int8 [sb, bh, bb]; x: [m, dp]; w: [dp, hp] in
+// x's type; agg: [rows, dp] and out: [rows, hp], fp32 when out_f32 != 0,
+// else x's type.  Entries with sw >= num_sw write nothing.  Needs 128*dp
+// bytes of shared memory a block (dp <= 1792).  Returns a cudaError_t.
+extern "C" int hcspmm_band_fused(const void* starts, const void* sw, const void* a,
+                                 const void* x, const void* w, void* agg, void* out, int sb,
+                                 int bh, int bb, int dp, int hp, int num_sw, int x_bf16,
+                                 int out_f32, void* stream) {
+  if (sb <= 0) return 0;
+  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || (size_t)ROWS * dp * 4 > 232448 ||
+      hp <= 0 || (long long)sb * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const FusedArgs args{starts, sw, a, x, w, agg, out, sb, bh, bb, dp, hp, num_sw,
+                       static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_types(x_bf16, out_f32, args);
 }

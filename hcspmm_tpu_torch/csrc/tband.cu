@@ -1,7 +1,9 @@
 // Transposed-band SpMM for Hopper (sm_90a), bound from Python with ctypes.
 //
-// Replaces the Pallas kernels hcspmm_tpu/kernels/tband.py:tband_spmm_direct
-// (pallas_call at :217) and :tband_spmm_bucket (:246), pack=1.  Thread
+// tband_kernel replaces the Pallas kernels
+// hcspmm_tpu/kernels/tband.py:tband_spmm_direct (pallas_call at :217) and
+// :tband_spmm_bucket (:246), pack=1; tband_fused_kernel (below) replaces
+// :tband_fused_direct (:309).  Thread
 // block b of superwindow i computes a DT-row slab of
 //
 //     Y^T[d0:d0+DT, c_i*bh : c_i*bh+bh] = X^T[d0:d0+DT, st[i] : st[i]+W] @ A_t[i]
@@ -134,6 +136,145 @@ cudaError_t dispatch_dt(const void* starts, const void* sw, const void* at, cons
   return launch<TX, TO, 16>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, stream);
 }
 
+// The fused transposed aggregate and update (tband.py:tband_fused_direct):
+// one thread block per entry i, bh threads, thread j owning output column j
+// of the superwindow.  For each DT-row slab of the features it sums the band
+// product as tband_kernel does, writes agg^T[d0:d0+DT, cols] and keeps it,
+// rounded to W's type as the reference's agg.astype(wt.dtype) does, in
+// shared memory; then out^T[h, col j] = sum_d wt[h, d] * agg^T[d, j], summed
+// in fp32 in d order, with wt staged in shared memory transposed so that four
+// h read as one 16-byte broadcast.  Both products sum each output element in
+// one thread in a fixed order: bitwise repeatable.  The W product is dense
+// (2*ht*dt*bh operations a superwindow) and the staging holds
+// (KT*DT + dt*bh + dt*ht)*4 + KT*bh bytes of shared memory (156 KB at dt 96,
+// ht 96, bh 256): one block per SM, so the band loop's load latency is less
+// hidden than in tband_kernel.
+// Shared memory: x_s [KT][DT] fp32, agg_s [dt][bh] fp32, w_s [dt][ht] fp32,
+// a_s [KT][bh] int8.
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename TX, typename TO, int DT>
+__global__ void __launch_bounds__(512)
+tband_fused_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
+                   const int8_t* __restrict__ at, const TX* __restrict__ xt,
+                   const TX* __restrict__ wt, TO* __restrict__ agg, TO* __restrict__ out, int w,
+                   int bh, int dt, int ht, long long m, long long out_cols, int num_sw) {
+  const int i = blockIdx.x;
+  const int j = threadIdx.x;
+  const int s = sw[i];
+  if (s >= num_sw) return;  // capacity padding: nothing to write
+  const long long col0 = (long long)s * bh;
+  const long long st = starts[i];
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* x_s = reinterpret_cast<float*>(smem);
+  float* agg_s = x_s + KT * DT;
+  float* w_s = agg_s + dt * bh;
+  int8_t* a_s = reinterpret_cast<int8_t*>(w_s + dt * ht);
+
+  for (int e = j; e < ht * dt; e += blockDim.x) w_s[(e % dt) * ht + e / dt] = to_f32(wt[e]);
+
+  const int8_t* a_blk = at + (long long)i * w * bh;
+  const int nvec = KT * bh / 16;
+  for (int d0 = 0; d0 < dt; d0 += DT) {
+    float acc[DT];
+#pragma unroll
+    for (int d = 0; d < DT; ++d) acc[d] = 0.f;
+    for (int k0 = 0; k0 < w; k0 += KT) {
+      const int4* a_src = reinterpret_cast<const int4*>(a_blk + (long long)k0 * bh);
+      int4* a_dst = reinterpret_cast<int4*>(a_s);
+      for (int v = j; v < nvec; v += blockDim.x) a_dst[v] = a_src[v];
+      for (int e = j; e < KT * DT; e += blockDim.x) {
+        const int kk = e % KT;
+        const int dd = e / KT;
+        x_s[kk * DT + dd] = to_f32(xt[(long long)(d0 + dd) * m + st + k0 + kk]);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < KT; ++kk) {
+        const int8_t av = a_s[kk * bh + j];
+        if (!__any_sync(0xffffffffu, av != 0)) continue;
+        const float a = static_cast<float>(av);
+        const float4* xv = reinterpret_cast<const float4*>(x_s + kk * DT);
+#pragma unroll
+        for (int q = 0; q < DT / 4; ++q) {
+          const float4 x4 = xv[q];
+          acc[4 * q + 0] = fmaf(x4.x, a, acc[4 * q + 0]);
+          acc[4 * q + 1] = fmaf(x4.y, a, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(x4.z, a, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(x4.w, a, acc[4 * q + 3]);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      store(agg + (long long)(d0 + d) * out_cols + col0 + j, acc[d]);
+      agg_s[(d0 + d) * bh + j] = round_as(acc[d], wt);
+    }
+  }
+  __syncthreads();
+
+  for (int h0 = 0; h0 < ht; h0 += 16) {
+    float o[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) o[q] = 0.f;
+    for (int d = 0; d < dt; ++d) {
+      const float a = agg_s[d * bh + j];
+      const float4* wv = reinterpret_cast<const float4*>(w_s + d * ht + h0);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 w4 = wv[q];  // same address for the whole block
+        o[4 * q + 0] = fmaf(w4.x, a, o[4 * q + 0]);
+        o[4 * q + 1] = fmaf(w4.y, a, o[4 * q + 1]);
+        o[4 * q + 2] = fmaf(w4.z, a, o[4 * q + 2]);
+        o[4 * q + 3] = fmaf(w4.w, a, o[4 * q + 3]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 16; ++q) store(out + (long long)(h0 + q) * out_cols + col0 + j, o[q]);
+  }
+}
+
+size_t fused_smem(int dt, int ht, int bh, int DT) {
+  return ((size_t)KT * DT + (size_t)dt * bh + (size_t)dt * ht) * sizeof(float) +
+         (size_t)KT * bh;
+}
+
+template <typename TX, typename TO, int DT>
+cudaError_t launch_fused(const void* starts, const void* sw, const void* at, const void* xt,
+                         const void* wt, void* agg, void* out, int sb, int w, int bh, int dt,
+                         int ht, long long m, long long out_cols, int num_sw,
+                         cudaStream_t stream) {
+  const size_t smem = fused_smem(dt, ht, bh, DT);
+  auto kernel = tband_fused_kernel<TX, TO, DT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<(unsigned)sb, bh, smem, stream>>>(
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
+      static_cast<const int8_t*>(at), static_cast<const TX*>(xt), static_cast<const TX*>(wt),
+      static_cast<TO*>(agg), static_cast<TO*>(out), w, bh, dt, ht, m, out_cols, num_sw);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TO>
+cudaError_t dispatch_fused(const void* starts, const void* sw, const void* at, const void* xt,
+                           const void* wt, void* agg, void* out, int sb, int w, int bh, int dt,
+                           int ht, long long m, long long out_cols, int num_sw,
+                           cudaStream_t stream) {
+  if (dt % 32 == 0)
+    return launch_fused<TX, TO, 32>(starts, sw, at, xt, wt, agg, out, sb, w, bh, dt, ht, m,
+                                    out_cols, num_sw, stream);
+  return launch_fused<TX, TO, 16>(starts, sw, at, xt, wt, agg, out, sb, w, bh, dt, ht, m,
+                                  out_cols, num_sw, stream);
+}
+
 }  // namespace
 
 // starts, sw: int32 [sb] (sw may be null: bucket mode); at: int8 [sb, w, bh];
@@ -159,4 +300,31 @@ extern "C" int hcspmm_tband_spmm(const void* starts, const void* sw, const void*
                                                   out_cols, num_sw, s);
   return (int)dispatch_dt<__nv_bfloat16, __nv_bfloat16>(starts, sw, at, xt, out, sb, w, bh, dt,
                                                         m, out_cols, num_sw, s);
+}
+
+// starts, sw: int32 [sb]; at: int8 [sb, w, bh]; xt: [dt, m] fp32 or bf16;
+// wt: [ht, dt] in xt's type; agg: [dt, out_cols] and out: [ht, out_cols],
+// fp32 when out_f32 != 0, else xt's type.  Entries with sw >= num_sw write
+// nothing.  dt and ht are multiples of 16; the shared memory the block needs
+// (fused_smem) must fit the card's 227 KB.  Returns a cudaError_t.
+extern "C" int hcspmm_tband_fused(const void* starts, const void* sw, const void* at,
+                                  const void* xt, const void* wt, void* agg, void* out, int sb,
+                                  int w, int bh, int dt, int ht, long long m, long long out_cols,
+                                  int num_sw, int x_bf16, int out_f32, void* stream) {
+  if (sb <= 0) return 0;
+  if (dt <= 0 || dt % 16 || ht <= 0 || ht % 16 || w <= 0 || w % KT || bh <= 0 || bh % 32 ||
+      bh > 512 || fused_smem(dt, ht, bh, dt % 32 == 0 ? 32 : 16) > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!x_bf16) {
+    if (!out_f32) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_fused<float, float>(starts, sw, at, xt, wt, agg, out, sb, w, bh, dt,
+                                             ht, m, out_cols, num_sw, s);
+  }
+  if (out_f32)
+    return (int)dispatch_fused<__nv_bfloat16, float>(starts, sw, at, xt, wt, agg, out, sb, w,
+                                                     bh, dt, ht, m, out_cols, num_sw, s);
+  return (int)dispatch_fused<__nv_bfloat16, __nv_bfloat16>(starts, sw, at, xt, wt, agg, out,
+                                                           sb, w, bh, dt, ht, m, out_cols,
+                                                           num_sw, s);
 }

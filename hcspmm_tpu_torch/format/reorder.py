@@ -46,7 +46,7 @@ def _cluster_lib() -> Optional[ctypes.CDLL]:
         return None
     so_path = os.path.join(
         tempfile.gettempdir(),
-        f"hcspmm_cluster_{os.getuid()}_{int(os.path.getmtime(_CL_SRC))}.so",
+        f"hcspmm_torch_cluster_{os.getuid()}_{int(os.path.getmtime(_CL_SRC))}.so",
     )
     if not os.path.exists(so_path):
         try:
@@ -88,7 +88,7 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         return None
     so_path = os.path.join(
         tempfile.gettempdir(),
-        f"hcspmm_loa_{os.getuid()}_{int(os.path.getmtime(_SRC))}.so",
+        f"hcspmm_torch_loa_{os.getuid()}_{int(os.path.getmtime(_SRC))}.so",
     )
     if not os.path.exists(so_path):
         try:

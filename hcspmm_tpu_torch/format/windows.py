@@ -38,13 +38,10 @@ import numpy as np
 from hcspmm_tpu_torch.config import BLK_H, BLK_W, LOICoefficients
 from hcspmm_tpu_torch.format import loi
 
-#: The C++ host passes live in the JAX package's ``native/`` directory and
-#: are compiled from there by file path (never imported), so both packages
-#: run one copy of the C++; without it the NumPy fallbacks run.
-NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "hcspmm_tpu", "native",
-)
+#: The package's own copy of the C++ host passes (``native/``), compiled on
+#: first use with g++; without a compiler the NumPy fallbacks run.
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "native")
 _SRC = os.path.join(NATIVE_DIR, "preprocess.cpp")
 _LIB_CACHE: Optional[ctypes.CDLL] = None
 _LIB_FAILED = False
@@ -64,7 +61,7 @@ def _native_lib() -> Optional[ctypes.CDLL]:
         return None
     so_path = os.path.join(
         tempfile.gettempdir(),
-        f"hcspmm_preprocess_{os.getuid()}_{int(os.path.getmtime(_SRC))}.so",
+        f"hcspmm_torch_preprocess_{os.getuid()}_{int(os.path.getmtime(_SRC))}.so",
     )
     if not os.path.exists(so_path):
         try:

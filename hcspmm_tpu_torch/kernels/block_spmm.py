@@ -13,18 +13,28 @@ at plan build.  The layout is closed under chaining: a GNN layer's dense
 update is ``xp @ pad(W)`` and the next SpMM reads its output unchanged.
 
 The band product is the CUDA kernel ``csrc/block_spmm.cu``;
-``band_bucket_spmm_direct`` (direct write) and ``band_bucket_spmm``
-(fp32, bucket order) are its wrappers and ``band_direct_dispatch`` the
-reference's bucket-keyed entry.  Beside them sit the plain PyTorch
-versions (gather + fp32 einsum) that the tests and chip_smoke.py hold the
-kernel against.  A wrapper takes the plain version only for tensors on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+``band_bucket_spmm_direct`` (direct write), ``band_bucket_spmm`` (fp32,
+bucket order) and ``band_bucket_spmm_grouped`` (G superwindows a thread
+block, identity order) are its wrappers and ``band_direct_dispatch`` the
+reference's bucket-keyed entry.  The same source holds the tiled band
+(``band_tiled_spmm``: a plan's flat (superwindow, 128-row X tile) pairs,
+``plan.tiled``) and the fused aggregate and update
+(``band_fused_spmm_direct``: agg = A X and out = agg W in one launch, the
+kernel-fusion mode that ``plan.prefer_fused_kernel`` turns on).  Beside them
+sit the plain PyTorch versions (gather + fp32 einsum) that the tests and
+chip_smoke.py hold the kernels against.  A wrapper takes the plain version
+only for tensors on the CPU; for a CUDA tensor it launches the kernel or
+raises.
 
 ``spmm_wide_padded`` is one SpMM (the reference's ``spmm_pallas_padded``):
 the main bucket's direct write, the other buckets' blocks scattered over
 theirs, the missing superwindows zeroed (``tspill.zero_row_blocks``), and
 the spill population added by ``apply_spill`` (``dstream.dstream_spill``,
-or the take path).  ``spmm_padded_supported`` is the reference's test of
+or the take path); a tiled plan is one ``band_tiled_spmm``.
+``spmm_fused_wide_padded`` and ``spmm_fused_rows`` are the fused layer
+products in the wide padded and the row layout (None where the plan has no
+single full-cover bucket, as the reference's ``spmm_fused_pallas_padded``
+and ``spmm_fused_pallas``).  ``spmm_padded_supported`` is the reference's test of
 which plans have that path; ``check_plan`` raises for any other plan.
 
 ``spmm_rows`` is one SpMM in the row layout [N, d] -> [N, d] (the
@@ -47,13 +57,21 @@ import functools
 import numpy as np
 import torch
 
+from hcspmm_tpu_torch.config import TILED_SCALAR_PAD
 from hcspmm_tpu_torch.kernels import dstream, tspill
 from hcspmm_tpu_torch.kernels._build import load_library
 
-#: Launches of the CUDA kernel of csrc/block_spmm.cu, counted where a
-#: wrapper launches it (never by the plain versions).  chip_smoke.py
+#: Launches of the band kernel of csrc/block_spmm.cu (every mode), counted
+#: where a wrapper launches it (never by the plain versions).  chip_smoke.py
 #: zeroes it before a run of the main path and reads it after.
 launches = 0
+
+#: Launches of the other kernels of csrc/block_spmm.cu, and of the band
+#: kernel's bucket and grouped modes (also counted in ``launches``).
+kernel_launches = {"band_bucket_spmm": 0, "band_bucket_spmm_grouped": 0,
+                   "band_fused_spmm_direct": 0, "band_tiled_spmm": 0}
+
+TILE_W = 128  # X rows of one tiled pair (csrc/block_spmm.cu TILE)
 
 #: Launches of the two kernels of csrc/rows.cu, counted where a wrapper
 #: launches one (``ell_residual`` is the ELL kernel in its CSR mode).
@@ -64,8 +82,11 @@ row_launches = {"dense_bucket_spmm": 0, "ell_bucket_spmm": 0, "ell_residual": 0}
 def _lib() -> ctypes.CDLL:
     lib = load_library("block_spmm")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hcspmm_band_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
-    lib.hcspmm_band_spmm.restype = ctypes.c_int
+    lib.hcspmm_band_spmm.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+    lib.hcspmm_tiled_spmm.argtypes = [vp] * 5 + [i32] * 5 + [vp]
+    lib.hcspmm_band_fused.argtypes = [vp] * 7 + [i32] * 8 + [vp]
+    for fn in (lib.hcspmm_band_spmm, lib.hcspmm_tiled_spmm, lib.hcspmm_band_fused):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -113,18 +134,14 @@ def spmm_padded_supported(plan) -> bool:
 
 def rows_check(plan, a_dtype: str = "int8") -> None:
     """Raise NotImplementedError for the non-tband plans this package does
-    not run: row-partitioned (rectangular or shard-uniform) plans, the
-    tiled band and int4 band blocks.  Every other plan runs in the row
-    layout (``spmm_rows``) and, where ``spmm_padded_supported``, also in
-    the wide padded layout."""
+    not run: row-partitioned (rectangular or shard-uniform) plans and int4
+    band blocks.  Every other plan runs in the row layout (``spmm_rows``)
+    and, where ``spmm_padded_supported``, also in the wide padded layout
+    (tiled plans through ``band_tiled_spmm``)."""
     if plan.num_cols != plan.num_nodes or getattr(plan, "shard_uniform", False):
         raise NotImplementedError(
             "rectangular and shard plans: the row-partitioned distributed "
             "SpMM (hcspmm_tpu/parallel) is ROADMAP A.10")
-    if getattr(plan, "tiled", False):
-        raise NotImplementedError(
-            "band_impl='tiled': the tiled band kernel (hcspmm_tpu/kernels/"
-            "block_spmm.py:band_tiled_spmm) is ROADMAP A.11")
     if a_dtype == "int4":
         raise NotImplementedError("a_dtype='int4' band blocks are not ported "
                                   "(ROADMAP A.12)")
@@ -137,8 +154,16 @@ def check_plan(plan) -> None:
     one band entry or listed as missing (its block is zeroed and its edges
     spill), and band slices inside the padded layout.  These are the plans
     the reference's ``spmm_padded_supported`` admits here (a cover it
-    would accept with blocks that no entry owns raises)."""
+    would accept with blocks that no entry owns raises).  A tiled plan
+    (spill-free by construction) runs its pairs instead."""
     rows_check(plan)
+    if getattr(plan, "tiled", False):
+        if plan.has_spill or plan.tile_w != TILE_W or plan.padded_rows % TILE_W:
+            raise NotImplementedError(
+                f"a tiled plan with spill ({plan.spill_nnz} edges), tile width "
+                f"{plan.tile_w} or {plan.padded_rows} rows: the tiled band takes "
+                f"spill-free pairs of {TILE_W}-row tiles")
+        return
     if plan.dense_nnz or plan.sparse_nnz:
         raise NotImplementedError(
             "the dense and sparse row-merge populations (dense_nnz="
@@ -198,6 +223,42 @@ def band_bucket_spmm_direct_plain(sw_ids, starts, a, xp, num_sw, out_dtype):
     keep = sw_ids < num_sw
     out[sw_ids[keep].long()] = part[keep].to(out_dtype)
     return out
+
+
+def band_bucket_spmm_grouped_plain(starts, a, xp, num_sw, out_dtype, group=4):
+    """[min(Sb, num_sw), bh, dp] ``out_dtype``: block i = A[i] @ xp slice in
+    identity order (``group`` changes no value)."""
+    return band_bucket_spmm_plain(starts, a, xp)[:num_sw].to(out_dtype)
+
+
+def band_fused_spmm_direct_plain(sw_ids, starts, a, xp, w, num_sw, out_dtype):
+    """(agg [num_sw, bh, dp], out [num_sw, bh, hp]) ``out_dtype``: agg = A[i]
+    @ xp slice in fp32, out = agg rounded to w's dtype @ w in fp32; blocks
+    as ``band_bucket_spmm_direct_plain``."""
+    part = band_bucket_spmm_plain(starts, a, xp)
+    prod = torch.matmul(part.to(w.dtype).float(), w.float())
+    keep = sw_ids < num_sw
+    idx = sw_ids[keep].long()
+    agg = torch.empty((num_sw,) + part.shape[1:], dtype=out_dtype, device=xp.device)
+    out = torch.empty((num_sw,) + prod.shape[1:], dtype=out_dtype, device=xp.device)
+    agg[idx] = part[keep].to(out_dtype)
+    out[idx] = prod[keep].to(out_dtype)
+    return agg, out
+
+
+def band_tiled_spmm_plain(arrs, xp, plan, out_dtype):
+    """[M // bh, bh, dp] ``out_dtype``: each pair's ``tp_a[p] @ xp tile`` in
+    fp32, summed per superwindow by ``index_add_`` in pair order."""
+    ptr = arrs["tp_ptr"].long()
+    num_sw = ptr.shape[0] - 1
+    pairs = int(ptr[-1])
+    tile, a = arrs["tp_tile"][:pairs].long(), arrs["tp_a"]
+    owner = torch.repeat_interleave(torch.arange(num_sw, device=xp.device), ptr[1:] - ptr[:-1])
+    rows = tile[:, None] * TILE_W + torch.arange(TILE_W, device=xp.device)
+    part = torch.einsum("pbk,pkd->pbd", a.float(), xp[rows].float())
+    out = torch.zeros((num_sw, plan.band_h, xp.shape[1]), dtype=torch.float32,
+                      device=xp.device)
+    return out.index_add_(0, owner, part).to(out_dtype)
 
 
 def _gather_rows(xp, idx):
@@ -272,18 +333,22 @@ def _check_cuda_args(starts, sw_ids, a, xp):
         raise ValueError(f"unsupported shape: dp={dp} Bb={bb} bh={bh} M={m}")
 
 
-def _launch(starts, sw_ids, a, xp, out, num_sw):
+def _launch(starts, sw_ids, a, xp, out, num_sw, group=1):
     global launches
     sb, bh, bb = a.shape
     with torch.cuda.device(xp.device):
         rc = _lib().hcspmm_band_spmm(
             starts.data_ptr(), None if sw_ids is None else sw_ids.data_ptr(), a.data_ptr(),
-            xp.data_ptr(), out.data_ptr(), sb, bh, bb, xp.shape[1], num_sw,
+            xp.data_ptr(), out.data_ptr(), sb, bh, bb, xp.shape[1], num_sw, group,
             int(xp.dtype == torch.bfloat16), int(out.dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"csrc/block_spmm.cu launch failed: cudaError {rc}")
+    _raise_on(rc, "band_kernel")
     launches += 1
+
+
+def _raise_on(rc, kernel):
+    if rc != 0:
+        raise RuntimeError(f"csrc/block_spmm.cu {kernel} launch failed: cudaError {rc}")
 
 
 def band_bucket_spmm_direct(sw_ids, starts, a, xp, num_sw, out_dtype):
@@ -314,7 +379,38 @@ def band_bucket_spmm(starts, a, xp):
     _check_cuda_args(starts, None, a, xp)
     out = torch.empty((a.shape[0], a.shape[1], xp.shape[1]), dtype=torch.float32,
                       device=xp.device)
-    _launch(starts, None, a, xp, out, 0)
+    _launch(starts, None, a, xp, out, a.shape[0])
+    kernel_launches["band_bucket_spmm"] += 1
+    return out
+
+
+def grouped_size(sb: int, group: int) -> int:
+    """The reference's group after halving until it divides Sb (capacity
+    is plan-padded to a multiple of 4)."""
+    while group > 1 and sb % group:
+        group //= 2
+    return group
+
+
+def band_bucket_spmm_grouped(starts, a, xp, num_sw, out_dtype, group: int = 4):
+    """Full-cover single-bucket band SpMM with ``group`` superwindows a
+    thread block, in identity superwindow order (port of the Pallas kernel at
+    hcspmm_tpu/kernels/block_spmm.py:379, an experiment the reference keeps
+    for A/B runs against the direct kernel; the band kernel's grouped mode).
+
+    Returns [min(Sb, num_sw), bh, dp] in ``out_dtype``: block i = A[i] @
+    xp[st[i] : st[i]+Bb]; entries past num_sw (capacity padding) write
+    nothing."""
+    group = grouped_size(a.shape[0], group)
+    if xp.device.type == "cpu":
+        return band_bucket_spmm_grouped_plain(starts, a, xp, num_sw, out_dtype, group)
+    _check_cuda_args(starts, None, a, xp)
+    if out_dtype not in (xp.dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
+    out = torch.empty((min(a.shape[0], num_sw), a.shape[1], xp.shape[1]), dtype=out_dtype,
+                      device=xp.device)
+    _launch(starts, None, a, xp, out, num_sw, group)
+    kernel_launches["band_bucket_spmm_grouped"] += 1
     return out
 
 
@@ -323,6 +419,92 @@ def band_direct_dispatch(arrs, s, xp, num_sw, out_dtype):
     (the reference's ``band_direct_dispatch``, block_spmm.py:325)."""
     return band_bucket_spmm_direct(arrs[f"band{s}_sw"], arrs[f"band{s}_start"],
                                    arrs[f"band{s}_a"], xp, num_sw, out_dtype)
+
+
+_FUSED_MAX_DP = 1792  # csrc/block_spmm.cu fused_kernel: 32 rows x dp fp32 in 227 KB
+
+
+def band_fused_spmm_direct(sw_ids, starts, a, xp, w, num_sw, out_dtype):
+    """Fused aggregate and update, direct write (port of the Pallas kernel at
+    hcspmm_tpu/kernels/block_spmm.py:630): entry i computes superwindow
+    ``sw_ids[i]``'s ``agg = A[i] @ xp[st : st+Bb]`` (fp32 sums) and ``out =
+    agg.astype(w.dtype) @ w`` (fp32 sums) in one launch.
+
+    w: [dp, hp] in xp's dtype (the forward form W or the backward form
+    W^T).  Returns (agg [num_sw, bh, dp], out [num_sw, bh, hp]) in
+    ``out_dtype`` (xp's dtype or float32); entries with ``sw_id == num_sw``
+    write nothing and unowned blocks stay unset."""
+    if xp.device.type == "cpu":
+        return band_fused_spmm_direct_plain(sw_ids, starts, a, xp, w, num_sw, out_dtype)
+    _check_cuda_args(starts, sw_ids, a, xp)
+    dp = xp.shape[1]
+    if (w.device != xp.device or not w.is_contiguous() or w.dtype != xp.dtype
+            or w.dim() != 2 or w.shape[0] != dp):
+        raise ValueError(f"w must be contiguous {xp.dtype} [{dp}, hp] on {xp.device}")
+    if out_dtype not in (xp.dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
+    if dp > _FUSED_MAX_DP:
+        raise ValueError(f"dp {dp}: the fused kernel keeps 32 rows of at most "
+                         f"{_FUSED_MAX_DP} columns in shared memory")
+    sb, bh, bb = a.shape
+    hp = w.shape[1]
+    agg = torch.empty((num_sw, bh, dp), dtype=out_dtype, device=xp.device)
+    out = torch.empty((num_sw, bh, hp), dtype=out_dtype, device=xp.device)
+    with torch.cuda.device(xp.device):
+        rc = _lib().hcspmm_band_fused(
+            starts.data_ptr(), sw_ids.data_ptr(), a.data_ptr(), xp.data_ptr(), w.data_ptr(),
+            agg.data_ptr(), out.data_ptr(), sb, bh, bb, dp, hp, num_sw,
+            int(xp.dtype == torch.bfloat16), int(out_dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "fused_kernel")
+    kernel_launches["band_fused_spmm_direct"] += 1
+    return agg, out
+
+
+def band_fused_dispatch(arrs, s, xp, wp, num_sw, out_dtype):
+    """Fused direct-write band call for bucket ``s`` (the reference's
+    ``band_fused_dispatch``, block_spmm.py:607)."""
+    return band_fused_spmm_direct(arrs[f"band{s}_sw"], arrs[f"band{s}_start"],
+                                  arrs[f"band{s}_a"], xp, wp, num_sw, out_dtype)
+
+
+def band_tiled_spmm(arrs, xp, plan, out_dtype):
+    """Tiled band SpMM over the padded layout: xp [M, dp] -> [M // bh, bh,
+    dp] in ``out_dtype`` (port of the Pallas kernel at
+    hcspmm_tpu/kernels/block_spmm.py:561).  Superwindow s sums its run of
+    pairs ``tp_ptr[s] <= p < tp_ptr[s+1]``: ``tp_a[p] [bh, 128] @
+    xp[tp_tile[p]*128 : +128]`` in fp32, and writes its block once; an empty
+    superwindow's one pair has a zero A tile.  The ring-cache schedule
+    (``tp_fetch``/``tp_late``) changes no value and is only checked on the
+    host (``check_tiled_arrays``)."""
+    if xp.device.type == "cpu":
+        return band_tiled_spmm_plain(arrs, xp, plan, out_dtype)
+    ptr, tile, a = arrs["tp_ptr"], arrs["tp_tile"], arrs["tp_a"]
+    m, dp = xp.shape
+    num_sw = ptr.shape[0] - 1
+    if xp.dtype not in (torch.float32, torch.bfloat16) or not xp.is_contiguous():
+        raise ValueError(f"xp must be contiguous float32 or bfloat16, got {xp.dtype}")
+    for name, t in (("tp_ptr", ptr), ("tp_tile", tile), ("tp_a", a)):
+        if t.device != xp.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {xp.device}")
+    if (a.dtype != torch.int8 or a.dim() != 3 or a.shape[1:] != (plan.band_h, TILE_W)
+            or ptr.dtype != torch.int32 or tile.dtype != torch.int32):
+        raise ValueError(f"tp_a must be int8 [P, {plan.band_h}, {TILE_W}], tp_ptr and "
+                         "tp_tile int32")
+    if dp % 128 or m != num_sw * plan.band_h:
+        raise ValueError(f"xp [{m}, {dp}]: dp a multiple of 128, M = {num_sw} x "
+                         f"{plan.band_h}")
+    if out_dtype not in (xp.dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
+    out = torch.empty((num_sw, plan.band_h, dp), dtype=out_dtype, device=xp.device)
+    with torch.cuda.device(xp.device):
+        rc = _lib().hcspmm_tiled_spmm(
+            ptr.data_ptr(), tile.data_ptr(), a.data_ptr(), xp.data_ptr(), out.data_ptr(),
+            num_sw, plan.band_h, dp, int(xp.dtype == torch.bfloat16),
+            int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "tiled_kernel")
+    kernel_launches["band_tiled_spmm"] += 1
+    return out
 
 
 _MAX_WH = 16  # csrc/rows.cu dense: 4 warps x 4 rows a thread
@@ -435,18 +617,28 @@ def ell_residual_spmm(ptr, cols, xp, out=None):
 # ---------------------------------------------------------------------------
 
 
-def _spill_take(out, arrs, xsrc, plan):
-    """The take path (port of hcspmm_tpu/kernels/block_spmm.py:729-765):
-    gather each spilled edge's row of ``xsrc`` (clip mode), segment-sum by
-    spill row in fp32, and add each row's sum onto ``out``; padded rows
-    (real rows come first, checked on upload) are dropped."""
-    m = out.shape[0]
+def _spill_seg(arrs, xsrc, plan):
+    """fp32 [Rs, D]: each spill row's sum of its spilled edges' rows of
+    ``xsrc`` (clip mode; port of hcspmm_tpu/kernels/block_spmm.py:729)."""
     xe = xsrc.index_select(0, arrs["spill_edge_col"].clamp(max=xsrc.shape[0] - 1))
     seg = torch.zeros((plan.num_spill_rows + 1, xsrc.shape[1]), dtype=torch.float32,
                       device=xsrc.device)
     seg.index_add_(0, arrs["spill_edge_seg"], xe.float())
-    real = int(np.count_nonzero(plan.spill_rows < m))
-    return out.index_add_(0, arrs["spill_rows"][:real], seg[:real].to(out.dtype))
+    return seg[: plan.num_spill_rows]
+
+
+def _spill_rows(arrs, plan, m):
+    """The spill rows inside the first ``m`` rows (real rows come first,
+    checked on upload; the padding rows are dropped)."""
+    return arrs["spill_rows"][: int(np.count_nonzero(plan.spill_rows < m))]
+
+
+def _spill_take(out, arrs, xsrc, plan):
+    """The take path (port of hcspmm_tpu/kernels/block_spmm.py:729-765):
+    gather each spilled edge's row of ``xsrc`` (clip mode), segment-sum by
+    spill row in fp32, and add each row's sum onto ``out``."""
+    rows = _spill_rows(arrs, plan, out.shape[0])
+    return out.index_add_(0, rows, _spill_seg(arrs, xsrc, plan)[: rows.shape[0]].to(out.dtype))
 
 
 def apply_spill(out, arrs, xsrc, plan):
@@ -469,12 +661,15 @@ def spmm_wide_padded(arrs, xp, plan, compute_dtype):
     blocks are scattered over the blocks it owns (unset by the direct
     write); the missing superwindows' blocks are zeroed (aligned runs of
     eight first); the spill population is added last.  With no band entry
-    at all the buffer starts as zeros."""
+    at all the buffer starts as zeros.  A tiled plan is one
+    ``band_tiled_spmm`` (it never spills)."""
     check_plan(plan)
     xp = xp.to(compute_dtype).contiguous()
     m, dp = xp.shape
     if m != plan.padded_rows:
         raise ValueError(f"xp has {m} rows, the plan's layout {plan.padded_rows}")
+    if getattr(plan, "tiled", False):
+        return band_tiled_spmm(arrs, xp, plan, xp.dtype).view(m, dp)
     bh = plan.band_h
     num_sw = m // bh
     nonempty = [i for i in range(len(plan.band_widths))
@@ -495,6 +690,75 @@ def spmm_wide_padded(arrs, xp, plan, compute_dtype):
         if key in arrs:
             buf = tspill.zero_row_blocks(buf, arrs[key], w)
     return apply_spill(buf, arrs, xp, plan)
+
+
+def single_full_bucket(arrs, plan, num_sw):
+    """The one non-empty band bucket when it owns all ``num_sw``
+    superwindows, else None (the fused kernel's condition)."""
+    nonempty = [s for s in range(len(plan.band_widths))
+                if arrs[f"band{s}_start"].shape[0] > 0]
+    if len(nonempty) != 1 or len(plan.band_sw_ids[nonempty[0]]) != num_sw:
+        return None
+    return nonempty[0]
+
+
+def _fuse_spill(agg_r, out_r, arrs, xsrc, w, plan):
+    """The band+spill correction of a fused call (the reference's, in XLA):
+    each spill row's sum ``seg`` of ``xsrc`` rows is added to agg and ``seg
+    @ w`` (fp32) to out, on the spill rows only."""
+    if plan.has_spill and "spill_rows" in arrs:
+        rows = _spill_rows(arrs, plan, agg_r.shape[0])
+        seg = _spill_seg(arrs, xsrc, plan)[: rows.shape[0]]
+        agg_r.index_add_(0, rows, seg.to(agg_r.dtype))
+        out_r.index_add_(0, rows, torch.matmul(seg, w.float()).to(out_r.dtype))
+    return out_r, agg_r
+
+
+def spmm_fused_wide_padded(arrs, xp, wp, plan):
+    """Fused ``(out = agg @ wp, agg = A @ xp)`` in the closed wide padded
+    layout (port of hcspmm_tpu/kernels/block_spmm.py:867): xp [M, dp], wp
+    [dp, hp] in xp's dtype; returns ([M, hp], [M, dp]) in xp's dtype, with
+    the spill correction on the spill rows.  None, for the caller to
+    compose, unless the plan is a wide (not tiled, not tband) plan whose one
+    band bucket owns every superwindow."""
+    if (getattr(plan, "tiled", False) or not plan.band_padded_ok
+            or getattr(plan, "tband", False)):
+        return None
+    m, dp = xp.shape
+    num_sw = plan.padded_rows // plan.band_h
+    s = single_full_bucket(arrs, plan, num_sw)
+    if s is None:
+        return None
+    xp = xp.contiguous()
+    agg, out = band_fused_dispatch(arrs, s, xp, wp.to(xp.dtype).contiguous(), num_sw, xp.dtype)
+    return _fuse_spill(agg.view(m, dp), out.view(m, wp.shape[1]), arrs, xp, wp, plan)
+
+
+def spmm_fused_rows(arrs, x, w, plan, compute_dtype):
+    """Fused ``((A @ x) @ w, A @ x)`` in the row layout, x [N, d], w [d, h]
+    -> ([N, h], [N, d]) in x's dtype (port of
+    hcspmm_tpu/kernels/block_spmm.py:677): x padded to the band table
+    (``xp_rows`` and 128 columns) in the compute dtype, w's rows padded to
+    match, one fused launch, the slices, and the spill correction.  None
+    unless the plan is a full-cover wide plan whose one band bucket owns
+    every superwindow."""
+    n, d = x.shape
+    if (not plan.band_full_cover or getattr(plan, "tiled", False)
+            or getattr(plan, "tband", False)):
+        return None
+    num_sw = max(plan.band_num_sw, -(-n // plan.band_h))
+    s = single_full_bucket(arrs, plan, num_sw)
+    if s is None:
+        return None
+    xb = _band_table(x.to(compute_dtype), plan)
+    wp = torch.zeros((xb.shape[1], w.shape[1]), dtype=compute_dtype, device=w.device)
+    wp[:d] = w
+    od = x.dtype if x.dtype in (compute_dtype, torch.float32) else torch.float32
+    agg, out = band_fused_dispatch(arrs, s, xb, wp, num_sw, od)
+    out_r = out.view(-1, w.shape[1])[:n]
+    agg_r = agg.view(-1, xb.shape[1])[:n, :d].contiguous()
+    out_r, agg_r = _fuse_spill(agg_r, out_r, arrs, xb[:, :d], w, plan)
+    return out_r.to(x.dtype), agg_r.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -540,11 +804,16 @@ def spmm_rows(arrs, x, plan, compute_dtype):
     ``out_perm`` merge takes each node's row from it (or its zero row), and
     the spill population is added by the take path.  The row kernels read
     ``x`` in the compute dtype with no padding (pad columns point past it);
-    only the band kernel gets a 128-column table."""
+    only the band kernel gets a 128-column table.  A tiled plan runs its
+    padded core on x padded to [M, 128-multiple] and sliced back."""
     rows_check(plan)
     n, d = plan.num_nodes, x.shape[1]
     if x.shape[0] != n:
         raise ValueError(f"x has {x.shape[0]} rows, the plan {n}")
+    if getattr(plan, "tiled", False):
+        xp = torch.zeros((plan.padded_rows, lane_pad(d)), dtype=compute_dtype, device=x.device)
+        xp[:n, :d] = x
+        return spmm_wide_padded(arrs, xp, plan, compute_dtype)[:n, :d].to(x.dtype)
     xr = x.to(compute_dtype).contiguous()
     nonempty = [s for s in range(len(plan.band_widths))
                 if arrs[f"band{s}_start"].shape[0] > 0]
@@ -626,3 +895,37 @@ def check_row_arrays(host: dict, plan) -> dict:
     if len(perm) != plan.num_nodes or (perm.size and (perm.min() < 0 or perm.max() > total)):
         raise ValueError(f"out_perm must hold {plan.num_nodes} rows in [0, {total}]")
     return {"sparse_seg_ptr": sparse_seg_ptr(host["sparse_edge_seg"], plan.num_sparse_rows)}
+
+
+def check_tiled_arrays(host: dict, plan) -> dict:
+    """Host check of a tiled plan's pair stream before upload (the tiled
+    kernel reads it unchecked): every superwindow owns a non-empty run of
+    consecutive pairs (``pair_ptr``), marked first and last where the runs
+    start and end and owned by it in ``tp_super``; every tile lies inside the
+    padded layout; the fetch schedule is 0/1; each scalar array carries the
+    plan's lookahead padding.  Returns the runs as int32 ``tp_ptr``."""
+    num_sw = plan.padded_rows // plan.band_h
+    ptr = np.asarray(plan.pair_ptr, dtype=np.int64)
+    pairs = len(plan.pair_tile)
+    if (ptr.shape != (num_sw + 1,) or ptr[0] != 0 or ptr[-1] != pairs
+            or (np.diff(ptr) < 1).any() or pairs > np.iinfo(np.int32).max):
+        raise ValueError(f"pair_ptr must hold {num_sw} non-empty runs of {pairs} pairs")
+    keys = ("tp_tile", "tp_super", "tp_fetch", "tp_late", "tp_first", "tp_last")
+    v = {k: np.asarray(host[k]) for k in keys}
+    if any(a.shape != (pairs + TILED_SCALAR_PAD,) for a in v.values()):
+        raise ValueError(f"tp_* must hold {pairs} pairs + {TILED_SCALAR_PAD} pad entries")
+    v = {k: a[:pairs] for k, a in v.items()}
+    tiles = plan.padded_rows // TILE_W
+    if pairs and (v["tp_tile"].min() < 0 or v["tp_tile"].max() >= tiles):
+        raise ValueError(f"tile ids must lie in [0, {tiles})")
+    first, last = np.zeros(pairs, np.int64), np.zeros(pairs, np.int64)
+    first[ptr[:-1]] = 1
+    last[ptr[1:] - 1] = 1
+    if (not np.array_equal(v["tp_super"], np.repeat(np.arange(num_sw), np.diff(ptr)))
+            or not np.array_equal(v["tp_first"], first)
+            or not np.array_equal(v["tp_last"], last)
+            or not np.isin(v["tp_fetch"], (0, 1)).all()
+            or not np.isin(v["tp_late"], (0, 1)).all()):
+        raise ValueError("tp_super, tp_first, tp_last must follow pair_ptr and "
+                         "tp_fetch, tp_late be 0/1")
+    return {"tp_ptr": ptr.astype(np.int32)}

@@ -11,9 +11,12 @@ closed under chaining, and the dense update (X W)^T = W^T X^T keeps a
 training step transposed end to end (ops.spmm wires that).
 
 The band product is the CUDA kernel ``csrc/tband.cu``; the functions
-``tband_spmm_direct`` and ``tband_spmm_bucket`` are its wrappers.  Beside
-them sit the plain PyTorch versions (gather + fp32 einsum) that the tests
-and chip_smoke.py hold the kernel against.  A wrapper takes the plain
+``tband_spmm_direct`` and ``tband_spmm_bucket`` are its wrappers.  The same
+source holds the fused aggregate and update, ``tband_fused_direct``
+(agg^T = X^T A_t and out^T = W^T agg^T in one launch: the kernel-fusion mode
+that ``plan.prefer_fused_kernel`` turns on; ``spmm_tband_fused_padded`` is
+its layer-level entry).  Beside them sit the plain PyTorch versions (gather
++ fp32 einsum) that the tests and chip_smoke.py hold the kernels against.  A wrapper takes the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.
 
@@ -37,10 +40,14 @@ import torch.nn.functional as F
 from hcspmm_tpu_torch.kernels import block_spmm, tspill
 from hcspmm_tpu_torch.kernels._build import load_library
 
-#: Launches of the CUDA kernel of csrc/tband.cu, counted where a wrapper
-#: launches it (never by the plain versions).  chip_smoke.py zeroes it
-#: before a run of the main path and reads it after.
+#: Launches of the band kernel of csrc/tband.cu (both modes), counted
+#: where a wrapper launches it (never by the plain versions).  chip_smoke.py
+#: zeroes it before a run of the main path and reads it after.
 launches = 0
+
+#: Launches of the fused kernel of csrc/tband.cu, and of the band kernel's
+#: bucket mode (also counted in ``launches``).
+kernel_launches = {"tband_spmm_bucket": 0, "tband_fused_direct": 0}
 
 _MAX_BH = 512  # threads per block in csrc/tband.cu: one per output column
 _KT = 64       # csrc/tband.cu KT: the contraction width must divide by it
@@ -53,6 +60,8 @@ def _lib() -> ctypes.CDLL:
     lib.hcspmm_tband_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                       i64, i64, i32, i32, i32, vp]
     lib.hcspmm_tband_spmm.restype = ctypes.c_int
+    lib.hcspmm_tband_fused.argtypes = [vp] * 7 + [i32] * 5 + [i64, i64, i32, i32, i32, vp]
+    lib.hcspmm_tband_fused.restype = ctypes.c_int
     return lib
 
 
@@ -143,6 +152,23 @@ def tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype):
     return out
 
 
+def tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
+    """(agg^T [dt, num_sw*bh], out^T [ht, num_sw*bh]) ``out_dtype``: agg^T as
+    ``tband_spmm_direct_plain``, out^T = wt @ agg^T rounded to wt's dtype,
+    in fp32."""
+    sb, _, bh = at.shape
+    part = tband_spmm_bucket_plain(starts, at, xt)
+    prod = torch.matmul(wt.float(), part.to(wt.dtype).float())
+    keep = sw_ids < num_sw
+    idx = sw_ids[keep].long()
+    outs = []
+    for v in (part, prod):
+        o = torch.empty((v.shape[0], num_sw * bh), dtype=out_dtype, device=xt.device)
+        o.view(v.shape[0], num_sw, bh)[:, idx] = v.view(v.shape[0], sb, bh)[:, keep].to(out_dtype)
+        outs.append(o)
+    return tuple(outs)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -218,7 +244,56 @@ def tband_spmm_bucket(starts, at, xt):
     out = torch.empty((xt.shape[0], at.shape[0] * at.shape[2]),
                       dtype=torch.float32, device=xt.device)
     _launch(starts, None, at, xt, out, 0)
+    kernel_launches["tband_spmm_bucket"] += 1
     return out
+
+
+def fused_smem_bytes(dt: int, ht: int, bh: int) -> int:
+    """Shared memory of csrc/tband.cu's fused kernel (fused_smem)."""
+    slab = 32 if dt % 32 == 0 else 16
+    return (_KT * slab + dt * bh + dt * ht) * 4 + _KT * bh
+
+
+_SMEM_MAX = 232448  # bytes of shared memory one H100 thread block may use
+
+
+def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
+    """Fused transposed aggregate and update, direct write (port of the
+    Pallas kernel at hcspmm_tpu/kernels/tband.py:277): entry i computes
+    superwindow ``sw_ids[i]``'s ``agg^T = X^T[:, st:st+W] @ A_t[i]`` (fp32
+    sums) and ``out^T = wt @ agg^T.astype(wt.dtype)`` (fp32 sums).
+
+    wt: [ht, dt] in xt's dtype (ht a multiple of 16).  Returns (agg^T
+    [dt, num_sw*bh], out^T [ht, num_sw*bh]) in ``out_dtype`` (xt's dtype or
+    float32); entries with ``sw_id == num_sw`` write nothing and unowned
+    blocks stay unset."""
+    if xt.device.type == "cpu":
+        return tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype)
+    _check_cuda_args(starts, sw_ids, at, xt)
+    dt, m = xt.shape
+    sb, w, bh = at.shape
+    if (wt.device != xt.device or not wt.is_contiguous() or wt.dtype != xt.dtype
+            or wt.dim() != 2 or wt.shape[1] != dt or wt.shape[0] % 16):
+        raise ValueError(f"wt must be contiguous {xt.dtype} [ht, {dt}], ht a multiple of 16")
+    if out_dtype not in (xt.dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype}: xt's dtype or float32")
+    ht = wt.shape[0]
+    if fused_smem_bytes(dt, ht, bh) > _SMEM_MAX:
+        raise ValueError(f"dt {dt}, ht {ht}, bh {bh}: the fused kernel's "
+                         f"{fused_smem_bytes(dt, ht, bh)} bytes of shared memory exceed "
+                         f"{_SMEM_MAX}")
+    agg = torch.empty((dt, num_sw * bh), dtype=out_dtype, device=xt.device)
+    out = torch.empty((ht, num_sw * bh), dtype=out_dtype, device=xt.device)
+    with torch.cuda.device(xt.device):
+        rc = _lib().hcspmm_tband_fused(
+            starts.data_ptr(), sw_ids.data_ptr(), at.data_ptr(), xt.data_ptr(), wt.data_ptr(),
+            agg.data_ptr(), out.data_ptr(), sb, w, bh, dt, ht, m, num_sw * bh, num_sw,
+            int(xt.dtype == torch.bfloat16), int(out_dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"csrc/tband.cu tband_fused_kernel launch failed: cudaError {rc}")
+    kernel_launches["tband_fused_direct"] += 1
+    return agg, out
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +393,25 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
         if key in arrs:
             buf = tspill.zero_lane_blocks(buf, arrs[key], w)
     return _tband_apply_spill(buf, arrs, xt, plan)
+
+
+def spmm_tband_fused_padded(arrs, xt, wt, plan):
+    """Fused ``(out^T = wt (A X)^T, agg^T = (A X)^T)`` in the transposed
+    padded layout (port of hcspmm_tpu/kernels/tband.py:483): xt [dt, M], wt
+    [ht, dt] -> ([ht, M], [dt, M]) in xt's dtype.  None, for the caller to
+    compose, where the plan spills or its one non-empty bucket does not own
+    every superwindow, as the reference returns None."""
+    if plan.has_spill:
+        return None
+    num_sw = plan.padded_rows // plan.band_h
+    s = block_spmm.single_full_bucket(arrs, plan, num_sw)
+    if s is None:
+        return None
+    xt = xt.contiguous()
+    agg, out = tband_fused_direct(arrs[f"band{s}_sw"], arrs[f"band{s}_start"],
+                                  arrs[f"band{s}_at"], xt, wt.to(xt.dtype).contiguous(),
+                                  num_sw, xt.dtype)
+    return out, agg
 
 
 def sublane_pad(d: int) -> int:

@@ -18,6 +18,15 @@ default does with ``jnp.dot``; autograd then yields its backward dataflow
 (GCN: dX = (A^T dZ) W^T, dW = X^T (A^T dZ); GIN: the aggregate is kept for
 dW).
 
+The kernel-fusion mode (HC-SpMM's fused aggregate and update) is off by
+default, as in the JAX package, and turned on per plan by setting
+``op.plan.prefer_fused_kernel = True``; it is read at each call.  The layer
+cores then run as the reference's custom VJPs (``_LayerCore``): the GIN
+forward and the GCN backward are one fused launch each (tband
+``tband_fused_direct``, wide and row layouts ``band_fused_spmm_direct``),
+where the plan has one full-cover band bucket and, in the tband layout, no
+spill; elsewhere they compose as before.
+
 Plans this package does not run raise NotImplementedError at construction
 instead of losing edges.
 """
@@ -154,21 +163,85 @@ def _dot(x, w):
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
+def _prefers_fused(plan) -> bool:
+    """The plan attribute that turns the fused kernels on (read at call
+    time, as the JAX package reads it at trace time)."""
+    return bool(getattr(plan, "prefer_fused_kernel", False))
+
+
+class _LayerCore(torch.autograd.Function):
+    """A layer core ``z, saved = fwd(x, w)`` whose gradient is ``(dx, dw) =
+    bwd(*saved, dz, need_dx)``: the reference's custom VJPs, whose backward
+    runs the fused kernel (GCN) or keeps the fused forward's aggregate (GIN).
+    ``need_dx`` is False where x needs no gradient (a first layer): the GIN
+    backward then skips its SpMM, as autograd skips it in the composed
+    form."""
+
+    @staticmethod
+    def forward(ctx, x, w, fwd, bwd):
+        z, saved = fwd(x, w)
+        ctx.bwd = bwd
+        ctx.save_for_backward(*saved)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, dw = ctx.bwd(*ctx.saved_tensors, g.contiguous(), ctx.needs_input_grad[0])
+        return dx, dw, None, None
+
+
 def make_fused_ops(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
                    compute_dtype: str = "float32", impl: str = "pallas"):
     """The GCN and GIN layer cores in the row layout (port of
-    hcspmm_tpu/ops/spmm.py:522), composed: ``gcn(arrs_f, arrs_b, x, w) =
-    A (x w)`` and ``gin(...) = (A x) w``.  Under autograd the GCN backward
-    is one SpMM of dZ and two products, dX = (A^T dZ) w^T and dW = x^T
-    (A^T dZ); the GIN backward keeps the aggregate for dW and runs one SpMM
-    of dZ w^T, as the reference's custom VJPs do."""
+    hcspmm_tpu/ops/spmm.py:522): ``gcn(arrs_f, arrs_b, x, w) = A (x w)`` and
+    ``gin(...) = (A x) w``.  Composed by default: under autograd the GCN
+    backward is one SpMM of dZ and two products, dX = (A^T dZ) w^T and dW =
+    x^T (A^T dZ); the GIN backward keeps the aggregate for dW and runs one
+    SpMM of dZ w^T.  With ``prefer_fused_kernel`` on the plan (impl
+    'pallas'), the GCN backward computes (A^T dZ) w^T and A^T dZ in one fused
+    launch on the backward plan and the GIN forward (A x) w and A x in one
+    on the forward plan (``block_spmm.spmm_fused_rows``, which falls back to
+    the SpMM and a product where the plan has no single full-cover band
+    bucket), as the reference's ``_fused_impl`` does."""
+    cd = _dtype(compute_dtype)
+    pb = plan if plan_bwd is None else plan_bwd
     spmm = make_spmm(plan, plan_bwd, compute_dtype, impl)
+    fwd_rows, bwd_rows = _build_impls(plan, pb, cd, impl)
+
+    def fused(p, rows, arrs, x, w):
+        if impl == "pallas" and _prefers_fused(p):
+            res = block_spmm.spmm_fused_rows(arrs, x, w, p, cd)
+            if res is not None:
+                return res
+        agg = rows(arrs, x)
+        return _dot(agg, w), agg
 
     def gcn(arrs_f, arrs_b, x, w):
-        return spmm(arrs_f, arrs_b, _dot(x, w))
+        if not (impl == "pallas" and _prefers_fused(pb)):
+            return spmm(arrs_f, arrs_b, _dot(x, w))
+
+        def fwd(x_, w_):
+            return fwd_rows(arrs_f, _dot(x_, w_)), (x_, w_)
+
+        def bwd(x_, w_, g, need_dx):
+            dx, adz = fused(pb, bwd_rows, arrs_b, g, w_.T.to(g.dtype))
+            return dx.to(x_.dtype), torch.matmul(x_.float().T, adz.float()).to(w_.dtype)
+
+        return _LayerCore.apply(x, w, fwd, bwd)
 
     def gin(arrs_f, arrs_b, x, w):
-        return _dot(spmm(arrs_f, arrs_b, x), w)
+        if not (impl == "pallas" and _prefers_fused(plan)):
+            return _dot(spmm(arrs_f, arrs_b, x), w)
+
+        def fwd(x_, w_):
+            out, agg = fused(plan, fwd_rows, arrs_f, x_, w_)
+            return out, (w_, agg)
+
+        def bwd(w_, agg, g, need_dx):
+            dx = bwd_rows(arrs_b, _dot(g, w_.T).to(agg.dtype)).to(agg.dtype) if need_dx else None
+            return dx, torch.matmul(agg.float().T, g.float()).to(w_.dtype)
+
+        return _LayerCore.apply(x, w, fwd, bwd)
 
     return {"gcn": gcn, "gin": gin}
 
@@ -205,6 +278,127 @@ def make_spmm_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = No
     return spmm_p
 
 
+def _pad_w_lane(w, dpin, dtype):
+    """W [d, h] zero-padded to the wide layout's [dpin, 128-multiple]."""
+    return F.pad(w.to(dtype), (0, block_spmm.lane_pad(w.shape[1]) - w.shape[1],
+                               0, dpin - w.shape[0]))
+
+
+def _make_fused_ops_tband(plan, pb, cd):
+    """The fused GCN/GIN layer cores in the transposed padded layout [dt, M]
+    (port of hcspmm_tpu/ops/spmm.py:279): the dense update is W^T X^T, and
+    the fused launch (``tband.spmm_tband_fused_padded``) gives (W-form @
+    agg^T, agg^T).  Weights stay unpadded; gradients are sliced back."""
+
+    def _wt(w, dint, dtype):
+        # transposed padded weight [ht, dint] = (pad W)^T
+        ht = tband.sublane_pad(w.shape[1])
+        return F.pad(w.T.to(dtype), (0, dint - w.shape[0], 0, ht - w.shape[1]))
+
+    def _wf(w, dint, ht, dtype):
+        # forward-form padded weight [dint, ht] (left-multiplies agg^T)
+        return F.pad(w.to(dtype), (0, ht - w.shape[1], 0, dint - w.shape[0]))
+
+    def _dw(xt, adzt, w):
+        # the two transposed activations contracted over M
+        return torch.matmul(xt.float(), adzt.float().T)[: w.shape[0], : w.shape[1]].to(w.dtype)
+
+    def fused(p, arrs, xt, wform):
+        if _prefers_fused(p):
+            res = tband.spmm_tband_fused_padded(arrs, xt, wform, p)
+            if res is not None:
+                return res
+        agg = tband.spmm_tband_padded(arrs, xt, p, cd)
+        return _dot(wform, agg).to(xt.dtype), agg
+
+    def gcn(arrs_f, arrs_b, xt, w):
+        def fwd(x_, w_):
+            h = _dot(_wt(w_, x_.shape[0], x_.dtype), x_)
+            return tband.spmm_tband_padded(arrs_f, h, plan, cd), (x_, w_)
+
+        def bwd(x_, w_, g, need_dx):
+            # one fused launch: adz^T = (A^T dZ)^T and dX^T = W_pad adz^T
+            dxt, adzt = fused(pb, arrs_b, g, _wf(w_, x_.shape[0], g.shape[0], g.dtype))
+            return dxt.to(x_.dtype), _dw(x_, adzt, w_)
+
+        return _LayerCore.apply(xt, w, fwd, bwd)
+
+    def gin(arrs_f, arrs_b, xt, w):
+        def fwd(x_, w_):
+            out, agg = fused(plan, arrs_f, x_, _wt(w_, x_.shape[0], x_.dtype))
+            return out, (w_, agg)
+
+        def bwd(w_, agg, g, need_dx):
+            dxt = None
+            if need_dx:
+                daggt = _dot(_wf(w_, agg.shape[0], g.shape[0], g.dtype), g)
+                dxt = tband.spmm_tband_padded(arrs_b, daggt, pb, cd).to(g.dtype)
+            return dxt, _dw(agg, g, w_)
+
+        return _LayerCore.apply(xt, w, fwd, bwd)
+
+    return {"gcn": gcn, "gin": gin}
+
+
+def make_fused_ops_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
+                          compute_dtype: str = "float32"):
+    """The fused GCN/GIN layer cores over the closed padded layout (port of
+    hcspmm_tpu/ops/spmm.py:369), for the kernel-fusion mode: ``gcn(arrs_f,
+    arrs_b, xp, w)`` = A (Xp W) whose backward is one fused launch on the
+    backward plan giving dX = (A^T dZ) W^T and A^T dZ (dW from the kept A^T
+    dZ), and ``gin(...)`` = (A Xp) W as one fused launch keeping the
+    aggregate for dW.  Each fused call composes the SpMM and a product
+    where ``prefer_fused_kernel`` is unset on its plan or the fused wrapper
+    returns None.  Weights stay unpadded.  None when the plans lack the
+    padded path."""
+    pb = plan if plan_bwd is None else plan_bwd
+    if make_spmm_padded(plan, plan_bwd, compute_dtype) is None:
+        return None
+    cd = _dtype(compute_dtype)
+    if getattr(plan, "tband", False):
+        return _make_fused_ops_tband(plan, pb, cd)
+    core = block_spmm.spmm_wide_padded
+
+    def _dw_of(m, w):
+        return m[: w.shape[0], : w.shape[1]].to(w.dtype)
+
+    def fused(p, arrs, xp, wp):
+        if _prefers_fused(p):
+            res = block_spmm.spmm_fused_wide_padded(arrs, xp, wp, p)
+            if res is not None:
+                return res
+        agg = core(arrs, xp, p, cd)
+        return _dot(agg, wp), agg
+
+    def gcn(arrs_f, arrs_b, xp, w):
+        def fwd(x_, w_):
+            return core(arrs_f, _dot(x_, _pad_w_lane(w_, x_.shape[1], x_.dtype)), plan, cd), (x_, w_)
+
+        def bwd(x_, w_, g, need_dx):
+            # one fused launch: dX = (A^T dZ) W^T and the A^T dZ residual
+            wp = _pad_w_lane(w_, x_.shape[1], g.dtype)
+            dx, adz = fused(pb, arrs_b, g, wp.T.contiguous())
+            return dx.to(x_.dtype), _dw_of(torch.matmul(x_.float().T, adz.float()), w_)
+
+        return _LayerCore.apply(xp, w, fwd, bwd)
+
+    def gin(arrs_f, arrs_b, xp, w):
+        def fwd(x_, w_):
+            out, agg = fused(plan, arrs_f, x_, _pad_w_lane(w_, x_.shape[1], x_.dtype))
+            return out, (w_, agg)
+
+        def bwd(w_, agg, g, need_dx):
+            dx = None
+            if need_dx:
+                wp = _pad_w_lane(w_, agg.shape[1], g.dtype)
+                dx = core(arrs_b, _dot(g, wp.T), pb, cd).to(g.dtype)
+            return dx, _dw_of(torch.matmul(agg.float().T, g.float()), w_)
+
+        return _LayerCore.apply(xp, w, fwd, bwd)
+
+    return {"gcn": gcn, "gin": gin}
+
+
 #: row-layout merge arrays the transposed lane path never reads
 _ROW_SPILL_KEYS = ("ds_gcols", "ds_local", "ds_blk", "ds_lt", "ds_ucols")
 
@@ -215,9 +409,11 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     (``band{s}_at`` [Sb, W, bh] transposed, ``band{s}_a`` [Sb, bh, Bb]
     wide), the merges' block runs and the residual's row starts
     (``sparse_seg_ptr``).  A tband plan on the lane path drops the row
-    merge arrays it never reads.  The band entries, the row populations'
-    indices, ``out_perm`` and every spill index array are checked on the
-    host first: the kernels read them unchecked."""
+    merge arrays it never reads.  A tiled plan uploads its pair stream, the
+    pair runs ``tp_ptr`` and its A tiles ``tp_a`` [P, bh, 128] instead of
+    dense band blocks.  The band entries, the row populations' indices,
+    ``out_perm``, every spill index array and the pair stream are checked on
+    the host first: the kernels read them unchecked."""
     m = plan.padded_rows
     num_sw = m // plan.band_h
     transposed = getattr(plan, "tband", False)
@@ -228,8 +424,13 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     host.update(tspill.check_spill_arrays(host, plan))
     host.update(dstream.check_row_spill_arrays(host, plan))
     host.update(block_spmm.check_row_arrays(host, plan))
+    tiled = getattr(plan, "tiled", False)
+    if tiled:
+        host.update(block_spmm.check_tiled_arrays(host, plan))
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
            for k, v in host.items()}
+    if tiled:
+        out["tp_a"] = torch.from_numpy(plan.tiled_a_dense()).to(device)
     # band slices must fit the padded layout where it runs, else the row
     # layout's band table
     limit = m if block_spmm.spmm_padded_supported(plan) else block_spmm.band_table_rows(plan)
@@ -241,7 +442,8 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
         else:
             block_spmm.check_band_arrays(host[f"band{s}_start"], host[f"band{s}_sw"],
                                          int(w), limit, num_sw)
-            out[f"band{s}_a"] = torch.from_numpy(plan.band_a_dense(s)).to(device)
+            if not tiled:  # the tiled kernel reads tp_a only
+                out[f"band{s}_a"] = torch.from_numpy(plan.band_a_dense(s)).to(device)
     return out
 
 
@@ -282,6 +484,9 @@ class HybridSpMM:
                                      config.impl)
         self._fn_padded = (make_spmm_padded(self.plan, self.plan_bwd, config.compute_dtype)
                            if config.impl == "pallas" else None)
+        self._fused_padded = (make_fused_ops_padded(self.plan, self.plan_bwd,
+                                                    config.compute_dtype)
+                              if config.impl == "pallas" else None)
         arrs_f = _to_device(self.plan, self.device)
         arrs_b = arrs_f if self.plan_bwd is None else _to_device(self.plan_bwd,
                                                                  self.device)
@@ -321,13 +526,13 @@ class HybridSpMM:
             return x.shape[1] == self.padded_rows and x.shape[0] % 16 == 0
         return x.shape[0] == self.padded_rows and x.shape[1] % 128 == 0
 
-    def _check_fused(self):
-        if getattr(self.plan, "prefer_fused_kernel", False) and self.config.impl == "pallas":
-            name = ("tband.py:tband_fused_direct" if getattr(self.plan, "tband", False)
-                    else "block_spmm.py:band_fused_spmm_direct")
-            raise NotImplementedError(
-                f"prefer_fused_kernel: the fused band kernel (hcspmm_tpu/kernels/{name}) "
-                "is ROADMAP A.11")
+    def _fused_mode(self, arrays, plan) -> bool:
+        """True when a padded layer core runs as the reference's custom VJP
+        with the fused kernel: the padded path exists, the aggregation is not
+        normalized, and ``plan`` (the backward plan for GCN, the forward
+        plan for GIN) has ``prefer_fused_kernel`` set."""
+        return (self._fused_padded is not None and "inv_sqrt_deg" not in arrays
+                and _prefers_fused(plan))
 
     def pad_input(self, x) -> torch.Tensor:
         """[N, d] -> the padded layout in the compute dtype on the
@@ -400,14 +605,17 @@ class HybridSpMM:
 
     def gcn_apply_padded(self, arrays, xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """GCN layer core A (X W) in the padded layout; backward: one SpMM
-        of dZ, then the two dense products."""
-        self._check_fused()
+        of dZ, then the two dense products, or, in the fused mode, one fused
+        launch for (A^T dZ) W^T and A^T dZ."""
+        if self._fused_mode(arrays, self.plan_bwd or self.plan):
+            return self._fused_padded["gcn"](arrays["f"], arrays["b"], xp, w)
         return self.apply_padded(arrays, self.dense_padded(xp, w))
 
     def gin_apply_padded(self, arrays, xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """GIN layer core (A X) W in the padded layout; the aggregate is the
-        residual autograd keeps for dW."""
-        self._check_fused()
+        """GIN layer core (A X) W in the padded layout (one fused launch in
+        the fused mode); the aggregate is the residual kept for dW."""
+        if self._fused_mode(arrays, self.plan):
+            return self._fused_padded["gin"](arrays["f"], arrays["b"], xp, w)
         return self.dense_padded(self.apply_padded(arrays, xp), w)
 
     def mean_apply(self, arrays, x: torch.Tensor) -> torch.Tensor:
@@ -435,16 +643,15 @@ class HybridSpMM:
 
     def gcn_apply(self, arrays, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """GCN layer core A (x w) in the row layout (composed through
-        ``apply`` in normalized mode)."""
-        self._check_fused()
+        ``apply`` in normalized mode; the fused backward where the plan
+        prefers it)."""
         if "inv_sqrt_deg" in arrays:
             return self.apply(arrays, _dot(x, w))
         return self._fused["gcn"](arrays["f"], arrays["b"], x, w)
 
     def gin_apply(self, arrays, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """GIN layer core (A x) w in the row layout; the aggregate is kept
-        for dW."""
-        self._check_fused()
+        for dW (from the fused forward where the plan prefers it)."""
         if "inv_sqrt_deg" in arrays:
             return _dot(self.apply(arrays, x), w)
         return self._fused["gin"](arrays["f"], arrays["b"], x, w)

@@ -6,7 +6,10 @@ HC-SpMM_main.py:18-64); port of hcspmm_tpu/train/cli.py with its flags.
 ``--device auto`` runs on the CUDA device and raises when there is none;
 ``--device cpu`` runs the kernels' plain PyTorch versions on the host.
 ``--impl xla`` runs the reference's plain gather + segment-sum form (torch
-ops, no kernel) in the row layout [N, d].  Flags whose feature is not
+ops, no kernel) in the row layout [N, d].  ``--band-impl tiled`` builds the
+tiled band (a plan's (superwindow, 128-row X tile) pairs) where the plan
+builder admits it (full band cover, no spill, band_h a multiple of 128) and
+a wide plan otherwise, as the JAX package does.  Flags whose feature is not
 ported yet raise NotImplementedError naming the ROADMAP item.
 
 Dataset resolution: a path ending in .txt loads that file ("dst,src"
@@ -54,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--band-impl", type=str, default="auto",
                    choices=["auto", "wide", "tiled", "tband", "ring"],
                    help="band layout; 'auto' picks the transposed band when "
-                        "hidden and classes are at most 64, else 'wide'")
+                        "hidden and classes are at most 64, else 'wide'; 'tiled' "
+                        "falls back to 'wide' where the plan cannot tile")
     p.add_argument("--compute-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--spill-impl", type=str, default="dstream",
@@ -136,9 +140,6 @@ def prepare(args, device, logger):
         # dim <= 64 regime (the input dim may exceed it), else the wide
         # padded layout
         band_impl = "tband" if max(args.hidden, args.classes) <= 64 else "wide"
-    if band_impl == "tiled":
-        raise NotImplementedError("band layout 'tiled': the tiled band kernel is "
-                                  "ROADMAP A.11")
     if band_impl == "ring":
         raise NotImplementedError("band layout 'ring': the reference deleted its "
                                   "kernel and builds wide plans for it (ROADMAP A.12); "
@@ -176,7 +177,8 @@ def prepare(args, device, logger):
         sparse_rows=op.plan.num_sparse_rows,
         spill_nnz=op.plan.spill_nnz,
         missing_supers=len(op.plan.band_missing_sw),
-        layout=("tband" if op.transposed else "wide") if op.supports_padded else "rows",
+        layout=(("tband" if op.transposed else "tiled" if op.plan.tiled else "wide")
+                if op.supports_padded else "rows"),
         device=str(device),
     )
     return ds, op

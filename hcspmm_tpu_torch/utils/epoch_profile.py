@@ -25,6 +25,8 @@ from hcspmm_tpu_torch.utils.logging import stdout_logger
 
 #: kernel-name fragments -> group, first match wins
 GROUPS = (
+    ("fused_kernel", "fused kernel"),
+    ("tiled_kernel", "tiled band kernel"),
     ("band_kernel", "band kernel"),
     ("dense_rows_kernel", "dense bucket kernel"),
     ("ell_rows_kernel", "ELL kernel"),

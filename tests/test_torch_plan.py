@@ -1,9 +1,11 @@
 """hcspmm_tpu_torch carries its own NumPy host side (format/, graphs/,
 config.py); these tests hold it to the JAX package's: the same CSR and
 PlanConfig must give the same plan, array for array, and the reorderings
-the same permutations."""
+the same permutations.  The package's C++ host passes (native/) are copies
+of the JAX package's, byte for byte."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -86,3 +88,17 @@ def test_reorder_equals_jax_reorder(mode):
     assert np.array_equal(got, want)
     assert_same(reorder.apply_permutation(rp, ci, n, got),
                 jax_reorder.apply_permutation(rp, ci, n, want), "permuted csr")
+
+
+@pytest.mark.parametrize("name", ["preprocess.cpp", "loa.cpp", "cluster.cpp"])
+def test_native_sources_equal_jax_packages(name):
+    """hcspmm_tpu_torch/native keeps its own copy of each C++ pass; a change
+    to one package's copy must reach the other's."""
+    import hcspmm_tpu
+    import hcspmm_tpu_torch
+
+    def read(pkg):
+        with open(os.path.join(os.path.dirname(pkg.__file__), "native", name), "rb") as f:
+            return f.read()
+
+    assert read(hcspmm_tpu_torch) == read(hcspmm_tpu)

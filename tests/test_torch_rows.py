@@ -429,9 +429,13 @@ def test_row_and_padded_training_agree():
 
 
 def test_row_layout_gates_name_their_roadmap_items():
+    """int4 band blocks (A.12) and row-partitioned plans (A.10) raise naming
+    their items; the tiled band (A.11) now runs in the row layout."""
     rp, ci, nn = small_graph(300, 6)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tiled", band_h=128))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tiled", band_h=128))
+    x = np.random.RandomState(0).randn(nn, 10).astype(np.float32)
+    assert op.plan.tiled
+    assert rel_err(op(torch.from_numpy(x)), spmm_reference_dense(rp, ci, nn, x)) < 1e-5
     with pytest.raises(NotImplementedError, match="A.12"):
         HybridSpMM(rp, ci, nn, PlanConfig(a_dtype="int4"))
     plan = build_plan(rp, ci, nn, PlanConfig(**NEVER))

@@ -265,15 +265,12 @@ def test_packed_a_raises(pack):
 
 @pytest.mark.parametrize("band_impl", ["wide", "tiled"])
 def test_other_layouts_raise(band_impl):
-    """The wide padded layout runs (ROADMAP A.6); the tiled band still
-    raises naming its ROADMAP item."""
+    """The wide padded layout (ROADMAP A.6) and the tiled band (A.11) run
+    and match the JAX package and the oracle: neither raises any more."""
     rp, ci, nn = small_graph(300, 6)
-    if band_impl == "tiled":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-            HybridSpMM(rp, ci, nn, PlanConfig(band_impl=band_impl, band_h=128))
-        return
     op, jop = both(rp, ci, nn, cfg=dict(band_impl=band_impl))
     assert not op.transposed
+    assert op.plan.tiled == jop.plan.tiled == (band_impl == "tiled")
     x = np.random.RandomState(0).randn(nn, 16).astype(np.float32)
     got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 16)
     assert rel_err(got, jop.unpad_output(jop.apply_padded(
@@ -281,12 +278,23 @@ def test_other_layouts_raise(band_impl):
     assert rel_err(got, dense_a(rp, ci, nn) @ x) < RTOL
 
 
-def test_prefer_fused_kernel_raises():
+def test_prefer_fused_kernel_raises(monkeypatch):
+    """``prefer_fused_kernel`` no longer raises: the tband layer cores run
+    the fused kernel (tband_fused_direct, ROADMAP B.13) and match the JAX
+    package's fused cores."""
     rp, ci, nn = small_graph(300, 6)
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**TBAND))
-    op.plan.prefer_fused_kernel = True
-    xp = op.pad_input(torch.zeros(nn, 16))
-    w = torch.zeros(16, 8)
-    for core in (op.gcn_apply_padded, op.gin_apply_padded):
-        with pytest.raises(NotImplementedError, match="tband_fused_direct"):
-            core(op.arrays, xp, w)
+    op, jop = both(rp, ci, nn)
+    op.plan.prefer_fused_kernel = jop.plan.prefer_fused_kernel = True
+    calls = []
+    plain = tband.tband_fused_direct_plain
+    monkeypatch.setattr(tband, "tband_fused_direct_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    x = np.random.RandomState(2).randn(nn, 16).astype(np.float32)
+    w = (np.random.RandomState(3).randn(16, 8) * 0.1).astype(np.float32)
+    for core in ("gcn_apply_padded", "gin_apply_padded"):
+        got = op.unpad_output(getattr(op, core)(op.arrays, op.pad_input(x), torch.from_numpy(w)),
+                              8)
+        want = jop.unpad_output(getattr(jop, core)(jop.arrays, jop.pad_input(jnp.asarray(x)),
+                                                   jnp.asarray(w)), 8)
+        assert rel_err(got.detach(), want) < RTOL
+    assert len(calls) == 1  # the GIN forward; the GCN's fused launch is in its backward

@@ -235,8 +235,14 @@ def test_cli_impl_xla_trains_on_cpu(tmp_path, capsys, model):
     ["--fault-epoch", "1"], ["--dataset", "karate"],
 ])
 def test_cli_unported_flags_raise(flags):
+    """Each flag whose feature is not ported raises naming its ROADMAP item;
+    ``--band-impl tiled`` is ported (A.11) and trains."""
+    argv = ["--synthetic-nodes", "500", "--epochs", "1", "--device", "cpu", *flags]
+    if flags == ["--band-impl", "tiled"]:
+        assert cli.main(argv) == 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--synthetic-nodes", "500", "--epochs", "1", "--device", "cpu", *flags])
+        cli.main(argv)
 
 
 def test_cli_device_auto_needs_cuda():
@@ -247,8 +253,9 @@ def test_cli_device_auto_needs_cuda():
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter that builds a plan and runs one forward pass
-    through the port has imported neither JAX, optax nor hcspmm_tpu."""
+    """A fresh interpreter that builds a plan and runs one forward pass, a
+    training step in the fused mode and a tiled SpMM through the port has
+    imported neither JAX, optax nor hcspmm_tpu."""
     code = """
 import sys
 import numpy as np
@@ -268,6 +275,12 @@ x = np.random.RandomState(0).randn(n, 8).astype(np.float32)
 lp = net_forward(net, params, Bound(op), op.pad_input(x),
                  out_slice=lambda h: op.unpad_output(h, 4))
 assert lp.shape == (n, 4) and bool(torch.isfinite(lp).all())
+from hcspmm_tpu_torch.train.loop import make_train_step
+op.plan.prefer_fused_kernel = True
+step = make_train_step(net, op, torch.optim.Adam([t for p in params for t in p.values()]))
+assert bool(torch.isfinite(step(params, x, torch.ones(n, dtype=torch.int64), torch.Generator())))
+tiled = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tiled", band_h=128))
+assert tiled.plan.tiled and bool(torch.isfinite(tiled(torch.from_numpy(x))).all())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "hcspmm_tpu"))
 print("BAD", bad)
 """

@@ -578,8 +578,8 @@ def test_bf16_and_fp32_plans_match_oracle(cd):
 def test_gate_refuses_what_the_wide_layout_would_not_apply():
     """Plans with dense or sparse row-merge populations have no wide padded
     path: the gate refuses them, and the operator runs them in the row
-    layout and matches the oracle.  A hand-broken cover and the tiled band
-    raise; no partial answer is computed."""
+    layout and matches the oracle.  A hand-broken cover raises; no partial
+    answer is computed.  The tiled band and the fused mode run."""
     rp, ci, nn = small_graph(300, 6)
     x = np.random.RandomState(7).randn(nn, 20).astype(np.float32)
     for cfg in (dict(band_mode="never"), dict(band_mode="never", loi_mode="all_dense")):
@@ -595,11 +595,16 @@ def test_gate_refuses_what_the_wide_layout_would_not_apply():
     with pytest.raises(NotImplementedError, match="cover"):
         block_spmm.spmm_wide_padded(op.arrays["f"], op.pad_input(torch.zeros(nn, 16)),
                                     partial, torch.float32)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, band_impl="tiled", band_h=128)))
+    # the tiled band and the fused kernels run now (ROADMAP A.11)
+    tiled = HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, band_impl="tiled", band_h=128)))
+    assert tiled.plan.tiled
+    got = tiled.unpad_output(tiled.apply_padded(tiled.arrays, tiled.pad_input(x)), 20)
+    assert rel_err(got, dense_a(rp, ci, nn) @ x) < RTOL
+    w = torch.from_numpy(np.random.RandomState(8).randn(20, 8).astype(np.float32))
+    composed = op.gcn_apply_padded(op.arrays, op.pad_input(x), w)
     op.plan.prefer_fused_kernel = True
-    with pytest.raises(NotImplementedError, match="band_fused_spmm_direct"):
-        op.gcn_apply_padded(op.arrays, op.pad_input(torch.zeros(nn, 16)), torch.zeros(16, 8))
+    fused = op.gcn_apply_padded(op.arrays, op.pad_input(x), w)
+    assert rel_err(fused.detach(), composed) < RTOL
 
 
 # ---------------------------------------------------------------------------
