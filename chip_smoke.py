@@ -16,19 +16,23 @@ Phases, each of which raises on failure, with its seconds printed:
    path); fp32 within 1e-5 and bf16 within 1e-2 of max|ref|; both timed
    with CUDA events; the tband fused kernel and the bucket mode at the
    stand-in plan's arrays, timed, with the Table VI analog (fused vs the
-   composed pair, interleaved) at dim 32;
+   composed pair, interleaved) at dim 32, and the fused kernel timed at dt
+   96 / ht 32, dt 192 / ht 32 and dt 64 / ht 608;
 4. holds the spill kernels (zero_lane_blocks, mxgather_lanes,
    tbstream_merge) against their plain versions at small odd shapes:
    dt 16/48/96, merge groups 4/8/16/32, chunk widths 128-1024, empty id
-   lists, a block run of many chunks; the merge must be bitwise
-   deterministic;
+   lists, a block run of many chunks, the merge with and without the
+   gather folded in (``gidx``); the merge must be bitwise deterministic;
 5. holds ``HybridSpMM.apply_padded`` on the blocks stand-in against scipy
    CSR @ X in float64, at fp32 and bf16;
 6. on the paper's DD, YS and GH stand-ins at full size (seed 7, cluster
    reorder): prints each plan's spill edges, missing superwindows and
    which of hub/T1/T2 it builds; holds each spill kernel against its
-   plain version at the plan's own shapes (timed), and apply_padded at
-   dim 32 against scipy;
+   plain version at the plan's own shapes (timed; the lane merge gathers
+   through the plan's composed columns, checked against the reference's
+   take, and prints its segment table's longest segment and length
+   histogram; timed beside the take followed by the merge, and the take
+   followed by index_add_), and apply_padded at dim 32 against scipy;
 7. trains the 6-layer GCN (dim 96, hidden 32, classes 22) for 3 epochs
    through ``cli.main`` on the blocks stand-in (rcm) and on DD and GH
    (cluster), and checks with the kernels' launch counters that every
@@ -42,11 +46,13 @@ Phases, each of which raises on failure, with its seconds printed:
    128/256, 16-aligned starts, capacity-padded entries), fp32 and bf16,
    timed;
 10. holds the row zero-fill and both row merges (block and tile form)
-    against their plain versions at small odd shapes; the merges must be
-    bitwise deterministic;
+    against their plain versions at small odd shapes (dp 20-520); the
+    merges must be bitwise deterministic;
 11. on the wide plans of the blocks stand-in, DD, YS and GH: apply_padded
     at dims 128 and 256 against scipy, and the zero-fill and the merge at
-    the plan's own arrays (dp 256, fp32 and bf16, timed, deterministic);
+    the plan's own arrays (dp 256, fp32 and bf16, timed beside
+    torch.sparse.addmm, deterministic; the merge's segment table's longest
+    segment and length histogram printed);
     on DD also a forced tile-form plan, a column-range stream built from
     its spill edges, and the legacy tband ``spill_lane='off'`` path (tile
     form), so that ``dstream_merge`` runs on the card;
@@ -69,11 +75,13 @@ Phases, each of which raises on failure, with its seconds printed:
     plain form, row layout) on the blocks stand-in;
 16. the fused kernels (tband and wide), the tiled band and the grouped band
     against their plain versions at small odd shapes (dt 16-96 with ht !=
-    dt, dp 128-384 with hp != dp, capacity-padded entries, pair streams and
+    dt, and dt 192 / ht 32, dt 64 / ht 608 and the wide slab path at dp 3712;
+    dp 128-384 with hp != dp, capacity-padded entries, pair streams and
     tiled plans with empty superwindows at ring slots 2/4/16, G 1/2/4/8),
     fp32 and bf16, bitwise repeatable;
 17. at the blocks stand-in's wide plan: the wide fused kernel (dp 128 and
-    256, hp 256) timed beside the composed pair and the Table VI analog at
+    256, hp 256; dp 3712 on its slab path, held against the composed pair)
+    timed beside the composed pair and the Table VI analog at
     dim 96, the bucket mode, the grouped band and the grouped A/B (direct
     vs G = 1, 2, 4, 8, the port of tools/ab_grouped.py); at its tiled plan,
     the tiled band at dp 128 and 256;
@@ -83,7 +91,14 @@ Phases, each of which raises on failure, with its seconds printed:
     the composed runs, with the fused launches counted;
 19. ``cli.main --band-impl tiled``: GCN and GIN at hidden 256 and
     ``--single_kernel`` on the blocks stand-in, every SpMM through the
-    tiled kernel, and ``apply_padded`` on the tiled plan against scipy.
+    tiled kernel, and ``apply_padded`` on the tiled plan against scipy;
+20. the layout switch: the 6-layer GCN at hidden 32 through ``cli.main``
+    with ``--band-impl tband``, ``wide`` and ``tiled`` on the blocks
+    stand-in and DD, each twice (tband, wide, tiled, tiled, wide, tband),
+    each run's epoch_ms and layout;
+21. where GH's GCN epochs go: ``utils/epoch_profile.py`` on the tband GCN
+    (hidden 32) and the wide GCN (hidden 256), device-busy ms by kernel
+    group.
 
 The second-to-last line is a JSON object with the kernel table (all
 sixteen TPU kernels' counterparts): for each kernel its launches on the
@@ -350,40 +365,82 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
                lambda: tspill.mxgather_lanes_plain(xt, lo, rel),
                real * 32 * elt + got.numel() * elt + rel.numel() * 4 + lo.numel() * 4)
 
+    # each merge stream: its source table, the per-slot columns it gathers
+    # through, and the reference's take (segmented_gather on T2 plans)
+    src = tables.get("T1", xt)
     streams = []
     if "hub_lo" in arrs:
-        streams.append(("hot", tables["hub"].index_select(1, arrs["ds_h_laneg"]),
-                        arrs["ds_h_tlocal"], arrs["ds_h_lblk"], arrs["ds_h_lrun"],
-                        plan.ds_hgroup))
-    src = tables.get("T1", xt)
+        streams.append(("hot", tables["hub"], arrs["ds_h_laneg"],
+                        lambda: tables["hub"].index_select(1, arrs["ds_h_laneg"]),
+                        arrs["ds_h_tlocal"], arrs["ds_h_lblk"], "ds_h_lseg", plan.ds_hgroup))
     if "ts2_ranks" in arrs and plan.ts2_segs:
-        g = tspill.segmented_gather(src, arrs["ts2_ranks"], arrs["ds_laneg"], plan.ts2_segs,
-                                    plan.ts2_pieces, bw=arrs["ds_tlocal"].shape[1])
+        def take():
+            return tspill.segmented_gather(src, arrs["ts2_ranks"], arrs["ds_laneg"],
+                                           plan.ts2_segs, plan.ts2_pieces,
+                                           bw=arrs["ds_tlocal"].shape[1])
     else:
-        g = src.index_select(1, arrs["ds_laneg"])
-    streams.append(("cold" if "hub_lo" in arrs else "lane", g, arrs["ds_tlocal"],
-                    arrs["ds_lblk"], arrs["ds_lrun"], plan.ds_lgroup))
-    for what, g, local, blk, runs, group in streams:
+        def take():
+            return src.index_select(1, arrs["ds_laneg"])
+    streams.append(("cold" if "hub_lo" in arrs else "lane", src, arrs["ds_lsrc"], take,
+                    arrs["ds_tlocal"], arrs["ds_lblk"], "ds_lseg", plan.ds_lgroup))
+    for what, tbl, gidx, take, local, blk, seg_key, group in streams:
+        segs = tspill.segments_of(arrs, seg_key)
+        log(f"  {key} {what} stream segments: {segment_stats(segs)}")
         label = (f"{what} merge {blk.shape[0]} chunks x bw {local.shape[1]}, group {group}, "
-                 f"{runs.shape[0] - 1} blocks")
-        got = tspill.tbstream_merge(g, local, blk, base.clone(), group=group, runs=runs)
-        again = tspill.tbstream_merge(g, local, blk, base.clone(), group=group, runs=runs)
-        ref = tspill.tbstream_merge_plain(g, local, blk, base.clone(), group=group)
+                 f"{segs[0].shape[0]} segments, gather folded in")
+        g = take()
+        if not torch.equal(tbl.index_select(1, gidx[: g.shape[1]]), g):
+            raise AssertionError(f"{key} {what}: the composed columns differ from the take")
+
+        def merge(buf):
+            return tspill.tbstream_merge(tbl, local, blk, buf, group=group, gidx=gidx, segs=segs)
+
+        got, again = merge(base.clone()), merge(base.clone())
+        ref = tspill.tbstream_merge_plain(tbl, local, blk, base.clone(), group=group, gidx=gidx)
         if not torch.equal(got, again):
             raise AssertionError(f"{key} {label}: two kernel runs differ")
         err = check(f"{key} {label} {cd} (bitwise repeatable)", got, ref, cd)
+        unfolded = tspill.tbstream_merge(g, local, blk, base.clone(), group=group, segs=segs)
+        check(f"{key} {what} merge of the taken stream {cd}", unfolded, ref, cd)
         buf = base.clone()
         span = group * 128
         loc = local[: blk.shape[0]].long()
         keep = loc < span
         lanes = (blk.long()[:, None] * span + loc)[keep]
+        real = int(keep.sum())
+        touched = int((segs[0] >= 0).sum())
+        # each source column read once, however many slots gather it
+        sources = int(torch.unique(gidx[: keep.numel()][keep.reshape(-1)]).numel())
+        record("tbstream_merge", label, err, lambda: merge(buf),
+               lambda: tspill.tbstream_merge_plain(tbl, local, blk, buf, group=group, gidx=gidx),
+               sources * 32 * elt + real * 4 + 2 * touched * 32 * elt + segs[1].numel() * 4
+               + segs[0].numel() * 4, ops=real * 32,
+               fn_lib=lambda: buf.index_add_(1, lanes, take()[:, keep.reshape(-1)]))
+        row = out[("tbstream_merge", cd)][-1]
+        row["take_merge_ms"] = cuda_time_ms(
+            lambda: tspill.tbstream_merge(take(), local, blk, buf, group=group, segs=segs), 20)
         g_real = g[:, keep.reshape(-1)]
-        record("tbstream_merge", label, err,
-               lambda: tspill.tbstream_merge(g, local, blk, buf, group=group, runs=runs),
-               lambda: tspill.tbstream_merge_plain(g, local, blk, buf, group=group),
-               g.numel() * elt + loc.numel() * 4 + blk.numel() * 4
-               + 2 * (runs.shape[0] - 1) * 32 * span * elt, ops=g_real.numel(),
-               fn_lib=lambda: buf.index_add_(1, lanes, g_real))
+        row["index_add_ms"] = cuda_time_ms(lambda: buf.index_add_(1, lanes, g_real), 5)
+        log(f"    {key} {what} {cd}: the take, then the merge of the taken stream "
+            f"{row['take_merge_ms']:.4f} ms; index_add_ of the taken stream alone "
+            f"{row['index_add_ms']:.4f} ms")
+        del g, g_real
+
+
+def segment_stats(segs) -> str:
+    """Segments, real ones, the longest, the long list's length and a
+    histogram of segment lengths (powers of two) of a merge's segment table."""
+    import numpy as np
+
+    dst, ptr, long = (v.cpu().numpy() for v in segs)
+    lens = np.diff(ptr)[dst >= 0]
+    if not len(lens):
+        return "none"
+    edges = [1, 2, 4, 8, 16, 32, 64, 128, 256, 1024, 4096, 1 << 30]
+    hist = np.histogram(lens, bins=edges)[0]
+    return (f"{len(dst)} ({len(lens)} real), longest {int(lens.max())}, {len(long)} long; "
+            "lengths " + ", ".join(f"[{a},{b}): {int(h)}" for a, b, h in zip(edges, edges[1:], hist)
+                                   if h))
 
 
 def small_spill_checks(gen) -> None:
@@ -439,8 +496,23 @@ def small_spill_checks(gen) -> None:
                     if not rel <= TOL[cd]:
                         raise AssertionError(f"merge dt {dt} group {group} bw {bw} {cd}: "
                                              f"rel err {rel:.3e}")
-        log(f"  {cd}: zero-fill, mxgather (exact) and merge (within {TOL[cd]:g}, bitwise "
-            "repeatable) at dt 16/48/96, groups 4-32, bw 128-1024: pass")
+                    # the gather folded in: columns of a narrower table
+                    gidx = torch.randint(0, 3001, (len(gcols),), generator=gen).to(
+                        dev, torch.int32)
+                    tbl = xt[:, :3001].contiguous()
+                    got = tspill.tbstream_merge(tbl, *t, xt.clone(), group=grp, gidx=gidx)
+                    if not torch.equal(got, tspill.tbstream_merge(tbl, *t, xt.clone(), group=grp,
+                                                                  gidx=gidx)):
+                        raise AssertionError(f"gidx merge dt {dt} group {group} bw {bw} {cd}: "
+                                             "two runs differ")
+                    ref = tspill.tbstream_merge_plain(tbl, *t, xt.clone(), group=grp, gidx=gidx)
+                    err, rel = rel_err(got.float().cpu(), ref.float().cpu())
+                    if not rel <= TOL[cd]:
+                        raise AssertionError(f"gidx merge dt {dt} group {group} bw {bw} {cd}: "
+                                             f"rel err {rel:.3e}")
+        log(f"  {cd}: zero-fill, mxgather (exact) and merge, with and without the gather "
+            f"folded in (within {TOL[cd]:g}, bitwise repeatable) at dt 16/48/96, groups 4-32, "
+            "bw 128-1024: pass")
 
 
 def wide_band_checks(op, gen, out) -> None:
@@ -515,8 +587,9 @@ def merge_pair(kind):
 
 def small_row_checks(gen) -> None:
     """The row zero-fill and both row merges against their plain versions
-    at small odd shapes: dp 32/48/128/256, groups 1-8, 5 to 20000 edges
-    with a third on a few hub rows (multi-chunk blocks and tiles), pad
+    at small odd shapes: dp 20/32/48/128/256/520 (20: no 16-byte rows; 520:
+    three column slabs), groups 1-8, 5 to 20000 edges with a third on a few
+    hub rows (multi-chunk blocks and tiles, segments on the long path), pad
     columns past the table (clip mode)."""
     import numpy as np
     import torch
@@ -533,7 +606,7 @@ def small_row_checks(gen) -> None:
         raise AssertionError("an empty id list must launch nothing")
     m = 8192
     for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for dp in (32, 48, 128, 256):
+        for dp in (20, 32, 48, 128, 256, 520):
             x = torch.randn((m, dp), generator=gen).to(dev, dtype)
             base = torch.randn((m, dp), generator=gen).to(dev, dtype)
             for w in (128, 256, 1024):
@@ -563,7 +636,7 @@ def small_row_checks(gen) -> None:
                             raise AssertionError(f"{kind} merge dp {dp} e {e} group {group} "
                                                  f"{cd}: rel err {rel:.3e}")
         log(f"  {cd}: row zero-fill (exact) and block/tile merges (within {TOL[cd]:g}, "
-            "bitwise repeatable) at dp 32-256, groups 1-8: pass")
+            "bitwise repeatable) at dp 20-520, groups 1-8: pass")
 
 
 def row_kernels_vs_plain(key, op, gen, out, dp=256) -> None:
@@ -616,13 +689,15 @@ def row_kernels_vs_plain(key, op, gen, out, dp=256) -> None:
         if kind != "block":
             t.append(arrs["ds_lt"])
         src = x.index_select(0, arrs["ds_ucols"]) if "ds_ucols" in arrs else x
-        runs = arrs["ds_run"]
+        segs = tspill.segments_of(arrs, "ds_seg")
         name = "bstream_merge" if kind == "block" else "dstream_merge"
+        if cd == "float32":
+            log(f"  {key} row merge segments: {segment_stats(segs)}")
         label = (f"{kind} merge {arrs['ds_gcols'].shape[0] // 128} chunks, group "
-                 f"{p.ds_group}, {runs.shape[0] - 1} blocks, dp {dp}"
+                 f"{p.ds_group}, {segs[0].shape[0]} segments, dp {dp}"
                  f"{f', ucols {src.shape[0]}' if 'ds_ucols' in arrs else ''}")
-        got = fn(*t, src, base.clone(), group=p.ds_group, runs=runs)
-        again = fn(*t, src, base.clone(), group=p.ds_group, runs=runs)
+        got = fn(*t, src, base.clone(), group=p.ds_group, segs=segs)
+        again = fn(*t, src, base.clone(), group=p.ds_group, segs=segs)
         if not torch.equal(got, again):
             raise AssertionError(f"{key} {label} {cd}: two kernel runs differ")
         err = check(f"{key} {label} {cd} (bitwise repeatable)", got,
@@ -631,15 +706,19 @@ def row_kernels_vs_plain(key, op, gen, out, dp=256) -> None:
         buf = base.clone()
         dest, gc = merge_slots(kind, *t, p.ds_group)
         elt = x.element_size()
-        nbytes = (gc.numel() * dp * elt + sum(v.numel() * 4 for v in t)
-                  + 2 * (runs.shape[0] - 1) * p.ds_group * 128 * dp * elt)
+        touched = int((segs[0] >= 0).sum())
+        # each source row read once (clip mode: past-the-end columns read
+        # the last row), each slot's index, each touched row read and written
+        sources = int(torch.unique(gc.clamp(max=src.shape[0] - 1)).numel())
+        nbytes = (sources * dp * elt + gc.numel() * 4 + 2 * touched * dp * elt
+                  + (segs[0].numel() + segs[1].numel()) * 4)
         fn_lib = None
         if cd == "float32":
             s_csr = torch.sparse_coo_tensor(torch.stack([dest, gc]), torch.ones(
                 dest.numel(), device=dev), (m, src.shape[0])).coalesce().to_sparse_csr()
             fn_lib = lambda: torch.sparse.addmm(buf, s_csr, src)  # noqa: E731
         record(name, cd, label, err,
-               lambda: fn(*t, src, buf, group=p.ds_group, runs=runs),
+               lambda: fn(*t, src, buf, group=p.ds_group, segs=segs),
                lambda: plain(*t, src, buf, group=p.ds_group), nbytes,
                ops=gc.numel() * dp, fn_lib=fn_lib)
         del x, base, buf, src
@@ -678,13 +757,6 @@ def block_csr(a, starts, sw, num_sw, m):
     cols = starts.long()[i] + k
     return torch.sparse_coo_tensor(torch.stack([rows, cols]), torch.ones(
         rows.numel(), device=a.device), (num_sw * a.shape[1], m)).coalesce().to_sparse_csr()
-
-
-def longest_run(arrs) -> int:
-    """Chunks in the longest run of the row merge (one thread block walks a
-    run), or 0 without one."""
-    runs = arrs.get("ds_run")
-    return 0 if runs is None else int((runs[1:] - runs[:-1]).max())
 
 
 def ranges_plan(plan, num_ranges=3):
@@ -1110,9 +1182,11 @@ def tiled_arrays(counts, bh, tiles, gen):
 def small_new_kernel_checks(gen) -> None:
     """The two fused kernels, the tiled band and the grouped band against
     their plain versions at small odd shapes, fp32 and bf16, every output
-    bitwise repeatable: tband fused at dt 16/32/48/96 with ht != dt; wide
-    fused at dp 128/256/384 with hp != dp (and one hp that is no
-    128-multiple); both at bh 128 and 256 with capacity-padded entries; the
+    bitwise repeatable: tband fused at dt 16/32/48/96 with ht != dt, and at
+    dt 192 / ht 32 and dt 64 / ht 608 (which would not fit whole in one
+    block's shared memory at bh 256); wide fused at dp 128/256/384 with hp != dp (and one
+    hp that is no 128-multiple) and at dp 3712 (CiteSeer's 3703 features:
+    the slab path); both at bh 128 and 256 with capacity-padded entries; the
     tiled band at dp 128/256/384 on a pair stream with empty superwindows,
     and on the tiled plans of a small graph at ring slots 2 and 16 and of a
     graph with empty superwindows (apply_padded vs scipy); the grouped band
@@ -1139,7 +1213,7 @@ def small_new_kernel_checks(gen) -> None:
         at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
         st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128).to(
             dev, torch.int32)
-        for dt, ht in ((16, 48), (32, 96), (48, 16), (96, 32)):
+        for dt, ht in ((16, 48), (32, 96), (48, 16), (96, 32), (192, 32), (64, 608)):
             for cd, dtype in dtypes:
                 xt = torch.randn((dt, mm), generator=gen).to(dev, dtype)
                 wt = torch.randn((ht, dt), generator=gen).to(dev, dtype)
@@ -1152,7 +1226,7 @@ def small_new_kernel_checks(gen) -> None:
         a_s = (torch.rand((sb, bh, bb), generator=gen) < 0.05).to(torch.int8).to(dev)
         st_s = (torch.randint(0, (mm - bb) // 16 + 1, (sb,), generator=gen) * 16).to(
             dev, torch.int32)
-        for dp, hp in ((128, 256), (256, 256), (256, 128), (384, 128), (256, 200)):
+        for dp, hp in ((128, 256), (256, 256), (256, 128), (384, 128), (256, 200), (3712, 256)):
             for cd, dtype in dtypes:
                 xp = torch.randn((mm, dp), generator=gen).to(dev, dtype)
                 wp = torch.randn((dp, hp), generator=gen).to(dev, dtype)
@@ -1186,7 +1260,7 @@ def small_new_kernel_checks(gen) -> None:
                                                                     dtype, group),
                         lambda: block_spmm.band_bucket_spmm_grouped_plain(
                             st_g, a_g, xp, sb_g - 3, dtype, group), cd)
-    log("  tband fused (dt 16-96, ht != dt), wide fused (dp 128-384, hp != dp), tiled (dp "
+    log("  tband fused (dt 16-192, ht 16-608), wide fused (dp 128-3712, hp != dp), tiled (dp "
         "128-384, empty superwindows) and grouped (G 1-8) at bh 128 and 256, fp32 and bf16, "
         "within tolerance of their plain versions and bitwise repeatable: pass")
 
@@ -1274,6 +1348,29 @@ def tband_fused_at_plan(op, gen, out) -> None:
                 fn_lib=lambda: torch.sparse.mm(bucket_csr, x_rows), err=err)
             del bucket_csr, x_rows
         del xt
+    # the GIN forward's first layer (dt 96) and two shapes that would not
+    # fit whole in one block's shared memory, at the plan's arrays, fp32
+    for dt, ht in ((96, 32), (192, 32), (64, 608)):
+        xt = torch.randn((dt, m), generator=gen).to(DEV)
+        wt = (torch.randn((ht, dt), generator=gen) * 0.1).to(DEV)
+
+        def fused():
+            return tband.tband_fused_direct(sw, st, at, xt, wt, num_sw, torch.float32)
+
+        def composed():
+            agg = tband.tband_spmm_direct(sw, st, at, xt, num_sw, torch.float32)
+            return _dot(wt, agg), agg
+
+        label = (f"tband fused fp32 at Sb {at.shape[0]}, W {at.shape[1]}, bh {bh}, dt {dt}, "
+                 f"ht {ht}")
+        err = hold_repeatable(label, fused, lambda: tband.tband_fused_direct_plain(
+            sw, st, at, xt, wt, num_sw, torch.float32), "float32")
+        out[("tband_fused_shapes", (dt, ht))] = timed(
+            label + " (yardstick: the composed pair)", fused,
+            lambda: tband.tband_fused_direct_plain(sw, st, at, xt, wt, num_sw, torch.float32),
+            at.numel() + (xt.numel() + wt.numel() + (dt + ht) * m) * 4 + 8 * at.shape[0],
+            2 * nnz * dt + 2 * ht * dt * m, fn_lib=composed, reps=5, err=err)
+        del xt, wt
 
 
 def wide_new_kernels_at_plan(op_w, op_t, gen, out, launch_runs) -> None:
@@ -1330,6 +1427,27 @@ def wide_new_kernels_at_plan(op_w, op_t, gen, out, launch_runs) -> None:
                     + 8 * a.shape[0], 2 * nnz * dp + 2 * m * dp * hp, fn_lib=composed,
                     reps=10, err=err)
             del xp, wp
+    # dp 3712 (CiteSeer's features): the slab path, held against the
+    # composed pair (the plain version would gather [Sb, Bb, dp] at once)
+    dgen = torch.Generator(device=DEV).manual_seed(1)  # 1.2 G values: drawn on the device
+    xp = torch.randn((m, 3712), generator=dgen, device=DEV)
+    wp = torch.randn((3712, 256), generator=dgen, device=DEV) * 0.1
+
+    def fused():
+        return block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, torch.float32)
+
+    def composed():
+        agg = block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, torch.float32)
+        return agg, _dot(agg.view(m, 3712), wp).view(num_sw, -1, 256)
+
+    shape = f"{label}, dp 3712, hp 256 (slab path)"
+    err = hold_repeatable(f"wide fused fp32 at {shape} vs the composed pair", fused, composed,
+                          "float32")
+    out[("band_fused_spmm_direct", 3712)] = timed(
+        f"wide fused fp32 at {shape} (yardstick: the composed pair)", fused, composed,
+        a.numel() + (m * 3712 + 3712 * 256 + m * (3712 + 256)) * 4 + 8 * a.shape[0],
+        2 * nnz * 3712 + 2 * m * 3712 * 256, fn_lib=composed, reps=3, err=err)
+    del xp, wp
     for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         xp = torch.randn((m, 128), generator=gen).to(DEV, dtype)
         wp = (torch.randn((128, 128), generator=gen) * 0.1).to(DEV, dtype)
@@ -1527,9 +1645,6 @@ def main() -> int:
                 for line in f:
                     if any(w in line for w in ("Compiling", "registers", "spill")):
                         log(f"  {name}: " + line.strip())
-        log("  tspill merge_kernel dynamic shared memory at dt 32: " + ", ".join(
-            f"span {sp} {tspill.merge_warps(sp, 32) * (sp + 32) * 4} B"
-            for sp in (512, 1024, 2048, 4096)))
 
     gen = torch.Generator().manual_seed(0)
     with Phase("3. band kernel vs plain version"):
@@ -1679,7 +1794,9 @@ def main() -> int:
             path = os.path.join(tmp, "blocks_standin.npz")
             gio.save_edges_npz(path, src, dst, n)
             log("  blocks stand-in, rcm:")
-            launch_runs["blocks"], _ = train_and_count(path, "rcm", {"tband_spmm": 1})
+            epochs = {}
+            launch_runs["blocks"], done = train_and_count(path, "rcm", {"tband_spmm": 1})
+            epochs["blocks tband gcn"] = done["epoch_ms"]
             paths = {}
             for key, need in (("DD", {"tband_spmm": 1, "zero_lane_blocks": 2,
                                       "tbstream_merge": 1}),
@@ -1688,10 +1805,12 @@ def main() -> int:
                 paths[key] = os.path.join(tmp, f"{key}_standin.npz")
                 gio.save_edges_npz(paths[key], *real_edges[key])
                 log(f"  {key} stand-in, cluster:")
-                launch_runs[key], _ = train_and_count(paths[key], "cluster", need)
+                launch_runs[key], done = train_and_count(paths[key], "cluster", need)
+                epochs[f"{key} tband gcn"] = done["epoch_ms"]
 
             net = Net("gcn", 48, 32, 22, 6)
-            params = init_net_params(net, torch.Generator().manual_seed(0), init="glorot")
+            params = init_net_params(net, torch.Generator().manual_seed(0), init="glorot",
+                                     device="cpu")
             op2c = HybridSpMM(rp2, ci2, n2, cfg2, device="cpu")
             with torch.no_grad():
                 lp_cpu = net_forward(net, params, Bound(op2c), op2c.pad_input(x2),
@@ -1750,7 +1869,6 @@ def main() -> int:
                     f"{len(arrs['band_missing_sw'])}); spill {p.spill_nnz} edges, "
                     f"kind {p.ds_kind if p.ds_blk is not None else 'take'}, group "
                     f"{p.ds_group}, chunks {len(p.ds_gcols) // 128 if p.ds_blk is not None else 0}"
-                    f" (longest block run {longest_run(arrs)})"
                     f", ucols {None if p.ds_ucols is None else len(p.ds_ucols)}; plan and "
                     f"upload {time.perf_counter() - t0:.1f} s")
                 if key in ("DD", "YS", "GH") and not (p.spill_nnz and len(p.band_missing_sw)):
@@ -1817,8 +1935,9 @@ def main() -> int:
                                                     "bstream_merge": 1})):
                 for model in ("gcn", "gin"):
                     log(f"  {key} {model}, hidden 256:")
-                    launch_runs[f"{key} {model} wide"], _ = train_and_count(
+                    launch_runs[f"{key} {model} wide"], done = train_and_count(
                         pth, ro, need, ["--model", model, *WIDE], WIDE_SPMMS[model])
+                    epochs[f"{key} wide {model} hidden 256"] = done["epoch_ms"]
             zero_counts()
             rec = records(run_cli(["--dataset", path, "--reorder", "rcm", "--dim", "32",
                                    "--hidden", "256", "--single_kernel"]), "sag")
@@ -1901,6 +2020,45 @@ def main() -> int:
             del op_t, out
             torch.cuda.empty_cache()
 
+        layout_res = {}
+        with Phase("20. the layout switch: the 6-layer GCN at hidden 32 through cli.main "
+                   "--band-impl tband, wide and tiled"):
+            # each layout twice, in the order tband wide tiled tiled wide tband: the
+            # host clock of these epochs drifts within a call
+            impls = ("tband", "wide", "tiled")
+            for key, pth, ro in (("blocks", path, "rcm"), ("DD", paths["DD"], "cluster")):
+                for impl in impls + impls[::-1]:
+                    zero_counts()
+                    lines = run_cli(["--dataset", pth, "--reorder", ro, *GCN, "--epochs", "3",
+                                     "--band-impl", impl])
+                    counts = read_counts()
+                    prep, done = records(lines, "preprocess"), records(lines, "done")
+                    if not math.isfinite(done["final_loss"]):
+                        raise AssertionError(f"{key} --band-impl {impl}: final_loss "
+                                             f"{done['final_loss']}")
+                    res = layout_res.setdefault(f"{key} {impl}", dict(layout=prep["layout"],
+                                                                      epoch_ms=[]))
+                    res["epoch_ms"].append(done["epoch_ms"])
+                    launch_runs[f"{key} gcn hidden 32 {impl}"] = counts
+                    log(f"  {key} --band-impl {impl}: layout {prep['layout']}, epoch_ms "
+                        f"{done['epoch_ms']:.3f}, final_loss {done['final_loss']}")
+
+        profiles = {}
+        with Phase("21. where GH's GCN epochs go (utils/epoch_profile.py)"):
+            from hcspmm_tpu_torch.utils import epoch_profile
+
+            for name, argv in (("tband, hidden 32", GCN), ("wide, hidden 256",
+                                                          ["--model", "gcn", *WIDE])):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    epoch_profile.main(["--dataset", paths["GH"], "--reorder", "cluster", *argv,
+                                        "--profile-epochs", "5"])
+                rec = records(buf.getvalue().splitlines(), "epoch_profile")
+                profiles[f"GH {name}"] = rec
+                log(f"  GH {name}: wall {rec['wall_ms_per_epoch']:.3f} ms, busy "
+                    f"{rec['busy_ms_per_epoch']:.3f} ms ({rec['idle_share']:.1%} idle); "
+                    + ", ".join(f"{g} {v:.3f}" for g, v in rec["ms_per_epoch"].items()))
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -1980,9 +2138,20 @@ def main() -> int:
               for cd in ("float32", "bfloat16")}
     table6.update({"wide dim 96 " + cd: new_res[("table6 wide", cd)]
                    for cd in ("float32", "bfloat16")})
+    fused_shapes = {f"tband dt {k[1][0]} ht {k[1][1]}": v for k, v in new_res.items()
+                    if k[0] == "tband_fused_shapes"}
+    fused_shapes["wide dp 3712 hp 256"] = new_res[("band_fused_spmm_direct", 3712)]
     log(json.dumps({"kernels": kernels, "launches_by_run": launch_runs, "table6": table6,
                     "grouped_ab": grouped["ab"],
-                    "fused_training": {f"{k[0]} {k[1]}": v for k, v in fused_res.items()}}))
+                    "fused_training": {f"{k[0]} {k[1]}": v for k, v in fused_res.items()},
+                    "fused_shapes": fused_shapes, "epochs": epochs, "layout_switch": layout_res,
+                    "lane_merge_yardsticks_ms": {
+                        f"{r['graph']} {r['shape'].split(' merge')[0]} {cd}": dict(
+                            merge=r["ms"], take_then_merge=r["take_merge_ms"],
+                            take_then_index_add=r["library_ms"], index_add=r["index_add_ms"])
+                        for cd in ("float32", "bfloat16")
+                        for r in spill_res[("tbstream_merge", cd)]},
+                    "epoch_profiles": profiles}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -39,7 +39,8 @@
 //   band aggregate agg = A[i] @ X[st : st+Bb] of a 32-row chunk is written
 //   out and kept in shared memory, rounded to W's type as the reference's
 //   ``agg.astype(w.dtype)`` does, then multiplied by W [dp, hp] read through
-//   L2: out = agg @ W, summed in fp32 in k order.
+//   L2: out = agg @ W, summed in fp32 in k order; fused_slab_kernel is its
+//   form for dp above 1792, where 32 aggregate rows outgrow shared memory.
 //
 // What bounds them.  The blocks are under 1% non-zero (DD's wide plan:
 // 1.38 M edges in 1190 x 256 x 640 bytes of A), so no kernel multiplies the
@@ -259,6 +260,84 @@ fused_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
   }
 }
 
+// fused_kernel where 32 rows of dp columns do not fit in shared memory (dp
+// above 1792).  Phase 1 writes the aggregate rows to ``agg`` only; phase 2
+// sums out over k in order, as fused_kernel does, from slabs of KS columns
+// of those rows re-read from ``agg`` (this block's own writes, visible after
+// __syncthreads) and rounded to W's type into agg_s: round_as of the stored
+// value equals round_as of the fp32 sum in either output type.  The slabs
+// are re-read once per 128 columns of out (hp / 128 times an entry's chunk)
+// from L2.  Shared memory: agg_s [ROWS][KS] fp32.
+constexpr int KS = 512;
+
+template <typename TX, typename TO, int NG>
+__global__ void __launch_bounds__(WARPS * 32)
+fused_slab_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
+                  const int8_t* __restrict__ a, const TX* __restrict__ x,
+                  const TX* __restrict__ w, TO* __restrict__ agg, TO* __restrict__ out, int bh,
+                  int bb, int dp, int hp, int nchunk, int num_sw) {
+  const int i = blockIdx.x / nchunk;
+  const int r_lo = (blockIdx.x % nchunk) * ROWS;
+  const long long blk = sw[i];
+  if (blk >= num_sw) return;  // capacity padding: nothing to write
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows = min(ROWS, bh - r_lo);
+  const long long st = starts[i];
+  TO* arows = agg + (blk * bh + r_lo) * dp;
+  extern __shared__ __align__(16) float agg_s[];
+
+  for (int c = 0; c < dp; c += NG * 128) {
+    const int col = c + 4 * lane;
+    for (int r = warp; r < rows; r += WARPS) {
+      float acc[NG][4] = {};
+      add_row<TX, NG>(a + ((long long)i * bh + r_lo + r) * bb, bb, x + st * dp + col, dp, lane,
+                      acc);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) store4(arows + (long long)r * dp + col + g * 128, acc[g]);
+    }
+  }
+  __syncthreads();
+
+  const int half = threadIdx.x >> 7;
+  for (int c0 = 0; c0 < hp; c0 += 128) {
+    const int c = c0 + (threadIdx.x & 127);
+    const bool on = c < hp;
+    float o[16] = {};
+    for (int k0 = 0; k0 < dp; k0 += KS) {
+      const int ks = min(KS, dp - k0);
+      __syncthreads();  // the previous slab's readers are done
+      for (int e = threadIdx.x; e < ROWS * ks; e += WARPS * 32) {
+        const int r = e / ks;
+        agg_s[e] = r < rows ? round_as(to_f32(arows[(long long)r * dp + k0 + e % ks]), w) : 0.f;
+      }
+      __syncthreads();
+      const float* as = agg_s + half * 16 * ks;
+      for (int k = 0; k < ks; k += 4) {
+        float wk[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          wk[q] = on ? to_f32(w[(long long)(k0 + k + q) * hp + c]) : 0.f;
+#pragma unroll
+        for (int rr = 0; rr < 16; ++rr) {
+          const float4 av = *reinterpret_cast<const float4*>(as + rr * ks + k);
+          o[rr] = fmaf(av.x, wk[0], o[rr]);
+          o[rr] = fmaf(av.y, wk[1], o[rr]);
+          o[rr] = fmaf(av.z, wk[2], o[rr]);
+          o[rr] = fmaf(av.w, wk[3], o[rr]);
+        }
+      }
+    }
+    if (on) {
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = half * 16 + rr;
+        if (r < rows) store1(out + (blk * bh + r_lo + r) * hp + c, o[rr]);
+      }
+    }
+  }
+}
+
 template <typename TX, typename TO, int NG>
 cudaError_t launch_band(const void* starts, const void* sw, const void* a, const void* x,
                         void* out, int sb, int bh, int bb, int dp, int num_sw, int group,
@@ -284,13 +363,27 @@ cudaError_t launch_tiled(const void* ptr, const void* tile, const void* a, const
   return cudaGetLastError();
 }
 
+// Shared memory one thread block may opt in to on the current device (227 KB
+// on an H100): past it the fused product runs slab by slab.
+size_t max_block_smem() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return (size_t)bytes;
+}
+
 template <typename TX, typename TO, int NG>
 cudaError_t launch_fused(const void* starts, const void* sw, const void* a, const void* x,
                          const void* w, void* agg, void* out, int sb, int bh, int bb, int dp,
                          int hp, int num_sw, cudaStream_t stream) {
   const int nchunk = (bh + ROWS - 1) / ROWS;
-  const size_t smem = (size_t)ROWS * dp * sizeof(float);
+  size_t smem = (size_t)ROWS * dp * sizeof(float);
   auto kernel = fused_kernel<TX, TO, NG>;
+  if (smem > max_block_smem()) {
+    smem = (size_t)ROWS * KS * sizeof(float);
+    kernel = fused_slab_kernel<TX, TO, NG>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -421,15 +514,17 @@ extern "C" int hcspmm_tiled_spmm(const void* ptr, const void* tile, const void* 
 
 // starts, sw: int32 [sb]; a: int8 [sb, bh, bb]; x: [m, dp]; w: [dp, hp] in
 // x's type; agg: [rows, dp] and out: [rows, hp], fp32 when out_f32 != 0,
-// else x's type.  Entries with sw >= num_sw write nothing.  Needs 128*dp
-// bytes of shared memory a block (dp <= 1792).  Returns a cudaError_t.
+// else x's type.  Entries with sw >= num_sw write nothing.  fused_kernel
+// keeps 128*dp bytes in shared memory (dp <= 1792 on an H100); past what a
+// block may use (max_block_smem) fused_slab_kernel runs.  Returns a
+// cudaError_t.
 extern "C" int hcspmm_band_fused(const void* starts, const void* sw, const void* a,
                                  const void* x, const void* w, void* agg, void* out, int sb,
                                  int bh, int bb, int dp, int hp, int num_sw, int x_bf16,
                                  int out_f32, void* stream) {
   if (sb <= 0) return 0;
-  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || (size_t)ROWS * dp * 4 > 232448 ||
-      hp <= 0 || (long long)sb * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
+  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || hp <= 0 ||
+      (long long)sb * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const FusedArgs args{starts, sw, a, x, w, agg, out, sb, bh, bb, dp, hp, num_sw,
                        static_cast<cudaStream_t>(stream)};

@@ -4,35 +4,42 @@
 // Replaces the Pallas kernels hcspmm_tpu/kernels/dstream.py:bstream_merge
 // (pallas_call at :283, with its clip-mode take at :263) and dstream_merge
 // (:457, take at :434), which differ only in how a slot names its
-// destination row.  In place, for every slot e of the chunk stream (128
-// slots per chunk c = e / 128):
+// destination row.  In place, for every real slot e of the chunk stream:
 //
 //     out[row(e), :] += xsrc[min(gcols[e], R - 1), :]
 //
-// block form (bstream): row = blk[c] * span + local[e], sentinel span;
-// tile form  (dstream): row = blk[c / G] * span + lt[c] * 128 + local[e],
-//                       sentinel 128 (never "row 0 of the next tile");
-// span = G * 128.  A sentinel slot is skipped, never multiplied, so a
-// non-finite value in its (real) column adds nothing, where the reference's
-// one-hot dot would spread 0 * NaN.  The gather happens here, from xsrc
-// itself: no [C*128, dp] gathered copy is written and read back (at GH's
-// scale, dp 256 fp32, that copy would be about 2.4 GB per SpMM).  A bf16
-// xsrc is widened in registers, so the reference's ds_gather_f32 cast
-// changes no value here and is not made.
+// The streams are sorted by destination row and pads only trail a tile's or
+// a block's last chunk, so each row's slots are one contiguous range: the
+// merge is a CSR row sum.  The host turns local/blk/lt into a destination
+// segment table at upload (kernels/dstream.py:row_segments): segment s
+// covers slots [seg_ptr[s], seg_ptr[s+1]) of row seg_row[s], or of nothing
+// where seg_row[s] is -1 (a run of sentinel slots, never read); the check
+// there refuses a row with two segments, so every row has one owner.  This
+// kernel reads neither local, blk nor lt.
 //
-// blk does not decrease, so the chunks of one destination block form one
-// run [run_start[r], run_start[r+1]), computed on the host at upload.  One
-// thread block owns (run r, 32-column slab): it reads the block's slab into
-// an fp32 accumulator in shared memory once ([span][32] fp32, 128 KB at
-// span 1024; a whole [span, dp] block would not fit), adds every slot of
-// the run, and writes the slab once in out's dtype.  Sums are deterministic
-// and in slot order: warp w owns the rows with row % NW == w, scans the
-// run's slots 64 at a time (two ballots), and adds its own slots in slot
-// order, with up to U gathers in flight before their adds.  So each
-// (row, column) is updated by one thread in slot order, the order of a
-// sequential index_add, and two runs are bitwise equal.  Bytes: every
-// touched block read and written once per call, each real slot's row slice
-// read once per slab; the slot indices are re-read by each warp from L1.
+// One group of g lanes (g * 8 columns, 8 per lane: two 16-byte loads of
+// fp32, one of bf16) owns a segment's row for one column slab: it reads the
+// row of out once, adds each slot's xsrc row in slot order with U gathers in
+// flight, and writes the row once in out's dtype.  Rows no slot names are
+// never read.  A segment longer than long_min slots (a hub row) is listed in
+// seg_long and gets a whole thread block instead: its groups sum contiguous
+// pieces of the slots into fp32 partials, which one thread per column adds
+// to the row in group order.  Sums are fp32, in a fixed order, with no
+// atomics: two runs are bitwise equal.  A sentinel slot is skipped, never
+// multiplied, so a non-finite value in its (real) column adds nothing, where
+// the reference's one-hot dot would spread 0 * NaN.  A bf16 xsrc is widened
+// in registers, so the reference's ds_gather_f32 cast changes no value here.
+//
+// What bounds it: bytes, once enough segments are in flight.  Each touched
+// row of out is read and written once, each real slot's xsrc row (dp * elt
+// bytes) read once, plus 4 bytes of index a slot and 8 a segment.  The
+// gathers are whole-row reads of at least 128 bytes, but each segment is a
+// chain of three dependent reads (its table entry, its slot indices, its
+// rows), so the launch bounds hold a thread to 64 registers and four blocks
+// of 8 warps stay resident on an SM: with one resident block of 16 warps
+// (74-82 registers a thread) the merge was bound by latency (PERF.md §6).
+// The grid covers segments, so no destination block's run of chunks
+// serialises on one SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,136 +47,209 @@
 
 namespace {
 
-constexpr int SLAB = 32;  // output columns per thread block: one per lane
-constexpr int NW = 16;    // warps per thread block
-constexpr int U = 4;      // gathers a warp issues before it adds them
+constexpr int THREADS = 256;  // 8 warps a thread block, four resident on an SM
+constexpr int VEC = 8;        // columns a lane owns
+constexpr int U = 4;          // slot gathers a group issues before it adds them
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// Destination row within the block of slot e, or -1 for a sentinel slot.
-__device__ __forceinline__ int dest_row(const int32_t* __restrict__ local,
-                                        const int32_t* __restrict__ lt, long long e, int span,
-                                        bool tile) {
-  const int loc = local[e];
-  if (tile) return loc < 128 ? lt[e >> 7] * 128 + loc : -1;
-  return loc < span ? loc : -1;
-}
-
-// Grid: (runs, ceil(dp / SLAB)); block: NW warps.  Dynamic shared memory:
-// the accumulator [span][SLAB] fp32.
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(NW * 32)
-merge_kernel(const int32_t* __restrict__ gcols, const int32_t* __restrict__ local,
-             const int32_t* __restrict__ blk, const int32_t* __restrict__ lt,
-             const int32_t* __restrict__ run_start, const TX* __restrict__ xsrc,
-             TO* __restrict__ out, int span, int group, int tile, long long xrows, int dp) {
-  extern __shared__ float acc[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c0 = run_start[blockIdx.x];
-  const int c1 = run_start[blockIdx.x + 1];
-  const long long b = tile ? blk[c0 / group] : blk[c0];
-  const int col = blockIdx.y * SLAB + lane;
-  const bool live_col = col < dp;
-  TO* dst = out + b * span * dp + col;
-
-  for (int r = warp; r < span; r += NW)
-    acc[r * SLAB + lane] = live_col ? to_f32(dst[(long long)r * dp]) : 0.f;
-  __syncthreads();
-
-  const TX* xcol = xsrc + col;
-  // c1 - c0 chunks of 128 slots: every lane takes the same number of steps,
-  // so the full-mask warp intrinsics below are well formed
-  for (long long e0 = (long long)c0 * 128; e0 < (long long)c1 * 128; e0 += 64) {
-    const long long ea = e0 + lane;
-    const long long eb = ea + 32;
-    const int ra = dest_row(local, lt, ea, span, tile);
-    const int rb = dest_row(local, lt, eb, span, tile);
-    const bool ma = ra >= 0 && (ra & (NW - 1)) == warp;
-    const bool mb = rb >= 0 && (rb & (NW - 1)) == warp;
-    unsigned long long mine = (unsigned long long)__ballot_sync(0xffffffffu, ma) |
-                              ((unsigned long long)__ballot_sync(0xffffffffu, mb) << 32);
-    if (!mine) continue;
-    const long long ga = min((long long)(ma ? gcols[ea] : 0), xrows - 1);
-    const long long gb = min((long long)(mb ? gcols[eb] : 0), xrows - 1);
-    while (mine) {
-      int row[U];
-      float v[U];
+// v = the n (<= VEC) values at p widened to fp32, zeros past n; vector mode
+// (VECTOR: n == VEC and p 16-byte aligned) with 16-byte loads.
+template <bool VECTOR>
+__device__ __forceinline__ void load8(const float* p, int n, float (&v)[VEC]) {
+  if (VECTOR) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        // the next owned slot in slot order (bits 0-31: ea, 32-63: eb)
-        const int s = mine ? __ffsll((long long)mine) - 1 : 0;
-        const bool have = mine != 0ull;
-        mine &= mine - 1;
-        const int src = s & 31;
-        const int r_a = __shfl_sync(0xffffffffu, ra, src);
-        const int r_b = __shfl_sync(0xffffffffu, rb, src);
-        const long long g_a = __shfl_sync(0xffffffffu, ga, src);
-        const long long g_b = __shfl_sync(0xffffffffu, gb, src);
-        row[u] = have ? (s < 32 ? r_a : r_b) : -1;
-        const long long g = s < 32 ? g_a : g_b;
-        v[u] = (have && live_col) ? to_f32(xcol[g * dp]) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (row[u] >= 0) acc[row[u] * SLAB + lane] += v[u];
-    }
+    for (int i = 0; i < VEC; ++i) v[i] = i < n ? p[i] : 0.f;
   }
-  __syncthreads();
-  if (live_col)
-    for (int r = warp; r < span; r += NW) store(dst + (long long)r * dp, acc[r * SLAB + lane]);
+}
+template <bool VECTOR>
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, int n, float (&v)[VEC]) {
+  if (VECTOR) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = i < n ? __bfloat162float(p[i]) : 0.f;
+  }
+}
+template <bool VECTOR>
+__device__ __forceinline__ void store8(float* p, int n, const float (&v)[VEC]) {
+  if (VECTOR) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      if (i < n) p[i] = v[i];
+  }
+}
+template <bool VECTOR>
+__device__ __forceinline__ void store8(__nv_bfloat16* p, int n, const float (&v)[VEC]) {
+  if (VECTOR) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      if (i < n) p[i] = __float2bfloat16(v[i]);
+  }
 }
 
-template <typename TX, typename TO>
-cudaError_t launch(const void* gcols, const void* local, const void* blk, const void* lt,
-                   const void* run_start, const void* xsrc, void* out, int runs, int span,
-                   int group, int tile, long long xrows, int dp, cudaStream_t stream) {
-  const size_t smem = (size_t)span * SLAB * sizeof(float);
+// acc += the xsrc rows of slots [e0, e1) at this lane's columns, in slot
+// order, U gathers in flight.
+template <bool VECTOR, typename TX>
+__device__ __forceinline__ void add_slots(const int32_t* __restrict__ gcols,
+                                          const TX* __restrict__ xcol, long long e0,
+                                          long long e1, long long xrows, long long dp, int n,
+                                          float (&acc)[VEC]) {
+  for (long long e = e0; e < e1; e += U) {
+    long long g[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) g[u] = e + u < e1 ? min((long long)gcols[e + u], xrows - 1) : -1;
+    float v[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (g[u] >= 0) load8<VECTOR>(xcol + g[u] * dp, n, v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (g[u] >= 0) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] += v[u][i];
+      }
+  }
+}
+
+// Grid: x = n_long blocks (one long segment each), then ceil(S / (THREADS /
+// g)) blocks of short segments; y = column slab of g * VEC columns.
+// Dynamic shared memory (long blocks): THREADS * VEC fp32 partials.
+template <bool VECTOR, typename TX, typename TO>
+__global__ void __launch_bounds__(THREADS, 4)
+merge_kernel(const int32_t* __restrict__ gcols, const int32_t* __restrict__ seg_row,
+             const int32_t* __restrict__ seg_ptr, const int32_t* __restrict__ seg_long,
+             const TX* __restrict__ xsrc, TO* __restrict__ out, int segs, int n_long,
+             int long_min, int g, long long xrows, int dp) {
+  const int groups = THREADS / g;
+  const int q = threadIdx.x / g;
+  const int col = blockIdx.y * g * VEC + (threadIdx.x % g) * VEC;
+  const int n = min(VEC, dp - col);
+
+  if ((int)blockIdx.x >= n_long) {
+    const long long s = (long long)(blockIdx.x - n_long) * groups + q;
+    if (s >= segs || n <= 0) return;
+    const long long row = seg_row[s];
+    const int e0 = seg_ptr[s];
+    const int e1 = seg_ptr[s + 1];
+    if (row < 0 || e1 - e0 > long_min) return;  // sentinel run, or a long block's
+    TO* orow = out + row * dp + col;
+    float acc[VEC];
+    load8<VECTOR>(orow, n, acc);
+    add_slots<VECTOR>(gcols, xsrc + col, e0, e1, xrows, dp, n, acc);
+    store8<VECTOR>(orow, n, acc);
+    return;
+  }
+
+  // a long segment: group q sums its contiguous piece of the slots
+  extern __shared__ float part[];  // [groups][g * VEC]
+  const int s = seg_long[blockIdx.x];
+  const long long row = seg_row[s];
+  const long long e0 = seg_ptr[s];
+  const long long len = seg_ptr[s + 1] - e0;
+  float acc[VEC] = {};
+  if (n > 0)
+    add_slots<VECTOR>(gcols, xsrc + col, e0 + len * q / groups, e0 + len * (q + 1) / groups,
+                      xrows, dp, n, acc);
+  const int slab = g * VEC;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) part[q * slab + (threadIdx.x % g) * VEC + i] = acc[i];
+  __syncthreads();
+  const int c = blockIdx.y * slab + threadIdx.x;
+  if (threadIdx.x < slab && c < dp) {
+    TO* o = out + row * dp + c;
+    float a = to_f32(*o);
+    for (int p = 0; p < groups; ++p) a += part[p * slab + threadIdx.x];
+    store1(o, a);
+  }
+}
+
+template <bool VECTOR, typename TX, typename TO>
+cudaError_t launch(const void* gcols, const void* seg_row, const void* seg_ptr,
+                   const void* seg_long, const void* xsrc, void* out, int segs, int n_long,
+                   int long_min, long long xrows, int dp, cudaStream_t stream) {
+  int g = 1;  // lanes a segment: the fewest whose VEC columns each cover dp, at most 32
+  while (g < 32 && g * VEC < dp) g *= 2;
+  const int groups = THREADS / g;
+  const dim3 grid((unsigned)(n_long + (segs + groups - 1) / groups),
+                  (unsigned)((dp + g * VEC - 1) / (g * VEC)));
+  const size_t smem = n_long ? (size_t)THREADS * VEC * sizeof(float) : 0;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_kernel<TX, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        merge_kernel<VECTOR, TX, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((unsigned)runs, (unsigned)((dp + SLAB - 1) / SLAB));
-  merge_kernel<TX, TO><<<grid, NW * 32, smem, stream>>>(
-      static_cast<const int32_t*>(gcols), static_cast<const int32_t*>(local),
-      static_cast<const int32_t*>(blk), static_cast<const int32_t*>(lt),
-      static_cast<const int32_t*>(run_start), static_cast<const TX*>(xsrc),
-      static_cast<TO*>(out), span, group, tile, xrows, dp);
+  merge_kernel<VECTOR, TX, TO><<<grid, THREADS, smem, stream>>>(
+      static_cast<const int32_t*>(gcols), static_cast<const int32_t*>(seg_row),
+      static_cast<const int32_t*>(seg_ptr), static_cast<const int32_t*>(seg_long),
+      static_cast<const TX*>(xsrc), static_cast<TO*>(out), segs, n_long, long_min, g, xrows,
+      dp);
   return cudaGetLastError();
+}
+
+template <typename TX, typename TO>
+cudaError_t dispatch(int vector, const void* gcols, const void* seg_row, const void* seg_ptr,
+                     const void* seg_long, const void* xsrc, void* out, int segs, int n_long,
+                     int long_min, long long xrows, int dp, cudaStream_t stream) {
+  if (vector)
+    return launch<true, TX, TO>(gcols, seg_row, seg_ptr, seg_long, xsrc, out, segs, n_long,
+                                long_min, xrows, dp, stream);
+  return launch<false, TX, TO>(gcols, seg_row, seg_ptr, seg_long, xsrc, out, segs, n_long,
+                               long_min, xrows, dp, stream);
 }
 
 }  // namespace
 
-// gcols: int32 [C*128] rows of xsrc (clamped to xrows - 1 here); local: int32,
-// slot e's entry at flat index e (block form [>= C, 128], tile form
-// [>= C/G, G*128]); blk: int32 nondecreasing, one per chunk (block form) or
-// per step of G chunks (tile form); lt: int32 [C] (tile form, else unused);
-// run_start: int32 [runs + 1] chunk offsets; xsrc: [xrows, dp]; out:
-// [M, dp] with M a multiple of span = group * 128.  x_bf16 / out_bf16 pick
-// bfloat16 over fp32 for xsrc / out.  Returns a cudaError_t (0 = launched).
-// The caller checks every index on the host before upload.
-extern "C" int hcspmm_row_merge(const void* gcols, const void* local, const void* blk,
-                                const void* lt, const void* run_start, const void* xsrc,
-                                void* out, int runs, int group, int tile, long long xrows,
-                                int dp, int x_bf16, int out_bf16, void* stream) {
-  if (runs <= 0 || dp <= 0) return 0;
-  const int span = group * 128;
-  if (group <= 0 || group > 8 || xrows <= 0 || (tile && lt == nullptr))
+// gcols: int32 slot indices into xsrc (clamped to xrows - 1 here); seg_row:
+// int32 [segs] destination rows of out (-1: a sentinel run); seg_ptr: int32
+// [segs + 1] slot offsets into gcols; seg_long: int32 [n_long] the segments
+// longer than long_min slots; xsrc: [xrows, dp]; out: [rows, dp].  x_bf16 /
+// out_bf16 pick bfloat16 over fp32 for xsrc / out; vector != 0 promises dp
+// % 8 == 0 and 16-byte aligned xsrc and out.  Returns a cudaError_t (0 =
+// launched).  The caller checks every index on the host before upload.
+extern "C" int hcspmm_row_merge(const void* gcols, const void* seg_row, const void* seg_ptr,
+                                const void* seg_long, const void* xsrc, void* out, int segs,
+                                int n_long, int long_min, long long xrows, int dp, int x_bf16,
+                                int out_bf16, int vector, void* stream) {
+  if (segs <= 0 || dp <= 0) return 0;
+  if (xrows <= 0 || n_long < 0 || long_min < 1 || (vector && dp % VEC))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16 && out_bf16)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16>(gcols, local, blk, lt, run_start, xsrc,
-                                                     out, runs, span, group, tile, xrows, dp, s);
+    return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(vector, gcols, seg_row, seg_ptr, seg_long,
+                                                       xsrc, out, segs, n_long, long_min, xrows,
+                                                       dp, s);
   if (x_bf16)
-    return (int)launch<__nv_bfloat16, float>(gcols, local, blk, lt, run_start, xsrc, out, runs,
-                                             span, group, tile, xrows, dp, s);
+    return (int)dispatch<__nv_bfloat16, float>(vector, gcols, seg_row, seg_ptr, seg_long, xsrc,
+                                               out, segs, n_long, long_min, xrows, dp, s);
   if (out_bf16)
-    return (int)launch<float, __nv_bfloat16>(gcols, local, blk, lt, run_start, xsrc, out, runs,
-                                             span, group, tile, xrows, dp, s);
-  return (int)launch<float, float>(gcols, local, blk, lt, run_start, xsrc, out, runs, span,
-                                   group, tile, xrows, dp, s);
+    return (int)dispatch<float, __nv_bfloat16>(vector, gcols, seg_row, seg_ptr, seg_long, xsrc,
+                                               out, segs, n_long, long_min, xrows, dp, s);
+  return (int)dispatch<float, float>(vector, gcols, seg_row, seg_ptr, seg_long, xsrc, out, segs,
+                                     n_long, long_min, xrows, dp, s);
 }

@@ -2,8 +2,9 @@
 //
 // tband_kernel replaces the Pallas kernels
 // hcspmm_tpu/kernels/tband.py:tband_spmm_direct (pallas_call at :217) and
-// :tband_spmm_bucket (:246), pack=1; tband_fused_kernel (below) replaces
-// :tband_fused_direct (:309).  Thread
+// :tband_spmm_bucket (:246), pack=1; tband_fused_kernel and, for shapes whose
+// staging does not fit in shared memory, tband_fused_slab_kernel (below)
+// replace :tband_fused_direct (:309).  Thread
 // block b of superwindow i computes a DT-row slab of
 //
 //     Y^T[d0:d0+DT, c_i*bh : c_i*bh+bh] = X^T[d0:d0+DT, st[i] : st[i]+W] @ A_t[i]
@@ -239,6 +240,123 @@ tband_fused_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict
   }
 }
 
+// The same fused product where tband_fused_kernel's staging (fused_smem)
+// exceeds the 227 KB of shared memory a block may use: dt above 176 at ht 32,
+// or ht above about 600 at dt 64 (bh 256).  Nothing of size dt or ht is kept
+// on chip.  Thread j keeps an out^T tile of HT rows of its column in
+// registers; for each DT-row slab of the features, in order, it sums the band
+// product into acc[DT] as tband_fused_kernel does, writes agg^T, and adds
+// W^T[h0:h0+HT, slab] . round_as(acc) into the tile, W's slab staged in
+// shared memory.  The ht tiles after the first re-read the slab's aggregate
+// from agg (this thread's own writes; round_as of the stored value is the
+// value rounded in the first tile, in either output type) instead of
+// recomputing the band product: ceil(ht / HT) - 1 extra reads of dt*bh
+// values an entry, from L2.  Each out^T element is summed in d order from
+// 0, the order of tband_fused_kernel, so both are bitwise repeatable.
+// Shared memory: x_s [KT][DT] fp32, w_s [DT][HT] fp32, a_s [KT][bh] int8.
+constexpr int HT = 32;
+
+template <typename TX, typename TO, int DT>
+__global__ void __launch_bounds__(512)
+tband_fused_slab_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
+                        const int8_t* __restrict__ at, const TX* __restrict__ xt,
+                        const TX* __restrict__ wt, TO* __restrict__ agg, TO* __restrict__ out,
+                        int w, int bh, int dt, int ht, long long m, long long out_cols,
+                        int num_sw) {
+  const int i = blockIdx.x;
+  const int j = threadIdx.x;
+  const int s = sw[i];
+  if (s >= num_sw) return;  // capacity padding: nothing to write
+  const long long col0 = (long long)s * bh;
+  const long long st = starts[i];
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* x_s = reinterpret_cast<float*>(smem);
+  float* w_s = x_s + KT * DT;
+  int8_t* a_s = reinterpret_cast<int8_t*>(w_s + DT * HT);
+
+  const int8_t* a_blk = at + (long long)i * w * bh;
+  const int nvec = KT * bh / 16;
+  for (int h0 = 0; h0 < ht; h0 += HT) {
+    const int hn = min(HT, ht - h0);
+    float o[HT];
+#pragma unroll
+    for (int q = 0; q < HT; ++q) o[q] = 0.f;
+    for (int d0 = 0; d0 < dt; d0 += DT) {
+      float acc[DT];
+      if (h0 == 0) {
+#pragma unroll
+        for (int d = 0; d < DT; ++d) acc[d] = 0.f;
+        for (int k0 = 0; k0 < w; k0 += KT) {
+          const int4* a_src = reinterpret_cast<const int4*>(a_blk + (long long)k0 * bh);
+          int4* a_dst = reinterpret_cast<int4*>(a_s);
+          for (int v = j; v < nvec; v += blockDim.x) a_dst[v] = a_src[v];
+          for (int e = j; e < KT * DT; e += blockDim.x) {
+            const int kk = e % KT;
+            const int dd = e / KT;
+            x_s[kk * DT + dd] = to_f32(xt[(long long)(d0 + dd) * m + st + k0 + kk]);
+          }
+          __syncthreads();
+#pragma unroll 4
+          for (int kk = 0; kk < KT; ++kk) {
+            const int8_t av = a_s[kk * bh + j];
+            if (!__any_sync(0xffffffffu, av != 0)) continue;
+            const float a = static_cast<float>(av);
+            const float4* xv = reinterpret_cast<const float4*>(x_s + kk * DT);
+#pragma unroll
+            for (int q = 0; q < DT / 4; ++q) {
+              const float4 x4 = xv[q];
+              acc[4 * q + 0] = fmaf(x4.x, a, acc[4 * q + 0]);
+              acc[4 * q + 1] = fmaf(x4.y, a, acc[4 * q + 1]);
+              acc[4 * q + 2] = fmaf(x4.z, a, acc[4 * q + 2]);
+              acc[4 * q + 3] = fmaf(x4.w, a, acc[4 * q + 3]);
+            }
+          }
+          __syncthreads();
+        }
+#pragma unroll
+        for (int d = 0; d < DT; ++d) store(agg + (long long)(d0 + d) * out_cols + col0 + j, acc[d]);
+      } else {
+#pragma unroll
+        for (int d = 0; d < DT; ++d) acc[d] = to_f32(agg[(long long)(d0 + d) * out_cols + col0 + j]);
+        __syncthreads();  // the previous slab's readers of w_s are done
+      }
+      // w_s[d][q] = W^T[h0 + q, d0 + d], zero past ht
+      for (int e = j; e < DT * HT; e += blockDim.x) {
+        const int q = e % HT;
+        w_s[e] = q < hn ? to_f32(wt[(long long)(h0 + q) * dt + d0 + e / HT]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < DT; ++d) {
+        const float a = round_as(acc[d], wt);
+        const float4* wv = reinterpret_cast<const float4*>(w_s + d * HT);
+#pragma unroll
+        for (int q = 0; q < HT / 4; ++q) {
+          const float4 w4 = wv[q];  // same address for the whole block
+          o[4 * q + 0] = fmaf(w4.x, a, o[4 * q + 0]);
+          o[4 * q + 1] = fmaf(w4.y, a, o[4 * q + 1]);
+          o[4 * q + 2] = fmaf(w4.z, a, o[4 * q + 2]);
+          o[4 * q + 3] = fmaf(w4.w, a, o[4 * q + 3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < HT; ++q)
+      if (q < hn) store(out + (long long)(h0 + q) * out_cols + col0 + j, o[q]);
+  }
+}
+
+// Shared memory one thread block may opt in to on the current device (227 KB
+// on an H100): past it the fused product runs slab by slab.
+size_t max_block_smem() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  return (size_t)bytes;
+}
+
 size_t fused_smem(int dt, int ht, int bh, int DT) {
   return ((size_t)KT * DT + (size_t)dt * bh + (size_t)dt * ht) * sizeof(float) +
          (size_t)KT * bh;
@@ -249,8 +367,12 @@ cudaError_t launch_fused(const void* starts, const void* sw, const void* at, con
                          const void* wt, void* agg, void* out, int sb, int w, int bh, int dt,
                          int ht, long long m, long long out_cols, int num_sw,
                          cudaStream_t stream) {
-  const size_t smem = fused_smem(dt, ht, bh, DT);
+  size_t smem = fused_smem(dt, ht, bh, DT);
   auto kernel = tband_fused_kernel<TX, TO, DT>;
+  if (smem > max_block_smem()) {
+    smem = ((size_t)KT * DT + (size_t)DT * HT) * sizeof(float) + (size_t)KT * bh;
+    kernel = tband_fused_slab_kernel<TX, TO, DT>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -305,15 +427,16 @@ extern "C" int hcspmm_tband_spmm(const void* starts, const void* sw, const void*
 // starts, sw: int32 [sb]; at: int8 [sb, w, bh]; xt: [dt, m] fp32 or bf16;
 // wt: [ht, dt] in xt's type; agg: [dt, out_cols] and out: [ht, out_cols],
 // fp32 when out_f32 != 0, else xt's type.  Entries with sw >= num_sw write
-// nothing.  dt and ht are multiples of 16; the shared memory the block needs
-// (fused_smem) must fit the card's 227 KB.  Returns a cudaError_t.
+// nothing.  dt and ht are multiples of 16.  Where tband_fused_kernel's shared
+// memory (fused_smem) would exceed what a block may use (max_block_smem),
+// tband_fused_slab_kernel runs instead.  Returns a cudaError_t.
 extern "C" int hcspmm_tband_fused(const void* starts, const void* sw, const void* at,
                                   const void* xt, const void* wt, void* agg, void* out, int sb,
                                   int w, int bh, int dt, int ht, long long m, long long out_cols,
                                   int num_sw, int x_bf16, int out_f32, void* stream) {
   if (sb <= 0) return 0;
   if (dt <= 0 || dt % 16 || ht <= 0 || ht % 16 || w <= 0 || w % KT || bh <= 0 || bh % 32 ||
-      bh > 512 || fused_smem(dt, ht, bh, dt % 32 == 0 ? 32 : 16) > 232448)
+      bh > 512)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!x_bf16) {

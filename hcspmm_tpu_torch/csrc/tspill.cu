@@ -26,26 +26,29 @@
 //   loads hit few sectors; it is bound by those scattered 4-byte reads and
 //   the coalesced writes of the table.
 //
-// merge_kernel    <- tbstream_merge (:151).  In place
-//   buf[:, blk[c]*span + local[c, j]] += gathered[:, c*bw + j] for every
-//   slot whose local < span (span = group*128; the sentinel span drops the
-//   pad slots).  blk does not decrease, so the chunks of one destination
-//   block form one run [run_start[r], run_start[r+1]) (computed on the host
-//   from blk).  As in the reference, each block is read once into an fp32
-//   accumulator, every chunk of its run is added, and it is written once in
-//   buf's dtype.  A [dt, span] block does not fit in shared memory (span
-//   reaches 4096 lanes: 512 KB at dt 32), so one warp owns one feature row
-//   of the block and a thread block holds NW rows, NW * span * 4 <= 64 KB.
-//   Sums are deterministic: a warp reads 32 slots at a time; lanes with the
-//   same destination find each other with __match_any_sync, and the lowest
-//   of them adds the group's values to the accumulator in slot order.  So
-//   each (row, lane) of the block is updated by one thread in slot order,
-//   the same order as a sequential index_add, and two runs are bitwise
-//   equal.  A pad slot is skipped, never multiplied: a non-finite value in
+// merge_kernel    <- tbstream_merge (:151), with the gather before it folded
+//   in.  In place buf[d, lane(e)] += src[d, idx(e)] for every real slot e,
+//   idx(e) = gidx[e] (a column of the mxgather table or of X^T itself,
+//   composed on the host at upload) or e (src is the gathered stream).  The
+//   slots of a destination block arrive sorted by destination lane and pads
+//   only trail the block's last chunk, so each lane's slots are one
+//   contiguous range: the host turns local/blk into a segment table at
+//   upload (kernels/tspill.py:lane_segments; -1 marks a run of pad slots, and
+//   a lane with two segments is refused), and this kernel reads neither
+//   local nor blk.  One thread owns (feature row d, segment): it reads
+//   buf[d, lane] once, adds the segment's src values in slot order with MU
+//   gathers in flight, and writes it once in buf's dtype; a warp holds 32
+//   consecutive segments of one row d, so its reads and writes of buf fall
+//   on neighbouring lanes.  A segment longer than long_min slots is listed
+//   in seg_long and gets a warp per row instead, whose lanes stride its
+//   slots and add their fp32 partials in a fixed butterfly order.  No
+//   atomics, so two runs are bitwise equal; lanes no slot names are not
+//   read.  A pad slot is skipped, never multiplied: a non-finite value in
 //   its (real) column adds nothing, where the reference's one-hot dot would
-//   spread 0 * NaN.  Bytes: the gathered stream is read once and every
-//   touched block read and written once; the slot indices are re-read by
-//   each of the NW warps from L1.
+//   spread 0 * NaN.  Bytes: each real slot's dt values of src (scattered
+//   4- or 2-byte reads, as the take it replaces made) and index, each
+//   touched (row, lane) read and written once: no gathered [dt, C*bw] copy
+//   is written and read back.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,67 +128,83 @@ __global__ void mxgather_kernel(const T* __restrict__ xt, const int32_t* __restr
 // tbstream_merge
 // ---------------------------------------------------------------------------
 
+constexpr int MW = 8;  // feature rows a thread block: one warp each
+constexpr int MU = 4;  // slot gathers a thread issues before it adds them
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// Grid: (runs, dt / NW); block: NW warps, warp w owns feature row
-// blockIdx.y*NW + w.  Dynamic shared memory: NW accumulators of span fp32,
-// then NW 32-float scratch rows.
+// Grid: x = n_long blocks (one long segment each), then ceil(segs / 32)
+// blocks of 32 short segments; y = ceil(dt / MW); warp w owns row
+// blockIdx.y * MW + w.
 template <typename T>
-__global__ void __launch_bounds__(512)
-merge_kernel(const T* __restrict__ gathered, const int32_t* __restrict__ local,
-             const int32_t* __restrict__ blk, const int32_t* __restrict__ run_start,
-             T* __restrict__ buf, int span, int bw, long long gw, long long m) {
-  extern __shared__ float smem[];
-  const int nw = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(MW * 32)
+merge_kernel(const T* __restrict__ src, const int32_t* __restrict__ gidx,
+             const int32_t* __restrict__ seg_lane, const int32_t* __restrict__ seg_ptr,
+             const int32_t* __restrict__ seg_long, T* __restrict__ buf, int segs, int n_long,
+             int long_min, long long srcw, long long m, int dt) {
   const int lane = threadIdx.x & 31;
-  const long long d = (long long)blockIdx.y * nw + warp;
-  float* acc = smem + warp * span;
-  float* scratch = smem + nw * span + warp * 32;
-  const int c0 = run_start[blockIdx.x];
-  const int c1 = run_start[blockIdx.x + 1];
-  T* dst = buf + d * m + (long long)blk[c0] * span;
+  const long long d = (long long)blockIdx.y * MW + (threadIdx.x >> 5);
+  if (d >= dt) return;  // uniform across the warp
+  const T* srow = src + d * srcw;
 
-  for (int l = lane; l < span; l += 32) acc[l] = to_f32(dst[l]);
-  __syncwarp();
-  const T* g = gathered + d * gw;
-  // bw is a multiple of 128, so every lane takes the same number of steps
-  // and the full-mask warp intrinsics below are well formed
-  for (long long e = (long long)c0 * bw + lane; e < (long long)c1 * bw; e += 32) {
-    const int loc = local[e];
-    const bool live = loc < span;
-    const float v = to_f32(g[e]);
-    // dead slots get distinct negative keys, so they never group
-    const unsigned peers = __match_any_sync(0xffffffffu, live ? loc : -1 - lane);
-    scratch[lane] = v;
-    __syncwarp();
-    if (live && __ffs(peers) - 1 == lane) {
-      float a = acc[loc];
-      for (unsigned p = peers; p; p &= p - 1) a += scratch[__ffs(p) - 1];
-      acc[loc] = a;
+  if ((int)blockIdx.x >= n_long) {
+    const long long s = (long long)(blockIdx.x - n_long) * 32 + lane;
+    if (s >= segs) return;
+    const int l = seg_lane[s];
+    const int e0 = seg_ptr[s];
+    const int e1 = seg_ptr[s + 1];
+    if (l < 0 || e1 - e0 > long_min) return;  // pad run, or a long warp's
+    T* p = buf + d * m + l;
+    float acc = to_f32(*p);
+    for (int e = e0; e < e1; e += MU) {
+      float v[MU];
+#pragma unroll
+      for (int u = 0; u < MU; ++u)
+        v[u] = e + u < e1 ? to_f32(srow[gidx != nullptr ? gidx[e + u] : e + u]) : 0.f;
+#pragma unroll
+      for (int u = 0; u < MU; ++u)
+        if (e + u < e1) acc += v[u];
     }
-    __syncwarp();
+    store(p, acc);
+    return;
   }
-  for (int l = lane; l < span; l += 32) store(dst + l, acc[l]);
+
+  const int s = seg_long[blockIdx.x];
+  const int e0 = seg_ptr[s];
+  const int e1 = seg_ptr[s + 1];
+  float part = 0.f;
+  for (int e = e0 + lane; e < e1; e += 32 * MU) {
+    float v[MU];
+#pragma unroll
+    for (int u = 0; u < MU; ++u) {
+      const int k = e + 32 * u;
+      v[u] = k < e1 ? to_f32(srow[gidx != nullptr ? gidx[k] : k]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < MU; ++u) part += v[u];
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (lane == 0) {
+    T* p = buf + d * m + seg_lane[s];
+    store(p, to_f32(*p) + part);
+  }
 }
 
 template <typename T>
-cudaError_t launch_merge(const void* gathered, const void* local, const void* blk,
-                         const void* run_start, void* buf, int runs, int span, int bw,
-                         long long gw, int dt, long long m, int nw, cudaStream_t stream) {
-  const size_t smem = (size_t)nw * (span + 32) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  merge_kernel<T><<<dim3((unsigned)runs, (unsigned)(dt / nw)), nw * 32, smem, stream>>>(
-      static_cast<const T*>(gathered), static_cast<const int32_t*>(local),
-      static_cast<const int32_t*>(blk), static_cast<const int32_t*>(run_start),
-      static_cast<T*>(buf), span, bw, gw, m);
+cudaError_t launch_merge(const void* src, const void* gidx, const void* seg_lane,
+                         const void* seg_ptr, const void* seg_long, void* buf, int segs,
+                         int n_long, int long_min, long long srcw, long long m, int dt,
+                         cudaStream_t stream) {
+  const dim3 grid((unsigned)(n_long + (segs + 31) / 32), (unsigned)((dt + MW - 1) / MW));
+  merge_kernel<T><<<grid, MW * 32, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const int32_t*>(gidx),
+      static_cast<const int32_t*>(seg_lane), static_cast<const int32_t*>(seg_ptr),
+      static_cast<const int32_t*>(seg_long), static_cast<T*>(buf), segs, n_long, long_min, srcw,
+      m, dt);
   return cudaGetLastError();
 }
 
@@ -252,22 +271,21 @@ extern "C" int hcspmm_mxgather_lanes(const void* xt, const void* lo, const void*
   return (int)cudaGetLastError();
 }
 
-// gathered: [dt, gw] (gw >= chunks * bw); local: int32 [>= chunks, bw];
-// blk: int32 [chunks] nondecreasing; run_start: int32 [runs + 1];
-// buf: [dt, m], same dtype as gathered (bf16 != 0: bfloat16, else fp32).
-// nw warps per block (a power of two dividing dt); span = group * 128.
-extern "C" int hcspmm_tbstream_merge(const void* gathered, const void* local, const void* blk,
-                                     const void* run_start, void* buf, int runs, int span,
-                                     int bw, long long gw, int dt, long long m, int nw,
-                                     int bf16, void* stream) {
-  if (runs <= 0 || dt <= 0) return 0;
-  if (span <= 0 || span % 128 || bw <= 0 || bw % 128 || nw <= 0 || nw > 16 || dt % nw ||
-      dt / nw > 65535)
-    return (int)cudaErrorInvalidValue;
+// src: [dt, srcw]; gidx: int32 slot -> column of src, or null (column =
+// slot); seg_lane: int32 [segs] destination lanes of buf (-1: a pad run);
+// seg_ptr: int32 [segs + 1] slot offsets; seg_long: int32 [n_long] the
+// segments longer than long_min slots; buf: [dt, m], src's dtype (bf16 != 0:
+// bfloat16, else fp32).
+extern "C" int hcspmm_tbstream_merge(const void* src, const void* gidx, const void* seg_lane,
+                                     const void* seg_ptr, const void* seg_long, void* buf,
+                                     int segs, int n_long, int long_min, long long srcw,
+                                     long long m, int dt, int bf16, void* stream) {
+  if (segs <= 0 || dt <= 0) return 0;
+  if (n_long < 0 || long_min < 1 || (dt + MW - 1) / MW > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return (int)launch_merge<__nv_bfloat16>(gathered, local, blk, run_start, buf, runs, span,
-                                            bw, gw, dt, m, nw, s);
-  return (int)launch_merge<float>(gathered, local, blk, run_start, buf, runs, span, bw, gw, dt,
-                                  m, nw, s);
+    return (int)launch_merge<__nv_bfloat16>(src, gidx, seg_lane, seg_ptr, seg_long, buf, segs,
+                                            n_long, long_min, srcw, m, dt, s);
+  return (int)launch_merge<float>(src, gidx, seg_lane, seg_ptr, seg_long, buf, segs, n_long,
+                                  long_min, srcw, m, dt, s);
 }

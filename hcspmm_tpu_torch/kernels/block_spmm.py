@@ -421,9 +421,6 @@ def band_direct_dispatch(arrs, s, xp, num_sw, out_dtype):
                                    arrs[f"band{s}_a"], xp, num_sw, out_dtype)
 
 
-_FUSED_MAX_DP = 1792  # csrc/block_spmm.cu fused_kernel: 32 rows x dp fp32 in 227 KB
-
-
 def band_fused_spmm_direct(sw_ids, starts, a, xp, w, num_sw, out_dtype):
     """Fused aggregate and update, direct write (port of the Pallas kernel at
     hcspmm_tpu/kernels/block_spmm.py:630): entry i computes superwindow
@@ -433,7 +430,9 @@ def band_fused_spmm_direct(sw_ids, starts, a, xp, w, num_sw, out_dtype):
     w: [dp, hp] in xp's dtype (the forward form W or the backward form
     W^T).  Returns (agg [num_sw, bh, dp], out [num_sw, bh, hp]) in
     ``out_dtype`` (xp's dtype or float32); entries with ``sw_id == num_sw``
-    write nothing and unowned blocks stay unset."""
+    write nothing and unowned blocks stay unset.  Every dp runs: where 32
+    aggregate rows of dp fp32 exceed one block's shared memory (dp above
+    1792) the kernel reads the aggregate back in slabs."""
     if xp.device.type == "cpu":
         return band_fused_spmm_direct_plain(sw_ids, starts, a, xp, w, num_sw, out_dtype)
     _check_cuda_args(starts, sw_ids, a, xp)
@@ -443,9 +442,6 @@ def band_fused_spmm_direct(sw_ids, starts, a, xp, w, num_sw, out_dtype):
         raise ValueError(f"w must be contiguous {xp.dtype} [{dp}, hp] on {xp.device}")
     if out_dtype not in (xp.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
-    if dp > _FUSED_MAX_DP:
-        raise ValueError(f"dp {dp}: the fused kernel keeps 32 rows of at most "
-                         f"{_FUSED_MAX_DP} columns in shared memory")
     sb, bh, bb = a.shape
     hp = w.shape[1]
     agg = torch.empty((num_sw, bh, dp), dtype=out_dtype, device=xp.device)

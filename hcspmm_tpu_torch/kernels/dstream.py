@@ -18,13 +18,16 @@ for every slot e, in place.  Two encodings of the destination:
 
 One CUDA kernel serves both (``csrc/dstream.cu``); each wrapper launches it
 for CUDA tensors (or raises), runs the plain PyTorch version beside it for
-CPU tensors, and counts its launches in ``launches``.  ``dstream_spill`` is
-the reference's dispatch: the ``ds_ucols`` compact-table take, the kind,
-and the loop over column ranges (``ds_meta``); its takes are torch glue.
+CPU tensors, and counts its launches in ``launches``.  The kernel reads a
+destination segment table (``row_segments``: each row's contiguous run of
+slots) instead of local/blk/lt; the plain versions read those, so holding
+the kernel against them checks the table too.  ``dstream_spill`` is the
+reference's dispatch: the ``ds_ucols`` compact-table take, the kind, and
+the loop over column ranges (``ds_meta``); its takes are torch glue.
 
 ``check_row_spill_arrays`` checks every index array the kernel reads on
-the host before upload, and computes each destination block's run of
-chunks (``ds_run``, or ``ds_run{p}`` per column range).
+the host before upload, and builds each launch's segment table
+(``ds_seg_*``, or ``ds_seg{p}_*`` per column range).
 """
 
 from __future__ import annotations
@@ -36,21 +39,22 @@ import numpy as np
 import torch
 
 from hcspmm_tpu_torch.kernels._build import load_library
-from hcspmm_tpu_torch.kernels.tspill import _check_in, _need, block_runs
+from hcspmm_tpu_torch.kernels.tspill import (_check_in, _need, segment_arrays,
+                                             segment_table, segments_of)
 
 #: Launches of csrc/dstream.cu's merge through each wrapper, counted where
 #: the wrapper launches it (never by the plain versions).  chip_smoke.py
 #: zeroes them before a run of the main path and reads them after.
 launches = {"bstream_merge": 0, "dstream_merge": 0}
 
-_MAX_GROUP = 8  # csrc/dstream.cu: a [G*128, 32] fp32 slab in shared memory
+_ROW_LONG = 32  # csrc/dstream.cu: a segment of more slots gets a thread block
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library("dstream")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hcspmm_row_merge.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i32,
+    lib.hcspmm_row_merge.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i32, i32,
                                      i32, i32, vp]
     lib.hcspmm_row_merge.restype = ctypes.c_int
     return lib
@@ -100,14 +104,47 @@ def dstream_merge_plain(gcols, local, blk, lt, xsrc, out, *, group: int):
 # ---------------------------------------------------------------------------
 
 
-def _launch(name, gcols, local, blk, lt, runs, xsrc, out, group):
+def row_dest(local, blk, lt, group: int, chunks: int) -> np.ndarray:
+    """int64 [chunks*128]: each slot's destination row, -1 for a sentinel
+    slot.  Block form (``lt`` None): ``blk[c]*span + local``, sentinel
+    span; tile form: ``blk[c // group]*span + lt[c]*128 + local``, sentinel
+    128."""
+    span = group * 128
+    loc = np.asarray(local).reshape(-1)[: chunks * 128].astype(np.int64).reshape(chunks, 128)
+    blk = np.asarray(blk, dtype=np.int64)
+    if lt is None:
+        keep, base = loc < span, blk[:chunks] * span
+    else:
+        keep = loc < 128
+        base = blk[np.arange(chunks) // group] * span + np.asarray(lt, np.int64)[:chunks] * 128
+    return np.where(keep, base[:, None] + loc, -1).reshape(-1)
+
+
+def row_segments(local, blk, lt, group: int, chunks: int) -> tuple:
+    """The row merge's segment table of one launch (``segment_table``)."""
+    return segment_table(row_dest(local, blk, lt, group, chunks), _ROW_LONG)
+
+
+def _launch(name, gcols, local, blk, lt, segs, xsrc, out, group):
     dev = out.device
     if dev.type != "cuda":
         raise ValueError(f"out lies on {dev}: the merge kernel takes CUDA or CPU tensors")
-    named = {"gcols": gcols, "local": local, "blk": blk, "runs": runs, "xsrc": xsrc,
-             "out": out}
-    if lt is not None:
-        named["lt"] = lt
+    m, dp = out.shape
+    chunks = gcols.shape[0] // 128
+    dests = chunks if lt is None else -(-chunks // group)  # blk entries the chunks read
+    if (group <= 0 or m % (group * 128) or xsrc.dim() != 2
+            or xsrc.shape[1] != dp or xsrc.shape[0] == 0 or local.numel() < chunks * 128
+            or blk.shape[0] < dests or (lt is not None and lt.shape[0] < chunks)):
+        raise ValueError(f"unsupported shapes: gcols [{gcols.shape[0]}], local "
+                         f"{tuple(local.shape)}, xsrc {tuple(xsrc.shape)}, out {(m, dp)}, "
+                         f"group {group}")
+    if segs is None:
+        segs = tuple(torch.from_numpy(v).to(dev) for v in row_segments(
+            local.cpu().numpy(), blk.cpu().numpy(), None if lt is None else lt.cpu().numpy(),
+            group, chunks))
+    seg_row, seg_ptr, seg_long = segs
+    named = {"gcols": gcols, "seg_row": seg_row, "seg_ptr": seg_ptr, "seg_long": seg_long,
+             "xsrc": xsrc, "out": out}
     for key, t in named.items():
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{key} must be contiguous on {dev}")
@@ -116,24 +153,15 @@ def _launch(name, gcols, local, blk, lt, runs, xsrc, out, group):
                 raise ValueError(f"{key} dtype {t.dtype}: float32 or bfloat16 only")
         elif t.dtype != torch.int32:
             raise ValueError(f"{key} must be int32, not {t.dtype}")
-    m, dp = out.shape
-    span = group * 128
-    chunks = gcols.shape[0] // 128
-    dests = chunks if lt is None else -(-chunks // group)  # blk entries the chunks read
-    if (not 0 < group <= _MAX_GROUP or m % span or xsrc.dim() != 2 or xsrc.shape[1] != dp
-            or xsrc.shape[0] == 0 or local.numel() < chunks * 128 or runs.dim() != 1
-            or blk.shape[0] < dests or (lt is not None and lt.shape[0] < chunks)):
-        raise ValueError(f"unsupported shapes: gcols [{gcols.shape[0]}], local "
-                         f"{tuple(local.shape)}, xsrc {tuple(xsrc.shape)}, out {(m, dp)}, "
-                         f"group {group}")
-    if runs.shape[0] < 2:
-        return out
+    if seg_ptr.shape[0] != seg_row.shape[0] + 1:
+        raise ValueError("seg_ptr must hold one more offset than seg_row")
+    vector = dp % 8 == 0 and xsrc.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
         rc = _lib().hcspmm_row_merge(
-            gcols.data_ptr(), local.data_ptr(), blk.data_ptr(),
-            None if lt is None else lt.data_ptr(), runs.data_ptr(), xsrc.data_ptr(),
-            out.data_ptr(), runs.shape[0] - 1, group, int(lt is not None), xsrc.shape[0], dp,
-            int(xsrc.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
+            gcols.data_ptr(), seg_row.data_ptr(), seg_ptr.data_ptr(), seg_long.data_ptr(),
+            xsrc.data_ptr(), out.data_ptr(), seg_row.shape[0], seg_long.shape[0], _ROW_LONG,
+            xsrc.shape[0], dp, int(xsrc.dtype == torch.bfloat16),
+            int(out.dtype == torch.bfloat16), int(vector),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csrc/dstream.cu {name} launch failed: cudaError {rc}")
@@ -141,7 +169,7 @@ def _launch(name, gcols, local, blk, lt, runs, xsrc, out, group):
     return out
 
 
-def bstream_merge(gcols, local, blk, xsrc, out, *, group: int, runs=None):
+def bstream_merge(gcols, local, blk, xsrc, out, *, group: int, segs=None):
     """``out += scatter-add of xsrc[gcols] by destination row``, in place,
     block-wide chunks (port of hcspmm_tpu/kernels/dstream.py:253, its take
     included); returns out.
@@ -149,29 +177,24 @@ def bstream_merge(gcols, local, blk, xsrc, out, *, group: int, runs=None):
     gcols: int32 [C*128] rows of xsrc (clip mode: past the end reads the
     last row); local: int32 [ceil(C/8)*8, 128], each slot's row within its
     ``group*128``-row block, the sentinel ``group*128`` drops it; blk: int32
-    [C] nondecreasing; xsrc: [R, dp]; out: [M, dp].  ``runs``:
-    ``block_runs(blk)`` as an int32 tensor on out's device (computed here
-    when None).  Each touched block is summed in fp32 and written once in
-    out's dtype; the kernel's sums are deterministic, in slot order."""
+    [C] nondecreasing; xsrc: [R, dp]; out: [M, dp].  ``segs``: the stream's
+    ``row_segments`` as int32 tensors on out's device (computed here when
+    None).  Each touched row is summed in fp32 and written once in out's
+    dtype; the kernel's sums are deterministic."""
     if out.device.type == "cpu":
         return bstream_merge_plain(gcols, local, blk, xsrc, out, group=group)
-    if runs is None:
-        runs = torch.from_numpy(block_runs(blk.cpu().numpy())).to(out.device)
-    return _launch("bstream_merge", gcols, local, blk, None, runs, xsrc, out, group)
+    return _launch("bstream_merge", gcols, local, blk, None, segs, xsrc, out, group)
 
 
-def dstream_merge(gcols, local, blk, lt, xsrc, out, *, group: int, runs=None):
+def dstream_merge(gcols, local, blk, lt, xsrc, out, *, group: int, segs=None):
     """The tile-pure form of ``bstream_merge`` (port of
     hcspmm_tpu/kernels/dstream.py:408, its take included): step s merges
     chunks s*group .. s*group+group-1 into block blk[s], chunk c into tile
     lt[c]; local: int32 [ceil(S/8)*8, group*128], each slot's row within its
-    tile, the sentinel 128 drops it.  ``runs``: chunk offsets of each
-    block's run, ``block_runs(blk) * group``."""
+    tile, the sentinel 128 drops it.  ``segs`` as ``bstream_merge``'s."""
     if out.device.type == "cpu":
         return dstream_merge_plain(gcols, local, blk, lt, xsrc, out, group=group)
-    if runs is None:
-        runs = torch.from_numpy(block_runs(blk.cpu().numpy()) * group).to(out.device)
-    return _launch("dstream_merge", gcols, local, blk, lt, runs, xsrc, out, group)
+    return _launch("dstream_merge", gcols, local, blk, lt, segs, xsrc, out, group)
 
 
 def dstream_spill(arrs, xsrc, out, plan):
@@ -186,11 +209,12 @@ def dstream_spill(arrs, xsrc, out, plan):
     g = plan.ds_group
     if getattr(plan, "ds_kind", "tile") == "block":
         return bstream_merge(arrs["ds_gcols"], arrs["ds_local"], arrs["ds_blk"], xsrc, out,
-                             group=g, runs=arrs.get("ds_run"))
+                             group=g, segs=segments_of(arrs, "ds_seg"))
     meta = getattr(plan, "ds_meta", None)
     if meta is None:
         return dstream_merge(arrs["ds_gcols"], arrs["ds_local"], arrs["ds_blk"],
-                             arrs["ds_lt"], xsrc, out, group=g, runs=arrs.get("ds_run"))
+                             arrs["ds_lt"], xsrc, out, group=g,
+                             segs=segments_of(arrs, "ds_seg"))
     rr = int(meta["range_rows"])
     for p, (s0, s1, c0, c1, l0, l1) in enumerate(_ranges(meta)):
         if s1 == s0:
@@ -198,7 +222,8 @@ def dstream_spill(arrs, xsrc, out, plan):
         r0 = max(min(int(meta["r0"][p]), xsrc.shape[0] - rr), 0)
         out = dstream_merge(arrs["ds_gcols"][c0 * 128: c1 * 128], arrs["ds_local"][l0:l1],
                             arrs["ds_blk"][s0:s1], arrs["ds_lt"][c0:c1],
-                            xsrc[r0: r0 + rr], out, group=g, runs=arrs.get(f"ds_run{p}"))
+                            xsrc[r0: r0 + rr], out, group=g,
+                            segs=segments_of(arrs, f"ds_seg{p}"))
     return out
 
 
@@ -231,15 +256,16 @@ def _check_tile_stream(local, blk, lt, group, m, name=""):
 def check_row_spill_arrays(host: dict, plan) -> dict:
     """Check the row merge arrays of ``host`` (a wide plan's
     ``device_arrays``) for ``plan``; raise ValueError on anything the
-    kernel or a take would read out of bounds.  Returns the block runs the
-    kernel needs: ``ds_run`` (chunk offsets, tile form in chunk units), or
-    ``ds_run{p}`` for each non-empty column range ``p``."""
+    kernel or a take would read out of bounds, or if a row has two
+    segments in one launch.  Returns the segment tables the kernel reads
+    (``row_segments``): ``ds_seg_*``, or ``ds_seg{p}_*`` for each non-empty
+    column range ``p``."""
     if not (plan.has_spill and "ds_blk" in host):
         return {}
     m = plan.padded_rows
     g = plan.ds_group
     span = g * 128
-    _need(0 < g <= _MAX_GROUP and m % span == 0 and plan.ds_rows == m,
+    _need(g > 0 and m % span == 0 and plan.ds_rows == m,
           f"merge group {g}: the block of {span} rows must tile M={m} (ds_rows "
           f"{plan.ds_rows})")
     gcols = np.asarray(host["ds_gcols"])
@@ -259,12 +285,12 @@ def check_row_spill_arrays(host: dict, plan) -> dict:
         _need(not (np.diff(blk) < 0).any(), "ds_blk must not decrease")
         _check_in("ds_blk", blk, 0, m // span)
         _check_in("ds_local", local, 0, span + 1)
-        return {"ds_run": block_runs(blk)}
+        return segment_arrays("ds_seg", row_segments(local, blk, None, g, chunks))
     meta = plan.ds_meta
     if meta is None:
         _need(len(lt) == chunks, "ds_lt must hold one tile per chunk")
         _check_tile_stream(local, blk, lt, g, m)
-        return {"ds_run": block_runs(blk) * g}
+        return segment_arrays("ds_seg", row_segments(local, blk, lt, g, chunks))
     rr = int(meta["range_rows"])
     ranges = _ranges(meta)
     _need(len(ranges) == len(meta["r0"]) and 0 < rr <= m,
@@ -280,5 +306,6 @@ def check_row_spill_arrays(host: dict, plan) -> dict:
         if s1 == s0:
             continue
         _check_tile_stream(local[l0:l1], blk[s0:s1], lt[c0:c1], g, m, name=f" range {p}")
-        extra[f"ds_run{p}"] = block_runs(blk[s0:s1]) * g
+        extra.update(segment_arrays(f"ds_seg{p}", row_segments(
+            local[l0:l1], blk[s0:s1], lt[c0:c1], g, c1 - c0)))
     return extra

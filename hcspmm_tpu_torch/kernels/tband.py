@@ -248,15 +248,6 @@ def tband_spmm_bucket(starts, at, xt):
     return out
 
 
-def fused_smem_bytes(dt: int, ht: int, bh: int) -> int:
-    """Shared memory of csrc/tband.cu's fused kernel (fused_smem)."""
-    slab = 32 if dt % 32 == 0 else 16
-    return (_KT * slab + dt * bh + dt * ht) * 4 + _KT * bh
-
-
-_SMEM_MAX = 232448  # bytes of shared memory one H100 thread block may use
-
-
 def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
     """Fused transposed aggregate and update, direct write (port of the
     Pallas kernel at hcspmm_tpu/kernels/tband.py:277): entry i computes
@@ -266,7 +257,8 @@ def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
     wt: [ht, dt] in xt's dtype (ht a multiple of 16).  Returns (agg^T
     [dt, num_sw*bh], out^T [ht, num_sw*bh]) in ``out_dtype`` (xt's dtype or
     float32); entries with ``sw_id == num_sw`` write nothing and unowned
-    blocks stay unset."""
+    blocks stay unset.  Every dt and ht runs: the kernel loops over slabs
+    of both and keeps neither whole on chip."""
     if xt.device.type == "cpu":
         return tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype)
     _check_cuda_args(starts, sw_ids, at, xt)
@@ -278,10 +270,6 @@ def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
     if out_dtype not in (xt.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xt's dtype or float32")
     ht = wt.shape[0]
-    if fused_smem_bytes(dt, ht, bh) > _SMEM_MAX:
-        raise ValueError(f"dt {dt}, ht {ht}, bh {bh}: the fused kernel's "
-                         f"{fused_smem_bytes(dt, ht, bh)} bytes of shared memory exceed "
-                         f"{_SMEM_MAX}")
     agg = torch.empty((dt, num_sw * bh), dtype=out_dtype, device=xt.device)
     out = torch.empty((ht, num_sw * bh), dtype=out_dtype, device=xt.device)
     with torch.cuda.device(xt.device):
@@ -330,31 +318,28 @@ def _row_spill(buf, arrs, xt, plan):
 def _tband_apply_spill(buf, arrs, xt, plan):
     """Add the spill population onto ``buf`` (port of
     hcspmm_tpu/kernels/tband.py:343).  Lane path (``ds_tlocal`` present, in
-    place): the hub stream first (mxgather hub table -> take -> merge), then the
-    cold stream from the mxgather T1 table (``ts_lo``) or from xt itself,
-    through the segmented T2 tables (``ts2_ranks``) or one take, merged
-    into ``buf``.  Otherwise the legacy row-layout path."""
+    place): the hub stream first (mxgather hub table, then the merge
+    gathering from it through ``ds_h_laneg``), then the cold stream, merged
+    straight from the mxgather T1 table (``ts_lo``) or from xt itself
+    through ``ds_lsrc``, the per-slot column composed at upload from the T2
+    tables or the plan's one take (``tspill.check_spill_arrays``): no
+    gathered copy is made.  Otherwise the legacy row-layout path."""
     if not (plan.has_spill and "spill_rows" in arrs):
         return buf
     if "ds_tlocal" not in arrs:
         return _row_spill(buf, arrs, xt, plan)
     if "hub_lo" in arrs:
         h = tspill.mxgather_lanes(xt, arrs["hub_lo"], arrs["hub_rel"], span=plan.ts_span)
-        buf = tspill.tbstream_merge(h.index_select(1, arrs["ds_h_laneg"]),
-                                    arrs["ds_h_tlocal"], arrs["ds_h_lblk"], buf,
-                                    group=plan.ds_hgroup, runs=arrs.get("ds_h_lrun"))
+        buf = tspill.tbstream_merge(h, arrs["ds_h_tlocal"], arrs["ds_h_lblk"], buf,
+                                    group=plan.ds_hgroup, gidx=arrs["ds_h_laneg"],
+                                    segs=tspill.segments_of(arrs, "ds_h_lseg"))
     if "ts_lo" in arrs:
         src = tspill.mxgather_lanes(xt, arrs["ts_lo"], arrs["ts_rel"], span=plan.ts_span)
     else:
         src = xt
-    if "ts2_ranks" in arrs and getattr(plan, "ts2_segs", None):
-        gathered = tspill.segmented_gather(src, arrs["ts2_ranks"], arrs["ds_laneg"],
-                                           plan.ts2_segs, plan.ts2_pieces,
-                                           bw=arrs["ds_tlocal"].shape[1])
-    else:
-        gathered = src.index_select(1, arrs["ds_laneg"])
-    return tspill.tbstream_merge(gathered, arrs["ds_tlocal"], arrs["ds_lblk"], buf,
-                                 group=plan.ds_lgroup, runs=arrs.get("ds_lrun"))
+    return tspill.tbstream_merge(src, arrs["ds_tlocal"], arrs["ds_lblk"], buf,
+                                 group=plan.ds_lgroup, gidx=arrs["ds_lsrc"],
+                                 segs=tspill.segments_of(arrs, "ds_lseg"))
 
 
 def spmm_tband_padded(arrs, xt, plan, compute_dtype):

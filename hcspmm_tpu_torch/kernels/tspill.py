@@ -3,20 +3,24 @@
 Port of hcspmm_tpu/kernels/tspill.py.  Activations are X^T [dt, M]; the
 tband spill chain (kernels/tband.py ``_tband_apply_spill``) runs
 
-    T     = mxgather_lanes(xt, lo, rel)         # compact unique-column table
-    G     = take(T or xt, laneg)                # per-edge columns, [dt, C*bw]
-    buf   = tbstream_merge(G, local, blk, buf)  # block-wide scatter-add
+    T     = mxgather_lanes(xt, lo, rel)                   # compact unique-column table
+    buf   = tbstream_merge(T or xt, local, blk, buf, gidx=...)  # gather + scatter-add
 
 and missing superwindows are zeroed by ``zero_lane_blocks`` before it;
 ``zero_row_blocks`` is the wide layout's [M, dp] twin of the zero-fill.
-The four kernels are ``csrc/tspill.cu``; each wrapper here launches its
-kernel for CUDA tensors (or raises) and runs the plain PyTorch version
-beside it for CPU tensors, and counts its launches in ``launches``.
-``segmented_gather`` (the T2 tables) is plain torch index ops on any
-device: its takes are glue, not kernels.
+The reference gathers a [dt, C*bw] copy of the per-edge columns first
+(``take``, or ``segmented_gather`` through its T2 tables) and merges that;
+here ``check_spill_arrays`` composes the per-slot column ``ds_lsrc`` on
+the host at upload and the merge gathers through it.  The four kernels are
+``csrc/tspill.cu``; each wrapper here launches its kernel for CUDA tensors
+(or raises) and runs the plain PyTorch version beside it for CPU tensors,
+and counts its launches in ``launches``.  ``segmented_gather`` (the
+reference's T2 take, in torch index ops) is what ``ds_lsrc`` is held
+against.
 
 ``check_spill_arrays`` checks every spill index array on the host before
-upload; the kernels read them unchecked.
+upload and builds the merges' destination segment tables
+(``segment_table``); the kernels read them unchecked.
 """
 
 from __future__ import annotations
@@ -35,10 +39,9 @@ from hcspmm_tpu_torch.kernels._build import load_library
 launches = {"zero_lane_blocks": 0, "zero_row_blocks": 0, "mxgather_lanes": 0,
             "tbstream_merge": 0}
 
-_MX_NB = 4             # the reference's chunks per grid step: the table's
-#                        chunk count is padded to a multiple of it
-_MAX_SPAN = 16 * 1024  # csrc/tspill.cu merge: one fp32 row of the block
-#                        per warp, at most 64 KB of shared memory per block
+_MX_NB = 4     # the reference's chunks per grid step: the table's chunk
+#                count is padded to a multiple of it
+_LANE_LONG = 16  # csrc/tspill.cu merge: a segment of more slots gets a warp
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,7 +51,7 @@ def _lib() -> ctypes.CDLL:
     lib.hcspmm_zero_lane_blocks.argtypes = [vp, vp, i32, i32, i64, i32, i32, vp]
     lib.hcspmm_zero_row_blocks.argtypes = [vp, vp, i32, i64, i32, i32, vp]
     lib.hcspmm_mxgather_lanes.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i64, i32, vp]
-    lib.hcspmm_tbstream_merge.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i64, i32, i64,
+    lib.hcspmm_tbstream_merge.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i64,
                                           i32, i32, vp]
     for fn in (lib.hcspmm_zero_lane_blocks, lib.hcspmm_zero_row_blocks,
                lib.hcspmm_mxgather_lanes, lib.hcspmm_tbstream_merge):
@@ -85,12 +88,57 @@ def mx_width(chunks: int, k: int) -> int:
     return -(-chunks // _MX_NB) * _MX_NB * k
 
 
-def block_runs(blk) -> np.ndarray:
-    """int32 [R+1]: the first chunk of each run of equal ids in the
-    nondecreasing ``blk``, then len(blk)."""
-    blk = np.asarray(blk)
-    starts = np.flatnonzero(np.diff(blk)) + 1
-    return np.concatenate([[0], starts, [len(blk)]]).astype(np.int32)
+#: The three arrays of a segment table, as ``{name}_{field}`` plan keys.
+SEG_FIELDS = ("dst", "ptr", "long")
+
+
+def segment_table(dest, long_min: int) -> tuple:
+    """Destination segments of a merge stream.  ``dest``: int [E], each
+    slot's destination (a row or lane of the output), -1 for a dropped pad
+    slot.  A segment is a maximal run of consecutive slots with one
+    destination.  Returns int32 (dst [S] (-1 for a run of pad slots), ptr
+    [S+1] slot offsets, long [L] the segments of more than ``long_min``
+    slots).  Raises ValueError if a destination has two segments: the
+    kernels give each segment one owner, so two would race."""
+    dest = np.asarray(dest, dtype=np.int64)
+    e = len(dest)
+    _need(e < np.iinfo(np.int32).max, f"{e} slots exceed int32 offsets")
+    start = np.flatnonzero(np.concatenate([[True], dest[1:] != dest[:-1]])) if e else \
+        np.zeros(0, np.int64)
+    dst = dest[start]
+    ptr = np.append(start, e)
+    real = dst >= 0
+    u, n = np.unique(dst[real], return_counts=True)
+    _need(not (n > 1).any(), f"destination {u[n > 1][:1]} has two runs of slots: a "
+          "merge stream must keep each destination's slots together")
+    long = np.flatnonzero(real & (np.diff(ptr) > long_min))
+    return dst.astype(np.int32), ptr.astype(np.int32), long.astype(np.int32)
+
+
+def segment_arrays(name: str, table) -> dict:
+    """``table`` (``segment_table``'s) as plan arrays ``{name}_dst`` etc."""
+    return {f"{name}_{f}": v for f, v in zip(SEG_FIELDS, table)}
+
+
+def segments_of(arrs: dict, name: str):
+    """The segment table ``name`` of the uploaded plan arrays, or None."""
+    if f"{name}_ptr" not in arrs:
+        return None
+    return tuple(arrs[f"{name}_{f}"] for f in SEG_FIELDS)
+
+
+def lane_dest(local_t, blk, group: int) -> np.ndarray:
+    """int64 [C*bw]: each slot's destination lane ``blk[c]*span + local``,
+    -1 for a pad slot (local == span)."""
+    span = group * 128
+    blk = np.asarray(blk, dtype=np.int64)
+    loc = np.asarray(local_t)[: len(blk)].astype(np.int64)
+    return np.where(loc < span, blk[:, None] * span + loc, -1).reshape(-1)
+
+
+def lane_segments(local_t, blk, group: int) -> tuple:
+    """The lane merge's segment table of one stream (``segment_table``)."""
+    return segment_table(lane_dest(local_t, blk, group), _LANE_LONG)
 
 
 # ---------------------------------------------------------------------------
@@ -122,16 +170,19 @@ def mxgather_lanes_plain(xt, lo, rel):
     return out
 
 
-def tbstream_merge_plain(gathered, local_t, blk, buf, *, group: int):
+def tbstream_merge_plain(src, local_t, blk, buf, *, group: int, gidx=None):
     """In place: buf[:, blk[c]*span + local_t[c, j]] += gathered[:, c*bw + j]
-    for local_t < span = group*128; fp32 sums over an fp32 copy of the
-    touched blocks, written back once in buf's dtype."""
+    for local_t < span = group*128, where gathered is ``src`` itself or,
+    with ``gidx``, ``src.index_select(1, gidx)`` (the reference's take);
+    fp32 sums over an fp32 copy of the touched blocks, written back once in
+    buf's dtype."""
     dt, m = buf.shape
     span = group * 128
     bw = local_t.shape[1]
     c = blk.shape[0]
     if c == 0:
         return buf
+    gathered = src if gidx is None else src.index_select(1, gidx[: c * bw].long())
     ublk, inv = torch.unique_consecutive(blk.long(), return_inverse=True)
     loc = local_t[:c].reshape(-1).long()
     keep = loc < span
@@ -212,46 +263,49 @@ def mxgather_lanes(xt, lo, rel, *, span: int):
     return out
 
 
-def merge_warps(span: int, dt: int) -> int:
-    """Warps per thread block of the merge kernel: one feature row each,
-    at most 16 and at most 64 KB of fp32 rows, a power of two dividing dt."""
-    nw = 16
-    while nw > 1 and (nw * span > _MAX_SPAN or dt % nw):
-        nw //= 2
-    return nw
+def tbstream_merge(src, local_t, blk, buf, *, group: int, gidx=None, segs=None):
+    """``buf += scatter-add of src columns by destination lane``, in place;
+    returns buf (port of hcspmm_tpu/kernels/tspill.py:151, with the take
+    before it folded in).
 
-
-def tbstream_merge(gathered, local_t, blk, buf, *, group: int, runs=None):
-    """``buf += scatter-add of gathered columns by destination lane``, in
-    place; returns buf (port of hcspmm_tpu/kernels/tspill.py:151).
-
-    gathered: [dt, C*bw], buf's dtype; local_t: int32 [ceil(C/8)*8, bw],
-    each slot's lane within its ``group*128``-lane block (the sentinel
-    ``group*128`` drops it); blk: int32 [C] nondecreasing block ids;
-    buf: [dt, M].  ``runs``: ``block_runs(blk)`` as an int32 tensor on
-    buf's device (computed here when None).  Each block is summed in fp32
-    and written once; the kernel's sums are deterministic."""
+    Slot j of chunk c adds ``src[:, gidx[c*bw + j]]`` (gidx: int32 [C*bw]
+    columns of src), or ``src[:, c*bw + j]`` without gidx (src is then the
+    gathered stream [dt, C*bw]), to lane ``blk[c]*span + local_t[c, j]``.
+    local_t: int32 [ceil(C/8)*8, bw], each slot's lane within its
+    ``group*128``-lane block (the sentinel ``group*128`` drops it); blk:
+    int32 [C] nondecreasing block ids; src: [dt, W] in buf's dtype; buf:
+    [dt, M].
+    ``segs``: the stream's ``lane_segments`` as int32 tensors on buf's
+    device (computed here, and gidx checked, when None).  Each lane is summed
+    in fp32 and written once; the kernel's sums are deterministic."""
     if buf.device.type == "cpu":
-        return tbstream_merge_plain(gathered, local_t, blk, buf, group=group)
-    if runs is None:
-        runs = torch.from_numpy(block_runs(blk.cpu().numpy())).to(buf.device)
-    _check_cuda(buf, gathered=gathered, local_t=local_t, blk=blk, buf=buf, runs=runs)
+        return tbstream_merge_plain(src, local_t, blk, buf, group=group, gidx=gidx)
+    c, bw = blk.shape[0], local_t.shape[1]
+    if segs is None:
+        if gidx is not None:
+            _check_in("gidx", gidx[: c * bw].cpu().numpy(), 0, src.shape[1])
+        segs = tuple(torch.from_numpy(v).to(buf.device) for v in lane_segments(
+            local_t.cpu().numpy(), blk.cpu().numpy(), group))
+    named = dict(src=src, local_t=local_t, blk=blk, buf=buf, seg_dst=segs[0], seg_ptr=segs[1],
+                 seg_long=segs[2])
+    if gidx is not None:
+        named["gidx"] = gidx
+    _check_cuda(buf, **named)
     dt, m = buf.shape
-    span = group * 128
-    c = blk.shape[0]
-    bw = local_t.shape[1]
-    if gathered.dtype != buf.dtype:
-        raise ValueError(f"gathered is {gathered.dtype}, buf {buf.dtype}")
-    if (span > _MAX_SPAN or m % span or bw % 128 or local_t.shape[0] < c
-            or gathered.shape != (dt, c * bw) or runs.dim() != 1):
-        raise ValueError(f"unsupported shapes: gathered {tuple(gathered.shape)}, local "
+    if src.dtype != buf.dtype:
+        raise ValueError(f"src is {src.dtype}, buf {buf.dtype}")
+    if (m % (group * 128) or local_t.shape[0] < c or src.dim() != 2 or src.shape[0] != dt
+            or (gidx is None and src.shape[1] != c * bw)
+            or (gidx is not None and gidx.shape[0] < c * bw)
+            or segs[1].shape[0] != segs[0].shape[0] + 1):
+        raise ValueError(f"unsupported shapes: src {tuple(src.shape)}, local "
                          f"{tuple(local_t.shape)}, blk [{c}], buf {tuple(buf.shape)}, "
                          f"group {group}")
-    nw = merge_warps(span, dt)
     with torch.cuda.device(buf.device):
-        _run("tbstream_merge", _lib().hcspmm_tbstream_merge, gathered.data_ptr(),
-             local_t.data_ptr(), blk.data_ptr(), runs.data_ptr(), buf.data_ptr(),
-             runs.shape[0] - 1, span, bw, gathered.shape[1], dt, m, nw,
+        _run("tbstream_merge", _lib().hcspmm_tbstream_merge, src.data_ptr(),
+             None if gidx is None else gidx.data_ptr(), segs[0].data_ptr(),
+             segs[1].data_ptr(), segs[2].data_ptr(), buf.data_ptr(), segs[0].shape[0],
+             segs[2].shape[0], _LANE_LONG, src.shape[1], m, dt,
              int(buf.dtype == torch.bfloat16))
     return buf
 
@@ -318,11 +372,40 @@ def _check_mx(host: dict, lo: str, rel: str, span: int, m: int) -> int:
     return mx_width(len(lo_a), rel_a.shape[2])
 
 
+def compose_lane_src(laneg, ranks, segs, pieces, bw: int) -> np.ndarray:
+    """int32 [C*bw]: the T1 column each slot's value comes from through the
+    plan's T2 tables, the column ``segmented_gather`` gathers for it: slot e
+    of T2 segment s reads position q = laneg[e] of the segment's table, the
+    concatenation of its parts (piece pi, offset off, count cnt), so part k
+    with start[k] <= q < start[k] + cnt gives T1 column ``p_lo[pi] +
+    ranks[r0[pi] + off + q - start[k]]``.  The indices are checked by the
+    caller (``check_spill_arrays``)."""
+    laneg = np.asarray(laneg, dtype=np.int64)
+    ranks = np.asarray(ranks, dtype=np.int64)
+    out = np.zeros(len(laneg), dtype=np.int64)
+    for s in segs:
+        parts = [(pi, off, cnt) for pi, off, cnt in s["parts"] if cnt]
+        lo, hi = s["chunk_lo"] * bw, s["chunk_hi"] * bw
+        if not parts or hi == lo:
+            continue
+        cnt = np.array([c for _, _, c in parts], dtype=np.int64)
+        start = np.cumsum(cnt) - cnt
+        k = np.searchsorted(start, laneg[lo:hi], side="right") - 1
+        p_lo = np.array([pieces[pi][0] for pi, _, _ in parts], dtype=np.int64)
+        first = np.array([pieces[pi][2] + off for pi, off, _ in parts], dtype=np.int64)
+        out[lo:hi] = p_lo[k] + ranks[first[k] + laneg[lo:hi] - start[k]]
+    return out.astype(np.int32)
+
+
 def check_spill_arrays(host: dict, plan) -> dict:
     """Check the spill and missing-superwindow arrays of ``host`` (a
     plan's ``device_arrays``) for ``plan``; raise ValueError on anything
     a kernel or a take would read out of bounds.  Returns the extra arrays
-    the port's merge needs: the block runs ``ds_lrun``/``ds_h_lrun``."""
+    the port's merge needs: ``ds_lsrc``, each cold slot's column of the
+    merge's source (T1, or X^T where the plan has no T1; composed through
+    the T2 tables where it has them, else ``ds_laneg``), and the lane
+    segment tables ``ds_lseg_*`` (cold stream) and ``ds_h_lseg_*`` (hub
+    stream, which gathers through ``ds_h_laneg``)."""
     m = plan.padded_rows
     num_sw = m // plan.band_h
     if "band_missing_sw8" in host:
@@ -342,13 +425,15 @@ def check_spill_arrays(host: dict, plan) -> dict:
         return extra
     bw = host["ds_tlocal"].shape[1]
     _check_stream(host, "ds_tlocal", "ds_lblk", plan.ds_lgroup, m)
-    extra["ds_lrun"] = block_runs(host["ds_lblk"])
+    extra.update(segment_arrays("ds_lseg", lane_segments(host["ds_tlocal"], host["ds_lblk"],
+                                                         plan.ds_lgroup)))
     laneg = np.asarray(host["ds_laneg"])
     _need(laneg.shape == (len(host["ds_lblk"]) * bw,), "ds_laneg must be [C*bw]")
     if "hub_lo" in host:
         hub_w = _check_mx(host, "hub_lo", "hub_rel", plan.ts_span, m)
         _check_stream(host, "ds_h_tlocal", "ds_h_lblk", plan.ds_hgroup, m)
-        extra["ds_h_lrun"] = block_runs(host["ds_h_lblk"])
+        extra.update(segment_arrays("ds_h_lseg", lane_segments(
+            host["ds_h_tlocal"], host["ds_h_lblk"], plan.ds_hgroup)))
         h_laneg = np.asarray(host["ds_h_laneg"])
         _need(h_laneg.shape == (len(host["ds_h_lblk"]) * host["ds_h_tlocal"].shape[1],),
               "ds_h_laneg must be [C_hub*bw_hub]")
@@ -370,6 +455,9 @@ def check_spill_arrays(host: dict, plan) -> dict:
             _check_in("ds_laneg", laneg[s["chunk_lo"] * bw: s["chunk_hi"] * bw], 0,
                       sum(cnt for _, _, cnt in s["parts"]))
         _need(lo == len(host["ds_lblk"]), "ts2_segs must cover every merge chunk")
+        lsrc = compose_lane_src(laneg, ranks, plan.ts2_segs, plan.ts2_pieces, bw)
     else:
-        _check_in("ds_laneg", laneg, 0, src_w)
+        lsrc = laneg.astype(np.int32)
+    _check_in("ds_lsrc", lsrc, 0, src_w)
+    extra["ds_lsrc"] = lsrc
     return extra

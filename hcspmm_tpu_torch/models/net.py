@@ -56,16 +56,17 @@ def _leaf(t, device) -> torch.Tensor:
     return t.to(device).requires_grad_(True)
 
 
-def init_net_params(net: Net, gen: torch.Generator, init: str = "randn",
-                    device="cpu") -> List[Dict[str, torch.Tensor]]:
+def init_net_params(net: Net, gen: torch.Generator, init: str = "randn", *,
+                    device) -> List[Dict[str, torch.Tensor]]:
     """Per-layer parameter dicts, drawn on the host from ``gen`` and moved
-    to ``device`` as leaf tensors that require grad."""
+    to ``device`` (the operator's, as ``train.loop.train`` passes it) as
+    leaf tensors that require grad."""
     make = init_sage_params if net.model == "sage" else init_conv_params
     return [{k: _leaf(v, device) for k, v in make(gen, din, dout, init).items()}
             for din, dout, _ in net.layer_dims()]
 
 
-def params_from_jax(params, device="cpu") -> List[Dict[str, torch.Tensor]]:
+def params_from_jax(params, *, device) -> List[Dict[str, torch.Tensor]]:
     """The JAX package's parameter list (dicts of ``weights`` or
     ``w_self``/``w_neigh`` arrays, as numpy or jax arrays) as this
     package's parameters: float32 leaf tensors on ``device``."""

@@ -23,13 +23,19 @@ import torch
 
 class SAG:
     def __init__(self, spmm: Callable):
+        """The operator's ``device`` is where ``x`` goes and whose clock
+        times the rounds."""
+        device = getattr(spmm, "device", None)
+        if device is None:
+            raise ValueError("SAG needs an operator with a device (spmm.device)")
         self.spmm = spmm
+        self.device = torch.device(device)
 
     @torch.no_grad()
     def profile(self, x, num_rounds: int = 200, warmup: int = 10) -> Dict:
         """Average milliseconds of ``spmm(x)`` over ``num_rounds`` after
         ``warmup`` untimed rounds; ``device`` names the clock's device."""
-        device = getattr(self.spmm, "device", torch.device("cpu"))
+        device = self.device
         x = torch.as_tensor(x).to(device)
         for _ in range(warmup):
             out = self.spmm(x)

@@ -407,7 +407,8 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     """Plan arrays as tensors on ``device``: plain copies of
     ``device_arrays(dense_band=False)`` plus the dense int8 band blocks
     (``band{s}_at`` [Sb, W, bh] transposed, ``band{s}_a`` [Sb, bh, Bb]
-    wide), the merges' block runs and the residual's row starts
+    wide), the merges' destination segment tables, the lane merge's
+    composed columns ``ds_lsrc`` and the residual's row starts
     (``sparse_seg_ptr``).  A tband plan on the lane path drops the row
     merge arrays it never reads.  A tiled plan uploads its pair stream, the
     pair runs ``tp_ptr`` and its A tiles ``tp_a`` [P, bh, 128] instead of
@@ -447,6 +448,17 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     return out
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None is the CUDA device, and raises
+    where there is none rather than run on the host unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device=\"cpu\" to run the kernels' plain "
+                           "versions on the host")
+    return torch.device("cuda")
+
+
 class HybridSpMM:
     """CSR graph -> plan(s) -> differentiable operator on ``device``.
 
@@ -462,13 +474,15 @@ class HybridSpMM:
     def __init__(self, row_pointers: np.ndarray, column_index: np.ndarray,
                  num_nodes: int, config: PlanConfig = PlanConfig(),
                  symmetric: bool = True, normalize: bool = False,
-                 device="cpu"):
+                 device=None):
         """``normalize=True`` computes D^-1/2 A D^-1/2 X (symmetric GCN
         normalization); False is the reference's unweighted sum.
-        ``symmetric=False`` builds the backward plan on A^T."""
+        ``symmetric=False`` builds the backward plan on A^T.  ``device``:
+        None is the CUDA device (a RuntimeError without one); pass
+        ``device="cpu"`` to run the kernels' plain versions on the host."""
         self.config = config
         self.normalize = normalize
-        self.device = torch.device(device)
+        self.device = default_device(device)
         self.plan = build_plan(row_pointers, column_index, num_nodes, config)
         if symmetric:
             self.plan_bwd = None

@@ -80,8 +80,11 @@ def entries(rng, sb, trash):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dt,ht", [(16, 48), (48, 16), (96, 32)])
+@pytest.mark.parametrize("dt,ht", [(16, 48), (48, 16), (96, 32), (192, 32), (64, 608)])
 def test_tband_fused_direct_matches_jax(dt, ht, dtype):
+    """dt 192 / ht 32 and dt 64 / ht 608 would not fit whole in one block's
+    shared memory at bh 256 (csrc/tband.cu works slab by slab): every shape
+    the reference runs, the port runs."""
     rng = np.random.RandomState(dt + ht)
     sb, w, bh, m, trash = 6, 256, 128, 1024, 2
     at = (rng.rand(sb, w, bh) < 0.05).astype(np.int8)
@@ -111,8 +114,10 @@ def test_tband_fused_direct_matches_jax(dt, ht, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dp,hp", [(128, 256), (256, 128), (384, 128)])
+@pytest.mark.parametrize("dp,hp", [(128, 256), (256, 128), (384, 128), (1920, 128)])
 def test_band_fused_spmm_direct_matches_jax(dp, hp, dtype):
+    """dp 1920 is past the 32 aggregate rows of dp 1792 that csrc/block_spmm.cu
+    keeps in shared memory: its slab path runs it."""
     rng = np.random.RandomState(dp + hp)
     sb, bh, bb, m, trash = 6, 32, 256, 1024, 2
     a = (rng.rand(sb, bh, bb) < 0.08).astype(np.int8)
@@ -223,7 +228,7 @@ def fused_calls(monkeypatch):
 
 def fused_pair(graph, cfg):
     rp, ci, nn = graph()
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), device="cpu")
     jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg))
     op.plan.prefer_fused_kernel = True
     jop.plan.prefer_fused_kernel = True
@@ -308,7 +313,7 @@ def test_fused_mode_is_read_at_call_time(core, fused_calls):
     unchanged."""
     graph, cfg, _ = CASES[("wide", False)]
     rp, ci, nn = graph()
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), device="cpu")
     rs = np.random.RandomState(5)
     x = rs.randn(nn, 16).astype(np.float32)
     w = rs.randn(16, 8).astype(np.float32)
@@ -329,7 +334,7 @@ def test_normalized_aggregation_composes_in_the_fused_mode(fused_calls):
     whatever the plan prefers, as the JAX package does."""
     graph, cfg, _ = CASES[("wide", False)]
     rp, ci, nn = graph()
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), normalize=True)
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), normalize=True, device="cpu")
     jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg), normalize=True)
     op.plan.prefer_fused_kernel = jop.plan.prefer_fused_kernel = True
     x = np.random.RandomState(6).randn(nn, 16).astype(np.float32)
@@ -350,7 +355,7 @@ def test_fused_cores_in_the_compute_dtype(layout, cd, fused_calls):
     the second product, as the composed path's bf16 SpMM output is)."""
     graph, cfg, kernel = CASES[(layout, False)]
     rp, ci, nn = graph()
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**dict(cfg, compute_dtype=cd)))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**dict(cfg, compute_dtype=cd)), device="cpu")
     rs = np.random.RandomState(8)
     x = rs.randn(nn, 16).astype(np.float32)
     w = (rs.randn(16, 8) * 0.1).astype(np.float32)
@@ -380,13 +385,13 @@ def test_fused_network_with_jax_weights_matches_jax(layout, model):
     x = np.random.RandomState(0).randn(op.plan.num_nodes, 24).astype(np.float32)
     y = np.ones(x.shape[0], dtype=np.int64)
     with torch.no_grad():
-        got = net_forward(net, params_from_jax(jparams), Bound(op), op.pad_input(x),
-                          out_slice=lambda v: op.unpad_output(v, 5))
+        got = net_forward(net, params_from_jax(jparams, device=op.device), Bound(op),
+                          op.pad_input(x), out_slice=lambda v: op.unpad_output(v, 5))
     assert rel_err(got, jax_net_forward(jnet, jparams, jop, jnp.asarray(x))) < RTOL
     opt = optax.adam(0.01)
     jstep = jax_make_train_step(jnet, jop, opt)
     jstate = opt.init(jparams)
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, device=op.device)
     step = make_train_step(net, op, torch.optim.Adam(
         [t for layer in params for t in layer.values()], lr=0.01))
     key = jax.random.PRNGKey(1)
@@ -410,7 +415,7 @@ def test_fused_routes_return_none_where_jax_does():
              dict(band_impl="tband", band_h=128, band_widths=(128,), band_mode="auto")),
             (banded_graph(), dict(band_impl="tband", band_h=128, band_widths=(128, 384),
                                   band_mode="always", band_spill="never"))):
-        op = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas", **cfg))
+        op = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas", **cfg), device="cpu")
         jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(impl="pallas", **cfg))
         xt = op.pad_input(torch.zeros(nn, 16))
         wt = torch.zeros(16, 16)
@@ -420,7 +425,7 @@ def test_fused_routes_return_none_where_jax_does():
         assert (got is None) == (want is None)
         assert len([v for v in op.plan.band_sw_ids if len(v)]) == 1 + (len(cfg["band_widths"]) > 1)
     op = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas", band_impl="tband", band_h=128,
-                                           band_mode="always"))
+                                           band_mode="always"), device="cpu")
     assert block_spmm.spmm_fused_wide_padded(op.arrays["f"], torch.zeros(op.padded_rows, 128),
                                              torch.zeros(128, 128), op.plan) is None
     assert block_spmm.spmm_fused_rows(op.arrays["f"], torch.zeros(nn, 16), torch.zeros(16, 8),

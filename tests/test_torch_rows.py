@@ -198,7 +198,7 @@ def both(name, impl="pallas", cd="float32", **kw):
     graph, cfg, d = CASES[name]
     rp, ci, nn = graph()
     fields = dict(cfg, impl=impl, compute_dtype=cd)
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**fields), **kw)
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**fields), device="cpu", **kw)
     jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**fields), **kw)
     x = np.random.RandomState(len(name)).randn(nn, d).astype(np.float32)
     return op, jop, x, spmm_reference_dense(rp, ci, nn, x)
@@ -264,7 +264,7 @@ def test_spill_plan_row_form_matches_jax():
     src, dst = rs.randint(0, 4096, 1024), rs.randint(0, 4096, 1024)
     rp, ci, nn = edges_graph(np.concatenate([src, dst]), np.concatenate([dst, src]), 4096)
     cfg = dict(band_h=128, band_widths=(128,), band_mode="auto")
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), device="cpu")
     jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg))
     assert op.plan.spill_nnz > 0 and len(op.plan.band_missing_sw) > 0
     x = np.random.RandomState(3).randn(nn, 12).astype(np.float32)
@@ -281,7 +281,7 @@ def test_row_layout_gradient_matches_jax(symmetric, layout):
     without the padded path goes through the row op."""
     rp, ci, nn = small_graph(120, 5, symmetric=symmetric)
     cfg = dict(NEVER, loi_mode="calibrated")
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), symmetric=symmetric)
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), symmetric=symmetric, device="cpu")
     jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg), symmetric=symmetric)
     assert not op.supports_padded and (op.plan_bwd is None) == symmetric
     rs = np.random.RandomState(5)
@@ -355,6 +355,12 @@ def test_sag_profiles_a_row_layout_operator():
     assert rel_err(res["out"], ref) < TOL[torch.float32]
 
 
+def test_sag_refuses_an_operator_without_a_device():
+    """SAG times on the operator's device and never falls back to the CPU."""
+    with pytest.raises(ValueError, match="spmm.device"):
+        SAG(lambda x: x)
+
+
 # ---------------------------------------------------------------------------
 # models and training steps in the row layout
 # ---------------------------------------------------------------------------
@@ -364,7 +370,7 @@ DIMS = dict(num_features=12, hidden=16, num_classes=5, num_layers=3)
 
 def model_case(model, cfg):
     rp, ci, nn = small_graph(300, 6)
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), device="cpu")
     jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg))
     net = Net(model=model, dropout=0.0, **DIMS)
     jnet = JaxNet(model=model, dropout=0.0, **DIMS)
@@ -382,14 +388,15 @@ def test_row_layout_forward_and_adam_steps_match_jax(model, cfg):
     op, jop, net, jnet, jparams, x = model_case(model, cfg)
     assert not op.supports_padded and not Bound(op).padded_layout
     with torch.no_grad():
-        got = net_forward(net, params_from_jax(jparams), Bound(op), torch.from_numpy(x))
+        got = net_forward(net, params_from_jax(jparams, device=op.device), Bound(op),
+                          torch.from_numpy(x))
     want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
     assert rel_err(got, want) < 1e-5
     y = np.ones(x.shape[0], dtype=np.int64)
     opt = optax.adam(0.01)
     jstep = jax_make_train_step(jnet, jop, opt)
     jstate = opt.init(jparams)
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, device=op.device)
     step = make_train_step(net, op, torch.optim.Adam(
         [t for layer in params for t in layer.values()], lr=0.01))
     key = jax.random.PRNGKey(1)
@@ -410,8 +417,8 @@ def test_row_and_padded_training_agree():
     src, dst, nn = io.synthetic_blocks(256, 4, 32, seed=3)
     rp, ci = io.to_csr(src, dst, nn)
     op_p = HybridSpMM(rp, ci, nn, PlanConfig(band_mode="always", band_h=32,
-                                             band_widths=(128,)))
-    op_u = HybridSpMM(rp, ci, nn, PlanConfig(**NEVER))
+                                             band_widths=(128,)), device="cpu")
+    op_u = HybridSpMM(rp, ci, nn, PlanConfig(**NEVER), device="cpu")
     assert op_p.supports_padded and not op_u.supports_padded
     x = np.random.RandomState(0).randn(nn, 12).astype(np.float32)
     y = np.ones(nn, dtype=np.int64)
@@ -432,12 +439,12 @@ def test_row_layout_gates_name_their_roadmap_items():
     """int4 band blocks (A.12) and row-partitioned plans (A.10) raise naming
     their items; the tiled band (A.11) now runs in the row layout."""
     rp, ci, nn = small_graph(300, 6)
-    op = HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tiled", band_h=128))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tiled", band_h=128), device="cpu")
     x = np.random.RandomState(0).randn(nn, 10).astype(np.float32)
     assert op.plan.tiled
     assert rel_err(op(torch.from_numpy(x)), spmm_reference_dense(rp, ci, nn, x)) < 1e-5
     with pytest.raises(NotImplementedError, match="A.12"):
-        HybridSpMM(rp, ci, nn, PlanConfig(a_dtype="int4"))
+        HybridSpMM(rp, ci, nn, PlanConfig(a_dtype="int4"), device="cpu")
     plan = build_plan(rp, ci, nn, PlanConfig(**NEVER))
     for bad in (dataclasses.replace(plan, num_cols=nn + 8),
                 dataclasses.replace(plan, shard_uniform=True)):
@@ -446,7 +453,7 @@ def test_row_layout_gates_name_their_roadmap_items():
         with pytest.raises(NotImplementedError, match="A.10"):
             port_spmm.make_spmm(bad)
     with pytest.raises(ValueError, match="impl"):
-        HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tband", band_h=128, impl="xla"))
+        HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tband", band_h=128, impl="xla"), device="cpu")
 
 
 def test_make_spmm_padded_returns_none_without_the_padded_path():

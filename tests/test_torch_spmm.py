@@ -40,7 +40,7 @@ def rel_err(got, ref):
 def both(rp, ci, nn, **kw):
     """The port's operator and the JAX package's, on one graph and config."""
     fields = dict(TBAND, **kw.pop("cfg", {}))
-    return (HybridSpMM(rp, ci, nn, PlanConfig(**fields), **kw),
+    return (HybridSpMM(rp, ci, nn, PlanConfig(**fields), device="cpu", **kw),
             JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**fields), **kw))
 
 
@@ -204,7 +204,7 @@ def test_partial_cover_plan_raises():
     assert rel_err(op(torch.from_numpy(x)), dense_a(*g, 4096) @ x) < RTOL
 
     rp, ci, nn = small_graph(300, 6)
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**TBAND))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**TBAND), device="cpu")
     partial = dataclasses.replace(op.plan, band_sw_ids=[op.plan.band_sw_ids[0][1:]])
     with pytest.raises(NotImplementedError, match="cover"):
         tband.check_plan(partial)
@@ -260,7 +260,7 @@ def test_spill_plan_gradient_matches_jax_custom_vjp(layout):
 def test_packed_a_raises(pack):
     rp, ci, nn = small_graph(300, 6)
     with pytest.raises(NotImplementedError, match="tband_pack"):
-        HybridSpMM(rp, ci, nn, PlanConfig(**dict(TBAND, tband_pack=pack)))
+        HybridSpMM(rp, ci, nn, PlanConfig(**dict(TBAND, tband_pack=pack)), device="cpu")
 
 
 @pytest.mark.parametrize("band_impl", ["wide", "tiled"])

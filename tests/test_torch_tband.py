@@ -95,7 +95,7 @@ PLANS = {
 def test_spmm_tband_padded_matches_jax_and_scipy(name, dt):
     graph, fields = PLANS[name]
     rp, ci, n = graph()
-    op = HybridSpMM(rp, ci, n, PlanConfig(**fields))
+    op = HybridSpMM(rp, ci, n, PlanConfig(**fields), device="cpu")
     plan = op.plan
     nonempty = [len(s) > 0 for s in plan.band_sw_ids]
     assert nonempty == ([True, True] if name == "two_buckets" else [True])
@@ -151,7 +151,7 @@ def spill_case(name, dt, dtype, with_jax=True):
     one plan of SPILL_PLANS on a seeded X^T."""
     graph, fields = SPILL_PLANS[name]
     rp, ci, n = graph()
-    op = HybridSpMM(rp, ci, n, PlanConfig(**dict(fields, compute_dtype=dtype)))
+    op = HybridSpMM(rp, ci, n, PlanConfig(**dict(fields, compute_dtype=dtype)), device="cpu")
     plan = op.plan
     xt = np.zeros((dt, plan.padded_rows), np.float32)
     xt[:, :n] = np.random.RandomState(7).randn(dt, n)

@@ -70,7 +70,7 @@ def empty_tail_graph():
 
 def both(graph, cfg):
     rp, ci, nn = graph
-    return (HybridSpMM(rp, ci, nn, PlanConfig(**cfg)),
+    return (HybridSpMM(rp, ci, nn, PlanConfig(**cfg), device="cpu"),
             JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg)),
             spmm_reference_dense(rp, ci, nn, np.eye(nn)))
 
@@ -131,7 +131,7 @@ def test_grouped_equals_direct_on_a_full_cover_plan():
     band in identity order, put in superwindow order, is the direct band."""
     rp, ci, nn = blocks_graph()
     op = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas", band_mode="always", band_h=64,
-                                           band_widths=(256,)))
+                                           band_widths=(256,)), device="cpu")
     arrs, m = op.arrays["f"], op.plan.padded_rows
     num_sw = m // 64
     assert len(op.plan.band_sw_ids[0]) == num_sw

@@ -44,7 +44,7 @@ def rel_err(got, ref):
 
 def setup(model, dropout=0.5, graph=lambda: small_graph(300, 6), cfg=TBAND, dims=DIMS):
     rp, ci, nn = graph()
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), device="cpu")
     jop = JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**cfg))
     jnet = JaxNet(model=model, dropout=dropout, **dims)
     net = Net(model=model, dropout=dropout, **dims)
@@ -60,8 +60,8 @@ def test_net_forward_matches_jax(model):
     op, jop, net, jnet, jparams, x = setup(model)
     want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
     with torch.no_grad():
-        got = net_forward(net, params_from_jax(jparams), Bound(op), op.pad_input(x),
-                          out_slice=lambda h: op.unpad_output(h, net.num_classes))
+        got = net_forward(net, params_from_jax(jparams, device=op.device), Bound(op),
+                          op.pad_input(x), out_slice=lambda h: op.unpad_output(h, net.num_classes))
     assert got.shape == want.shape == (x.shape[0], DIMS["num_classes"])
     assert rel_err(got, want) < 1e-5
 
@@ -74,8 +74,8 @@ def test_net_forward_on_wide_plan_matches_jax(model):
                                            dims=dict(DIMS, hidden=130))
     want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
     with torch.no_grad():
-        got = net_forward(net, params_from_jax(jparams), Bound(op), op.pad_input(x),
-                          out_slice=lambda h: op.unpad_output(h, net.num_classes))
+        got = net_forward(net, params_from_jax(jparams, device=op.device), Bound(op),
+                          op.pad_input(x), out_slice=lambda h: op.unpad_output(h, net.num_classes))
     assert got.shape == want.shape == (x.shape[0], DIMS["num_classes"])
     assert rel_err(got, want) < 1e-5
 
@@ -120,13 +120,13 @@ def test_adam_steps_on_wide_spill_plan_match_jax_train_step():
 def test_train_step_takes_a_padded_wide_input():
     """make_train_step pads a raw [N, d] input and leaves an input already
     in the wide layout [M, dp] as it is (it once padded it again)."""
-    op = HybridSpMM(*small_graph(300, 6), PlanConfig(**WIDE))
+    op = HybridSpMM(*small_graph(300, 6), PlanConfig(**WIDE), device="cpu")
     net = Net(model="gcn", dropout=0.0, **DIMS)
     x = np.random.RandomState(0).randn(op.plan.num_nodes, DIMS["num_features"]).astype(np.float32)
     y = torch.ones(x.shape[0], dtype=torch.int64)
     losses = []
     for xin in (torch.from_numpy(x), op.pad_input(x)):
-        params = init_net_params(net, torch.Generator().manual_seed(0))
+        params = init_net_params(net, torch.Generator().manual_seed(0), device=op.device)
         step = make_train_step(net, op, torch.optim.Adam(
             [t for layer in params for t in layer.values()], lr=0.01))
         losses.append(float(step(params, xin, y)))
@@ -139,7 +139,7 @@ def _adam_steps_match(op, jop, net, jnet, jparams, x):
     opt = optax.adam(0.01)
     jstep = jax_make_train_step(jnet, jop, opt)
     jstate = opt.init(jparams)
-    params = params_from_jax(jparams)
+    params = params_from_jax(jparams, device=op.device)
     step = make_train_step(net, op, torch.optim.Adam(
         [t for layer in params for t in layer.values()], lr=0.01))
     key = jax.random.PRNGKey(1)
@@ -268,9 +268,9 @@ from hcspmm_tpu_torch.train.loop import Bound
 import hcspmm_tpu_torch.train.cli
 src, dst, n = io.synthetic_blocks(400, 5, 50, seed=1)
 rp, ci = io.to_csr(src, dst, n)
-op = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband", band_h=128))
+op = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband", band_h=128), device="cpu")
 net = Net("gcn", 8, 16, 4, 2)
-params = init_net_params(net, torch.Generator().manual_seed(0))
+params = init_net_params(net, torch.Generator().manual_seed(0), device=op.device)
 x = np.random.RandomState(0).randn(n, 8).astype(np.float32)
 lp = net_forward(net, params, Bound(op), op.pad_input(x),
                  out_slice=lambda h: op.unpad_output(h, 4))
@@ -279,7 +279,7 @@ from hcspmm_tpu_torch.train.loop import make_train_step
 op.plan.prefer_fused_kernel = True
 step = make_train_step(net, op, torch.optim.Adam([t for p in params for t in p.values()]))
 assert bool(torch.isfinite(step(params, x, torch.ones(n, dtype=torch.int64), torch.Generator())))
-tiled = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tiled", band_h=128))
+tiled = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tiled", band_h=128), device="cpu")
 assert tiled.plan.tiled and bool(torch.isfinite(tiled(torch.from_numpy(x))).all())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "hcspmm_tpu"))
 print("BAD", bad)

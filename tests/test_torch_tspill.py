@@ -144,14 +144,23 @@ def test_tbstream_merge_skips_pad_slots():
 
 
 def test_block_runs():
-    np.testing.assert_array_equal(tspill.block_runs(np.array([0, 0, 2, 2, 2, 5])),
-                                  [0, 2, 5, 6])
-    np.testing.assert_array_equal(tspill.block_runs(np.array([3])), [0, 1])
-    assert [tspill.merge_warps(s, 32) for s in (512, 1024, 2048, 4096)] == [16, 16, 8, 4]
-    assert tspill.merge_warps(512, 16) == 16 and tspill.merge_warps(4096, 48) == 4
+    """The merges' destination runs (``segment_table``): one segment per
+    run of equal destinations, pad runs kept as -1, the long list by
+    length, and a single run."""
+    dst, ptr, long = tspill.segment_table(np.array([0, 0, 2, 2, 2, 5, -1, -1]), 2)
+    np.testing.assert_array_equal(dst, [0, 2, 5, -1])
+    np.testing.assert_array_equal(ptr, [0, 2, 5, 6, 8])
+    np.testing.assert_array_equal(long, [1])
+    assert dst.dtype == ptr.dtype == long.dtype == np.int32
+    dst, ptr, long = tspill.segment_table(np.array([3]), 0)
+    np.testing.assert_array_equal(dst, [3])
+    np.testing.assert_array_equal(ptr, [0, 1])
+    np.testing.assert_array_equal(long, [0])
+    with pytest.raises(ValueError, match="two runs"):
+        tspill.segment_table(np.array([0, 0, 2, 0]), 2)
 
 
-TINY_CAPS = dict(impl="pallas", band_impl="tband", band_h=128, band_widths=(128,),
+TINY_CAPS =dict(impl="pallas", band_impl="tband", band_h=128, band_widths=(128,),
                  band_mode="auto", ts_table_mb=1e-3, ts_span=256, ts_k=32,
                  ts2_table_mb=48 * 64 / 1e6)
 
@@ -179,7 +188,10 @@ def test_check_spill_arrays_accepts_plans_and_rejects_bad_indices():
     plan = build_plan(rp, ci, nn, PlanConfig(**TINY_CAPS))
     host = plan.device_arrays(dense_band=False)
     extra = tspill.check_spill_arrays(host, plan)
-    np.testing.assert_array_equal(extra["ds_lrun"], tspill.block_runs(plan.ds_lblk))
+    for got, want in zip(tspill.segments_of(extra, "ds_lseg"), tspill.lane_segments(
+            plan.ds_tlocal, plan.ds_lblk, plan.ds_lgroup)):
+        np.testing.assert_array_equal(got, want)
+    assert extra["ds_lsrc"].shape == plan.ds_laneg.shape
     m = plan.padded_rows
     bad = {
         "ds_lblk": plan.ds_lblk[::-1].copy(),                     # decreasing
@@ -213,7 +225,9 @@ def test_wrappers_reject_meta_tensors(kernel):
                                   torch.zeros(8, 128, dtype=torch.int32, **meta),
                                   torch.zeros(8, dtype=torch.int32, **meta),
                                   torch.empty(16, 1024, **meta), group=4,
-                                  runs=torch.zeros(2, dtype=torch.int32, **meta))
+                                  segs=(torch.zeros(1, dtype=torch.int32, **meta),
+                                        torch.zeros(2, dtype=torch.int32, **meta),
+                                        torch.zeros(0, dtype=torch.int32, **meta)))
 
 
 # ---------------------------------------------------------------------------

@@ -308,8 +308,9 @@ def test_check_row_spill_arrays_accepts_plans_and_rejects_bad_indices():
     assert plan.ds_meta is not None and len(plan.ds_meta["r0"]) > 1
     host = plan.device_arrays(dense_band=False)
     extra = dstream.check_row_spill_arrays(host, plan)
-    assert sorted(extra) == sorted(f"ds_run{p}" for p in range(len(plan.ds_meta["r0"]))
-                                   if plan.ds_meta["steps"][p + 1] > plan.ds_meta["steps"][p])
+    assert sorted(extra) == sorted(f"ds_seg{p}_{f}" for p in range(len(plan.ds_meta["r0"]))
+                                   if plan.ds_meta["steps"][p + 1] > plan.ds_meta["steps"][p]
+                                   for f in tspill.SEG_FIELDS)
     g = plan.ds_group
     m = plan.padded_rows
     bad = {
@@ -324,8 +325,10 @@ def test_check_row_spill_arrays_accepts_plans_and_rejects_bad_indices():
     blocks = build_plan(*small_graph(500, 8, span=400), PlanConfig(
         **dict(WIDE, band_h=128, band_widths=(128,), ds_kind="block")))
     host = blocks.device_arrays(dense_band=False)
-    np.testing.assert_array_equal(dstream.check_row_spill_arrays(host, blocks)["ds_run"],
-                                  tspill.block_runs(blocks.ds_blk))
+    extra = dstream.check_row_spill_arrays(host, blocks)
+    for got, want in zip(tspill.segments_of(extra, "ds_seg"), dstream.row_segments(
+            blocks.ds_local, blocks.ds_blk, None, blocks.ds_group, len(blocks.ds_blk))):
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="ds_blk"):
         dstream.check_row_spill_arrays(dict(host, ds_blk=np.full_like(
             blocks.ds_blk, blocks.padded_rows // (blocks.ds_group * 128))), blocks)
@@ -350,7 +353,9 @@ def test_wrappers_reject_meta_tensors(kernel):
                                   torch.zeros(1, dtype=torch.int32, **meta),
                                   torch.empty(1024, 128, **meta),
                                   torch.empty(1024, 128, **meta), group=8,
-                                  runs=torch.zeros(2, dtype=torch.int32, **meta))
+                                  segs=(torch.zeros(1, dtype=torch.int32, **meta),
+                                        torch.zeros(2, dtype=torch.int32, **meta),
+                                        torch.zeros(0, dtype=torch.int32, **meta)))
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +366,7 @@ def test_wrappers_reject_meta_tensors(kernel):
 def both(rp, ci, nn, **kw):
     """The port's operator and the JAX package's, on one graph and config."""
     fields = dict(WIDE, **kw.pop("cfg", {}))
-    return (HybridSpMM(rp, ci, nn, PlanConfig(**fields), **kw),
+    return (HybridSpMM(rp, ci, nn, PlanConfig(**fields), device="cpu", **kw),
             JaxHybridSpMM(rp, ci, nn, JaxPlanConfig(**fields), **kw))
 
 
@@ -393,7 +398,7 @@ def test_default_config_builds_the_wide_layout():
     """``HybridSpMM(rp, ci, n)`` with the default config builds a wide plan
     and runs it (the library's default operator)."""
     rp, ci, nn = small_graph(300, 6)
-    op = HybridSpMM(rp, ci, nn)
+    op = HybridSpMM(rp, ci, nn, device="cpu")
     jop = JaxHybridSpMM(rp, ci, nn)
     assert not op.transposed and not op.plan.tband
     check_forward(op, jop, rp, ci, nn)
@@ -566,7 +571,7 @@ def test_bf16_and_fp32_plans_match_oracle(cd):
     sum in fp32 and round once (1e-2 of max|ref|; fp32 1e-5)."""
     rp, ci, nn = small_graph(500, 8, span=400)
     op = HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, **SPILL, ds_kind="block",
-                                                  compute_dtype=cd)))
+                                                  compute_dtype=cd)), device="cpu")
     x = np.random.RandomState(2).randn(nn, 64).astype(np.float32)
     xp = op.pad_input(x)
     assert xp.dtype == {"float32": torch.float32, "bfloat16": torch.bfloat16}[cd]
@@ -583,12 +588,12 @@ def test_gate_refuses_what_the_wide_layout_would_not_apply():
     rp, ci, nn = small_graph(300, 6)
     x = np.random.RandomState(7).randn(nn, 20).astype(np.float32)
     for cfg in (dict(band_mode="never"), dict(band_mode="never", loi_mode="all_dense")):
-        op = HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, **cfg)))
+        op = HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, **cfg)), device="cpu")
         assert not op.supports_padded
         with pytest.raises(NotImplementedError, match="row layout"):
             block_spmm.check_plan(op.plan)
         assert rel_err(op(torch.from_numpy(x)), dense_a(rp, ci, nn) @ x) < RTOL
-    op = HybridSpMM(rp, ci, nn, PlanConfig(**WIDE))
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**WIDE), device="cpu")
     partial = dataclasses.replace(op.plan, band_sw_ids=[op.plan.band_sw_ids[0][1:]])
     with pytest.raises(NotImplementedError, match="cover"):
         block_spmm.check_plan(partial)
@@ -596,7 +601,8 @@ def test_gate_refuses_what_the_wide_layout_would_not_apply():
         block_spmm.spmm_wide_padded(op.arrays["f"], op.pad_input(torch.zeros(nn, 16)),
                                     partial, torch.float32)
     # the tiled band and the fused kernels run now (ROADMAP A.11)
-    tiled = HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, band_impl="tiled", band_h=128)))
+    tiled = HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, band_impl="tiled", band_h=128)),
+                       device="cpu")
     assert tiled.plan.tiled
     got = tiled.unpad_output(tiled.apply_padded(tiled.arrays, tiled.pad_input(x)), 20)
     assert rel_err(got, dense_a(rp, ci, nn) @ x) < RTOL
