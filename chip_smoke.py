@@ -8,13 +8,19 @@ Phases, each of which raises on failure, with its seconds printed:
    power limit as nvidia-smi reports them;
 2. builds csrc/tband.cu, csrc/tspill.cu, csrc/block_spmm.cu, csrc/rows.cu
    and csrc/dstream.cu with nvcc for sm_90a, one nvcc each, started
-   together, and prints ptxas's register and shared-memory lines;
+   together, and prints ptxas's register and shared-memory lines, those of
+   each tband_kernel instantiation (registers, spill bytes, static shared
+   memory) and the band kernel's launch configuration (ring stages,
+   dynamic shared memory, blocks an SM);
 3. holds the band kernel against its plain PyTorch version: at the shape
    the DD-scale blocks stand-in's plan gives it (Sb 1312, W 768, bh 256,
-   dt 32), at small odd shapes (dt 16, 48, 96; capacity-padded entries)
-   and on two-bucket full-cover plans (tband and wide: the bucket modes'
-   path); fp32 within 1e-5 and bf16 within 1e-2 of max|ref|; both timed
-   with CUDA events; the tband fused kernel and the bucket mode at the
+   dt 32; two runs bitwise equal, and in fp32 equal bit for bit to the
+   fused kernel's aggregate; timed beside torch.sparse.mm of the same
+   product and its bytes bound, fp32 and bf16), at small odd shapes (dt 16,
+   32, 48, 96; W 64 to 896; bh 32 to 512; capacity-padded entries; the
+   same two bitwise checks) and on two-bucket full-cover plans (tband and
+   wide: the bucket modes' path); fp32 within 1e-5 and bf16 within 1e-2 of
+   max|ref|; the tband fused kernel and the bucket mode at the
    stand-in plan's arrays, timed, with the Table VI analog (fused vs the
    composed pair, interleaved) at dim 32, and the fused kernel timed at dt
    96 / ht 32, dt 192 / ht 32 and dt 64 / ht 608;
@@ -27,12 +33,15 @@ Phases, each of which raises on failure, with its seconds printed:
    CSR @ X in float64, at fp32 and bf16;
 6. on the paper's DD, YS and GH stand-ins at full size (seed 7, cluster
    reorder): prints each plan's spill edges, missing superwindows and
-   which of hub/T1/T2 it builds; holds each spill kernel against its
+   which of hub/T1/T2 it builds; on DD and GH the band kernel at the
+   plan's own arrays as in 3 (checked, timed beside torch.sparse.mm and
+   its bound, fp32 and bf16); holds each spill kernel against its
    plain version at the plan's own shapes (timed; the lane merge gathers
    through the plan's composed columns, checked against the reference's
    take, and prints its segment table's longest segment and length
    histogram; timed beside the take followed by the merge, and the take
-   followed by index_add_), and apply_padded at dim 32 against scipy;
+   followed by index_add_; mxgather beside one index_select from X^T with a
+   zero lane appended), and apply_padded at dim 32 against scipy;
 7. trains the 6-layer GCN (dim 96, hidden 32, classes 22) for 3 epochs
    through ``cli.main`` on the blocks stand-in (rcm) and on DD and GH
    (cluster), and checks with the kernels' launch counters that every
@@ -104,8 +113,8 @@ The second-to-last line is a JSON object with the kernel table (all
 sixteen TPU kernels' counterparts): for each kernel its launches on the
 main paths run here, its time, its plain version's, one library call's
 where PyTorch has one (torch.sparse.mm, torch.sparse.addmm, index_fill_,
-index_add_, F.embedding_bag) or, for the fused kernels, the composed pair
-they replace, and its bound: the larger of the bytes it must move (each
+index_add_, index_select, F.embedding_bag) or, for the fused kernels, the
+composed pair they replace, and its bound: the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its fp32
 operations at 67 TFLOP/s, computed from this run's arrays; beside it the
 Table VI analog, the grouped A/B and the fused training runs.  The last
@@ -144,6 +153,10 @@ ROW_KERNEL = {"dense_bucket_spmm": "dense_rows_kernel", "ell_bucket_spmm": "ell_
 H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA's data sheet (SXM)
 H100_FP32_OPS_PER_S = 67e12    # fp32 outside the tensor cores
 DEV = "cuda"  # the kernels' checks run here (a CPU rehearsal may point it elsewhere)
+TBAND_DESIGN = ("persistent, two blocks an SM; a ring of Tensor Memory Accelerator copies "
+                "(swizzled A_t and X^T slabs) issued by one producer lane under full/empty "
+                "mbarriers; warps of 16 columns (32 above bh 256) with 64-row masks of "
+                "non-zero rows; lane = feature row, sums in shared memory")
 
 
 def log(msg: str) -> None:
@@ -360,10 +373,21 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
         log(f"  {key} {label} {cd}: equal")
         tables[what] = got
         real = int((rel >= 0).sum())
+        # the yardstick: one index_select from X^T with a zero lane appended,
+        # through columns lo[c] + rel[c, j] (the -1 slots and the tail chunks
+        # pointing at the zero lane), both built before timing
+        r = rel.reshape(rel.shape[0], -1).long()
+        cols = torch.full((got.shape[1],), m, dtype=torch.long, device=dev)
+        cols[: r.numel()] = torch.where(r >= 0, lo.long()[:, None] + r, m).reshape(-1)
+        xt_z = torch.cat([xt, xt.new_zeros((xt.shape[0], 1))], dim=1)
+        if not torch.equal(torch.index_select(xt_z, 1, cols), got):
+            raise AssertionError(f"{key} {label}: the index_select yardstick computes another "
+                                 "function")
         record("mxgather_lanes", label, 0.0,
                lambda: tspill.mxgather_lanes(xt, lo, rel, span=plan.ts_span),
                lambda: tspill.mxgather_lanes_plain(xt, lo, rel),
-               real * 32 * elt + got.numel() * elt + rel.numel() * 4 + lo.numel() * 4)
+               real * 32 * elt + got.numel() * elt + rel.numel() * 4 + lo.numel() * 4,
+               fn_lib=lambda: torch.index_select(xt_z, 1, cols))
 
     # each merge stream: its source table, the per-slot columns it gathers
     # through, and the reference's take (segmented_gather on T2 plans)
@@ -812,6 +836,97 @@ def bound(nbytes: float, ops: float) -> tuple:
     the tensor cores (the kernels sum on the CUDA cores in fp32)."""
     t_b, t_o = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_FP32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def tband_kernel_report(log_text: str) -> list:
+    """ptxas's registers, spill bytes and static shared memory of each
+    instantiation of csrc/tband.cu's tband_kernel, from the build's log."""
+    import re
+
+    lines = log_text.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S*tband_kernelI(\w+?)Li(\d+)E\S*)'", line)
+        if not m:
+            continue
+        types = m.group(2)
+        x = "bf16" if types.startswith("13__nv_bfloat16") else "fp32"
+        o = "fp32" if types[len("13__nv_bfloat16") if x == "bf16" else 1:].startswith("f") else "bf16"
+        props = " ".join(v.strip() for v in lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", props)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", props)
+        smem = re.search(r"(\d+) bytes smem", props)
+        out.append(f"tband_kernel<{x} in, {o} out, DT {m.group(3)}>: "
+                   f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
+                   f"{'/'.join(spill.groups()) if spill else '?'} bytes, static shared memory "
+                   f"{smem.group(1) if smem else 0} bytes")
+    if not out:
+        raise AssertionError("the tband build log names no tband_kernel instantiation")
+    return out
+
+
+def band_kernel_at_plan(key, op, gen, out) -> None:
+    """The band kernel at a tband plan's main bucket (dt 32), fp32 and bf16:
+    direct mode against its plain version, two runs bitwise equal, and in
+    fp32 equal bit for bit to tband_fused_direct's aggregate; the bucket
+    mode against its plain version; the direct mode timed (median of 7)
+    beside its plain version, torch.sparse.mm of the same product (the
+    bucket's blocks as one CSR matrix, times X in rows) and its bytes
+    bound.  Rows go into ``out[(key, cd)]``."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import tband
+
+    p, arrs = op.plan, op.arrays["f"]
+    s = max(range(len(p.band_widths)), key=lambda i: len(p.band_sw_ids[i]))
+    st, sw, at = arrs[f"band{s}_start"], arrs[f"band{s}_sw"], arrs[f"band{s}_at"]
+    m, bh = p.padded_rows, p.band_h
+    num_sw = m // bh
+    nnz = int(at.count_nonzero())
+    a_rows = block_csr(at.transpose(1, 2), st, sw, num_sw, m)
+    shape = f"Sb {at.shape[0]}, W {at.shape[1]}, bh {bh}, dt 32"
+    # the direct write leaves the blocks no entry of this bucket owns unset
+    owned = torch.zeros(num_sw, dtype=torch.bool, device=DEV)
+    owned[sw[sw < num_sw].long()] = True
+    cols = owned.repeat_interleave(bh)
+    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        xt = torch.randn((32, m), generator=gen).to(DEV, dtype)
+
+        def direct():
+            return tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)
+
+        got = direct()
+        if not torch.equal(got[:, cols], direct()[:, cols]):
+            raise AssertionError(f"{key} band kernel {cd}: two runs differ")
+        ref = tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, dtype)
+        err = check(f"{key} direct {cd} at {shape} (bitwise repeatable)", got[:, cols],
+                    ref[:, cols], cd)
+        if cd == "float32":
+            wt = (torch.randn((32, 32), generator=gen) * 0.1).to(DEV)
+            agg, _ = tband.tband_fused_direct(sw, st, at, xt, wt, num_sw, dtype)
+            if not torch.equal(agg[:, cols], got[:, cols]):
+                raise AssertionError(f"{key}: tband_fused_direct's aggregate differs from "
+                                     "tband_spmm_direct's output")
+            log(f"  {key}: tband_fused_direct's aggregate equals tband_spmm_direct's output "
+                "bit for bit")
+        check(f"{key} bucket {cd} at {shape}", tband.tband_spmm_bucket(st, at, xt),
+              tband.tband_spmm_bucket_plain(st, at, xt), cd)
+        x_rows = xt.T.contiguous()
+        a_cd = a_rows.to(dtype)
+        elt = xt.element_size()
+        k_ms = median_ms(direct, 20)[0]
+        p_ms = cuda_time_ms(lambda: tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, dtype),
+                            5)
+        lib_ms = median_ms(lambda: torch.sparse.mm(a_cd, x_rows), 10)[0]
+        b_ms, b_by = bound(at.numel() + xt.numel() * elt + 32 * m * elt + 8 * at.shape[0],
+                           2 * nnz * 32)
+        log(f"    {key} band kernel {cd} at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"torch.sparse.mm {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+            f"{k_ms / b_ms:.2f}x the bound, {k_ms / lib_ms:.2f}x torch.sparse.mm")
+        out[(key, cd)] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                              bound_by=b_by, shape=shape)
+        del xt, x_rows, a_cd, got, ref
+    del a_rows
 
 
 def small_row_kernel_checks(gen) -> None:
@@ -1645,6 +1760,12 @@ def main() -> int:
                 for line in f:
                     if any(w in line for w in ("Compiling", "registers", "spill")):
                         log(f"  {name}: " + line.strip())
+        with open(_build.library_path("tband") + ".log") as f:
+            for line in tband_kernel_report(f.read()):
+                log("  " + line)
+        for bh, dtype in ((256, torch.float32), (256, torch.bfloat16), (512, torch.float32)):
+            log(f"  tband_kernel at bh {bh}, dt 32, {dtype}: "
+                f"{tband.launch_config(bh, 32, dtype, dtype)} (dynamic shared memory bytes)")
 
     gen = torch.Generator().manual_seed(0)
     with Phase("3. band kernel vs plain version"):
@@ -1660,55 +1781,40 @@ def main() -> int:
         log(f"blocks stand-in: {n} nodes, {int(rp[-1])} nnz, widths {plan.band_widths}, "
             f"band_h {plan.band_h}, {len(plan.band_sw_ids[0])} superwindows, M {m}, "
             f"spill {plan.spill_nnz} ({time.perf_counter() - t0:.1f} s with upload)")
-        arrs = ops["float32"].arrays["f"]
-        st, sw, at = arrs["band0_start"], arrs["band0_sw"], arrs["band0_at"]
-        num_sw = m // plan.band_h
-        shape = f"Sb {at.shape[0]}, W {at.shape[1]}, bh {at.shape[2]}, dt 32"
-        slice_res = {}
-        nnz = int(at.count_nonzero())
-        a_csr = torch.sparse_csr_tensor(torch.from_numpy(rp.astype(np.int64)),
-                                        torch.from_numpy(ci.astype(np.int64)),
-                                        torch.ones(len(ci)), size=(n, n)).to(dev)
-        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            xt = torch.randn((32, m), generator=gen).to(dev, dtype)
-            got = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)
-            ref = tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, dtype)
-            err = check(f"direct {cd} at {shape}", got, ref, cd)
-            check(f"bucket {cd} at {shape}", tband.tband_spmm_bucket(st, at, xt),
-                  tband.tband_spmm_bucket_plain(st, at, xt), cd)
-            k_ms = cuda_time_ms(lambda: tband.tband_spmm_direct(sw, st, at, xt, num_sw,
-                                                                dtype), 50)
-            p_ms = cuda_time_ms(lambda: tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw,
-                                                                      dtype), 10)
-            elt = xt.element_size()
-            b_ms, b_by = bound(at.numel() + xt.numel() * elt + 32 * num_sw * plan.band_h * elt
-                               + 8 * at.shape[0], 2 * nnz * 32)
-            lib_ms = None
-            if cd == "float32":
-                x_rows = xt[:, :n].T.contiguous()
-                lib_ms = cuda_time_ms(lambda: torch.sparse.mm(a_csr, x_rows), 10)
-            log(f"  {cd}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.sparse.mm "
-                f"{lib_ms} ms, bound {b_ms:.4f} ms by {b_by}")
-            slice_res[cd] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=lib_ms)
+        band_res = {}
+        band_kernel_at_plan("blocks", ops["float32"], gen, band_res)
 
-        for dt in (16, 48, 96):
-            for bh in (128, 256):
-                sb, w, mm, trash = 7, 256, 1024, 2
-                at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
-                st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128)
-                sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
-                                  torch.full((trash,), sb - trash)])
-                st_s, sw_s = st_s.to(dev, torch.int32), sw_s.to(dev, torch.int32)
-                for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-                    xt = torch.randn((dt, mm), generator=gen).to(dev, dtype)
-                    check(f"direct {cd} dt {dt} bh {bh} +{trash} padded entries",
-                          tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash, dtype),
-                          tband.tband_spmm_direct_plain(sw_s, st_s, at_s, xt, sb - trash,
-                                                        dtype), cd)
-                    check(f"bucket {cd} dt {dt} bh {bh}",
-                          tband.tband_spmm_bucket(st_s, at_s, xt),
-                          tband.tband_spmm_bucket_plain(st_s, at_s, xt), cd)
+        # (dt, W, bh, M): dt 16/48/96 at bh 128 and 256, then one 64-row
+        # stage, GH's W 896, bh 32, 96 and 512, dt 48
+        small = [(dt, 256, bh, 1024) for dt in (16, 48, 96) for bh in (128, 256)] + [
+            (16, 64, 128, 1024), (32, 896, 256, 2048), (48, 256, 32, 512), (32, 192, 96, 768),
+            (48, 128, 512, 1024), (16, 896, 512, 1024)]
+        for dt, w, bh, mm in small:
+            sb, trash = 7, 2
+            at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
+            st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128)
+            sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
+                              torch.full((trash,), sb - trash)])
+            st_s, sw_s = st_s.to(dev, torch.int32), sw_s.to(dev, torch.int32)
+            for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                xt = torch.randn((dt, mm), generator=gen).to(dev, dtype)
+                got = tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash, dtype)
+                if not torch.equal(got, tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash,
+                                                                dtype)):
+                    raise AssertionError(f"direct {cd} dt {dt} W {w} bh {bh}: two runs differ")
+                check(f"direct {cd} dt {dt} W {w} bh {bh} +{trash} padded entries", got,
+                      tband.tband_spmm_direct_plain(sw_s, st_s, at_s, xt, sb - trash, dtype), cd)
+                check(f"bucket {cd} dt {dt} W {w} bh {bh}",
+                      tband.tband_spmm_bucket(st_s, at_s, xt),
+                      tband.tband_spmm_bucket_plain(st_s, at_s, xt), cd)
+                if cd == "float32":
+                    wt = torch.randn((16, dt), generator=gen).to(dev)
+                    agg, _ = tband.tband_fused_direct(sw_s, st_s, at_s, xt, wt, sb - trash, dtype)
+                    if not torch.equal(agg, got):
+                        raise AssertionError(f"dt {dt} W {w} bh {bh}: the fused aggregate "
+                                             "differs from the band kernel's output")
+        log("  band kernel at the small shapes: bitwise repeatable, and in fp32 equal to the "
+            "fused kernel's aggregate bit for bit")
 
         new_res = {}
         tband_fused_at_plan(ops["float32"], gen, new_res)
@@ -1745,7 +1851,7 @@ def main() -> int:
                 out = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(
                     torch.from_numpy(x))), 32)
             check(f"apply_padded {cd}", out, ref, cd)
-        del ops, arrs, st, sw, at
+        del ops
         torch.cuda.empty_cache()
 
     spill_res = {}
@@ -1779,6 +1885,8 @@ def main() -> int:
                     raise AssertionError("the YS plan must build the mxgather T1 table")
                 if key == "GH" and not (hub and t1 and t2):
                     raise AssertionError("the GH plan must build hub, T1 and T2")
+                if key in ("DD", "GH") and cd == "float32":
+                    band_kernel_at_plan(key, op, gen, band_res)
                 spill_kernels_vs_plain(key, arrs, p, dtype, cd, gen, spill_res)
                 with torch.no_grad():
                     xp = op.pad_input(torch.from_numpy(x))
@@ -2082,16 +2190,19 @@ def main() -> int:
         ("DD intended", "ell_bucket_spmm")]
     csrc = "hcspmm_tpu_torch/csrc/"
     tpu = "hcspmm_tpu/kernels/"
+    band_blocks = band_res[("blocks", "float32")]
     tb_bucket, tb_fused = new_res[("tband_spmm_bucket", "float32")], new_res[(
         "tband_fused_direct", "float32")]
     wide_bucket, wide_fused = new_res[("band_bucket_spmm", 256)], new_res[(
         "band_fused_spmm_direct", 256)]
     grouped, tiled = new_res[("band_bucket_spmm_grouped", 128)], new_res[("band_tiled_spmm", 256)]
     kernels = [
-        entry("tband_spmm", csrc + "tband.cu", tpu + "tband.py:217", slice_res["float32"],
-              shape + ", float32, direct write"),
+        entry("tband_spmm", csrc + "tband.cu", tpu + "tband.py:217", band_blocks,
+              f"blocks {band_blocks['shape']}, float32, direct write",
+              err=max(v["err"] for (_, cd), v in band_res.items() if cd == "float32"),
+              design=TBAND_DESIGN, plans={f"{k} {cd}": v for (k, cd), v in band_res.items()}),
         entry("tband_spmm_bucket", csrc + "tband.cu", tpu + "tband.py:246", tb_bucket,
-              tb_bucket["shape"]),
+              tb_bucket["shape"], design=TBAND_DESIGN),
         entry("tband_fused_direct", csrc + "tband.cu", tpu + "tband.py:309", tb_fused,
               tb_fused["shape"], err=max(v["err"] for (k, _), v in new_res.items()
                                          if k == "tband_fused_direct")),

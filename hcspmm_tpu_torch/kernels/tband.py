@@ -54,15 +54,32 @@ _KT = 64       # csrc/tband.cu KT: the contraction width must divide by it
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load_library("tband")
+def _lib(defines: tuple = ()) -> ctypes.CDLL:
+    """csrc/tband.cu, built (with the preprocessor ``defines``) and bound."""
+    lib = load_library("tband", defines)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hcspmm_tband_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                       i64, i64, i32, i32, i32, vp]
     lib.hcspmm_tband_spmm.restype = ctypes.c_int
     lib.hcspmm_tband_fused.argtypes = [vp] * 7 + [i32] * 5 + [i64, i64, i32, i32, i32, vp]
     lib.hcspmm_tband_fused.restype = ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.hcspmm_tband_config.argtypes = [i32, i32, i32, i32, ip, ctypes.POINTER(i64), ip]
+    lib.hcspmm_tband_config.restype = ctypes.c_int
     return lib
+
+
+def launch_config(bh: int, dt: int, x_dtype, out_dtype) -> dict:
+    """The band kernel's launch configuration on the current CUDA device at
+    band height ``bh`` and feature dim ``dt``: its ring ``stages``, dynamic
+    shared memory bytes (``smem``) and resident ``blocks_per_sm``."""
+    stages, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    rc = _lib().hcspmm_tband_config(bh, dt, int(x_dtype == torch.bfloat16),
+                                    int(out_dtype == torch.float32), ctypes.byref(stages),
+                                    ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"csrc/tband.cu launch configuration failed: cudaError {rc}")
+    return dict(stages=stages.value, smem=smem.value, blocks_per_sm=blocks.value)
 
 
 def check_plan(plan) -> None:
@@ -202,6 +219,9 @@ def _launch(starts, sw_ids, at, xt, out, num_sw):
     global launches
     sb, w, bh = at.shape
     dt, m = xt.shape
+    if at.data_ptr() % 16 or xt.data_ptr() % 16 or m * xt.element_size() % 16:
+        raise ValueError("the band kernel's bulk copies need at and xt 16-byte aligned and "
+                         f"xt's rows a multiple of 16 bytes (M={m})")
     with torch.cuda.device(xt.device):
         rc = _lib().hcspmm_tband_spmm(
             starts.data_ptr(), None if sw_ids is None else sw_ids.data_ptr(),

@@ -48,10 +48,26 @@ def band_inputs(dt, trash, sb=5, w=256, bh=128, m=1024, seed=0):
     return sw, st, at, xt, sb
 
 
-@pytest.mark.parametrize("trash", [0, 2])
-@pytest.mark.parametrize("dt", [16, 32, 96])
-def test_plain_direct_and_bucket_match_jax_kernels(dt, trash):
-    sw, st, at, xt, num_sw = band_inputs(dt, trash, seed=dt + trash)
+# (dt, trash, W, bh, M): the first six at the default W 256, bh 128, M 1024;
+# then the shapes the band kernel's ring must handle: one 64-row stage, GH's
+# W 896 (14 stages, a multiple of no ring depth), bh 32, 256 and 512 (the
+# tensor copies' 32-, 128- and 128-column boxes; bh 96 takes three 32-column
+# boxes), dt 48 (three 16-row feature slabs)
+BAND_SHAPES = {
+    **{f"{dt}-{trash}": (dt, trash, 256, 128, 1024) for dt in (16, 32, 96) for trash in (0, 2)},
+    "w64": (16, 2, 64, 128, 1024),
+    "w896-bh256": (32, 2, 896, 256, 2048),
+    "bh32-dt48": (48, 0, 256, 32, 512),
+    "bh96": (32, 2, 192, 96, 768),
+    "bh512-dt48": (48, 2, 128, 512, 1024),
+    "w896-bh512": (16, 0, 896, 512, 1024),
+}
+
+
+@pytest.mark.parametrize("shape", list(BAND_SHAPES.values()), ids=list(BAND_SHAPES))
+def test_plain_direct_and_bucket_match_jax_kernels(shape):
+    dt, trash, w, bh, m = shape
+    sw, st, at, xt, num_sw = band_inputs(dt, trash, w=w, bh=bh, m=m, seed=dt + trash)
     want = np.asarray(jax_tband.tband_spmm_direct(
         jnp.asarray(sw), jnp.asarray(st), jnp.asarray(at), jnp.asarray(xt),
         num_sw, jnp.float32))
@@ -206,6 +222,24 @@ def test_spill_plans_bf16_match_jax_and_scipy(name):
     assert rel_err(got[:, :plan.num_nodes], oracle) < 1e-2
 
 
+def test_warp_load_counts_the_band_edges():
+    """utils/tband_load.py's statistics of a plan's band: every edge in one
+    visited (entry, warp, row), and no stage's busiest warp below the mean."""
+    from hcspmm_tpu_torch.utils import tband_load
+
+    graph, fields = PLANS["single_bucket"]
+    rp, ci, n = graph()
+    op = HybridSpMM(rp, ci, n, PlanConfig(**fields), device="cpu")
+    got = tband_load.warp_load(op.plan)
+    e = op.plan.band_edges[0]
+    assert got["nnz"] == len(e) == op.plan.band_nnz
+    triples = {(i, r // 32, k) for i, r, k in e.tolist()}
+    assert got["visited_share"] == pytest.approx(
+        len(triples) / (got["entries"] * got["warps"] * got["width"]))
+    assert got["nnz_per_visited_row"] == pytest.approx(len(e) / len(triples))
+    assert got["busiest_over_mean"] >= 1.0
+
+
 def test_check_band_arrays_rejects_out_of_range_slices():
     st = np.array([0, 128], np.int32)
     sw = np.array([0, 1], np.int32)
@@ -226,22 +260,33 @@ def test_wrapper_rejects_devices_it_has_no_kernel_for():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(BAND_SHAPES.values()), ids=list(BAND_SHAPES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(dtype):
+def test_cuda_kernel_matches_plain(dtype, shape):
+    """Both modes against the plain versions; two runs bitwise equal; in
+    fp32 the direct output equals the fused kernel's aggregate bit for bit
+    (both sum each element over its rows in increasing k)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     tol = 1e-5 if dtype == torch.float32 else 1e-2
-    sw, st, at, xt, num_sw = band_inputs(48, 2)
+    dt, trash, w, bh, m = shape
+    sw, st, at, xt, num_sw = band_inputs(dt, trash, w=w, bh=bh, m=m, seed=dt + trash)
     t = [torch.from_numpy(v).cuda() for v in (sw, st, at, xt)]
     t[3] = t[3].to(dtype)
     before = tband.launches
     got = tband.tband_spmm_direct(*t, num_sw, dtype)
+    again = tband.tband_spmm_direct(*t, num_sw, dtype)
     got_b = tband.tband_spmm_bucket(t[1], t[2], t[3])
     torch.cuda.synchronize()
-    assert tband.launches == before + 2
+    assert tband.launches == before + 3
+    assert torch.equal(got, again)
     ref = tband.tband_spmm_direct_plain(*t, num_sw, dtype)
     assert rel_err(got.float().cpu(), ref.float().cpu()) < tol
     assert rel_err(got_b.cpu(), tband.tband_spmm_bucket_plain(t[1], t[2], t[3]).cpu()) < tol
+    if dtype == torch.float32:
+        wt = torch.randn((16, dt), device="cuda")
+        agg, _ = tband.tband_fused_direct(*t, wt, num_sw, dtype)
+        assert torch.equal(agg, got)
 
 
 @pytest.mark.cuda
