@@ -16,8 +16,9 @@ Phases, each of which raises on failure, with its seconds printed:
    the DD-scale blocks stand-in's plan gives it (Sb 1312, W 768, bh 256,
    dt 32; two runs bitwise equal, and in fp32 equal bit for bit to the
    fused kernel's aggregate; timed beside torch.sparse.mm of the same
-   product and its bytes bound, fp32 and bf16), at small odd shapes (dt 16,
-   32, 48, 96; W 64 to 896; bh 32 to 512; capacity-padded entries; the
+   product and of the graph's own CSR, and its bytes bound, fp32 and bf16),
+   at small odd shapes (dt 16, 32, 48, 96; W 64 to 896; bh 32 to 512, each
+   of the 32-, 64- and 128-column copy boxes; capacity-padded entries; the
    same two bitwise checks) and on two-bucket full-cover plans (tband and
    wide: the bucket modes' path); fp32 within 1e-5 and bf16 within 1e-2 of
    max|ref|; the tband fused kernel and the bucket mode at the
@@ -865,18 +866,25 @@ def tband_kernel_report(log_text: str) -> list:
     return out
 
 
-def band_kernel_at_plan(key, op, gen, out) -> None:
+def band_kernel_at_plan(key, op, gen, out, graph) -> None:
     """The band kernel at a tband plan's main bucket (dt 32), fp32 and bf16:
     direct mode against its plain version, two runs bitwise equal, and in
     fp32 equal bit for bit to tband_fused_direct's aggregate; the bucket
     mode against its plain version; the direct mode timed (median of 7)
     beside its plain version, torch.sparse.mm of the same product (the
-    bucket's blocks as one CSR matrix, times X in rows) and its bytes
-    bound.  Rows go into ``out[(key, cd)]``."""
+    bucket's blocks as one CSR matrix, times X in rows), torch.sparse.mm of
+    the whole ``graph`` (rp, ci, n: its own CSR, spill edges included, times
+    the same X's first n rows) and its bytes bound.  Rows go into
+    ``out[(key, cd)]``."""
+    import numpy as np
     import torch
 
     from hcspmm_tpu_torch.kernels import tband
 
+    rp, ci, n = graph
+    g_rows = torch.sparse_csr_tensor(torch.from_numpy(rp.astype(np.int64)),
+                                     torch.from_numpy(ci.astype(np.int64)),
+                                     torch.ones(len(ci)), size=(n, n)).to(DEV)
     p, arrs = op.plan, op.arrays["f"]
     s = max(range(len(p.band_widths)), key=lambda i: len(p.band_sw_ids[i]))
     st, sw, at = arrs[f"band{s}_start"], arrs[f"band{s}_sw"], arrs[f"band{s}_at"]
@@ -918,15 +926,62 @@ def band_kernel_at_plan(key, op, gen, out) -> None:
         p_ms = cuda_time_ms(lambda: tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, dtype),
                             5)
         lib_ms = median_ms(lambda: torch.sparse.mm(a_cd, x_rows), 10)[0]
+        g_cd, x_g = g_rows.to(dtype), x_rows[:n]
+        graph_ms = median_ms(lambda: torch.sparse.mm(g_cd, x_g), 10)[0]
         b_ms, b_by = bound(at.numel() + xt.numel() * elt + 32 * m * elt + 8 * at.shape[0],
                            2 * nnz * 32)
         log(f"    {key} band kernel {cd} at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"torch.sparse.mm {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+            f"torch.sparse.mm {lib_ms:.4f} ms ({a_rows._nnz()} nnz, longest row "
+            f"{int(a_rows.crow_indices().diff().max())}; of the graph's own CSR, "
+            f"{len(ci)} nnz: {graph_ms:.4f} ms), bound {b_ms:.4f} ms by {b_by}; "
             f"{k_ms / b_ms:.2f}x the bound, {k_ms / lib_ms:.2f}x torch.sparse.mm")
         out[(key, cd)] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-                              bound_by=b_by, shape=shape)
-        del xt, x_rows, a_cd, got, ref
-    del a_rows
+                              bound_by=b_by, shape=shape, graph_library_ms=graph_ms)
+        del xt, x_rows, a_cd, g_cd, x_g, got, ref
+    del a_rows, g_rows
+
+
+def band_kernel_small_shapes(gen) -> None:
+    """The band kernel against its plain version at small shapes, both modes,
+    fp32 and bf16, with capacity-padded entries: two runs bitwise equal, and
+    in fp32 equal bit for bit to tband_fused_direct's aggregate."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import tband
+
+    # (dt, W, bh, M): dt 16/48/96 at bh 128 and 256, then one 64-row stage,
+    # GH's W 896, bh 32, 96 and 512, dt 48; then the 64-byte swizzle's
+    # 64-column boxes: bh 64 (one), 192 (three) and 320 (five, warps of 32)
+    small = [(dt, 256, bh, 1024) for dt in (16, 48, 96) for bh in (128, 256)] + [
+        (16, 64, 128, 1024), (32, 896, 256, 2048), (48, 256, 32, 512), (32, 192, 96, 768),
+        (48, 128, 512, 1024), (16, 896, 512, 1024), (16, 256, 64, 512), (32, 384, 192, 1024),
+        (48, 192, 320, 768)]
+    for dt, w, bh, mm in small:
+        sb, trash = 7, 2
+        at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(DEV)
+        st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128)
+        sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
+                          torch.full((trash,), sb - trash)])
+        st_s, sw_s = st_s.to(DEV, torch.int32), sw_s.to(DEV, torch.int32)
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            xt = torch.randn((dt, mm), generator=gen).to(DEV, dtype)
+            got = tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash, dtype)
+            if not torch.equal(got, tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash,
+                                                            dtype)):
+                raise AssertionError(f"direct {cd} dt {dt} W {w} bh {bh}: two runs differ")
+            check(f"direct {cd} dt {dt} W {w} bh {bh} +{trash} padded entries", got,
+                  tband.tband_spmm_direct_plain(sw_s, st_s, at_s, xt, sb - trash, dtype), cd)
+            check(f"bucket {cd} dt {dt} W {w} bh {bh}",
+                  tband.tband_spmm_bucket(st_s, at_s, xt),
+                  tband.tband_spmm_bucket_plain(st_s, at_s, xt), cd)
+            if cd == "float32":
+                wt = torch.randn((16, dt), generator=gen).to(DEV)
+                agg, _ = tband.tband_fused_direct(sw_s, st_s, at_s, xt, wt, sb - trash, dtype)
+                if not torch.equal(agg, got):
+                    raise AssertionError(f"dt {dt} W {w} bh {bh}: the fused aggregate "
+                                         "differs from the band kernel's output")
+    log("  band kernel at the small shapes: bitwise repeatable, and in fp32 equal to the "
+        "fused kernel's aggregate bit for bit")
 
 
 def small_row_kernel_checks(gen) -> None:
@@ -1782,39 +1837,8 @@ def main() -> int:
             f"band_h {plan.band_h}, {len(plan.band_sw_ids[0])} superwindows, M {m}, "
             f"spill {plan.spill_nnz} ({time.perf_counter() - t0:.1f} s with upload)")
         band_res = {}
-        band_kernel_at_plan("blocks", ops["float32"], gen, band_res)
-
-        # (dt, W, bh, M): dt 16/48/96 at bh 128 and 256, then one 64-row
-        # stage, GH's W 896, bh 32, 96 and 512, dt 48
-        small = [(dt, 256, bh, 1024) for dt in (16, 48, 96) for bh in (128, 256)] + [
-            (16, 64, 128, 1024), (32, 896, 256, 2048), (48, 256, 32, 512), (32, 192, 96, 768),
-            (48, 128, 512, 1024), (16, 896, 512, 1024)]
-        for dt, w, bh, mm in small:
-            sb, trash = 7, 2
-            at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
-            st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128)
-            sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
-                              torch.full((trash,), sb - trash)])
-            st_s, sw_s = st_s.to(dev, torch.int32), sw_s.to(dev, torch.int32)
-            for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-                xt = torch.randn((dt, mm), generator=gen).to(dev, dtype)
-                got = tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash, dtype)
-                if not torch.equal(got, tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash,
-                                                                dtype)):
-                    raise AssertionError(f"direct {cd} dt {dt} W {w} bh {bh}: two runs differ")
-                check(f"direct {cd} dt {dt} W {w} bh {bh} +{trash} padded entries", got,
-                      tband.tband_spmm_direct_plain(sw_s, st_s, at_s, xt, sb - trash, dtype), cd)
-                check(f"bucket {cd} dt {dt} W {w} bh {bh}",
-                      tband.tband_spmm_bucket(st_s, at_s, xt),
-                      tband.tband_spmm_bucket_plain(st_s, at_s, xt), cd)
-                if cd == "float32":
-                    wt = torch.randn((16, dt), generator=gen).to(dev)
-                    agg, _ = tband.tband_fused_direct(sw_s, st_s, at_s, xt, wt, sb - trash, dtype)
-                    if not torch.equal(agg, got):
-                        raise AssertionError(f"dt {dt} W {w} bh {bh}: the fused aggregate "
-                                             "differs from the band kernel's output")
-        log("  band kernel at the small shapes: bitwise repeatable, and in fp32 equal to the "
-            "fused kernel's aggregate bit for bit")
+        band_kernel_at_plan("blocks", ops["float32"], gen, band_res, (rp, ci, n))
+        band_kernel_small_shapes(gen)
 
         new_res = {}
         tband_fused_at_plan(ops["float32"], gen, new_res)
@@ -1886,7 +1910,7 @@ def main() -> int:
                 if key == "GH" and not (hub and t1 and t2):
                     raise AssertionError("the GH plan must build hub, T1 and T2")
                 if key in ("DD", "GH") and cd == "float32":
-                    band_kernel_at_plan(key, op, gen, band_res)
+                    band_kernel_at_plan(key, op, gen, band_res, (rpk, cik, nk))
                 spill_kernels_vs_plain(key, arrs, p, dtype, cd, gen, spill_res)
                 with torch.no_grad():
                     xp = op.pad_input(torch.from_numpy(x))

@@ -28,8 +28,7 @@
 // W 768, bh 256, dt 32, fp32) one apply must read 258 MB of A_t (the int8
 // block whole: the tband_pack=1 contract) and 43 MB of X^T and write 43 MB:
 // 0.103 ms at 3.35 TB/s.  The useful arithmetic is 2*nnz*dt = 0.1 GFLOP.
-// 14.5% of the (entry, warp, row) triples hold a non-zero, 1.4 non-zeros
-// each (utils/tband_load.py).  The port's first kernel staged each 64-row
+// The port's first kernel staged each 64-row
 // step synchronously between two __syncthreads(), its transposing store of
 // X^T hitting one shared-memory bank 32 times over, and voted on every row:
 // 0.409 ms.
@@ -60,13 +59,12 @@
 // fmaf, as the first kernel and tband_fused_kernel do, so the fp32 result
 // is theirs bit for bit, and repeatable.
 // What bounds it now is the consumers, beside copies that run near the
-// bytes bound: their work is uneven (utils/tband_load.py: the warp with
-// the most non-zero rows in a stage has 2.6x the mean at 32 columns a warp,
-// the graph's diagonal blocks crossing the columns), and a warp may run at
-// most S-1 stages ahead of the slowest.  Warps of 16 columns halve each
-// warp's rows and double the warps that hide the loads' latency: on an H100
-// 80GB HBM3 at 700 W (chip_smoke.py, two calls) the blocks stand-in took
-// 0.197 ms in fp32 against 0.219 with 32 columns a warp.
+// bytes bound: their work is uneven (the graph's diagonal blocks cross
+// some warps' columns and miss others'), and a warp may run at most S-1
+// stages ahead of the slowest.  Warps of 16 columns halve each warp's rows
+// and double the warps that hide the loads' latency: on an H100 80GB HBM3
+// at 700 W (chip_smoke.py, two calls) the blocks stand-in took 0.197 ms in
+// fp32 against 0.219 with 32 columns a warp.
 // Tried on the way and slower: row-by-row bulk copies of A_t (96 requests a
 // stage: the copy engine's cost per request bound it even with the sums
 // switched off); the producer transposing X^T to [64][DT] for one thread
@@ -74,24 +72,18 @@
 // memory; reading the landed [DT][64] slab with one broadcast load per
 // feature instead was slower still); the sums in registers behind a jump
 // table; one block an SM with 6 stages, or three with 2; updating two
-// columns at a time.
-// -DTBAND_MAX_STAGES=n caps the ring; utils/tband_ab.py times such builds
-// against the default on the card.
+// columns at a time; a ring capped at 2 stages.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef TBAND_MAX_STAGES
-#define TBAND_MAX_STAGES 6
-#endif
-
 namespace {
 
 constexpr int KT = 64;  // contraction rows of A_t and X^T staged per step
 constexpr int MAX_BH = 512;
-constexpr int MAX_STAGES = TBAND_MAX_STAGES;
+constexpr int MAX_STAGES = 6;
 constexpr int BAR_BYTES = 128;     // the ring's mbarriers
 constexpr int SWIZZLE_ATOM = 1024;  // a swizzled tensor copy's destination alignment
 static_assert(2 * MAX_STAGES * 8 <= BAR_BYTES, "the mbarriers outgrow BAR_BYTES");

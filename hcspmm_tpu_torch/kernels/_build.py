@@ -16,7 +16,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -35,30 +34,25 @@ def nvcc_path() -> str:
     return path
 
 
-def _flags(defines) -> tuple:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(name: str, defines: tuple = ()) -> str:
-    """Path of the shared library built from ``csrc/<name>.cu`` (with the
-    preprocessor ``defines``, ``"NAME=value"`` strings)."""
+def library_path(name: str) -> str:
+    """Path of the shared library built from ``csrc/<name>.cu``."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_flags(defines)).encode())
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str, defines: tuple = ()) -> ctypes.CDLL:
+def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it.
 
     nvcc's output, with ptxas's register and shared-memory report, is kept
     beside the library as ``<library>.log``.  Raises on a failed build."""
-    so = library_path(name, defines)
+    so = library_path(name)
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        tmp = f"{so}.{os.getpid()}.tmp"
         res = subprocess.run(
-            [nvcc_path(), *_flags(defines), "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
             capture_output=True, text=True, timeout=600)
         with open(so + ".log", "w") as f:
             f.write(res.stdout + res.stderr)

@@ -54,9 +54,9 @@ _KT = 64       # csrc/tband.cu KT: the contraction width must divide by it
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(defines: tuple = ()) -> ctypes.CDLL:
-    """csrc/tband.cu, built (with the preprocessor ``defines``) and bound."""
-    lib = load_library("tband", defines)
+def _lib() -> ctypes.CDLL:
+    """csrc/tband.cu, built and bound."""
+    lib = load_library("tband")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hcspmm_tband_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                       i64, i64, i32, i32, i32, vp]
