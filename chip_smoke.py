@@ -25,10 +25,11 @@ Phases, each of which raises on failure, with its seconds printed:
    stand-in plan's arrays, timed, with the Table VI analog (fused vs the
    composed pair, interleaved) at dim 32, and the fused kernel timed at dt
    96 / ht 32, dt 192 / ht 32 and dt 64 / ht 608;
-4. holds the spill kernels (zero_lane_blocks, mxgather_lanes,
-   tbstream_merge) against their plain versions at small odd shapes:
-   dt 16/48/96, merge groups 4/8/16/32, chunk widths 128-1024, empty id
-   lists, a block run of many chunks, the merge with and without the
+4. holds the spill kernels (mxgather_lanes, tbstream_merge) and the
+   zero-fill folded into the band kernel's direct launch (runs of eight,
+   singles, both and neither, bh 128 and 256) against their plain versions
+   at small odd shapes: dt 16/48/96, merge groups 4/8/16/32, chunk widths
+   128-1024, a block run of many chunks, the merge with and without the
    gather folded in (``gidx``); the merge must be bitwise deterministic;
 5. holds ``HybridSpMM.apply_padded`` on the blocks stand-in against scipy
    CSR @ X in float64, at fp32 and bf16;
@@ -36,8 +37,10 @@ Phases, each of which raises on failure, with its seconds printed:
    reorder): prints each plan's spill edges, missing superwindows and
    which of hub/T1/T2 it builds; on DD and GH the band kernel at the
    plan's own arrays as in 3 (checked, timed beside torch.sparse.mm and
-   its bound, fp32 and bf16); holds each spill kernel against its
-   plain version at the plan's own shapes (timed; the lane merge gathers
+   its bound, fp32 and bf16); holds the folded zero-fill's columns equal
+   to zero_lane_blocks_plain's (timed: the direct launch with the missing
+   lists less the same launch without them) and each spill kernel against
+   its plain version at the plan's own shapes (timed; the lane merge gathers
    through the plan's composed columns, checked against the reference's
    take, and prints its segment table's longest segment and length
    histogram; timed beside the take followed by the merge, and the take
@@ -51,10 +54,14 @@ Phases, each of which raises on failure, with its seconds printed:
 8. profiles one SpMM at dim 32 through ``cli.main --single_kernel`` on
    the blocks stand-in and on GH;
 9. the wide padded layout [M, dp]: holds the row-layout band kernel
-   against its plain version at the DD wide plan's shape (Sb 1190, Bb 640,
-   bh 256, dp 128 and 256) and at small odd shapes (dp 128/256/384, bh
-   128/256, 16-aligned starts, capacity-padded entries), fp32 and bf16,
-   timed;
+   (all three modes) against its plain versions at small odd shapes (dp
+   128/256/384, bh 128/256, Bb 640 and 1024 by tensor copies and 100 by
+   cp.async, 16-aligned starts, capacity-padded entries, G 1/2/4/8), fp32
+   and bf16, bitwise repeatable and in fp32 equal to the fused kernel's
+   aggregate; and at the DD and GH wide plans' main buckets (DD: Sb 1190,
+   Bb 640, bh 256; dp 128 and 256), the same checks, timed beside
+   torch.sparse.mm of the band blocks and of the graph's own CSR and the
+   bound;
 10. holds the row zero-fill and both row merges (block and tile form)
     against their plain versions at small odd shapes (dp 20-520); the
     merges must be bitwise deterministic;
@@ -93,7 +100,8 @@ Phases, each of which raises on failure, with its seconds printed:
     256, hp 256; dp 3712 on its slab path, held against the composed pair)
     timed beside the composed pair and the Table VI analog at
     dim 96, the bucket mode, the grouped band and the grouped A/B (direct
-    vs G = 1, 2, 4, 8, the port of tools/ab_grouped.py); at its tiled plan,
+    vs G = 1, 2, 4, 8 and torch.sparse.mm, the port of
+    tools/ab_grouped.py); at its tiled plan,
     the tiled band at dp 128 and 256;
 18. the kernel-fusion mode (``op.plan.prefer_fused_kernel = True``): the
     6-layer GCN and GIN on the tband plan and the 3-layer GCN and GIN at
@@ -154,6 +162,10 @@ ROW_KERNEL = {"dense_bucket_spmm": "dense_rows_kernel", "ell_bucket_spmm": "ell_
 H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA's data sheet (SXM)
 H100_FP32_OPS_PER_S = 67e12    # fp32 outside the tensor cores
 DEV = "cuda"  # the kernels' checks run here (a CPU rehearsal may point it elsewhere)
+WIDE_DESIGN = ("persistent, two blocks an SM; a ring of A tiles [32, Bb] filled by Tensor Memory "
+               "Accelerator copies (cp.async where Bb is no 16-byte multiple) under full/empty "
+               "mbarriers; eight consumer warps, a row each: its non-zeros found by ballots, "
+               "added in increasing k in batches whose X loads precede the FMAs")
 TBAND_DESIGN = ("persistent, two blocks an SM; a ring of Tensor Memory Accelerator copies "
                 "(swizzled A_t and X^T slabs) issued by one producer lane under full/empty "
                 "mbarriers; warps of 16 columns (32 above bh 256) with 64-row masks of "
@@ -325,7 +337,7 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
     on a seeded X^T [32, M]; times both; results go into ``out``."""
     import torch
 
-    from hcspmm_tpu_torch.kernels import tspill
+    from hcspmm_tpu_torch.kernels import tband, tspill
 
     dev = torch.device(DEV)
     m, bh = plan.padded_rows, plan.band_h
@@ -345,21 +357,46 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
                                                    plain_ms=p_ms, library_ms=lib_ms,
                                                    bound_ms=b_ms, bound_by=b_by))
 
-    for ids_key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
-        ids = arrs.get(ids_key)
-        if ids is None or not ids.shape[0]:
-            continue
-        label = f"zero {ids.shape[0]} x [32, {w}]"
-        got = tspill.zero_lane_blocks(base.clone(), ids, w)
-        ref = tspill.zero_lane_blocks_plain(base.clone(), ids, w)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"{key} {label}: kernel and plain version differ")
-        log(f"  {key} {label} {cd}: equal")
+    # the zero-fill, folded into the main bucket's direct launch: the missing
+    # superwindows' columns against zero_lane_blocks_plain's; its time is the
+    # launch with the missing lists less the same launch without them
+    # (medians of 7 interleaved rounds)
+    m8, m1 = arrs["band_missing_sw8"], arrs["band_missing_sw"]
+    s_main = max(range(len(plan.band_widths)), key=lambda i: len(plan.band_sw_ids[i]))
+    sw, st, at = (arrs[f"band{s_main}_{k}"] for k in ("sw", "start", "at"))
+    num_sw = m // bh
+    label = f"zero {m8.shape[0]} x [32, {8 * bh}] + {m1.shape[0]} x [32, {bh}]"
+    if m8.shape[0] or m1.shape[0]:
+        got = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype, m8, m1)
+        zero = torch.zeros(num_sw, dtype=torch.bool, device=dev)
+        zero[(m8.long()[:, None] * 8 + torch.arange(8, device=dev)).flatten()] = True
+        zero[m1.long()] = True
+        cols = zero.repeat_interleave(bh)
+        ref = tspill.zero_lane_blocks_plain(tspill.zero_lane_blocks_plain(
+            base.clone(), m8, 8 * bh), m1, bh)
+        if not torch.equal(got[:, cols], ref[:, cols]):
+            raise AssertionError(f"{key} {label}: the folded zero-fill and "
+                                 "zero_lane_blocks_plain differ")
+        log(f"  {key} {label} {cd}: the direct launch's zeroed columns equal "
+            "zero_lane_blocks_plain's")
+        ab = interleaved_ms({
+            "with": lambda: tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype, m8, m1),
+            "without": lambda: tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)}, 20)
         buf = base.clone()
-        lanes = (ids.long()[:, None] * w + torch.arange(w, device=dev)).reshape(-1)
-        record("zero_lane_blocks", label, 0.0, lambda: tspill.zero_lane_blocks(buf, ids, w),
-               lambda: tspill.zero_lane_blocks_plain(buf, ids, w),
-               ids.shape[0] * 32 * w * elt, fn_lib=lambda: buf.index_fill_(1, lanes, 0))
+        lanes = cols.nonzero().flatten()
+        p_ms = cuda_time_ms(lambda: tspill.zero_lane_blocks_plain(tspill.zero_lane_blocks_plain(
+            buf, m8, 8 * bh), m1, bh), 5)
+        lib_ms = cuda_time_ms(lambda: buf.index_fill_(1, lanes, 0), 5)
+        b_ms, b_by = bound(lanes.numel() * 32 * elt + 4 * (m8.numel() + m1.numel()), 0)
+        k_ms = ab["with"] - ab["without"]
+        log(f"    {key} {label} {cd}: direct launch with the zero items {ab['with']:.4f} ms, "
+            f"without {ab['without']:.4f} ms: the fold costs {k_ms:.4f} ms; plain "
+            f"{p_ms:.4f} ms, index_fill_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+        out.setdefault(("zero_lane_blocks", cd), []).append(dict(
+            graph=key, shape=label, err=0.0, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, direct_with_ms=ab["with"],
+            direct_without_ms=ab["without"]))
+        del got, ref, buf
 
     tables = {}
     for lo_key, rel_key, what in (("hub_lo", "hub_rel", "hub"), ("ts_lo", "ts_rel", "T1")):
@@ -474,25 +511,58 @@ def small_spill_checks(gen) -> None:
     import torch
 
     from hcspmm_tpu_torch.format.streams import build_bstream, build_mx_chunks
-    from hcspmm_tpu_torch.kernels import tspill
+    from hcspmm_tpu_torch.kernels import tband, tspill
 
     dev = torch.device(DEV)
     rng = np.random.RandomState(11)
-    before = dict(tspill.launches)
     empty = torch.zeros(0, dtype=torch.int32, device=dev)
-    probe = torch.randn((16, 1024), device=dev)
-    if tspill.zero_lane_blocks(probe, empty, 128) is not probe or tspill.launches != before:
-        raise AssertionError("an empty id list must launch nothing")
     for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for dt in (16, 48, 96):
             m = 16384
             xt = torch.randn((dt, m), generator=gen).to(dev, dtype)
-            for w in (128, 256, 2048):
-                ids = torch.from_numpy(rng.choice(m // w, 3, replace=False).astype(np.int32))
-                got = tspill.zero_lane_blocks(xt.clone(), ids.to(dev), w)
-                if not torch.equal(got, tspill.zero_lane_blocks_plain(xt.clone(), ids.to(dev),
-                                                                      w)):
-                    raise AssertionError(f"zero_lane_blocks dt {dt} w {w} {cd} differs")
+            for bh in (128, 256):
+                # the zero-fill folded into the band kernel's direct launch: a
+                # third of the superwindows owned, the rest missing as runs of
+                # eight and singles (both lists, either, or none)
+                num_sw = m // bh
+                runs = rng.choice(num_sw // 8, 2, replace=False)
+                in8 = np.zeros(num_sw, bool)
+                for r in runs:
+                    in8[8 * r:8 * r + 8] = True
+                free = np.flatnonzero(~in8)
+                owned = rng.permutation(free)[: num_sw // 3]
+                single = np.setdiff1d(free, owned)
+                sb = len(owned) + 2
+                at = (torch.rand((sb, 128, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
+                st = (torch.randint(0, (m - 128) // 128 + 1, (sb,), generator=gen) * 128).to(
+                    dev, torch.int32)
+                sw = torch.from_numpy(np.r_[owned, num_sw, num_sw].astype(np.int32)).to(dev)
+                m8 = torch.from_numpy(runs.astype(np.int32)).to(dev)
+                m1 = torch.from_numpy(single.astype(np.int32)).to(dev)
+                for ids8, ids1 in ((m8, m1), (m8, empty), (empty, m1), (empty, empty)):
+                    zero_before = tband.kernel_launches["zero_lane_blocks"]
+                    got = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype, ids8, ids1)
+                    ref = tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, dtype, ids8,
+                                                        ids1)
+                    cols = torch.zeros(num_sw, dtype=torch.bool)
+                    cols[torch.from_numpy(owned)] = True
+                    if ids8.numel():
+                        cols[torch.from_numpy(in8)] = True
+                    if ids1.numel():
+                        cols[torch.from_numpy(single)] = True
+                    c = cols.repeat_interleave(bh).to(dev)
+                    err, rel = rel_err(got[:, c].float().cpu(), ref[:, c].float().cpu())
+                    if not rel <= TOL[cd]:
+                        raise AssertionError(f"folded zero-fill dt {dt} bh {bh} {cd}: rel err "
+                                             f"{rel:.3e}")
+                    zc = torch.from_numpy(~np.isin(np.arange(num_sw), owned)) & cols
+                    if got[:, zc.repeat_interleave(bh).to(dev)].any():
+                        raise AssertionError(f"folded zero-fill dt {dt} bh {bh} {cd}: a "
+                                             "missing superwindow's block is not zero")
+                    if dev.type == "cuda" and tband.kernel_launches["zero_lane_blocks"] != (
+                            zero_before + int(bool(ids8.numel() or ids1.numel()))):
+                        raise AssertionError("only a direct launch with missing ids counts as "
+                                             "a zero-fill")
             for span, k, ncols in ((512, 32, 37), (2048, 128, 3000), (2048, 256, 900)):
                 lo, rel, _ = build_mx_chunks(np.unique(rng.randint(0, m, ncols)), span, k, m)
                 lo, rel = torch.from_numpy(lo).to(dev), torch.from_numpy(rel).to(dev)
@@ -535,15 +605,22 @@ def small_spill_checks(gen) -> None:
                     if not rel <= TOL[cd]:
                         raise AssertionError(f"gidx merge dt {dt} group {group} bw {bw} {cd}: "
                                              f"rel err {rel:.3e}")
-        log(f"  {cd}: zero-fill, mxgather (exact) and merge, with and without the gather "
+        log(f"  {cd}: the zero-fill folded into the direct launch (bh 128 and 256, runs of "
+            "eight and singles), mxgather (exact) and merge, with and without the gather "
             f"folded in (within {TOL[cd]:g}, bitwise repeatable) at dt 16/48/96, groups 4-32, "
             "bw 128-1024: pass")
 
 
-def wide_band_checks(op, gen, out) -> None:
-    """The row-layout band kernel against its plain version at ``op``'s
-    plan shape (dp 128 and 256, fp32 and bf16, timed; results into
-    ``out``) and at small odd shapes with capacity-padded entries."""
+def wide_band_checks(key, op, gen, out, graph) -> None:
+    """The row-layout band kernel (csrc/block_spmm.cu band_kernel, direct
+    mode) at the main bucket of ``op``'s wide plan, dp 128 and 256, fp32 and
+    bf16: against its plain version, two runs bitwise equal, and in fp32
+    equal bit for bit to band_fused_spmm_direct's aggregate; timed (median of
+    7) beside its plain version, torch.sparse.mm of the band blocks as one
+    CSR matrix and of the graph's own CSR (``graph`` = (rp, ci, n), spill
+    edges included, times the same X's first n rows), and its bound.  Rows go
+    into ``out[(key, dp, cd)]``."""
+    import numpy as np
     import torch
 
     from hcspmm_tpu_torch.kernels import block_spmm
@@ -551,55 +628,127 @@ def wide_band_checks(op, gen, out) -> None:
     dev = torch.device(DEV)
     p = op.plan
     arrs = op.arrays["f"]
-    st, sw, a = arrs["band0_start"], arrs["band0_sw"], arrs["band0_a"]
+    s = max(range(len(p.band_widths)), key=lambda i: len(p.band_sw_ids[i]))
+    st, sw, a = arrs[f"band{s}_start"], arrs[f"band{s}_sw"], arrs[f"band{s}_a"]
     m, num_sw = p.padded_rows, p.padded_rows // p.band_h
     owned = sw[sw < num_sw].long()  # the blocks of missing superwindows stay unset
     band_csr = block_csr(a, st, sw, num_sw, m)
     nnz = int(band_csr.values().numel())
+    rp, ci, n = graph
+    g_rows = torch.sparse_csr_tensor(torch.from_numpy(rp.astype(np.int64)),
+                                     torch.from_numpy(ci.astype(np.int64)),
+                                     torch.ones(len(ci)), size=(n, n)).to(dev)
+    ring = (block_spmm.band_launch(a.shape[2], *block_spmm.band_device(dev.index or 0)[1:])
+            if dev.type == "cuda" else None)
+    log(f"  {key} wide plan: Sb {a.shape[0]}, Bb {a.shape[2]}, bh {a.shape[1]}, {num_sw} "
+        f"superwindows, {nnz} band nnz; the band kernel's ring {ring}")
     for dp in WIDE_DIMS:
         for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             shape = f"Sb {a.shape[0]}, Bb {a.shape[2]}, bh {a.shape[1]}, dp {dp}"
             xp = torch.randn((m, dp), generator=gen).to(dev, dtype)
-            got = block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, dtype)
+
+            def direct():
+                return block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, dtype)
+
+            got = direct()
+            if not torch.equal(got[owned], direct()[owned]):
+                raise AssertionError(f"{key} wide direct {cd} dp {dp}: two runs differ")
             ref = block_spmm.band_bucket_spmm_direct_plain(sw, st, a, xp, num_sw, dtype)
-            err = check(f"wide direct {cd} at {shape} ({len(owned)} owned blocks)",
-                        got[owned], ref[owned], cd)
-            del got, ref
-            k_ms = cuda_time_ms(lambda: block_spmm.band_bucket_spmm_direct(
-                sw, st, a, xp, num_sw, dtype), 20)
-            p_ms = cuda_time_ms(lambda: block_spmm.band_bucket_spmm_direct_plain(
-                sw, st, a, xp, num_sw, dtype), 3)
-            b_ms, b_by = bound(a.numel() + m * dp * xp.element_size()
-                               + num_sw * a.shape[1] * dp * xp.element_size() + 8 * a.shape[0],
-                               2 * nnz * dp)
-            lib_ms = None
+            err = check(f"{key} wide direct {cd} at {shape} ({len(owned)} owned blocks, "
+                        "bitwise repeatable)", got[owned], ref[owned], cd)
+            del ref
             if cd == "float32":
-                lib_ms = cuda_time_ms(lambda: torch.sparse.mm(band_csr, xp), 5)
-            log(f"  {cd} dp {dp}: direct kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"torch.sparse.mm {lib_ms} ms, bound {b_ms:.4f} ms by {b_by}")
-            out[(dp, cd)] = dict(err=err, ms=k_ms, plain_ms=p_ms, shape=shape, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms)
-            if dp == 128 and cd == "float32":
-                check(f"wide bucket {cd} at {shape}", block_spmm.band_bucket_spmm(st, a, xp),
-                      block_spmm.band_bucket_spmm_plain(st, a, xp), cd)
-            del xp
+                wp = (torch.randn((dp, 128), generator=gen) * 0.1).to(dev)
+                agg, _ = block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, dtype)
+                if not torch.equal(agg[owned], got[owned]):
+                    raise AssertionError(f"{key} dp {dp}: band_fused_spmm_direct's aggregate "
+                                         "differs from the band kernel's output")
+                log(f"  {key} dp {dp}: band_fused_spmm_direct's aggregate equals the band "
+                    "kernel's output bit for bit")
+                del agg
+            del got
+            k_ms = median_ms(direct, 20)[0]
+            p_ms = cuda_time_ms(lambda: block_spmm.band_bucket_spmm_direct_plain(
+                sw, st, a, xp, num_sw, dtype), 2)
+            b_ms, b_by = bound(a.numel() + m * dp * xp.element_size()
+                               + len(owned) * a.shape[1] * dp * xp.element_size()
+                               + 8 * a.shape[0], 2 * nnz * dp)
+            a_cd, g_cd = band_csr.to(dtype), g_rows.to(dtype)
+            lib_ms = median_ms(lambda: torch.sparse.mm(a_cd, xp), 10)[0]
+            x_g = xp[:n]
+            graph_ms = median_ms(lambda: torch.sparse.mm(g_cd, x_g), 10)[0]
+            log(f"    {key} wide direct {cd} dp {dp}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"torch.sparse.mm of the band blocks {lib_ms:.4f} ms, of the graph's own CSR "
+                f"({len(ci)} nnz) {graph_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+                f"{k_ms / b_ms:.2f}x the bound, {k_ms / graph_ms:.2f}x the graph's call")
+            out[(key, dp, cd)] = dict(err=err, ms=k_ms, plain_ms=p_ms, shape=shape,
+                                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                      graph_library_ms=graph_ms)
+            del xp, x_g, a_cd, g_cd
+            torch.cuda.empty_cache()
+    del band_csr, g_rows
+
+
+def wide_band_small_shapes(gen) -> None:
+    """band_kernel against its plain versions at small odd shapes, all three
+    modes, fp32 and bf16, every output bitwise repeatable: bh 128 and 256,
+    dp 128/256/384, Bb 640 and 1024 (tensor copies) and 100 (no 16-byte
+    multiple: cp.async), 16-aligned starts, capacity-padded entries; in fp32
+    the direct output equals band_fused_spmm_direct's aggregate bit for bit;
+    the grouped mode at G 1/2/4/8 on 16 entries and on 12 (G halves until it
+    divides), 3 past num_sw."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+
+    dev = torch.device(DEV)
+    dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    mm, sb, trash = 2048, 7, 2
     for bh in (128, 256):
-        for dp in (128, 256, 384):
-            sb, bb, mm, trash = 7, 640, 2048, 2
+        for bb in (640, 100, 1024):
             a_s = (torch.rand((sb, bh, bb), generator=gen) < 0.05).to(torch.int8).to(dev)
-            st_s = torch.randint(0, (mm - bb) // 16 + 1, (sb,), generator=gen) * 16
+            st_s = (torch.randint(0, (mm - bb) // 16 + 1, (sb,), generator=gen) * 16).to(
+                dev, torch.int32)
             sw_s = torch.cat([torch.randperm(sb - trash, generator=gen),
-                              torch.full((trash,), sb - trash)])
-            st_s, sw_s = st_s.to(dev, torch.int32), sw_s.to(dev, torch.int32)
-            for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-                xp = torch.randn((mm, dp), generator=gen).to(dev, dtype)
-                check(f"wide direct {cd} bh {bh} dp {dp} +{trash} padded entries",
-                      block_spmm.band_bucket_spmm_direct(sw_s, st_s, a_s, xp, sb - trash, dtype),
-                      block_spmm.band_bucket_spmm_direct_plain(sw_s, st_s, a_s, xp, sb - trash,
-                                                               dtype), cd)
-                check(f"wide bucket {cd} bh {bh} dp {dp}",
-                      block_spmm.band_bucket_spmm(st_s, a_s, xp),
-                      block_spmm.band_bucket_spmm_plain(st_s, a_s, xp), "float32")
+                              torch.full((trash,), sb - trash)]).to(dev, torch.int32)
+            for dp in (128, 256, 384):
+                for cd, dtype in dtypes:
+                    xp = torch.randn((mm, dp), generator=gen).to(dev, dtype)
+                    hold_repeatable(
+                        f"wide direct {cd} bh {bh} Bb {bb} dp {dp} +{trash} padded entries",
+                        lambda: block_spmm.band_bucket_spmm_direct(sw_s, st_s, a_s, xp,
+                                                                   sb - trash, dtype),
+                        lambda: block_spmm.band_bucket_spmm_direct_plain(sw_s, st_s, a_s, xp,
+                                                                         sb - trash, dtype),
+                        cd)
+                    hold_repeatable(f"wide bucket {cd} bh {bh} Bb {bb} dp {dp}",
+                                    lambda: block_spmm.band_bucket_spmm(st_s, a_s, xp),
+                                    lambda: block_spmm.band_bucket_spmm_plain(st_s, a_s, xp),
+                                    "float32")
+                    if cd == "float32":
+                        wp = torch.randn((dp, 128), generator=gen).to(dev)
+                        agg, _ = block_spmm.band_fused_spmm_direct(sw_s, st_s, a_s, xp, wp,
+                                                                   sb - trash, dtype)
+                        if not torch.equal(agg, block_spmm.band_bucket_spmm_direct(
+                                sw_s, st_s, a_s, xp, sb - trash, dtype)):
+                            raise AssertionError(f"bh {bh} Bb {bb} dp {dp}: the fused "
+                                                 "aggregate differs from the band kernel's")
+            for sb_g in (16, 12):
+                a_g = (torch.rand((sb_g, bh, bb), generator=gen) < 0.05).to(torch.int8).to(dev)
+                st_g = (torch.randint(0, (mm - bb) // 16 + 1, (sb_g,), generator=gen) * 16).to(
+                    dev, torch.int32)
+                for group in (1, 2, 4, 8):
+                    for cd, dtype in dtypes:
+                        xp = torch.randn((mm, 256), generator=gen).to(dev, dtype)
+                        hold_repeatable(
+                            f"wide grouped {cd} G {group} Sb {sb_g} bh {bh} Bb {bb}",
+                            lambda: block_spmm.band_bucket_spmm_grouped(st_g, a_g, xp, sb_g - 3,
+                                                                        dtype, group),
+                            lambda: block_spmm.band_bucket_spmm_grouped_plain(
+                                st_g, a_g, xp, sb_g - 3, dtype, group), cd)
+    log("  band kernel, direct/bucket/grouped, bh 128/256, Bb 640/100/1024, dp 128-384, "
+        "G 1-8, fp32 and bf16: within tolerance of the plain versions, bitwise repeatable, "
+        "fp32 equal to the fused aggregate: pass")
 
 
 def merge_pair(kind):
@@ -1659,6 +1808,9 @@ def wide_new_kernels_at_plan(op_w, op_t, gen, out, launch_runs) -> None:
     for group in (1, 2, 4, 8):
         variants[f"G{group}"] = (lambda g=group: block_spmm.band_bucket_spmm_grouped(
             st, a, xp, num_sw, xp.dtype, g))
+    # the yardstick in the same rounds (the blocks stand-in has no spill: its
+    # band blocks are the graph's own CSR)
+    variants["torch.sparse.mm"] = lambda: torch.sparse.mm(band_csr, xp)
     zero_counts()
     ab = interleaved_ms(variants, 10)
     launch_runs["grouped A/B"] = read_counts()
@@ -1821,6 +1973,9 @@ def main() -> int:
         for bh, dtype in ((256, torch.float32), (256, torch.bfloat16), (512, torch.float32)):
             log(f"  tband_kernel at bh {bh}, dt 32, {dtype}: "
                 f"{tband.launch_config(bh, 32, dtype, dtype)} (dynamic shared memory bytes)")
+        for bb in (384, 640, 1024):
+            log(f"  band_kernel's ring at Bb {bb}: "
+                f"{block_spmm.band_launch(bb, *block_spmm.band_device(0)[1:])}")
 
     gen = torch.Generator().manual_seed(0)
     with Phase("3. band kernel vs plain version"):
@@ -1879,12 +2034,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     spill_res = {}
-    real_edges = {}
+    real_edges, real_csr = {}, {}
     with Phase("6. the DD, YS and GH stand-ins: spill kernels and apply_padded vs scipy"):
         for key in REAL:
             t0 = time.perf_counter()
             s_e, d_e, rpk, cik, nk = real_graph(key)
             real_edges[key] = (s_e, d_e, nk)
+            real_csr[key] = (rpk, cik, nk)  # cluster order, reused by the wide phases
             t_graph = time.perf_counter() - t0
             x = np.random.RandomState(0).randn(nk, 32).astype(np.float32)
             ref = csr_matmul(rpk, cik, nk, x)
@@ -1930,7 +2086,7 @@ def main() -> int:
             launch_runs["blocks"], done = train_and_count(path, "rcm", {"tband_spmm": 1})
             epochs["blocks tband gcn"] = done["epoch_ms"]
             paths = {}
-            for key, need in (("DD", {"tband_spmm": 1, "zero_lane_blocks": 2,
+            for key, need in (("DD", {"tband_spmm": 1, "zero_lane_blocks": 1,
                                       "tbstream_merge": 1}),
                               ("GH", {"tband_spmm": 1, "zero_lane_blocks": 1,
                                       "mxgather_lanes": 2, "tbstream_merge": 2})):
@@ -1962,30 +2118,23 @@ def main() -> int:
                     f"{sag[name]['gnnz_per_s']:.3f} Gnnz/s")
 
         with Phase("9. wide band kernel vs plain version"):
-            t0 = time.perf_counter()
-            s_e, d_e, nk = real_edges["DD"]
-            rpk, cik = gio.to_csr(s_e, d_e, nk)
-            rpk, cik = reorder.apply_permutation(rpk, cik, nk,
-                                                 reorder.cluster_reorder(rpk, cik, nk))
-            dd_graph = (rpk, cik, nk)
-            op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="wide"), device=dev)
-            log(f"  DD wide plan ({time.perf_counter() - t0:.1f} s)")
+            wide_band_small_shapes(gen)
             wide_res = {}
-            wide_band_checks(op, gen, wide_res)
-            del op
-            torch.cuda.empty_cache()
+            for key in ("DD", "GH"):
+                t0 = time.perf_counter()
+                rpk, cik, nk = real_csr[key]
+                op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="wide"), device=dev)
+                log(f"  {key} wide plan ({time.perf_counter() - t0:.1f} s)")
+                wide_band_checks(key, op, gen, wide_res, (rpk, cik, nk))
+                del op
+                torch.cuda.empty_cache()
 
         with Phase("10. row zero-fill and merges vs plain versions, small odd shapes"):
             small_row_checks(gen)
 
         row_res = {}
         with Phase("11. wide plans: apply_padded vs scipy, row kernels at the plans' arrays"):
-            graphs = {"blocks": (rp, ci, n)}
-            for key in REAL:
-                s_e, d_e, nk = real_edges[key]
-                rpk, cik = gio.to_csr(s_e, d_e, nk)
-                graphs[key] = (*reorder.apply_permutation(
-                    rpk, cik, nk, reorder.cluster_reorder(rpk, cik, nk)), nk)
+            graphs = {"blocks": (rp, ci, n), **real_csr}
             cases = [(key, {}) for key in graphs] + [("DD", dict(ds_kind="tile"))]
             for key, extra in cases:
                 rpk, cik, nk = graphs[key]
@@ -2083,7 +2232,7 @@ def main() -> int:
 
         rows_res = {}
         with Phase("14. the row layout on DD (band_mode='never'): kernels, apply, training"):
-            row_layout_phase(*dd_graph, gen, rows_res, launch_runs)
+            row_layout_phase(*real_csr["DD"], gen, rows_res, launch_runs)
 
         with Phase("15. --impl xla through cli.main on the blocks stand-in"):
             zero_counts()
@@ -2209,7 +2358,7 @@ def main() -> int:
 
     zero, mxg, merge = (at("zero_lane_blocks", "DD", "x [32, 2048]"),
                         at("mxgather_lanes", "GH", "T1"), at("tbstream_merge", "GH", "cold"))
-    wide = wide_res[(256, "float32")]
+    wide = wide_res[("DD", 256, "float32")]
     dense, ell = rows_res[("DD calibrated", "dense_bucket_spmm")], rows_res[
         ("DD intended", "ell_bucket_spmm")]
     csrc = "hcspmm_tpu_torch/csrc/"
@@ -2240,15 +2389,23 @@ def main() -> int:
         entry("band_fused_spmm_direct", csrc + "block_spmm.cu", tpu + "block_spmm.py:666",
               wide_fused, wide_fused["shape"], err=max(
                   v["err"] for (k, _), v in new_res.items() if k == "band_fused_spmm_direct")),
-        *[entry(name, csrc + "tspill.cu", tpu + replaces, r,
+        *[entry(name, csrc + source, tpu + replaces, r,
                 f"{r['graph']} {r['shape']}, dt 32, float32",
-                err=max(v["err"] for v in spill_res[(name, "float32")]))
-          for name, replaces, r in (("zero_lane_blocks", "tspill.py:75", zero),
-                                    ("mxgather_lanes", "tspill.py:351", mxg),
-                                    ("tbstream_merge", "tspill.py:189", merge))],
+                err=max(v["err"] for v in spill_res[(name, "float32")]), **extra)
+          for name, source, replaces, r, extra in (
+              ("zero_lane_blocks", "tband.cu", "tspill.py:75", zero, dict(
+                  design="folded into tband_kernel's direct launch: zero items written by the "
+                         "consumer warps before the first stage lands; ms is that launch with "
+                         "the missing lists less the same launch without them",
+                  direct_with_ms=zero["direct_with_ms"],
+                  direct_without_ms=zero["direct_without_ms"])),
+              ("mxgather_lanes", "tspill.cu", "tspill.py:351", mxg, {}),
+              ("tbstream_merge", "tspill.cu", "tspill.py:189", merge, {}))],
         entry("band_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:459", wide,
               f"DD wide plan {wide['shape']}, float32, direct write",
-              err=max(v["err"] for (_, cd), v in wide_res.items() if cd == "float32")),
+              err=max(v["err"] for (_, _, cd), v in wide_res.items() if cd == "float32"),
+              design=WIDE_DESIGN, graph_library_ms=wide["graph_library_ms"],
+              plans={f"{k} dp {dp} {cd}": v for (k, dp, cd), v in wide_res.items()}),
         *[entry(name, csrc + source, tpu + replaces, r,
                 f"{r['graph']} wide plan {r['shape']}, float32",
                 err=max(v["err"] for v in row_res[(name, "float32")]))

@@ -1,20 +1,19 @@
 // Row-layout band SpMM for Hopper (sm_90a), bound from Python with ctypes
 // (kernels/block_spmm.py holds the wrappers and the plain PyTorch versions).
 //
-// Four kernels share one inner loop, ``add_row``: a warp owns one output row
-// and adds, for each non-zero of that row of an int8 0/1 block of A, the X
-// row it names.  It reads the row of A as 4-byte words (32 lanes = 128
-// columns per step), votes which words hold a non-zero, and for each
-// non-zero byte, in column order, adds that X row's slice with fp32 FMAs
-// (lane l owns columns 4l..4l+3 of each 128-column group).  Sums run in fp32
-// with plain FMAs on the CUDA cores, no tensor cores and no TF32: the
-// counterpart of the reference's Precision.HIGHEST in fp32; bf16 inputs are
-// widened with __bfloat162float, as the reference's DEFAULT-precision bf16
-// dot accumulates exact 0/1 x bf16 products in fp32.  Outputs are rounded
-// to nearest once.  Every output element is summed by one thread in a fixed
-// order, so results are bitwise repeatable.  An absent edge adds nothing even
-// where X is not finite (as in a CSR product), where the Pallas kernels'
-// dense dots would spread a NaN over the superwindow.
+// Every kernel here computes, for an int8 0/1 block of A, the product of
+// each row with X: for each non-zero of the row, in column order, the X row
+// it names is added with fp32 FMAs (lane l owns columns 4l..4l+3 of each
+// 128-column group).  Sums run in fp32 with plain FMAs on the CUDA cores, no
+// tensor cores and no TF32: the counterpart of the reference's
+// Precision.HIGHEST in fp32; bf16 inputs are widened with __bfloat162float,
+// as the reference's DEFAULT-precision bf16 dot accumulates exact 0/1 x bf16
+// products in fp32.  Outputs are rounded to nearest once.  Every output
+// element is summed by one thread, from 0.f over its row's non-zeros in
+// increasing k, so results are bitwise repeatable and equal across the
+// kernels.  An absent edge adds nothing even where X is not finite (as in a
+// CSR product), where the Pallas kernels' dense dots would spread a NaN over
+// the superwindow.
 //
 // band_kernel replaces hcspmm_tpu/kernels/block_spmm.py:
 //   band_bucket_spmm_direct (pallas_call at :459), band_bucket_spmm (:317)
@@ -25,9 +24,9 @@
 //
 //   with c_i = sw[i] (direct mode: the superwindow's own rows, in X's dtype
 //   or fp32), or c_i = i (bucket mode: fp32 blocks in bucket order, which the
-//   caller scatters; grouped mode: identity order, one thread block owning
-//   ``group`` consecutive entries, as a grid step of the Pallas kernel owns
-//   G superwindows).  An entry whose c_i >= num_sw (capacity padding,
+//   caller scatters; grouped mode: identity order, ``group`` consecutive
+//   entries a unit of work, as a grid step of the Pallas kernel owns G
+//   superwindows).  An entry whose c_i >= num_sw (capacity padding,
 //   format/plan.py) writes nothing, so no trash block is allocated.
 // tiled_kernel replaces band_tiled_spmm (pallas_call at :597): superwindow s
 //   sums its run of (superwindow, 128-row X tile) pairs, ptr[s] <= p <
@@ -41,22 +40,73 @@
 //   ``agg.astype(w.dtype)`` does, then multiplied by W [dp, hp] read through
 //   L2: out = agg @ W, summed in fp32 in k order; fused_slab_kernel is its
 //   form for dp above 1792, where 32 aggregate rows outgrow shared memory.
+//   tiled_kernel and fused_kernel read their rows of A from device memory a
+//   warp at a time (add_row).
 //
 // What bounds them.  The blocks are under 1% non-zero (DD's wide plan:
 // 1.38 M edges in 1190 x 256 x 640 bytes of A), so no kernel multiplies the
-// dense block; a row of X is read once per non-zero of A and the
-// superwindow's band (Bb rows) stays in L2 while its bh rows are computed.
-// Reading A (every byte, to find the non-zeros) is the bytes floor; the
-// per-non-zero gathers and the instruction issue of the vote loop keep the
-// kernels above it.  The fused kernel's W product is dense: 2*bh*dp*hp
-// operations per superwindow on the CUDA cores, which at hidden 256 bounds
-// it by operations, not bytes.  The 4-deep DMA ring of the TPU kernels
-// (block_spmm.py:_band_body_deep) is not copied: many warps resident on each
-// SM hide the load latency instead.
+// dense block (a dense bf16 product on the tensor cores would take about as
+// long as the bytes floor, and could not keep fp32 bitwise): a row of X is
+// read once per non-zero of A, from L2, where the superwindow's band (Bb
+// rows) stays while its bh rows are computed.  Reading A whole (every byte,
+// to find the non-zeros) is the larger part of the bytes floor at dp 128:
+// at the blocks stand-in 215 MB of A beside 171 MB of X and 172 MB of
+// output, 0.167 ms at 3.35 TB/s.  The fused kernel's W product is dense:
+// 2*bh*dp*hp operations per superwindow on the CUDA cores, which at hidden
+// 256 bounds it by operations, not bytes.
+//
+// band_kernel's design.  The first kernel gave each output row a warp that
+// read its row of A from device memory 128 bytes at a time, voted on the
+// words, then for each non-zero issued one dependent 16-byte-a-lane load of
+// X and its FMAs: about one load a warp in flight, so the A scan ran at
+// device-memory latency (2.2x the bound at dp 128, behind torch.sparse.mm).
+// Now blocks are persistent (three an SM where the registers allow: at one
+// column group; two at more) and take (entry group, 32-row chunk) units,
+// chunk fastest, so an entry's X band stays in L2 while its chunks run:
+//   - the producer lane takes each unit from a work counter (an atomic
+//     add), so a block that drew dense units takes fewer (dealt
+//     round-robin instead, the uneven plans of DD and GH ran markedly
+//     slower, the uniform blocks stand-in no faster).  It keeps a ring of
+//     2-8 stages of A tiles [32, Bb] filled ahead of the consumers by
+//     Tensor Memory Accelerator copies (a 2-D tensor map over A as [Sb*bh,
+//     Bb], boxes of at most 256 bytes: Bb 640 is 5 boxes of 128), under a
+//     full and an empty mbarrier a stage, and writes each stage's item into
+//     a header;
+//     where Bb is no 16-byte multiple (TMA cannot take the stride) the
+//     producer warp's 32 lanes stage it by 4-byte cp.async instead;
+//   - eight consumer warps take an item's rows in turn.  A warp reads its
+//     row from shared memory, 32 bytes a lane, turns each lane's bytes into
+//     a mask of non-zeros (a carry-free byte test and one multiply), and
+//     walks the non-zeros in increasing k with ballots and one shuffle per
+//     lane that holds any; it adds them U = 4 at a time (2 at 3-4 column
+//     groups), each lane issuing the batch's U*NG 16-byte loads of X (L2
+//     only: a row is rarely read twice on one SM) before its FMAs.  Rows
+//     are stored 16 bytes a lane, coalesced.  No __syncthreads() after the
+//     start; a wait that never completes traps instead of hanging.
+//   The sums, their order and the rounding are the first kernel's, so the
+//   fp32 output is its output bit for bit, and equals fused_kernel's
+//   aggregate and tiled_kernel's result on full-cover plans.
+// What bounds it now (chip_smoke.py, fp32, an H100 80GB HBM3): at GH's plan
+// (Sb 4824, Bb 1024) it runs within 1.10x of its bytes bound, A's 1.26 GB
+// the larger part; at the blocks stand-in and DD (about 5 non-zeros a row
+// of 640 bytes) 1.45-1.47x, where each row's fixed work (reading and
+// masking its bytes, the walk, the store) and the gathers' L2 latency, not
+// bytes, set the pace.
+// What bounded it on the way, found with throwaway builds on an H100 (their
+// numbers not kept): with the gathers removed the first ring kernel still
+// took most of its time at the blocks stand-in, so instruction issue, not
+// memory, bound it: each row's non-zeros were first listed in shared memory
+// (a count a lane, a warp scan, each lane writing its own), several hundred
+// instructions a row; the ballot walk takes about half.  Also tried and
+// slower: 12 or 16 consumer warps (their register caps spill), batches of 8
+// or 16 at one column group, 64-row stages, and more stages than leave
+// three blocks an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -74,6 +124,21 @@ __device__ __forceinline__ F4 load4(const float* p) {
 }
 __device__ __forceinline__ F4 load4(const __nv_bfloat16* p) {
   const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return F4{{a.x, a.y, b.x, b.y}};
+}
+// A gather of X (16 bytes of fp32 or 8 of bf16 a lane), cached in L2 only:
+// a gathered row is rarely read again by the same SM, and loads in flight
+// would otherwise hold lines of the L1 that shared memory leaves.
+__device__ __forceinline__ F4 gather4(const float* p) {
+  const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+  return F4{{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ F4 gather4(const __nv_bfloat16* p) {
+  const uint2 q = __ldcg(reinterpret_cast<const uint2*>(p));
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
   const float2 a = __bfloat1622float2(lo);
@@ -132,33 +197,249 @@ __device__ __forceinline__ void add_row(const int8_t* __restrict__ arow, int bb,
   }
 }
 
-// Grid: x = (group of entries, 32-row chunk of their bh rows), chunk
-// fastest; y = slab of NG*128 output columns.  Block: WARPS warps; warp w
-// computes rows w, w + WARPS, ... of the chunk, for each entry of its group.
-template <typename TX, typename TO, int NG>
-__global__ void __launch_bounds__(WARPS * 32)
-band_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
-            const int8_t* __restrict__ a, const TX* __restrict__ x, TO* __restrict__ out,
-            int bh, int bb, int dp, int nchunk, int num_sw, int group) {
-  const int gi = blockIdx.x / nchunk;
-  const int r_lo = (blockIdx.x % nchunk) * ROWS;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.y * NG * 128 + 4 * lane;
-  const int r_hi = min(r_lo + ROWS, bh);
+// ---- band_kernel: persistent, an asynchronous ring of A tiles ----
 
-  for (int j = 0; j < group; ++j) {
-    const long long i = (long long)gi * group + j;
-    const long long blk = sw != nullptr ? sw[i] : i;
-    if (blk >= num_sw) continue;  // capacity padding: nothing to write
-    const long long st = starts[i];
-    for (int r = r_lo + warp; r < r_hi; r += WARPS) {
-      float acc[NG][4] = {};
-      add_row<TX, NG>(a + (i * bh + r) * bb, bb, x + st * dp + col0, dp, lane, acc);
-      TO* orow = out + (blk * bh + r) * dp + col0;
+constexpr int BAND_WARPS = 8;        // consumer warps of a block (and one producer warp)
+constexpr int BAND_MAX_STAGES = 8;
+constexpr int SEG = 1024;            // bytes of an A row a warp scans at once: 32 a lane
+constexpr int RING_ALIGN = 128;      // a tensor copy's destination alignment
+constexpr int BAND_BAR_BYTES = 3 * BAND_MAX_STAGES * 8;  // full, empty, item headers
+
+// Non-zeros added per batch (their U*NG loads issued before their FMAs):
+// 4-8 16-byte loads a lane in flight.
+template <int NG>
+__host__ __device__ constexpr int batch_of() {
+  return NG <= 2 ? 4 : 2;
+}
+
+// Dynamic shared memory of band_kernel beside its ring: alignment slack, the
+// mbarriers and each stage's item header (kernels/block_spmm.py mirrors it).
+constexpr int BAND_FIXED_SMEM = RING_ALIGN + BAND_BAR_BYTES;
+
+// A staged row of A: byte k at (k >> shift) * box_stride + (k & mask), boxes
+// of 2^shift bytes (tensor copies), or one box (shift 31: cp.async).
+struct RowMap {
+  int shift, mask, box_stride;
+  __device__ int operator()(int k) const { return (k >> shift) * box_stride + (k & mask); }
+};
+
+// The non-zero bytes of the 16 bytes of a staged row at k (0 past bb) as a
+// 16-bit mask, byte i at bit i; ``ones`` is cleared if any byte is not 0 or 1.
+__device__ __forceinline__ uint32_t chunk_mask(const unsigned char* arow, RowMap at, int k,
+                                               int bb, bool& ones) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (k < bb) {
+    v = *reinterpret_cast<const uint4*>(arow + at(k));
+    // the words past bb (bb % 16 == 4, 8 or 12) are not A's
+    if (k + 4 >= bb) v.y = 0u;
+    if (k + 8 >= bb) v.z = 0u;
+    if (k + 12 >= bb) v.w = 0u;
+  }
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t m = 0u;
 #pragma unroll
-      for (int g = 0; g < NG; ++g) store4(orow + g * 128, acc[g]);
+  for (int q = 0; q < 4; ++q) {
+    // the high bit of each byte: set iff the byte is non-zero (no carry
+    // crosses a byte); the multiply gathers the four high bits into bits 28-31
+    const uint32_t hi = (((w[q] & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w[q]) & 0x80808080u;
+    m |= (hi * 0x00204081u) >> 28 << (4 * q);
+    ones &= (w[q] & 0xfefefefeu) == 0u;
+  }
+  return m;
+}
+
+// The non-zeros of one SEG-byte step of a staged row, in increasing k, one
+// at a time; warp-uniform (the lanes holding non-zeros come from ballots,
+// each one's 16-bit byte mask from a shuffle).  masks: this lane's byte masks
+// of its chunks at 16*lane (low half) and 512 + 16*lane (high half).
+struct NonZeros {
+  uint32_t masks, lanes, lanes_hi, bits;
+  int base, half;
+
+  __device__ bool next(int k0, int& k) {
+    while (bits == 0u) {
+      if (lanes == 0u) {
+        if (half || lanes_hi == 0u) return false;
+        half = 1;
+        lanes = lanes_hi;
+      }
+      const int src = __ffs(lanes) - 1;
+      lanes &= lanes - 1u;
+      bits = __shfl_sync(0xffffffffu, masks, src) >> (16 * half) & 0xffffu;
+      base = k0 + 512 * half + 16 * src;
     }
+    k = base + __ffs(bits) - 1;
+    bits &= bits - 1u;
+    return true;
+  }
+};
+
+// acc += A_row @ X[0 : bb] for one row of A staged in shared memory (at).
+// xb points at X's first band row, offset to this lane's first column.  Per
+// SEG bytes each lane reads its two 16-byte chunks and masks their non-zero
+// bytes; the warp then takes the non-zeros in increasing k, U at a time:
+// each one's byte of A (1 where the step holds only 0/1 bytes, else a
+// broadcast read of the staged row) and its X row's U*NG loads are issued
+// before the batch's FMAs, which run in k order.
+template <typename TX, int NG, int U>
+__device__ __forceinline__ void band_row(const unsigned char* arow, RowMap at, int bb,
+                                         const TX* xb, long long dp, int lane,
+                                         float (&acc)[NG][4]) {
+  for (int k0 = 0; k0 < bb; k0 += SEG) {
+    bool ones = true;
+    const uint32_t lo = chunk_mask(arow, at, k0 + 16 * lane, bb, ones);
+    const uint32_t hi = chunk_mask(arow, at, k0 + 512 + 16 * lane, bb, ones);
+    ones = __all_sync(0xffffffffu, ones);
+    NonZeros nz{lo | hi << 16, __ballot_sync(0xffffffffu, lo != 0u),
+                __ballot_sync(0xffffffffu, hi != 0u), 0u, 0, 0};
+    for (bool more = true; more;) {
+      bool ok[U];
+      float af[U];
+      F4 v[U][NG];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        int k = 0;
+        ok[u] = more && nz.next(k0, k);
+        more = ok[u];
+        if (ok[u]) {
+          af[u] = ones ? 1.f : static_cast<float>(static_cast<int8_t>(arow[at(k)]));
+          const TX* xr = xb + (long long)k * dp;
+#pragma unroll
+          for (int g = 0; g < NG; ++g) v[u][g] = gather4(xr + g * 128);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (ok[u]) {
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[g][q] = fmaf(v[u][g].v[q], af[u], acc[g][q]);
+        }
+      }
+    }
+  }
+}
+
+// Grid: persistent, a few blocks an SM.  Block: BAND_WARPS consumer warps
+// and a producer warp.  Work comes in units: (group of ``group``
+// consecutive entries, chunk of ``rows`` output rows), chunk fastest, so
+// that an entry's X band stays in L2 while its chunks run; a unit's items
+// are its entries in order (direct and bucket modes: group 1), those whose
+// block id is >= num_sw (capacity padding) skipped.  The producer takes the
+// next unit from ``counter`` (zero at launch; each block takes one when it
+// needs one, so blocks that drew heavy units take fewer), and for each item
+// writes the item's (entry, first row) into its ring stage's header and
+// fills the stage: A's rows [rows, bb] of the entry as nbox boxes
+// [rows][box_w], a tensor copy each (``tma``; amap: A as [Sb*bh rows, bb]
+// int8, box [rows][box_w]; boxes reaching past bb land zeros), or, where bb
+// is no 16-byte multiple, 4-byte cp.async copies by the producer warp's 32
+// lanes (box_w >= bb, one box).  A header of entry -1 ends the block.
+// Consumer warp w takes the item's rows w, w + BAND_WARPS, ...: for each
+// NG*128-column slab of dp it sums the row (band_row) and stores it, 16
+// bytes a lane (fp32).
+template <typename TX, typename TO, int NG>
+__global__ void __launch_bounds__((BAND_WARPS + 1) * 32, 2)
+band_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict__ starts,
+            const int32_t* __restrict__ sw, const int8_t* __restrict__ a,
+            const TX* __restrict__ x, TO* __restrict__ out, int* __restrict__ counter, int sb,
+            int bh, int bb, int dp, int num_sw, int group, int rows, int box_w, int nbox,
+            int stages, int tma) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  unsigned char* ring =
+      band_smem + (RING_ALIGN - smem_addr(band_smem) % RING_ALIGN) % RING_ALIGN;
+  const int box_stride = rows * box_w;
+  const int stage_bytes = box_stride * nbox;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes);
+  uint64_t* empty = full + BAND_MAX_STAGES;  // [stages]: consumers done with the stage
+  int2* header = reinterpret_cast<int2*>(empty + BAND_MAX_STAGES);  // [stages]: (entry, row0)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nchunk = (bh + rows - 1) / rows;
+  const int nunits = sb / group * nchunk;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      // tma: the producer lane's arrival (with the bytes); cp.async: each
+      // producer lane's copies and lane 0's arrival after the header
+      bar_init(&full[s], tma ? 1 : 33);
+      bar_init(&empty[s], BAND_WARPS);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();  // the only block-wide barrier: the mbarriers exist
+
+  if (warp == BAND_WARPS) {
+    // ---- producer: lane 0 takes units and issues the tensor copies; with
+    // cp.async every lane copies ----
+    if (tma && lane != 0) return;
+    const long long total_rows = (long long)sb * bh;
+    const int words = bb / 4;
+    int t = 0;
+    // the next free stage, once the consumers are done with its last item
+    auto claim = [&]() {
+      const int slot = t % stages;
+      if (t >= stages) bar_wait(&empty[slot], (t / stages - 1) & 1);
+      return slot;
+    };
+    for (;;) {
+      int unit = lane == 0 ? atomicAdd(counter, 1) : 0;
+      if (!tma) unit = __shfl_sync(0xffffffffu, unit, 0);
+      if (unit >= nunits) break;
+      for (int j = 0; j < group; ++j) {
+        const int i = unit / nchunk * group + j;
+        if ((sw != nullptr ? sw[i] : i) >= num_sw) continue;  // capacity padding
+        const int slot = claim();
+        const int row0 = unit % nchunk * rows;
+        unsigned char* dst = ring + slot * stage_bytes;
+        const long long r0 = (long long)i * bh + row0;
+        if (lane == 0) header[slot] = make_int2(i, row0);
+        if (tma) {
+          fence_proxy_async();
+          bar_arrive_expect(&full[slot], stage_bytes);
+          for (int b = 0; b < nbox; ++b)
+            tensor_load(dst + b * box_stride, &amap, b * box_w, (int)r0, &full[slot]);
+        } else {
+          for (int e = lane; e < rows * words; e += 32) {
+            const int r = e / words, q = e - r * words;
+            if (r0 + r < total_rows) cp_async4(dst + r * box_w + 4 * q, a + (r0 + r) * bb + 4 * q);
+          }
+          cp_async_arrive(&full[slot]);
+          if (lane == 0) bar_arrive(&full[slot]);
+        }
+        ++t;
+      }
+    }
+    const int slot = claim();
+    if (lane == 0) header[slot] = make_int2(-1, 0);
+    if (!tma) cp_async_arrive(&full[slot]);
+    if (lane == 0) bar_arrive(&full[slot]);
+    return;
+  }
+
+  // ---- consumer warps ----
+  constexpr int U = batch_of<NG>();
+  const RowMap at{nbox > 1 ? __ffs(box_w) - 1 : 31, nbox > 1 ? box_w - 1 : 0x7fffffff,
+                  box_stride};
+  for (int t = 0;; ++t) {
+    const int slot = t % stages;
+    bar_wait(&full[slot], (t / stages) & 1);
+    const int2 item = header[slot];
+    if (item.x < 0) break;
+    const unsigned char* stage = ring + slot * stage_bytes;
+    const long long blk = sw != nullptr ? sw[item.x] : item.x;
+    const int r0 = item.y;
+    const TX* xb = x + (long long)starts[item.x] * dp + 4 * lane;
+    for (int rr = warp; rr < rows && r0 + rr < bh; rr += BAND_WARPS) {
+      TO* orow = out + (blk * bh + r0 + rr) * dp + 4 * lane;
+      for (int c = 0; c < dp; c += NG * 128) {
+        float acc[NG][4] = {};
+        band_row<TX, NG, U>(stage + rr * box_w, at, bb, xb + c, dp, lane, acc);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) store4(orow + c + g * 128, acc[g]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[slot]);
   }
 }
 
@@ -338,16 +619,75 @@ fused_slab_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict_
   }
 }
 
+// The device's SMs and shared memory: band_kernel's launch reads them per
+// device once.
+struct Device {
+  int dev = -1, sms = 0, per_sm = 0, reserved = 0, optin = 0;
+};
+
+cudaError_t device_of(Device* out) {
+  static Device cache[16];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 16 && cache[dev].dev == dev) {
+    *out = cache[dev];
+    return cudaSuccess;
+  }
+  Device d;
+  e = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&d.per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&d.reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  d.dev = dev;
+  if (dev < 16) cache[dev] = d;
+  *out = d;
+  return cudaSuccess;
+}
+
+// The ring's shape, chosen on the host (kernels/block_spmm.py:band_launch).
+struct Ring {
+  int rows, box_w, nbox, stages, tma;
+};
+
 template <typename TX, typename TO, int NG>
 cudaError_t launch_band(const void* starts, const void* sw, const void* a, const void* x,
-                        void* out, int sb, int bh, int bb, int dp, int num_sw, int group,
-                        cudaStream_t stream) {
-  const int nchunk = (bh + ROWS - 1) / ROWS;
-  const dim3 grid((unsigned)(sb / group) * nchunk, (unsigned)(dp / (NG * 128)));
-  band_kernel<TX, TO, NG><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
-      static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<TO*>(out), bh, bb,
-      dp, nchunk, num_sw, group);
+                        void* out, void* counter, int sb, int bh, int bb, int dp, int num_sw,
+                        int group, Ring ring, cudaStream_t stream) {
+  Device d;
+  cudaError_t e = device_of(&d);
+  if (e != cudaSuccess) return e;
+  const size_t smem =
+      BAND_FIXED_SMEM + (size_t)ring.stages * ring.rows * ring.box_w * ring.nbox;
+  if (smem > (size_t)d.optin) return cudaErrorInvalidValue;
+  auto kernel = band_kernel<TX, TO, NG>;
+  // the cap is the kernel's, not this shape's: let it take any
+  static int opted[16] = {};
+  if (d.dev < 16 && !opted[d.dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, d.optin);
+    if (e != cudaSuccess) return e;
+    opted[d.dev] = 1;
+  }
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, (BAND_WARPS + 1) * 32, smem);
+  if (e != cudaSuccess) return e;
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  CUtensorMap amap = {};
+  if (ring.tma && !encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, (long long)sb * bh, bb,
+                             ring.rows, ring.box_w, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const long long units = (long long)(sb / group) * ((bh + ring.rows - 1) / ring.rows);
+  const long long slots = (long long)blocks * d.sms;
+  band_kernel<TX, TO, NG><<<(unsigned)(units < slots ? units : slots), (BAND_WARPS + 1) * 32,
+                            smem, stream>>>(
+      amap, static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
+      static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<TO*>(out),
+      static_cast<int*>(counter), sb, bh, bb, dp, num_sw, group, ring.rows, ring.box_w, ring.nbox,
+      ring.stages, ring.tma);
   return cudaGetLastError();
 }
 
@@ -422,16 +762,17 @@ cudaError_t dispatch_types(int x_bf16, int out_f32, F f) {
 
 struct BandArgs {
   const void *starts, *sw, *a, *x;
-  void* out;
+  void *out, *counter;
   int sb, bh, bb, dp, num_sw, group;
+  Ring ring;
   cudaStream_t stream;
   template <typename TX, typename TO>
   struct ByNg {
     const BandArgs& b;
     template <int NG>
     cudaError_t run() const {
-      return launch_band<TX, TO, NG>(b.starts, b.sw, b.a, b.x, b.out, b.sb, b.bh, b.bb, b.dp,
-                                     b.num_sw, b.group, b.stream);
+      return launch_band<TX, TO, NG>(b.starts, b.sw, b.a, b.x, b.out, b.counter, b.sb, b.bh, b.bb,
+                                     b.dp, b.num_sw, b.group, b.ring, b.stream);
     }
   };
   template <typename TX, typename TO>
@@ -478,22 +819,48 @@ struct FusedArgs {
 
 // starts, sw: int32 [sb] (sw may be null: block id = entry index);
 // a: int8 [sb, bh, bb]; x: [m, dp] fp32 (x_bf16 == 0) or bf16; out:
-// [rows, dp], fp32 when out_f32 != 0, else the type of x.  Entries whose
-// block id is >= num_sw write nothing; a thread block owns ``group``
-// consecutive entries (sb % group == 0).  Returns a cudaError_t (0 =
-// launched).  The caller checks on the host that st + bb <= m for every
+// [rows, dp], fp32 when out_f32 != 0, else the type of x; counter: one int32,
+// 0 at launch, the blocks' work counter.  Entries whose
+// block id is >= num_sw write nothing; a unit of work is ``group``
+// consecutive entries (sb % group == 0).  rows, box_w, nbox, stages and tma
+// shape the ring (kernels/block_spmm.py:band_launch): a stage is A's rows
+// [rows] of an entry as nbox boxes of box_w bytes, by tensor copies (tma: a
+// 16-aligned, bb % 16 == 0, box_w a 16-multiple <= 256 and a power of two
+// where nbox > 1, nbox * box_w >= bb)
+// or by cp.async (box_w a 16-multiple >= bb, nbox 1).  Returns a cudaError_t
+// (0 = launched).  The caller checks on the host that st + bb <= m for every
 // entry, that sw lies in [0, num_sw], and that every output block it reads
 // is written by exactly one entry.
 extern "C" int hcspmm_band_spmm(const void* starts, const void* sw, const void* a,
-                                const void* x, void* out, int sb, int bh, int bb, int dp,
-                                int num_sw, int group, int x_bf16, int out_f32, void* stream) {
+                                const void* x, void* out, void* counter, int sb, int bh, int bb,
+                                int dp, int num_sw, int group, int rows, int box_w, int nbox,
+                                int stages, int tma, int x_bf16, int out_f32, void* stream) {
   if (sb <= 0) return 0;
-  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || group <= 0 || sb % group ||
-      (long long)(sb / group) * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
+  if (counter == nullptr || bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || group <= 0 ||
+      sb % group || rows < 1 || rows > 256 || stages < 2 || stages > BAND_MAX_STAGES ||
+      box_w % 16 || (long long)sb * bh > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const BandArgs args{starts, sw, a, x, out, sb, bh, bb, dp, num_sw, group,
-                      static_cast<cudaStream_t>(stream)};
+  if (tma ? (bb % 16 || (uintptr_t)a % 16 || box_w <= 0 || box_w > 256 || nbox < 1 ||
+             (nbox > 1 && (box_w & (box_w - 1))) || (long long)nbox * box_w < bb ||
+             (long long)(nbox - 1) * box_w >= bb)
+          : (nbox != 1 || box_w < bb))
+    return (int)cudaErrorInvalidValue;
+  const BandArgs args{starts, sw, a, x, out, counter, sb, bh, bb, dp, num_sw, group,
+                      Ring{rows, box_w, nbox, stages, tma}, static_cast<cudaStream_t>(stream)};
   return (int)dispatch_types(x_bf16, out_f32, args);
+}
+
+// The current device's SMs, shared memory an SM, reserved a block and the
+// most a block may opt in to (band_kernel's ring is sized from them on the
+// host).  Returns a cudaError_t.
+extern "C" int hcspmm_band_device(int* sms, int* per_sm, int* reserved, int* optin) {
+  Device d;
+  const cudaError_t e = device_of(&d);
+  *sms = d.sms;
+  *per_sm = d.per_sm;
+  *reserved = d.reserved;
+  *optin = d.optin;
+  return (int)e;
 }
 
 // ptr: int32 [num_sw + 1] pair runs (non-decreasing, ptr[num_sw] = pairs);

@@ -16,6 +16,14 @@
 // Precision.HIGHEST (tband.py:166-168).  bf16 inputs are widened exactly;
 // outputs are rounded to nearest.
 //
+// The direct mode also takes over hcspmm_tpu/kernels/tspill.py:zero_lane_blocks
+// (pallas_call at :75), which the reference runs after it: the blocks of the
+// superwindows no entry owns (runs of eight, then singles) are zero items of
+// the same launch, written by the consumers before their first stage lands,
+// with no copy and no stage.  At DD's plan that is 14 x [32, 2048] and 10 x
+// [32, 256] fp32 values, 4 MB: about a microsecond of the card's bandwidth,
+// where the two launches it replaces cost about 0.03 ms each.
+//
 // Departures from the Pallas kernel: a direct-mode entry with
 // sw[i] == num_sw (capacity padding, format/plan.py) writes nothing, so no
 // trash block is allocated and none is sliced off.  Only rows of A_t that
@@ -79,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int KT = 64;  // contraction rows of A_t and X^T staged per step
@@ -92,56 +102,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// ---- mbarrier and tensor-copy primitives (PTX ISA 8.0, sm_90) ----
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the barrier's phase of parity ``parity`` has completed.  A
-// wait that outlasts 2^26 polls (far above any step's time) traps: a lost
-// arrival fails the launch instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  for (unsigned polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// One box of the 2-D tensor ``map`` at (column c0, row c1) into shared
-// memory at ``dst``; completion is counted on ``bar`` in bytes.
-__device__ __forceinline__ void tensor_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // Byte offset ``o`` of a box row-major in shared memory, as a copy with the
 // 32-, 64- or 128-byte swizzle (``mask`` 1, 3 or 7: its 16-byte chunks a
@@ -210,11 +170,18 @@ struct Layout {
 // stands for feature row d0 + l.
 // ``amap``: A_t as [Sb*W rows, bh] int8, box [KT][cw]; ``xmap``: X^T as
 // [dt rows, M] of TX, box [DT][XW], 128-byte swizzle.
+// Direct mode only: ``miss8`` (n8 ids, runs of eight superwindows) and
+// ``miss1`` (n1 ids) name the superwindows no entry owns.  Their blocks are
+// zero items, (superwindow, feature slab) pairs the consumers of block b
+// write first (items b, b + gridDim.x, ...), while the producer fills the
+// ring: each warp stores zeros over rows of [DT][bh], 16 bytes a lane.  They
+// take no copy and no stage.
 template <typename TX, typename TO, int DT, int COLS>
 __global__ void __launch_bounds__(MAX_BH + 32)
 tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap xmap,
              const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
-             TO* __restrict__ out, int sb, int w, int bh, int cw, int nchunk,
+             const int32_t* __restrict__ miss8, int n8, const int32_t* __restrict__ miss1,
+             int n1, TO* __restrict__ out, int sb, int w, int bh, int cw, int nchunk,
              long long out_cols, int num_sw, int stages) {
   using L = Layout<TX, DT>;
   constexpr int XW = L::XW;
@@ -233,7 +200,7 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
       bar_init(&full[s], 1);
       bar_init(&empty[s], nwarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();  // the only block-wide barrier: the mbarriers exist
 
@@ -246,7 +213,7 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
       const int slot = t % stages;
       // step t reuses the stage of step t - stages
       if (t >= stages) bar_wait(&empty[slot], (t / stages - 1) & 1);
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      fence_proxy_async();
       unsigned char* a_dst = ring + slot * stage_bytes;
       unsigned char* x_dst = a_dst + KT * bh;
       const int i = it.entry(), k0 = it.step * KT, x0 = starts[i] + k0;
@@ -259,7 +226,17 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
     return;
   }
 
-  // ---- consumer warps ----
+  // ---- consumer warps: the zero items, then the band ----
+  const int nzero = (8 * n8 + n1) * nchunk;
+  const int vecs = bh * (int)sizeof(TO) / 16;  // 16-byte stores a row of a block
+  for (int z = blockIdx.x; z < nzero; z += gridDim.x) {
+    const int j = z / nchunk, d0 = z % nchunk * DT;
+    const long long s = j < 8 * n8 ? 8LL * miss8[j / 8] + j % 8 : (long long)miss1[j - 8 * n8];
+    for (int d = warp; d < DT; d += nwarps) {
+      uint4* row = reinterpret_cast<uint4*>(out + (d0 + d) * out_cols + s * bh);
+      for (int v = lane; v < vecs; v += 32) row[v] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
   Items it(sb * nchunk, nchunk, nsteps, sw, num_sw);
   const int amask = cw / 16 - 1;
   // this warp's columns lie in one A_t box, at byte c0 of its rows
@@ -341,47 +318,6 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime (no
-// link against libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A 2-D row-major tensor [rows, cols] of ``elt``-byte elements at ``base``,
-// cut in boxes [box_rows][box_cols] with the given swizzle.
-bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elt, const void* base,
-               long long rows, long long cols, int box_rows, int box_cols,
-               CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elt};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Consumer columns a warp at band height bh (tband_kernel's COLS).
 constexpr int cols_of(int bh) { return bh <= 256 ? 16 : 32; }
 
@@ -436,10 +372,16 @@ cudaError_t launch_config(int bh, Config* cfg) {
   return cudaSuccess;
 }
 
+// The superwindows a direct launch zeroes (tband_kernel's zero items).
+struct Missing {
+  const int32_t *ids8, *ids1;
+  int n8, n1;
+};
+
 template <typename TX, typename TO, int DT, int COLS>
 cudaError_t launch_cols(const void* starts, const void* sw, const void* at, const void* xt,
                         void* out, int sb, int w, int bh, int dt, long long m,
-                        long long out_cols, int num_sw, cudaStream_t stream) {
+                        long long out_cols, int num_sw, Missing miss, cudaStream_t stream) {
   Config c;
   cudaError_t e = launch_config<TX, TO, DT, COLS>(bh, &c);
   if (e != cudaSuccess) return e;
@@ -449,31 +391,33 @@ cudaError_t launch_cols(const void* starts, const void* sw, const void* at, cons
                                              : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUtensorMapDataType xtype =
       sizeof(TX) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap amap, xmap;
-  if (!encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, at, (long long)sb * w, bh, KT, cw,
-                 aswz) ||
-      !encode_2d(&xmap, xtype, (int)sizeof(TX), xt, dt, m, DT, Layout<TX, DT>::XW,
-                 CU_TENSOR_MAP_SWIZZLE_128B))
+  CUtensorMap amap = {}, xmap = {};  // no entry (only zero items): no copy reads them
+  if (sb > 0 &&
+      (!encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, at, (long long)sb * w, bh, KT, cw,
+                  aswz) ||
+       !encode_2d(&xmap, xtype, (int)sizeof(TX), xt, dt, m, DT, Layout<TX, DT>::XW,
+                  CU_TENSOR_MAP_SWIZZLE_128B)))
     return cudaErrorInvalidValue;
   const int nchunk = dt / DT;
-  const long long items = (long long)sb * nchunk;
+  const long long items = ((long long)sb + 8LL * miss.n8 + miss.n1) * nchunk;
   const long long slots = (long long)c.blocks_per_sm * c.sms;
   tband_kernel<TX, TO, DT, COLS>
       <<<(unsigned)(items < slots ? items : slots), bh / COLS * 32 + 32, c.smem, stream>>>(
           amap, xmap, static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
-          static_cast<TO*>(out), sb, w, bh, cw, nchunk, out_cols, num_sw, c.stages);
+          miss.ids8, miss.n8, miss.ids1, miss.n1, static_cast<TO*>(out), sb, w, bh, cw, nchunk,
+          out_cols, num_sw, c.stages);
   return cudaGetLastError();
 }
 
 template <typename TX, typename TO, int DT>
 cudaError_t launch(const void* starts, const void* sw, const void* at, const void* xt,
                    void* out, int sb, int w, int bh, int dt, long long m,
-                   long long out_cols, int num_sw, cudaStream_t stream) {
+                   long long out_cols, int num_sw, Missing miss, cudaStream_t stream) {
   if (cols_of(bh) == 16)
     return launch_cols<TX, TO, DT, 16>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                       num_sw, stream);
+                                       num_sw, miss, stream);
   return launch_cols<TX, TO, DT, 32>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                     num_sw, stream);
+                                     num_sw, miss, stream);
 }
 
 template <typename TX, typename TO, int DT>
@@ -485,10 +429,12 @@ cudaError_t config_of(int bh, Config* c) {
 template <typename TX, typename TO>
 cudaError_t dispatch_dt(const void* starts, const void* sw, const void* at, const void* xt,
                         void* out, int sb, int w, int bh, int dt, long long m,
-                        long long out_cols, int num_sw, cudaStream_t stream) {
+                        long long out_cols, int num_sw, Missing miss, cudaStream_t stream) {
   if (dt % 32 == 0)
-    return launch<TX, TO, 32>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, stream);
-  return launch<TX, TO, 16>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, stream);
+    return launch<TX, TO, 32>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, miss,
+                              stream);
+  return launch<TX, TO, 16>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, miss,
+                            stream);
 }
 
 // The fused transposed aggregate and update (tband.py:tband_fused_direct):
@@ -755,31 +701,40 @@ cudaError_t dispatch_fused(const void* starts, const void* sw, const void* at, c
 
 // starts, sw: int32 [sb] (sw may be null: bucket mode); at: int8 [sb, w, bh];
 // xt: [dt, m] fp32 (x_bf16 == 0) or bf16; out: [dt, out_cols], fp32 when
-// out_f32 != 0, else the type of xt.  Returns a cudaError_t (0 = launched).
-// The caller guarantees st + w <= m for every entry and that every output
-// block it reads is written by exactly one entry.
+// out_f32 != 0, else the type of xt.  Direct mode also zeroes the blocks of
+// the missing superwindows: columns [8*bh*miss8[i], +8*bh) and [bh*miss1[i],
+// +bh) of every row (miss8: int32 [n8], miss1: int32 [n1]; null when empty).
+// Returns a cudaError_t (0 = launched).  The caller guarantees st + w <= m for
+// every entry, that every output block it reads is written by exactly one
+// entry or missing id, and that the ids lie inside out.
 extern "C" int hcspmm_tband_spmm(const void* starts, const void* sw, const void* at,
                                  const void* xt, void* out, int sb, int w, int bh, int dt,
-                                 long long m, long long out_cols, int num_sw, int x_bf16,
-                                 int out_f32, void* stream) {
-  if (sb <= 0) return 0;
-  if (dt <= 0 || dt % 16 || w <= 0 || w % KT || bh <= 0 || bh % 32 || bh > MAX_BH)
+                                 long long m, long long out_cols, int num_sw, const void* miss8,
+                                 int n8, const void* miss1, int n1, int x_bf16, int out_f32,
+                                 void* stream) {
+  if (sb <= 0 && n8 <= 0 && n1 <= 0) return 0;
+  if (sb < 0 || n8 < 0 || n1 < 0 || dt <= 0 || dt % 16 || w <= 0 || w % KT || bh <= 0 ||
+      bh % 32 || bh > MAX_BH || ((n8 || n1) && sw == nullptr))
     return (int)cudaErrorInvalidValue;
   // the bulk copies need 16-byte aligned sources: A_t rows (bh % 32 == 0)
-  // and X^T pieces (st % 128 == 0, checked at upload) then are
-  if ((uintptr_t)at % 16 || (uintptr_t)xt % 16 || m * (x_bf16 ? 2 : 4) % 16)
+  // and X^T pieces (st % 128 == 0, checked at upload) then are; the zero
+  // items store 16 bytes a lane
+  if ((uintptr_t)at % 16 || (uintptr_t)xt % 16 || m * (x_bf16 ? 2 : 4) % 16 ||
+      (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
+  const Missing miss{static_cast<const int32_t*>(miss8), static_cast<const int32_t*>(miss1), n8,
+                     n1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!x_bf16) {
     if (!out_f32) return (int)cudaErrorInvalidValue;
     return (int)dispatch_dt<float, float>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                          num_sw, s);
+                                          num_sw, miss, s);
   }
   if (out_f32)
     return (int)dispatch_dt<__nv_bfloat16, float>(starts, sw, at, xt, out, sb, w, bh, dt, m,
-                                                  out_cols, num_sw, s);
+                                                  out_cols, num_sw, miss, s);
   return (int)dispatch_dt<__nv_bfloat16, __nv_bfloat16>(starts, sw, at, xt, out, sb, w, bh, dt,
-                                                        m, out_cols, num_sw, s);
+                                                        m, out_cols, num_sw, miss, s);
 }
 
 // The band kernel's launch configuration at band height bh, feature dim dt

@@ -1,14 +1,10 @@
 // Spill chain of the transposed-band SpMM for Hopper (sm_90a), bound from
 // Python with ctypes (kernels/tspill.py holds the wrappers and the plain
-// PyTorch versions).  Four kernels, each replacing one Pallas kernel of
-// hcspmm_tpu/kernels/tspill.py:
+// PyTorch versions).  Three kernels, each replacing one Pallas kernel of
+// hcspmm_tpu/kernels/tspill.py (the fourth, zero_lane_blocks, is folded into
+// csrc/tband.cu's band kernel):
 //
-// zero_kernel     <- zero_lane_blocks (:55).  Zero lanes [ids[i]*w, +w) of
-//   every row of buf [dt, M], in place.  One block per (id, 8-row slab),
-//   16-byte stores.  Pure writes: 2*dt*w*n_ids*4 bytes at fp32 is well
-//   under a microsecond of bandwidth at the real plans, so launch cost binds.
-//
-// zero_rows_kernel <- zero_row_blocks (:84), the wide layout's twin.  Zero
+// zero_rows_kernel <- zero_row_blocks (:84), the wide layout's zero-fill.  Zero
 //   rows [ids[i]*w, +w) of buf [M, dp], in place: the rows of one id are
 //   one contiguous w*dp-element range, so a grid over (id, slice) writes it
 //   with 16-byte stores.  At GH's wide plan (105 runs of 8 x 256 rows, dp
@@ -55,26 +51,6 @@
 #include <stdint.h>
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// zero_lane_blocks
-// ---------------------------------------------------------------------------
-
-constexpr int ZROWS = 8;  // feature rows per thread block
-
-// Grid: (n ids, ceil(dt / ZROWS)).  buf is viewed as 16-byte vectors:
-// row_vecs per row, w_vecs per zeroed block.
-__global__ void zero_kernel(const int32_t* __restrict__ ids, uint4* __restrict__ buf,
-                            long long row_vecs, int w_vecs, int dt) {
-  const long long col0 = (long long)ids[blockIdx.x] * w_vecs;
-  const int r0 = blockIdx.y * ZROWS;
-  const int rows = min(ZROWS, dt - r0);
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  for (int e = threadIdx.x; e < rows * w_vecs; e += blockDim.x) {
-    const int r = e / w_vecs;
-    buf[(long long)(r0 + r) * row_vecs + col0 + (e - r * w_vecs)] = z;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // zero_row_blocks
@@ -213,21 +189,6 @@ cudaError_t launch_merge(const void* src, const void* gidx, const void* seg_lane
 // Each entry point returns a cudaError_t (0 = launched).  The callers check
 // every index on the host before upload (kernels/tspill.py); the kernels
 // read them unchecked.
-
-// buf: [dt, m] of elem_bytes-wide elements; ids: int32 [n]; zeroes lanes
-// [ids[i]*w, ids[i]*w + w).  w * elem_bytes and m * elem_bytes must be
-// multiples of 16.
-extern "C" int hcspmm_zero_lane_blocks(void* buf, const void* ids, int n, int dt, long long m,
-                                       int w, int elem_bytes, void* stream) {
-  if (n <= 0 || dt <= 0) return 0;
-  const long long wb = (long long)w * elem_bytes;
-  const long long rb = m * elem_bytes;
-  if (w <= 0 || wb % 16 || rb % 16 || dt > 65535 * ZROWS) return (int)cudaErrorInvalidValue;
-  zero_kernel<<<dim3((unsigned)n, (unsigned)((dt + ZROWS - 1) / ZROWS)), 256, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ids), static_cast<uint4*>(buf), rb / 16, (int)(wb / 16), dt);
-  return (int)cudaGetLastError();
-}
 
 // buf: [m, dp] of elem_bytes-wide elements; ids: int32 [n]; zeroes rows
 // [ids[i]*w, ids[i]*w + w).  w * dp * elem_bytes must be a multiple of 16.

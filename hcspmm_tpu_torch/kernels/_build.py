@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use, for ``sm_90a`` (Hopper), into ``build/hcspmm_tpu_torch/`` at
 the root of the checkout.  The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library
-is never loaded.  Nothing here runs at import time: the package imports
-on machines without nvcc or a GPU, where the kernels' plain versions run.
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  Nothing here runs
+at import time: the package imports on machines without nvcc or a GPU,
+where the kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -35,9 +36,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the shared library built from ``csrc/<name>.cu``."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Path of the shared library built from ``csrc/<name>.cu`` (and the
+    headers of ``csrc/`` it may include)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -82,10 +82,12 @@ row_launches = {"dense_bucket_spmm": 0, "ell_bucket_spmm": 0, "ell_residual": 0}
 def _lib() -> ctypes.CDLL:
     lib = load_library("block_spmm")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hcspmm_band_spmm.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+    lib.hcspmm_band_spmm.argtypes = [vp] * 6 + [i32] * 13 + [vp]
     lib.hcspmm_tiled_spmm.argtypes = [vp] * 5 + [i32] * 5 + [vp]
     lib.hcspmm_band_fused.argtypes = [vp] * 7 + [i32] * 8 + [vp]
-    for fn in (lib.hcspmm_band_spmm, lib.hcspmm_tiled_spmm, lib.hcspmm_band_fused):
+    lib.hcspmm_band_device.argtypes = [ctypes.POINTER(i32)] * 4
+    for fn in (lib.hcspmm_band_spmm, lib.hcspmm_tiled_spmm, lib.hcspmm_band_fused,
+               lib.hcspmm_band_device):
         fn.restype = ctypes.c_int
     return lib
 
@@ -99,6 +101,63 @@ def _rows_lib() -> ctypes.CDLL:
     for fn in (lib.hcspmm_dense_bucket_spmm, lib.hcspmm_ell_spmm):
         fn.restype = ctypes.c_int
     return lib
+
+
+# The band kernel's ring (csrc/block_spmm.cu band_kernel): rows of A a
+# stage holds, its stages, the shared memory beside the ring
+# (BAND_FIXED_SMEM: alignment slack, the mbarriers and the stages' item
+# headers) and the blocks an SM the ring is sized for.
+_BAND_ROWS = 32
+_BAND_STAGES = (2, 8)
+_BAND_FIXED_SMEM = 128 + 3 * 8 * 8
+_BAND_BLOCKS_PER_SM = 3
+
+
+def band_launch(bb: int, per_sm: int, reserved: int, optin: int, aligned: bool = True) -> dict:
+    """The band kernel's ring at band width ``bb`` on a device with
+    ``per_sm`` bytes of shared memory an SM, ``reserved`` of them taken per
+    block and at most ``optin`` for one block (an H100: 233472, 1024,
+    232448).
+
+    A stage holds ``rows`` rows of A (32, halved until two stages fit in one
+    block) as ``nbox`` boxes of ``box_w`` bytes.  With ``tma`` (bb a
+    16-byte multiple and A 16-byte ``aligned``) a tensor copy fills each
+    box: the widest of 256, 128, 64, 32, 16 bytes that divides bb, or 256
+    with the last box reaching past bb (zero-filled) where that would take
+    more than eight boxes.  Otherwise 4-byte cp.async copies stage each row
+    whole, padded to 16 bytes.  ``stages`` (2-8) is as many as leave
+    three blocks an SM; ``smem`` is the block's dynamic shared memory."""
+    tma = bb % 16 == 0 and aligned
+    if tma:
+        box_w = next(w for w in (256, 128, 64, 32, 16) if bb % w == 0)
+        if bb // box_w > 8:
+            box_w = 256
+        nbox = -(-bb // box_w)
+    else:
+        box_w, nbox = -(-bb // 16) * 16, 1
+    row_bytes = box_w * nbox
+    rows = _BAND_ROWS
+    while rows > 1 and _BAND_FIXED_SMEM + 2 * rows * row_bytes > optin:
+        rows //= 2
+    stage = rows * row_bytes
+    fit = (per_sm // _BAND_BLOCKS_PER_SM - reserved - _BAND_FIXED_SMEM) // stage
+    stages = min(max(fit, _BAND_STAGES[0]), _BAND_STAGES[1])
+    smem = _BAND_FIXED_SMEM + stages * stage
+    if smem > optin:
+        raise ValueError(f"band width {bb}: two ring stages of one row take {smem} bytes of "
+                         f"shared memory, more than a block's {optin}")
+    return dict(tma=tma, box_w=box_w, nbox=nbox, rows=rows, stages=stages, smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def band_device(index: int) -> tuple:
+    """(SMs, shared memory an SM, reserved a block, a block's opt-in most)
+    of CUDA device ``index``, as the band kernel's launch reads them."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(index):
+        rc = _lib().hcspmm_band_device(*(ctypes.byref(v) for v in vals))
+    _raise_on(rc, "band_kernel")
+    return tuple(v.value for v in vals)
 
 
 def lane_pad(d: int) -> int:
@@ -337,9 +396,13 @@ def _launch(starts, sw_ids, a, xp, out, num_sw, group=1):
     global launches
     sb, bh, bb = a.shape
     with torch.cuda.device(xp.device):
+        ring = band_launch(bb, *band_device(xp.device.index)[1:],
+                           aligned=a.data_ptr() % 16 == 0)
+        counter = torch.zeros(1, dtype=torch.int32, device=xp.device)  # the blocks' work counter
         rc = _lib().hcspmm_band_spmm(
             starts.data_ptr(), None if sw_ids is None else sw_ids.data_ptr(), a.data_ptr(),
-            xp.data_ptr(), out.data_ptr(), sb, bh, bb, xp.shape[1], num_sw, group,
+            xp.data_ptr(), out.data_ptr(), counter.data_ptr(), sb, bh, bb, xp.shape[1], num_sw,
+            group, ring["rows"], ring["box_w"], ring["nbox"], ring["stages"], int(ring["tma"]),
             int(xp.dtype == torch.bfloat16), int(out.dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "band_kernel")

@@ -20,8 +20,9 @@ its layer-level entry).  Beside them sit the plain PyTorch versions (gather
 version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises.
 
-After the band product, missing superwindows are zeroed and the spill
-chain adds the edges the band does not hold (``_tband_apply_spill``:
+The direct launch also zeroes the missing superwindows' blocks (the
+reference's ``zero_lane_blocks``, folded in), and the spill chain then adds
+the edges the band does not hold (``_tband_apply_spill``:
 kernels/tspill.py, or the legacy path through the row layout's merge in
 kernels/block_spmm.py and kernels/dstream.py).  ``check_plan`` admits the
 plans the reference's ``spmm_padded_supported`` admits on this layout;
@@ -45,9 +46,11 @@ from hcspmm_tpu_torch.kernels._build import load_library
 #: zeroes it before a run of the main path and reads it after.
 launches = 0
 
-#: Launches of the fused kernel of csrc/tband.cu, and of the band kernel's
-#: bucket mode (also counted in ``launches``).
-kernel_launches = {"tband_spmm_bucket": 0, "tband_fused_direct": 0}
+#: Launches of the fused kernel of csrc/tband.cu, of the band kernel's
+#: bucket mode, and of its direct mode with missing superwindows to zero
+#: (``zero_lane_blocks``, folded into the launch); the last two are also
+#: counted in ``launches``.
+kernel_launches = {"tband_spmm_bucket": 0, "tband_fused_direct": 0, "zero_lane_blocks": 0}
 
 _MAX_BH = 512  # threads per block in csrc/tband.cu: one per output column
 _KT = 64       # csrc/tband.cu KT: the contraction width must divide by it
@@ -59,7 +62,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("tband")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hcspmm_tband_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                      i64, i64, i32, i32, i32, vp]
+                                      i64, i64, i32, vp, i32, vp, i32, i32, i32, vp]
     lib.hcspmm_tband_spmm.restype = ctypes.c_int
     lib.hcspmm_tband_fused.argtypes = [vp] * 7 + [i32] * 5 + [i64, i64, i32, i32, i32, vp]
     lib.hcspmm_tband_fused.restype = ctypes.c_int
@@ -157,15 +160,21 @@ def tband_spmm_bucket_plain(starts, at, xt):
     return out.reshape(xt.shape[0], sb * bh)
 
 
-def tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype):
+def tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=None,
+                            missing=None):
     """[dt, num_sw*bh] ``out_dtype``: block sw[i] = X^T slice @ A_t[i];
-    entries with sw == num_sw are dropped, unowned blocks stay unset."""
+    entries with sw == num_sw are dropped; the blocks of ``missing8``
+    (runs of eight superwindows) and ``missing`` are zeroed
+    (``tspill.zero_lane_blocks_plain``); other unowned blocks stay unset."""
     sb, _, bh = at.shape
     dt = xt.shape[0]
     part = tband_spmm_bucket_plain(starts, at, xt).view(dt, sb, bh)
     out = torch.empty((dt, num_sw * bh), dtype=out_dtype, device=xt.device)
     keep = sw_ids < num_sw
     out.view(dt, num_sw, bh)[:, sw_ids[keep].long()] = part[:, keep].to(out_dtype)
+    for ids, w in ((missing8, 8 * bh), (missing, bh)):
+        if ids is not None and ids.shape[0]:
+            tspill.zero_lane_blocks_plain(out, ids, w)
     return out
 
 
@@ -215,42 +224,57 @@ def _check_cuda_args(starts, sw_ids, at, xt):
         raise ValueError(f"unsupported shape: dt={dt} W={w} bh={bh} M={m}")
 
 
-def _launch(starts, sw_ids, at, xt, out, num_sw):
+def _launch(starts, sw_ids, at, xt, out, num_sw, missing8=None, missing=None):
     global launches
     sb, w, bh = at.shape
     dt, m = xt.shape
     if at.data_ptr() % 16 or xt.data_ptr() % 16 or m * xt.element_size() % 16:
         raise ValueError("the band kernel's bulk copies need at and xt 16-byte aligned and "
                          f"xt's rows a multiple of 16 bytes (M={m})")
+    ids = [v if v is not None and v.shape[0] else None for v in (missing8, missing)]
+    for name, v in zip(("missing8", "missing"), ids):
+        if v is not None and (v.device != xt.device or v.dtype != torch.int32
+                              or not v.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 on {xt.device}")
     with torch.cuda.device(xt.device):
         rc = _lib().hcspmm_tband_spmm(
             starts.data_ptr(), None if sw_ids is None else sw_ids.data_ptr(),
             at.data_ptr(), xt.data_ptr(), out.data_ptr(), sb, w, bh, dt, m,
-            out.shape[1], num_sw, int(xt.dtype == torch.bfloat16),
-            int(out.dtype == torch.float32),
+            out.shape[1], num_sw, *[x for v in ids for x in (
+                None if v is None else v.data_ptr(), 0 if v is None else v.shape[0])],
+            int(xt.dtype == torch.bfloat16), int(out.dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csrc/tband.cu launch failed: cudaError {rc}")
     launches += 1
+    if any(v is not None for v in ids):
+        kernel_launches["zero_lane_blocks"] += 1
 
 
-def tband_spmm_direct(sw_ids, starts, at, xt, num_sw, out_dtype):
+def tband_spmm_direct(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=None,
+                      missing=None):
     """Transposed-band SpMM, direct write: entry i computes superwindow
     ``sw_ids[i]``'s output columns (port of the Pallas kernel at
-    hcspmm_tpu/kernels/tband.py:189).
+    hcspmm_tpu/kernels/tband.py:189), and the blocks of the missing
+    superwindows are zeroed in the same launch (the reference's
+    ``zero_lane_blocks`` after it, hcspmm_tpu/kernels/tspill.py:55).
 
     starts, sw_ids: int32 [Sb]; at: int8 [Sb, W, bh]; xt: [dt, M] float32
-    or bfloat16.  Returns [dt, num_sw*bh] in ``out_dtype`` (xt's dtype or
-    float32).  Entries with ``sw_id == num_sw`` write nothing, and blocks
-    no entry owns are left unset: callers guarantee full cover."""
+    or bfloat16; missing8, missing: int32 ids of aligned runs of eight
+    superwindows and of single ones (a plan's ``band_missing_sw8`` and
+    ``band_missing_sw``, checked at upload), or None.  Returns [dt,
+    num_sw*bh] in ``out_dtype`` (xt's dtype or float32).  Entries with
+    ``sw_id == num_sw`` write nothing, and blocks neither an entry nor a
+    missing id names are left unset: callers guarantee full cover."""
     if xt.device.type == "cpu":
-        return tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype)
+        return tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype, missing8,
+                                       missing)
     _check_cuda_args(starts, sw_ids, at, xt)
     if out_dtype not in (xt.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xt's dtype or float32")
     out = torch.empty((xt.shape[0], num_sw * at.shape[2]), dtype=out_dtype,
                       device=xt.device)
-    _launch(starts, sw_ids, at, xt, out, num_sw)
+    _launch(starts, sw_ids, at, xt, out, num_sw, missing8, missing)
     return out
 
 
@@ -365,9 +389,10 @@ def _tband_apply_spill(buf, arrs, xt, plan):
 def spmm_tband_padded(arrs, xt, plan, compute_dtype):
     """SpMM over the transposed padded layout: xt [dt, M] -> [dt, M]
     (M = plan.padded_rows).  The most populated bucket writes the whole
-    buffer directly; each other bucket's blocks are scattered over the
-    blocks it owns (unset by the direct write); the missing superwindows'
-    blocks are zeroed; the spill population is added last.  With no band
+    buffer directly and, in the same launch, zeroes the missing
+    superwindows' blocks; each other bucket's blocks are scattered over the
+    blocks it owns (unset by the direct write); the spill population is
+    added last.  With no band
     entry at all the buffer starts as zeros."""
     check_plan(plan)
     xt = xt.to(compute_dtype).contiguous()
@@ -382,8 +407,11 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
         buf = torch.zeros((dt, m), dtype=xt.dtype, device=xt.device)
         return _tband_apply_spill(buf, arrs, xt, plan)
     s_main = max(nonempty, key=lambda i: len(plan.band_sw_ids[i]))
+    # the uncovered superwindows (their edges ride the spill) are zeroed by
+    # the same launch: aligned runs of eight, then the rest
     buf = tband_spmm_direct(arrs[f"band{s_main}_sw"], arrs[f"band{s_main}_start"],
-                            arrs[f"band{s_main}_at"], xt, num_sw, xt.dtype)
+                            arrs[f"band{s_main}_at"], xt, num_sw, xt.dtype,
+                            arrs.get("band_missing_sw8"), arrs.get("band_missing_sw"))
     b3 = buf.view(dt, num_sw, bh)
     for i in nonempty:
         if i == s_main:
@@ -392,11 +420,6 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
         real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
         b3.index_copy_(1, arrs[f"band{i}_sw"][:real].long(),
                        part.view(dt, -1, bh)[:, :real].to(buf.dtype))
-    # uncovered superwindows (their edges ride the spill): aligned runs of
-    # eight as single [dt, 8*bh] blocks, then the rest
-    for key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
-        if key in arrs:
-            buf = tspill.zero_lane_blocks(buf, arrs[key], w)
     return _tband_apply_spill(buf, arrs, xt, plan)
 
 

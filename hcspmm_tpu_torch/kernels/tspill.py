@@ -6,12 +6,13 @@ tband spill chain (kernels/tband.py ``_tband_apply_spill``) runs
     T     = mxgather_lanes(xt, lo, rel)                   # compact unique-column table
     buf   = tbstream_merge(T or xt, local, blk, buf, gidx=...)  # gather + scatter-add
 
-and missing superwindows are zeroed by ``zero_lane_blocks`` before it;
-``zero_row_blocks`` is the wide layout's [M, dp] twin of the zero-fill.
+and missing superwindows are zeroed before it by the band kernel's direct
+launch (kernels/tband.py; ``zero_lane_blocks_plain`` is that fold's plain
+version); ``zero_row_blocks`` is the wide layout's [M, dp] zero-fill.
 The reference gathers a [dt, C*bw] copy of the per-edge columns first
 (``take``, or ``segmented_gather`` through its T2 tables) and merges that;
 here ``check_spill_arrays`` composes the per-slot column ``ds_lsrc`` on
-the host at upload and the merge gathers through it.  The four kernels are
+the host at upload and the merge gathers through it.  The three kernels are
 ``csrc/tspill.cu``; each wrapper here launches its kernel for CUDA tensors
 (or raises) and runs the plain PyTorch version beside it for CPU tensors,
 and counts its launches in ``launches``.  ``segmented_gather`` (the
@@ -36,8 +37,7 @@ from hcspmm_tpu_torch.kernels._build import load_library
 #: Launches of each kernel of csrc/tspill.cu, counted where its wrapper
 #: launches it (never by the plain versions).  chip_smoke.py zeroes them
 #: before a run of the main path and reads them after.
-launches = {"zero_lane_blocks": 0, "zero_row_blocks": 0, "mxgather_lanes": 0,
-            "tbstream_merge": 0}
+launches = {"zero_row_blocks": 0, "mxgather_lanes": 0, "tbstream_merge": 0}
 
 _MX_NB = 4     # the reference's chunks per grid step: the table's chunk
 #                count is padded to a multiple of it
@@ -48,13 +48,12 @@ _LANE_LONG = 16  # csrc/tspill.cu merge: a segment of more slots gets a warp
 def _lib() -> ctypes.CDLL:
     lib = load_library("tspill")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hcspmm_zero_lane_blocks.argtypes = [vp, vp, i32, i32, i64, i32, i32, vp]
     lib.hcspmm_zero_row_blocks.argtypes = [vp, vp, i32, i64, i32, i32, vp]
     lib.hcspmm_mxgather_lanes.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i64, i32, vp]
     lib.hcspmm_tbstream_merge.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i64,
                                           i32, i32, vp]
-    for fn in (lib.hcspmm_zero_lane_blocks, lib.hcspmm_zero_row_blocks,
-               lib.hcspmm_mxgather_lanes, lib.hcspmm_tbstream_merge):
+    for fn in (lib.hcspmm_zero_row_blocks, lib.hcspmm_mxgather_lanes,
+               lib.hcspmm_tbstream_merge):
         fn.restype = ctypes.c_int
     return lib
 
@@ -147,7 +146,9 @@ def lane_segments(local_t, blk, group: int) -> tuple:
 
 
 def zero_lane_blocks_plain(buf, ids, w: int):
-    """In place: lanes [ids[i]*w, ids[i]*w + w) of buf [dt, M] set to 0."""
+    """In place: lanes [ids[i]*w, ids[i]*w + w) of buf [dt, M] set to 0
+    (the reference's ``zero_lane_blocks``, hcspmm_tpu/kernels/tspill.py:55;
+    on the card the band kernel's direct launch does it, kernels/tband.py)."""
     buf.view(buf.shape[0], -1, w).index_fill_(1, ids.long(), 0)
     return buf
 
@@ -197,25 +198,6 @@ def tbstream_merge_plain(src, local_t, blk, buf, *, group: int, gidx=None):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-
-
-def zero_lane_blocks(buf, ids, w: int):
-    """Zero lanes [ids[i]*w, ids[i]*w + w) of buf [dt, M] in place and
-    return buf (port of hcspmm_tpu/kernels/tspill.py:55).  ``w`` is
-    ``bh`` for single missing superwindows, ``8*bh`` for aligned runs of
-    eight.  An empty ``ids`` launches nothing."""
-    if ids.shape[0] == 0:
-        return buf
-    if buf.device.type == "cpu":
-        return zero_lane_blocks_plain(buf, ids, w)
-    _check_cuda(buf, buf=buf, ids=ids)
-    dt, m = buf.shape
-    if w <= 0 or m % w or (w * buf.element_size()) % 16:
-        raise ValueError(f"block width {w} must divide M={m} and fill 16-byte rows")
-    with torch.cuda.device(buf.device):
-        _run("zero_lane_blocks", _lib().hcspmm_zero_lane_blocks, buf.data_ptr(),
-             ids.data_ptr(), ids.shape[0], dt, m, w, buf.element_size())
-    return buf
 
 
 def zero_row_blocks(buf, ids, w: int):

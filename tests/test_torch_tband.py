@@ -19,6 +19,7 @@ import torch
 from hcspmm_tpu.config import PlanConfig as JaxPlanConfig
 from hcspmm_tpu.format.plan import build_plan as jax_build_plan
 from hcspmm_tpu.kernels import tband as jax_tband
+from hcspmm_tpu.kernels import tspill as jax_tspill
 
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.graphs import io
@@ -85,6 +86,54 @@ def test_plain_direct_and_bucket_match_jax_kernels(shape):
     got_b = tband.tband_spmm_bucket(t[1], t[2], t[3])
     assert got_b.dtype == torch.float32 and got_b.shape == want_b.shape
     assert rel_err(got_b, want_b) < RTOL
+
+
+# missing superwindows of a 24-superwindow layout (bh 128): (runs of eight,
+# singles), zeroed by the direct launch as the reference's zero_lane_blocks
+# zeroes them after its direct write
+MISSING = {"eights": ([1], []), "singles": ([], [3, 17, 22]), "both": ([2], [0, 5]),
+           "neither": ([], [])}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MISSING))
+def test_plain_direct_zeroes_missing_like_jax(case, dtype):
+    """tband_spmm_direct with the missing superwindows (its plain version
+    on the CPU) against the JAX package's tband_spmm_direct followed by
+    zero_lane_blocks on the runs of eight, then on the singles (interpret
+    mode).  fp32 on integer X, where every sum order is exact: equal; bf16
+    within 1e-2 of max|ref|."""
+    m8, m1 = MISSING[case]
+    bh, num_sw, w = 128, 24, 256
+    m = num_sw * bh
+    missing = set(m1) | {8 * r + j for r in m8 for j in range(8)}
+    rs = np.random.RandomState(len(missing))
+    owned = np.array([s for s in range(num_sw) if s not in missing])
+    sw = np.concatenate([rs.permutation(owned), [num_sw]]).astype(np.int32)  # + one padded
+    at = (rs.rand(len(sw), w, bh) < 0.05).astype(np.int8)
+    st = (rs.randint(0, (m - w) // 128 + 1, len(sw)) * 128).astype(np.int32)
+    if dtype == torch.float32:
+        xt = rs.randint(-8, 9, (16, m)).astype(np.float32)
+    else:
+        xt = rs.randn(16, m).astype(np.float32)
+    ids = [np.asarray(v, dtype=np.int32) for v in (m8, m1)]
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jax_tband.tband_spmm_direct(jnp.asarray(sw), jnp.asarray(st), jnp.asarray(at),
+                                       jnp.asarray(xt).astype(jdt), num_sw, jdt, trash=True)
+    for v, width in zip(ids, (8 * bh, bh)):
+        want = jax_tspill.zero_lane_blocks(want, jnp.asarray(v), width)
+    want = np.asarray(want.astype(jnp.float32))
+    got = tband.tband_spmm_direct(torch.from_numpy(sw), torch.from_numpy(st),
+                                  torch.from_numpy(at), torch.from_numpy(xt).to(dtype), num_sw,
+                                  dtype, *(torch.from_numpy(v) for v in ids))
+    assert got.shape == want.shape == (16, m) and got.dtype == dtype
+    got = got.float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert rel_err(got, want) < 1e-2
+    for s in missing:
+        assert not got[:, s * bh:(s + 1) * bh].any()
 
 
 def banded_graph(n, deg, near, far, seed=0):

@@ -1,6 +1,7 @@
 """The port's spill-chain kernels (hcspmm_tpu_torch/kernels/tspill.py)
 against the JAX package's Pallas kernels in interpret mode on the CPU,
-mirroring tests/test_tspill.py: zero-fill, mxgather table, block merge,
+mirroring tests/test_tspill.py: zero-fill (the plain version, and its fold
+into the band kernel's direct launch), mxgather table, block merge,
 segmented gather, the host checks of the spill arrays, and the wrappers'
 device rules.
 
@@ -25,7 +26,7 @@ from hcspmm_tpu.kernels.dstream import build_bstream
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.format.plan import build_plan
 from hcspmm_tpu_torch.format.streams import build_mx_chunks
-from hcspmm_tpu_torch.kernels import tspill
+from hcspmm_tpu_torch.kernels import tband, tspill
 
 from conftest import small_graph
 
@@ -45,6 +46,8 @@ def rel_err(got, ref):
 
 @pytest.mark.parametrize("wide", [False, True])
 def test_zero_lane_blocks_matches_jax(wide):
+    """The zero-fill's plain version (on the card the band kernel's direct
+    launch zeroes these blocks, kernels/tband.py) against the Pallas kernel."""
     rng = np.random.RandomState(0)
     dt, bh = 16, 128
     w = 8 * bh if wide else bh
@@ -53,7 +56,7 @@ def test_zero_lane_blocks_matches_jax(wide):
     ids = np.array([0, 2, 3] if wide else [0, 3, 7, 30], dtype=np.int32)
     want = np.asarray(jax_tspill.zero_lane_blocks(jnp.asarray(buf), jnp.asarray(ids), w))
     t = torch.from_numpy(buf.copy())
-    got = tspill.zero_lane_blocks(t, torch.from_numpy(ids), w)
+    got = tspill.zero_lane_blocks_plain(t, torch.from_numpy(ids), w)
     assert got is t  # in place
     np.testing.assert_array_equal(got.numpy(), want)
     for i in ids:
@@ -61,16 +64,25 @@ def test_zero_lane_blocks_matches_jax(wide):
 
 
 def test_zero_lane_blocks_empty_ids_launch_nothing():
+    """Empty missing lists zero nothing: the plain zero-fill leaves the
+    buffer as the Pallas kernel does, and the folded direct launch equals
+    the one given no lists, counting no zero-fill."""
     buf = torch.randn(16, 1024)
-    before = dict(tspill.launches)
-    same = tspill.zero_lane_blocks(buf.clone(), torch.zeros(0, dtype=torch.int32), 128)
+    before = dict(tband.kernel_launches)
+    empty = torch.zeros(0, dtype=torch.int32)
+    same = tspill.zero_lane_blocks_plain(buf.clone(), empty, 128)
     np.testing.assert_array_equal(same.numpy(), buf.numpy())
     want = jax_tspill.zero_lane_blocks(jnp.asarray(buf.numpy()), jnp.zeros(0, jnp.int32), 128)
     np.testing.assert_array_equal(np.asarray(want), buf.numpy())
-    # an empty list never reaches a device check or a kernel, on any device
-    meta = torch.empty(16, 1024, device="meta")
-    assert tspill.zero_lane_blocks(meta, torch.zeros(0, dtype=torch.int32), 128) is meta
-    assert tspill.launches == before
+    rng = np.random.RandomState(3)
+    at = torch.from_numpy((rng.rand(4, 128, 128) < 0.05).astype(np.int8))
+    st = torch.tensor([0, 128, 256, 384], dtype=torch.int32)
+    sw = torch.tensor([2, 0, 3, 1], dtype=torch.int32)
+    xt = torch.from_numpy(rng.randn(16, 512).astype(np.float32))
+    direct = tband.tband_spmm_direct(sw, st, at, xt, 4, torch.float32)
+    folded = tband.tband_spmm_direct(sw, st, at, xt, 4, torch.float32, empty, empty)
+    assert torch.equal(direct, folded)
+    assert tband.kernel_launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -213,9 +225,13 @@ def test_wrappers_reject_meta_tensors(kernel):
     other device without a kernel it raises."""
     meta = dict(device="meta")
     with pytest.raises(ValueError):
-        if kernel == "zero":
-            tspill.zero_lane_blocks(torch.empty(16, 1024, **meta),
-                                    torch.zeros(2, dtype=torch.int32, **meta), 128)
+        if kernel == "zero":  # the zero-fill folded into the band kernel's direct launch
+            tband.tband_spmm_direct(torch.zeros(2, dtype=torch.int32, **meta),
+                                    torch.zeros(2, dtype=torch.int32, **meta),
+                                    torch.zeros(2, 64, 128, dtype=torch.int8, **meta),
+                                    torch.empty(16, 1024, **meta), 8, torch.float32,
+                                    torch.zeros(1, dtype=torch.int32, **meta),
+                                    torch.zeros(2, dtype=torch.int32, **meta))
         elif kernel == "mxgather":
             tspill.mxgather_lanes(torch.empty(16, 1024, **meta),
                                   torch.zeros(2, dtype=torch.int32, **meta),
@@ -243,23 +259,42 @@ def _need_cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_zero_and_mxgather_match_plain(dtype):
+    """mxgather against its plain version, and the zero-fill folded into the
+    band kernel's direct launch: the missing superwindows' blocks (runs of
+    eight, singles, both) equal zero_lane_blocks_plain's."""
     _need_cuda()
     rng = np.random.RandomState(1)
     dt, m, span, k = 48, 8192, 512, 32
     xt = torch.from_numpy(rng.randn(dt, m).astype(np.float32)).to("cuda", dtype)
     lo, rel, _ = build_mx_chunks(np.unique(rng.randint(0, m, 500)), span, k, m)
     lo, rel = torch.from_numpy(lo).cuda(), torch.from_numpy(rel).cuda()
-    before = dict(tspill.launches)
+    before, zero_before = dict(tspill.launches), tband.kernel_launches["zero_lane_blocks"]
     got = tspill.mxgather_lanes(xt, lo, rel, span=span)
-    for w, ids in ((128, [1, 5, 63]), (1024, [0, 7])):
-        buf = xt.clone()
-        tspill.zero_lane_blocks(buf, torch.tensor(ids, dtype=torch.int32, device="cuda"), w)
-        ref = tspill.zero_lane_blocks_plain(xt.clone(), torch.tensor(ids, device="cuda"), w)
-        assert torch.equal(buf, ref)
     torch.cuda.synchronize()
     assert torch.equal(got, tspill.mxgather_lanes_plain(xt, lo, rel))
     assert tspill.launches["mxgather_lanes"] == before["mxgather_lanes"] + 1
-    assert tspill.launches["zero_lane_blocks"] == before["zero_lane_blocks"] + 2
+    bh, num_sw = 128, 64  # superwindows 16-23 and 1, 5, 63 are missing
+    owned = np.setdiff1d(np.arange(num_sw), np.r_[16:24, 1, 5, 63])
+    at = torch.from_numpy((rng.rand(len(owned), 256, bh) < 0.05).astype(np.int8)).cuda()
+    st = torch.from_numpy((rng.randint(0, (m - 256) // 128 + 1, len(owned)) * 128)
+                          .astype(np.int32)).cuda()
+    sw = torch.from_numpy(rng.permutation(owned).astype(np.int32)).cuda()
+    cases = ([2], [1, 5, 63]), ([2], []), ([], [1, 5, 63])
+    for m8, m1 in cases:
+        ids = [torch.tensor(v, dtype=torch.int32, device="cuda") for v in (m8, m1)]
+        out = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype, *ids)
+        ref = tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, dtype, *ids)
+        torch.cuda.synchronize()
+        zero = torch.zeros(num_sw, dtype=torch.bool)
+        for r in m8:
+            zero[8 * r:8 * r + 8] = True
+        zero[m1] = True
+        cols = zero.clone()
+        cols[torch.from_numpy(owned)] = True
+        assert rel_err(out[:, cols.repeat_interleave(bh).cuda()].cpu(),
+                       ref[:, cols.repeat_interleave(bh).cuda()].cpu()) < TOL[dtype]
+        assert not out[:, zero.repeat_interleave(bh).cuda()].any()
+    assert tband.kernel_launches["zero_lane_blocks"] == zero_before + len(cases)
 
 
 @pytest.mark.cuda

@@ -337,6 +337,44 @@ def test_check_row_spill_arrays_accepts_plans_and_rejects_bad_indices():
                                      128, 1024, 4)
 
 
+H100_SMEM = dict(per_sm=233472, reserved=1024, optin=232448)  # bytes, as the card reports them
+
+# band width -> (tensor copies?, box bytes, boxes, rows a stage): the widest
+# box of at most 256 bytes that divides Bb, or 256 bytes with a zero-filled
+# tail past eight boxes; cp.async where Bb is no 16-byte multiple or A is not
+# 16-byte aligned; the rows halve only when two stages would not fit a block
+RINGS = {640: (True, 128, 5, 32), 1024: (True, 256, 4, 32), 384: (True, 128, 3, 32),
+         896: (True, 128, 7, 32), 48: (True, 16, 3, 32), 1008: (True, 256, 4, 32),
+         100: (False, 112, 1, 32), 4100: (False, 4112, 1, 16), 65536: (True, 256, 256, 1)}
+
+
+@pytest.mark.parametrize("bb", sorted(RINGS))
+def test_band_launch_ring(bb):
+    ring = block_spmm.band_launch(bb, **H100_SMEM)
+    tma, box_w, nbox, rows = RINGS[bb]
+    assert (ring["tma"], ring["box_w"], ring["nbox"], ring["rows"]) == RINGS[bb]
+    assert nbox * box_w >= bb and (nbox - 1) * box_w < bb  # no box wholly past Bb
+    if tma:
+        assert box_w <= 256 and box_w % 16 == 0 and (nbox == 1 or box_w & (box_w - 1) == 0)
+    stage = rows * box_w * nbox
+    assert 2 <= ring["stages"] <= 8
+    assert ring["smem"] == block_spmm._BAND_FIXED_SMEM + ring["stages"] * stage
+    assert ring["smem"] <= H100_SMEM["optin"]
+    # more stages only while three blocks still fit an SM
+    three = H100_SMEM["per_sm"] // 3 - H100_SMEM["reserved"]
+    assert ring["stages"] == 2 or ring["smem"] <= three
+    assert ring["stages"] == 8 or ring["smem"] + stage > three
+
+
+def test_band_launch_unaligned_a_and_oversized_rows():
+    """A not 16-byte aligned takes cp.async at any width; a row too wide for
+    two one-row stages is refused on the host."""
+    ring = block_spmm.band_launch(640, **H100_SMEM, aligned=False)
+    assert (ring["tma"], ring["box_w"], ring["nbox"]) == (False, 640, 1)
+    with pytest.raises(ValueError):
+        block_spmm.band_launch(1 << 17, **H100_SMEM, aligned=False)
+
+
 @pytest.mark.parametrize("kernel", ["band", "merge"])
 def test_wrappers_reject_meta_tensors(kernel):
     """A wrapper takes the plain version only for CPU tensors; on any other
@@ -641,6 +679,40 @@ def test_cuda_band_kernel_matches_plain(dp, dtype):
     assert rel_err(got.cpu(), block_spmm.band_bucket_spmm_direct_plain(
         sw, st, a, xv, num_sw, dtype).cpu()) < TOL[dtype]
     assert rel_err(part.cpu(), block_spmm.band_bucket_spmm_plain(st, a, xv).cpu()) < RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bb", [640, 100, 1024])
+def test_cuda_band_kernel_modes_and_rings(bb, dtype):
+    """The ring kernel in its three modes against the plain versions (Bb 640
+    and 1024 by tensor copies, 100 by cp.async; dp 128 and 384), two runs
+    bitwise equal, and in fp32 equal bit for bit to the fused kernel's
+    aggregate; the grouped mode at G 1/2/4/8 with entries past num_sw."""
+    _need_cuda()
+    for dp in (128, 384):
+        a, st, sw, x = band_inputs(bb + dp, bh=128, bb=bb, dp=dp, m=2048)
+        num_sw = len(sw) - 2
+        a, st, sw = (torch.from_numpy(v).cuda() for v in (a, st, sw))
+        xv = torch.from_numpy(x).to("cuda", dtype)
+        got = block_spmm.band_bucket_spmm_direct(sw, st, a, xv, num_sw, dtype)
+        again = block_spmm.band_bucket_spmm_direct(sw, st, a, xv, num_sw, dtype)
+        part = block_spmm.band_bucket_spmm(st, a, xv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert rel_err(got.cpu(), block_spmm.band_bucket_spmm_direct_plain(
+            sw, st, a, xv, num_sw, dtype).cpu()) < TOL[dtype]
+        assert rel_err(part.cpu(), block_spmm.band_bucket_spmm_plain(st, a, xv).cpu()) < RTOL
+        if dtype == torch.float32:
+            wp = torch.randn((dp, 128), device="cuda")
+            agg, _ = block_spmm.band_fused_spmm_direct(sw, st, a, xv, wp, num_sw, dtype)
+            assert torch.equal(agg, got)
+        a8, st8 = a[:4].repeat(2, 1, 1), st[:4].repeat(2)
+        for group in (1, 2, 4, 8):
+            grouped = block_spmm.band_bucket_spmm_grouped(st8, a8, xv, 5, dtype, group)
+            ref = block_spmm.band_bucket_spmm_grouped_plain(st8, a8, xv, 5, dtype, group)
+            torch.cuda.synchronize()
+            assert rel_err(grouped.cpu(), ref.cpu()) < TOL[dtype]
 
 
 @pytest.mark.cuda
