@@ -11,7 +11,10 @@ Phases, each of which raises on failure, with its seconds printed:
    together, and prints ptxas's register and shared-memory lines, those of
    each tband_kernel instantiation (registers, spill bytes, static shared
    memory) and the band kernel's launch configuration (ring stages,
-   dynamic shared memory, blocks an SM);
+   dynamic shared memory, blocks an SM); the same of the two fused kernels
+   (tband_kernel's fused forms and band_fused_kernel: ptxas's registers and
+   spills, and the host's sizing; phases 3 and 17 log the blocks an SM the
+   card gave each launch);
 3. holds the band kernel against its plain PyTorch version: at the shape
    the DD-scale blocks stand-in's plan gives it (Sb 1312, W 768, bh 256,
    dt 32; two runs bitwise equal, and in fp32 equal bit for bit to the
@@ -21,10 +24,15 @@ Phases, each of which raises on failure, with its seconds printed:
    of the 32-, 64- and 128-column copy boxes; capacity-padded entries; the
    same two bitwise checks) and on two-bucket full-cover plans (tband and
    wide: the bucket modes' path); fp32 within 1e-5 and bf16 within 1e-2 of
-   max|ref|; the tband fused kernel and the bucket mode at the
-   stand-in plan's arrays, timed, with the Table VI analog (fused vs the
-   composed pair, interleaved) at dim 32, and the fused kernel timed at dt
-   96 / ht 32, dt 192 / ht 32 and dt 64 / ht 608;
+   max|ref|; the tband fused kernel at the stand-in plan's arrays at dt 32
+   / ht 32 (the Table VI analog), dt 96 / ht 32, dt 192 / ht 32 and dt 64 /
+   ht 608, fp32 and bf16, against its plain version, bitwise repeatable and
+   in fp32 its aggregate equal to the band kernel's output, each timed in 7
+   interleaved rounds with the composed pair (the band kernel, then
+   torch.matmul) and the band kernel alone; at dt 32 / ht 32 its three
+   forms (ONE, the host's choice there, SLAB and WHOLE) held bit for bit
+   against each other and timed in 7 interleaved rounds; the bucket mode
+   timed;
 4. holds the spill kernels (mxgather_lanes, tbstream_merge) and the
    zero-fill folded into the band kernel's direct launch (runs of eight,
    singles, both and neither, bh 128 and 256) against their plain versions
@@ -91,22 +99,25 @@ Phases, each of which raises on failure, with its seconds printed:
 15. trains the 6-layer GCN 2 epochs through ``cli.main --impl xla`` (the
     plain form, row layout) on the blocks stand-in;
 16. the fused kernels (tband and wide), the tiled band and the grouped band
-    against their plain versions at small odd shapes (dt 16-96 with ht !=
-    dt, and dt 192 / ht 32, dt 64 / ht 608 and the wide slab path at dp 3712;
-    dp 128-384 with hp != dp, capacity-padded entries, pair streams and
-    tiled plans with empty superwindows at ring slots 2/4/16, G 1/2/4/8),
-    fp32 and bf16, bitwise repeatable;
-17. at the blocks stand-in's wide plan: the wide fused kernel (dp 128 and
-    256, hp 256; dp 3712 on its slab path, held against the composed pair)
-    timed beside the composed pair and the Table VI analog at
-    dim 96, the bucket mode, the grouped band and the grouped A/B (direct
-    vs G = 1, 2, 4, 8 and torch.sparse.mm, the port of
-    tools/ab_grouped.py); at its tiled plan,
-    the tiled band at dp 128 and 256;
+    against their plain versions at small odd shapes (tband dt 16-512, ht
+    16-608, every fused form; wide dp 128-3712, hp 22-384, Bb 640 and 100;
+    capacity-padded entries, pair streams and tiled plans with empty
+    superwindows at ring slots 2/4/16, G 1/2/4/8), fp32 and bf16, bitwise
+    repeatable, the fused aggregates in fp32 equal to the band kernels';
+17. at the blocks stand-in's wide plan: the wide fused kernel at (dp, hp)
+    (128, 256), (256, 256), (128, 128) (the Table VI analog at dim 96) and
+    (3712, 256) (held against the composed pair there), fp32 and bf16,
+    bitwise repeatable, its fp32 aggregate equal to the band kernel's
+    output, each timed in 7 interleaved rounds with the composed pair and
+    the band kernel alone; the bucket mode, the grouped band and the
+    grouped A/B (direct vs G = 1, 2, 4, 8 and torch.sparse.mm, the port of
+    tools/ab_grouped.py); at its tiled plan, the tiled band at dp 128 and
+    256;
 18. the kernel-fusion mode (``op.plan.prefer_fused_kernel = True``): the
     6-layer GCN and GIN on the tband plan and the 3-layer GCN and GIN at
     hidden 256 on the wide plan, trained through ``train.loop.train`` beside
-    the composed runs, with the fused launches counted;
+    the composed runs, with the fused launches counted and logged by (dt,
+    ht) or (dp, hp);
 19. ``cli.main --band-impl tiled``: GCN and GIN at hidden 256 and
     ``--single_kernel`` on the blocks stand-in, every SpMM through the
     tiled kernel, and ``apply_padded`` on the tiled plan against scipy;
@@ -124,8 +135,9 @@ main paths run here, its time, its plain version's, one library call's
 where PyTorch has one (torch.sparse.mm, torch.sparse.addmm, index_fill_,
 index_add_, index_select, F.embedding_bag) or, for the fused kernels, the
 composed pair they replace, and its bound: the larger of the bytes it must move (each
-input read once, each output written once) at 3.35 TB/s and its fp32
-operations at 67 TFLOP/s, computed from this run's arrays; beside it the
+input read once, each output written once) at 3.35 TB/s and its
+operations at the card's peak rate for their type (fp32 67 TFLOP/s, bf16
+989 TFLOP/s), computed from this run's arrays; beside it the
 Table VI analog, the grouped A/B and the fused training runs.  The last
 line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
@@ -160,12 +172,30 @@ ROW_DIMS = (32, 256)
 ROW_SELECTORS = ("intended", "calibrated")  # LOI selectors of the row-layout plans
 ROW_KERNEL = {"dense_bucket_spmm": "dense_rows_kernel", "ell_bucket_spmm": "ell_rows_kernel"}
 H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA's data sheet (SXM)
-H100_FP32_OPS_PER_S = 67e12    # fp32 outside the tensor cores
+# Peak operations a second by the inputs' type (NVIDIA's data sheet, SXM,
+# dense): fp32 outside the tensor cores, bf16 on them
+H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 DEV = "cuda"  # the kernels' checks run here (a CPU rehearsal may point it elsewhere)
 WIDE_DESIGN = ("persistent, two blocks an SM; a ring of A tiles [32, Bb] filled by Tensor Memory "
                "Accelerator copies (cp.async where Bb is no 16-byte multiple) under full/empty "
                "mbarriers; eight consumer warps, a row each: its non-zeros found by ballots, "
                "added in increasing k in batches whose X loads precede the FMAs")
+TBAND_FUSED_DESIGN = ("tband_kernel's ring in its fused forms: an entry is a block's unit of "
+                      "work and its feature slabs are walked in order; SLAB (ht <= 32, two blocks "
+                      "an SM): after each slab a warp stores agg^T for its columns and adds "
+                      "W^T[:, slab] round_as(agg^T) into an out^T tile kept in registers (ONE: "
+                      "one slab, the tile live only at its end); WHOLE "
+                      "(wider ht): the entry's whole aggregate stays in shared memory and, after "
+                      "a barrier of the consumer warps, each warp multiplies 8-row tiles of W^T "
+                      "by it; fp32 FMAs in increasing d")
+WIDE_FUSED_DESIGN = ("band_kernel's machinery with the update fused in: persistent, one block "
+                     "an SM of eight warps; units of 128 rows of an entry from the work counter; "
+                     "the unit's A tile by tensor copies (cp.async where Bb is no 16-byte "
+                     "multiple) under an mbarrier, the next unit's requested before this one's "
+                     "update; band_row's ballot walk writes the aggregate rows; then agg^T "
+                     "(re-read from L2, rounded to W's type) and W staged 8 rows of k at a time "
+                     "in shared memory, double-buffered, into an 8 x 16 register tile of out a "
+                     "thread (8 x 8 where hp <= 128); fp32 FMAs in increasing k")
 TBAND_DESIGN = ("persistent, two blocks an SM; a ring of Tensor Memory Accelerator copies "
                 "(swizzled A_t and X^T slabs) issued by one producer lane under full/empty "
                 "mbarriers; warps of 16 columns (32 above bh 256) with 64-row masks of "
@@ -284,6 +314,8 @@ def zero_counts():
                    tband.kernel_launches, block_spmm.kernel_launches):
         for k in counts:
             counts[k] = 0
+    tband.fused_shapes.clear()
+    block_spmm.fused_shapes.clear()
 
 
 def read_counts() -> dict:
@@ -350,7 +382,7 @@ def spill_kernels_vs_plain(key, arrs, plan, dtype, cd, gen, out) -> None:
         k_ms = cuda_time_ms(fn_k, reps)
         p_ms = cuda_time_ms(fn_p, max(reps // 4, 2))
         lib_ms = None if fn_lib is None else cuda_time_ms(fn_lib, max(reps // 4, 2))
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(nbytes, ops, cd)
         log(f"    {key} {label} {cd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.4f} ms by {b_by}")
         out.setdefault((name, cd), []).append(dict(graph=key, shape=label, err=err, ms=k_ms,
@@ -672,7 +704,7 @@ def wide_band_checks(key, op, gen, out, graph) -> None:
                 sw, st, a, xp, num_sw, dtype), 2)
             b_ms, b_by = bound(a.numel() + m * dp * xp.element_size()
                                + len(owned) * a.shape[1] * dp * xp.element_size()
-                               + 8 * a.shape[0], 2 * nnz * dp)
+                               + 8 * a.shape[0], 2 * nnz * dp, cd)
             a_cd, g_cd = band_csr.to(dtype), g_rows.to(dtype)
             lib_ms = median_ms(lambda: torch.sparse.mm(a_cd, xp), 10)[0]
             x_g = xp[:n]
@@ -830,7 +862,7 @@ def row_kernels_vs_plain(key, op, gen, out, dp=256) -> None:
         k_ms = cuda_time_ms(fn_k, reps)
         p_ms = cuda_time_ms(fn_p, 2)
         lib_ms = None if fn_lib is None else cuda_time_ms(fn_lib, 3)
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bound(nbytes, ops, cd)
         log(f"    {key} {label} {cd}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.4f} ms by {b_by}")
         out.setdefault((name, cd), []).append(dict(graph=key, shape=label, err=err, ms=k_ms,
@@ -980,39 +1012,64 @@ def device_ms(fn, reps: int, frag: str) -> float:
     return busy / 1e3 / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, cd: str = "float32") -> tuple:
     """(least ms, what bounds it) for moving ``nbytes`` at the H100's
-    3.35 TB/s and doing ``ops`` fp32 operations at its 67 TFLOP/s outside
-    the tensor cores (the kernels sum on the CUDA cores in fp32)."""
-    t_b, t_o = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_FP32_OPS_PER_S * 1e3
+    3.35 TB/s and doing ``ops`` operations at its peak rate for inputs of
+    type ``cd``: 67 TFLOP/s in fp32 (outside the tensor cores), 989 TFLOP/s
+    in bf16 (on them).  The bf16 rate holds whether or not the kernel uses
+    the tensor cores: the bound is what the card can do."""
+    t_b, t_o = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_OPS_PER_S[cd] * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def tband_kernel_report(log_text: str) -> list:
-    """ptxas's registers, spill bytes and static shared memory of each
-    instantiation of csrc/tband.cu's tband_kernel, from the build's log."""
+def ptxas_report(log_text: str, pattern: str, label) -> list:
+    """ptxas's registers, spill bytes and static shared memory of each kernel
+    whose mangled name matches ``pattern``, from a build's log; ``label``
+    names a match."""
     import re
 
     lines = log_text.splitlines()
     out = []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '(\S*tband_kernelI(\w+?)Li(\d+)E\S*)'", line)
-        if not m:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        k = m and re.search(pattern, m.group(1))
+        if not k:
             continue
-        types = m.group(2)
-        x = "bf16" if types.startswith("13__nv_bfloat16") else "fp32"
-        o = "fp32" if types[len("13__nv_bfloat16") if x == "bf16" else 1:].startswith("f") else "bf16"
         props = " ".join(v.strip() for v in lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", props)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", props)
         smem = re.search(r"(\d+) bytes smem", props)
-        out.append(f"tband_kernel<{x} in, {o} out, DT {m.group(3)}>: "
-                   f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
+        out.append(f"{label(k)}: {regs.group(1) if regs else '?'} registers, spill stores/loads "
                    f"{'/'.join(spill.groups()) if spill else '?'} bytes, static shared memory "
                    f"{smem.group(1) if smem else 0} bytes")
     if not out:
-        raise AssertionError("the tband build log names no tband_kernel instantiation")
+        raise AssertionError(f"the build log names no kernel matching {pattern}")
     return out
+
+
+def types_of(mangled: str) -> str:
+    """'x in, y out' of a kernel's mangled (X, out) template types."""
+    bf = "13__nv_bfloat16"
+    x = "bf16" if mangled.startswith(bf) else "fp32"
+    rest = mangled[len(bf) if x == "bf16" else 1:]
+    return f"{x} in, {'fp32' if rest.startswith('f') else 'bf16'} out"
+
+
+FORMS = {"0": "band", "1": "fused SLAB", "2": "fused WHOLE", "3": "fused ONE"}
+
+
+def tband_kernel_report(log_text: str) -> list:
+    """ptxas's lines of each instantiation of csrc/tband.cu's tband_kernel."""
+    return ptxas_report(log_text, r"tband_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)E",
+                        lambda k: f"tband_kernel<{types_of(k.group(1))}, DT {k.group(2)}, COLS "
+                                  f"{k.group(3)}, {FORMS[k.group(4)]}>")
+
+
+def band_kernel_report(log_text: str) -> list:
+    """ptxas's lines of each instantiation of csrc/block_spmm.cu's
+    band_kernel and band_fused_kernel."""
+    return ptxas_report(log_text, r"\d(band_kernel|band_fused_kernel)I(\w+?)Li(\d+)E",
+                        lambda k: f"{k.group(1)}<{types_of(k.group(2))}, NG {k.group(3)}>")
 
 
 def band_kernel_at_plan(key, op, gen, out, graph) -> None:
@@ -1078,7 +1135,7 @@ def band_kernel_at_plan(key, op, gen, out, graph) -> None:
         g_cd, x_g = g_rows.to(dtype), x_rows[:n]
         graph_ms = median_ms(lambda: torch.sparse.mm(g_cd, x_g), 10)[0]
         b_ms, b_by = bound(at.numel() + xt.numel() * elt + 32 * m * elt + 8 * at.shape[0],
-                           2 * nnz * 32)
+                           2 * nnz * 32, cd)
         log(f"    {key} band kernel {cd} at {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"torch.sparse.mm {lib_ms:.4f} ms ({a_rows._nnz()} nnz, longest row "
             f"{int(a_rows.crow_indices().diff().max())}; of the graph's own CSR, "
@@ -1472,6 +1529,28 @@ def timed(label, fn_k, fn_p, nbytes, ops, fn_lib=None, reps=20, err=0.0) -> dict
                 bound_by=b_by, shape=label)
 
 
+def fused_vs_composed(label, cd, fns, fn_p, nbytes, ops, reps, err) -> dict:
+    """A fused kernel's kernel-table row: ``fns`` (fused, composed: the
+    band kernel then torch.matmul, band: the band kernel alone) timed in 7
+    interleaved rounds (medians), the plain version once, and the bound,
+    whose operations are counted at the card's peak rate for ``cd`` (bf16:
+    the tensor cores' 989 TFLOP/s, though the update runs on the CUDA
+    cores)."""
+    ab = interleaved_ms(fns, reps)
+    p_ms = cuda_time_ms(fn_p, 2) if fn_p is not None else None
+    b_ms, b_by = bound(nbytes, ops, cd)
+    rate = f"{cd} {H100_OPS_PER_S[cd] / 1e12:.0f} TFLOP/s"
+    log(f"    {label}: fused {ab['fused']:.4f} ms, composed pair {ab['composed']:.4f} ms, band "
+        f"kernel alone {ab['band']:.4f} ms (medians of 7 interleaved rounds), plain "
+        f"{'not run' if p_ms is None else f'{p_ms:.4f} ms'}, bound {b_ms:.4f} ms by {b_by} "
+        f"(operations at {rate}); fused is "
+        f"{(ab['composed'] - ab['fused']) / ab['composed']:+.1%} faster than the pair, "
+        f"{ab['fused'] / b_ms:.2f}x the bound")
+    return dict(err=err, ms=ab["fused"], plain_ms=p_ms, library_ms=ab["composed"],
+                band_ms=ab["band"], bound_ms=b_ms, bound_by=b_by, ops_rate=rate,
+                shape=label, table6=dict(fused=ab["fused"], composed=ab["composed"]))
+
+
 def tiled_arrays(counts, bh, tiles, gen):
     """A tiled pair stream on the card: superwindow s owns ``counts[s]``
     pairs of consecutive 128-row tiles from a random first tile, or, where
@@ -1501,11 +1580,13 @@ def tiled_arrays(counts, bh, tiles, gen):
 def small_new_kernel_checks(gen) -> None:
     """The two fused kernels, the tiled band and the grouped band against
     their plain versions at small odd shapes, fp32 and bf16, every output
-    bitwise repeatable: tband fused at dt 16/32/48/96 with ht != dt, and at
-    dt 192 / ht 32 and dt 64 / ht 608 (which would not fit whole in one
-    block's shared memory at bh 256); wide fused at dp 128/256/384 with hp != dp (and one
-    hp that is no 128-multiple) and at dp 3712 (CiteSeer's 3703 features:
-    the slab path); both at bh 128 and 256 with capacity-padded entries; the
+    bitwise repeatable: tband fused at dt 16-512 and ht 16-608, each of its
+    forms (ONE, SLAB with W^T staged or read through L1 over two out^T
+    tiles, WHOLE); wide fused at dp 128-3712 (CiteSeer's 3703 features) and
+    hp 22-384 (two of them no 4-multiple), with A by tensor copies (Bb 640)
+    and by cp.async (Bb 100); both at bh 128 and 256 with capacity-padded
+    entries, and in fp32 their aggregates equal to the band kernels'
+    outputs bit for bit; the
     tiled band at dp 128/256/384 on a pair stream with empty superwindows,
     and on the tiled plans of a small graph at ring slots 2 and 16 and of a
     graph with empty superwindows (apply_padded vs scipy); the grouped band
@@ -1532,7 +1613,11 @@ def small_new_kernel_checks(gen) -> None:
         at_s = (torch.rand((sb, w, bh), generator=gen) < 0.05).to(torch.int8).to(dev)
         st_s = (torch.randint(0, (mm - w) // 128 + 1, (sb,), generator=gen) * 128).to(
             dev, torch.int32)
-        for dt, ht in ((16, 48), (32, 96), (48, 16), (96, 32), (192, 32), (64, 608)):
+        # every form of the fused tband kernel: ONE (32/32, 16/16), SLAB with
+        # W^T staged (48/16, 96/32, 192/32) or read through L1 in two out^T
+        # tiles (512/64), WHOLE (16/48, 32/96, 64/608)
+        for dt, ht in ((16, 48), (32, 96), (48, 16), (96, 32), (192, 32), (64, 608), (32, 32),
+                       (16, 16), (512, 64)):
             for cd, dtype in dtypes:
                 xt = torch.randn((dt, mm), generator=gen).to(dev, dtype)
                 wt = torch.randn((ht, dt), generator=gen).to(dev, dtype)
@@ -1541,20 +1626,37 @@ def small_new_kernel_checks(gen) -> None:
                     lambda: tband.tband_fused_direct(sw_s, st_s, at_s, xt, wt, sb - trash, dtype),
                     lambda: tband.tband_fused_direct_plain(sw_s, st_s, at_s, xt, wt, sb - trash,
                                                            dtype), cd)
+                if cd == "float32" and not torch.equal(
+                        tband.tband_fused_direct(sw_s, st_s, at_s, xt, wt, sb - trash, dtype)[0],
+                        tband.tband_spmm_direct(sw_s, st_s, at_s, xt, sb - trash, dtype)):
+                    raise AssertionError(f"tband fused dt {dt} ht {ht}: the aggregate differs "
+                                         "from tband_spmm_direct's output")
         bb, mm = 640, 2048
         a_s = (torch.rand((sb, bh, bb), generator=gen) < 0.05).to(torch.int8).to(dev)
         st_s = (torch.randint(0, (mm - bb) // 16 + 1, (sb,), generator=gen) * 16).to(
             dev, torch.int32)
-        for dp, hp in ((128, 256), (256, 256), (256, 128), (384, 128), (256, 200), (3712, 256)):
+        a_odd = (torch.rand((sb, bh, 100), generator=gen) < 0.05).to(torch.int8).to(dev)
+        # hp 22 and 200: no 4-multiple; Bb 100: A staged by cp.async
+        for dp, hp, a_w in ((128, 256, a_s), (256, 256, a_s), (256, 128, a_s), (384, 128, a_s),
+                            (256, 200, a_s), (3712, 256, a_s), (128, 22, a_s), (256, 384, a_s),
+                            (256, 256, a_odd)):
             for cd, dtype in dtypes:
                 xp = torch.randn((mm, dp), generator=gen).to(dev, dtype)
                 wp = torch.randn((dp, hp), generator=gen).to(dev, dtype)
                 hold_repeatable(
-                    f"wide fused {cd} dp {dp} hp {hp} bh {bh} +{trash} padded entries",
-                    lambda: block_spmm.band_fused_spmm_direct(sw_s, st_s, a_s, xp, wp,
+                    f"wide fused {cd} dp {dp} hp {hp} Bb {a_w.shape[2]} bh {bh} +{trash} "
+                    "padded entries",
+                    lambda: block_spmm.band_fused_spmm_direct(sw_s, st_s, a_w, xp, wp,
                                                               sb - trash, dtype),
-                    lambda: block_spmm.band_fused_spmm_direct_plain(sw_s, st_s, a_s, xp, wp,
+                    lambda: block_spmm.band_fused_spmm_direct_plain(sw_s, st_s, a_w, xp, wp,
                                                                     sb - trash, dtype), cd)
+                if cd == "float32" and not torch.equal(
+                        block_spmm.band_fused_spmm_direct(sw_s, st_s, a_w, xp, wp, sb - trash,
+                                                          dtype)[0],
+                        block_spmm.band_bucket_spmm_direct(sw_s, st_s, a_w, xp, sb - trash,
+                                                           dtype)):
+                    raise AssertionError(f"wide fused dp {dp} Bb {a_w.shape[2]}: the aggregate "
+                                         "differs from band_bucket_spmm_direct's output")
         counts = [0, 3, 1, 6, 2, 0, 4, 5, 1]
         m = len(counts) * bh
         arrs = tiled_arrays(counts, bh, m // 128, gen)
@@ -1579,9 +1681,10 @@ def small_new_kernel_checks(gen) -> None:
                                                                     dtype, group),
                         lambda: block_spmm.band_bucket_spmm_grouped_plain(
                             st_g, a_g, xp, sb_g - 3, dtype, group), cd)
-    log("  tband fused (dt 16-192, ht 16-608), wide fused (dp 128-3712, hp != dp), tiled (dp "
-        "128-384, empty superwindows) and grouped (G 1-8) at bh 128 and 256, fp32 and bf16, "
-        "within tolerance of their plain versions and bitwise repeatable: pass")
+    log("  tband fused (dt 16-512, ht 16-608: forms ONE, SLAB, WHOLE), wide fused (dp 128-3712, "
+        "hp 22-384, Bb 640 and 100), tiled (dp 128-384, empty superwindows) and grouped (G 1-8) "
+        "at bh 128 and 256, fp32 and bf16, within tolerance of their plain versions and bitwise "
+        "repeatable, the fused aggregates in fp32 equal to the band kernels' outputs: pass")
 
     src, dst, nn = gio.synthetic_blocks(512, 4, 48, seed=5)
     rp, ci = gio.to_csr(src, dst, nn)
@@ -1610,13 +1713,17 @@ def small_new_kernel_checks(gen) -> None:
 
 
 def tband_fused_at_plan(op, gen, out) -> None:
-    """At the blocks stand-in's tband plan (dt 32, ht 32, the Table VI
-    analog's tband shape): tband_fused_direct against its plain version,
-    fp32 and bf16, bitwise repeatable; timed beside the composed pair it
-    replaces (tband_spmm_direct, then torch.matmul of W^T by the aggregate)
-    and its bound, with fused and composed also interleaved (medians); and
-    the band kernel's bucket mode timed at the same arrays.  Results go
-    into ``out``."""
+    """At the blocks stand-in's tband plan: tband_fused_direct at (dt, ht)
+    (32, 32) (the Table VI analog's tband shape), (96, 32) (the GIN
+    forward's first layer), (192, 32) and (64, 608) (past one block's
+    shared memory for the first fused kernel), fp32 and bf16, and (32, 96)
+    (the GCN backward's first layer), fp32, against its plain
+    version, bitwise repeatable, and in fp32 its aggregate equal bit for bit
+    to tband_spmm_direct's output; each timed interleaved with the composed
+    pair it replaces (tband_spmm_direct, then torch.matmul of W^T by the
+    aggregate) and the band kernel alone, beside its bound; and the band
+    kernel's bucket mode timed at the same arrays.  Results go into
+    ``out``."""
     import torch
 
     from hcspmm_tpu_torch.kernels import tband
@@ -1626,70 +1733,98 @@ def tband_fused_at_plan(op, gen, out) -> None:
     st, sw, at = arrs["band0_start"], arrs["band0_sw"], arrs["band0_at"]
     m, num_sw, bh = p.padded_rows, p.padded_rows // p.band_h, p.band_h
     nnz = int(at.count_nonzero())
-    shape = f"Sb {at.shape[0]}, W {at.shape[1]}, bh {bh}, dt 32, ht 32"
-    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        xt = torch.randn((32, m), generator=gen).to(DEV, dtype)
-        wt = (torch.randn((32, 32), generator=gen) * 0.1).to(DEV, dtype)
+    for dt, ht in ((32, 32), (96, 32), (192, 32), (64, 608), (32, 96)):
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            if (dt, ht) == (32, 96) and cd == "bfloat16":
+                continue  # the GCN backward's first layer: timed in fp32 only
+            xt = torch.randn((dt, m), generator=gen).to(DEV, dtype)
+            wt = (torch.randn((ht, dt), generator=gen) * 0.1).to(DEV, dtype)
 
-        def fused():
-            return tband.tband_fused_direct(sw, st, at, xt, wt, num_sw, dtype)
+            def fused():
+                return tband.tband_fused_direct(sw, st, at, xt, wt, num_sw, dtype)
 
-        def composed():
-            agg = tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)
-            return _dot(wt, agg), agg
+            def band():
+                return tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype)
 
-        err = hold_repeatable(f"tband fused {cd} at {shape}", fused,
-                              lambda: tband.tband_fused_direct_plain(sw, st, at, xt, wt, num_sw,
-                                                                     dtype), cd)
-        elt = xt.element_size()
-        row = timed(f"tband fused {cd} at {shape} (yardstick: the composed pair)", fused,
-                    lambda: tband.tband_fused_direct_plain(sw, st, at, xt, wt, num_sw, dtype),
-                    at.numel() + xt.numel() * elt + wt.numel() * elt + 2 * 32 * m * elt
-                    + 8 * at.shape[0], 2 * nnz * 32 + 2 * 32 * 32 * m, fn_lib=composed, err=err)
-        ab = interleaved_ms({"fused": fused, "composed": composed}, 20)
-        row["table6"] = ab
-        log(f"    Table VI analog, tband dim 32 {cd}: fused {ab['fused']:.4f} ms, composed "
-            f"{ab['composed']:.4f} ms (medians of 7 interleaved rounds; fused is "
-            f"{(ab['composed'] - ab['fused']) / ab['composed']:+.1%} faster)")
-        out[("tband_fused_direct", cd)] = row
-        if cd == "float32":
-            err = hold("tband bucket fp32", tband.tband_spmm_bucket(st, at, xt),
-                       tband.tband_spmm_bucket_plain(st, at, xt), cd)
-            sb = at.shape[0]
-            bucket_csr = block_csr(at.transpose(1, 2), st, torch.arange(sb, device=DEV), sb, m)
-            x_rows = xt.T.contiguous()
-            out[("tband_spmm_bucket", cd)] = timed(
-                f"tband bucket mode fp32 at Sb {sb}, W {at.shape[1]}, bh {bh}, dt 32 "
-                "(yardstick: torch.sparse.mm)",
-                lambda: tband.tband_spmm_bucket(st, at, xt),
-                lambda: tband.tband_spmm_bucket_plain(st, at, xt),
-                at.numel() + xt.numel() * elt + 32 * sb * bh * 4 + 4 * sb, 2 * nnz * 32,
-                fn_lib=lambda: torch.sparse.mm(bucket_csr, x_rows), err=err)
-            del bucket_csr, x_rows
-        del xt
-    # the GIN forward's first layer (dt 96) and two shapes that would not
-    # fit whole in one block's shared memory, at the plan's arrays, fp32
-    for dt, ht in ((96, 32), (192, 32), (64, 608)):
-        xt = torch.randn((dt, m), generator=gen).to(DEV)
-        wt = (torch.randn((ht, dt), generator=gen) * 0.1).to(DEV)
+            def composed():
+                agg = band()
+                return _dot(wt, agg), agg
 
-        def fused():
-            return tband.tband_fused_direct(sw, st, at, xt, wt, num_sw, torch.float32)
+            def plain():
+                return tband.tband_fused_direct_plain(sw, st, at, xt, wt, num_sw, dtype)
 
-        def composed():
-            agg = tband.tband_spmm_direct(sw, st, at, xt, num_sw, torch.float32)
-            return _dot(wt, agg), agg
+            shape = f"Sb {at.shape[0]}, W {at.shape[1]}, bh {bh}, dt {dt}, ht {ht}"
+            err = hold_repeatable(f"tband fused {cd} at {shape}", fused, plain, cd)
+            if cd == "float32":
+                if not torch.equal(fused()[0], band()):
+                    raise AssertionError(f"tband fused at {shape}: the aggregate differs from "
+                                         "tband_spmm_direct's output")
+                log(f"  tband fused fp32 at {shape}: the aggregate equals tband_spmm_direct's "
+                    "output bit for bit")
+            elt = xt.element_size()
+            row = fused_vs_composed(
+                f"tband fused {cd} at {shape}", cd,
+                {"fused": fused, "composed": composed, "band": band}, plain,
+                at.numel() + (xt.numel() + wt.numel() + (dt + ht) * m) * elt + 8 * at.shape[0],
+                2 * nnz * dt + 2 * ht * dt * m, 10 if dt * ht <= 96 * 32 else 3, err)
+            fused()
+            row["launch"] = dict(tband.last_fused_launch)
+            log(f"    its launch: {row['launch']} (resident: the blocks an SM the card gave it)")
+            if (dt, ht) == (32, 32):
+                row["forms_ab"] = tband_forms_ab(fused, cd, shape)
+                out[("tband_fused_direct", cd)] = row
+                log(f"    Table VI analog, tband dim 32 {cd}: fused {row['ms']:.4f} ms, composed "
+                    f"{row['library_ms']:.4f} ms")
+            out[("tband_fused_shapes", (dt, ht), cd)] = row
+            del xt, wt
+    xt = torch.randn((32, m), generator=gen).to(DEV)
+    err = hold("tband bucket fp32", tband.tband_spmm_bucket(st, at, xt),
+               tband.tband_spmm_bucket_plain(st, at, xt), "float32")
+    sb = at.shape[0]
+    bucket_csr = block_csr(at.transpose(1, 2), st, torch.arange(sb, device=DEV), sb, m)
+    x_rows = xt.T.contiguous()
+    out[("tband_spmm_bucket", "float32")] = timed(
+        f"tband bucket mode fp32 at Sb {sb}, W {at.shape[1]}, bh {bh}, dt 32 "
+        "(yardstick: torch.sparse.mm)",
+        lambda: tband.tband_spmm_bucket(st, at, xt),
+        lambda: tband.tband_spmm_bucket_plain(st, at, xt),
+        at.numel() + xt.numel() * 4 + 32 * sb * bh * 4 + 4 * sb, 2 * nnz * 32,
+        fn_lib=lambda: torch.sparse.mm(bucket_csr, x_rows), err=err)
+    del bucket_csr, x_rows, xt
 
-        label = (f"tband fused fp32 at Sb {at.shape[0]}, W {at.shape[1]}, bh {bh}, dt {dt}, "
-                 f"ht {ht}")
-        err = hold_repeatable(label, fused, lambda: tband.tband_fused_direct_plain(
-            sw, st, at, xt, wt, num_sw, torch.float32), "float32")
-        out[("tband_fused_shapes", (dt, ht))] = timed(
-            label + " (yardstick: the composed pair)", fused,
-            lambda: tband.tband_fused_direct_plain(sw, st, at, xt, wt, num_sw, torch.float32),
-            at.numel() + (xt.numel() + wt.numel() + (dt + ht) * m) * 4 + 8 * at.shape[0],
-            2 * nnz * dt + 2 * ht * dt * m, fn_lib=composed, reps=5, err=err)
-        del xt, wt
+
+def tband_forms_ab(fused, cd, shape) -> dict:
+    """``fused`` (a tband_fused_direct call at ht <= 32, one slab of dt)
+    launched in each fused form the kernel takes there, fused_launch's
+    choice overridden for the call, timed in 7 interleaved rounds
+    (medians)."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import tband
+
+    real = tband.fused_launch
+    forms = {"ONE": {"form": tband.FUSE_ONE}, "SLAB": {"form": tband.FUSE_SLAB},
+             "WHOLE": {"form": tband.FUSE_WHOLE, "wsm": 0}}
+
+    def in_form(over):
+        def call():
+            tband.fused_launch = lambda *a, **k: dict(real(*a, **k), **over)
+            try:
+                return fused()
+            finally:
+                tband.fused_launch = real
+        return call
+
+    calls = {k: in_form(v) for k, v in forms.items()}
+    ref = fused()
+    for k, call in calls.items():
+        if not all(torch.equal(g, r) for g, r in zip(call(), ref)):
+            raise AssertionError(f"tband fused {cd} at {shape}: form {k} differs from "
+                                 "fused_launch's choice")
+    ab = interleaved_ms(calls, 10)
+    log(f"    tband fused {cd} at {shape}, its forms (medians of 7 interleaved rounds): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ab.items()))
+    return ab
 
 
 def wide_new_kernels_at_plan(op_w, op_t, gen, out, launch_runs) -> None:
@@ -1721,63 +1856,60 @@ def wide_new_kernels_at_plan(op_w, op_t, gen, out, launch_runs) -> None:
     nnz = int(band_csr.values().numel())
     label = f"Sb {a.shape[0]}, Bb {a.shape[2]}, bh {bh}"
     log(f"  blocks wide plan: {label}, {num_sw} superwindows, {nnz} band nnz")
-    for dp, hp in ((128, 256), (256, 256)):
+    # (dp, hp): the GCN/GIN layers at hidden 256, the Table VI analog at dim
+    # 96 (dp 128, W [128, 128]) and CiteSeer's 3703 features (dp 3712, past
+    # one block's shared memory for the first fused kernel)
+    for dp, hp in ((128, 256), (256, 256), (128, 128), (3712, 256)):
         for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            xp = torch.randn((m, dp), generator=gen).to(DEV, dtype)
-            wp = (torch.randn((dp, hp), generator=gen) * 0.1).to(DEV, dtype)
+            dgen = torch.Generator(device=DEV).manual_seed(dp + hp)  # up to 1.2 G values
+            xp = torch.randn((m, dp), generator=dgen, device=DEV).to(dtype)
+            wp = (torch.randn((dp, hp), generator=dgen, device=DEV) * 0.1).to(dtype)
 
             def fused():
                 return block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, dtype)
 
+            def band():
+                return block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, dtype)
+
+            def composed():
+                agg = band()
+                return agg, _dot(agg.view(m, dp), wp).view(num_sw, -1, hp)
+
             def plain():
                 return block_spmm.band_fused_spmm_direct_plain(sw, st, a, xp, wp, num_sw, dtype)
 
-            def composed():
-                agg = block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, dtype)
-                return _dot(agg.view(m, dp), wp), agg
-
             shape = f"{label}, dp {dp}, hp {hp}"
-            err = hold_repeatable(f"wide fused {cd} at {shape}", fused, plain, cd)
+            # the plain version gathers [Sb, Bb, dp] at once: at dp 3712 the
+            # kernel is held against the composed pair instead
+            ref = plain if dp < 1024 else composed
+            err = hold_repeatable(f"wide fused {cd} at {shape} vs the "
+                                  f"{'plain version' if dp < 1024 else 'composed pair'}",
+                                  fused, ref, cd)
             if cd == "float32":
-                elt = xp.element_size()
-                out[("band_fused_spmm_direct", dp)] = timed(
-                    f"wide fused {cd} at {shape} (yardstick: the composed pair)", fused, plain,
-                    a.numel() + m * dp * elt + dp * hp * elt + m * (dp + hp) * elt
-                    + 8 * a.shape[0], 2 * nnz * dp + 2 * m * dp * hp, fn_lib=composed,
-                    reps=10, err=err)
+                if not torch.equal(fused()[0], band()):
+                    raise AssertionError(f"wide fused at {shape}: the aggregate differs from "
+                                         "band_bucket_spmm_direct's output")
+                log(f"  wide fused fp32 at {shape}: the aggregate equals "
+                    "band_bucket_spmm_direct's output bit for bit")
+            elt = xp.element_size()
+            row = fused_vs_composed(
+                f"wide fused {cd} at {shape}", cd, {"fused": fused, "composed": composed,
+                                                "band": band},
+                plain if dp < 1024 else None,
+                a.numel() + (m * dp + dp * hp + m * (dp + hp)) * elt + 8 * a.shape[0],
+                2 * nnz * dp + 2 * m * dp * hp, 10 if dp < 1024 else 2, err)
+            fused()
+            row["launch"] = dict(block_spmm.last_fused_launch)
+            log(f"    its launch: {row['launch']} (resident: the blocks an SM the card gave it)")
+            out[("wide_fused_shapes", (dp, hp), cd)] = row
+            if (dp, hp) == (256, 256) and cd == "float32":
+                out[("band_fused_spmm_direct", 256)] = row
+            if (dp, hp) == (128, 128):
+                out[("table6 wide", cd)] = row["table6"]
+                log(f"    Table VI analog, wide dim 96 (dp 128, W [128, 128]) {cd}: fused "
+                    f"{row['ms']:.4f} ms, composed {row['library_ms']:.4f} ms")
             del xp, wp
-    # dp 3712 (CiteSeer's features): the slab path, held against the
-    # composed pair (the plain version would gather [Sb, Bb, dp] at once)
-    dgen = torch.Generator(device=DEV).manual_seed(1)  # 1.2 G values: drawn on the device
-    xp = torch.randn((m, 3712), generator=dgen, device=DEV)
-    wp = torch.randn((3712, 256), generator=dgen, device=DEV) * 0.1
-
-    def fused():
-        return block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, torch.float32)
-
-    def composed():
-        agg = block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, torch.float32)
-        return agg, _dot(agg.view(m, 3712), wp).view(num_sw, -1, 256)
-
-    shape = f"{label}, dp 3712, hp 256 (slab path)"
-    err = hold_repeatable(f"wide fused fp32 at {shape} vs the composed pair", fused, composed,
-                          "float32")
-    out[("band_fused_spmm_direct", 3712)] = timed(
-        f"wide fused fp32 at {shape} (yardstick: the composed pair)", fused, composed,
-        a.numel() + (m * 3712 + 3712 * 256 + m * (3712 + 256)) * 4 + 8 * a.shape[0],
-        2 * nnz * 3712 + 2 * m * 3712 * 256, fn_lib=composed, reps=3, err=err)
-    del xp, wp
-    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        xp = torch.randn((m, 128), generator=gen).to(DEV, dtype)
-        wp = (torch.randn((128, 128), generator=gen) * 0.1).to(DEV, dtype)
-        ab = interleaved_ms({
-            "fused": lambda: block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, dtype),
-            "composed": lambda: _dot(block_spmm.band_bucket_spmm_direct(
-                sw, st, a, xp, num_sw, dtype).view(m, 128), wp)}, 10)
-        out[("table6 wide", cd)] = ab
-        log(f"    Table VI analog, wide dim 96 (dp 128, W [128, 128]) {cd}: fused "
-            f"{ab['fused']:.4f} ms, composed {ab['composed']:.4f} ms (medians of 7 interleaved "
-            f"rounds; fused is {(ab['composed'] - ab['fused']) / ab['composed']:+.1%} faster)")
+            torch.cuda.empty_cache()
 
     xp = torch.randn((m, 256), generator=gen).to(DEV, torch.float32)
     err = hold("wide bucket fp32 dp 256", block_spmm.band_bucket_spmm(st, a, xp),
@@ -1865,9 +1997,10 @@ def train_fused_mode(rp, ci, n, gen, launch_runs, fused_res) -> None:
     """The kernel-fusion mode trained through ``train.loop.train`` on the
     blocks stand-in: the 6-layer GCN and GIN on the tband plan (dim 96,
     hidden 32, classes 22) and the 3-layer GCN and GIN on the wide plan (dim
-    128, hidden 256, classes 40), 3 epochs each with no warm-up, composed
-    and then with ``op.plan.prefer_fused_kernel = True`` from the same
-    weights; the launch counters are zeroed just before each fused run and
+    128, hidden 256, classes 40), 3 epochs each with no warm-up, composed,
+    then twice with ``op.plan.prefer_fused_kernel = True``, then composed
+    again, from the same weights; the launch counters are zeroed just before
+    each run and
     read just after: one fused launch per GCN layer's backward and per GIN
     layer's forward; the first epoch's loss equals the composed run's within
     1e-5 relative.  One untimed epoch in each mode first keeps first-call
@@ -1876,6 +2009,7 @@ def train_fused_mode(rp, ci, n, gen, launch_runs, fused_res) -> None:
     import torch
 
     from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.kernels import block_spmm, tband
     from hcspmm_tpu_torch.models.net import Net
     from hcspmm_tpu_torch.ops.spmm import HybridSpMM
     from hcspmm_tpu_torch.train.loop import train
@@ -1897,28 +2031,37 @@ def train_fused_mode(rp, ci, n, gen, launch_runs, fused_res) -> None:
             for fused in (False, True):  # first-call costs out of the timed runs
                 op.plan.prefer_fused_kernel = fused
                 train(net, op, xin, y, epochs=1, warmup_epochs=0, seed=3)
-            runs = {}
-            for fused in (False, True):
+            runs = {False: [], True: []}
+            # composed, fused, fused, composed: these epochs are host-bound and
+            # drift within a call
+            for fused in (False, True, True, False):
                 op.plan.prefer_fused_kernel = fused
                 losses = Losses()
                 zero_counts()
                 res = train(net, op, xin, y, epochs=3, warmup_epochs=0, seed=3, logger=losses)
                 counts = read_counts()
-                runs[fused] = (losses.v, res["epoch_ms"], counts)
+                shapes = (tband if layout == "tband" else block_spmm).fused_shapes
+                runs[fused].append((losses.v, res["epoch_ms"], counts,
+                                    {f"{a}x{b}": v for (a, b), v in sorted(shapes.items())}))
             op.plan.prefer_fused_kernel = False
-            (lc, ms_c, _), (lf, ms_f, counts) = runs[False], runs[True]
+            (lc, _, _, _), (lf, _, counts, shapes) = runs[False][0], runs[True][0]
+            ms_c = [r[1] for r in runs[False]]
+            ms_f = [r[1] for r in runs[True]]
             rel0 = abs(lf[0] - lc[0]) / abs(lc[0])
             rel_last = abs(lf[-1] - lc[-1]) / abs(lc[-1])
             log(f"  blocks {layout} {model} {dims}: composed losses {lc}, epoch_ms "
-                f"{ms_c:.3f}; fused losses {lf}, epoch_ms {ms_f:.3f}; first-epoch rel diff "
-                f"{rel0:.2e}, last {rel_last:.2e}; fused run's launches {counts}")
+                f"{ms_c[0]:.3f} and {ms_c[1]:.3f}; fused losses {lf}, epoch_ms {ms_f[0]:.3f} "
+                f"and {ms_f[1]:.3f}; first-epoch rel diff "
+                f"{rel0:.2e}, last {rel_last:.2e}; fused launches by "
+                f"({'dt, ht' if layout == 'tband' else 'dp, hp'}) {shapes}; fused run's "
+                f"launches {counts}")
             if not all(math.isfinite(v) for v in lf) or rel0 > 1e-5 or rel_last > 1e-3:
                 raise AssertionError(f"{layout} {model}: the fused run's losses {lf} differ "
                                      f"from the composed run's {lc}")
             check_counts(counts, {kernel: 1}, dims[3] * 3)
             launch_runs[f"blocks {layout} {model} fused"] = counts
             fused_res[(layout, model)] = dict(composed_ms=ms_c, fused_ms=ms_f, rel0=rel0,
-                                              launches=counts[kernel])
+                                              launches=counts[kernel], shapes=shapes)
         del op
         torch.cuda.empty_cache()
 
@@ -1970,12 +2113,23 @@ def main() -> int:
         with open(_build.library_path("tband") + ".log") as f:
             for line in tband_kernel_report(f.read()):
                 log("  " + line)
+        with open(_build.library_path("block_spmm") + ".log") as f:
+            for line in band_kernel_report(f.read()):
+                log("  " + line)
         for bh, dtype in ((256, torch.float32), (256, torch.bfloat16), (512, torch.float32)):
             log(f"  tband_kernel at bh {bh}, dt 32, {dtype}: "
                 f"{tband.launch_config(bh, 32, dtype, dtype)} (dynamic shared memory bytes)")
+        device = block_spmm.band_device(0)
+        for dt, ht in ((32, 32), (96, 32), (192, 32), (64, 608), (32, 96)):
+            for dtype in (torch.float32, torch.bfloat16):
+                log(f"  tband_kernel fused at bh 256, dt {dt}, ht {ht}, {dtype}: "
+                    f"{tband.fused_launch(256, dt, ht, dtype.itemsize, *device[1:])}")
         for bb in (384, 640, 1024):
             log(f"  band_kernel's ring at Bb {bb}: "
-                f"{block_spmm.band_launch(bb, *block_spmm.band_device(0)[1:])}")
+                f"{block_spmm.band_launch(bb, *device[1:])}")
+        for dp in (128, 256, 3712):
+            log(f"  band_kernel fused at Bb 640, dp {dp}, hp 256: "
+                f"{block_spmm.fused_launch(640, dp, 256, *device[1:])}")
 
     gen = torch.Generator().manual_seed(0)
     with Phase("3. band kernel vs plain version"):
@@ -2120,12 +2274,14 @@ def main() -> int:
         with Phase("9. wide band kernel vs plain version"):
             wide_band_small_shapes(gen)
             wide_res = {}
+            wide_ops = {}  # DD's and GH's wide operators, reused by phase 11
             for key in ("DD", "GH"):
                 t0 = time.perf_counter()
                 rpk, cik, nk = real_csr[key]
                 op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="wide"), device=dev)
                 log(f"  {key} wide plan ({time.perf_counter() - t0:.1f} s)")
                 wide_band_checks(key, op, gen, wide_res, (rpk, cik, nk))
+                wide_ops[key] = op
                 del op
                 torch.cuda.empty_cache()
 
@@ -2139,7 +2295,8 @@ def main() -> int:
             for key, extra in cases:
                 rpk, cik, nk = graphs[key]
                 t0 = time.perf_counter()
-                op = HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="wide", **extra), device=dev)
+                op = (wide_ops.pop(key) if key in wide_ops and not extra else
+                      HybridSpMM(rpk, cik, nk, PlanConfig(band_impl="wide", **extra), device=dev))
                 p = op.plan
                 arrs = op.arrays["f"]
                 name = key + (" tile" if extra else "")
@@ -2377,18 +2534,22 @@ def main() -> int:
         entry("tband_spmm_bucket", csrc + "tband.cu", tpu + "tband.py:246", tb_bucket,
               tb_bucket["shape"], design=TBAND_DESIGN),
         entry("tband_fused_direct", csrc + "tband.cu", tpu + "tband.py:309", tb_fused,
-              tb_fused["shape"], err=max(v["err"] for (k, _), v in new_res.items()
-                                         if k == "tband_fused_direct")),
+              tb_fused["shape"], err=max(v["err"] for k, v in new_res.items()
+                                         if k[0] == "tband_fused_shapes"),
+              design=TBAND_FUSED_DESIGN, band_ms=tb_fused["band_ms"],
+              ops_rate=tb_fused["ops_rate"], launch=tb_fused["launch"]),
         entry("band_bucket_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:317",
               wide_bucket, wide_bucket["shape"]),
         entry("band_bucket_spmm_grouped", csrc + "block_spmm.cu", tpu + "block_spmm.py:414",
               grouped, grouped["shape"]),
         entry("band_tiled_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:597", tiled,
-              tiled["shape"], err=max(v["err"] for (k, _), v in new_res.items()
-                                      if k == "band_tiled_spmm")),
+              tiled["shape"], err=max(v["err"] for k, v in new_res.items()
+                                      if k[0] == "band_tiled_spmm")),
         entry("band_fused_spmm_direct", csrc + "block_spmm.cu", tpu + "block_spmm.py:666",
               wide_fused, wide_fused["shape"], err=max(
-                  v["err"] for (k, _), v in new_res.items() if k == "band_fused_spmm_direct")),
+                  v["err"] for k, v in new_res.items() if k[0] == "wide_fused_shapes"),
+              design=WIDE_FUSED_DESIGN, band_ms=wide_fused["band_ms"],
+              ops_rate=wide_fused["ops_rate"], launch=wide_fused["launch"]),
         *[entry(name, csrc + source, tpu + replaces, r,
                 f"{r['graph']} {r['shape']}, dt 32, float32",
                 err=max(v["err"] for v in spill_res[(name, "float32")]), **extra)
@@ -2430,9 +2591,10 @@ def main() -> int:
               for cd in ("float32", "bfloat16")}
     table6.update({"wide dim 96 " + cd: new_res[("table6 wide", cd)]
                    for cd in ("float32", "bfloat16")})
-    fused_shapes = {f"tband dt {k[1][0]} ht {k[1][1]}": v for k, v in new_res.items()
+    fused_shapes = {f"tband dt {k[1][0]} ht {k[1][1]} {k[2]}": v for k, v in new_res.items()
                     if k[0] == "tband_fused_shapes"}
-    fused_shapes["wide dp 3712 hp 256"] = new_res[("band_fused_spmm_direct", 3712)]
+    fused_shapes.update({f"wide dp {k[1][0]} hp {k[1][1]} {k[2]}": v
+                         for k, v in new_res.items() if k[0] == "wide_fused_shapes"})
     log(json.dumps({"kernels": kernels, "launches_by_run": launch_runs, "table6": table6,
                     "grouped_ab": grouped["ab"],
                     "fused_training": {f"{k[0]} {k[1]}": v for k, v in fused_res.items()},

@@ -34,14 +34,12 @@
 //   pair order, and writes its block once.  The TPU kernel's ring-cache
 //   fetch schedule (tp_fetch / tp_late) changes no value and is not used:
 //   consecutive superwindows read overlapping tiles, which L2 keeps.
-// fused_kernel replaces band_fused_spmm_direct (pallas_call at :666): the
-//   band aggregate agg = A[i] @ X[st : st+Bb] of a 32-row chunk is written
-//   out and kept in shared memory, rounded to W's type as the reference's
-//   ``agg.astype(w.dtype)`` does, then multiplied by W [dp, hp] read through
-//   L2: out = agg @ W, summed in fp32 in k order; fused_slab_kernel is its
-//   form for dp above 1792, where 32 aggregate rows outgrow shared memory.
-//   tiled_kernel and fused_kernel read their rows of A from device memory a
-//   warp at a time (add_row).
+// band_fused_kernel replaces band_fused_spmm_direct (pallas_call at :666):
+//   the band aggregate agg = A[i] @ X[st : st+Bb], written out, and out =
+//   round_as(agg) @ W [dp, hp] (the reference's ``agg.astype(w.dtype)``),
+//   summed in fp32 in k order, in one launch (its design below).
+//   tiled_kernel reads its rows of A from device memory a warp at a time
+//   (add_row).
 //
 // What bounds them.  The blocks are under 1% non-zero (DD's wide plan:
 // 1.38 M edges in 1190 x 256 x 640 bytes of A), so no kernel multiplies the
@@ -51,7 +49,7 @@
 // rows) stays while its bh rows are computed.  Reading A whole (every byte,
 // to find the non-zeros) is the larger part of the bytes floor at dp 128:
 // at the blocks stand-in 215 MB of A beside 171 MB of X and 172 MB of
-// output, 0.167 ms at 3.35 TB/s.  The fused kernel's W product is dense:
+// output, 0.167 ms at 3.35 TB/s.  The fused kernel's update is dense:
 // 2*bh*dp*hp operations per superwindow on the CUDA cores, which at hidden
 // 256 bounds it by operations, not bytes.
 //
@@ -84,7 +82,7 @@
 //     are stored 16 bytes a lane, coalesced.  No __syncthreads() after the
 //     start; a wait that never completes traps instead of hanging.
 //   The sums, their order and the rounding are the first kernel's, so the
-//   fp32 output is its output bit for bit, and equals fused_kernel's
+//   fp32 output is its output bit for bit, and equals band_fused_kernel's
 //   aggregate and tiled_kernel's result on full-cover plans.
 // What bounds it now (chip_smoke.py, fp32, an H100 80GB HBM3): at GH's plan
 // (Sb 4824, Bb 1024) it runs within 1.10x of its bytes bound, A's 1.26 GB
@@ -101,6 +99,49 @@
 // slower: 12 or 16 consumer warps (their register caps spill), batches of 8
 // or 16 at one column group, 64-row stages, and more stages than leave
 // three blocks an SM.
+//
+// band_fused_kernel's design.  The update is dense: at the blocks stand-in
+// with dp 256 and hp 256 it is 44 GFLOP, 0.66 ms at 67 TFLOP/s, beside the
+// band part's 0.27 ms of bytes; at dp 3712 638 GFLOP, 9.5 ms.  So the FMAs
+// bound it, and on this card the FMAs of a register-tiled product are in
+// turn bound by shared memory: a k step of an a x b tile a thread reads
+// a + b words for a*b FMAs, and the SM delivers 32 words a clock against
+// 128 FMAs, so only tiles of 64 FMAs a step or more leave the FMA pipe
+// room.  The first fused kernel (one thread an output column, 16 rows) read W four
+// k at a time from L2 for 64 FMAs and ran at a fraction of the rate (2.14
+// ms at dp 256).  Now:
+//   - one persistent block an SM of BAND_WARPS warps, all in both phases,
+//     so that each thread may keep an 8 x 16 tile of out (8 x 8 where hp <=
+//     128) in 255 registers: two k steps of it unrolled hold 128 sums, 24
+//     operands and the next slab's loads.  A producer warp (band_kernel's
+//     ring) would put three warps on one scheduler and cap a thread at 168
+//     registers, two blocks at 96: both spilled the tile;
+//   - units of FR = 128 rows of an entry from the work counter; the unit's
+//     rows of A arrive as one tile (halved for very wide bands) by tensor
+//     copies, band_kernel's boxes, under one mbarrier, or by cp.async where
+//     Bb is no 16-byte multiple; each warp walks its rows' non-zeros with
+//     band_row's ballots (batches twice band_kernel's at one column group)
+//     and stores the aggregate rows.  After a barrier the next unit's tile
+//     is requested, so that its copy runs during this unit's update;
+//   - the update reads the unit's aggregate rows back from L2 (this block
+//     wrote them, past the barrier), rounded to W's type, and W through L1,
+//     8 rows of k a slab into shared memory, double-buffered with the next
+//     slab's loads in flight during this slab's FMAs (agg^T as [8][128], W
+//     as [8][256]); a k step reads two 16-byte words of agg^T and four of W
+//     for 128 FMAs.  Each out element is one fmaf chain over k in order.
+// Tried on the way and slower (throwaway builds on an H100 80GB HBM3, dp
+// 256, hp 256, fp32): the update inside band_kernel's ring with a producer
+// warp, two blocks an SM, tiles of 8 x 4 and 8 x 8 (2.8-3.9 ms: the
+// register caps spilled them, and the two blocks' phases, both bound by
+// issue and shared memory, did not overlap); one block of that form at 168
+// registers (2.3-2.45); two blocks an SM of this kernel (128 registers:
+// the band part took 0.48 ms, but the update's 8 x 8 tile spilled, 2.41 in
+// all); the slabs by cp.async two slabs ahead (no faster: the loads were
+// not what stalled); full unrolling of the k steps (the compiler hoisted
+// every step's loads and spilled).  Left: the band part
+// takes about 0.6 ms here against band_kernel's 0.37 (eight warps an SM
+// hide its gathers' latency less than twenty-four), and the update runs
+// near half the FMA rate, the shared-memory bound above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -443,6 +484,260 @@ band_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict_
   }
 }
 
+// ---- band_fused_kernel: the band product and the update in one launch ----
+
+constexpr int FR = 128;  // output rows of a fused unit: the rows of its update tile
+constexpr int FK = 8;    // contraction rows (of agg^T and W) a staged slab holds
+constexpr int FC = 256;  // out columns a pass of the update covers (128 where hp <= 128)
+constexpr int FUSED_THREADS = BAND_WARPS * 32;
+// the update's slabs: two of agg^T [FK][FR] and two of W [FK][FC], fp32
+constexpr int FUSED_SLAB_SMEM = 2 * FK * (FR + FC) * (int)sizeof(float);
+// alignment slack for the A tile, its mbarrier and the next unit's id
+constexpr int FUSED_FIXED_SMEM = RING_ALIGN + 64;
+
+// The fused kernel's A tile: ``arows`` rows of A [arows][Bb] as nbox boxes
+// of box_w bytes (tensor copies, one mbarrier) or one row-padded box
+// (4-byte cp.async by every thread).
+struct Tile {
+  int arows, box_w, nbox, tma;
+};
+
+// Loads rows [r0, r0 + arows) of A (as [Sb*bh, bb]) into ``dst``: thread 0
+// issues the tensor copies, completed on ``full``; or every thread issues
+// its share of 4-byte cp.async copies, completed by cp_async_wait_all.
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap& amap,
+                                          const int8_t* a, long long r0, long long total_rows,
+                                          int bb, Tile t, uint64_t* full) {
+  if (t.tma) {
+    if (threadIdx.x == 0) {
+      fence_proxy_async();
+      bar_arrive_expect(full, t.arows * t.box_w * t.nbox);
+      for (int b = 0; b < t.nbox; ++b)
+        tensor_load(dst + b * t.arows * t.box_w, &amap, b * t.box_w, (int)r0, full);
+    }
+  } else {
+    const int words = bb / 4;
+    for (int e = threadIdx.x; e < t.arows * words; e += FUSED_THREADS) {
+      const int r = e / words, q = e - r * words;
+      if (r0 + r < total_rows) cp_async4(dst + r * t.box_w + 4 * q, a + (r0 + r) * bb + 4 * q);
+    }
+  }
+}
+
+// The consumer side of load_tile: the tile has landed for every thread.
+__device__ __forceinline__ void wait_tile(Tile t, uint64_t* full, unsigned& parity) {
+  if (t.tma) {
+    bar_wait(full, parity);
+    parity ^= 1u;
+  } else {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+  }
+}
+
+// The next unit with a real entry (capacity padding skipped) from the work
+// counter, or -1; thread 0 only.
+__device__ __forceinline__ int claim_unit(int* counter, const int32_t* sw, int nunits,
+                                          int nchunk, int num_sw) {
+  for (;;) {
+    const int u = atomicAdd(counter, 1);
+    if (u >= nunits) return -1;
+    if (sw[u / nchunk] < num_sw) return u;
+  }
+}
+
+// out[r, :hp] = round_as(agg[r, :dp]) @ w for the unit's rows r < nr (agg:
+// this block's own rows of the aggregate, written before the last barrier;
+// out: row 0 of the unit's rows of the update), by all FUSED_THREADS
+// threads.  Per COLS-column pass (FC, or 128 where hp <= 128) each thread
+// keeps an 8 x COLS/16 tile of out in registers: rows 8*rg .. 8*rg + 7 (rg =
+// 2*warp + lane/16) and the column groups 64*g + 4*cg .. + 3 (cg = lane %
+// 16).  Both operands go
+// through shared memory FK rows of k at a time, double-buffered, the next
+// slab's loads (agg^T from L2, W through L1) in flight during this slab's
+// FMAs: agg^T as [FK][FR] (rows past nr zero), W as [FK][COLS] (columns
+// past hp zero).  A k step reads two 16-byte words of agg^T and COLS/64 of
+// W for 8 x COLS/16 FMAs.  Each out element is one fmaf chain over k = 0,
+// 1, ..., dp - 1.
+template <typename TX, typename TO, int COLS>
+__device__ __forceinline__ void w_product(const TO* __restrict__ agg, int nr,
+                                          const TX* __restrict__ w, TO* __restrict__ out, int dp,
+                                          int hp, float* fbuf) {
+  constexpr int NJ = COLS / 16;                   // out columns a thread
+  constexpr int WR = FUSED_THREADS / COLS;        // W rows a staging step
+  float* as = fbuf;                // [2][FK][FR]
+  float* ws = fbuf + 2 * FK * FR;  // [2][FK][COLS]
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int cg = lane % 16, rg = tid / 32 * 2 + lane / 16;
+  const int sr = tid % FR, sk = tid / FR * 4;  // staging: agg row sr, k sk .. sk + 3
+  const int wc = tid % COLS, wk = tid / COLS;  // staging: W column wc, k wk + WR*q
+  const int nslab = dp / FK;
+  const TO* arow = agg + (long long)sr * dp + sk;
+  for (int c0 = 0; c0 < hp; c0 += COLS) {
+    float acc[8][NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    const bool w_on = c0 + wc < hp;
+    const TX* wcol = w + (long long)wk * hp + c0 + wc;
+    F4 pa = sr < nr ? gather4(arow) : F4{{0.f, 0.f, 0.f, 0.f}};
+    float pw[FK / WR];
+#pragma unroll
+    for (int q = 0; q < FK / WR; ++q)
+      pw[q] = w_on ? to_f32(wcol[(long long)WR * q * hp]) : 0.f;
+    for (int s = 0; s < nslab; ++s) {
+      {  // the slab fetched last goes into buffer s & 1
+        float* a_s = as + (s & 1) * FK * FR + sk * FR + sr;
+        float* w_s = ws + (s & 1) * FK * COLS + wk * COLS + wc;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a_s[q * FR] = round_as(pa.v[q], w);
+#pragma unroll
+        for (int q = 0; q < FK / WR; ++q) w_s[WR * q * COLS] = pw[q];
+      }
+      __syncthreads();
+      if (s + 1 < nslab) {  // the next slab's loads, in flight during this one's FMAs
+        const long long k1 = (long long)(s + 1) * FK;
+        if (sr < nr) pa = gather4(arow + k1);
+        if (w_on) {
+#pragma unroll
+          for (int q = 0; q < FK / WR; ++q) pw[q] = to_f32(wcol[(k1 + WR * q) * hp]);
+        }
+      }
+      const float* a_s = as + (s & 1) * FK * FR + 8 * rg;
+      const float* w_s = ws + (s & 1) * FK * COLS + 4 * cg;
+      // unrolled by two only: fully unrolled, the compiler hoists every
+      // step's loads ahead of the FMAs and runs out of registers
+#pragma unroll 2
+      for (int kk = 0; kk < FK; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(a_s + kk * FR);
+        const float4 a1 = *reinterpret_cast<const float4*>(a_s + kk * FR + 4);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float bv[NJ];
+#pragma unroll
+        for (int g = 0; g < NJ / 4; ++g) {
+          const float4 b = *reinterpret_cast<const float4*>(w_s + kk * COLS + 64 * g);
+          bv[4 * g] = b.x;
+          bv[4 * g + 1] = b.y;
+          bv[4 * g + 2] = b.z;
+          bv[4 * g + 3] = b.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();  // the last slab's readers are done before the buffers refill
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * rg + i;
+      if (r < nr) {
+        TO* orow = out + (long long)r * hp;
+#pragma unroll
+        for (int g = 0; g < NJ / 4; ++g) {
+          const int c = c0 + 64 * g + 4 * cg;
+          const float v[4] = {acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                              acc[i][4 * g + 3]};
+          if (hp % 4 == 0) {
+            if (c < hp) store4(orow + c, v);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (c + q < hp) store1(orow + c + q, v[q]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The band product and the update in one launch (band_fused_spmm_direct):
+// agg rows = A[i] @ X[st : st + Bb] as band_kernel sums them, and out =
+// round_as(agg) @ W.  Grid: persistent, one block an SM (the update's
+// 8 x 16 register tile wants more registers than a second block would
+// leave).  Block: BAND_WARPS warps, all of them in each phase.  Units:
+// (entry, FR-row chunk), chunk fastest, from the work counter.  A unit's
+// rows of A arrive as tiles of ``arows`` rows (all FR at the plans' band
+// widths) by tensor copies (cp.async where Bb is no 16-byte multiple); warp
+// w sums the tile's rows w, w + BAND_WARPS, ... with band_row's ballot walk
+// and stores them to ``agg``; after a barrier, the first tile of the next
+// unit is requested, so that its copy runs during this unit's update
+// (w_product), which reads the rows back from L2.
+template <typename TX, typename TO, int NG>
+__global__ void __launch_bounds__(FUSED_THREADS, 1)
+band_fused_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict__ starts,
+                  const int32_t* __restrict__ sw, const int8_t* __restrict__ a,
+                  const TX* __restrict__ x, const TX* __restrict__ w, TO* __restrict__ agg,
+                  TO* __restrict__ out, int* __restrict__ counter, int sb, int bh, int bb,
+                  int dp, int hp, int num_sw, Tile t) {
+  extern __shared__ __align__(16) unsigned char fused_shared[];
+  unsigned char* tile =
+      fused_shared + (RING_ALIGN - smem_addr(fused_shared) % RING_ALIGN) % RING_ALIGN;
+  const int tile_bytes = t.arows * t.box_w * t.nbox;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tile + tile_bytes);
+  int* next_unit = reinterpret_cast<int*>(full + 1);
+  float* fbuf = reinterpret_cast<float*>(tile + tile_bytes + 64);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nchunk = (bh + FR - 1) / FR;
+  const int nunits = sb * nchunk;
+  const long long total_rows = (long long)sb * bh;
+  // at one column group, twice band_kernel's batch: one block an SM leaves
+  // registers for more loads in flight a warp (at more, the tile spills)
+  constexpr int U = NG == 1 ? 2 * batch_of<NG>() : batch_of<NG>();
+  const RowMap at{t.nbox > 1 ? __ffs(t.box_w) - 1 : 31, t.nbox > 1 ? t.box_w - 1 : 0x7fffffff,
+                  t.arows * t.box_w};
+
+  if (threadIdx.x == 0) {
+    bar_init(full, 1);
+    bar_init_fence();
+    *next_unit = claim_unit(counter, sw, nunits, nchunk, num_sw);
+  }
+  __syncthreads();
+  int unit = *next_unit;
+  if (unit >= 0)
+    load_tile(tile, amap, a, (long long)(unit / nchunk) * bh + unit % nchunk * FR, total_rows, bb,
+              t, full);
+  unsigned parity = 0u;
+  while (unit >= 0) {
+    const int i = unit / nchunk, u0 = unit % nchunk * FR;
+    const int nr = min(FR, bh - u0);
+    const long long blk = sw[i];
+    const TX* xb = x + (long long)starts[i] * dp + 4 * lane;
+    for (int c0r = 0; c0r < nr; c0r += t.arows) {
+      wait_tile(t, full, parity);
+      for (int rr = warp; rr < t.arows && c0r + rr < nr; rr += BAND_WARPS) {
+        TO* orow = agg + (blk * bh + u0 + c0r + rr) * dp + 4 * lane;
+        for (int c = 0; c < dp; c += NG * 128) {
+          float acc[NG][4] = {};
+          band_row<TX, NG, U>(tile + rr * t.box_w, at, bb, xb + c, dp, lane, acc);
+#pragma unroll
+          for (int g = 0; g < NG; ++g) store4(orow + c + g * 128, acc[g]);
+        }
+      }
+      __syncthreads();  // the tile's readers are done (and the unit's rows are out)
+      if (c0r + t.arows < nr) {
+        load_tile(tile, amap, a, (long long)i * bh + u0 + c0r + t.arows, total_rows, bb, t,
+                  full);
+      } else {
+        if (threadIdx.x == 0) *next_unit = claim_unit(counter, sw, nunits, nchunk, num_sw);
+        __syncthreads();
+        const int nu = *next_unit;
+        if (nu >= 0)
+          load_tile(tile, amap, a, (long long)(nu / nchunk) * bh + nu % nchunk * FR, total_rows,
+                    bb, t, full);
+      }
+    }
+    if (hp <= 128)
+      w_product<TX, TO, 128>(agg + (blk * bh + u0) * dp, nr, w, out + (blk * bh + u0) * hp, dp,
+                             hp, fbuf);
+    else
+      w_product<TX, TO, FC>(agg + (blk * bh + u0) * dp, nr, w, out + (blk * bh + u0) * hp, dp,
+                            hp, fbuf);
+    unit = *next_unit;  // written before w_product's barriers
+  }
+}
+
 // Grid: x = (superwindow s, 32-row chunk), chunk fastest; y = column slab.
 template <typename TX, typename TO, int NG>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -466,156 +761,6 @@ tiled_kernel(const int32_t* __restrict__ ptr, const int32_t* __restrict__ tile,
     TO* orow = out + (s * bh + r) * dp + col0;
 #pragma unroll
     for (int g = 0; g < NG; ++g) store4(orow + g * 128, acc[g]);
-  }
-}
-
-// Grid: x = (entry i, 32-row chunk), chunk fastest.  Block: WARPS warps.
-// Shared memory: agg_s [ROWS][dp] fp32.  Phase 1 (warp per row, NG*128
-// columns at a time): the aggregate rows, written to ``agg`` and, rounded to
-// W's type, to agg_s.  Phase 2: thread t owns column c0 + (t % 128) of out
-// and 16 of the chunk's rows (t / 128 picks which half), and sums agg_s[r, k]
-// * W[k, c] over k in order; the warp's threads read the same agg_s words
-// (a broadcast) and neighbouring W columns.
-template <typename TX, typename TO, int NG>
-__global__ void __launch_bounds__(WARPS * 32)
-fused_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
-             const int8_t* __restrict__ a, const TX* __restrict__ x, const TX* __restrict__ w,
-             TO* __restrict__ agg, TO* __restrict__ out, int bh, int bb, int dp, int hp,
-             int nchunk, int num_sw) {
-  const int i = blockIdx.x / nchunk;
-  const int r_lo = (blockIdx.x % nchunk) * ROWS;
-  const long long blk = sw[i];
-  if (blk >= num_sw) return;  // capacity padding: nothing to write
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rows = min(ROWS, bh - r_lo);
-  const long long st = starts[i];
-  extern __shared__ __align__(16) float agg_s[];
-
-  for (int c = 0; c < dp; c += NG * 128) {
-    const int col = c + 4 * lane;
-    for (int r = warp; r < ROWS; r += WARPS) {
-      float acc[NG][4] = {};
-      if (r < rows) {
-        add_row<TX, NG>(a + ((long long)i * bh + r_lo + r) * bb, bb, x + st * dp + col, dp,
-                        lane, acc);
-        TO* arow = agg + (blk * bh + r_lo + r) * dp + col;
-#pragma unroll
-        for (int g = 0; g < NG; ++g) store4(arow + g * 128, acc[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-        *reinterpret_cast<float4*>(agg_s + r * dp + col + g * 128) =
-            make_float4(round_as(acc[g][0], w), round_as(acc[g][1], w),
-                        round_as(acc[g][2], w), round_as(acc[g][3], w));
-    }
-  }
-  __syncthreads();
-
-  const int half = threadIdx.x >> 7;
-  const float* as = agg_s + half * 16 * dp;
-  for (int c0 = 0; c0 < hp; c0 += 128) {
-    const int c = c0 + (threadIdx.x & 127);
-    const bool on = c < hp;
-    float o[16] = {};
-    for (int k = 0; k < dp; k += 4) {
-      float wk[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) wk[q] = on ? to_f32(w[(long long)(k + q) * hp + c]) : 0.f;
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        const float4 av = *reinterpret_cast<const float4*>(as + rr * dp + k);
-        o[rr] = fmaf(av.x, wk[0], o[rr]);
-        o[rr] = fmaf(av.y, wk[1], o[rr]);
-        o[rr] = fmaf(av.z, wk[2], o[rr]);
-        o[rr] = fmaf(av.w, wk[3], o[rr]);
-      }
-    }
-    if (on) {
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = half * 16 + rr;
-        if (r < rows) store1(out + (blk * bh + r_lo + r) * hp + c, o[rr]);
-      }
-    }
-  }
-}
-
-// fused_kernel where 32 rows of dp columns do not fit in shared memory (dp
-// above 1792).  Phase 1 writes the aggregate rows to ``agg`` only; phase 2
-// sums out over k in order, as fused_kernel does, from slabs of KS columns
-// of those rows re-read from ``agg`` (this block's own writes, visible after
-// __syncthreads) and rounded to W's type into agg_s: round_as of the stored
-// value equals round_as of the fp32 sum in either output type.  The slabs
-// are re-read once per 128 columns of out (hp / 128 times an entry's chunk)
-// from L2.  Shared memory: agg_s [ROWS][KS] fp32.
-constexpr int KS = 512;
-
-template <typename TX, typename TO, int NG>
-__global__ void __launch_bounds__(WARPS * 32)
-fused_slab_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
-                  const int8_t* __restrict__ a, const TX* __restrict__ x,
-                  const TX* __restrict__ w, TO* __restrict__ agg, TO* __restrict__ out, int bh,
-                  int bb, int dp, int hp, int nchunk, int num_sw) {
-  const int i = blockIdx.x / nchunk;
-  const int r_lo = (blockIdx.x % nchunk) * ROWS;
-  const long long blk = sw[i];
-  if (blk >= num_sw) return;  // capacity padding: nothing to write
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rows = min(ROWS, bh - r_lo);
-  const long long st = starts[i];
-  TO* arows = agg + (blk * bh + r_lo) * dp;
-  extern __shared__ __align__(16) float agg_s[];
-
-  for (int c = 0; c < dp; c += NG * 128) {
-    const int col = c + 4 * lane;
-    for (int r = warp; r < rows; r += WARPS) {
-      float acc[NG][4] = {};
-      add_row<TX, NG>(a + ((long long)i * bh + r_lo + r) * bb, bb, x + st * dp + col, dp, lane,
-                      acc);
-#pragma unroll
-      for (int g = 0; g < NG; ++g) store4(arows + (long long)r * dp + col + g * 128, acc[g]);
-    }
-  }
-  __syncthreads();
-
-  const int half = threadIdx.x >> 7;
-  for (int c0 = 0; c0 < hp; c0 += 128) {
-    const int c = c0 + (threadIdx.x & 127);
-    const bool on = c < hp;
-    float o[16] = {};
-    for (int k0 = 0; k0 < dp; k0 += KS) {
-      const int ks = min(KS, dp - k0);
-      __syncthreads();  // the previous slab's readers are done
-      for (int e = threadIdx.x; e < ROWS * ks; e += WARPS * 32) {
-        const int r = e / ks;
-        agg_s[e] = r < rows ? round_as(to_f32(arows[(long long)r * dp + k0 + e % ks]), w) : 0.f;
-      }
-      __syncthreads();
-      const float* as = agg_s + half * 16 * ks;
-      for (int k = 0; k < ks; k += 4) {
-        float wk[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          wk[q] = on ? to_f32(w[(long long)(k0 + k + q) * hp + c]) : 0.f;
-#pragma unroll
-        for (int rr = 0; rr < 16; ++rr) {
-          const float4 av = *reinterpret_cast<const float4*>(as + rr * ks + k);
-          o[rr] = fmaf(av.x, wk[0], o[rr]);
-          o[rr] = fmaf(av.y, wk[1], o[rr]);
-          o[rr] = fmaf(av.z, wk[2], o[rr]);
-          o[rr] = fmaf(av.w, wk[3], o[rr]);
-        }
-      }
-    }
-    if (on) {
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = half * 16 + rr;
-        if (r < rows) store1(out + (blk * bh + r_lo + r) * hp + c, o[rr]);
-      }
-    }
   }
 }
 
@@ -691,6 +836,60 @@ cudaError_t launch_band(const void* starts, const void* sw, const void* a, const
   return cudaGetLastError();
 }
 
+// Dynamic shared memory of band_fused_kernel with A tile ``t`` (the host
+// sizes it: kernels/block_spmm.py:fused_launch).
+size_t fused_smem(const Tile& t) {
+  return FUSED_FIXED_SMEM + (size_t)t.arows * t.box_w * t.nbox + FUSED_SLAB_SMEM;
+}
+
+// Resident blocks an SM of band_fused_kernel<TX, TO, NG> with ``smem``
+// bytes on device ``d``; the kernel's shared-memory cap is raised to the
+// device's opt-in most on first use.
+template <typename TX, typename TO, int NG>
+cudaError_t fused_blocks(const Device& d, size_t smem, int* blocks) {
+  if (smem > (size_t)d.optin) return cudaErrorInvalidValue;
+  auto kernel = band_fused_kernel<TX, TO, NG>;
+  static int opted[16] = {};
+  if (d.dev < 16 && !opted[d.dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, d.optin);
+    if (e != cudaSuccess) return e;
+    opted[d.dev] = 1;
+  }
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, FUSED_THREADS, smem);
+  if (e != cudaSuccess) return e;
+  return *blocks < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+template <typename TX, typename TO, int NG>
+cudaError_t launch_fused(const void* starts, const void* sw, const void* a, const void* x,
+                         const void* w, void* agg, void* out, void* counter, int sb, int bh,
+                         int bb, int dp, int hp, int num_sw, Tile t, int* blocks_out,
+                         cudaStream_t stream) {
+  Device d;
+  cudaError_t e = device_of(&d);
+  if (e != cudaSuccess) return e;
+  const size_t smem = fused_smem(t);
+  int blocks = 0;
+  e = fused_blocks<TX, TO, NG>(d, smem, &blocks);
+  if (e != cudaSuccess) return e;
+  if (blocks_out != nullptr) *blocks_out = blocks;
+  CUtensorMap amap = {};
+  if (t.tma && !encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, (long long)sb * bh, bb,
+                          t.arows, t.box_w, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const long long units = (long long)sb * ((bh + FR - 1) / FR);
+  const long long slots = (long long)blocks * d.sms;
+  band_fused_kernel<TX, TO, NG><<<(unsigned)(units < slots ? units : slots), FUSED_THREADS,
+                                  smem, stream>>>(
+      amap, static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
+      static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<const TX*>(w),
+      static_cast<TO*>(agg), static_cast<TO*>(out), static_cast<int*>(counter), sb, bh, bb, dp,
+      hp, num_sw, t);
+  return cudaGetLastError();
+}
+
 template <typename TX, typename TO, int NG>
 cudaError_t launch_tiled(const void* ptr, const void* tile, const void* a, const void* x,
                          void* out, int num_sw, int bh, int dp, cudaStream_t stream) {
@@ -700,39 +899,6 @@ cudaError_t launch_tiled(const void* ptr, const void* tile, const void* a, const
       static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(tile),
       static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<TO*>(out), bh, dp,
       nchunk);
-  return cudaGetLastError();
-}
-
-// Shared memory one thread block may opt in to on the current device (227 KB
-// on an H100): past it the fused product runs slab by slab.
-size_t max_block_smem() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return (size_t)bytes;
-}
-
-template <typename TX, typename TO, int NG>
-cudaError_t launch_fused(const void* starts, const void* sw, const void* a, const void* x,
-                         const void* w, void* agg, void* out, int sb, int bh, int bb, int dp,
-                         int hp, int num_sw, cudaStream_t stream) {
-  const int nchunk = (bh + ROWS - 1) / ROWS;
-  size_t smem = (size_t)ROWS * dp * sizeof(float);
-  auto kernel = fused_kernel<TX, TO, NG>;
-  if (smem > max_block_smem()) {
-    smem = (size_t)ROWS * KS * sizeof(float);
-    kernel = fused_slab_kernel<TX, TO, NG>;
-  }
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<(unsigned)sb * nchunk, WARPS * 32, smem, stream>>>(
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
-      static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<const TX*>(w),
-      static_cast<TO*>(agg), static_cast<TO*>(out), bh, bb, dp, hp, nchunk, num_sw);
   return cudaGetLastError();
 }
 
@@ -779,6 +945,39 @@ struct BandArgs {
   cudaError_t run() const { return dispatch_ng(dp, ByNg<TX, TO>{*this}); }
 };
 
+struct FusedArgs {
+  const void *starts, *sw, *a, *x, *w;
+  void *agg, *out, *counter;
+  int sb, bh, bb, dp, hp, num_sw;
+  Tile tile;
+  int* blocks_out;
+  cudaStream_t stream;
+  template <typename TX, typename TO>
+  struct ByNg {
+    const FusedArgs& f;
+    template <int NG>
+    cudaError_t run() const {
+      return launch_fused<TX, TO, NG>(f.starts, f.sw, f.a, f.x, f.w, f.agg, f.out, f.counter,
+                                      f.sb, f.bh, f.bb, f.dp, f.hp, f.num_sw, f.tile, f.blocks_out,
+                                      f.stream);
+    }
+  };
+  template <typename TX, typename TO>
+  cudaError_t run() const { return dispatch_ng(dp, ByNg<TX, TO>{*this}); }
+};
+
+// The ring's arguments as hcspmm_band_spmm's note states them.
+bool ring_ok(const void* a, int sb, int bh, int bb, int dp, int rows, int box_w, int nbox,
+             int stages, int tma) {
+  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || rows < 1 || rows > 256 ||
+      stages < 2 || stages > BAND_MAX_STAGES || box_w % 16 || (long long)sb * bh > 0x7fffffffLL)
+    return false;
+  return tma ? !(bb % 16 || (uintptr_t)a % 16 || box_w <= 0 || box_w > 256 || nbox < 1 ||
+                 (nbox > 1 && (box_w & (box_w - 1))) || (long long)nbox * box_w < bb ||
+                 (long long)(nbox - 1) * box_w >= bb)
+             : (nbox == 1 && box_w >= bb);
+}
+
 struct TiledArgs {
   const void *ptr, *tile, *a, *x;
   void* out;
@@ -791,24 +990,6 @@ struct TiledArgs {
     cudaError_t run() const {
       return launch_tiled<TX, TO, NG>(t.ptr, t.tile, t.a, t.x, t.out, t.num_sw, t.bh, t.dp,
                                       t.stream);
-    }
-  };
-  template <typename TX, typename TO>
-  cudaError_t run() const { return dispatch_ng(dp, ByNg<TX, TO>{*this}); }
-};
-
-struct FusedArgs {
-  const void *starts, *sw, *a, *x, *w;
-  void *agg, *out;
-  int sb, bh, bb, dp, hp, num_sw;
-  cudaStream_t stream;
-  template <typename TX, typename TO>
-  struct ByNg {
-    const FusedArgs& f;
-    template <int NG>
-    cudaError_t run() const {
-      return launch_fused<TX, TO, NG>(f.starts, f.sw, f.a, f.x, f.w, f.agg, f.out, f.sb, f.bh,
-                                      f.bb, f.dp, f.hp, f.num_sw, f.stream);
     }
   };
   template <typename TX, typename TO>
@@ -836,14 +1017,8 @@ extern "C" int hcspmm_band_spmm(const void* starts, const void* sw, const void* 
                                 int dp, int num_sw, int group, int rows, int box_w, int nbox,
                                 int stages, int tma, int x_bf16, int out_f32, void* stream) {
   if (sb <= 0) return 0;
-  if (counter == nullptr || bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || group <= 0 ||
-      sb % group || rows < 1 || rows > 256 || stages < 2 || stages > BAND_MAX_STAGES ||
-      box_w % 16 || (long long)sb * bh > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  if (tma ? (bb % 16 || (uintptr_t)a % 16 || box_w <= 0 || box_w > 256 || nbox < 1 ||
-             (nbox > 1 && (box_w & (box_w - 1))) || (long long)nbox * box_w < bb ||
-             (long long)(nbox - 1) * box_w >= bb)
-          : (nbox != 1 || box_w < bb))
+  if (counter == nullptr || group <= 0 || sb % group ||
+      !ring_ok(a, sb, bh, bb, dp, rows, box_w, nbox, stages, tma))
     return (int)cudaErrorInvalidValue;
   const BandArgs args{starts, sw, a, x, out, counter, sb, bh, bb, dp, num_sw, group,
                       Ring{rows, box_w, nbox, stages, tma}, static_cast<cudaStream_t>(stream)};
@@ -881,19 +1056,23 @@ extern "C" int hcspmm_tiled_spmm(const void* ptr, const void* tile, const void* 
 
 // starts, sw: int32 [sb]; a: int8 [sb, bh, bb]; x: [m, dp]; w: [dp, hp] in
 // x's type; agg: [rows, dp] and out: [rows, hp], fp32 when out_f32 != 0,
-// else x's type.  Entries with sw >= num_sw write nothing.  fused_kernel
-// keeps 128*dp bytes in shared memory (dp <= 1792 on an H100); past what a
-// block may use (max_block_smem) fused_slab_kernel runs.  Returns a
-// cudaError_t.
+// else x's type; counter as hcspmm_band_spmm's.  Entries with sw >= num_sw
+// write nothing.  band_fused_kernel: units of FR rows of an entry, A staged
+// in tiles of ``arows`` rows shaped as hcspmm_band_spmm's ring stages
+// (kernels/block_spmm.py:fused_launch).  ``blocks_per_sm`` (may be null)
+// gets the resident blocks an SM the card's occupancy gave the launch, which
+// sized its grid by them.  Returns a cudaError_t.
 extern "C" int hcspmm_band_fused(const void* starts, const void* sw, const void* a,
-                                 const void* x, const void* w, void* agg, void* out, int sb,
-                                 int bh, int bb, int dp, int hp, int num_sw, int x_bf16,
-                                 int out_f32, void* stream) {
+                                 const void* x, const void* w, void* agg, void* out,
+                                 void* counter, int sb, int bh, int bb, int dp, int hp,
+                                 int num_sw, int arows, int box_w, int nbox, int tma, int x_bf16,
+                                 int out_f32, int* blocks_per_sm, void* stream) {
   if (sb <= 0) return 0;
-  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || hp <= 0 ||
-      (long long)sb * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
+  if (counter == nullptr || sw == nullptr || w == nullptr || hp <= 0 ||
+      !ring_ok(a, sb, bh, bb, dp, arows, box_w, nbox, 2, tma))
     return (int)cudaErrorInvalidValue;
-  const FusedArgs args{starts, sw, a, x, w, agg, out, sb, bh, bb, dp, hp, num_sw,
+  const FusedArgs args{starts, sw, a, x, w, agg, out, counter, sb, bh, bb, dp, hp, num_sw,
+                       Tile{arows, box_w, nbox, tma}, blocks_per_sm,
                        static_cast<cudaStream_t>(stream)};
   return (int)dispatch_types(x_bf16, out_f32, args);
 }

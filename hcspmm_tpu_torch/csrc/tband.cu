@@ -2,9 +2,8 @@
 //
 // tband_kernel replaces the Pallas kernels
 // hcspmm_tpu/kernels/tband.py:tband_spmm_direct (pallas_call at :217) and
-// :tband_spmm_bucket (:246), pack=1; tband_fused_kernel and, for shapes whose
-// staging does not fit in shared memory, tband_fused_slab_kernel (below)
-// replace :tband_fused_direct (:309).  For entry i and a DT-row slab of the
+// :tband_spmm_bucket (:246), pack=1, and, in its fused forms (FUSE below),
+// :tband_fused_direct (:309).  For entry i and a DT-row slab of the
 // features, tband_kernel computes
 //
 //     Y^T[d0:d0+DT, c_i*bh : c_i*bh+bh] = X^T[d0:d0+DT, st[i] : st[i]+W] @ A_t[i]
@@ -64,8 +63,8 @@
 //     coalesced store at the entry's end, by column).  The next row's two
 //     loads go out before this row's sums.
 // Each output element is summed over its non-zero rows in increasing k with
-// fmaf, as the first kernel and tband_fused_kernel do, so the fp32 result
-// is theirs bit for bit, and repeatable.
+// fmaf, as the first kernel did, so the fp32 result is its bit for bit (and
+// the fused forms' aggregate), and repeatable.
 // What bounds it now is the consumers, beside copies that run near the
 // bytes bound: their work is uneven (the graph's diagonal blocks cross
 // some warps' columns and miss others'), and a warp may run at most S-1
@@ -81,6 +80,47 @@
 // feature instead was slower still); the sums in registers behind a jump
 // table; one block an SM with 6 stages, or three with 2; updating two
 // columns at a time; a ring capped at 2 stages.
+//
+// The fused forms (tband_fused_direct: agg^T as above and out^T = W^T
+// round_as(agg^T), round_as the reference's agg.astype(wt.dtype)).  At the
+// blocks stand-in (dt 32, ht 32) the update is 0.69 GFLOP, 0.010 ms at the
+// fp32 FMA rate, beside the band's 0.103 ms of bytes and 43 MB more of
+// out^T: the band bounds it, and the update must hide in it.  At dt 64 /
+// ht 608 (a GCN backward with a wide input) it is 26 GFLOP, 0.39 ms: the
+// FMAs bound it.  The first fused kernel gave each entry a block of bh threads and
+// staged A_t and X^T synchronously, re-reading A_t for every 32-feature
+// slab, with the whole aggregate and W^T in shared memory (one block an SM
+// at dt 96): 0.508 ms at dt 32, 2.95 at dt 96.  Now the band kernel's ring
+// does the band part unchanged, and the block's unit of work is the entry
+// (or the (entry, 32-row out^T tile) pair), whose slabs it walks in order:
+//   - ONE (one slab, ht <= 32) and SLAB (ht <= 32, more slabs; or any ht,
+//     in 32-row tiles, past WHOLE's room): at each slab's end a warp stores
+//     agg^T for its columns, then adds W^T[:, slab] round_as(agg^T) for
+//     them into out^T's 32-row tile, two columns and HR rows a lane
+//     (o[HR][2]: two FMAs a W^T value, W^T staged once a block as [dt][32
+//     x tiles] fp32 where it fits beside two blocks an SM, else read
+//     through L1).  SLAB keeps the tile in registers across the
+//     slabs; ONE holds it only at the slab's end, so that the band's loop
+//     keeps its registers.  No barrier: each warp owns its columns.
+//   - WHOLE (ht > 32, where the entry's whole aggregate [bh][dt + 1] fits
+//     one block): the slabs' sums stay in shared memory; at the entry's end
+//     a barrier of the consumer warps, then each warp takes 8-row tiles of
+//     out^T over all bh columns (8 x 4 a lane per 128 columns), so that each
+//     W^T row is read by one warp (through L1, one broadcast load of two
+//     features).
+// The aggregate's sums are the band kernel's, so in fp32 it equals
+// tband_spmm_direct's output bit for bit; each out^T element is one fmaf
+// chain over d = 0, 1, ..., dt - 1.  Measured on an H100 80GB HBM3 at
+// 700 W (throwaway builds, chip_smoke.py's shapes): the update's W^T read
+// through L1 by every warp cost 0.063 ms at dt 32 / ht 32 (the band kernel
+// 0.199, fused 0.273); staged in shared memory, the fused launch took
+// 0.232.  WHOLE with W^T read by every warp for its own columns took 5.3
+// ms at dt 64 / ht 608 (each warp re-read W^T's 155 KB from L2); split by
+// out^T rows, 1.8.  ONE against SLAB in one slab (chip_smoke.py's forms
+// A/B, dt 32 / ht 32, medians of 7 interleaved rounds): fp32 0.2304 against
+// 0.2376 ms, bf16 0.2351 against 0.2470 (WHOLE 0.3853, 0.4186): SLAB's tile
+// held across the band's loop spills 4-12 bytes at two blocks an SM; ONE's
+// does not.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -113,25 +153,34 @@ __device__ __forceinline__ uint4 lds128(const unsigned char* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// The (entry, feature slab) items of one thread block, slab fastest: items
-// blockIdx.x, blockIdx.x + gridDim.x, ..., those of capacity-padding
-// entries (sw >= num_sw) skipped; each item is W/KT steps.  The producer and
-// the consumers walk the same sequence.
+// The items of one thread block: items blockIdx.x, blockIdx.x + gridDim.x,
+// ..., those of capacity-padding entries (sw >= num_sw) skipped; ``per``
+// consecutive items share an entry.  The band kernel's item is (entry,
+// feature slab), slab fastest (per = the slab count), one slab of ksteps =
+// W/KT steps.  The fused kernel's item is the entry (per = 1) or (entry,
+// 32-row tile of out^T) (per = the tile count), and it walks all ``slabs``
+// of the features in order, ksteps steps each.  The producer and the
+// consumers walk the same sequence.
 struct Items {
-  int item, nitems, nchunk, nsteps, step, num_sw;
+  int item, nitems, per, ksteps, nsteps, step, num_sw;
+  bool walk;  // the item walks every slab (fused) or is one slab (band)
   const int32_t* sw;
 
-  __device__ Items(int nitems_, int nchunk_, int nsteps_, const int32_t* sw_, int num_sw_)
-      : item(blockIdx.x), nitems(nitems_), nchunk(nchunk_), nsteps(nsteps_), step(0),
-        num_sw(num_sw_), sw(sw_) {
+  __device__ Items(int nitems_, int per_, int ksteps_, int slabs, bool walk_, const int32_t* sw_,
+                   int num_sw_)
+      : item(blockIdx.x), nitems(nitems_), per(per_), ksteps(ksteps_), nsteps(ksteps_ * slabs),
+        step(0), num_sw(num_sw_), walk(walk_), sw(sw_) {
     skip();
   }
   __device__ void skip() {
-    while (item < nitems && sw != nullptr && sw[item / nchunk] >= num_sw) item += gridDim.x;
+    while (item < nitems && sw != nullptr && sw[item / per] >= num_sw) item += gridDim.x;
   }
   __device__ bool valid() const { return item < nitems; }
-  __device__ int entry() const { return item / nchunk; }
-  __device__ int d0(int dt_slab) const { return (item % nchunk) * dt_slab; }
+  __device__ int entry() const { return item / per; }
+  __device__ int sub() const { return item % per; }
+  __device__ int d0(int dt_slab) const { return (walk ? step / ksteps : item % per) * dt_slab; }
+  __device__ int k0() const { return step % ksteps * KT; }
+  __device__ bool slab_end() const { return step % ksteps == ksteps - 1; }
   __device__ bool last_step() const { return step == nsteps - 1; }
   __device__ void next() {
     if (++step == nsteps) {
@@ -142,13 +191,18 @@ struct Items {
   }
 };
 
+// Bytes of W^T staged as [dt][wsm] fp32 (the fused kernel's SLAB and ONE).
+__host__ __device__ constexpr int wt_bytes(int wsm, int dt) { return wsm * dt * 4; }
+
 // Shared memory of one block, from the first 1024-aligned address of the
 // dynamic window (SWIZZLE_ATOM bytes are reserved for that): ``stages`` ring
 // stages, each the A_t slab as bh/CW boxes [KT][CW] int8 and the X^T slab as
 // KT/XW boxes [DT][XW] of TX (XW = 128 bytes of TX), all as the tensor
-// copies land them; then each consumer warp's sums, [32 columns][DT + 1]
-// fp32 (the pad word makes both the by-feature updates and the by-column
-// stores conflict-free); then BAR_BYTES of mbarriers.
+// copies land them; then each consumer warp's sums, [COLS columns][stride]
+// fp32, stride DT + 1 (the fused kernel's whole-entry form: dt + 1; the
+// pad word makes both the by-feature updates and the by-column stores
+// conflict-free); then the fused kernel's staged W^T (wt_bytes); then
+// BAR_BYTES of mbarriers.
 template <typename TX, int DT>
 struct Layout {
   static constexpr int XW = 128 / (int)sizeof(TX);
@@ -156,18 +210,190 @@ struct Layout {
   static __host__ __device__ int stage_bytes(int bh) {
     return KT * bh + KT * DT * (int)sizeof(TX);
   }
-  static __host__ __device__ int acc_bytes(int bh) { return bh * ACC_STRIDE * (int)sizeof(float); }
-  static __host__ __device__ size_t smem(int bh, int stages) {
-    return SWIZZLE_ATOM + (size_t)stages * stage_bytes(bh) + acc_bytes(bh) + BAR_BYTES;
+  static __host__ __device__ int acc_bytes(int bh, int stride = ACC_STRIDE) {
+    return bh * stride * (int)sizeof(float);
+  }
+  static __host__ __device__ size_t smem(int bh, int stages, int stride = ACC_STRIDE,
+                                         int wsm = 0, int dt = 0) {
+    return SWIZZLE_ATOM + (size_t)stages * stage_bytes(bh) + acc_bytes(bh, stride) +
+           wt_bytes(wsm, dt) + BAR_BYTES;
   }
 };
 
-// Grid: persistent, a few blocks an SM (launch_config).  Block: bh/COLS
-// consumer warps and a producer warp, whose first lane produces.  Consumer
-// warp w owns output columns [COLS w, COLS w + COLS) (COLS 16 up to bh 256,
-// twice the warps to share a stage's uneven rows; else 32): for A_t reads
-// lane l < COLS stands for column COLS w + l, for X^T reads and sums lane l
-// stands for feature row d0 + l.
+// v rounded to T and widened back: the reference's agg.astype(wt.dtype)
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Four consecutive values of W^T (16 bytes of fp32, 8 of bf16), widened.
+struct F4 {
+  float v[4];
+};
+__device__ __forceinline__ F4 ldw4(const float* p) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  return F4{{q.x, q.y, q.z, q.w}};
+}
+__device__ __forceinline__ F4 ldw4(const __nv_bfloat16* p) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  return F4{{a.x, a.y, b.x, b.y}};
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The fused kernel's forms (tband_kernel's FUSE): the band product alone;
+// out^T's 32-row tile kept in registers across the feature slabs, each
+// slab's W^T product added at its end (SLAB); the whole entry's aggregate
+// kept in shared memory and multiplied at the entry's end (WHOLE); or, for
+// one slab of features and ht <= 32, the tile summed and stored at the
+// slab's end, so that no register of it stays live across the band's loop
+// (ONE).
+constexpr int BAND = 0, SLAB = 1, WHOLE = 2, ONE = 3;
+constexpr int HT_TILE = 32;  // out^T rows a consumer warp keeps in registers
+
+// o[j][c] += sum_d W^T[h_j, d_lo + d] * round_as(agg[2cp + c][d]) for d in
+// [0, dn), in increasing d, one fmaf chain an element: a consumer warp's
+// share of the update, its columns' aggregate read from its sums ``acc``
+// ([COLS][stride], column a_off = d_lo's feature).  Lane (cp, hg) owns
+// columns 2cp and 2cp + 1 of the warp's COLS and rows h_j = h0 + hg*HR + j of
+// out^T (HR = COLS/2: a warp covers HT_TILE rows); rows at or past ht add
+// nothing.  W^T comes from shared memory where the block staged it (``wts``:
+// [dt][hpad] fp32, rows past ht zero; HR/4 loads of four rows a feature),
+// else from [ht, dt] ``wt`` through L1 (four features a load a row).
+template <typename TX, int COLS>
+__device__ __forceinline__ void wt_product(const float* acc, int stride, int a_off, int d_lo,
+                                           int dn, const TX* __restrict__ wt, const float* wts,
+                                           int hpad, int dt, int ht, int h0, int lane,
+                                           float (&o)[COLS / 2][2]) {
+  constexpr int HR = COLS / 2;
+  const int cp = lane % (COLS / 2), hg = lane / (COLS / 2);
+  const float* a0 = acc + 2 * cp * stride + a_off;
+  const float* a1 = a0 + stride;
+  const int hb = h0 + hg * HR;
+  for (int d = 0; d < dn; d += 4) {
+    float x0[4], x1[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      x0[q] = round_as(a0[d + q], wt);
+      x1[q] = round_as(a1[d + q], wt);
+    }
+    if (wts != nullptr) {
+      const float* wd = wts + (long long)(d_lo + d) * hpad + hb;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int j4 = 0; j4 < HR; j4 += 4) {
+          const float4 w4 = *reinterpret_cast<const float4*>(wd + q * hpad + j4);
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            o[j4 + j][0] = fmaf(wv[j], x0[q], o[j4 + j][0]);
+            o[j4 + j][1] = fmaf(wv[j], x1[q], o[j4 + j][1]);
+          }
+        }
+      }
+    } else {
+      const TX* wrow = wt + (long long)hb * dt + d_lo + d;
+#pragma unroll
+      for (int j = 0; j < HR; ++j) {
+        if (hb + j < ht) {
+          const F4 w4 = ldw4(wrow + (long long)j * dt);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            o[j][0] = fmaf(w4.v[q], x0[q], o[j][0]);
+            o[j][1] = fmaf(w4.v[q], x1[q], o[j][1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Stores a warp's o (wt_product's ownership) into out^T's rows [h0, h0 +
+// HT_TILE) below ht, at the warp's columns from ``cols`` (a pointer to
+// column COLS*warp of out^T's row 0).
+template <typename TO, int COLS>
+__device__ __forceinline__ void store_tile(TO* cols, long long out_cols, int ht, int h0, int lane,
+                                           const float (&o)[COLS / 2][2]) {
+  constexpr int HR = COLS / 2;
+  const int cp = lane % (COLS / 2), hb = h0 + lane / (COLS / 2) * HR;
+#pragma unroll
+  for (int j = 0; j < HR; ++j)
+    if (hb + j < ht) store2(cols + (long long)(hb + j) * out_cols + 2 * cp, o[j][0], o[j][1]);
+}
+
+// Two consecutive values of W^T, widened (a warp-uniform address: one
+// broadcast load).
+__device__ __forceinline__ float2 ldw2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldw2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+// The consumer warps' barrier (the producer warp takes no part).
+__device__ __forceinline__ void consumer_sync(int nthreads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+}
+
+// WHOLE's update of one entry, once every consumer warp's sums of all dt
+// features are in ``sums`` (column c of the block at c * stride): out^T =
+// W^T round_as(agg^T), split by rows of out^T so that each row of W^T is
+// read by one warp.  Warp ``warp`` of ``nwarps`` takes the 8-row tiles
+// warp, warp + nwarps, ...; per 128 columns lane l keeps 8 rows x 4 columns
+// (l + 32 i) in registers and walks d in increasing order, two features at
+// a time (W^T's two values one broadcast load, the sums one conflict-free
+// load a column).  ``cols``: out^T's row 0 at the block's first column.
+template <typename TX, typename TO>
+__device__ __forceinline__ void whole_product(const float* sums, int stride, int bh, int dt,
+                                              int ht, const TX* __restrict__ wt, TO* cols,
+                                              long long out_cols, int warp, int nwarps,
+                                              int lane) {
+  for (int h0 = 8 * warp; h0 < ht; h0 += 8 * nwarps) {
+    const TX* wrow = wt + (long long)h0 * dt;
+    for (int cb = 0; cb < bh; cb += 128) {
+      float o[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+      const float* a_c = sums + (cb + lane) * stride;
+      const int ncol = min(4, (bh - cb) / 32);
+      for (int d = 0; d < dt; d += 2) {
+        float2 wv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) wv[j] = ldw2(wrow + (long long)j * dt + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i < ncol) {
+            const float x0 = round_as(a_c[32 * i * stride + d], wt);
+            const float x1 = round_as(a_c[32 * i * stride + d + 1], wt);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) o[j][i] = fmaf(wv[j].y, x1, fmaf(wv[j].x, x0, o[j][i]));
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i < ncol) store(cols + (long long)(h0 + j) * out_cols + cb + lane + 32 * i, o[j][i]);
+    }
+  }
+}
+
+// Grid: persistent, a few blocks an SM (launch_config, fused_config).
+// Block: bh/COLS consumer warps and a producer warp, whose first lane
+// produces.  Consumer warp w owns output columns [COLS w, COLS w + COLS)
+// (COLS 16 up to bh 256, twice the warps to share a stage's uneven rows;
+// else 32): for A_t reads lane l < COLS stands for column COLS w + l, for
+// X^T reads and sums lane l stands for feature row d0 + l.
 // ``amap``: A_t as [Sb*W rows, bh] int8, box [KT][cw]; ``xmap``: X^T as
 // [dt rows, M] of TX, box [DT][XW], 128-byte swizzle.
 // Direct mode only: ``miss8`` (n8 ids, runs of eight superwindows) and
@@ -176,21 +402,35 @@ struct Layout {
 // write first (items b, b + gridDim.x, ...), while the producer fills the
 // ring: each warp stores zeros over rows of [DT][bh], 16 bytes a lane.  They
 // take no copy and no stage.
-template <typename TX, typename TO, int DT, int COLS>
-__global__ void __launch_bounds__(MAX_BH + 32)
+// FUSE != BAND (tband_fused_direct; direct mode, no zero items): ``out`` is
+// agg^T, and ``wt`` [ht, dt] and ``wout`` (out^T [ht, out_cols]) the
+// update's.  Items as the Items note says: per = htiles (SLAB) or 1
+// (WHOLE).  SLAB: after each slab a warp stores its agg^T (tile 0 only),
+// adds the slab's share of its out^T tile h0 = 32 * tile (wt_product) into
+// registers, and stores the tile after the last slab.  WHOLE: the sums of
+// slab d0 land at column d0 of a stride of dt + 1, and after the last slab
+// the warp runs wt_product over all dt for each 32-row tile of out^T.
+template <typename TX, typename TO, int DT, int COLS, int FUSE>
+__global__ void __launch_bounds__(MAX_BH + 32, (FUSE == SLAB || FUSE == ONE) && COLS == 16 ? 2 : 1)
 tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap xmap,
              const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
              const int32_t* __restrict__ miss8, int n8, const int32_t* __restrict__ miss1,
              int n1, TO* __restrict__ out, int sb, int w, int bh, int cw, int nchunk,
-             long long out_cols, int num_sw, int stages) {
+             long long out_cols, int num_sw, int stages, const TX* __restrict__ wt,
+             TO* __restrict__ wout, int ht, int htiles, int wsm) {
   using L = Layout<TX, DT>;
   constexpr int XW = L::XW;
   extern __shared__ __align__(16) unsigned char tband_smem[];
   unsigned char* ring =
       tband_smem + ((SWIZZLE_ATOM - smem_addr(tband_smem) % SWIZZLE_ATOM) % SWIZZLE_ATOM);
   const int stage_bytes = L::stage_bytes(bh);
+  const int dt = nchunk * DT;
+  const int stride = FUSE == WHOLE ? dt + 1 : L::ACC_STRIDE;
   float* sums = reinterpret_cast<float*>(ring + stages * stage_bytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes + L::acc_bytes(bh));
+  // SLAB, ONE: W^T staged as [dt][wsm] fp32 (wsm = 32 * htiles), or none
+  float* wts = wsm ? sums + bh * stride : nullptr;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes +
+                                               L::acc_bytes(bh, stride) + wt_bytes(wsm, dt));
   uint64_t* empty = full + MAX_STAGES;  // [stages]: consumers done with the stage
   const int nwarps = bh / COLS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -202,13 +442,22 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
     }
     bar_init_fence();
   }
-  __syncthreads();  // the only block-wide barrier: the mbarriers exist
+  if (FUSE != BAND && wts != nullptr)
+    for (int e = threadIdx.x; e < wsm * dt; e += blockDim.x) {
+      const int h = e / dt, d = e % dt;
+      wts[d * wsm + h] = h < ht ? to_f32(wt[e]) : 0.f;
+    }
+  __syncthreads();  // the only block-wide barrier: the mbarriers (and W^T) exist
 
-  const int nsteps = w / KT;
+  const int ksteps = w / KT;
+  const int per = FUSE == BAND ? nchunk : htiles;
+  auto items = [&]() {
+    return Items(sb * per, per, ksteps, FUSE == BAND ? 1 : nchunk, FUSE != BAND, sw, num_sw);
+  };
   if (warp == nwarps) {
     // ---- producer: one lane issues every copy ----
     if (lane != 0) return;
-    Items it(sb * nchunk, nchunk, nsteps, sw, num_sw);
+    Items it = items();
     for (int t = 0; it.valid(); ++t) {
       const int slot = t % stages;
       // step t reuses the stage of step t - stages
@@ -216,7 +465,7 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
       fence_proxy_async();
       unsigned char* a_dst = ring + slot * stage_bytes;
       unsigned char* x_dst = a_dst + KT * bh;
-      const int i = it.entry(), k0 = it.step * KT, x0 = starts[i] + k0;
+      const int i = it.entry(), k0 = it.k0(), x0 = starts[i] + k0;
       bar_arrive_expect(&full[slot], stage_bytes);
       for (int c = 0; c < bh; c += cw) tensor_load(a_dst + KT * c, &amap, c, i * w + k0, &full[slot]);
       for (int h = 0; h < KT / XW; ++h)
@@ -237,19 +486,22 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
       for (int v = lane; v < vecs; v += 32) row[v] = make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  Items it(sb * nchunk, nchunk, nsteps, sw, num_sw);
+  Items it = items();
   const int amask = cw / 16 - 1;
   // this warp's columns lie in one A_t box, at byte c0 of its rows
   const int box = warp * COLS / cw * KT * cw, c0 = warp * COLS % cw;
   const int xrow = lane * 128;  // feature row ``lane`` in an X^T box, before the swizzle
-  float* acc = sums + warp * COLS * L::ACC_STRIDE;  // [column][feature]
+  float* acc = sums + warp * COLS * stride;  // [column][feature]
   for (int c = 0; c < COLS; ++c)
-    if (lane < DT) acc[c * L::ACC_STRIDE + lane] = 0.f;
+    for (int d = lane; d < stride - 1; d += 32) acc[c * stride + d] = 0.f;
+  float o[COLS / 2][2] = {};  // SLAB: this warp's share of the out^T tile
   for (int t = 0; it.valid(); ++t) {
     const int slot = t % stages;
     bar_wait(&full[slot], (t / stages) & 1);
     const unsigned char* a_s = ring + slot * stage_bytes + box;
     const unsigned char* x_s = ring + slot * stage_bytes + KT * bh;
+    // the slab's sums: columns [0, DT) of acc, or [d0, d0 + DT) (WHOLE)
+    float* acc_s = acc + (FUSE == WHOLE ? it.d0(DT) : 0);
     // rows of this stage in which any of the warp's columns is non-zero
     unsigned any_lo = 0u, any_hi = 0u;
 #pragma unroll
@@ -290,7 +542,7 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
           const int c = __ffs(cols) - 1;
           const float a = static_cast<float>(__shfl_sync(0xffffffffu, av, c));
           if (lane < DT) {
-            float* s_cd = acc + c * L::ACC_STRIDE + lane;
+            float* s_cd = acc_s + c * stride + lane;
             *s_cd = fmaf(x, a, *s_cd);
           }
         }
@@ -301,15 +553,51 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
     }
     __syncwarp();
     if (lane == 0) bar_arrive(&empty[slot]);
-    if (it.last_step()) {
+    if (it.slab_end()) {
       // column COLS w + lane's sums, one feature row a store
       const int i = it.entry(), d0 = it.d0(DT);
-      TO* o = out + (long long)(sw != nullptr ? sw[i] : i) * bh + warp * COLS + lane;
-      if (lane < COLS) {
+      const long long col0 = (long long)(sw != nullptr ? sw[i] : i) * bh + warp * COLS;
+      if (FUSE == BAND || it.sub() == 0) {
+        TO* o_col = out + col0 + lane;
+        if (lane < COLS) {
 #pragma unroll 4
-        for (int d = 0; d < DT; ++d) {
-          store(o + (long long)(d0 + d) * out_cols, acc[lane * L::ACC_STRIDE + d]);
-          acc[lane * L::ACC_STRIDE + d] = 0.f;
+          for (int d = 0; d < DT; ++d) {
+            store(o_col + (long long)(d0 + d) * out_cols, acc_s[lane * stride + d]);
+            if (FUSE == BAND) acc_s[lane * stride + d] = 0.f;
+          }
+        }
+      }
+      if constexpr (FUSE == SLAB) {
+        __syncwarp();
+        const int h0 = it.sub() * HT_TILE;
+        wt_product<TX, COLS>(acc, stride, 0, d0, DT, wt, wts, wsm, dt, ht, h0, lane, o);
+        __syncwarp();
+        if (lane < COLS)
+          for (int d = 0; d < DT; ++d) acc[lane * stride + d] = 0.f;
+        if (it.last_step()) {
+          store_tile<TO, COLS>(wout + col0, out_cols, ht, h0, lane, o);
+#pragma unroll
+          for (int j = 0; j < COLS / 2; ++j) o[j][0] = o[j][1] = 0.f;
+        }
+      }
+      if constexpr (FUSE == ONE) {
+        __syncwarp();
+        float o1[COLS / 2][2] = {};
+        wt_product<TX, COLS>(acc, stride, 0, 0, DT, wt, wts, wsm, dt, ht, 0, lane, o1);
+        store_tile<TO, COLS>(wout + col0, out_cols, ht, 0, lane, o1);
+        __syncwarp();
+        if (lane < COLS)
+          for (int d = 0; d < DT; ++d) acc[lane * stride + d] = 0.f;
+      }
+      if constexpr (FUSE == WHOLE) {
+        if (it.last_step()) {
+          consumer_sync(nwarps * 32);  // every column's sums are in
+          whole_product<TX, TO>(sums, stride, bh, dt, ht, wt,
+                                wout + (long long)(sw != nullptr ? sw[i] : i) * bh, out_cols,
+                                warp, nwarps, lane);
+          consumer_sync(nwarps * 32);  // no warp reads them any more
+          for (int c = 0; c < COLS; ++c)
+            for (int d = lane; d < dt; d += 32) acc[c * stride + d] = 0.f;
         }
       }
       __syncwarp();
@@ -355,7 +643,7 @@ cudaError_t launch_config(int bh, Config* cfg) {
   const int stages = (int)(fit < 2 ? 2 : fit > MAX_STAGES ? MAX_STAGES : fit);
   const size_t smem = L::smem(bh, stages);
   if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  auto kernel = tband_kernel<TX, TO, DT, COLS>;
+  auto kernel = tband_kernel<TX, TO, DT, COLS, BAND>;
   // the cap is the kernel's, not this band height's: let it take any
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e == cudaSuccess)
@@ -378,12 +666,67 @@ struct Missing {
   int n8, n1;
 };
 
-template <typename TX, typename TO, int DT, int COLS>
+// The fused launch's arguments beyond the band kernel's (FUSE != BAND):
+// W^T, out^T, its rows, the out^T tiles an entry is dealt in (SLAB) and the
+// ring stages, sized on the host (kernels/tband.py:fused_launch); and where
+// the launch reports the resident blocks an SM it was sized for (or null).
+struct Fused {
+  const void* wt;
+  void* wout;
+  int ht, htiles, stages, wsm;
+  int* blocks_out;
+};
+
+// Resident blocks an SM of the fused kernel tband_kernel<TX, TO, DT, COLS,
+// FUSE> with ``smem`` bytes of dynamic shared memory on the current device,
+// and the device's SMs; the kernel's shared-memory cap is raised to the
+// device's opt-in most on first use.
+template <typename TX, typename TO, int DT, int COLS, int FUSE>
+cudaError_t fused_blocks(int bh, size_t smem, int* blocks, int* sms) {
+  static int opted[16] = {};
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (smem > (size_t)optin || dev >= 16) return cudaErrorInvalidValue;
+  auto kernel = tband_kernel<TX, TO, DT, COLS, FUSE>;
+  if (!opted[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e != cudaSuccess) return e;
+    opted[dev] = 1;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, bh / COLS * 32 + 32, smem);
+  if (e != cudaSuccess) return e;
+  return *blocks < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// Dynamic shared memory of the fused kernel in form ``fuse`` with ``stages``
+// ring stages (kernels/tband.py:fused_launch mirrors it).
+template <typename TX, int DT>
+size_t fused_smem(int fuse, int bh, int dt, int stages, int wsm) {
+  return Layout<TX, DT>::smem(bh, stages, fuse == WHOLE ? dt + 1 : DT + 1, wsm, dt);
+}
+
+template <typename TX, typename TO, int DT, int COLS, int FUSE>
 cudaError_t launch_cols(const void* starts, const void* sw, const void* at, const void* xt,
                         void* out, int sb, int w, int bh, int dt, long long m,
-                        long long out_cols, int num_sw, Missing miss, cudaStream_t stream) {
-  Config c;
-  cudaError_t e = launch_config<TX, TO, DT, COLS>(bh, &c);
+                        long long out_cols, int num_sw, Missing miss, Fused f,
+                        cudaStream_t stream) {
+  int stages = 0, blocks = 0, sms = 0;
+  size_t smem = 0;
+  cudaError_t e;
+  if constexpr (FUSE == BAND) {
+    Config c;
+    e = launch_config<TX, TO, DT, COLS>(bh, &c);
+    stages = c.stages, blocks = c.blocks_per_sm, sms = c.sms, smem = c.smem;
+  } else {
+    stages = f.stages;
+    smem = fused_smem<TX, DT>(FUSE, bh, dt, stages, f.wsm);
+    e = fused_blocks<TX, TO, DT, COLS, FUSE>(bh, smem, &blocks, &sms);
+    if (e == cudaSuccess && f.blocks_out != nullptr) *f.blocks_out = blocks;
+  }
   if (e != cudaSuccess) return e;
   const int cw = bh % 128 == 0 ? 128 : bh % 64 == 0 ? 64 : 32;
   const CUtensorMapSwizzle aswz = cw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -399,25 +742,27 @@ cudaError_t launch_cols(const void* starts, const void* sw, const void* at, cons
                   CU_TENSOR_MAP_SWIZZLE_128B)))
     return cudaErrorInvalidValue;
   const int nchunk = dt / DT;
-  const long long items = ((long long)sb + 8LL * miss.n8 + miss.n1) * nchunk;
-  const long long slots = (long long)c.blocks_per_sm * c.sms;
-  tband_kernel<TX, TO, DT, COLS>
-      <<<(unsigned)(items < slots ? items : slots), bh / COLS * 32 + 32, c.smem, stream>>>(
+  const long long items = FUSE == BAND ? ((long long)sb + 8LL * miss.n8 + miss.n1) * nchunk
+                                       : (long long)sb * (FUSE == SLAB ? f.htiles : 1);
+  const long long slots = (long long)blocks * sms;
+  tband_kernel<TX, TO, DT, COLS, FUSE>
+      <<<(unsigned)(items < slots ? items : slots), bh / COLS * 32 + 32, smem, stream>>>(
           amap, xmap, static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
           miss.ids8, miss.n8, miss.ids1, miss.n1, static_cast<TO*>(out), sb, w, bh, cw, nchunk,
-          out_cols, num_sw, c.stages);
+          out_cols, num_sw, stages, static_cast<const TX*>(f.wt), static_cast<TO*>(f.wout),
+          f.ht, f.htiles, f.wsm);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TO, int DT>
+template <typename TX, typename TO, int DT, int FUSE>
 cudaError_t launch(const void* starts, const void* sw, const void* at, const void* xt,
                    void* out, int sb, int w, int bh, int dt, long long m,
-                   long long out_cols, int num_sw, Missing miss, cudaStream_t stream) {
+                   long long out_cols, int num_sw, Missing miss, Fused f, cudaStream_t stream) {
   if (cols_of(bh) == 16)
-    return launch_cols<TX, TO, DT, 16>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                       num_sw, miss, stream);
-  return launch_cols<TX, TO, DT, 32>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                     num_sw, miss, stream);
+    return launch_cols<TX, TO, DT, 16, FUSE>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
+                                             num_sw, miss, f, stream);
+  return launch_cols<TX, TO, DT, 32, FUSE>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
+                                           num_sw, miss, f, stream);
 }
 
 template <typename TX, typename TO, int DT>
@@ -426,275 +771,53 @@ cudaError_t config_of(int bh, Config* c) {
                            : launch_config<TX, TO, DT, 32>(bh, c);
 }
 
-template <typename TX, typename TO>
-cudaError_t dispatch_dt(const void* starts, const void* sw, const void* at, const void* xt,
-                        void* out, int sb, int w, int bh, int dt, long long m,
-                        long long out_cols, int num_sw, Missing miss, cudaStream_t stream) {
-  if (dt % 32 == 0)
-    return launch<TX, TO, 32>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, miss,
-                              stream);
-  return launch<TX, TO, 16>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, miss,
-                            stream);
-}
-
-// The fused transposed aggregate and update (tband.py:tband_fused_direct):
-// one thread block per entry i, bh threads, thread j owning output column j
-// of the superwindow.  For each DT-row slab of the features it sums the band
-// product as tband_kernel does, writes agg^T[d0:d0+DT, cols] and keeps it,
-// rounded to W's type as the reference's agg.astype(wt.dtype) does, in
-// shared memory; then out^T[h, col j] = sum_d wt[h, d] * agg^T[d, j], summed
-// in fp32 in d order, with wt staged in shared memory transposed so that four
-// h read as one 16-byte broadcast.  Both products sum each output element in
-// one thread in a fixed order: bitwise repeatable.  The W product is dense
-// (2*ht*dt*bh operations a superwindow) and the staging holds
-// (KT*DT + dt*bh + dt*ht)*4 + KT*bh bytes of shared memory (156 KB at dt 96,
-// ht 96, bh 256): one block per SM, so the band loop's load latency is less
-// hidden than in tband_kernel.
-// Shared memory: x_s [KT][DT] fp32, agg_s [dt][bh] fp32, w_s [dt][ht] fp32,
-// a_s [KT][bh] int8.
-__device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 template <typename TX, typename TO, int DT>
-__global__ void __launch_bounds__(512)
-tband_fused_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
-                   const int8_t* __restrict__ at, const TX* __restrict__ xt,
-                   const TX* __restrict__ wt, TO* __restrict__ agg, TO* __restrict__ out, int w,
-                   int bh, int dt, int ht, long long m, long long out_cols, int num_sw) {
-  const int i = blockIdx.x;
-  const int j = threadIdx.x;
-  const int s = sw[i];
-  if (s >= num_sw) return;  // capacity padding: nothing to write
-  const long long col0 = (long long)s * bh;
-  const long long st = starts[i];
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* x_s = reinterpret_cast<float*>(smem);
-  float* agg_s = x_s + KT * DT;
-  float* w_s = agg_s + dt * bh;
-  int8_t* a_s = reinterpret_cast<int8_t*>(w_s + dt * ht);
-
-  for (int e = j; e < ht * dt; e += blockDim.x) w_s[(e % dt) * ht + e / dt] = to_f32(wt[e]);
-
-  const int8_t* a_blk = at + (long long)i * w * bh;
-  const int nvec = KT * bh / 16;
-  for (int d0 = 0; d0 < dt; d0 += DT) {
-    float acc[DT];
-#pragma unroll
-    for (int d = 0; d < DT; ++d) acc[d] = 0.f;
-    for (int k0 = 0; k0 < w; k0 += KT) {
-      const int4* a_src = reinterpret_cast<const int4*>(a_blk + (long long)k0 * bh);
-      int4* a_dst = reinterpret_cast<int4*>(a_s);
-      for (int v = j; v < nvec; v += blockDim.x) a_dst[v] = a_src[v];
-      for (int e = j; e < KT * DT; e += blockDim.x) {
-        const int kk = e % KT;
-        const int dd = e / KT;
-        x_s[kk * DT + dd] = to_f32(xt[(long long)(d0 + dd) * m + st + k0 + kk]);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KT; ++kk) {
-        const int8_t av = a_s[kk * bh + j];
-        if (!__any_sync(0xffffffffu, av != 0)) continue;
-        const float a = static_cast<float>(av);
-        const float4* xv = reinterpret_cast<const float4*>(x_s + kk * DT);
-#pragma unroll
-        for (int q = 0; q < DT / 4; ++q) {
-          const float4 x4 = xv[q];
-          acc[4 * q + 0] = fmaf(x4.x, a, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(x4.y, a, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(x4.z, a, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(x4.w, a, acc[4 * q + 3]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      store(agg + (long long)(d0 + d) * out_cols + col0 + j, acc[d]);
-      agg_s[(d0 + d) * bh + j] = round_as(acc[d], wt);
-    }
-  }
-  __syncthreads();
-
-  for (int h0 = 0; h0 < ht; h0 += 16) {
-    float o[16];
-#pragma unroll
-    for (int q = 0; q < 16; ++q) o[q] = 0.f;
-    for (int d = 0; d < dt; ++d) {
-      const float a = agg_s[d * bh + j];
-      const float4* wv = reinterpret_cast<const float4*>(w_s + d * ht + h0);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 w4 = wv[q];  // same address for the whole block
-        o[4 * q + 0] = fmaf(w4.x, a, o[4 * q + 0]);
-        o[4 * q + 1] = fmaf(w4.y, a, o[4 * q + 1]);
-        o[4 * q + 2] = fmaf(w4.z, a, o[4 * q + 2]);
-        o[4 * q + 3] = fmaf(w4.w, a, o[4 * q + 3]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 16; ++q) store(out + (long long)(h0 + q) * out_cols + col0 + j, o[q]);
-  }
-}
-
-// The same fused product where tband_fused_kernel's staging (fused_smem)
-// exceeds the 227 KB of shared memory a block may use: dt above 176 at ht 32,
-// or ht above about 600 at dt 64 (bh 256).  Nothing of size dt or ht is kept
-// on chip.  Thread j keeps an out^T tile of HT rows of its column in
-// registers; for each DT-row slab of the features, in order, it sums the band
-// product into acc[DT] as tband_fused_kernel does, writes agg^T, and adds
-// W^T[h0:h0+HT, slab] . round_as(acc) into the tile, W's slab staged in
-// shared memory.  The ht tiles after the first re-read the slab's aggregate
-// from agg (this thread's own writes; round_as of the stored value is the
-// value rounded in the first tile, in either output type) instead of
-// recomputing the band product: ceil(ht / HT) - 1 extra reads of dt*bh
-// values an entry, from L2.  Each out^T element is summed in d order from
-// 0, the order of tband_fused_kernel, so both are bitwise repeatable.
-// Shared memory: x_s [KT][DT] fp32, w_s [DT][HT] fp32, a_s [KT][bh] int8.
-constexpr int HT = 32;
-
-template <typename TX, typename TO, int DT>
-__global__ void __launch_bounds__(512)
-tband_fused_slab_kernel(const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
-                        const int8_t* __restrict__ at, const TX* __restrict__ xt,
-                        const TX* __restrict__ wt, TO* __restrict__ agg, TO* __restrict__ out,
-                        int w, int bh, int dt, int ht, long long m, long long out_cols,
-                        int num_sw) {
-  const int i = blockIdx.x;
-  const int j = threadIdx.x;
-  const int s = sw[i];
-  if (s >= num_sw) return;  // capacity padding: nothing to write
-  const long long col0 = (long long)s * bh;
-  const long long st = starts[i];
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* x_s = reinterpret_cast<float*>(smem);
-  float* w_s = x_s + KT * DT;
-  int8_t* a_s = reinterpret_cast<int8_t*>(w_s + DT * HT);
-
-  const int8_t* a_blk = at + (long long)i * w * bh;
-  const int nvec = KT * bh / 16;
-  for (int h0 = 0; h0 < ht; h0 += HT) {
-    const int hn = min(HT, ht - h0);
-    float o[HT];
-#pragma unroll
-    for (int q = 0; q < HT; ++q) o[q] = 0.f;
-    for (int d0 = 0; d0 < dt; d0 += DT) {
-      float acc[DT];
-      if (h0 == 0) {
-#pragma unroll
-        for (int d = 0; d < DT; ++d) acc[d] = 0.f;
-        for (int k0 = 0; k0 < w; k0 += KT) {
-          const int4* a_src = reinterpret_cast<const int4*>(a_blk + (long long)k0 * bh);
-          int4* a_dst = reinterpret_cast<int4*>(a_s);
-          for (int v = j; v < nvec; v += blockDim.x) a_dst[v] = a_src[v];
-          for (int e = j; e < KT * DT; e += blockDim.x) {
-            const int kk = e % KT;
-            const int dd = e / KT;
-            x_s[kk * DT + dd] = to_f32(xt[(long long)(d0 + dd) * m + st + k0 + kk]);
-          }
-          __syncthreads();
-#pragma unroll 4
-          for (int kk = 0; kk < KT; ++kk) {
-            const int8_t av = a_s[kk * bh + j];
-            if (!__any_sync(0xffffffffu, av != 0)) continue;
-            const float a = static_cast<float>(av);
-            const float4* xv = reinterpret_cast<const float4*>(x_s + kk * DT);
-#pragma unroll
-            for (int q = 0; q < DT / 4; ++q) {
-              const float4 x4 = xv[q];
-              acc[4 * q + 0] = fmaf(x4.x, a, acc[4 * q + 0]);
-              acc[4 * q + 1] = fmaf(x4.y, a, acc[4 * q + 1]);
-              acc[4 * q + 2] = fmaf(x4.z, a, acc[4 * q + 2]);
-              acc[4 * q + 3] = fmaf(x4.w, a, acc[4 * q + 3]);
-            }
-          }
-          __syncthreads();
-        }
-#pragma unroll
-        for (int d = 0; d < DT; ++d) store(agg + (long long)(d0 + d) * out_cols + col0 + j, acc[d]);
-      } else {
-#pragma unroll
-        for (int d = 0; d < DT; ++d) acc[d] = to_f32(agg[(long long)(d0 + d) * out_cols + col0 + j]);
-        __syncthreads();  // the previous slab's readers of w_s are done
-      }
-      // w_s[d][q] = W^T[h0 + q, d0 + d], zero past ht
-      for (int e = j; e < DT * HT; e += blockDim.x) {
-        const int q = e % HT;
-        w_s[e] = q < hn ? to_f32(wt[(long long)(h0 + q) * dt + d0 + e / HT]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int d = 0; d < DT; ++d) {
-        const float a = round_as(acc[d], wt);
-        const float4* wv = reinterpret_cast<const float4*>(w_s + d * HT);
-#pragma unroll
-        for (int q = 0; q < HT / 4; ++q) {
-          const float4 w4 = wv[q];  // same address for the whole block
-          o[4 * q + 0] = fmaf(w4.x, a, o[4 * q + 0]);
-          o[4 * q + 1] = fmaf(w4.y, a, o[4 * q + 1]);
-          o[4 * q + 2] = fmaf(w4.z, a, o[4 * q + 2]);
-          o[4 * q + 3] = fmaf(w4.w, a, o[4 * q + 3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < HT; ++q)
-      if (q < hn) store(out + (long long)(h0 + q) * out_cols + col0 + j, o[q]);
-  }
-}
-
-// Shared memory one thread block may opt in to on the current device (227 KB
-// on an H100): past it the fused product runs slab by slab.
-size_t max_block_smem() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return (size_t)bytes;
-}
-
-size_t fused_smem(int dt, int ht, int bh, int DT) {
-  return ((size_t)KT * DT + (size_t)dt * bh + (size_t)dt * ht) * sizeof(float) +
-         (size_t)KT * bh;
-}
-
-template <typename TX, typename TO, int DT>
-cudaError_t launch_fused(const void* starts, const void* sw, const void* at, const void* xt,
-                         const void* wt, void* agg, void* out, int sb, int w, int bh, int dt,
-                         int ht, long long m, long long out_cols, int num_sw,
-                         cudaStream_t stream) {
-  size_t smem = fused_smem(dt, ht, bh, DT);
-  auto kernel = tband_fused_kernel<TX, TO, DT>;
-  if (smem > max_block_smem()) {
-    smem = ((size_t)KT * DT + (size_t)DT * HT) * sizeof(float) + (size_t)KT * bh;
-    kernel = tband_fused_slab_kernel<TX, TO, DT>;
-  }
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<(unsigned)sb, bh, smem, stream>>>(
-      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
-      static_cast<const int8_t*>(at), static_cast<const TX*>(xt), static_cast<const TX*>(wt),
-      static_cast<TO*>(agg), static_cast<TO*>(out), w, bh, dt, ht, m, out_cols, num_sw);
-  return cudaGetLastError();
+cudaError_t launch_fuse(int fuse, const void* starts, const void* sw, const void* at,
+                        const void* xt, void* out, int sb, int w, int bh, int dt, long long m,
+                        long long out_cols, int num_sw, Missing miss, Fused f,
+                        cudaStream_t stream) {
+  if (fuse == ONE)
+    return launch<TX, TO, DT, ONE>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw,
+                                   miss, f, stream);
+  if (fuse == SLAB)
+    return launch<TX, TO, DT, SLAB>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw,
+                                    miss, f, stream);
+  if (fuse == WHOLE)
+    return launch<TX, TO, DT, WHOLE>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
+                                     num_sw, miss, f, stream);
+  return launch<TX, TO, DT, BAND>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw,
+                                  miss, f, stream);
 }
 
 template <typename TX, typename TO>
-cudaError_t dispatch_fused(const void* starts, const void* sw, const void* at, const void* xt,
-                           const void* wt, void* agg, void* out, int sb, int w, int bh, int dt,
-                           int ht, long long m, long long out_cols, int num_sw,
-                           cudaStream_t stream) {
+cudaError_t dispatch_dt(int fuse, const void* starts, const void* sw, const void* at,
+                        const void* xt, void* out, int sb, int w, int bh, int dt, long long m,
+                        long long out_cols, int num_sw, Missing miss, Fused f,
+                        cudaStream_t stream) {
   if (dt % 32 == 0)
-    return launch_fused<TX, TO, 32>(starts, sw, at, xt, wt, agg, out, sb, w, bh, dt, ht, m,
-                                    out_cols, num_sw, stream);
-  return launch_fused<TX, TO, 16>(starts, sw, at, xt, wt, agg, out, sb, w, bh, dt, ht, m,
-                                  out_cols, num_sw, stream);
+    return launch_fuse<TX, TO, 32>(fuse, starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
+                                   num_sw, miss, f, stream);
+  return launch_fuse<TX, TO, 16>(fuse, starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
+                                 num_sw, miss, f, stream);
+}
+
+// The band or fused launch for the (X, out) type pair: fp32 -> fp32,
+// bf16 -> bf16 or bf16 -> fp32.
+cudaError_t launch_types(int fuse, const void* starts, const void* sw, const void* at,
+                         const void* xt, void* out, int sb, int w, int bh, int dt, long long m,
+                         long long out_cols, int num_sw, Missing miss, Fused f, int x_bf16,
+                         int out_f32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!x_bf16) {
+    if (!out_f32) return cudaErrorInvalidValue;
+    return dispatch_dt<float, float>(fuse, starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
+                                     num_sw, miss, f, s);
+  }
+  if (out_f32)
+    return dispatch_dt<__nv_bfloat16, float>(fuse, starts, sw, at, xt, out, sb, w, bh, dt, m,
+                                             out_cols, num_sw, miss, f, s);
+  return dispatch_dt<__nv_bfloat16, __nv_bfloat16>(fuse, starts, sw, at, xt, out, sb, w, bh, dt,
+                                                   m, out_cols, num_sw, miss, f, s);
 }
 
 }  // namespace
@@ -724,17 +847,8 @@ extern "C" int hcspmm_tband_spmm(const void* starts, const void* sw, const void*
     return (int)cudaErrorInvalidValue;
   const Missing miss{static_cast<const int32_t*>(miss8), static_cast<const int32_t*>(miss1), n8,
                      n1};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!x_bf16) {
-    if (!out_f32) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_dt<float, float>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                          num_sw, miss, s);
-  }
-  if (out_f32)
-    return (int)dispatch_dt<__nv_bfloat16, float>(starts, sw, at, xt, out, sb, w, bh, dt, m,
-                                                  out_cols, num_sw, miss, s);
-  return (int)dispatch_dt<__nv_bfloat16, __nv_bfloat16>(starts, sw, at, xt, out, sb, w, bh, dt,
-                                                        m, out_cols, num_sw, miss, s);
+  return launch_types(BAND, starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, miss,
+                      Fused{nullptr, nullptr, 0, 1, 0, 0, nullptr}, x_bf16, out_f32, stream);
 }
 
 // The band kernel's launch configuration at band height bh, feature dim dt
@@ -763,27 +877,30 @@ extern "C" int hcspmm_tband_config(int bh, int dt, int x_bf16, int out_f32, int*
 // starts, sw: int32 [sb]; at: int8 [sb, w, bh]; xt: [dt, m] fp32 or bf16;
 // wt: [ht, dt] in xt's type; agg: [dt, out_cols] and out: [ht, out_cols],
 // fp32 when out_f32 != 0, else xt's type.  Entries with sw >= num_sw write
-// nothing.  dt and ht are multiples of 16.  Where tband_fused_kernel's shared
-// memory (fused_smem) would exceed what a block may use (max_block_smem),
-// tband_fused_slab_kernel runs instead.  Returns a cudaError_t.
+// nothing.  dt and ht are multiples of 16.  ``fuse`` (SLAB 1, WHOLE 2 or
+// ONE 3), ``htiles`` (SLAB: ceil(ht / 32); else 1) and ``stages`` come from the
+// host's sizing (kernels/tband.py:fused_launch).  The alignment and the
+// bounds are hcspmm_tband_spmm's.  ``blocks_per_sm`` (may be null) gets the
+// resident blocks an SM the card's occupancy gave the launch, which sized
+// its grid by them.  Returns a cudaError_t.
 extern "C" int hcspmm_tband_fused(const void* starts, const void* sw, const void* at,
                                   const void* xt, const void* wt, void* agg, void* out, int sb,
                                   int w, int bh, int dt, int ht, long long m, long long out_cols,
-                                  int num_sw, int x_bf16, int out_f32, void* stream) {
+                                  int num_sw, int fuse, int htiles, int stages, int wsm,
+                                  int x_bf16, int out_f32, int* blocks_per_sm, void* stream) {
   if (sb <= 0) return 0;
-  if (dt <= 0 || dt % 16 || ht <= 0 || ht % 16 || w <= 0 || w % KT || bh <= 0 || bh % 32 ||
-      bh > 512)
+  if (sw == nullptr || dt <= 0 || dt % 16 || ht <= 0 || ht % 16 || w <= 0 || w % KT || bh <= 0 ||
+      bh % 32 || bh > MAX_BH || stages < 2 || stages > MAX_STAGES ||
+      (fuse == SLAB ? htiles != (ht + HT_TILE - 1) / HT_TILE
+                    : (fuse != WHOLE && fuse != ONE) || htiles != 1) ||
+      (fuse == ONE && (ht > HT_TILE || (dt != 16 && dt != 32))) ||
+      (wsm != 0 && (fuse == WHOLE || wsm != HT_TILE * htiles)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!x_bf16) {
-    if (!out_f32) return (int)cudaErrorInvalidValue;
-    return (int)dispatch_fused<float, float>(starts, sw, at, xt, wt, agg, out, sb, w, bh, dt,
-                                             ht, m, out_cols, num_sw, s);
-  }
-  if (out_f32)
-    return (int)dispatch_fused<__nv_bfloat16, float>(starts, sw, at, xt, wt, agg, out, sb, w,
-                                                     bh, dt, ht, m, out_cols, num_sw, s);
-  return (int)dispatch_fused<__nv_bfloat16, __nv_bfloat16>(starts, sw, at, xt, wt, agg, out,
-                                                           sb, w, bh, dt, ht, m, out_cols,
-                                                           num_sw, s);
+  if ((uintptr_t)at % 16 || (uintptr_t)xt % 16 || m * (x_bf16 ? 2 : 4) % 16 ||
+      (uintptr_t)wt % 16 || out_cols % 2)
+    return (int)cudaErrorInvalidValue;
+  return launch_types(fuse, starts, sw, at, xt, agg, sb, w, bh, dt, m, out_cols, num_sw,
+                      Missing{nullptr, nullptr, 0, 0},
+                      Fused{wt, out, ht, htiles, stages, wsm, blocks_per_sm}, x_bf16, out_f32,
+                      stream);
 }

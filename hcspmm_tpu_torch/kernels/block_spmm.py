@@ -51,6 +51,7 @@ not run here.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -71,6 +72,14 @@ launches = 0
 kernel_launches = {"band_bucket_spmm": 0, "band_bucket_spmm_grouped": 0,
                    "band_fused_spmm_direct": 0, "band_tiled_spmm": 0}
 
+#: The fused kernel's launches by (dp, hp), counted with
+#: ``kernel_launches["band_fused_spmm_direct"]``.
+fused_shapes = collections.Counter()
+
+#: The latest fused launch: ``fused_launch``'s sizing and ``resident``, the
+#: blocks an SM the card's occupancy gave it (its grid's size).
+last_fused_launch = {}
+
 TILE_W = 128  # X rows of one tiled pair (csrc/block_spmm.cu TILE)
 
 #: Launches of the two kernels of csrc/rows.cu, counted where a wrapper
@@ -84,7 +93,7 @@ def _lib() -> ctypes.CDLL:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.hcspmm_band_spmm.argtypes = [vp] * 6 + [i32] * 13 + [vp]
     lib.hcspmm_tiled_spmm.argtypes = [vp] * 5 + [i32] * 5 + [vp]
-    lib.hcspmm_band_fused.argtypes = [vp] * 7 + [i32] * 8 + [vp]
+    lib.hcspmm_band_fused.argtypes = [vp] * 8 + [i32] * 12 + [ctypes.POINTER(i32), vp]
     lib.hcspmm_band_device.argtypes = [ctypes.POINTER(i32)] * 4
     for fn in (lib.hcspmm_band_spmm, lib.hcspmm_tiled_spmm, lib.hcspmm_band_fused,
                lib.hcspmm_band_device):
@@ -111,6 +120,27 @@ _BAND_ROWS = 32
 _BAND_STAGES = (2, 8)
 _BAND_FIXED_SMEM = 128 + 3 * 8 * 8
 _BAND_BLOCKS_PER_SM = 3
+# The fused kernel (csrc/block_spmm.cu band_fused_kernel): a unit's output
+# rows (FR), the contraction rows of a staged slab (FK) and the out columns
+# of a pass (FC) of its update, whose slabs (two of agg^T [FK, FR] and two
+# of W [FK, FC], fp32) sit beside its A tile, and the shared memory beside
+# both (alignment slack, the tile's mbarrier and the next unit's id).  One
+# block an SM: its update keeps an 8 x 16 register tile a thread.
+_FUSED_ROWS, _FUSED_SLAB, _FUSED_COLS = 128, 8, 256
+_FUSED_SLAB_SMEM = 2 * _FUSED_SLAB * (_FUSED_ROWS + _FUSED_COLS) * 4
+_FUSED_FIXED_SMEM = 128 + 64
+
+
+def _boxes(bb, aligned):
+    """(tma, box_w, nbox): how a row of A of ``bb`` bytes is staged."""
+    if bb % 16 == 0 and aligned:
+        box_w = next(w for w in (256, 128, 64, 32, 16) if bb % w == 0)
+        if bb // box_w > 8:
+            box_w = 256
+        return True, box_w, -(-bb // box_w)
+    return False, -(-bb // 16) * 16, 1
+
+
 
 
 def band_launch(bb: int, per_sm: int, reserved: int, optin: int, aligned: bool = True) -> dict:
@@ -127,14 +157,7 @@ def band_launch(bb: int, per_sm: int, reserved: int, optin: int, aligned: bool =
     more than eight boxes.  Otherwise 4-byte cp.async copies stage each row
     whole, padded to 16 bytes.  ``stages`` (2-8) is as many as leave
     three blocks an SM; ``smem`` is the block's dynamic shared memory."""
-    tma = bb % 16 == 0 and aligned
-    if tma:
-        box_w = next(w for w in (256, 128, 64, 32, 16) if bb % w == 0)
-        if bb // box_w > 8:
-            box_w = 256
-        nbox = -(-bb // box_w)
-    else:
-        box_w, nbox = -(-bb // 16) * 16, 1
+    tma, box_w, nbox = _boxes(bb, aligned)
     row_bytes = box_w * nbox
     rows = _BAND_ROWS
     while rows > 1 and _BAND_FIXED_SMEM + 2 * rows * row_bytes > optin:
@@ -147,6 +170,39 @@ def band_launch(bb: int, per_sm: int, reserved: int, optin: int, aligned: bool =
         raise ValueError(f"band width {bb}: two ring stages of one row take {smem} bytes of "
                          f"shared memory, more than a block's {optin}")
     return dict(tma=tma, box_w=box_w, nbox=nbox, rows=rows, stages=stages, smem=smem)
+
+
+def fused_launch(bb: int, dp: int, hp: int, per_sm: int, reserved: int, optin: int,
+                 aligned: bool = True) -> dict:
+    """The fused kernel's launch at band width ``bb``, dp and hp, on a device
+    as ``band_launch`` takes it.  A row of A is staged as band_launch stages
+    it (``tma``, ``box_w``, ``nbox``); the A tile holds ``arows`` rows (the
+    unit's 128, halved until the tile and the update's slabs fit one block);
+    ``smem`` is the block's dynamic shared memory, ``blocks_per_sm`` one.
+    Also ``unit_rows`` (output rows of a unit of work), ``w_slab`` (rows of
+    agg^T and W staged at once), ``tile_cols`` (out columns of a pass: 256,
+    or 128 where hp <= 128),
+    ``passes`` (ceil(hp / tile_cols)) and ``ng`` (128-column groups of a band
+    pass over dp).  Raises ValueError for a dp that is no multiple of 128,
+    hp < 1, or a band width of which not even one row fits beside the
+    slabs."""
+    if dp <= 0 or dp % 128 or hp <= 0:
+        raise ValueError(f"dp={dp}, hp={hp}: dp a positive multiple of 128, hp positive")
+    tma, box_w, nbox = _boxes(bb, aligned)
+    fixed = _FUSED_FIXED_SMEM + _FUSED_SLAB_SMEM
+    arows = _FUSED_ROWS
+    while arows > 1 and fixed + arows * box_w * nbox > optin:
+        arows //= 2
+    smem = fixed + arows * box_w * nbox
+    if smem > optin:
+        raise ValueError(f"band width {bb}: one row of A beside the update's slabs takes {smem} "
+                         f"bytes of shared memory, more than a block's {optin}")
+    groups = dp // 128
+    cols = 128 if hp <= 128 else _FUSED_COLS
+    return dict(tma=tma, box_w=box_w, nbox=nbox, arows=arows, smem=smem,
+                unit_rows=_FUSED_ROWS, w_slab=_FUSED_SLAB, tile_cols=cols,
+                passes=-(-hp // cols),
+                ng=next(g for g in (4, 3, 2, 1) if groups % g == 0), blocks_per_sm=1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -493,9 +549,9 @@ def band_fused_spmm_direct(sw_ids, starts, a, xp, w, num_sw, out_dtype):
     w: [dp, hp] in xp's dtype (the forward form W or the backward form
     W^T).  Returns (agg [num_sw, bh, dp], out [num_sw, bh, hp]) in
     ``out_dtype`` (xp's dtype or float32); entries with ``sw_id == num_sw``
-    write nothing and unowned blocks stay unset.  Every dp runs: where 32
-    aggregate rows of dp fp32 exceed one block's shared memory (dp above
-    1792) the kernel reads the aggregate back in slabs."""
+    write nothing and unowned blocks stay unset.  Every dp runs: the band
+    kernel's fused form (``fused_launch``) writes a unit's aggregate rows,
+    then reads them back from L2 in slabs for the update."""
     if xp.device.type == "cpu":
         return band_fused_spmm_direct_plain(sw_ids, starts, a, xp, w, num_sw, out_dtype)
     _check_cuda_args(starts, sw_ids, a, xp)
@@ -509,14 +565,22 @@ def band_fused_spmm_direct(sw_ids, starts, a, xp, w, num_sw, out_dtype):
     hp = w.shape[1]
     agg = torch.empty((num_sw, bh, dp), dtype=out_dtype, device=xp.device)
     out = torch.empty((num_sw, bh, hp), dtype=out_dtype, device=xp.device)
+    resident = ctypes.c_int()
     with torch.cuda.device(xp.device):
+        cfg = fused_launch(bb, dp, hp, *band_device(xp.device.index)[1:],
+                           aligned=a.data_ptr() % 16 == 0)
+        counter = torch.zeros(1, dtype=torch.int32, device=xp.device)  # the blocks' work counter
         rc = _lib().hcspmm_band_fused(
             starts.data_ptr(), sw_ids.data_ptr(), a.data_ptr(), xp.data_ptr(), w.data_ptr(),
-            agg.data_ptr(), out.data_ptr(), sb, bh, bb, dp, hp, num_sw,
+            agg.data_ptr(), out.data_ptr(), counter.data_ptr(), sb, bh, bb, dp, hp, num_sw,
+            cfg["arows"], cfg["box_w"], cfg["nbox"], int(cfg["tma"]),
             int(xp.dtype == torch.bfloat16), int(out_dtype == torch.float32),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "fused_kernel")
+            ctypes.byref(resident), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "band_fused_kernel")
+    last_fused_launch.clear()
+    last_fused_launch.update(cfg, resident=resident.value)
     kernel_launches["band_fused_spmm_direct"] += 1
+    fused_shapes[(dp, hp)] += 1
     return agg, out
 
 

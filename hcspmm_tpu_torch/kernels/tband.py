@@ -31,6 +31,7 @@ the rest raise instead of losing edges.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -52,6 +53,14 @@ launches = 0
 #: counted in ``launches``.
 kernel_launches = {"tband_spmm_bucket": 0, "tband_fused_direct": 0, "zero_lane_blocks": 0}
 
+#: The fused kernel's launches by (dt, ht), counted with
+#: ``kernel_launches["tband_fused_direct"]``.
+fused_shapes = collections.Counter()
+
+#: The latest fused launch: ``fused_launch``'s sizing and ``resident``, the
+#: blocks an SM the card's occupancy gave it (its grid's size).
+last_fused_launch = {}
+
 _MAX_BH = 512  # threads per block in csrc/tband.cu: one per output column
 _KT = 64       # csrc/tband.cu KT: the contraction width must divide by it
 
@@ -64,9 +73,9 @@ def _lib() -> ctypes.CDLL:
     lib.hcspmm_tband_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                       i64, i64, i32, vp, i32, vp, i32, i32, i32, vp]
     lib.hcspmm_tband_spmm.restype = ctypes.c_int
-    lib.hcspmm_tband_fused.argtypes = [vp] * 7 + [i32] * 5 + [i64, i64, i32, i32, i32, vp]
-    lib.hcspmm_tband_fused.restype = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
+    lib.hcspmm_tband_fused.argtypes = [vp] * 7 + [i32] * 5 + [i64, i64] + [i32] * 7 + [ip, vp]
+    lib.hcspmm_tband_fused.restype = ctypes.c_int
     lib.hcspmm_tband_config.argtypes = [i32, i32, i32, i32, ip, ctypes.POINTER(i64), ip]
     lib.hcspmm_tband_config.restype = ctypes.c_int
     return lib
@@ -83,6 +92,74 @@ def launch_config(bh: int, dt: int, x_dtype, out_dtype) -> dict:
     if rc != 0:
         raise RuntimeError(f"csrc/tband.cu launch configuration failed: cudaError {rc}")
     return dict(stages=stages.value, smem=smem.value, blocks_per_sm=blocks.value)
+
+
+# The fused kernel's forms (csrc/tband.cu tband_kernel's FUSE), the out^T
+# rows a warp keeps in registers (HT_TILE), and the shared memory beside the
+# ring and the sums: the swizzle atom's alignment slack and the mbarriers.
+FUSE_SLAB, FUSE_WHOLE, FUSE_ONE = 1, 2, 3
+_HT_TILE = 32
+_FIXED_SMEM = 1024 + 128
+_MAX_STAGES = 6
+
+
+def fused_launch(bh: int, dt: int, ht: int, x_elt: int, per_sm: int, reserved: int,
+                 optin: int) -> dict:
+    """The fused kernel's form and ring at band height ``bh``, feature dim
+    ``dt``, out^T rows ``ht`` and X's element bytes ``x_elt`` on a device
+    with ``per_sm`` bytes of shared memory an SM, ``reserved`` of them taken
+    per block and at most ``optin`` for one block (an H100: 233472, 1024,
+    232448).
+
+    A stage holds the 64-row A_t slab [64, bh] int8 and X^T's slab [DT, 64]
+    (DT = 32 where dt allows, else 16).  The ``form``:
+
+    - FUSE_SLAB keeps each warp's sums of one slab ([bh][DT + 1] fp32) and
+      out^T tiles of 32 rows in registers: the form wherever ht <= 32, and
+      the fallback, in ``htiles`` passes over the band, where neither other
+      form fits; FUSE_ONE is its case of one slab (dt = DT), whose tile lives
+      only at the slab's end.  Both stage W^T in shared memory (``wsm`` = 32
+      * htiles rows of it, fp32) where it fits beside two blocks an SM, else
+      read it through L1 (``wsm`` 0).
+    - FUSE_WHOLE keeps the entry's whole aggregate ([bh][dt + 1] fp32) and
+      multiplies it at the entry's end, its warps splitting out^T by rows:
+      the form for ht > 32 where two stages of it fit one block, one block
+      an SM.
+
+    ``stages`` (2-6) is as many as leave ``blocks_per_sm`` blocks an SM (the
+    register forms: two where two stages allow, else one); ``smem`` is the
+    block's dynamic shared memory.  Raises ValueError where not even two
+    stages fit one block."""
+    if dt <= 0 or dt % 16 or ht <= 0 or ht % 16 or bh <= 0 or bh % 32 or bh > _MAX_BH:
+        raise ValueError(f"dt={dt}, ht={ht}, bh={bh}: dt and ht multiples of 16, bh a "
+                         f"multiple of 32 up to {_MAX_BH}")
+    slab = 32 if dt % 32 == 0 else 16
+    stage = _KT * bh + _KT * slab * x_elt
+
+    def sized(stride, extra=0, blocks_options=(2, 1)):
+        fixed = _FIXED_SMEM + bh * stride * 4 + extra
+        rooms = {2: per_sm // 2 - reserved, 1: min(optin, per_sm - reserved)}
+        for blocks in blocks_options:
+            fit = (rooms[blocks] - fixed) // stage
+            if fit >= 2:
+                stages = min(fit, _MAX_STAGES)
+                return dict(stages=stages, smem=fixed + stages * stage, blocks_per_sm=blocks)
+        return None
+
+    # one block an SM: its 17 warps' registers leave no room for a second
+    whole = sized(dt + 1, blocks_options=(1,)) if ht > _HT_TILE else None
+    if whole is not None:
+        return dict(form=FUSE_WHOLE, htiles=1, slab=slab, wsm=0, **whole)
+    htiles = -(-ht // _HT_TILE)
+    form = FUSE_ONE if dt == slab and ht <= _HT_TILE else FUSE_SLAB
+    wsm = _HT_TILE * htiles
+    cfg = sized(slab + 1, wsm * dt * 4, (2,))  # W^T in shared memory, two blocks an SM
+    if cfg is None:
+        wsm, cfg = 0, sized(slab + 1)
+    if cfg is None:
+        raise ValueError(f"bh={bh}: two ring stages of {stage} bytes and the sums take more "
+                         f"shared memory than a block's {optin}")
+    return dict(form=form, htiles=htiles, slab=slab, wsm=wsm, **cfg)
 
 
 def check_plan(plan) -> None:
@@ -301,8 +378,9 @@ def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
     wt: [ht, dt] in xt's dtype (ht a multiple of 16).  Returns (agg^T
     [dt, num_sw*bh], out^T [ht, num_sw*bh]) in ``out_dtype`` (xt's dtype or
     float32); entries with ``sw_id == num_sw`` write nothing and unowned
-    blocks stay unset.  Every dt and ht runs: the kernel loops over slabs
-    of both and keeps neither whole on chip."""
+    blocks stay unset.  Every dt and ht runs, in the form ``fused_launch``
+    picks: the band kernel's ring walks the entry's feature slabs in order
+    and each warp adds its columns' share of the update."""
     if xt.device.type == "cpu":
         return tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype)
     _check_cuda_args(starts, sw_ids, at, xt)
@@ -314,17 +392,29 @@ def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
     if out_dtype not in (xt.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xt's dtype or float32")
     ht = wt.shape[0]
+    if at.data_ptr() % 16 or xt.data_ptr() % 16 or m * xt.element_size() % 16:
+        raise ValueError("the fused kernel's bulk copies need at and xt 16-byte aligned and "
+                         f"xt's rows a multiple of 16 bytes (M={m})")
+    if wt.data_ptr() % 16:  # its vector loads: a fresh (aligned) copy of a view's storage
+        wt = wt.clone()
     agg = torch.empty((dt, num_sw * bh), dtype=out_dtype, device=xt.device)
     out = torch.empty((ht, num_sw * bh), dtype=out_dtype, device=xt.device)
+    resident = ctypes.c_int()
     with torch.cuda.device(xt.device):
+        cfg = fused_launch(bh, dt, ht, xt.element_size(),
+                           *block_spmm.band_device(xt.device.index)[1:])
         rc = _lib().hcspmm_tband_fused(
             starts.data_ptr(), sw_ids.data_ptr(), at.data_ptr(), xt.data_ptr(), wt.data_ptr(),
             agg.data_ptr(), out.data_ptr(), sb, w, bh, dt, ht, m, num_sw * bh, num_sw,
-            int(xt.dtype == torch.bfloat16), int(out_dtype == torch.float32),
+            cfg["form"], cfg["htiles"], cfg["stages"], cfg["wsm"], int(xt.dtype == torch.bfloat16),
+            int(out_dtype == torch.float32), ctypes.byref(resident),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"csrc/tband.cu tband_fused_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"csrc/tband.cu fused tband_kernel launch failed: cudaError {rc}")
+    last_fused_launch.clear()
+    last_fused_launch.update(cfg, resident=resident.value)
     kernel_launches["tband_fused_direct"] += 1
+    fused_shapes[(dt, ht)] += 1
     return agg, out
 
 

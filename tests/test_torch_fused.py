@@ -433,6 +433,101 @@ def test_fused_routes_return_none_where_jax_does():
 
 
 # ---------------------------------------------------------------------------
+# the fused kernels' launch sizing on the host (an H100's shared memory)
+# ---------------------------------------------------------------------------
+
+H100_SMEM = dict(per_sm=233472, reserved=1024, optin=232448)  # bytes, as the card reports them
+TWO_BLOCKS = H100_SMEM["per_sm"] // 2 - H100_SMEM["reserved"]
+
+
+@pytest.mark.parametrize("bb", [384, 640, 1024, 100])
+@pytest.mark.parametrize("dp", range(128, 3712 + 1, 128))
+def test_fused_launch_wide_fits_every_dp(dp, bb):
+    """Every dp from 128 to 3712 (CiteSeer's 3703 features) gets an A tile of
+    the unit's 128 rows and the update's slabs in one block, at the plans'
+    band widths and one that takes cp.async; rows are staged as the band
+    kernel stages them."""
+    cfg = block_spmm.fused_launch(bb, dp, 256, **H100_SMEM)
+    ring = block_spmm.band_launch(bb, **H100_SMEM)
+    assert (cfg["tma"], cfg["box_w"], cfg["nbox"]) == (ring["tma"], ring["box_w"], ring["nbox"])
+    assert cfg["arows"] == cfg["unit_rows"] == 128
+    assert cfg["smem"] == (block_spmm._FUSED_FIXED_SMEM + block_spmm._FUSED_SLAB_SMEM
+                           + cfg["arows"] * cfg["box_w"] * cfg["nbox"])
+    assert cfg["smem"] <= H100_SMEM["optin"] and cfg["blocks_per_sm"] == 1
+    assert dp % (128 * cfg["ng"]) == 0 and cfg["ng"] in (1, 2, 3, 4)
+    assert dp % cfg["w_slab"] == 0 and cfg["passes"] == -(-256 // cfg["tile_cols"])
+
+
+def test_fused_launch_wide_halves_the_tile_for_wide_bands():
+    """A band width whose 128 rows do not fit one block stages fewer rows a
+    tile, each tile still beside the update's slabs."""
+    cfg = block_spmm.fused_launch(4096, 256, 256, **H100_SMEM)
+    assert cfg["arows"] < 128 and cfg["smem"] <= H100_SMEM["optin"]
+    assert cfg["smem"] + cfg["arows"] * cfg["box_w"] * cfg["nbox"] > H100_SMEM["optin"]
+
+
+@pytest.mark.parametrize("bb,dp,hp", [(1 << 18, 256, 256), (640, 200, 256), (640, 0, 256),
+                                      (640, 256, 0)])
+def test_fused_launch_wide_refuses_what_cannot_run(bb, dp, hp):
+    """A band width of which one row and the update's slabs do not fit one
+    block, a dp that is no 128-multiple and an empty W are refused on the
+    host."""
+    with pytest.raises(ValueError):
+        block_spmm.fused_launch(bb, dp, hp, **H100_SMEM, aligned=False)
+
+
+# (dt, ht) the fused routes reach: the GCN backward (dt the layer's output,
+# at most 64 in the tband layout; ht its input, any width) and the GIN
+# forward (dt the layer's input, any width; ht its output, at most 64)
+TBAND_SHAPES = sorted({(dt, ht) for dt in (16, 32, 48, 64)
+                       for ht in (16, 32, 64, 96, 608, 3712)}
+                      | {(dt, ht) for dt in (16, 96, 192, 512, 3712) for ht in (16, 32, 64)})
+
+
+@pytest.mark.parametrize("x_elt", [4, 2])
+@pytest.mark.parametrize("dt,ht", TBAND_SHAPES)
+def test_fused_launch_tband_fits_the_routes(dt, ht, x_elt):
+    """Every (dt, ht) the fused routes can reach at bh 256 gets a form that
+    fits one block; the register form wherever ht <= 32 (two blocks an SM),
+    the whole-aggregate form for a wider ht where dt allows it, and the band
+    walked more than once only past both."""
+    bh = 256
+    cfg = tband.fused_launch(bh, dt, ht, x_elt, **H100_SMEM)
+    slab = 32 if dt % 32 == 0 else 16
+    stage = 64 * bh + 64 * slab * x_elt
+    stride = dt + 1 if cfg["form"] == tband.FUSE_WHOLE else slab + 1
+    assert cfg["slab"] == slab
+    assert cfg["wsm"] in (0, 32 * cfg["htiles"]) and not (cfg["wsm"] and
+                                                           cfg["form"] == tband.FUSE_WHOLE)
+    assert cfg["smem"] == (tband._FIXED_SMEM + bh * stride * 4 + cfg["wsm"] * dt * 4
+                           + cfg["stages"] * stage)
+    room = TWO_BLOCKS if cfg["blocks_per_sm"] == 2 else H100_SMEM["optin"]
+    assert 2 <= cfg["stages"] <= 6 and cfg["smem"] <= room
+    assert cfg["stages"] == 6 or cfg["smem"] + stage > room
+    if ht <= 32:
+        one = tband.FUSE_ONE if dt == slab else tband.FUSE_SLAB
+        assert (cfg["form"], cfg["htiles"], cfg["blocks_per_sm"]) == (one, 1, 2)
+        assert bool(cfg["wsm"]) == (dt <= 192)  # W^T staged while two blocks still fit
+    elif dt <= 64:
+        assert (cfg["form"], cfg["htiles"]) == (tband.FUSE_WHOLE, 1)
+    else:
+        whole = tband._FIXED_SMEM + bh * (dt + 1) * 4 + 2 * stage <= H100_SMEM["optin"]
+        assert cfg["form"] == (tband.FUSE_WHOLE if whole else tband.FUSE_SLAB)
+        assert cfg["htiles"] == (1 if whole else -(-ht // 32))
+
+
+@pytest.mark.parametrize("bh,dt,ht,smem", [(544, 32, 32, H100_SMEM), (256, 40, 32, H100_SMEM),
+                                           (256, 32, 24, H100_SMEM),
+                                           (512, 32, 32, dict(H100_SMEM, optin=96 * 1024))])
+def test_fused_launch_tband_refuses_what_cannot_run(bh, dt, ht, smem):
+    """A band height past 512, dt or ht that is no 16-multiple, and a device
+    whose block cannot hold two stages and the sums are refused on the
+    host."""
+    with pytest.raises(ValueError):
+        tband.fused_launch(bh, dt, ht, 4, **smem)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions (on a card only)
 # ---------------------------------------------------------------------------
 
@@ -446,29 +541,41 @@ def _need_cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_fused_kernels_match_plain(dtype):
+    """Both fused kernels against their plain versions, at small shapes and
+    at the C.1 shapes (dt 192 / ht 32, dt 64 / ht 608, dp 3712), two runs
+    bitwise equal; in fp32 the aggregate equals the band kernel's output
+    bit for bit."""
     _need_cuda()
     rng = np.random.RandomState(0)
     sb, trash = 7, 2
+    num_sw = sb - trash
     sw = torch.from_numpy(entries(rng, sb, trash)).cuda()
     at = torch.from_numpy((rng.rand(sb, 256, 128) < 0.05).astype(np.int8)).cuda()
     st = torch.from_numpy((rng.randint(0, 7, sb) * 128).astype(np.int32)).cuda()
-    xt = torch.from_numpy(rng.randn(48, 1024).astype(np.float32)).to("cuda", dtype)
-    wt = torch.from_numpy(rng.randn(16, 48).astype(np.float32)).to("cuda", dtype)
     before = tband.kernel_launches["tband_fused_direct"]
-    got = tband.tband_fused_direct(sw, st, at, xt, wt, sb - trash, dtype)
-    again = tband.tband_fused_direct(sw, st, at, xt, wt, sb - trash, dtype)
-    ref = tband.tband_fused_direct_plain(sw, st, at, xt, wt, sb - trash, dtype)
-    torch.cuda.synchronize()
-    assert tband.kernel_launches["tband_fused_direct"] == before + 2
-    for g, a, r in zip(got, again, ref):
-        assert torch.equal(g, a) and rel_err(g.cpu(), r.cpu()) < TOL[dtype]
+    for dt, ht in ((48, 16), (192, 32), (64, 608)):
+        xt = torch.from_numpy(rng.randn(dt, 1024).astype(np.float32)).to("cuda", dtype)
+        wt = torch.from_numpy(rng.randn(ht, dt).astype(np.float32)).to("cuda", dtype)
+        got = tband.tband_fused_direct(sw, st, at, xt, wt, num_sw, dtype)
+        again = tband.tband_fused_direct(sw, st, at, xt, wt, num_sw, dtype)
+        ref = tband.tband_fused_direct_plain(sw, st, at, xt, wt, num_sw, dtype)
+        torch.cuda.synchronize()
+        for g, a, r in zip(got, again, ref):
+            assert torch.equal(g, a) and rel_err(g.cpu(), r.cpu()) < TOL[dtype]
+        if dtype == torch.float32:
+            assert torch.equal(got[0], tband.tband_spmm_direct(sw, st, at, xt, num_sw, dtype))
+    assert tband.kernel_launches["tband_fused_direct"] == before + 6
     a = torch.from_numpy((rng.rand(sb, 128, 640) < 0.05).astype(np.int8)).cuda()
     st = torch.from_numpy((rng.randint(0, 80, sb) * 16).astype(np.int32)).cuda()
-    xp = torch.from_numpy(rng.randn(2048, 256).astype(np.float32)).to("cuda", dtype)
-    wp = torch.from_numpy(rng.randn(256, 128).astype(np.float32)).to("cuda", dtype)
-    got = block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, sb - trash, dtype)
-    again = block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, sb - trash, dtype)
-    ref = block_spmm.band_fused_spmm_direct_plain(sw, st, a, xp, wp, sb - trash, dtype)
-    torch.cuda.synchronize()
-    for g, a_, r in zip(got, again, ref):
-        assert torch.equal(g, a_) and rel_err(g.cpu(), r.cpu()) < TOL[dtype]
+    for dp, hp in ((256, 128), (3712, 256)):
+        xp = torch.from_numpy(rng.randn(2048, dp).astype(np.float32)).to("cuda", dtype)
+        wp = torch.from_numpy(rng.randn(dp, hp).astype(np.float32)).to("cuda", dtype)
+        got = block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, dtype)
+        again = block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, dtype)
+        ref = block_spmm.band_fused_spmm_direct_plain(sw, st, a, xp, wp, num_sw, dtype)
+        torch.cuda.synchronize()
+        for g, a_, r in zip(got, again, ref):
+            assert torch.equal(g, a_) and rel_err(g.cpu(), r.cpu()) < TOL[dtype]
+        if dtype == torch.float32:
+            assert torch.equal(got[0], block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw,
+                                                                          dtype))
