@@ -85,17 +85,24 @@ Phases, each of which raises on failure, with its seconds printed:
     OGB ogbn-arxiv baseline's widths) for 3 epochs through ``cli.main`` on
     the blocks stand-in (rcm), DD and GH (cluster), counting launches as
     in 7, and profiles one SpMM with ``--single_kernel --hidden 256``;
-13. the row layout's kernels (dense windows, ELL rows, and the ELL
-    kernel's CSR mode for the residual rows) against their plain versions
-    at small odd shapes (Kb 32-256, De 4-256, D 1-256, fp32 and bf16, pad
-    rows and columns, empty buckets); bitwise repeatable;
+13. the row layout's two kernels (the dense windows; the ELL rows, the
+    residual rows and the empty rows) against their plain versions at
+    small odd shapes through the one-bucket wrappers (Kb 32-256, De 4-256,
+    D 1-256, fp32 and bf16, pad rows and columns, empty buckets), then as
+    one launch a population on small plans (N no multiple of 16, empty
+    rows, three dense buckets, residual rows, a partial-cover plan with
+    band, dense and ELL rows) into a NaN-filled result, every row written;
+    bitwise repeatable, and each SpMM against scipy with exactly one launch
+    of each kernel;
 14. the row layout on the full-size DD stand-in (cluster order,
-    ``band_mode='never'``, intended and calibrated selectors): each kernel
-    at the plan's arrays (D 32 and 256, fp32 and bf16; timed at D 32 with
-    F.embedding_bag as the yardstick), ``apply`` against scipy (bitwise
-    repeatable), the SpMM at dim 32 beside torch.sparse.mm, and the 6-layer
-    GCN and GIN trained 3 epochs through ``train.loop.train`` with the
-    launch counters checked;
+    ``band_mode='never'``, intended and calibrated selectors): each kernel's
+    one launch at the plan's arrays (D 32 and 256, fp32 and bf16, bitwise
+    repeatable; timed at D 32 in fp32 and bf16 beside torch.sparse.mm of
+    the population's own CSR and F.embedding_bag), ``apply`` against scipy
+    (bitwise repeatable), the SpMM at dim 32 beside torch.sparse.mm, and the
+    6-layer GCN and GIN trained 3 epochs through ``train.loop.train`` with
+    exactly one dense and one ELL launch (the residual riding it) counted
+    per SpMM;
 15. trains the 6-layer GCN 2 epochs through ``cli.main --impl xla`` (the
     plain form, row layout) on the blocks stand-in;
 16. the fused kernels (tband and wide), the tiled band and the grouped band
@@ -170,7 +177,7 @@ WIDE_SPMMS = {"gcn": 6, "gin": 5}  # per step: GIN's first layer needs no input 
 WIDE_DIMS = (128, 256)
 ROW_DIMS = (32, 256)
 ROW_SELECTORS = ("intended", "calibrated")  # LOI selectors of the row-layout plans
-ROW_KERNEL = {"dense_bucket_spmm": "dense_rows_kernel", "ell_bucket_spmm": "ell_rows_kernel"}
+ROW_KERNEL = {"dense_bucket_spmm": "dense_window_kernel", "ell_bucket_spmm": "ell_row_kernel"}
 H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA's data sheet (SXM)
 # Peak operations a second by the inputs' type (NVIDIA's data sheet, SXM,
 # dense): fp32 outside the tensor cores, bf16 on them
@@ -200,6 +207,18 @@ TBAND_DESIGN = ("persistent, two blocks an SM; a ring of Tensor Memory Accelerat
                 "(swizzled A_t and X^T slabs) issued by one producer lane under full/empty "
                 "mbarriers; warps of 16 columns (32 above bh 256) with 64-row masks of "
                 "non-zero rows; lane = feature row, sums in shared memory")
+
+
+ROWS_DESIGN = {
+    "dense": ("one launch over every dense bucket; persistent blocks of 4 warps take (window, "
+              "32-column slab) units in a fixed stride, stage the gathered X rows by 16-byte "
+              "cp.async (one unit a block, about ten blocks an SM) and walk each row's mask bits "
+              "(built at upload) in increasing k, lane = column; rows written at their node ids"),
+    "ell": ("one launch over a table of the ELL rows, the residual rows and the empty rows "
+            "(node, start, real length), sorted at upload into hub rows (a block of 4 warps), "
+            "middle rows (a warp) and short rows (a group of lanes sized to D, 16-byte loads); "
+            "rows written at their node ids"),
+}
 
 
 def log(msg: str) -> None:
@@ -326,10 +345,13 @@ def read_counts() -> dict:
                 **block_spmm.kernel_launches)
 
 
-def check_counts(counts, need, spmms) -> None:
+def check_counts(counts, need, spmms, exact=False) -> None:
+    """Each kernel of ``need`` launched at least (``exact``: exactly) its
+    count per SpMM times ``spmms``."""
     for k, per in need.items():
-        if counts[k] < per * spmms:
-            raise AssertionError(f"{k}: {counts[k]} launches < {per} per SpMM x {spmms}")
+        if counts[k] < per * spmms or (exact and counts[k] != per * spmms):
+            raise AssertionError(f"{k}: {counts[k]} launches, {'' if exact else 'at least '}"
+                                 f"{per} per SpMM x {spmms} expected")
 
 
 def train_and_count(path, reorder, need, model_args=GCN, per_step=SPMMS_PER_STEP) -> tuple:
@@ -1191,11 +1213,12 @@ def band_kernel_small_shapes(gen) -> None:
 
 
 def small_row_kernel_checks(gen) -> None:
-    """The dense and ELL kernels (and the ELL kernel's CSR mode) against
-    their plain versions at small odd shapes: Kb 32/64/96/256, De 4-256, D
-    1/20/32/96/256, fp32 and bf16 tables, pad columns past the table, pad
-    rows and all-pad windows, empty buckets, a residual with an empty row
-    and a 5000-edge hub row; every result bitwise repeatable."""
+    """The dense and ELL kernels through their one-bucket wrappers (and the
+    residual's) against their plain versions at small odd shapes: Kb
+    32/64/96/256, De 4-256, D 1/20/32/96/256, fp32 and bf16 tables, pad
+    columns past the table, pad rows and all-pad windows, empty buckets, a
+    residual with an empty row and a 5000-edge hub row; every result
+    bitwise repeatable.  Then ``small_population_checks``."""
     import numpy as np
     import torch
 
@@ -1255,6 +1278,89 @@ def small_row_kernel_checks(gen) -> None:
         log(f"  {cd} tables: dense (Kb 32-256), ELL (De 4-256) and residual rows at D "
             f"1/20/32/96/256 within {TOL['float32']:g} of their plain versions, bitwise "
             "repeatable: pass")
+    small_population_checks(gen)
+
+
+def small_plans():
+    """(name, operator on the card, (rp, ci, n)) of small row-layout plans of
+    one graph: N no multiple of 16 with empty rows, dense windows in three
+    buckets, ELL rows and residual hub rows; and a partial-cover plan mixing
+    band, dense and ELL rows."""
+    import numpy as np
+
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.graphs import io as gio
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+
+    rng = np.random.RandomState(29)
+    parts = []  # (rows, neighbour span, degree): narrow to wide regions
+    for lo, hi, span, deg in ((0, 600, 16, 3), (600, 1200, 10, 12), (1200, 1800, 24, 14),
+                              (1800, 2400, 40, 16), (2400, 2960, 200, 3)):
+        src = np.repeat(np.arange(lo, hi), deg)
+        parts.append((src, np.clip(src + rng.randint(-span, span + 1, src.size), lo, hi - 1)))
+    hubs = np.repeat([2500, 2700, 2900], [900, 600, 400])  # residual rows above De 256
+    parts.append((hubs, rng.randint(2400, 2960, hubs.size)))
+    src, dst = (np.concatenate(v) for v in zip(*parts))
+    n = 3001  # the last 41 nodes have no edges
+    rp, ci = gio.to_csr(np.concatenate([src, dst]).astype(np.int32),
+                        np.concatenate([dst, src]).astype(np.int32), n)
+    cfgs = {"calibrated": dict(band_mode="never", loi_mode="calibrated"),
+            "intended": dict(band_mode="never"),
+            "mixed": dict(band_spill="never", band_h=64, band_widths=(128,),
+                          loi_mode="calibrated")}
+    return [(name, HybridSpMM(rp, ci, n, PlanConfig(**cfg), device=DEV), (rp, ci, n))
+            for name, cfg in cfgs.items()]
+
+
+def small_population_checks(gen) -> None:
+    """The whole-population launches (``dense_rows``: every dense bucket in
+    one launch; ``ell_rows``: the ELL rows, the residual rows riding them and
+    the empty rows) against their plain versions on small plans, D
+    1/20/32/96/256, fp32 and bf16 tables, into a NaN-filled result (a row
+    written by neither stays NaN and fails the check), bitwise repeatable;
+    each SpMM against scipy with one launch of each kernel."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+
+    for name, op, (rp, ci, n) in small_plans():
+        p, arrs = op.plan, op.arrays["f"]
+        owned = torch.zeros(n, dtype=torch.bool, device=DEV)
+        for s in range(len(p.band_widths)):
+            owned[arrs[f"band{s}_rnode"]] = True
+        log(f"  small {name} plan ({n} nodes): {row_population(p)}")
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for d in (1, 20, 32, 96, 256):
+                x = torch.randn((n, d), generator=gen).to(DEV, dtype)
+
+                def pop(kernel):
+                    out = torch.full((n, d), float("nan"), device=DEV)
+                    out[owned] = 0  # the band rows: neither launch writes them
+                    if kernel:
+                        block_spmm.dense_rows(arrs, p, x, out)
+                        return block_spmm.ell_rows(arrs, x, out)
+                    block_spmm.dense_rows_plain(arrs, p, x, out)
+                    return block_spmm.ell_rows_plain(arrs["rw_node"], arrs["rw_ptr"],
+                                                     arrs["rw_cols"], x, out)
+
+                got = pop(True)
+                if not torch.equal(got, pop(True)):
+                    raise AssertionError(f"small {name} D {d} {cd}: two runs differ")
+                _, rel = rel_err(got.cpu(), pop(False).cpu())
+                if not rel <= TOL["float32"]:
+                    raise AssertionError(f"small {name} D {d} {cd}: rel err {rel:.3e}")
+        x = torch.randn((n, 24), generator=gen).to(DEV)
+        zero_counts()
+        with torch.no_grad():
+            got = op(x)
+        counts = read_counts()
+        check(f"small {name} plan: SpMM vs scipy", got, csr_matmul(rp, ci, n, x.cpu().numpy()),
+              "float32")
+        check_counts(counts, {"dense_bucket_spmm": int(p.num_dense_windows > 0),
+                              "ell_bucket_spmm": int(arrs["rw_node"].shape[0] > 0)}, 1,
+                     exact=True)
+    log("  whole-population launches at D 1/20/32/96/256, fp32 and bf16: every row written, "
+        f"within {TOL['float32']:g} of the plain versions, bitwise repeatable: pass")
 
 
 def row_population(plan) -> str:
@@ -1271,12 +1377,40 @@ def row_population(plan) -> str:
             f"{len(seg)} edges; sparse nnz {plan.sparse_nnz}")
 
 
+def population_csr(op, which: str):
+    """(int64 crow, int64 col, rows) on the card of one row population's own
+    CSR: the real dense windows' rows below N (``which`` "dense") or the ELL
+    kernel's row table (the ELL rows, the residual rows, the empty rows)."""
+    import numpy as np
+    import torch
+
+    p, arrs = op.plan, op.arrays["f"]
+    if which == "ell":
+        return arrs["rw_ptr"].long(), arrs["rw_cols"].long(), arrs["rw_node"].shape[0]
+    n, wh, lens, cols = p.num_nodes, p.window_h, [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    for b, kb in enumerate(p.bucket_widths):
+        wids = p.bucket_window_ids[b]
+        keep = (wids[:, None] * wh + np.arange(wh)) < n  # [windows, wh]
+        a = (p.bucket_a[b][: len(wids)] != 0)[keep]  # [rows, Kb]
+        c = np.broadcast_to(p.bucket_cols[b][: len(wids), None, :], (len(wids), wh, kb))[keep]
+        lens.append(a.sum(1))
+        cols.append(c[a])
+    lens = np.concatenate(lens)
+    crow = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    return (torch.from_numpy(crow).to(DEV),
+            torch.from_numpy(np.concatenate(cols).astype(np.int64)).to(DEV), len(lens))
+
+
 def row_kernels_at_plan(key, op, gen, out) -> None:
-    """Each row kernel against its plain version at ``op``'s own plan
-    arrays, at D 32 and 256, fp32 and bf16 tables; at D 32 in fp32 the whole
-    population's launches (and the plain versions and the one-call library
-    yardstick, F.embedding_bag) are timed, with the bound computed from
-    these arrays.  Results go into ``out``."""
+    """The dense kernel (every dense bucket in one launch, ``dense_rows``)
+    and the ELL kernel (the ELL rows, the residual rows riding them and the
+    empty rows in one launch, ``ell_rows``) against their plain versions at
+    ``op``'s own plan arrays, at D 32 and 256, fp32 and bf16 tables, bitwise
+    repeatable; at D 32 in fp32 and bf16 each launch is timed (device time,
+    torch.profiler) beside its plain version and two one-call yardsticks:
+    torch.sparse.mm of the population's own CSR and F.embedding_bag over
+    its buckets' padded slots, with the bound computed from these arrays.
+    Results go into ``out``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1285,78 +1419,91 @@ def row_kernels_at_plan(key, op, gen, out) -> None:
 
     p, arrs = op.plan, op.arrays["f"]
     n, wh = p.num_nodes, p.window_h
-    dense = [(arrs[f"b{b}_cols"], arrs[f"b{b}_a"], p.bucket_cols[b])
-             for b in range(len(p.bucket_widths)) if p.bucket_cols[b].shape[0]]
-    ell = [(arrs[f"e{e}_cols"], p.ell_cols[e]) for e in range(len(p.ell_widths))
-           if p.ell_cols[e].shape[0]]
-    ptr, rcols = arrs["sparse_seg_ptr"], arrs["sparse_edge_col"]
+    nb, ne = len(p.bucket_widths), len(p.ell_widths)
+    csr = {name: population_csr(op, which) for name, which in (("dense_bucket_spmm", "dense"),
+                                                               ("ell_bucket_spmm", "ell"))}
     for d in ROW_DIMS:
         for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             x = torch.randn((n, d), generator=gen).to(DEV, dtype)
+            res = torch.zeros((n, d), device=DEV)
+            fns = {"dense_bucket_spmm": (lambda o: block_spmm.dense_rows(arrs, p, x, o),
+                                         lambda o: block_spmm.dense_rows_plain(arrs, p, x, o)),
+                   "ell_bucket_spmm": (lambda o: block_spmm.ell_rows(arrs, x, o),
+                                       lambda o: block_spmm.ell_rows_plain(
+                                           arrs["rw_node"], arrs["rw_ptr"], arrs["rw_cols"], x, o))}
             errs = {}
-            for name, runs in (
-                    ("dense_bucket_spmm", [(lambda c=c, a=a: block_spmm.dense_bucket_spmm(c, a, x),
-                                            lambda c=c, a=a: block_spmm.dense_bucket_spmm_plain(
-                                                c, a, x)) for c, a, _ in dense]),
-                    ("ell_bucket_spmm", [(lambda c=c: block_spmm.ell_bucket_spmm(c, x),
-                                          lambda c=c: block_spmm.ell_bucket_spmm_plain(c, x))
-                                         for c, _ in ell]),
-                    ("ell_residual", [(lambda: block_spmm.ell_residual_spmm(ptr, rcols, x),
-                                       lambda: block_spmm.ell_residual_spmm_plain(ptr, rcols, x))])):
-                err = 0.0
-                for fn, plain in runs:
-                    got = fn()
-                    if not torch.equal(got, fn()):
-                        raise AssertionError(f"{key} {name} D {d} {cd}: two kernel runs differ")
-                    err = max(err, check(f"{key} {name} D {d} {cd}", got, plain(), "float32"))
-                errs[name] = err
-            if (d, cd) != (32, "float32"):
+            for name, (fn, plain) in fns.items():
+                got = fn(torch.zeros((n, d), device=DEV))
+                if not torch.equal(got, fn(torch.zeros((n, d), device=DEV))):
+                    raise AssertionError(f"{key} {name} D {d} {cd}: two kernel runs differ")
+                errs[name] = check(f"{key} {name} D {d} {cd}", got,
+                                   plain(torch.zeros((n, d), device=DEV)), "float32")
+            if d != 32:
                 continue
-            xz = torch.cat([x, torch.zeros((1, d), device=DEV)])
+            xz = torch.cat([x, torch.zeros((1, d), device=DEV, dtype=dtype)])
             elt = x.element_size()
 
             def uniq(cols):
-                v = np.unique(np.concatenate([c.ravel() for c in cols] + [[n]]))
+                v = np.unique(np.concatenate([np.asarray(c).ravel() for c in cols] + [[n]]))
                 return int(np.count_nonzero(v < n))
 
+            windows = [len(p.bucket_window_ids[b]) for b in range(nb)]
+            dense_bags = [(arrs[f"b{b}_cols"][:w].long()[:, None, :].expand(-1, wh, -1)
+                           .reshape(-1, p.bucket_widths[b]),
+                           arrs[f"b{b}_a"][:w].to(dtype).reshape(-1, p.bucket_widths[b]))
+                          for b, w in enumerate(windows) if w]
+            ell_bags = [(arrs[f"e{e}_cols"].long(), None) for e in range(ne)
+                        if arrs[f"e{e}_cols"].shape[0]]
+            rw = arrs["rw_node"].shape[0]
             shapes = {
                 "dense_bucket_spmm": dict(
-                    kernel=lambda: [block_spmm.dense_bucket_spmm(c, a, x) for c, a, _ in dense],
-                    plain=lambda: [block_spmm.dense_bucket_spmm_plain(c, a, x)
-                                   for c, a, _ in dense],
-                    library=[(c.long()[:, None, :].expand(-1, wh, -1).reshape(-1, c.shape[1]),
-                              a.float().reshape(-1, c.shape[1])) for c, a, _ in dense],
-                    nbytes=uniq([h for _, _, h in dense]) * d * elt + sum(
-                        h.size * (4 + wh) + h.shape[0] * wh * d * 4 for _, _, h in dense),
-                    ops=2 * p.dense_nnz * d,
-                    shape="; ".join(f"Wb {h.shape[0]} x Kb {h.shape[1]}" for _, _, h in dense)),
+                    bags=dense_bags, rows=csr["dense_bucket_spmm"][2],
+                    nbytes=uniq([p.bucket_cols[b][:w] for b, w in enumerate(windows)]) * d * elt
+                    + sum(w * (4 + p.bucket_widths[b] * 4 + wh * 4 * -(-p.bucket_widths[b] // 32))
+                          for b, w in enumerate(windows))
+                    + csr["dense_bucket_spmm"][2] * d * 4,
+                    ops=p.dense_nnz * d,
+                    shape="; ".join(f"{w} windows x Kb {p.bucket_widths[b]}"
+                                    for b, w in enumerate(windows) if w) + " (1 launch)"),
                 "ell_bucket_spmm": dict(
-                    kernel=lambda: [block_spmm.ell_bucket_spmm(c, x) for c, _ in ell],
-                    plain=lambda: [block_spmm.ell_bucket_spmm_plain(c, x) for c, _ in ell],
-                    library=[(c.long(), None) for c, _ in ell],
-                    nbytes=uniq([h for _, h in ell]) * d * elt + sum(
-                        h.size * 4 + h.shape[0] * d * 4 for _, h in ell),
-                    ops=sum(int(np.count_nonzero(h < n)) for _, h in ell) * d,
-                    shape="; ".join(f"Rb {h.shape[0]} x De {h.shape[1]}" for _, h in ell)),
+                    bags=ell_bags, rows=rw,
+                    nbytes=uniq([arrs["rw_cols"].cpu().numpy()]) * d * elt
+                    + (arrs["rw_cols"].shape[0] + 2 * rw + 1) * 4 + rw * d * 4,
+                    ops=arrs["rw_cols"].shape[0] * d,
+                    shape=f"{rw} rows ({'/'.join(map(str, arrs['rows_meta'].tolist()[:3]))} "
+                          f"hub/middle/short, {arrs['rows_meta'].tolist()[3]} residual), "
+                          f"{arrs['rw_cols'].shape[0]} entries (1 launch)"),
             }
-            for name, s in shapes.items():
-                if not s["library"]:
-                    continue  # an empty population
-                wall, lo, hi = median_ms(s["kernel"], 20)
-                ms = device_ms(s["kernel"], 20, ROW_KERNEL[name])
-                p_ms = cuda_time_ms(s["plain"], 3)
-                lib_ms = cuda_time_ms(lambda: [F.embedding_bag(i, xz, per_sample_weights=w,
+            for name, s_ in shapes.items():
+                fn, plain = fns[name]
+                crow, col, rows = csr[name]
+                a_csr = torch.sparse_csr_tensor(crow, col, torch.ones(col.shape[0], device=DEV,
+                                                                      dtype=dtype),
+                                                size=(rows, n))
+                wall, lo, hi = median_ms(lambda: fn(res), 20)
+                ms = device_ms(lambda: fn(res), 20, ROW_KERNEL[name])
+                p_ms = cuda_time_ms(lambda: plain(res), 3)
+                bag_ms = cuda_time_ms(lambda: [F.embedding_bag(i, xz, per_sample_weights=w,
                                                                mode="sum")
-                                               for i, w in s["library"]], 10)
-                b_ms, b_by = bound(s["nbytes"], s["ops"])
-                log(f"    {key} {name} D 32 fp32 ({s['shape']}): kernel {ms:.4f} ms of device "
-                    f"time ({wall:.4f} ms [{lo:.4f}-{hi:.4f}] with the host's launches), plain "
-                    f"{p_ms:.4f}, embedding_bag {lib_ms:.4f}, bound {b_ms:.4f} ms by {b_by} "
-                    f"({s['nbytes'] / 1e6:.1f} MB)")
-                out[(key, name)] = dict(err=errs[name], ms=ms, wall_ms=wall, plain_ms=p_ms,
-                                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                                        shape=s["shape"])
-            del x, xz
+                                               for i, w in s_["bags"]], 10)
+                try:  # a bf16 CSR product where PyTorch's build has one
+                    sp_ms = cuda_time_ms(lambda: torch.sparse.mm(a_csr, x), 10)
+                except (NotImplementedError, RuntimeError) as e:
+                    log(f"    torch.sparse.mm {cd}: {str(e).splitlines()[0]}")
+                    sp_ms = None
+                b_ms, b_by = bound(s_["nbytes"], s_["ops"], cd)
+                log(f"    {key} {name} D 32 {cd} ({s_['shape']}): kernel {ms:.4f} ms of device "
+                    f"time ({wall:.4f} ms [{lo:.4f}-{hi:.4f}] with the host's launch), plain "
+                    f"{p_ms:.4f}, torch.sparse.mm of its own CSR ({rows} rows) "
+                    f"{'none' if sp_ms is None else f'{sp_ms:.4f}'}, "
+                    f"embedding_bag {bag_ms:.4f}, bound {b_ms:.4f} ms by {b_by} "
+                    f"({s_['nbytes'] / 1e6:.2f} MB)")
+                out[(key, name, cd)] = dict(
+                    err=errs[name], ms=ms, wall_ms=wall, plain_ms=p_ms,
+                    library_ms=bag_ms if sp_ms is None else min(sp_ms, bag_ms),
+                    sparse_mm_ms=sp_ms, embedding_bag_ms=bag_ms,
+                    bound_ms=b_ms, bound_by=b_by, shape=s_["shape"])
+            del x, xz, res
 
 
 def profile_epochs(net, op, x, y, params, epochs: int = 5) -> tuple:
@@ -1455,7 +1602,8 @@ def row_layout_phase(rp, ci, n, gen, out, launch_runs) -> None:
                 f"{res['final_loss']}; launches {counts} over {spmms} SpMMs")
             if not math.isfinite(res["final_loss"]):
                 raise AssertionError(f"DD {sel} {model}: loss is not finite")
-            check_counts(counts, {"dense_bucket_spmm": 1, "ell_bucket_spmm": 1}, spmms)
+            check_counts(counts, {"dense_bucket_spmm": 1, "ell_bucket_spmm": 1,
+                                  "ell_residual": 1}, spmms, exact=True)
             launch_runs[f"DD rows {sel} {model}"] = counts
             if model == "gcn":
                 gcn_params[sel] = (net, res["params"])
@@ -2516,8 +2664,14 @@ def main() -> int:
     zero, mxg, merge = (at("zero_lane_blocks", "DD", "x [32, 2048]"),
                         at("mxgather_lanes", "GH", "T1"), at("tbstream_merge", "GH", "cold"))
     wide = wide_res[("DD", 256, "float32")]
-    dense, ell = rows_res[("DD calibrated", "dense_bucket_spmm")], rows_res[
-        ("DD intended", "ell_bucket_spmm")]
+    dense, ell = (rows_res[("DD calibrated", "dense_bucket_spmm", "float32")],
+                  rows_res[("DD intended", "ell_bucket_spmm", "float32")])
+
+    def row_plans(name):
+        """Every row plan's numbers of one row kernel, and its errors' max."""
+        plans = {f"{k[0]} {k[2]}": v for k, v in rows_res.items() if k[1] == name}
+        return dict(err=max(v["err"] for v in plans.values()), plans=plans)
+
     csrc = "hcspmm_tpu_torch/csrc/"
     tpu = "hcspmm_tpu/kernels/"
     band_blocks = band_res[("blocks", "float32")]
@@ -2576,9 +2730,11 @@ def main() -> int:
               ("dstream_merge", "dstream.cu", "dstream.py:457",
                row_at("dstream_merge", "DD tile")))],
         entry("dense_bucket_spmm", csrc + "rows.cu", tpu + "block_spmm.py:127", dense,
-              f"DD calibrated row plan, {dense['shape']}, D 32, float32, all buckets"),
+              f"DD calibrated row plan, {dense['shape']}, D 32, float32",
+              design=ROWS_DESIGN["dense"], **row_plans("dense_bucket_spmm")),
         entry("ell_bucket_spmm", csrc + "rows.cu", tpu + "block_spmm.py:178", ell,
-              f"DD intended row plan, {ell['shape']}, D 32, float32, all buckets"),
+              f"DD intended row plan, {ell['shape']}, D 32, float32",
+              design=ROWS_DESIGN["ell"], **row_plans("ell_bucket_spmm")),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)

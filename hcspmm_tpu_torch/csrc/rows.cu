@@ -10,291 +10,465 @@
 //
 //       out[w] = A[w] [wh, Kb] @ X[cols[w]] [Kb, D]
 //
-//   with A[w] an int8 0/1 block and cols[w] the window's Kb unique neighbour
-//   rows (pad columns point at the zero row, or past the table);
+//   with A[w] a 0/1 block and cols[w] the window's Kb unique neighbour rows
+//   (pad columns point at the zero row, or past the table);
 //
 //   ell_bucket_spmm (pallas_call at :178), the reference's CUDA-core
 //   warp-per-row loop (hybrid_all_kernel.cu:964-1036): one row r of a degree
-//   bucket computes out[r] = sum_k X[cols[r, k]].  The same kernel in its CSR
-//   mode sums the residual rows (degree above every ELL width), whose edges
-//   are sorted by row with row starts computed at upload; the reference leaves
-//   those to an XLA segment_sum.
+//   bucket computes out[r] = sum_k X[cols[r, k]].  The residual rows (degree
+//   above every ELL width), which the reference leaves to an XLA segment_sum,
+//   ride the same launch.
 //
 // Both are bound by bytes: each gathered row of X is read once per window or
-// row (at dim 32 fp32, 128 B), against a few FMAs per element.  Sums run in
-// fp32 with plain FMAs on the CUDA cores, no tensor cores and no TF32: the
-// counterpart of the reference's Precision.HIGHEST in fp32; bf16 rows are
-// widened with __bfloat162float, as the reference widens its bf16 gather
-// table to fp32 (block_spmm.py:928-932).  Outputs are fp32, as the
-// reference's.
+// row (at dim 32 fp32, 128 B) against one add per element, and a window row
+// holds a few non-zeros of its Kb columns.  Sums run in fp32 on the CUDA
+// cores, no tensor cores and no TF32: the counterpart of the reference's
+// Precision.HIGHEST in fp32; bf16 rows are widened exactly to fp32, as the
+// reference widens its bf16 gather table (block_spmm.py:928-932).  Outputs
+// are fp32, as the reference's.
+//
+// One launch covers a whole population, and each kernel writes its rows
+// straight into the [N, D] result at their node ids (no buffer, no merge):
+//
+// - dense_window_kernel: every dense bucket of a plan (a table of at most
+//   MAX_BUCKETS buckets by value).  Persistent blocks of 4 warps take
+//   (window, 32-column slab) units in a fixed stride; each stages a unit's
+//   gathered X rows in shared memory by 16-byte cp.async copies (8 lanes a
+//   128-byte row at D 32 fp32; zero-filled for an index outside [0, R)) with
+//   the window's row masks, in a ring of STAGES units.  At one stage (the
+//   fastest measured) the gathers of the next units fly in the SM's other
+//   blocks, about ten, while this one is summed.  Row r of a window walks
+//   only the set bits of its mask (built from A at upload), in increasing k,
+//   lane = column: the same chain of fp32 adds as the sum over all Kb columns
+//   that skips A == 0.  Where a row is no 16-byte multiple or X is not
+//   16-byte aligned, the gathers are scalar loads.
+// - ell_row_kernel: a table of rows (node id, start, length) holding the ELL
+//   rows and the residual rows without their pad entries, and the nodes of
+//   no population as rows of length 0 (written as zeros), sorted on the host
+//   into hub, middle and short rows.  A group of G lanes covers a row's
+//   columns with 16-byte loads (G = 8 at D 32 fp32); a short row takes one
+//   group (4 rows a warp at G 8), a middle row a warp, a hub row a block of EW
+//   warps, its groups taking every S-th entry and the partial sums added in
+//   a fixed tree (lanes, then warps in order).  Each group loads a batch of
+//   indices, then all the batch's rows, then adds them.
 //
 // Every gathered index is masked: an index outside [0, R) adds nothing,
 // which is what the reference's zero row gives for a pad column, so callers
-// may pass the table without the zero row.  An absent edge (A == 0 in a
-// dense window) adds nothing even where X is not finite, as in a CSR
-// product.  Each output element is summed by one thread in a fixed order (no
-// atomics), so two runs are bitwise equal:
-//
-// - dense: a block of 4 warps owns one window and a 32-column slab; the
-//   window's A and its gathered X rows are staged in shared memory 64
-//   columns of A at a time (the gathers of a chunk all in flight), and
-//   thread (row group g, lane l) sums rows g, g+4, g+8, g+12 of column l in
-//   k order, skipping A == 0 (warp-uniform);
-// - ELL: a warp owns one row (8 rows per block) and loads 8 gathered rows
-//   before it adds them in order; lanes cover the columns, one float each or
-//   16 bytes each when D is a multiple of 4 and at least 128.  With `split`,
-//   a block owns one row and its 8 warps sum 8 consecutive slices of the
-//   row's entries, added together in warp order (wide ELL buckets and the
-//   residual's hub rows, whose thousands of edges one warp would walk
-//   alone).
+// may pass the table without the zero row.  An absent edge adds nothing even
+// where X is not finite, as in a CSR product.  Each output element is summed
+// by one thread in a fixed order (no atomics), so two runs are bitwise equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
+constexpr int MAX_WH = 16;       // window height: rows w, w+4, w+8, w+12 a warp
+constexpr int MAX_BUCKETS = 8;   // dense buckets of one launch
 constexpr int DW = 4;            // warps of a dense block
-constexpr int DCOLS = 32;        // output columns of a dense block
-constexpr int KC = 64;           // columns of A staged at a time
-constexpr int MAX_WH = 4 * DW;   // window height: 4 rows per thread
-constexpr int EW = 8;            // warps of an ELL block
-constexpr int U = 8;             // gathers in flight per warp (ELL)
+constexpr int DCOLS = 32;        // output columns of a dense unit: one a lane
+// Dense units in flight a block.  One: a block's ring of more stages costs
+// blocks an SM (shared memory), and on DD's row plans 2 and 3 stages ran
+// slower than 1 (utils/row_variants.py re-measures it).
+constexpr int STAGES = 1;
+constexpr int EW = 4;            // warps of an ELL block
+constexpr int EU = 4;            // entries in flight a lane group (halved at NJ 2)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void set_zero(float& v) { v = 0.f; }
+__device__ __forceinline__ void set_zero(__nv_bfloat16& v) { v = __float2bfloat16(0.f); }
 
-// VEC consecutive elements from p, widened to fp32; zeros when !ok.
-template <int VEC>
-__device__ __forceinline__ void load_vec(float* v, const float* p, bool ok) {
-  if constexpr (VEC == 4) {
-    const float4 q = ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  } else {
-    v[0] = ok ? *p : 0.f;
-  }
-}
-template <int VEC>
-__device__ __forceinline__ void load_vec(float* v, const __nv_bfloat16* p, bool ok) {
-  if constexpr (VEC == 4) {
-    const uint2 q = ok ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-  } else {
-    v[0] = ok ? __bfloat162float(*p) : 0.f;
-  }
+struct DenseTable {
+  const int32_t* cols[MAX_BUCKETS];   // [Wb, Kb] neighbour rows
+  const uint32_t* mask[MAX_BUCKETS];  // [Wb, wh, ceil(Kb / 32)] bit k of row r: A[r, k] != 0
+  const int32_t* wid[MAX_BUCKETS];    // [windows] window ids, or null: the window's position
+  int kb[MAX_BUCKETS];
+  int first[MAX_BUCKETS + 1];         // first window of each bucket in the launch's order
+  int nb;
+};
+
+struct Unit {
+  int b, p, c0;  // bucket, window in the bucket, first column
+};
+
+__device__ __forceinline__ Unit dense_unit(const DenseTable& tab, long long u, int nslab) {
+  const long long w = u / nslab;
+  int b = 0;
+  while (w >= tab.first[b + 1]) ++b;
+  return Unit{b, (int)(w - tab.first[b]), (int)(u - w * nslab) * DCOLS};
 }
 
-// Grid: x = window, y = 32-column slab.  Block: DW warps.
-template <typename T>
+// Grid: persistent blocks of DW warps, unit u = blockIdx.x + i * gridDim.x.
+// Dynamic shared memory: STAGES x ([kbmax][DCOLS] of T, then [MAX_WH][nwmax]
+// mask words).  Row r of window p writes node (wid ? wid[p] : p) * wh + r
+// when that is below ``limit``.
+template <typename T, bool V16>
 __global__ void __launch_bounds__(DW * 32)
-dense_rows_kernel(const int32_t* __restrict__ cols, const int8_t* __restrict__ a,
-                  const T* __restrict__ x, long long r, int d, float* __restrict__ out, int wh,
-                  int kb) {
-  __shared__ float xg[KC][DCOLS];
-  __shared__ int8_t as[MAX_WH][KC];
-  const long long w = blockIdx.x;
-  const int c0 = blockIdx.y * DCOLS;
-  const int lane = threadIdx.x & 31;
-  const int rg = threadIdx.x >> 5;
-  const int32_t* wcols = cols + w * kb;
-  const int8_t* wa = a + w * wh * kb;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+dense_window_kernel(DenseTable tab, int wh, int kbmax, int nslab, const T* __restrict__ x,
+                    long long r, int d, float* __restrict__ out, long long limit) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nwmax = (kbmax + 31) / 32;
+  const int xstage = kbmax * DCOLS;
+  const int mstage = MAX_WH * nwmax;
+  T* xs0 = reinterpret_cast<T*>(smem);
+  uint32_t* ms0 = reinterpret_cast<uint32_t*>(smem + (size_t)STAGES * xstage * sizeof(T));
+  const long long units = (long long)tab.first[tab.nb] * nslab;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int k0 = 0; k0 < kb; k0 += KC) {
-    const int kc = min(KC, kb - k0);
-    for (int i = threadIdx.x; i < MAX_WH * KC; i += DW * 32) {
-      const int rr = i / KC, k = i % KC;
-      as[rr][k] = (rr < wh && k < kc) ? wa[(long long)rr * kb + k0 + k] : int8_t(0);
-    }
-#pragma unroll
-    for (int it = 0; it < KC * DCOLS / (DW * 32); ++it) {
-      const int i = it * DW * 32 + threadIdx.x;
-      const int k = i / DCOLS, c = i % DCOLS;
-      float v = 0.f;
-      if (k < kc && c0 + c < d) {
-        const int idx = wcols[k0 + k];
-        if (idx >= 0 && idx < r) v = to_float(x[(long long)idx * d + c0 + c]);
+  // Stage unit u's gathered rows and row masks into slot s; one cp.async
+  // group a call, empty past the last unit.
+  auto issue = [&](long long u, int s) {
+    if (u < units) {
+      const Unit t = dense_unit(tab, u, nslab);
+      const int kb = tab.kb[t.b], nw = (kb + 31) >> 5;
+      const int32_t* wc = tab.cols[t.b] + (long long)t.p * kb;
+      T* xs = xs0 + s * xstage;
+      if constexpr (V16) {
+        constexpr int CE = 16 / sizeof(T), CQ = DCOLS / CE;
+        for (int i = tid; i < kb * CQ; i += DW * 32) {
+          const int k = i / CQ, c = t.c0 + (i % CQ) * CE;
+          const int idx = wc[k];
+          const bool ok = idx >= 0 && idx < r && c < d;
+          cp_async16_zfill(xs + i * CE, ok ? x + (long long)idx * d + c : x, ok ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < kb * DCOLS; i += DW * 32) {
+          const int k = i / DCOLS, c = t.c0 + i % DCOLS;
+          const int idx = wc[k];
+          if (idx >= 0 && idx < r && c < d)
+            xs[i] = x[(long long)idx * d + c];
+          else
+            set_zero(xs[i]);
+        }
       }
-      xg[k][c] = v;
+      const uint32_t* wm = tab.mask[t.b] + (long long)t.p * wh * nw;
+      uint32_t* ms = ms0 + s * mstage;
+      for (int i = tid; i < wh * nw; i += DW * 32) cp_async4(ms + i, wm + i);
     }
-    __syncthreads();
-    for (int k = 0; k < kc; ++k) {
-      const float xv = xg[k][lane];
+    cp_async_commit();
+  };
+
+  const long long g = gridDim.x;
+  long long u = blockIdx.x;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int av = as[rg + DW * j][k];
-        if (av != 0) acc[j] = fmaf(static_cast<float>(av), xv, acc[j]);
-      }
-    }
+  for (int s = 0; s < STAGES - 1; ++s) issue(u + s * g, s);
+  for (int i = 0; u < units; u += g, ++i) {
+    issue(u + (STAGES - 1) * g, (i + STAGES - 1) % STAGES);
+    cp_async_wait<STAGES - 1>();  // unit u's group has landed
     __syncthreads();
+    const Unit t = dense_unit(tab, u, nslab);
+    const int kb = tab.kb[t.b], nw = (kb + 31) >> 5;
+    const T* xs = xs0 + (i % STAGES) * xstage + lane;
+    const uint32_t* ms = ms0 + (i % STAGES) * mstage;
+    const int32_t* wid = tab.wid[t.b];
+    const long long base = (long long)(wid != nullptr ? wid[t.p] : t.p) * wh;
+    const int c = t.c0 + lane;
+#pragma unroll
+    for (int j = 0; j < MAX_WH / DW; ++j) {
+      const int rr = warp + DW * j;
+      if (rr >= wh) break;
+      float acc = 0.f;
+      for (int w = 0; w < nw; ++w)  // warp-uniform: one row a warp
+        for (uint32_t m = ms[rr * nw + w]; m != 0u; m &= m - 1u)
+          acc += to_float(xs[(w * 32 + __ffs(m) - 1) * DCOLS]);
+      if (base + rr < limit && c < d) out[(base + rr) * d + c] = acc;
+    }
+    __syncthreads();  // slot i % STAGES is refilled next
   }
-  const int c = c0 + lane;
-  if (c < d) {
+  cp_async_wait<0>();
+}
+
+// VE elements of a 16-byte load (V16) or one element, widened to fp32 and
+// added to acc.
+template <typename T, bool V16>
+struct Lanes;
+template <>
+struct Lanes<float, true> {
+  static constexpr int VE = 4;
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ void add(float* acc, Raw v) {
+    acc[0] += __uint_as_float(v.x), acc[1] += __uint_as_float(v.y);
+    acc[2] += __uint_as_float(v.z), acc[3] += __uint_as_float(v.w);
+  }
+};
+template <>
+struct Lanes<__nv_bfloat16, true> {
+  static constexpr int VE = 8;
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ void add(float* acc, Raw v) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int rr = rg + DW * j;
-      if (rr < wh) out[(w * wh + rr) * d + c] = acc[j];
+    for (int q = 0; q < 4; ++q) {  // element 2q in the low half (little-endian)
+      acc[2 * q] += __uint_as_float(w[q] << 16);
+      acc[2 * q + 1] += __uint_as_float(w[q] & 0xffff0000u);
     }
+  }
+};
+template <typename T>
+struct Lanes<T, false> {
+  static constexpr int VE = 1;
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ void add(float* acc, Raw v) { acc[0] += to_float(v); }
+};
+
+__device__ __forceinline__ void store(float* o, const float* v, int ve) {
+  if (ve == 1) {
+    *o = v[0];
+  } else {
+    for (int q = 0; q < ve; q += 4)
+      *reinterpret_cast<float4*>(o + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
   }
 }
 
-// Grid: x = block of EW rows (or one row with split), y = column slab of
-// 32*VEC*NJ columns.  Row r's entries are cols[ptr[r] : ptr[r+1]] (CSR mode)
-// or cols[r*de : r*de + de] (ELL mode, ptr == nullptr).
-template <typename T, int VEC, int NJ>
+// Grid: x = hub rows (a block each), then middle rows (a warp each), then
+// short rows (a group of G lanes each); y = column slab of G * VE * NJ
+// columns.  Row i's entries are cols[ptr[i] : ptr[i+1]] (ptr == nullptr:
+// cols[i*de : i*de + de]); it writes node[i] (node == nullptr: i) when that
+// is below ``limit``.  Rows [0, n_hub) are hubs, then n_mid middle rows, the
+// rest short.
+template <typename T, bool V16, int NJ>
 __global__ void __launch_bounds__(EW * 32)
-ell_rows_kernel(const int32_t* __restrict__ ptr, const int32_t* __restrict__ cols, int de,
-                const T* __restrict__ x, long long r, int d, float* __restrict__ out, int rows,
-                int split) {
-  constexpr int SLAB = 32 * VEC * NJ;
-  __shared__ float part[EW][SLAB];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long row = split ? (long long)blockIdx.x : (long long)blockIdx.x * EW + warp;
-  const int c0 = blockIdx.y * SLAB;
-  float acc[NJ][VEC];
+ell_row_kernel(const int32_t* __restrict__ node, const int32_t* __restrict__ ptr,
+               const int32_t* __restrict__ cols, int de, int rows, int n_hub, int n_mid, int G,
+               const T* __restrict__ x, long long r, int d, float* __restrict__ out,
+               long long limit) {
+  using L = Lanes<T, V16>;
+  constexpr int VE = L::VE;
+  constexpr int U = EU / NJ;
+  __shared__ float part[EW][32 * VE * NJ];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int spw = 32 / G, g = lane & (G - 1), sg = lane / G;
+  const long long mid_blocks = (n_mid + EW - 1) / EW;
+  const long long bx = blockIdx.x;
+  int cls;  // 2 hub, 1 middle, 0 short: block-uniform
+  long long row, last;
+  int sub, S;
+  if (bx < n_hub) {
+    cls = 2, row = bx, last = n_hub, sub = warp * spw + sg, S = EW * spw;
+  } else if (bx - n_hub < mid_blocks) {
+    cls = 1, row = n_hub + (bx - n_hub) * EW + warp, last = n_hub + n_mid, sub = sg, S = spw;
+  } else {
+    cls = 0, row = n_hub + n_mid + (bx - n_hub - mid_blocks) * (EW * spw) + warp * spw + sg;
+    last = rows, sub = 0, S = 1;
+  }
+  const int c0 = blockIdx.y * G * VE * NJ;
+  float acc[NJ][VE];
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) acc[j][q] = 0.f;
+    for (int q = 0; q < VE; ++q) acc[j][q] = 0.f;
 
-  if (row < rows) {
+  if (row < last) {
     long long lo, hi;
     if (ptr != nullptr) {
-      lo = ptr[row];
-      hi = ptr[row + 1];
+      lo = ptr[row], hi = ptr[row + 1];
     } else {
-      lo = row * de;
-      hi = lo + de;
+      lo = row * de, hi = lo + de;
     }
-    if (split) {  // warp w sums the w-th of EW consecutive slices
-      const long long len = hi - lo, step = (len + EW - 1) / EW;
-      hi = lo + min(len, (warp + 1) * step);
-      lo = lo + min(len, warp * step);
-    }
-    for (long long k = lo; k < hi; k += U) {
+    for (long long k0 = lo + sub; k0 < hi; k0 += (long long)S * U) {
       int idx[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) idx[u] = k + u < hi ? cols[k + u] : -1;
-      float v[U][NJ][VEC];
+      for (int u = 0; u < U; ++u) {
+        const long long k = k0 + (long long)u * S;
+        idx[u] = k < hi ? cols[k] : -1;
+      }
+      typename L::Raw v[U][NJ];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const bool ok = idx[u] >= 0 && idx[u] < r;
         const T* xr = x + (ok ? (long long)idx[u] * d : 0LL);
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const int c = c0 + (j * 32 + lane) * VEC;
-          load_vec<VEC>(v[u][j], xr + c, ok && c < d);
+          const int c = c0 + (j * G + g) * VE;
+          if (ok && c < d) v[u][j] = L::load(xr + c);
         }
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if (idx[u] < 0 || idx[u] >= r) continue;  // warp-uniform
+        if (idx[u] < 0 || idx[u] >= r) continue;
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int q = 0; q < VEC; ++q) acc[j][q] += v[u][j][q];
+          if (c0 + (j * G + g) * VE < d) L::add(acc[j], v[u][j]);
       }
     }
   }
 
-  if (!split) {
-    if (row >= rows) return;
-    float* orow = out + row * d;
+  if (cls != 0) {  // the groups of a warp, lane l holding the sum of l, l+G, ...
+    for (int off = 16; off >= G; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < VE; ++q) acc[j][q] += __shfl_down_sync(0xffffffffu, acc[j][q], off);
+  }
+  if (cls != 2) {
+    if (row >= last || (cls == 1 && sg != 0)) return;
+    const long long n = node != nullptr ? node[row] : row;
+    if (n >= limit) return;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = c0 + (j * 32 + lane) * VEC;
-      if (c >= d) continue;
-      if constexpr (VEC == 4) {
-        *reinterpret_cast<float4*>(orow + c) = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-      } else {
-        orow[c] = acc[j][0];
-      }
+      const int c = c0 + (j * G + g) * VE;
+      if (c < d) store(out + n * d + c, acc[j], VE);
     }
     return;
   }
+  if (sg == 0)
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) part[warp][(j * 32 + lane) * VEC + q] = acc[j][q];
+      for (int q = 0; q < VE; ++q) part[warp][(j * G + g) * VE + q] = acc[j][q];
   __syncthreads();
-  if (row >= rows) return;
-  for (int t = threadIdx.x; t < SLAB; t += EW * 32) {
+  const long long n = node != nullptr ? node[row] : row;
+  if (n >= limit) return;
+  for (int t = threadIdx.x; t < G * VE * NJ; t += EW * 32) {
     if (c0 + t >= d) continue;
     float s = part[0][t];
 #pragma unroll
     for (int w = 1; w < EW; ++w) s += part[w][t];
-    out[row * d + c0 + t] = s;
+    out[n * d + c0 + t] = s;
   }
 }
 
-template <typename T, int VEC, int NJ>
-cudaError_t launch_ell(const void* ptr, const void* cols, int de, const void* x, long long r,
-                       int d, void* out, int rows, int split, cudaStream_t s) {
-  constexpr int SLAB = 32 * VEC * NJ;
-  const dim3 grid(split ? (unsigned)rows : (unsigned)((rows + EW - 1) / EW),
-                  (unsigned)((d + SLAB - 1) / SLAB));
-  ell_rows_kernel<T, VEC, NJ><<<grid, EW * 32, 0, s>>>(
-      static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(cols), de,
-      static_cast<const T*>(x), r, d, static_cast<float*>(out), rows, split);
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+template <typename T, bool V16>
+cudaError_t launch_dense(const DenseTable& tab, int wh, int kbmax, int nslab, const void* x,
+                         long long r, int d, void* out, long long limit, cudaStream_t s) {
+  const long long units = (long long)tab.first[tab.nb] * nslab;
+  const size_t smem = (size_t)STAGES * (kbmax * DCOLS * sizeof(T) +
+                                        MAX_WH * ((kbmax + 31) / 32) * sizeof(uint32_t));
+  auto kernel = dense_window_kernel<T, V16>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DW * 32, smem);
+  if (e != cudaSuccess) return e;
+  const long long resident = (long long)per_sm * sm_count();
+  if (resident <= 0) return cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(units < resident ? units : resident);
+  kernel<<<grid, DW * 32, smem, s>>>(tab, wh, kbmax, nslab, static_cast<const T*>(x), r, d,
+                                     static_cast<float*>(out), limit);
+  return cudaGetLastError();
+}
+
+template <typename T, bool V16, int NJ>
+cudaError_t launch_ell(const void* node, const void* ptr, const void* cols, int de, int rows,
+                       int n_hub, int n_mid, int G, const void* x, long long r, int d, void* out,
+                       long long limit, cudaStream_t s) {
+  constexpr int VE = Lanes<T, V16>::VE;
+  const int slab = G * VE * NJ, spw = 32 / G;
+  const long long n_short = (long long)rows - n_hub - n_mid;
+  const long long blocks =
+      n_hub + (n_mid + EW - 1) / EW + (n_short + EW * spw - 1) / (EW * spw);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)((d + slab - 1) / slab));
+  ell_row_kernel<T, V16, NJ><<<grid, EW * 32, 0, s>>>(
+      static_cast<const int32_t*>(node), static_cast<const int32_t*>(ptr),
+      static_cast<const int32_t*>(cols), de, rows, n_hub, n_mid, G, static_cast<const T*>(x),
+      r, d, static_cast<float*>(out), limit);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_ell(const void* ptr, const void* cols, int de, const void* x, long long r,
-                         int d, void* out, int rows, int split, int vec, int nj,
-                         cudaStream_t s) {
-  if (vec == 4) {
-    if (nj == 1) return launch_ell<T, 4, 1>(ptr, cols, de, x, r, d, out, rows, split, s);
-    if (nj == 2) return launch_ell<T, 4, 2>(ptr, cols, de, x, r, d, out, rows, split, s);
-    return cudaErrorInvalidValue;
+cudaError_t dispatch_ell(const void* node, const void* ptr, const void* cols, int de, int rows,
+                         int n_hub, int n_mid, const void* x, long long r, int d, void* out,
+                         long long limit, cudaStream_t s) {
+  // 16-byte loads when every row of x and out starts 16-byte aligned
+  const bool v16 = (d * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int ve = v16 ? 16 / (int)sizeof(T) : 1;
+  const int chunks = (d + ve - 1) / ve;
+  int G = 1;
+  while (G < 32 && G < chunks) G *= 2;
+  if (v16) {
+    if (chunks > 32)
+      return launch_ell<T, true, 2>(node, ptr, cols, de, rows, n_hub, n_mid, G, x, r, d, out,
+                                    limit, s);
+    return launch_ell<T, true, 1>(node, ptr, cols, de, rows, n_hub, n_mid, G, x, r, d, out, limit,
+                                  s);
   }
-  if (vec != 1) return cudaErrorInvalidValue;
-  if (nj == 1) return launch_ell<T, 1, 1>(ptr, cols, de, x, r, d, out, rows, split, s);
-  if (nj == 2) return launch_ell<T, 1, 2>(ptr, cols, de, x, r, d, out, rows, split, s);
-  if (nj == 4) return launch_ell<T, 1, 4>(ptr, cols, de, x, r, d, out, rows, split, s);
-  if (nj == 8) return launch_ell<T, 1, 8>(ptr, cols, de, x, r, d, out, rows, split, s);
-  return cudaErrorInvalidValue;
+  if (chunks > 32)
+    return launch_ell<T, false, 2>(node, ptr, cols, de, rows, n_hub, n_mid, G, x, r, d, out, limit,
+                                   s);
+  return launch_ell<T, false, 1>(node, ptr, cols, de, rows, n_hub, n_mid, G, x, r, d, out, limit,
+                                 s);
 }
 
 }  // namespace
 
-// cols: int32 [wb, kb]; a: int8 [wb, wh, kb]; x: [r, d] fp32 (x_bf16 == 0) or
-// bf16; out: fp32 [wb, wh, d].  Returns a cudaError_t (0 = launched).
-extern "C" int hcspmm_dense_bucket_spmm(const void* cols, const void* a, const void* x,
-                                        void* out, int wb, int wh, int kb, long long r, int d,
-                                        int x_bf16, void* stream) {
-  if (wb <= 0) return 0;
-  if (wh <= 0 || wh > MAX_WH || kb <= 0 || d <= 0 || r < 0 || (d + DCOLS - 1) / DCOLS > 65535)
+// The dense windows of nb buckets, in the given order: cols[b] int32 [Wb, kb[b]],
+// masks[b] uint32 [Wb, wh, ceil(kb[b] / 32)], wids[b] int32 [windows[b]] or
+// null (write by window position), of which the first windows[b] windows
+// are launched; x: [r, d] fp32 (x_bf16 == 0) or bf16; out: fp32, row n at
+// out + n * d for n < limit.  Returns a cudaError_t (0 = launched).
+extern "C" int hcspmm_dense_rows(const void* const* cols, const void* const* masks,
+                                 const void* const* wids, const int* kb, const int* windows,
+                                 int nb, int wh, const void* x, long long r, int d, int x_bf16,
+                                 void* out, long long limit, void* stream) {
+  if (nb < 0 || nb > MAX_BUCKETS || wh <= 0 || wh > MAX_WH || d <= 0 || r < 0)
     return (int)cudaErrorInvalidValue;
+  DenseTable tab{};
+  int kbmax = 0;
+  long long total = 0;
+  tab.nb = nb;
+  for (int b = 0; b < nb; ++b) {
+    if (kb[b] <= 0 || windows[b] < 0) return (int)cudaErrorInvalidValue;
+    tab.cols[b] = static_cast<const int32_t*>(cols[b]);
+    tab.mask[b] = static_cast<const uint32_t*>(masks[b]);
+    tab.wid[b] = static_cast<const int32_t*>(wids[b]);
+    tab.kb[b] = kb[b];
+    tab.first[b] = (int)total;
+    total += windows[b];
+    if (windows[b] > 0 && kb[b] > kbmax) kbmax = kb[b];
+  }
+  const int nslab = (d + DCOLS - 1) / DCOLS;
+  if (total * nslab > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  tab.first[nb] = (int)total;
+  if (total == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)wb, (unsigned)((d + DCOLS - 1) / DCOLS));
+  const int elt = x_bf16 ? 2 : 4;
+  const bool v16 = (d * elt) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (x_bf16)
-    dense_rows_kernel<__nv_bfloat16><<<grid, DW * 32, 0, s>>>(
-        static_cast<const int32_t*>(cols), static_cast<const int8_t*>(a),
-        static_cast<const __nv_bfloat16*>(x), r, d, static_cast<float*>(out), wh, kb);
-  else
-    dense_rows_kernel<float><<<grid, DW * 32, 0, s>>>(
-        static_cast<const int32_t*>(cols), static_cast<const int8_t*>(a),
-        static_cast<const float*>(x), r, d, static_cast<float*>(out), wh, kb);
-  return (int)cudaGetLastError();
+    return (int)(v16 ? launch_dense<__nv_bfloat16, true>(tab, wh, kbmax, nslab, x, r, d, out,
+                                                         limit, s)
+                     : launch_dense<__nv_bfloat16, false>(tab, wh, kbmax, nslab, x, r, d, out,
+                                                          limit, s));
+  return (int)(v16 ? launch_dense<float, true>(tab, wh, kbmax, nslab, x, r, d, out, limit, s)
+                   : launch_dense<float, false>(tab, wh, kbmax, nslab, x, r, d, out, limit, s));
 }
 
-// ptr: int32 [rows + 1] row starts into cols (CSR mode) or null (ELL mode:
-// cols int32 [rows, de]); x: [r, d] fp32 or bf16; out: fp32 [rows, d].
-// vec 4 needs d % 4 == 0 and x and out 16-byte aligned; the slab of
-// 32*vec*nj columns is one grid row.  split != 0: one block per row.
-extern "C" int hcspmm_ell_spmm(const void* ptr, const void* cols, const void* x, void* out,
-                               int rows, int de, int split, long long r, int d, int vec, int nj,
-                               int x_bf16, void* stream) {
+// A table of rows: row i sums x[cols[k]] for ptr[i] <= k < ptr[i+1] (ptr
+// null: i*de <= k < i*de + de) into out row node[i] (node null: i), for
+// node < limit; rows [0, n_hub) are hubs (a block each), the next n_mid
+// middle rows (a warp each), the rest short (a group of lanes each).  x:
+// [r, d] fp32 or bf16; out: fp32.
+extern "C" int hcspmm_ell_rows(const void* node, const void* ptr, const void* cols, int de,
+                               int rows, int n_hub, int n_mid, const void* x, long long r, int d,
+                               int x_bf16, void* out, long long limit, void* stream) {
   if (rows <= 0) return 0;
-  if (d <= 0 || r < 0 || (ptr == nullptr && de <= 0) || (vec == 4 && d % 4))
+  if (d <= 0 || r < 0 || n_hub < 0 || n_mid < 0 || n_hub + (long long)n_mid > rows ||
+      (ptr == nullptr && de <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return (int)dispatch_ell<__nv_bfloat16>(ptr, cols, de, x, r, d, out, rows, split, vec, nj,
-                                            s);
-  return (int)dispatch_ell<float>(ptr, cols, de, x, r, d, out, rows, split, vec, nj, s);
+    return (int)dispatch_ell<__nv_bfloat16>(node, ptr, cols, de, rows, n_hub, n_mid, x, r, d, out,
+                                            limit, s);
+  return (int)dispatch_ell<float>(node, ptr, cols, de, rows, n_hub, n_mid, x, r, d, out, limit, s);
 }

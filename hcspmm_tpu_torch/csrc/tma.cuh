@@ -1,8 +1,8 @@
 // mbarrier, Tensor Memory Accelerator and cp.async primitives for Hopper
-// (sm_90a, PTX ISA 8.0), shared by csrc/tband.cu and csrc/block_spmm.cu,
-// and the host's tensor-map encoder (cuTensorMapEncodeTiled, looked up at
-// run time through the CUDA runtime: no link against libcuda).  Each source
-// is its own library, so everything here has internal linkage.
+// (sm_90a, PTX ISA 8.0), shared by csrc/tband.cu, csrc/block_spmm.cu and
+// csrc/rows.cu, and the host's tensor-map encoder (cuTensorMapEncodeTiled,
+// looked up at run time through the CUDA runtime: no link against libcuda).
+// Each source is its own library, so everything here has internal linkage.
 
 #pragma once
 
@@ -77,6 +77,26 @@ __device__ __forceinline__ void tensor_load(void* dst, const CUtensorMap* map, i
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+
+// A 16-byte asynchronous copy from global to shared memory (both 16-byte
+// aligned) of ``bytes`` bytes (16 or 0), the rest of the 16 filled with
+// zeros: with 0, ``src`` is not read.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// Closes this thread's group of cp.async copies issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // One arrival on ``bar`` once every cp.async this thread issued before has

@@ -39,14 +39,15 @@ which plans have that path; ``check_plan`` raises for any other plan.
 
 ``spmm_rows`` is one SpMM in the row layout [N, d] -> [N, d] (the
 reference's ``spmm_pallas``, HC-SpMM's own hybrid): band buckets through
-the band kernel, then the dense windows (``dense_bucket_spmm``, the
-reference's tensor-core population), the ELL rows (``ell_bucket_spmm``,
-its CUDA-core warp-per-row loop) and the residual hub rows (the ELL
-kernel's CSR mode, ``ell_residual_spmm``), each writing its rows of one
-fp32 buffer that the ``out_perm`` merge (a torch ``index_select``) puts in
-row order; spill is added by the take path.  The two kernels are
-``csrc/rows.cu``; ``rows_check`` raises for the plans the row layout does
-not run here.
+the band kernel, then every dense window in one launch (``dense_rows``,
+the reference's tensor-core population; ``dense_bucket_spmm`` is one
+bucket's) and every ELL row, residual hub row and empty row in another
+(``ell_rows``, the reference's CUDA-core warp-per-row loop and its
+segment-sum; ``ell_bucket_spmm`` and ``ell_residual_spmm`` run one bucket
+or the residual alone), each writing its rows of the result at their node
+ids from tables built and checked at upload (``row_tables``); spill is
+added by the take path.  The two kernels are ``csrc/rows.cu``;
+``rows_check`` raises for the plans the row layout does not run here.
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ last_fused_launch = {}
 TILE_W = 128  # X rows of one tiled pair (csrc/block_spmm.cu TILE)
 
 #: Launches of the two kernels of csrc/rows.cu, counted where a wrapper
-#: launches one (``ell_residual`` is the ELL kernel in its CSR mode).
+#: launches one (``ell_residual``: launches of the ELL kernel that carried
+#: residual rows, alone or riding a plan's ELL launch).
 row_launches = {"dense_bucket_spmm": 0, "ell_bucket_spmm": 0, "ell_residual": 0}
 
 
@@ -103,11 +105,17 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _rows_lib() -> ctypes.CDLL:
-    lib = load_library("rows")
+    return bind_rows(load_library("rows"))
+
+
+def bind_rows(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of csrc/rows.cu, with its functions' ctypes types set."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hcspmm_dense_bucket_spmm.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64, i32, i32, vp]
-    lib.hcspmm_ell_spmm.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, i32, vp]
-    for fn in (lib.hcspmm_dense_bucket_spmm, lib.hcspmm_ell_spmm):
+    vpp, i32p = ctypes.POINTER(vp), ctypes.POINTER(i32)
+    lib.hcspmm_dense_rows.argtypes = [vpp, vpp, vpp, i32p, i32p, i32, i32, vp, i64, i32, i32, vp,
+                                      i64, vp]
+    lib.hcspmm_ell_rows.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp, i64, i32, i32, vp, i64, vp]
+    for fn in (lib.hcspmm_dense_rows, lib.hcspmm_ell_rows):
         fn.restype = ctypes.c_int
     return lib
 
@@ -420,6 +428,29 @@ def ell_residual_spmm_plain(ptr, cols, xp, out=None):
     return _into(out, res.index_add_(0, seg, _gather_rows(xp, edges)))
 
 
+def dense_rows_plain(arrs, plan, xp, out):
+    """Every real dense window of ``plan`` (``b{b}_wid``) into ``out`` [N, D]
+    fp32: window w's row r at node ``w * window_h + r``, rows past N
+    dropped (``dense_bucket_spmm_plain``, then ``index_copy_``)."""
+    wh, n = plan.window_h, out.shape[0]
+    for b in range(len(plan.bucket_widths)):
+        wid = arrs[f"b{b}_wid"].long()
+        w = wid.shape[0]
+        if not w:
+            continue
+        res = dense_bucket_spmm_plain(arrs[f"b{b}_cols"][:w], arrs[f"b{b}_a"][:w], xp)
+        node = (wid[:, None] * wh + torch.arange(wh, device=xp.device)).reshape(-1)
+        keep = node < n
+        out.index_copy_(0, node[keep], res.reshape(-1, xp.shape[1])[keep])
+    return out
+
+
+def ell_rows_plain(node, ptr, cols, xp, out):
+    """Row i of the table (``ell_residual_spmm_plain``'s sum over
+    ``cols[ptr[i]:ptr[i+1]]``) into ``out`` [N, D] fp32 at node ``node[i]``."""
+    return out.index_copy_(0, node.long(), ell_residual_spmm_plain(ptr, cols, xp))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -630,7 +661,14 @@ def band_tiled_spmm(arrs, xp, plan, out_dtype):
     return out
 
 
-_MAX_WH = 16  # csrc/rows.cu dense: 4 warps x 4 rows a thread
+_MAX_WH = 16  # csrc/rows.cu dense: 4 warps x 4 rows of a window
+_MAX_BUCKETS = 8  # csrc/rows.cu dense: buckets of one launch
+_ELL_SHORT = 16  # rows of at most this many entries: a group of lanes each
+_ELL_SPLIT = 64  # rows of at least this many entries: a block of warps each
+
+#: Arrays of ``check_row_arrays`` that stay on the host: the row table's
+#: class counts, read by the ELL launch without a device sync.
+HOST_KEYS = ("rows_meta",)
 
 
 def _row_args(xp, out, shape, named):
@@ -655,11 +693,41 @@ def _row_args(xp, out, shape, named):
     return out
 
 
-def _run_rows(name, fn, *args):
+def _run_rows(names, fn, *args):
+    """Launch on the current stream; counts one launch for each of ``names``."""
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"csrc/rows.cu {name} launch failed: cudaError {rc}")
-    row_launches[name] += 1
+        raise RuntimeError(f"csrc/rows.cu {names[0]} launch failed: cudaError {rc}")
+    for name in names:
+        row_launches[name] += 1
+
+
+def window_masks(a: np.ndarray) -> np.ndarray:
+    """int32 [W, wh, ceil(Kb / 32)]: bit k % 32 of word k // 32 of row r is
+    ``a[w, r, k] != 0`` (the dense kernel's row masks, built at upload)."""
+    w, wh, kb = a.shape
+    nw = -(-kb // 32)
+    words = np.zeros((w, wh, 4 * nw), np.uint8)
+    words[..., : -(-kb // 8)] = np.packbits(np.asarray(a) != 0, axis=-1, bitorder="little")
+    return words.view("<u4").view(np.int32)
+
+
+def _dense_launch(buckets, wh, xp, out, limit):
+    """One launch of the dense kernel over ``buckets`` [(cols, masks, wid or
+    None, windows)], in that order."""
+    nb = len(buckets)
+    if nb > _MAX_BUCKETS:
+        raise ValueError(f"{nb} dense buckets: csrc/rows.cu takes at most {_MAX_BUCKETS} a launch")
+    vp, i32 = ctypes.c_void_p * nb, ctypes.c_int * nb
+    with torch.cuda.device(xp.device):
+        _run_rows(("dense_bucket_spmm",), _rows_lib().hcspmm_dense_rows,
+                  vp(*[c.data_ptr() for c, _, _, _ in buckets]),
+                  vp(*[m.data_ptr() for _, m, _, _ in buckets]),
+                  vp(*[None if w is None else w.data_ptr() for _, _, w, _ in buckets]),
+                  i32(*[c.shape[1] for c, _, _, _ in buckets]),
+                  i32(*[n for _, _, _, n in buckets]), nb, wh, xp.data_ptr(), xp.shape[0],
+                  xp.shape[1], int(xp.dtype == torch.bfloat16), out.data_ptr(), limit)
+    return out
 
 
 def dense_bucket_spmm(cols, a, xp, out=None):
@@ -669,7 +737,9 @@ def dense_bucket_spmm(cols, a, xp, out=None):
     cols: int32 [Wb, Kb] neighbour rows (pad columns point at a zero row
     of xp or past its end: an index outside [0, R) adds nothing); a: int8
     0/1 [Wb, wh, Kb]; xp: [R, D] float32 or bfloat16.  Returns fp32
-    [Wb, wh, D], written into ``out`` when given."""
+    [Wb, wh, D], written into ``out`` when given.  On the card: the dense
+    kernel with a one-bucket table, its row masks built from ``a`` on the
+    host (``window_masks``)."""
     if xp.device.type == "cpu":
         return dense_bucket_spmm_plain(cols, a, xp, out)
     wb, kb = cols.shape
@@ -680,31 +750,46 @@ def dense_bucket_spmm(cols, a, xp, out=None):
         raise ValueError(f"window height {wh}: csrc/rows.cu takes at most {_MAX_WH}")
     out = _row_args(xp, out, (wb, wh, d), dict(cols=cols, a=a))
     if wb and d:
-        with torch.cuda.device(xp.device):
-            _run_rows("dense_bucket_spmm", _rows_lib().hcspmm_dense_bucket_spmm,
-                      cols.data_ptr(), a.data_ptr(), xp.data_ptr(), out.data_ptr(), wb, wh,
-                      kb, xp.shape[0], d, int(xp.dtype == torch.bfloat16))
+        masks = torch.from_numpy(window_masks(a.cpu().numpy())).to(xp.device)
+        _dense_launch([(cols, masks, None, wb)], wh, xp, out, wb * wh)
     return out
 
 
-def _ell_launch(name, ptr, cols, xp, out, rows, de, split):
-    d = xp.shape[1]
-    if not rows or not d:
+def dense_rows(arrs, plan, xp, out):
+    """Every real dense window of ``plan`` into ``out`` [N, D] fp32, window
+    w's row r at node ``w * window_h + r`` (rows past N write nothing), in
+    one launch over all buckets, the widest first.  ``arrs`` holds the
+    upload's ``b{b}_cols``, ``b{b}_m`` (row masks), ``b{b}_wid`` (window ids)
+    and, for the plain version, ``b{b}_a``."""
+    if xp.device.type == "cpu":
+        return dense_rows_plain(arrs, plan, xp, out)
+    wh = plan.window_h
+    buckets = sorted((b for b in range(len(plan.bucket_widths))
+                      if arrs[f"b{b}_wid"].shape[0]), key=lambda b: -plan.bucket_widths[b])
+    if wh > _MAX_WH:
+        raise ValueError(f"window height {wh}: csrc/rows.cu takes at most {_MAX_WH}")
+    _row_args(xp, out, (plan.num_nodes, xp.shape[1]), {})  # the tables: checked at upload
+    if buckets and xp.shape[1]:
+        _dense_launch([(arrs[f"b{b}_cols"], arrs[f"b{b}_m"], arrs[f"b{b}_wid"],
+                        arrs[f"b{b}_wid"].shape[0]) for b in buckets], wh, xp, out,
+                      plan.num_nodes)
+    return out
+
+
+def _ell_launch(names, node, ptr, cols, de, classes, xp, out, limit):
+    """One launch of the ELL kernel over a row table whose rows are hubs,
+    middle and short rows in ``classes`` counts, in that order."""
+    n_hub, n_mid, n_short = classes
+    rows = n_hub + n_mid + n_short
+    if not rows or not xp.shape[1]:
         return out
-    # 16-byte lanes when every row starts 16-byte aligned, else one float a lane
-    if d % 4 == 0 and d >= 128 and xp.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0:
-        vec, nj = 4, min(2, -(-d // 128))
-    else:
-        vec, nj = 1, min(8, 1 << max(0, -(-d // 32) - 1).bit_length())
     with torch.cuda.device(xp.device):
-        _run_rows(name, _rows_lib().hcspmm_ell_spmm,
-                  None if ptr is None else ptr.data_ptr(), cols.data_ptr(), xp.data_ptr(),
-                  out.data_ptr(), rows, de, int(split), xp.shape[0], d, vec, nj,
-                  int(xp.dtype == torch.bfloat16))
+        _run_rows(names, _rows_lib().hcspmm_ell_rows,
+                  None if node is None else node.data_ptr(),
+                  None if ptr is None else ptr.data_ptr(), cols.data_ptr(), de, rows, n_hub,
+                  n_mid, xp.data_ptr(), xp.shape[0], xp.shape[1],
+                  int(xp.dtype == torch.bfloat16), out.data_ptr(), limit)
     return out
-
-
-_ELL_SPLIT = 64  # ELL widths from which a block of 8 warps shares each row
 
 
 def ell_bucket_spmm(cols, xp, out=None):
@@ -717,14 +802,16 @@ def ell_bucket_spmm(cols, xp, out=None):
         return ell_bucket_spmm_plain(cols, xp, out)
     rb, de = cols.shape
     out = _row_args(xp, out, (rb, xp.shape[1]), dict(cols=cols))
-    return _ell_launch("ell_bucket_spmm", None, cols, xp, out, rb, de, de >= _ELL_SPLIT)
+    classes = ((rb, 0, 0) if de >= _ELL_SPLIT else (0, rb, 0) if de > _ELL_SHORT
+               else (0, 0, rb))
+    return _ell_launch(("ell_bucket_spmm",), None, None, cols, de, classes, xp, out, rb)
 
 
 def ell_residual_spmm(ptr, cols, xp, out=None):
     """The residual rows (degree above every ELL width; the reference's
     segment-sum, block_spmm.py:1020-1029): ``out[r] = sum of xp[cols[e]]``
-    for ``ptr[r] <= e < ptr[r+1]``, in edge order, by the ELL kernel in its
-    CSR mode (a block of 8 warps a row).
+    for ``ptr[r] <= e < ptr[r+1]``, in edge order, by the ELL kernel (a
+    block of warps a row).
 
     ptr: int32 [Rs + 1] nondecreasing, inside cols; cols: int32 [Es].
     Returns fp32 [Rs, D]."""
@@ -732,7 +819,23 @@ def ell_residual_spmm(ptr, cols, xp, out=None):
         return ell_residual_spmm_plain(ptr, cols, xp, out)
     rows = ptr.shape[0] - 1
     out = _row_args(xp, out, (rows, xp.shape[1]), dict(ptr=ptr, cols=cols))
-    return _ell_launch("ell_residual", ptr, cols, xp, out, rows, 0, True)
+    return _ell_launch(("ell_residual",), None, ptr, cols, 0, (rows, 0, 0), xp, out, rows)
+
+
+def ell_rows(arrs, xp, out):
+    """The plan's row table (``rw_node``, ``rw_ptr``, ``rw_cols``: the ELL
+    rows and the residual rows without their pad entries, then the nodes of
+    no population as empty rows) into ``out`` [N, D] fp32 at each row's
+    node, in one launch; the residual rows ride it (counted in
+    ``row_launches["ell_residual"]``)."""
+    node, ptr, cols = arrs["rw_node"], arrs["rw_ptr"], arrs["rw_cols"]
+    if xp.device.type == "cpu":
+        return ell_rows_plain(node, ptr, cols, xp, out)
+    n_hub, n_mid, n_short, n_res = arrs["rows_meta"].tolist()
+    _row_args(xp, out, (out.shape[0], xp.shape[1]), {})  # the table: checked at upload
+    names = ("ell_bucket_spmm", "ell_residual") if n_res else ("ell_bucket_spmm",)
+    return _ell_launch(names, node, ptr, cols, 0, (n_hub, n_mid, n_short), xp, out,
+                       out.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -905,12 +1008,22 @@ def _band_table(xr, plan):
 
 
 def row_population_rows(plan) -> int:
-    """Rows of the buffer the row populations write (band buckets, dense
-    windows, ELL rows, residual rows, in that order); ``out_perm`` indexes
-    it, and its zero row follows them."""
+    """Rows of the row populations laid end to end, capacity padding
+    included (band buckets, dense windows, ELL rows, residual rows, in that
+    order): ``out_perm`` indexes them, and its zero row follows them."""
     return (sum(int(s.shape[0]) * plan.band_h for s in plan.band_starts)
             + sum(int(c.shape[0]) * plan.window_h for c in plan.bucket_cols)
             + sum(int(c.shape[0]) for c in plan.ell_cols) + plan.num_sparse_rows)
+
+
+def band_covers_all(plan) -> bool:
+    """Whether ``spmm_rows`` takes the full-cover path: the plan's band
+    buckets own every superwindow of its N rows."""
+    if not (plan.band_widths and plan.band_full_cover):
+        return False
+    num_sw = max(plan.band_num_sw, -(-plan.num_nodes // plan.band_h))
+    return (any(s.shape[0] for s in plan.band_starts)
+            and sum(len(v) for v in plan.band_sw_ids) == num_sw)
 
 
 def spmm_rows(arrs, x, plan, compute_dtype):
@@ -921,14 +1034,16 @@ def spmm_rows(arrs, x, plan, compute_dtype):
     Full band cover: the most populated band bucket writes every
     superwindow's block directly, the other buckets' blocks are scattered
     over theirs, and the spill is added onto the [N, d] slice.  Otherwise
-    each population writes its rows of one fp32 buffer: band buckets
-    (bucket order), dense windows (``dense_bucket_spmm``), ELL rows
-    (``ell_bucket_spmm``) and residual rows (``ell_residual_spmm``); the
-    ``out_perm`` merge takes each node's row from it (or its zero row), and
-    the spill population is added by the take path.  The row kernels read
-    ``x`` in the compute dtype with no padding (pad columns point past it);
-    only the band kernel gets a 128-column table.  A tiled plan runs its
-    padded core on x padded to [M, 128-multiple] and sliced back."""
+    each population writes its rows of the fp32 [N, d] result (``torch.empty``)
+    at their node ids: the band buckets' rows by ``index_copy_``, the dense
+    windows in one launch (``dense_rows``), the ELL and residual rows and
+    the zero rows of the nodes no population owns in another (``ell_rows``);
+    the upload checked that these owners partition [0, N).  The spill
+    population is added by the take path, and the fp32 sums are rounded
+    once to x's dtype.  The row kernels read ``x`` in the compute dtype
+    with no padding (pad columns point past it); only the band kernel gets
+    a 128-column table.  A tiled plan runs its padded core on x padded to
+    [M, 128-multiple] and sliced back."""
     rows_check(plan)
     n, d = plan.num_nodes, x.shape[1]
     if x.shape[0] != n:
@@ -938,11 +1053,10 @@ def spmm_rows(arrs, x, plan, compute_dtype):
         xp[:n, :d] = x
         return spmm_wide_padded(arrs, xp, plan, compute_dtype)[:n, :d].to(x.dtype)
     xr = x.to(compute_dtype).contiguous()
-    nonempty = [s for s in range(len(plan.band_widths))
-                if arrs[f"band{s}_start"].shape[0] > 0]
-    num_sw = max(plan.band_num_sw, -(-n // plan.band_h)) if plan.band_widths else 0
-    if (plan.band_full_cover and nonempty
-            and sum(len(plan.band_sw_ids[s]) for s in nonempty) == num_sw):
+    if band_covers_all(plan):
+        num_sw = max(plan.band_num_sw, -(-n // plan.band_h))
+        nonempty = [s for s in range(len(plan.band_widths))
+                    if arrs[f"band{s}_start"].shape[0] > 0]
         xb = _band_table(xr, plan)
         od = x.dtype if x.dtype in (xr.dtype, torch.float32) else torch.float32
         s_main = max(nonempty, key=lambda s: len(plan.band_sw_ids[s]))
@@ -957,32 +1071,15 @@ def spmm_rows(arrs, x, plan, compute_dtype):
             out = _spill_take(out, arrs, xr, plan)
         return out.to(x.dtype)
 
-    total = row_population_rows(plan)
-    allrows = torch.empty((total + 1, d), dtype=torch.float32, device=x.device)
-    allrows[total] = 0
-    off = 0
-    xb = _band_table(xr, plan) if nonempty else None
-    for s in range(len(plan.band_widths)):
-        rows = arrs[f"band{s}_start"].shape[0] * plan.band_h
-        if rows:
-            part = band_bucket_spmm(arrs[f"band{s}_start"], arrs[f"band{s}_a"], xb)
-            allrows[off: off + rows] = part.view(rows, -1)[:, :d]
-        off += rows
-    wh = plan.window_h
-    for b in range(len(plan.bucket_widths)):
-        wb = arrs[f"b{b}_cols"].shape[0]
-        if wb:
-            dense_bucket_spmm(arrs[f"b{b}_cols"], arrs[f"b{b}_a"], xr,
-                              out=allrows[off: off + wb * wh].view(wb, wh, d))
-        off += wb * wh
-    for e in range(len(plan.ell_widths)):
-        rb = arrs[f"e{e}_cols"].shape[0]
-        if rb:
-            ell_bucket_spmm(arrs[f"e{e}_cols"], xr, out=allrows[off: off + rb])
-        off += rb
-    ell_residual_spmm(arrs["sparse_seg_ptr"], arrs["sparse_edge_col"], xr,
-                      out=allrows[off: off + plan.num_sparse_rows])
-    out = allrows.index_select(0, arrs["out_perm"])
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    banded = [s for s in range(len(plan.band_widths)) if arrs[f"band{s}_rq"].shape[0]]
+    xb = _band_table(xr, plan) if banded else None
+    for s in banded:
+        part = band_bucket_spmm(arrs[f"band{s}_start"], arrs[f"band{s}_a"], xb)
+        out.index_copy_(0, arrs[f"band{s}_rnode"],
+                        part.view(-1, xb.shape[1]).index_select(0, arrs[f"band{s}_rq"])[:, :d])
+    dense_rows(arrs, plan, xr, out)
+    ell_rows(arrs, xr, out)
     if plan.has_spill and "spill_rows" in arrs:
         out = _spill_take(out, arrs, xr, plan)
     return out.to(x.dtype)
@@ -1001,7 +1098,8 @@ def sparse_seg_ptr(seg, rs: int) -> np.ndarray:
 def check_row_arrays(host: dict, plan) -> dict:
     """Host check of the row populations' index arrays before upload (the
     row kernels and the merge read them unchecked); returns the residual's
-    row starts (``sparse_seg_ptr``) to upload beside them."""
+    row starts (``sparse_seg_ptr``) to upload beside them and, for a plan
+    that ``spmm_rows`` runs population by population, ``row_tables``."""
     c = plan.num_cols
     for key in [f"b{b}_cols" for b in range(len(plan.bucket_widths))] + [
             f"e{e}_cols" for e in range(len(plan.ell_widths))] + ["sparse_edge_col"]:
@@ -1017,7 +1115,102 @@ def check_row_arrays(host: dict, plan) -> dict:
     total = row_population_rows(plan)
     if len(perm) != plan.num_nodes or (perm.size and (perm.min() < 0 or perm.max() > total)):
         raise ValueError(f"out_perm must hold {plan.num_nodes} rows in [0, {total}]")
-    return {"sparse_seg_ptr": sparse_seg_ptr(host["sparse_edge_seg"], plan.num_sparse_rows)}
+    extra = {"sparse_seg_ptr": sparse_seg_ptr(host["sparse_edge_seg"], plan.num_sparse_rows)}
+    if not (getattr(plan, "tband", False) or getattr(plan, "tiled", False)
+            or band_covers_all(plan)):
+        extra.update(row_tables(host, plan))
+    return extra
+
+
+def row_tables(host: dict, plan) -> dict:
+    """The tables by which ``spmm_rows`` writes each population's rows at
+    their node ids, built from the plan's owners of each row and checked
+    against ``out_perm``: every node is owned exactly once, by one
+    population row (band and dense rows below N, ELL rows, residual rows
+    with edges) or, where ``out_perm`` points at the zero row, by none.
+    Raises otherwise.
+
+    Returns ``band{s}_rq`` / ``band{s}_rnode`` (int64: the band part's kept
+    rows and their nodes), ``b{b}_wid`` (int32 window ids of the real
+    windows) and ``b{b}_m`` (their row masks, ``window_masks``), and the row
+    table of the ELL kernel: ``rw_node``, ``rw_ptr`` and ``rw_cols`` (int32;
+    each ELL and residual row's real entries, without the pad entries at
+    ``num_cols``, then the zero rows with none), sorted stably into hub rows
+    (at least ``_ELL_SPLIT`` entries), middle rows and short rows (at most
+    ``_ELL_SHORT``), with ``rows_meta`` = (hubs, middle, short, residual
+    rows)."""
+    n, c, wh, bh = plan.num_nodes, plan.num_cols, plan.window_h, plan.band_h
+    owner = np.full(n, -1, np.int64)
+    out = {}
+
+    def claim(nodes, pos, what):
+        if nodes.size and (nodes.min() < 0 or nodes.max() >= n):
+            raise ValueError(f"{what} names a node outside [0, {n})")
+        if np.unique(nodes).size != nodes.size or (owner[nodes] >= 0).any():
+            raise ValueError(f"{what} claims a node that another row already owns")
+        owner[nodes] = pos
+
+    def block_rows(ids, h, off, what):
+        ids = np.asarray(ids, np.int64)
+        q = np.arange(ids.size * h)
+        node = ids[q // h] * h + q % h if ids.size else q
+        keep = node < n
+        claim(node[keep], off + q[keep], what)
+        return q[keep], node[keep]
+
+    off = 0
+    for s in range(len(plan.band_widths)):
+        out[f"band{s}_rq"], out[f"band{s}_rnode"] = block_rows(plan.band_sw_ids[s], bh, off,
+                                                               f"band{s}_sw")
+        off += plan.band_starts[s].shape[0] * bh
+    for b in range(len(plan.bucket_widths)):
+        wids = np.asarray(plan.bucket_window_ids[b], np.int64)
+        block_rows(wids, wh, off, f"bucket {b}'s windows")
+        out[f"b{b}_wid"] = wids.astype(np.int32)
+        out[f"b{b}_m"] = window_masks(host[f"b{b}_a"][: wids.size])
+        off += host[f"b{b}_cols"].shape[0] * wh
+    nodes, lens, flats = [], [], []  # the row table's rows, in population order
+    for e in range(len(plan.ell_widths)):
+        rows = np.asarray(plan.ell_row_ids[e], np.int64)
+        claim(rows, off + np.arange(rows.size), f"ELL bucket {e}'s rows")
+        cols = np.asarray(host[f"e{e}_cols"])[: rows.size]
+        real = cols != c
+        nodes.append(rows)
+        lens.append(real.sum(1))
+        flats.append(cols[real])
+        off += host[f"e{e}_cols"].shape[0]
+    rs = plan.num_sparse_rows
+    seg, ecol = np.asarray(host["sparse_edge_seg"]), np.asarray(host["sparse_edge_col"])
+    rr = np.flatnonzero(np.bincount(seg[seg < rs], minlength=rs))  # residual rows with edges
+    nodes.append(np.asarray(plan.sparse_rows, np.int64)[rr])
+    claim(nodes[-1], off + rr, "the residual rows")
+    sel = (seg < rs) & (ecol != c)
+    lens.append(np.bincount(seg[sel], minlength=rs)[rr])
+    flats.append(ecol[sel])
+    zero = np.flatnonzero(owner < 0)
+    bad = np.flatnonzero(np.where(owner >= 0, owner, row_population_rows(plan))
+                         != np.asarray(host["out_perm"]))
+    if bad.size:
+        v = int(bad[0])
+        who = f"owned by row {owner[v]}" if owner[v] >= 0 else "owned by none"
+        raise ValueError(f"out_perm disagrees with the populations' owners at node {v} ({who})")
+    nodes.append(zero)
+    lens.append(np.zeros(zero.size, np.int64))
+    node, ln = np.concatenate(nodes), np.concatenate(lens).astype(np.int64)
+    flat = np.concatenate(flats)
+    if flat.size > np.iinfo(np.int32).max:
+        raise ValueError(f"{flat.size} row entries: the row table takes at most 2^31 - 1")
+    order = np.argsort(np.where(ln >= _ELL_SPLIT, 0, np.where(ln > _ELL_SHORT, 1, 2)),
+                       kind="stable")
+    start = np.cumsum(ln) - ln
+    ptr = np.concatenate([[0], np.cumsum(ln[order])])
+    take = np.repeat(start[order] - ptr[:-1], ln[order]) + np.arange(ptr[-1])
+    n_hub = int(np.count_nonzero(ln >= _ELL_SPLIT))
+    n_short = int(np.count_nonzero(ln <= _ELL_SHORT))
+    out.update(rw_node=node[order].astype(np.int32), rw_ptr=ptr.astype(np.int32),
+               rw_cols=flat[take].astype(np.int32),
+               rows_meta=np.array([n_hub, node.size - n_hub - n_short, n_short, rr.size]))
+    return out
 
 
 def check_tiled_arrays(host: dict, plan) -> dict:

@@ -408,8 +408,10 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     ``device_arrays(dense_band=False)`` plus the dense int8 band blocks
     (``band{s}_at`` [Sb, W, bh] transposed, ``band{s}_a`` [Sb, bh, Bb]
     wide), the merges' destination segment tables, the lane merge's
-    composed columns ``ds_lsrc`` and the residual's row starts
-    (``sparse_seg_ptr``).  A tband plan on the lane path drops the row
+    composed columns ``ds_lsrc``, the residual's row starts
+    (``sparse_seg_ptr``) and the row layout's owner tables
+    (``block_spmm.row_tables``; ``rows_meta`` stays on the host).  A tband
+    plan on the lane path drops the row
     merge arrays it never reads.  A tiled plan uploads its pair stream, the
     pair runs ``tp_ptr`` and its A tiles ``tp_a`` [P, bh, 128] instead of
     dense band blocks.  The band entries, the row populations' indices,
@@ -428,8 +430,8 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     tiled = getattr(plan, "tiled", False)
     if tiled:
         host.update(block_spmm.check_tiled_arrays(host, plan))
-    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-           for k, v in host.items()}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+        "cpu" if k in block_spmm.HOST_KEYS else device) for k, v in host.items()}
     if tiled:
         out["tp_a"] = torch.from_numpy(plan.tiled_a_dense()).to(device)
     # band slices must fit the padded layout where it runs, else the row

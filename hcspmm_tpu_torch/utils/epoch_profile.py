@@ -28,8 +28,8 @@ GROUPS = (
     ("fused_kernel", "fused kernel"),
     ("tiled_kernel", "tiled band kernel"),
     ("band_kernel", "band kernel"),
-    ("dense_rows_kernel", "dense bucket kernel"),
-    ("ell_rows_kernel", "ELL kernel"),
+    ("dense_window_kernel", "dense window kernel"),
+    ("ell_row_kernel", "ELL kernel"),
     ("merge_kernel", "spill merge"),
     ("mxgather_kernel", "mxgather"),
     ("zero_kernel", "zero-fill"),

@@ -488,6 +488,164 @@ def test_check_row_arrays_rejects_bad_indices():
                                     plan)
 
 
+def test_window_masks_hold_the_dense_blocks_bits():
+    """The dense kernel's row masks (``window_masks``, built on the host):
+    bit k of row r is A[r, k] != 0, for widths that are and are not
+    multiples of 32."""
+    rng = np.random.RandomState(3)
+    for kb in (8, 16, 32, 40, 96, 256):
+        a = (rng.rand(5, 16, kb) < 0.3).astype(np.int8)
+        m = block_spmm.window_masks(a)
+        assert m.dtype == np.int32 and m.shape == (5, 16, -(-kb // 32))
+        words = m.view(np.uint32).astype(np.int64)
+        bits = (words[..., :, None] >> np.arange(32)) & 1
+        np.testing.assert_array_equal(bits.reshape(5, 16, -1)[..., :kb], a)
+        assert not bits.reshape(5, 16, -1)[..., kb:].any()
+
+
+def _row_table_rows(tab):
+    """{node: entries} of the upload's row table."""
+    ptr = tab["rw_ptr"]
+    return {int(v): tab["rw_cols"][ptr[i]:ptr[i + 1]].tolist()
+            for i, v in enumerate(tab["rw_node"])}
+
+
+@pytest.mark.parametrize("name", ["residual", "mixed", "unaligned", "empty_rows", "intended"])
+def test_row_table_holds_the_buckets_real_entries(name):
+    """The ELL kernel's row table: each ELL row and each residual row with
+    its real entries in order (pad entries at num_cols dropped), each node
+    of no population as an empty row, every node once; hub, middle and short
+    rows in that order, counted in ``rows_meta``."""
+    graph, cfg, _ = CASES[name]
+    rp, ci, nn = graph()
+    plan = build_plan(rp, ci, nn, PlanConfig(**cfg))
+    host = plan.device_arrays(dense_band=False)
+    tab = block_spmm.check_row_arrays(host, plan)
+    got = _row_table_rows(tab)
+    assert len(got) == tab["rw_node"].size  # no node twice
+    want = {}
+    for e in range(len(plan.ell_widths)):
+        for i, v in enumerate(plan.ell_row_ids[e]):
+            row = plan.ell_cols[e][i]
+            want[int(v)] = row[row != plan.num_cols].tolist()
+    rs = plan.num_sparse_rows
+    for r in np.unique(plan.sparse_edge_seg[plan.sparse_edge_seg < rs]):
+        want[int(plan.sparse_rows[r])] = plan.sparse_edge_col[plan.sparse_edge_seg == r].tolist()
+    total = block_spmm.row_population_rows(plan)
+    for v in np.flatnonzero(plan.out_perm == total):
+        want[int(v)] = []
+    assert got == want
+    lens = np.diff(tab["rw_ptr"])
+    n_hub, n_mid, n_short, n_res = tab["rows_meta"].tolist()
+    assert n_hub + n_mid + n_short == lens.size
+    assert (lens[:n_hub] >= 64).all() and ((lens[n_hub:n_hub + n_mid] > 16)
+                                           & (lens[n_hub:n_hub + n_mid] < 64)).all()
+    assert (lens[n_hub + n_mid:] <= 16).all()
+    assert n_res == np.unique(plan.sparse_edge_seg[plan.sparse_edge_seg < rs]).size
+    if name == "residual":
+        assert n_res > 0 and n_hub > 0
+
+
+def test_owner_partition_refuses_a_node_owned_twice_or_by_none():
+    """The upload derives each node's owner from the plan's populations and
+    holds it against ``out_perm``: a node claimed by two rows, or a node
+    that ``out_perm`` gives a population row no table claims, is refused."""
+    plan = build_plan(*small_graph(300, 6), PlanConfig(**MIXED))
+    host = plan.device_arrays(dense_band=False)
+    tab = block_spmm.check_row_arrays(host, plan)
+    assert {"b0_wid", "b0_m", "rw_node", "band0_rq", "band0_rnode"} <= set(tab)
+    e = next(i for i, r in enumerate(plan.ell_row_ids) if len(r))
+    b = next(i for i, w in enumerate(plan.bucket_window_ids) if len(w))
+    dense_node = int(plan.bucket_window_ids[b][0]) * plan.window_h
+    twice = list(plan.ell_row_ids)
+    twice[e] = np.concatenate([twice[e][:-1], [dense_node]])  # a dense window's row
+    with pytest.raises(ValueError, match="already owns"):
+        block_spmm.check_row_arrays(host, dataclasses.replace(plan, ell_row_ids=twice))
+    none = list(plan.ell_row_ids)
+    none[e] = none[e][1:]  # its first row is left to nobody
+    with pytest.raises(ValueError, match="owned by none"):
+        block_spmm.check_row_arrays(host, dataclasses.replace(plan, ell_row_ids=none))
+    zero = np.flatnonzero(plan.out_perm == block_spmm.row_population_rows(plan))
+    if zero.size:  # a node of no population that out_perm sends to a row
+        perm = host["out_perm"].copy()
+        perm[zero[0]] = perm[plan.ell_row_ids[e][0]]
+        with pytest.raises(ValueError, match="out_perm disagrees"):
+            block_spmm.check_row_arrays(dict(host, out_perm=perm), plan)
+    outside = list(plan.bucket_window_ids)
+    outside[b] = outside[b] - plan.num_nodes  # negative window ids
+    with pytest.raises(ValueError, match="outside"):
+        block_spmm.check_row_arrays(host, dataclasses.replace(plan, bucket_window_ids=outside))
+
+
+@pytest.mark.parametrize("name", ["mixed", "unaligned", "empty_rows", "residual", "calibrated"])
+def test_population_launches_write_every_row_by_node_id(name):
+    """The whole-population entries (``dense_rows``: every dense bucket;
+    ``ell_rows``: ELL, residual and empty rows), through their plain
+    versions, into a NaN-filled [N, d]: every row not owned by a band
+    bucket is written, and with the band rows they give the SpMM of the JAX
+    ``spmm_pallas`` and of scipy.  N is no multiple of 16 in 'unaligned'
+    and 'mixed', 'empty_rows' has zero-degree nodes, 'mixed' is a
+    partial-cover plan with band, dense and ELL rows."""
+    op, jop, x, ref = both(name)
+    p, arrs = op.plan, op.arrays["f"]
+    n, d = x.shape
+    if name in ("unaligned", "mixed"):
+        assert n % 16 and p.num_dense_windows
+    if name == "mixed":
+        assert p.band_nnz and not p.band_full_cover and len(p.ell_row_ids[0])
+    xt = torch.from_numpy(x)
+    out = torch.full((n, d), float("nan"))
+    block_spmm.dense_rows(arrs, p, xt, out)
+    block_spmm.ell_rows(arrs, xt, out)
+    band = torch.zeros(n, dtype=torch.bool)
+    for s in range(len(p.band_widths)):
+        band[arrs[f"band{s}_rnode"]] = True
+    assert not out[~band].isnan().any() and out[band].isnan().all()
+    got = block_spmm.spmm_rows(arrs, xt, p, torch.float32)
+    assert rel_err(got[~band], ref[~band.numpy()]) < TOL[torch.float32]
+    want = jax.jit(lambda a, v: jax_block_spmm.spmm_pallas(a, v, jop.plan, jnp.float32))(
+        jop.arrays["f"], jnp.asarray(x))
+    assert rel_err(got, want) < TOL[torch.float32]
+    assert rel_err(got, ref) < TOL[torch.float32]
+
+
+def test_backward_plan_has_its_own_owner_tables():
+    """A directed graph (``symmetric=False``): the backward plan over A^T
+    has its own row table, whose empty rows are the nodes without
+    out-edges, and the gradient through it matches JAX and A^T @ g."""
+    rs = np.random.RandomState(9)
+    n = 203
+    src = rs.randint(0, 150, 900)  # nodes 150.. have no out-edges
+    dst = np.clip(src + rs.randint(-20, 21, src.size), 0, n - 1)
+    rp, ci = io.to_csr(src.astype(np.int32), dst.astype(np.int32), n)
+    cfg = dict(NEVER, loi_mode="calibrated", ell_widths=(4, 8))
+    op = HybridSpMM(rp, ci, n, PlanConfig(**cfg), symmetric=False, device="cpu")
+    jop = JaxHybridSpMM(rp, ci, n, JaxPlanConfig(**cfg), symmetric=False)
+    fwd, bwd = (_row_table_rows({k: v.numpy() for k, v in op.arrays[k].items()
+                                 if k.startswith("rw_")}) for k in ("f", "b"))
+
+    def empty(table):
+        return {v for v, e in table.items() if not e}
+
+    def in_windows(plan):  # rows of dense windows: the dense launch writes them
+        return {int(w) * plan.window_h + r for ids in plan.bucket_window_ids for w in ids
+                for r in range(plan.window_h)}
+
+    no_out = set(np.flatnonzero(np.diff(rp) == 0).tolist())
+    no_in = set(np.flatnonzero(np.bincount(ci, minlength=n) == 0).tolist())
+    assert empty(fwd) == no_out - in_windows(op.plan)
+    assert empty(bwd) == no_in - in_windows(op.plan_bwd)
+    assert empty(fwd) != empty(bwd)
+    x = rs.randn(n, 5).astype(np.float32)
+    g = rs.randn(n, 5).astype(np.float32)
+    xv = torch.from_numpy(x).requires_grad_(True)
+    (op.apply(op.arrays, xv) * torch.from_numpy(g)).sum().backward()
+    want = jax.jit(jax.grad(lambda v: jnp.sum(jop.apply(jop.arrays, v) * g)))(jnp.asarray(x))
+    a = spmm_reference_dense(rp, ci, n, np.eye(n))
+    assert rel_err(xv.grad, want) < TOL[torch.float32]
+    assert rel_err(xv.grad, a.T @ g) < TOL[torch.float32]
+
+
 def test_row_wrappers_reject_meta_tensors():
     """A wrapper takes the plain version only for CPU tensors; on any other
     device without a kernel it raises."""
@@ -559,3 +717,57 @@ def test_cuda_spmm_rows_matches_cpu(cd):
         got = ops[1](x.cuda())
         assert torch.equal(got, ops[1](x.cuda()))
         assert rel_err(got.cpu(), ops[0](x)) < TOL[DT[cd]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["calibrated", "mixed", "residual", "unaligned"])
+def test_cuda_population_launches_match_plain(name, dtype):
+    """``dense_rows`` and ``ell_rows`` on the card against their plain
+    versions (every row they own written, bitwise repeatable), and one
+    SpMM's launches: one of each kernel, the residual riding the ELL one."""
+    _need_cuda()
+    graph, cfg, _ = CASES[name]
+    rp, ci, nn = graph()
+    op = HybridSpMM(rp, ci, nn, PlanConfig(**cfg), device="cuda")
+    p, arrs = op.plan, op.arrays["f"]
+    for d in (1, 20, 32, 96, 256):
+        x = torch.from_numpy(np.random.RandomState(d).randn(nn, d).astype(np.float32)).to(
+            "cuda", dtype)
+
+        def run(kernel):
+            out = torch.zeros((nn, d), device="cuda")
+            if kernel:
+                block_spmm.dense_rows(arrs, p, x, out)
+                return block_spmm.ell_rows(arrs, x, out)
+            block_spmm.dense_rows_plain(arrs, p, x, out)
+            return block_spmm.ell_rows_plain(arrs["rw_node"], arrs["rw_ptr"], arrs["rw_cols"],
+                                             x, out)
+
+        got = run(True)
+        assert torch.equal(got, run(True))
+        assert rel_err(got.cpu(), run(False).cpu()) < 1e-5
+    before = dict(block_spmm.row_launches)
+    with torch.no_grad():
+        op(torch.randn((nn, 8), device="cuda"))
+    torch.cuda.synchronize()
+    after = {k: v - before[k] for k, v in block_spmm.row_launches.items()}
+    n_res = int(arrs["rows_meta"][3])
+    assert after == {"dense_bucket_spmm": int(p.num_dense_windows > 0),
+                     "ell_bucket_spmm": int(arrs["rw_node"].shape[0] > 0),
+                     "ell_residual": int(n_res > 0)}
+
+
+def test_row_variants_substitutes_named_constants():
+    """``utils/row_variants.py`` rebuilds csrc/rows.cu with named constants
+    changed: each name must match exactly one ``constexpr int``."""
+    from hcspmm_tpu_torch.kernels import _build
+    from hcspmm_tpu_torch.utils.row_variants import variant_source
+
+    with open(f"{_build.CSRC}/rows.cu") as f:
+        src = f.read()
+    got = variant_source(src, "STAGES=2,EU=8")
+    assert "constexpr int STAGES = 2;" in got and "constexpr int EU = 8;" in got
+    assert got.replace("STAGES = 2;", "STAGES = 1;").replace("EU = 8;", "EU = 4;") == src
+    with pytest.raises(ValueError, match="NOPE"):
+        variant_source(src, "NOPE=1")
