@@ -8,10 +8,11 @@ Phases, each of which raises on failure, with its seconds printed:
    power limit as nvidia-smi reports them;
 2. builds csrc/tband.cu, csrc/tspill.cu, csrc/block_spmm.cu, csrc/rows.cu
    and csrc/dstream.cu with nvcc for sm_90a, one nvcc each, started
-   together, and prints ptxas's register and shared-memory lines, those of
-   each tband_kernel instantiation (registers, spill bytes, static shared
-   memory) and the band kernel's launch configuration (ring stages,
-   dynamic shared memory, blocks an SM); the same of the two fused kernels
+   together, and prints each nvcc's seconds, ptxas's register and
+   shared-memory lines, those of each tband_kernel instantiation
+   (registers, spill bytes, static shared memory; every A_t encoding) and
+   the band kernel's launch configuration at packs 1, 2 and 8 (ring
+   stages, dynamic shared memory, blocks an SM); the same of the two fused kernels
    (tband_kernel's fused forms and band_fused_kernel: ptxas's registers and
    spills, and the host's sizing; phases 3 and 17 log the blocks an SM the
    card gave each launch);
@@ -91,9 +92,10 @@ Phases, each of which raises on failure, with its seconds printed:
     D 1-256, fp32 and bf16, pad rows and columns, empty buckets), then as
     one launch a population on small plans (N no multiple of 16, empty
     rows, three dense buckets, residual rows, a partial-cover plan with
-    band, dense and ELL rows) into a NaN-filled result, every row written;
-    bitwise repeatable, and each SpMM against scipy with exactly one launch
-    of each kernel;
+    band, dense and ELL rows, nine dense buckets, windows of 32 rows) into a
+    NaN-filled result, every row written; bitwise repeatable, and each SpMM
+    against scipy with exactly one ELL launch and one dense launch for each
+    eight dense buckets;
 14. the row layout on the full-size DD stand-in (cluster order,
     ``band_mode='never'``, intended and calibrated selectors): each kernel's
     one launch at the plan's arrays (D 32 and 256, fp32 and bf16, bitwise
@@ -101,8 +103,8 @@ Phases, each of which raises on failure, with its seconds printed:
     the population's own CSR and F.embedding_bag), ``apply`` against scipy
     (bitwise repeatable), the SpMM at dim 32 beside torch.sparse.mm, and the
     6-layer GCN and GIN trained 3 epochs through ``train.loop.train`` with
-    exactly one dense and one ELL launch (the residual riding it) counted
-    per SpMM;
+    exactly one ELL launch (the residual riding it) and one dense launch
+    for each eight dense buckets counted per SpMM;
 15. trains the 6-layer GCN 2 epochs through ``cli.main --impl xla`` (the
     plain form, row layout) on the blocks stand-in;
 16. the fused kernels (tband and wide), the tiled band and the grouped band
@@ -134,14 +136,30 @@ Phases, each of which raises on failure, with its seconds printed:
     each run's epoch_ms and layout;
 21. where GH's GCN epochs go: ``utils/epoch_profile.py`` on the tband GCN
     (hidden 32) and the wide GCN (hidden 256), device-busy ms by kernel
-    group.
+    group;
+22. the packed A_t encodings (``tband_pack`` 2: nibbles, 8: bits), which
+    tband_kernel reads as stored: at small odd shapes (bh 32-512, W 64-896,
+    W/8 below 64, a multiple of 64 and neither, capacity-padded entries,
+    zero items) the direct and bucket modes and the fused forms ONE, SLAB
+    and WHOLE at packs 2 and 8, fp32 and bf16, bit for bit pack 1's and
+    bitwise repeatable; at the blocks stand-in's and GH's plans built at
+    each pack (the upload's device bytes of ``band{s}_at`` printed, each
+    packed upload expanding to pack 1's blocks) the direct mode, and on the
+    blocks stand-in the bucket mode and the fused kernel at dt 32 / ht 32,
+    bit for bit pack 1's, timed in 7 interleaved rounds beside pack 1 and
+    torch.sparse.mm with each pack's plain version and bytes bound, and
+    apply_padded against scipy; and the 6-layer GCN trained 3 epochs through
+    ``train.loop.train`` at pack 1 and pack 8, composed and in the fused
+    mode, every tband_kernel launch of a pack 8 run counted as reading
+    pack 8 and its losses equal to pack 1's bit for bit.
 
 The second-to-last line is a JSON object with the kernel table (all
 sixteen TPU kernels' counterparts): for each kernel its launches on the
 main paths run here, its time, its plain version's, one library call's
 where PyTorch has one (torch.sparse.mm, torch.sparse.addmm, index_fill_,
 index_add_, index_select, F.embedding_bag) or, for the fused kernels, the
-composed pair they replace, and its bound: the larger of the bytes it must move (each
+composed pair they replace, and its bound (the tband kernels' rows also
+each pack's time, plain version and bound from phase 22): the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its
 operations at the card's peak rate for their type (fp32 67 TFLOP/s, bf16
 989 TFLOP/s), computed from this run's arrays; beside it the
@@ -163,6 +181,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from hcspmm_tpu_torch.utils.bench import block_csr, cuda_time_ms, device_ms, interleaved_ms
 
 STANDIN = dict(num_nodes=334_928, avg_degree=5.03, block_size=300, seed=7)
 REAL = ("DD", "YS", "GH")  # io.reference_standin keys: Table II graphs
@@ -237,21 +257,6 @@ class Phase:
 
     def __exit__(self, *exc):
         log(f"   ({self.name.split('.')[0]}: {time.perf_counter() - self.t0:.1f} s)")
-
-
-def cuda_time_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def rel_err(got, ref) -> tuple:
@@ -334,6 +339,7 @@ def zero_counts():
         for k in counts:
             counts[k] = 0
     tband.fused_shapes.clear()
+    tband.pack_launches.clear()
     block_spmm.fused_shapes.clear()
 
 
@@ -342,7 +348,8 @@ def read_counts() -> dict:
 
     return dict(tband_spmm=tband.launches, band_spmm=block_spmm.launches, **tspill.launches,
                 **dstream.launches, **block_spmm.row_launches, **tband.kernel_launches,
-                **block_spmm.kernel_launches)
+                **block_spmm.kernel_launches,
+                **{f"tband_pack{p}": tband.pack_launches[p] for p in (1, 2, 8)})
 
 
 def check_counts(counts, need, spmms, exact=False) -> None:
@@ -973,20 +980,6 @@ def merge_slots(kind, gcols, local, blk, *rest):
     return dest[keep], gcols[: chunks * 128].long().view(chunks, 128)[keep]
 
 
-def block_csr(a, starts, sw, num_sw, m):
-    """The band blocks of ``a`` (owned entries only) as one CSR matrix
-    [num_sw*bh, m] on the card: the library yardstick's operand."""
-    import torch
-
-    i, r, k = a.nonzero(as_tuple=True)
-    keep = sw.long()[i] < num_sw
-    i, r, k = i[keep], r[keep], k[keep]
-    rows = sw.long()[i] * a.shape[1] + r
-    cols = starts.long()[i] + k
-    return torch.sparse_coo_tensor(torch.stack([rows, cols]), torch.ones(
-        rows.numel(), device=a.device), (num_sw * a.shape[1], m)).coalesce().to_sparse_csr()
-
-
 def ranges_plan(plan, num_ranges=3):
     """``plan`` with its spill re-chunked as a column-range tile stream
     (the reference's build_dstream_ranges, as format/plan.py builds it when
@@ -1012,26 +1005,6 @@ def median_ms(fn, reps: int, trials: int = 7) -> tuple:
     """(median, 2nd, 6th) of ``trials`` CUDA-event timings of ``reps`` calls."""
     v = sorted(cuda_time_ms(fn, reps) for _ in range(trials))
     return v[len(v) // 2], v[1], v[-2]
-
-
-def device_ms(fn, reps: int, frag: str) -> float:
-    """Device-busy ms per call of ``fn`` in the kernels whose names hold
-    ``frag`` (torch.profiler), without the host's launch overhead that a
-    CUDA-event time of back-to-back small launches includes."""
-    import torch
-
-    act = torch.profiler.ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and frag in e.name)
-    if not busy:
-        raise AssertionError(f"torch.profiler saw no device time in kernels named *{frag}*")
-    return busy / 1e3 / reps
 
 
 def bound(nbytes: float, ops: float, cd: str = "float32") -> tuple:
@@ -1082,9 +1055,9 @@ FORMS = {"0": "band", "1": "fused SLAB", "2": "fused WHOLE", "3": "fused ONE"}
 
 def tband_kernel_report(log_text: str) -> list:
     """ptxas's lines of each instantiation of csrc/tband.cu's tband_kernel."""
-    return ptxas_report(log_text, r"tband_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)E",
+    return ptxas_report(log_text, r"tband_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                         lambda k: f"tband_kernel<{types_of(k.group(1))}, DT {k.group(2)}, COLS "
-                                  f"{k.group(3)}, {FORMS[k.group(4)]}>")
+                                  f"{k.group(3)}, {FORMS[k.group(4)]}, PACK {k.group(5)}>")
 
 
 def band_kernel_report(log_text: str) -> list:
@@ -1284,8 +1257,9 @@ def small_row_kernel_checks(gen) -> None:
 def small_plans():
     """(name, operator on the card, (rp, ci, n)) of small row-layout plans of
     one graph: N no multiple of 16 with empty rows, dense windows in three
-    buckets, ELL rows and residual hub rows; and a partial-cover plan mixing
-    band, dense and ELL rows."""
+    buckets, ELL rows and residual hub rows; a partial-cover plan mixing
+    band, dense and ELL rows; dense windows in nine buckets (two launches of
+    the dense kernel's table of eight); and windows of 32 rows."""
     import numpy as np
 
     from hcspmm_tpu_torch.config import PlanConfig
@@ -1307,18 +1281,22 @@ def small_plans():
     cfgs = {"calibrated": dict(band_mode="never", loi_mode="calibrated"),
             "intended": dict(band_mode="never"),
             "mixed": dict(band_spill="never", band_h=64, band_widths=(128,),
-                          loi_mode="calibrated")}
+                          loi_mode="calibrated"),
+            "nine buckets": dict(band_mode="never", loi_mode="all_dense", bucket_widths=(
+                16, 20, 24, 28, 32, 36, 40, 48, 56, 64, 96, 128, 256)),
+            "window 32": dict(band_mode="never", loi_mode="calibrated", window_h=32)}
     return [(name, HybridSpMM(rp, ci, n, PlanConfig(**cfg), device=DEV), (rp, ci, n))
             for name, cfg in cfgs.items()]
 
 
 def small_population_checks(gen) -> None:
     """The whole-population launches (``dense_rows``: every dense bucket in
-    one launch; ``ell_rows``: the ELL rows, the residual rows riding them and
-    the empty rows) against their plain versions on small plans, D
-    1/20/32/96/256, fp32 and bf16 tables, into a NaN-filled result (a row
-    written by neither stays NaN and fails the check), bitwise repeatable;
-    each SpMM against scipy with one launch of each kernel."""
+    one launch for each eight; ``ell_rows``: the ELL rows, the residual rows
+    riding them and the empty rows) against their plain versions on small
+    plans, D 1/20/32/96/256, fp32 and bf16 tables, into a NaN-filled result
+    (a row written by neither stays NaN and fails the check), bitwise
+    repeatable; each SpMM against scipy with one ELL launch and one dense
+    launch for each group of ``dense_launch_groups``."""
     import torch
 
     from hcspmm_tpu_torch.kernels import block_spmm
@@ -1328,7 +1306,13 @@ def small_population_checks(gen) -> None:
         owned = torch.zeros(n, dtype=torch.bool, device=DEV)
         for s in range(len(p.band_widths)):
             owned[arrs[f"band{s}_rnode"]] = True
-        log(f"  small {name} plan ({n} nodes): {row_population(p)}")
+        groups = block_spmm.dense_launch_groups(arrs, p)
+        log(f"  small {name} plan ({n} nodes, window_h {p.window_h}): {row_population(p)}; "
+            f"dense launches of buckets {groups}")
+        if name == "nine buckets" and sum(map(len, groups)) < 9:
+            raise AssertionError(f"the nine-bucket plan fills the dense buckets {groups}")
+        if name == "window 32" and not (p.window_h == 32 and p.num_dense_windows):
+            raise AssertionError("the window 32 plan must have dense windows of 32 rows")
         for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             for d in (1, 20, 32, 96, 256):
                 x = torch.randn((n, d), generator=gen).to(DEV, dtype)
@@ -1356,7 +1340,7 @@ def small_population_checks(gen) -> None:
         counts = read_counts()
         check(f"small {name} plan: SpMM vs scipy", got, csr_matmul(rp, ci, n, x.cpu().numpy()),
               "float32")
-        check_counts(counts, {"dense_bucket_spmm": int(p.num_dense_windows > 0),
+        check_counts(counts, {"dense_bucket_spmm": len(groups),
                               "ell_bucket_spmm": int(arrs["rw_node"].shape[0] > 0)}, 1,
                      exact=True)
     log("  whole-population launches at D 1/20/32/96/256, fp32 and bf16: every row written, "
@@ -1551,6 +1535,7 @@ def row_layout_phase(rp, ci, n, gen, out, launch_runs) -> None:
     import torch
 
     from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.kernels import block_spmm
     from hcspmm_tpu_torch.models.net import Net
     from hcspmm_tpu_torch.ops.spmm import HybridSpMM
     from hcspmm_tpu_torch.train.loop import train
@@ -1602,7 +1587,8 @@ def row_layout_phase(rp, ci, n, gen, out, launch_runs) -> None:
                 f"{res['final_loss']}; launches {counts} over {spmms} SpMMs")
             if not math.isfinite(res["final_loss"]):
                 raise AssertionError(f"DD {sel} {model}: loss is not finite")
-            check_counts(counts, {"dense_bucket_spmm": 1, "ell_bucket_spmm": 1,
+            groups = len(block_spmm.dense_launch_groups(op.arrays["f"], op.plan))
+            check_counts(counts, {"dense_bucket_spmm": groups, "ell_bucket_spmm": 1,
                                   "ell_residual": 1}, spmms, exact=True)
             launch_runs[f"DD rows {sel} {model}"] = counts
             if model == "gcn":
@@ -1650,18 +1636,6 @@ def hold_repeatable(name: str, fn, plain, cd: str) -> float:
             raise AssertionError(f"{name} (output {i}): two kernel runs differ")
         err = max(err, hold(f"{name} (output {i})", g, r, cd))
     return err
-
-
-def interleaved_ms(fns: dict, reps: int, trials: int = 7) -> dict:
-    """Median CUDA-event ms per call of each of ``fns`` over ``trials``
-    rounds in which the functions take turns (forwards, then backwards):
-    one process, interleaved, medians, as tools/ab_grouped.py and
-    tools/ablate_fusion.py compare variants."""
-    times = {k: [] for k in fns}
-    for t in range(trials):
-        for k in (list(fns) if t % 2 == 0 else list(reversed(fns))):
-            times[k].append(cuda_time_ms(fns[k], reps))
-    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
 def timed(label, fn_k, fn_p, nbytes, ops, fn_lib=None, reps=20, err=0.0) -> dict:
@@ -2214,6 +2188,293 @@ def train_fused_mode(rp, ci, n, gen, launch_runs, fused_res) -> None:
         torch.cuda.empty_cache()
 
 
+def packed_forms(at):
+    """{pack: the int8 0/1 blocks ``at`` [Sb, W, bh] on the card in that
+    encoding}: pack 1 itself, 2 and 8 packed by the port's own packers
+    (format/streams.py, as a plan's upload packs them)."""
+    import torch
+
+    from hcspmm_tpu_torch.format.streams import pack_a_bits, pack_a_nibble
+
+    host = at.cpu().numpy()
+    return {1: at, 2: torch.from_numpy(pack_a_nibble(host)).to(DEV),
+            8: torch.from_numpy(pack_a_bits(host)).to(DEV)}
+
+
+def packed_small_shapes(gen) -> None:
+    """The band kernel and its fused forms at packs 2 and 8 against pack 1
+    at small odd shapes (bh 32-512, W 64-896: W/8 below 64, a multiple of
+    64 and neither; nibble rows of 16 to 256 bytes, some in 16-byte boxes;
+    capacity-padded entries), fp32 and bf16: BAND direct with zero items
+    (a run of eight and singles) and bucket mode, and the fused forms ONE,
+    SLAB and WHOLE, every output bit for bit pack 1's and bitwise
+    repeatable; pack 1 against its plain version."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import tband
+
+    # (dt, W, bh, M)
+    small = [(16, 64, 128, 1024),   # W/8 = 8: a stage holds all eight planes
+             (32, 192, 32, 768),    # nibble rows of 16 bytes: unswizzled boxes
+             (48, 256, 96, 768),    # nibble rows of 48 bytes; three feature slabs
+             (32, 448, 256, 1024),  # W/8 = 56
+             (16, 768, 256, 2048),  # W/8 = 96: every other stage spans two planes
+             (32, 896, 256, 2048),  # GH's W: W/8 = 112
+             (96, 512, 160, 1024),  # nibble rows of 80 bytes; W/8 = 64
+             (16, 320, 320, 1024),  # warps of 32 columns, nibble rows of 160 bytes
+             (32, 640, 512, 1024),  # bh 512, W/8 = 80
+             (16, 128, 288, 512)]   # a warp's 32 columns across both nibble halves
+    forms = {p: set() for p in (1, 2, 8)}
+    names = {tband.FUSE_ONE: "ONE", tband.FUSE_SLAB: "SLAB", tband.FUSE_WHOLE: "WHOLE"}
+    for dt, w, bh, mm in small:
+        real, trash, num_sw = 5, 2, 24  # superwindows 16-23: a run of eight missing
+        perm = torch.randperm(16, generator=gen)
+        sw_d = torch.cat([perm[:real], torch.full((trash,), num_sw)]).to(DEV, torch.int32)
+        miss8 = torch.tensor([2], dtype=torch.int32, device=DEV)
+        miss1 = perm[real:].sort().values.to(DEV, torch.int32)
+        sw_f = torch.cat([torch.randperm(real, generator=gen),
+                          torch.full((trash,), real)]).to(DEV, torch.int32)
+        st = (torch.randint(0, (mm - w) // 128 + 1, (real + trash,), generator=gen) * 128).to(
+            DEV, torch.int32)
+        at = packed_forms((torch.rand((real + trash, w, bh), generator=gen) < 0.05).to(
+            torch.int8).to(DEV))
+        for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            xt = torch.randn((dt, mm), generator=gen).to(DEV, dtype)
+            label = f"dt {dt} W {w} bh {bh} {cd}"
+
+            def runs(p, hts=(32, 96)):
+                outs = [tband.tband_spmm_direct(sw_d, st, at[p], xt, num_sw, dtype, miss8, miss1,
+                                                pack=p),
+                        tband.tband_spmm_bucket(st, at[p], xt, pack=p)]
+                for ht in hts:
+                    wt = (torch.randn((ht, dt), generator=torch.Generator().manual_seed(ht))
+                          * 0.1).to(DEV, dtype)
+                    outs += tband.tband_fused_direct(sw_f, st, at[p], xt, wt, real, dtype, pack=p)
+                    forms[p].add(names[tband.last_fused_launch["form"]])
+                return outs
+
+            ref = runs(1)
+            check(f"packed small shapes: pack 1 direct {label} vs plain", ref[0],
+                  tband.tband_spmm_direct_plain(sw_d, st, at[1], xt, num_sw, dtype, miss8, miss1),
+                  cd)
+            for p in (2, 8):
+                got, again = runs(p), runs(p)
+                for i, (g, a, r) in enumerate(zip(got, again, ref)):
+                    if not torch.equal(g, a):
+                        raise AssertionError(f"pack {p} {label} output {i}: two runs differ")
+                    if not torch.equal(g, r):
+                        raise AssertionError(f"pack {p} {label} output {i} (direct, bucket, "
+                                             "then each fused agg and out): differs from pack 1")
+    for p in (2, 8):
+        if forms[p] != {"ONE", "SLAB", "WHOLE"}:
+            raise AssertionError(f"pack {p} ran the fused forms {sorted(forms[p])}, not all three")
+    log(f"  packs 2 and 8 at {len(small)} small shapes, fp32 and bf16: direct (with zero items), "
+        f"bucket and fused ({', '.join(sorted(forms[8]))}) outputs equal pack 1's bit for bit, "
+        "bitwise repeatable")
+
+
+def packed_at_plan(key, graph, gen, out) -> None:
+    """The band kernel at packs 1, 2 and 8 at a graph's own tband plans
+    (``PlanConfig(band_impl='tband', tband_pack=p)``, uploaded by the
+    operator: ``band{s}_at`` int8, then uint8 nibbles and bits): each packed
+    upload expands to pack 1's blocks exactly; direct mode at dt 32, fp32 and
+    bf16, bit for bit pack 1's on the owned blocks and bitwise repeatable,
+    each pack held against its plain version (its row's ``err``), the three
+    packs and torch.sparse.mm of the blocks timed in 7 interleaved rounds
+    (medians) beside each pack's plain version and bytes bound; on the
+    blocks stand-in also the bucket mode (beside torch.sparse.mm of the
+    blocks' CSR in entry order) and the fused kernel at dt 32 / ht 32 (beside
+    the composed pair at the same pack: the band kernel, then torch.matmul),
+    fp32, the same way; apply_padded at each pack against scipy.  Rows go
+    into ``out[(kernel, key, cd)]`` as {pack: row}."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.kernels import tband
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM, _dot
+
+    rp, ci, n = graph
+    t0 = time.perf_counter()
+    ops = {p: HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband", tband_pack=p), device=DEV)
+           for p in (1, 2, 8)}
+    p1 = ops[1].plan
+    s = max(range(len(p1.band_widths)), key=lambda i: len(p1.band_sw_ids[i]))
+    arrs = {p: op.arrays["f"] for p, op in ops.items()}
+    st, sw = arrs[1][f"band{s}_start"], arrs[1][f"band{s}_sw"]
+    at = {p: a[f"band{s}_at"] for p, a in arrs.items()}
+    m, bh = p1.padded_rows, p1.band_h
+    num_sw = m // bh
+    for p in (2, 8):
+        if not (torch.equal(arrs[p][f"band{s}_start"], st) and torch.equal(arrs[p][f"band{s}_sw"],
+                                                                           sw)):
+            raise AssertionError(f"{key}: the pack {p} plan's entries differ from pack 1's")
+        if at[p].dtype != torch.uint8 or not torch.equal(tband.expand_at(at[p], p), at[1]):
+            raise AssertionError(f"{key}: the pack {p} upload does not expand to pack 1's blocks")
+    nnz = int(at[1].count_nonzero())
+    shape = f"Sb {at[1].shape[0]}, W {at[1].shape[1]}, bh {bh}, dt 32"
+    log(f"  {key}: plans at packs 1, 2, 8 ({time.perf_counter() - t0:.1f} s with upload); "
+        + "; ".join(f"band{s}_at pack {p}: {a.dtype} {tuple(a.shape)}, {a.numel()} device bytes"
+                    for p, a in at.items()))
+    a_rows = block_csr(at[1].transpose(1, 2), st, sw, num_sw, m)
+    owned = torch.zeros(num_sw, dtype=torch.bool, device=DEV)
+    owned[sw[sw < num_sw].long()] = True
+    cols = owned.repeat_interleave(bh)
+
+    def packs_row(kernel, cd, fns, plains, nbytes_of, ops_n, view, lib=None, reps=20):
+        """Hold each pack's ``fns[p]`` against its plain version ``plains[p]``
+        on the compared part ``view`` of each output, then time the packs'
+        ``fns`` (and ``lib``: one callable, or one a pack) in 7 interleaved
+        rounds; one row a pack with its error, its plain version's time and
+        its bound."""
+        errs = {}
+        for p in fns:
+            got, want = fns[p](), plains[p]()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            errs[p] = max(check(f"{key} {kernel} pack {p} {cd} output {i} vs plain", view(g),
+                                view(w), cd) for i, (g, w) in enumerate(zip(got, want)))
+        timed_fns = {f"pack {p}": f for p, f in fns.items()}
+        if callable(lib):
+            timed_fns["library"] = lib
+        elif lib:
+            timed_fns.update({f"library {p}": f for p, f in lib.items()})
+        ab = interleaved_ms(timed_fns, reps)
+        rows = {}
+        for p in fns:
+            b_ms, b_by = bound(nbytes_of(p), ops_n, cd)
+            rows[p] = dict(ms=ab[f"pack {p}"], plain_ms=cuda_time_ms(plains[p], 2),
+                           library_ms=ab.get(f"library {p}", ab.get("library")), bound_ms=b_ms,
+                           bound_by=b_by, at_bytes=at[p].numel(), err=errs[p], shape=shape)
+        log(f"    {key} {kernel} {cd} at {shape}: " + "; ".join(
+            f"pack {p} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+            f"{'none' if r['library_ms'] is None else round(r['library_ms'], 4)}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}, A_t {r['at_bytes']} bytes)"
+            for p, r in rows.items()) + " (medians of 7 interleaved rounds)")
+        out[(kernel, key, cd)] = rows
+
+    for cd, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        xt = torch.randn((32, m), generator=gen).to(DEV, dtype)
+        elt = xt.element_size()
+
+        def direct(p):
+            return lambda: tband.tband_spmm_direct(sw, st, at[p], xt, num_sw, dtype, pack=p)
+
+        ref = direct(1)()
+        for p in (2, 8):
+            got = direct(p)()
+            if not torch.equal(got[:, cols], direct(p)()[:, cols]):
+                raise AssertionError(f"{key} pack {p} direct {cd}: two runs differ")
+            if not torch.equal(got[:, cols], ref[:, cols]):
+                raise AssertionError(f"{key} pack {p} direct {cd}: differs from pack 1")
+        log(f"  {key} direct {cd}: packs 2 and 8 equal pack 1 bit for bit, bitwise repeatable")
+        x_rows = xt.T.contiguous()
+        a_cd = a_rows.to(dtype)
+        packs_row("tband_spmm", cd, {p: direct(p) for p in (1, 2, 8)},
+                  {p: (lambda p=p: tband.tband_spmm_direct_plain(sw, st, at[p], xt, num_sw, dtype,
+                                                                 pack=p)) for p in (1, 2, 8)},
+                  lambda p: at[p].numel() + xt.numel() * elt + 32 * m * elt + 8 * at[p].shape[0],
+                  2 * nnz * 32, lambda o: o[:, cols], lib=lambda: torch.sparse.mm(a_cd, x_rows))
+        del a_cd
+        if key == "blocks" and cd == "float32":
+            sb = at[1].shape[0]
+            refs = tband.tband_spmm_bucket(st, at[1], xt)
+            bucket_csr = block_csr(at[1].transpose(1, 2), st, torch.arange(sb, device=DEV), sb, m)
+            for p in (2, 8):
+                if not torch.equal(tband.tband_spmm_bucket(st, at[p], xt, pack=p), refs):
+                    raise AssertionError(f"{key} pack {p} bucket: differs from pack 1")
+            packs_row("tband_spmm_bucket", cd,
+                      {p: (lambda p=p: tband.tband_spmm_bucket(st, at[p], xt, pack=p))
+                       for p in (1, 2, 8)},
+                      {p: (lambda p=p: tband.tband_spmm_bucket_plain(st, at[p], xt, pack=p))
+                       for p in (1, 2, 8)},
+                      lambda p: at[p].numel() + xt.numel() * 4 + 32 * sb * bh * 4 + 4 * sb,
+                      2 * nnz * 32, lambda o: o, lib=lambda: torch.sparse.mm(bucket_csr, x_rows))
+            del bucket_csr
+            wt = (torch.randn((32, 32), generator=gen) * 0.1).to(DEV)
+            refs = tband.tband_fused_direct(sw, st, at[1], xt, wt, num_sw, dtype)
+            for p in (2, 8):
+                got = tband.tband_fused_direct(sw, st, at[p], xt, wt, num_sw, dtype, pack=p)
+                if not all(torch.equal(g[:, cols], r[:, cols]) for g, r in zip(got, refs)):
+                    raise AssertionError(f"{key} pack {p} fused: differs from pack 1")
+            log(f"  {key} bucket and fused (dt 32 / ht 32) fp32: packs 2 and 8 equal pack 1 "
+                "bit for bit")
+            packs_row("tband_fused_direct", cd,
+                      {p: (lambda p=p: tband.tband_fused_direct(sw, st, at[p], xt, wt, num_sw,
+                                                                dtype, pack=p))
+                       for p in (1, 2, 8)},
+                      {p: (lambda p=p: tband.tband_fused_direct_plain(sw, st, at[p], xt, wt,
+                                                                      num_sw, dtype, pack=p))
+                       for p in (1, 2, 8)},
+                      lambda p: at[p].numel() + (xt.numel() + wt.numel() + 64 * m) * 4
+                      + 8 * at[p].shape[0], 2 * nnz * 32 + 2 * 32 * 32 * m,
+                      lambda o: o[:, cols], reps=10,
+                      lib={p: (lambda p=p: _dot(wt, direct(p)())) for p in (1, 2, 8)})
+        del xt, ref, x_rows
+    x = np.random.RandomState(0).randn(n, 32).astype(np.float32)
+    want = csr_matmul(rp, ci, n, x)
+    for p, op in ops.items():
+        with torch.no_grad():
+            got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 32)
+        check(f"{key} pack {p} apply_padded vs scipy", got, want, "float32")
+    del ops, arrs, at, a_rows
+    torch.cuda.empty_cache()
+
+
+def train_packed(rp, ci, n, launch_runs, out) -> None:
+    """The 6-layer GCN (dim 96, hidden 32, classes 22) trained 3 epochs
+    through ``train.loop.train`` on the blocks stand-in's tband plans at
+    pack 1 and pack 8 from the same weights, composed and in the fused mode
+    (``op.plan.prefer_fused_kernel = True``), the launch counters zeroed
+    just before each run and read just after: every launch of tband_kernel
+    in a pack 8 run reads pack 8 (at least the 12 SpMMs of each step), and
+    its losses equal pack 1's bit for bit."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.models.net import Net
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+    from hcspmm_tpu_torch.train.loop import train
+
+    class Losses:
+        def __init__(self):
+            self.v = []
+
+        def log(self, **rec):
+            self.v.append(rec["loss"])
+
+    net = Net("gcn", 96, 32, 22, 6)
+    xin = torch.from_numpy(np.random.RandomState(1).randn(n, 96).astype(np.float32))
+    y = np.ones(n, dtype=np.int64)
+    for fused in (False, True):
+        losses = {}
+        for p in (1, 8):
+            op = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband", tband_pack=p), device=DEV)
+            op.plan.prefer_fused_kernel = fused
+            train(net, op, xin, y, epochs=1, warmup_epochs=0, seed=3)  # first-call costs
+            rec = Losses()
+            zero_counts()
+            res = train(net, op, xin, y, epochs=3, warmup_epochs=0, seed=3, logger=rec)
+            counts = read_counts()
+            losses[p] = rec.v
+            mode = "fused" if fused else "composed"
+            log(f"  blocks GCN at pack {p}, {mode}: losses {rec.v}, epoch_ms "
+                f"{res['epoch_ms']:.3f}; launches {counts}")
+            total = counts["tband_spmm"] + counts["tband_fused_direct"]
+            if counts[f"tband_pack{p}"] != total or total < SPMMS_PER_STEP * 3:
+                raise AssertionError(f"pack {p} {mode}: {counts[f'tband_pack{p}']} of {total} "
+                                     f"tband_kernel launches read pack {p}; at least "
+                                     f"{SPMMS_PER_STEP * 3} expected")
+            if fused:
+                check_counts(counts, {"tband_fused_direct": 1}, 6 * 3)
+            launch_runs[f"blocks gcn tband pack {p} {mode}"] = counts
+            out[(p, mode)] = dict(losses=rec.v, epoch_ms=res["epoch_ms"])
+            del op
+        if losses[8] != losses[1] or not all(math.isfinite(v) for v in losses[8]):
+            raise AssertionError(f"pack 8 losses {losses[8]} differ from pack 1's {losses[1]}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2250,10 +2511,18 @@ def main() -> int:
 
     with Phase("2. build the five CUDA sources"):
         libs = (tband._lib, tspill._lib, block_spmm._lib, block_spmm._rows_lib, dstream._lib)
+        names = ("tband", "tspill", "block_spmm", "rows", "dstream")
+
+        def seconds(load):
+            t0 = time.perf_counter()
+            load()
+            return time.perf_counter() - t0
+
         with ThreadPoolExecutor(len(libs)) as pool:
-            for f in [pool.submit(load) for load in libs]:
-                f.result()
-        for name in ("tband", "tspill", "block_spmm", "rows", "dstream"):
+            secs = [f.result() for f in [pool.submit(seconds, load) for load in libs]]
+        log("  nvcc seconds, the five started together: "
+            + ", ".join(f"csrc/{name}.cu {t:.1f}" for name, t in zip(names, secs)))
+        for name in names:
             with open(_build.library_path(name) + ".log") as f:
                 for line in f:
                     if any(w in line for w in ("Compiling", "registers", "spill")):
@@ -2265,8 +2534,10 @@ def main() -> int:
             for line in band_kernel_report(f.read()):
                 log("  " + line)
         for bh, dtype in ((256, torch.float32), (256, torch.bfloat16), (512, torch.float32)):
-            log(f"  tband_kernel at bh {bh}, dt 32, {dtype}: "
-                f"{tband.launch_config(bh, 32, dtype, dtype)} (dynamic shared memory bytes)")
+            for pack in (1, 2, 8):
+                log(f"  tband_kernel at bh {bh}, dt 32, {dtype}, pack {pack}: "
+                    f"{tband.launch_config(bh, 32, dtype, dtype, pack)} (dynamic shared memory "
+                    "bytes)")
         device = block_spmm.band_device(0)
         for dt, ht in ((32, 32), (96, 32), (192, 32), (64, 608), (32, 96)):
             for dtype in (torch.float32, torch.bfloat16):
@@ -2645,6 +2916,13 @@ def main() -> int:
                     f"{rec['busy_ms_per_epoch']:.3f} ms ({rec['idle_share']:.1%} idle); "
                     + ", ".join(f"{g} {v:.3f}" for g, v in rec["ms_per_epoch"].items()))
 
+    packed_res, packed_train = {}, {}
+    with Phase("22. the packed A_t encodings (tband_pack 2 and 8)"):
+        packed_small_shapes(gen)
+        packed_at_plan("blocks", (rp, ci, n), gen, packed_res)
+        packed_at_plan("GH", real_csr["GH"], gen, packed_res)
+        train_packed(rp, ci, n, launch_runs, packed_train)
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -2680,18 +2958,29 @@ def main() -> int:
     wide_bucket, wide_fused = new_res[("band_bucket_spmm", 256)], new_res[(
         "band_fused_spmm_direct", 256)]
     grouped, tiled = new_res[("band_bucket_spmm_grouped", 128)], new_res[("band_tiled_spmm", 256)]
+    def packs(kernel):
+        """Each pack's row of ``kernel`` at each plan and type phase 22 ran."""
+        return {f"{k[1]} {k[2]} pack {p}": row for k, rows in packed_res.items()
+                if k[0] == kernel for p, row in rows.items()}
+
     kernels = [
         entry("tband_spmm", csrc + "tband.cu", tpu + "tband.py:217", band_blocks,
               f"blocks {band_blocks['shape']}, float32, direct write",
-              err=max(v["err"] for (_, cd), v in band_res.items() if cd == "float32"),
-              design=TBAND_DESIGN, plans={f"{k} {cd}": v for (k, cd), v in band_res.items()}),
+              err=max([v["err"] for (_, cd), v in band_res.items() if cd == "float32"]
+                      + [v["err"] for k, v in packs("tband_spmm").items() if "float32" in k]),
+              design=TBAND_DESIGN, plans={f"{k} {cd}": v for (k, cd), v in band_res.items()},
+              packs=packs("tband_spmm")),
         entry("tband_spmm_bucket", csrc + "tband.cu", tpu + "tband.py:246", tb_bucket,
-              tb_bucket["shape"], design=TBAND_DESIGN),
+              tb_bucket["shape"], err=max([tb_bucket["err"]] + [
+                  v["err"] for v in packs("tband_spmm_bucket").values()]),
+              design=TBAND_DESIGN, packs=packs("tband_spmm_bucket")),
         entry("tband_fused_direct", csrc + "tband.cu", tpu + "tband.py:309", tb_fused,
-              tb_fused["shape"], err=max(v["err"] for k, v in new_res.items()
-                                         if k[0] == "tband_fused_shapes"),
+              tb_fused["shape"], err=max([v["err"] for k, v in new_res.items()
+                                          if k[0] == "tband_fused_shapes"] + [
+                  v["err"] for v in packs("tband_fused_direct").values()]),
               design=TBAND_FUSED_DESIGN, band_ms=tb_fused["band_ms"],
-              ops_rate=tb_fused["ops_rate"], launch=tb_fused["launch"]),
+              ops_rate=tb_fused["ops_rate"], launch=tb_fused["launch"],
+              packs=packs("tband_fused_direct")),
         entry("band_bucket_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:317",
               wide_bucket, wide_bucket["shape"]),
         entry("band_bucket_spmm_grouped", csrc + "block_spmm.cu", tpu + "block_spmm.py:414",
@@ -2761,7 +3050,9 @@ def main() -> int:
                             take_then_index_add=r["library_ms"], index_add=r["index_add_ms"])
                         for cd in ("float32", "bfloat16")
                         for r in spill_res[("tbstream_merge", cd)]},
-                    "epoch_profiles": profiles}))
+                    "epoch_profiles": profiles,
+                    "packed_training": {f"pack {k[0]} {k[1]}": v
+                                        for k, v in packed_train.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

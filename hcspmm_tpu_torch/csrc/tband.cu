@@ -15,6 +15,17 @@
 // Precision.HIGHEST (tband.py:166-168).  bf16 inputs are widened exactly;
 // outputs are rounded to nearest.
 //
+// A_t comes in the plan's stored encoding (tband_kernel's PACK, the
+// reference's tband_pack): 1, int8 [Sb, W, bh]; 2, uint8 [Sb, W, bh/2], the
+// low nibble of byte j holding column j and the high nibble column j + bh/2;
+// 8, uint8 [Sb, W/8, bh], bit g of byte row r holding row g*(W/8) + r.  The
+// reference expands a packed block in the kernel body (_expand_a,
+// tband.py:84); here the consumers read their columns' nibbles or bits from
+// the packed stage itself, and nothing is expanded, in shared or global
+// memory.  Each output element is the same fmaf chain over its non-zero rows
+// in increasing k at every pack, so packs 2 and 8 give pack 1's output bit
+// for bit.
+//
 // The direct mode also takes over hcspmm_tpu/kernels/tspill.py:zero_lane_blocks
 // (pallas_call at :75), which the reference runs after it: the blocks of the
 // superwindows no entry owns (runs of eight, then singles) are zero items of
@@ -80,6 +91,21 @@
 // feature instead was slower still); the sums in registers behind a jump
 // table; one block an SM with 6 stages, or three with 2; updating two
 // columns at a time; a ring capped at 2 stages.
+//
+// The packed stages.  Pack 2: a stage holds the slab's 64 rows of bh/2
+// bytes, in boxes of CW = 128, 64, 32 or 16 bytes (the largest that divides
+// bh/2; a 16-byte box takes no swizzle): half pack 1's bytes.  Each 16-column
+// chunk of a warp lies in one half of the block, so its row-mask loads keep
+// one nibble of each byte, and lane l shifts its column's nibble out of its
+// byte.  Pack 8: logical rows [k0, k0 + 64) lie in byte rows (k0 + j) mod G
+// (G = W/8) of planes (k0 + j) / G, in runs that end where a plane does; the
+// producer copies each run to stage rows j onward in boxes of 64, 32, 16 or
+// 8 rows (G is a multiple of 8, and 8 rows of a box are one swizzle atom), so
+// stage row j holds logical row k0 + j in one of its bits.  The stage keeps
+// pack 1's size; the eight reads of a byte row fall within one entry's walk
+// and come from L2, so device memory gives W*bh/8 bytes of A_t an entry.
+// Lane l tests bit (k0 + k) / G of its column's byte of row k (a multiply
+// by G's reciprocal, no division and no shuffle).
 //
 // The fused forms (tband_fused_direct: agg^T as above and out^T = W^T
 // round_as(agg^T), round_as the reference's agg.astype(wt.dtype)).  At the
@@ -194,9 +220,14 @@ struct Items {
 // Bytes of W^T staged as [dt][wsm] fp32 (the fused kernel's SLAB and ONE).
 __host__ __device__ constexpr int wt_bytes(int wsm, int dt) { return wsm * dt * 4; }
 
+// Bytes of an A_t row as the packed block stores it: bh/2 at pack 2, else bh
+// (pack 8 stages one byte row a logical row).
+__host__ __device__ constexpr int a_row_bytes(int bh, int pack) { return pack == 2 ? bh / 2 : bh; }
+
 // Shared memory of one block, from the first 1024-aligned address of the
 // dynamic window (SWIZZLE_ATOM bytes are reserved for that): ``stages`` ring
-// stages, each the A_t slab as bh/CW boxes [KT][CW] int8 and the X^T slab as
+// stages, each the A_t slab as rb/CW boxes [KT][CW] bytes (rb =
+// a_row_bytes) and the X^T slab as
 // KT/XW boxes [DT][XW] of TX (XW = 128 bytes of TX), all as the tensor
 // copies land them; then each consumer warp's sums, [COLS columns][stride]
 // fp32, stride DT + 1 (the fused kernel's whole-entry form: dt + 1; the
@@ -207,15 +238,15 @@ template <typename TX, int DT>
 struct Layout {
   static constexpr int XW = 128 / (int)sizeof(TX);
   static constexpr int ACC_STRIDE = DT + 1;
-  static __host__ __device__ int stage_bytes(int bh) {
-    return KT * bh + KT * DT * (int)sizeof(TX);
+  static __host__ __device__ int stage_bytes(int rb) {
+    return KT * rb + KT * DT * (int)sizeof(TX);
   }
   static __host__ __device__ int acc_bytes(int bh, int stride = ACC_STRIDE) {
     return bh * stride * (int)sizeof(float);
   }
-  static __host__ __device__ size_t smem(int bh, int stages, int stride = ACC_STRIDE,
+  static __host__ __device__ size_t smem(int bh, int rb, int stages, int stride = ACC_STRIDE,
                                          int wsm = 0, int dt = 0) {
-    return SWIZZLE_ATOM + (size_t)stages * stage_bytes(bh) + acc_bytes(bh, stride) +
+    return SWIZZLE_ATOM + (size_t)stages * stage_bytes(rb) + acc_bytes(bh, stride) +
            wt_bytes(wsm, dt) + BAR_BYTES;
   }
 };
@@ -337,6 +368,15 @@ __device__ __forceinline__ float2 ldw2(const __nv_bfloat16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
 }
 
+// A_t's tensor maps (tband_kernel's ``amaps``): boxes of KT, KT/2, KT/4 and
+// KT/8 rows at pack 8; packs 1 and 2 take the one map of KT rows, so their
+// parameter block holds no unused maps.
+template <int PACK>
+struct AMaps {
+  static constexpr int N = PACK == 8 ? 4 : 1;
+  CUtensorMap m[N];
+};
+
 // The consumer warps' barrier (the producer warp takes no part).
 __device__ __forceinline__ void consumer_sync(int nthreads) {
   asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
@@ -394,8 +434,11 @@ __device__ __forceinline__ void whole_product(const float* sums, int stride, int
 // (COLS 16 up to bh 256, twice the warps to share a stage's uneven rows;
 // else 32): for A_t reads lane l < COLS stands for column COLS w + l, for
 // X^T reads and sums lane l stands for feature row d0 + l.
-// ``amap``: A_t as [Sb*W rows, bh] int8, box [KT][cw]; ``xmap``: X^T as
-// [dt rows, M] of TX, box [DT][XW], 128-byte swizzle.
+// ``amaps``: A_t as PACK stores it, [Sb*W rows, bh] int8 (PACK 1), [Sb*W,
+// bh/2] (2) or [Sb*W/8, bh] (8) bytes, boxes of cw bytes a row (swizzled
+// as wide, none at 16) and KT rows (m[0]; pack 8 also KT/2, KT/4 and KT/8:
+// m[1..3]); ``xmap``: X^T as [dt rows, M] of TX, box [DT][XW], 128-byte
+// swizzle.  ``w`` and ``bh`` are the logical block's.
 // Direct mode only: ``miss8`` (n8 ids, runs of eight superwindows) and
 // ``miss1`` (n1 ids) name the superwindows no entry owns.  Their blocks are
 // zero items, (superwindow, feature slab) pairs the consumers of block b
@@ -410,9 +453,9 @@ __device__ __forceinline__ void whole_product(const float* sums, int stride, int
 // registers, and stores the tile after the last slab.  WHOLE: the sums of
 // slab d0 land at column d0 of a stride of dt + 1, and after the last slab
 // the warp runs wt_product over all dt for each 32-row tile of out^T.
-template <typename TX, typename TO, int DT, int COLS, int FUSE>
+template <typename TX, typename TO, int DT, int COLS, int FUSE, int PACK>
 __global__ void __launch_bounds__(MAX_BH + 32, (FUSE == SLAB || FUSE == ONE) && COLS == 16 ? 2 : 1)
-tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap xmap,
+tband_kernel(const __grid_constant__ AMaps<PACK> amaps, const __grid_constant__ CUtensorMap xmap,
              const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
              const int32_t* __restrict__ miss8, int n8, const int32_t* __restrict__ miss1,
              int n1, TO* __restrict__ out, int sb, int w, int bh, int cw, int nchunk,
@@ -423,7 +466,8 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
   extern __shared__ __align__(16) unsigned char tband_smem[];
   unsigned char* ring =
       tband_smem + ((SWIZZLE_ATOM - smem_addr(tband_smem) % SWIZZLE_ATOM) % SWIZZLE_ATOM);
-  const int stage_bytes = L::stage_bytes(bh);
+  const int rb = a_row_bytes(bh, PACK);
+  const int stage_bytes = L::stage_bytes(rb);
   const int dt = nchunk * DT;
   const int stride = FUSE == WHOLE ? dt + 1 : L::ACC_STRIDE;
   float* sums = reinterpret_cast<float*>(ring + stages * stage_bytes);
@@ -464,10 +508,26 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
       if (t >= stages) bar_wait(&empty[slot], (t / stages - 1) & 1);
       fence_proxy_async();
       unsigned char* a_dst = ring + slot * stage_bytes;
-      unsigned char* x_dst = a_dst + KT * bh;
+      unsigned char* x_dst = a_dst + KT * rb;
       const int i = it.entry(), k0 = it.k0(), x0 = starts[i] + k0;
       bar_arrive_expect(&full[slot], stage_bytes);
-      for (int c = 0; c < bh; c += cw) tensor_load(a_dst + KT * c, &amap, c, i * w + k0, &full[slot]);
+      if constexpr (PACK == 8) {
+        // logical row k0 + j: byte row (k0 + j) % G of plane (k0 + j) / G; each
+        // run of byte rows up to a plane's end lands at stage rows j onward
+        const int G = w / 8;
+        for (int j = 0; j < KT;) {
+          int r = (k0 + j) % G;
+          for (int len = min(KT - j, G - r); len > 0;) {
+            const int q = len >= KT ? 0 : len >= KT / 2 ? 1 : len >= KT / 4 ? 2 : 3;
+            for (int c = 0; c < rb; c += cw)
+              tensor_load(a_dst + KT * c + j * cw, &amaps.m[q], c, i * G + r, &full[slot]);
+            j += KT >> q, r += KT >> q, len -= KT >> q;
+          }
+        }
+      } else {
+        for (int c = 0; c < rb; c += cw)
+          tensor_load(a_dst + KT * c, &amaps.m[0], c, i * w + k0, &full[slot]);
+      }
       for (int h = 0; h < KT / XW; ++h)
         tensor_load(x_dst + h * DT * 128, &xmap, x0 + h * XW, it.d0(DT), &full[slot]);
       it.next();
@@ -487,9 +547,30 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
     }
   }
   Items it = items();
-  const int amask = cw / 16 - 1;
-  // this warp's columns lie in one A_t box, at byte c0 of its rows
-  const int box = warp * COLS / cw * KT * cw, c0 = warp * COLS % cw;
+  const int amask = cw / 16 - 1;  // 0 for 16-byte boxes: no swizzle
+  // Column c's byte in each stage row: c, or (pack 2) c - bh/2 for the high
+  // nibbles' half; byte b lies in box b / cw (at KT * cw bytes a box), at
+  // column b % cw.  At packs 1 and 8 the warp's columns lie in one box
+  // (``wbox``) at bytes c0 + j; at pack 2 each 16-column chunk h of the row
+  // masks lies mbox[h] bytes past it, at bytes mcol[h] + j, and lane l's
+  // column lbox bytes past it, at byte lcol.
+  auto a_byte = [&](int c) { return PACK == 2 && c >= bh / 2 ? c - bh / 2 : c; };
+  const int wbox = warp * COLS / cw * KT * cw, c0 = warp * COLS % cw;
+  int mbox[COLS / 16], mcol[COLS / 16];
+  unsigned mkeep[COLS / 16];  // the bits of a chunk's bytes that hold its columns
+#pragma unroll
+  for (int h = 0; h < COLS / 16; ++h) {
+    const int c = warp * COLS + 16 * h, b = a_byte(c);
+    mbox[h] = PACK == 2 ? b / cw * KT * cw - wbox : 0;
+    mcol[h] = PACK == 2 ? b % cw : c0 + 16 * h;
+    mkeep[h] = PACK != 2 ? 0xffffffffu : c < bh / 2 ? 0x0f0f0f0fu : 0xf0f0f0f0u;
+  }
+  const int lb = a_byte(warp * COLS + (lane < COLS ? lane : 0));
+  const int lbox = lb / cw * KT * cw - wbox, lcol = PACK == 2 ? lb % cw : lb - warp * COLS + c0;
+  const int lshift = PACK == 2 && warp * COLS + lane >= bh / 2 ? 4 : 0;
+  // pack 8: the plane of logical row k is k / G = __umulhi(k, gdiv), exact
+  // for k < W (G = W/8 >= 8: the product's error stays below 1/G)
+  const unsigned gdiv = PACK == 8 ? 0xffffffffu / (unsigned)(w / 8) + 1u : 0u;
   const int xrow = lane * 128;  // feature row ``lane`` in an X^T box, before the swizzle
   float* acc = sums + warp * COLS * stride;  // [column][feature]
   for (int c = 0; c < COLS; ++c)
@@ -498,25 +579,43 @@ tband_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ C
   for (int t = 0; it.valid(); ++t) {
     const int slot = t % stages;
     bar_wait(&full[slot], (t / stages) & 1);
-    const unsigned char* a_s = ring + slot * stage_bytes + box;
-    const unsigned char* x_s = ring + slot * stage_bytes + KT * bh;
+    const unsigned char* a_s = ring + slot * stage_bytes + wbox;  // this warp's box
+    const unsigned char* x_s = ring + slot * stage_bytes + KT * rb;
     // the slab's sums: columns [0, DT) of acc, or [d0, d0 + DT) (WHOLE)
     float* acc_s = acc + (FUSE == WHOLE ? it.d0(DT) : 0);
+    // pack 8: the planes of logical rows k0 + lane and k0 + lane + 32
+    const unsigned k0 = it.k0();
+    const int plane_lo = PACK == 8 ? __umulhi(k0 + lane, gdiv) : 0;
+    const int plane_hi = PACK == 8 ? __umulhi(k0 + lane + 32, gdiv) : 0;
     // rows of this stage in which any of the warp's columns is non-zero
     unsigned any_lo = 0u, any_hi = 0u;
 #pragma unroll
-    for (int h = 0; h < COLS; h += 16) {
-      const uint4 p = lds128(a_s + swz(lane * cw + c0 + h, amask));
-      const uint4 r = lds128(a_s + swz((lane + 32) * cw + c0 + h, amask));
-      any_lo |= p.x | p.y | p.z | p.w;
-      any_hi |= r.x | r.y | r.z | r.w;
+    for (int h = 0; h < COLS / 16; ++h) {
+      const uint4 p = lds128(a_s + mbox[h] + swz(lane * cw + mcol[h], amask));
+      const uint4 r = lds128(a_s + mbox[h] + swz((lane + 32) * cw + mcol[h], amask));
+      const unsigned keep_lo = PACK == 8 ? 0x01010101u << plane_lo : mkeep[h];
+      const unsigned keep_hi = PACK == 8 ? 0x01010101u << plane_hi : mkeep[h];
+      any_lo |= (p.x | p.y | p.z | p.w) & keep_lo;
+      any_hi |= (r.x | r.y | r.z | r.w) & keep_hi;
     }
     const unsigned lo = __ballot_sync(0xffffffffu, any_lo != 0u);
     const unsigned hi = __ballot_sync(0xffffffffu, any_hi != 0u);
     unsigned long long rows = lo | (unsigned long long)hi << 32;
-    // column COLS w + lane's byte of row k, and feature row ``lane``'s x of it
+    // column COLS w + lane's value in row k (its byte, nibble or bit), and
+    // feature row ``lane``'s x of it
+    // (Pack 1 predicates the load on lane < COLS; packs 2 and 8 load in
+    // every lane, those past COLS their warp's first column, and select:
+    // the predicated form compiles to a branch around their longer
+    // extraction, which made the row loop slower on the card, as the select
+    // did pack 1's.)
     auto byte_of = [&](int k) {
-      return lane < COLS ? (int)static_cast<int8_t>(a_s[swz(k * cw + c0 + lane, amask)]) : 0;
+      if constexpr (PACK == 1) {
+        return lane < COLS ? (int)static_cast<int8_t>(a_s[swz(k * cw + lcol, amask)]) : 0;
+      } else {
+        const int b = a_s[lbox + swz(k * cw + lcol, amask)];
+        const int v = PACK == 2 ? (b >> lshift) & 15 : (b >> __umulhi(k0 + k, gdiv)) & 1;
+        return lane < COLS ? v : 0;
+      }
     };
     auto x_of = [&](int k) {
       return lane < DT ? to_f32(*reinterpret_cast<const TX*>(
@@ -618,9 +717,10 @@ struct Config {
   size_t smem = 0;
 };
 
-template <typename TX, typename TO, int DT, int COLS>
+template <typename TX, typename TO, int DT, int COLS, int PACK>
 cudaError_t launch_config(int bh, Config* cfg) {
   using L = Layout<TX, DT>;
+  const int rb = a_row_bytes(bh, PACK);
   static Config cache[MAX_BH / 32 + 1];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -638,12 +738,12 @@ cudaError_t launch_config(int bh, Config* cfg) {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const long long fit = ((long long)per_sm / 2 - reserved - (long long)L::smem(bh, 0)) /
-                        L::stage_bytes(bh);
+  const long long fit = ((long long)per_sm / 2 - reserved - (long long)L::smem(bh, rb, 0)) /
+                        L::stage_bytes(rb);
   const int stages = (int)(fit < 2 ? 2 : fit > MAX_STAGES ? MAX_STAGES : fit);
-  const size_t smem = L::smem(bh, stages);
+  const size_t smem = L::smem(bh, rb, stages);
   if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  auto kernel = tband_kernel<TX, TO, DT, COLS, BAND>;
+  auto kernel = tband_kernel<TX, TO, DT, COLS, BAND, PACK>;
   // the cap is the kernel's, not this band height's: let it take any
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e == cudaSuccess)
@@ -659,6 +759,16 @@ cudaError_t launch_config(int bh, Config* cfg) {
   *cfg = c;
   return cudaSuccess;
 }
+
+// One launch's operands: A_t (PACK's encoding) and its logical shape [sb,
+// w, bh], X^T [dt, m], the output's columns, the superwindows.
+struct Operands {
+  const void *starts, *sw, *at, *xt;
+  void* out;
+  int sb, w, bh, dt, pack;
+  long long m, out_cols;
+  int num_sw;
+};
 
 // The superwindows a direct launch zeroes (tband_kernel's zero items).
 struct Missing {
@@ -678,10 +788,10 @@ struct Fused {
 };
 
 // Resident blocks an SM of the fused kernel tband_kernel<TX, TO, DT, COLS,
-// FUSE> with ``smem`` bytes of dynamic shared memory on the current device,
-// and the device's SMs; the kernel's shared-memory cap is raised to the
-// device's opt-in most on first use.
-template <typename TX, typename TO, int DT, int COLS, int FUSE>
+// FUSE, PACK> with ``smem`` bytes of dynamic shared memory on the current
+// device, and the device's SMs; the kernel's shared-memory cap is raised to
+// the device's opt-in most on first use.
+template <typename TX, typename TO, int DT, int COLS, int FUSE, int PACK>
 cudaError_t fused_blocks(int bh, size_t smem, int* blocks, int* sms) {
   static int opted[16] = {};
   int dev = 0, optin = 0;
@@ -691,7 +801,7 @@ cudaError_t fused_blocks(int bh, size_t smem, int* blocks, int* sms) {
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   if (smem > (size_t)optin || dev >= 16) return cudaErrorInvalidValue;
-  auto kernel = tband_kernel<TX, TO, DT, COLS, FUSE>;
+  auto kernel = tband_kernel<TX, TO, DT, COLS, FUSE, PACK>;
   if (!opted[dev]) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e != cudaSuccess) return e;
@@ -705,201 +815,206 @@ cudaError_t fused_blocks(int bh, size_t smem, int* blocks, int* sms) {
 // Dynamic shared memory of the fused kernel in form ``fuse`` with ``stages``
 // ring stages (kernels/tband.py:fused_launch mirrors it).
 template <typename TX, int DT>
-size_t fused_smem(int fuse, int bh, int dt, int stages, int wsm) {
-  return Layout<TX, DT>::smem(bh, stages, fuse == WHOLE ? dt + 1 : DT + 1, wsm, dt);
+size_t fused_smem(int fuse, int bh, int pack, int dt, int stages, int wsm) {
+  return Layout<TX, DT>::smem(bh, a_row_bytes(bh, pack), stages,
+                              fuse == WHOLE ? dt + 1 : DT + 1, wsm, dt);
 }
 
-template <typename TX, typename TO, int DT, int COLS, int FUSE>
-cudaError_t launch_cols(const void* starts, const void* sw, const void* at, const void* xt,
-                        void* out, int sb, int w, int bh, int dt, long long m,
-                        long long out_cols, int num_sw, Missing miss, Fused f,
-                        cudaStream_t stream) {
+template <typename TX, typename TO, int DT, int COLS, int FUSE, int PACK>
+cudaError_t launch_cols(const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
+  const int sb = o.sb, w = o.w, bh = o.bh, dt = o.dt;
   int stages = 0, blocks = 0, sms = 0;
   size_t smem = 0;
   cudaError_t e;
   if constexpr (FUSE == BAND) {
     Config c;
-    e = launch_config<TX, TO, DT, COLS>(bh, &c);
+    e = launch_config<TX, TO, DT, COLS, PACK>(bh, &c);
     stages = c.stages, blocks = c.blocks_per_sm, sms = c.sms, smem = c.smem;
   } else {
     stages = f.stages;
-    smem = fused_smem<TX, DT>(FUSE, bh, dt, stages, f.wsm);
-    e = fused_blocks<TX, TO, DT, COLS, FUSE>(bh, smem, &blocks, &sms);
+    smem = fused_smem<TX, DT>(FUSE, bh, PACK, dt, stages, f.wsm);
+    e = fused_blocks<TX, TO, DT, COLS, FUSE, PACK>(bh, smem, &blocks, &sms);
     if (e == cudaSuccess && f.blocks_out != nullptr) *f.blocks_out = blocks;
   }
   if (e != cudaSuccess) return e;
-  const int cw = bh % 128 == 0 ? 128 : bh % 64 == 0 ? 64 : 32;
+  // A_t's boxes: the widest of 128, 64, 32 or 16 bytes that divides a stored
+  // row, with the swizzle of its width (none at 16)
+  const int rb = a_row_bytes(bh, PACK);
+  const int cw = rb % 128 == 0 ? 128 : rb % 64 == 0 ? 64 : rb % 32 == 0 ? 32 : 16;
   const CUtensorMapSwizzle aswz = cw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                   : cw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+                                  : cw == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                             : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUtensorMapDataType xtype =
       sizeof(TX) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap amap = {}, xmap = {};  // no entry (only zero items): no copy reads them
-  if (sb > 0 &&
-      (!encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, at, (long long)sb * w, bh, KT, cw,
-                  aswz) ||
-       !encode_2d(&xmap, xtype, (int)sizeof(TX), xt, dt, m, DT, Layout<TX, DT>::XW,
-                  CU_TENSOR_MAP_SWIZZLE_128B)))
-    return cudaErrorInvalidValue;
+  AMaps<PACK> amaps = {};  // no entry (only zero items): no copy reads them
+  CUtensorMap xmap = {};
+  const long long a_rows = (long long)sb * (PACK == 8 ? w / 8 : w);
+  if (sb > 0) {
+    bool ok = encode_2d(&xmap, xtype, (int)sizeof(TX), o.xt, dt, o.m, DT, Layout<TX, DT>::XW,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+    for (int q = 0; q < AMaps<PACK>::N; ++q)
+      ok = ok && encode_2d(&amaps.m[q], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, o.at, a_rows, rb,
+                           KT >> q, cw, aswz);
+    if (!ok) return cudaErrorInvalidValue;
+  }
   const int nchunk = dt / DT;
   const long long items = FUSE == BAND ? ((long long)sb + 8LL * miss.n8 + miss.n1) * nchunk
                                        : (long long)sb * (FUSE == SLAB ? f.htiles : 1);
   const long long slots = (long long)blocks * sms;
-  tband_kernel<TX, TO, DT, COLS, FUSE>
+  tband_kernel<TX, TO, DT, COLS, FUSE, PACK>
       <<<(unsigned)(items < slots ? items : slots), bh / COLS * 32 + 32, smem, stream>>>(
-          amap, xmap, static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
-          miss.ids8, miss.n8, miss.ids1, miss.n1, static_cast<TO*>(out), sb, w, bh, cw, nchunk,
-          out_cols, num_sw, stages, static_cast<const TX*>(f.wt), static_cast<TO*>(f.wout),
+          amaps, xmap, static_cast<const int32_t*>(o.starts), static_cast<const int32_t*>(o.sw),
+          miss.ids8, miss.n8, miss.ids1, miss.n1, static_cast<TO*>(o.out), sb, w, bh, cw, nchunk,
+          o.out_cols, o.num_sw, stages, static_cast<const TX*>(f.wt), static_cast<TO*>(f.wout),
           f.ht, f.htiles, f.wsm);
   return cudaGetLastError();
 }
 
+template <typename TX, typename TO, int DT, int FUSE, int PACK>
+cudaError_t launch_pack(const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
+  if (cols_of(o.bh) == 16) return launch_cols<TX, TO, DT, 16, FUSE, PACK>(o, miss, f, stream);
+  return launch_cols<TX, TO, DT, 32, FUSE, PACK>(o, miss, f, stream);
+}
+
 template <typename TX, typename TO, int DT, int FUSE>
-cudaError_t launch(const void* starts, const void* sw, const void* at, const void* xt,
-                   void* out, int sb, int w, int bh, int dt, long long m,
-                   long long out_cols, int num_sw, Missing miss, Fused f, cudaStream_t stream) {
-  if (cols_of(bh) == 16)
-    return launch_cols<TX, TO, DT, 16, FUSE>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                             num_sw, miss, f, stream);
-  return launch_cols<TX, TO, DT, 32, FUSE>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                           num_sw, miss, f, stream);
+cudaError_t launch(const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
+  if (o.pack == 2) return launch_pack<TX, TO, DT, FUSE, 2>(o, miss, f, stream);
+  if (o.pack == 8) return launch_pack<TX, TO, DT, FUSE, 8>(o, miss, f, stream);
+  return launch_pack<TX, TO, DT, FUSE, 1>(o, miss, f, stream);
+}
+
+template <typename TX, typename TO, int DT, int PACK>
+cudaError_t config_cols(int bh, Config* c) {
+  return cols_of(bh) == 16 ? launch_config<TX, TO, DT, 16, PACK>(bh, c)
+                           : launch_config<TX, TO, DT, 32, PACK>(bh, c);
 }
 
 template <typename TX, typename TO, int DT>
-cudaError_t config_of(int bh, Config* c) {
-  return cols_of(bh) == 16 ? launch_config<TX, TO, DT, 16>(bh, c)
-                           : launch_config<TX, TO, DT, 32>(bh, c);
+cudaError_t config_of(int bh, int pack, Config* c) {
+  return pack == 2   ? config_cols<TX, TO, DT, 2>(bh, c)
+         : pack == 8 ? config_cols<TX, TO, DT, 8>(bh, c)
+                     : config_cols<TX, TO, DT, 1>(bh, c);
 }
 
 template <typename TX, typename TO, int DT>
-cudaError_t launch_fuse(int fuse, const void* starts, const void* sw, const void* at,
-                        const void* xt, void* out, int sb, int w, int bh, int dt, long long m,
-                        long long out_cols, int num_sw, Missing miss, Fused f,
-                        cudaStream_t stream) {
-  if (fuse == ONE)
-    return launch<TX, TO, DT, ONE>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw,
-                                   miss, f, stream);
-  if (fuse == SLAB)
-    return launch<TX, TO, DT, SLAB>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw,
-                                    miss, f, stream);
-  if (fuse == WHOLE)
-    return launch<TX, TO, DT, WHOLE>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                     num_sw, miss, f, stream);
-  return launch<TX, TO, DT, BAND>(starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw,
-                                  miss, f, stream);
+cudaError_t launch_fuse(int fuse, const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
+  if (fuse == ONE) return launch<TX, TO, DT, ONE>(o, miss, f, stream);
+  if (fuse == SLAB) return launch<TX, TO, DT, SLAB>(o, miss, f, stream);
+  if (fuse == WHOLE) return launch<TX, TO, DT, WHOLE>(o, miss, f, stream);
+  return launch<TX, TO, DT, BAND>(o, miss, f, stream);
 }
 
 template <typename TX, typename TO>
-cudaError_t dispatch_dt(int fuse, const void* starts, const void* sw, const void* at,
-                        const void* xt, void* out, int sb, int w, int bh, int dt, long long m,
-                        long long out_cols, int num_sw, Missing miss, Fused f,
-                        cudaStream_t stream) {
-  if (dt % 32 == 0)
-    return launch_fuse<TX, TO, 32>(fuse, starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                   num_sw, miss, f, stream);
-  return launch_fuse<TX, TO, 16>(fuse, starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                 num_sw, miss, f, stream);
+cudaError_t dispatch_dt(int fuse, const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
+  if (o.dt % 32 == 0) return launch_fuse<TX, TO, 32>(fuse, o, miss, f, stream);
+  return launch_fuse<TX, TO, 16>(fuse, o, miss, f, stream);
 }
 
 // The band or fused launch for the (X, out) type pair: fp32 -> fp32,
 // bf16 -> bf16 or bf16 -> fp32.
-cudaError_t launch_types(int fuse, const void* starts, const void* sw, const void* at,
-                         const void* xt, void* out, int sb, int w, int bh, int dt, long long m,
-                         long long out_cols, int num_sw, Missing miss, Fused f, int x_bf16,
+cudaError_t launch_types(int fuse, const Operands& o, Missing miss, Fused f, int x_bf16,
                          int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!x_bf16) {
     if (!out_f32) return cudaErrorInvalidValue;
-    return dispatch_dt<float, float>(fuse, starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols,
-                                     num_sw, miss, f, s);
+    return dispatch_dt<float, float>(fuse, o, miss, f, s);
   }
-  if (out_f32)
-    return dispatch_dt<__nv_bfloat16, float>(fuse, starts, sw, at, xt, out, sb, w, bh, dt, m,
-                                             out_cols, num_sw, miss, f, s);
-  return dispatch_dt<__nv_bfloat16, __nv_bfloat16>(fuse, starts, sw, at, xt, out, sb, w, bh, dt,
-                                                   m, out_cols, num_sw, miss, f, s);
+  if (out_f32) return dispatch_dt<__nv_bfloat16, float>(fuse, o, miss, f, s);
+  return dispatch_dt<__nv_bfloat16, __nv_bfloat16>(fuse, o, miss, f, s);
+}
+
+// The checks both entries make: the shapes the kernel takes, and the
+// 16-byte alignment its bulk copies need (A_t rows then are, as bh % 32 == 0,
+// and X^T's pieces, as st % 128 == 0, checked at upload).
+bool shapes_ok(int w, int bh, int dt, int pack) {
+  return dt > 0 && dt % 16 == 0 && w > 0 && w % KT == 0 && bh > 0 && bh % 32 == 0 &&
+         bh <= MAX_BH && (pack == 1 || pack == 2 || pack == 8);
+}
+bool aligned(const void* at, const void* xt, long long m, int x_bf16) {
+  return (uintptr_t)at % 16 == 0 && (uintptr_t)xt % 16 == 0 && m * (x_bf16 ? 2 : 4) % 16 == 0;
 }
 
 }  // namespace
 
-// starts, sw: int32 [sb] (sw may be null: bucket mode); at: int8 [sb, w, bh];
-// xt: [dt, m] fp32 (x_bf16 == 0) or bf16; out: [dt, out_cols], fp32 when
-// out_f32 != 0, else the type of xt.  Direct mode also zeroes the blocks of
-// the missing superwindows: columns [8*bh*miss8[i], +8*bh) and [bh*miss1[i],
-// +bh) of every row (miss8: int32 [n8], miss1: int32 [n1]; null when empty).
-// Returns a cudaError_t (0 = launched).  The caller guarantees st + w <= m for
-// every entry, that every output block it reads is written by exactly one
-// entry or missing id, and that the ids lie inside out.
+// starts, sw: int32 [sb] (sw may be null: bucket mode); at: the [sb, w, bh]
+// 0/1 blocks as ``pack`` stores them (1: int8 [sb, w, bh]; 2: uint8 [sb, w,
+// bh/2], nibbles; 8: uint8 [sb, w/8, bh], bits); xt: [dt, m] fp32 (x_bf16 ==
+// 0) or bf16; out: [dt, out_cols], fp32 when out_f32 != 0, else the type of
+// xt.  Direct mode also zeroes the blocks of the missing superwindows:
+// columns [8*bh*miss8[i], +8*bh) and [bh*miss1[i], +bh) of every row (miss8:
+// int32 [n8], miss1: int32 [n1]; null when empty).  Returns a cudaError_t (0 =
+// launched).  The caller guarantees st + w <= m for every entry, that every
+// output block it reads is written by exactly one entry or missing id, and
+// that the ids lie inside out.
 extern "C" int hcspmm_tband_spmm(const void* starts, const void* sw, const void* at,
                                  const void* xt, void* out, int sb, int w, int bh, int dt,
                                  long long m, long long out_cols, int num_sw, const void* miss8,
-                                 int n8, const void* miss1, int n1, int x_bf16, int out_f32,
-                                 void* stream) {
+                                 int n8, const void* miss1, int n1, int pack, int x_bf16,
+                                 int out_f32, void* stream) {
   if (sb <= 0 && n8 <= 0 && n1 <= 0) return 0;
-  if (sb < 0 || n8 < 0 || n1 < 0 || dt <= 0 || dt % 16 || w <= 0 || w % KT || bh <= 0 ||
-      bh % 32 || bh > MAX_BH || ((n8 || n1) && sw == nullptr))
+  if (sb < 0 || n8 < 0 || n1 < 0 || !shapes_ok(w, bh, dt, pack) ||
+      ((n8 || n1) && sw == nullptr))
     return (int)cudaErrorInvalidValue;
-  // the bulk copies need 16-byte aligned sources: A_t rows (bh % 32 == 0)
-  // and X^T pieces (st % 128 == 0, checked at upload) then are; the zero
-  // items store 16 bytes a lane
-  if ((uintptr_t)at % 16 || (uintptr_t)xt % 16 || m * (x_bf16 ? 2 : 4) % 16 ||
-      (uintptr_t)out % 16)
-    return (int)cudaErrorInvalidValue;
+  // the zero items store 16 bytes a lane
+  if (!aligned(at, xt, m, x_bf16) || (uintptr_t)out % 16) return (int)cudaErrorInvalidValue;
   const Missing miss{static_cast<const int32_t*>(miss8), static_cast<const int32_t*>(miss1), n8,
                      n1};
-  return launch_types(BAND, starts, sw, at, xt, out, sb, w, bh, dt, m, out_cols, num_sw, miss,
-                      Fused{nullptr, nullptr, 0, 1, 0, 0, nullptr}, x_bf16, out_f32, stream);
+  return launch_types(BAND, Operands{starts, sw, at, xt, out, sb, w, bh, dt, pack, m, out_cols,
+                                     num_sw},
+                      miss, Fused{nullptr, nullptr, 0, 1, 0, 0, nullptr}, x_bf16, out_f32, stream);
 }
 
-// The band kernel's launch configuration at band height bh, feature dim dt
-// and the given types on the current device: ring stages, dynamic shared
-// memory bytes and resident blocks an SM.  Returns a cudaError_t.
-extern "C" int hcspmm_tband_config(int bh, int dt, int x_bf16, int out_f32, int* stages,
-                                   long long* smem, int* blocks_per_sm) {
-  if (dt <= 0 || dt % 16 || bh <= 0 || bh % 32 || bh > MAX_BH || (!x_bf16 && !out_f32))
-    return (int)cudaErrorInvalidValue;
+// The band kernel's launch configuration at band height bh, feature dim dt,
+// A_t encoding ``pack`` and the given types on the current device: ring
+// stages, dynamic shared memory bytes and resident blocks an SM.  Returns a
+// cudaError_t.
+extern "C" int hcspmm_tband_config(int bh, int dt, int pack, int x_bf16, int out_f32,
+                                   int* stages, long long* smem, int* blocks_per_sm) {
+  if (!shapes_ok(KT, bh, dt, pack) || (!x_bf16 && !out_f32)) return (int)cudaErrorInvalidValue;
   Config c;
   cudaError_t e;
   if (!x_bf16)
-    e = dt % 32 ? config_of<float, float, 16>(bh, &c) : config_of<float, float, 32>(bh, &c);
+    e = dt % 32 ? config_of<float, float, 16>(bh, pack, &c)
+                : config_of<float, float, 32>(bh, pack, &c);
   else if (out_f32)
-    e = dt % 32 ? config_of<__nv_bfloat16, float, 16>(bh, &c)
-                : config_of<__nv_bfloat16, float, 32>(bh, &c);
+    e = dt % 32 ? config_of<__nv_bfloat16, float, 16>(bh, pack, &c)
+                : config_of<__nv_bfloat16, float, 32>(bh, pack, &c);
   else
-    e = dt % 32 ? config_of<__nv_bfloat16, __nv_bfloat16, 16>(bh, &c)
-                : config_of<__nv_bfloat16, __nv_bfloat16, 32>(bh, &c);
+    e = dt % 32 ? config_of<__nv_bfloat16, __nv_bfloat16, 16>(bh, pack, &c)
+                : config_of<__nv_bfloat16, __nv_bfloat16, 32>(bh, pack, &c);
   *stages = c.stages;
   *smem = (long long)c.smem;
   *blocks_per_sm = c.blocks_per_sm;
   return (int)e;
 }
 
-// starts, sw: int32 [sb]; at: int8 [sb, w, bh]; xt: [dt, m] fp32 or bf16;
-// wt: [ht, dt] in xt's type; agg: [dt, out_cols] and out: [ht, out_cols],
-// fp32 when out_f32 != 0, else xt's type.  Entries with sw >= num_sw write
-// nothing.  dt and ht are multiples of 16.  ``fuse`` (SLAB 1, WHOLE 2 or
-// ONE 3), ``htiles`` (SLAB: ceil(ht / 32); else 1) and ``stages`` come from the
-// host's sizing (kernels/tband.py:fused_launch).  The alignment and the
-// bounds are hcspmm_tband_spmm's.  ``blocks_per_sm`` (may be null) gets the
-// resident blocks an SM the card's occupancy gave the launch, which sized
-// its grid by them.  Returns a cudaError_t.
+// starts, sw: int32 [sb]; at: as hcspmm_tband_spmm's, in encoding ``pack``;
+// xt: [dt, m] fp32 or bf16; wt: [ht, dt] in xt's type; agg: [dt, out_cols]
+// and out: [ht, out_cols], fp32 when out_f32 != 0, else xt's type.  Entries
+// with sw >= num_sw write nothing.  dt and ht are multiples of 16.  ``fuse``
+// (SLAB 1, WHOLE 2 or ONE 3), ``htiles`` (SLAB: ceil(ht / 32); else 1) and
+// ``stages`` come from the host's sizing (kernels/tband.py:fused_launch).  The
+// alignment and the bounds are hcspmm_tband_spmm's.  ``blocks_per_sm`` (may be
+// null) gets the resident blocks an SM the card's occupancy gave the launch,
+// which sized its grid by them.  Returns a cudaError_t.
 extern "C" int hcspmm_tband_fused(const void* starts, const void* sw, const void* at,
                                   const void* xt, const void* wt, void* agg, void* out, int sb,
                                   int w, int bh, int dt, int ht, long long m, long long out_cols,
-                                  int num_sw, int fuse, int htiles, int stages, int wsm,
+                                  int num_sw, int fuse, int htiles, int stages, int wsm, int pack,
                                   int x_bf16, int out_f32, int* blocks_per_sm, void* stream) {
   if (sb <= 0) return 0;
-  if (sw == nullptr || dt <= 0 || dt % 16 || ht <= 0 || ht % 16 || w <= 0 || w % KT || bh <= 0 ||
-      bh % 32 || bh > MAX_BH || stages < 2 || stages > MAX_STAGES ||
+  if (sw == nullptr || !shapes_ok(w, bh, dt, pack) || ht <= 0 || ht % 16 || stages < 2 ||
+      stages > MAX_STAGES ||
       (fuse == SLAB ? htiles != (ht + HT_TILE - 1) / HT_TILE
                     : (fuse != WHOLE && fuse != ONE) || htiles != 1) ||
       (fuse == ONE && (ht > HT_TILE || (dt != 16 && dt != 32))) ||
       (wsm != 0 && (fuse == WHOLE || wsm != HT_TILE * htiles)))
     return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)at % 16 || (uintptr_t)xt % 16 || m * (x_bf16 ? 2 : 4) % 16 ||
-      (uintptr_t)wt % 16 || out_cols % 2)
+  if (!aligned(at, xt, m, x_bf16) || (uintptr_t)wt % 16 || out_cols % 2)
     return (int)cudaErrorInvalidValue;
-  return launch_types(fuse, starts, sw, at, xt, agg, sb, w, bh, dt, m, out_cols, num_sw,
+  return launch_types(fuse, Operands{starts, sw, at, xt, agg, sb, w, bh, dt, pack, m, out_cols,
+                                     num_sw},
                       Missing{nullptr, nullptr, 0, 0},
                       Fused{wt, out, ht, htiles, stages, wsm, blocks_per_sm}, x_bf16, out_f32,
                       stream);

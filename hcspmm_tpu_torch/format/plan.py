@@ -349,6 +349,20 @@ class ExecutionPlan:
             a[e[:, 0], e[:, 2], e[:, 1]] = 1
         return a
 
+    def band_at_stored(self, s: int) -> np.ndarray:
+        """``band_at_dense(s)`` in the plan's ``tband_pack`` encoding, as the
+        device holds it: int8 [Sb, Bb, band_h] (pack 1), uint8 nibbles [Sb,
+        Bb, band_h/2] (2) or bits [Sb, Bb/8, band_h] (8).  An empty bucket
+        stays int8."""
+        at = self.band_at_dense(s)
+        if self.tband_pack == 2 and at.size:
+            from hcspmm_tpu_torch.format.streams import pack_a_nibble
+            at = pack_a_nibble(at)
+        elif self.tband_pack == 8 and at.size:
+            from hcspmm_tpu_torch.format.streams import pack_a_bits
+            at = pack_a_bits(at)
+        return at
+
     @property
     def band_capacities(self) -> Tuple[int, ...]:
         return tuple(s.shape[0] for s in self.band_starts)
@@ -447,14 +461,7 @@ class ExecutionPlan:
             d[f"band{s}_start"] = self.band_starts[s]
             if self.tband:
                 if dense_band:
-                    at = self.band_at_dense(s)
-                    if self.tband_pack == 2 and at.size:
-                        from hcspmm_tpu_torch.format.streams import pack_a_nibble
-                        at = pack_a_nibble(at)
-                    elif self.tband_pack == 8 and at.size:
-                        from hcspmm_tpu_torch.format.streams import pack_a_bits
-                        at = pack_a_bits(at)
-                    d[f"band{s}_at"] = at
+                    d[f"band{s}_at"] = self.band_at_stored(s)
             elif dense_band and not self.tiled:
                 d[f"band{s}_a"] = self.band_a_dense(s)
             # pad to capacity for uniform shard stacking / grouped grid

@@ -39,9 +39,9 @@ which plans have that path; ``check_plan`` raises for any other plan.
 
 ``spmm_rows`` is one SpMM in the row layout [N, d] -> [N, d] (the
 reference's ``spmm_pallas``, HC-SpMM's own hybrid): band buckets through
-the band kernel, then every dense window in one launch (``dense_rows``,
-the reference's tensor-core population; ``dense_bucket_spmm`` is one
-bucket's) and every ELL row, residual hub row and empty row in another
+the band kernel, then every dense window in one launch for each eight
+dense buckets (``dense_rows``, the reference's tensor-core population;
+``dense_bucket_spmm`` is one bucket's) and every ELL row, residual hub row and empty row in another
 (``ell_rows``, the reference's CUDA-core warp-per-row loop and its
 segment-sum; ``ell_bucket_spmm`` and ``ell_residual_spmm`` run one bucket
 or the residual alone), each writing its rows of the result at their node
@@ -661,8 +661,7 @@ def band_tiled_spmm(arrs, xp, plan, out_dtype):
     return out
 
 
-_MAX_WH = 16  # csrc/rows.cu dense: 4 warps x 4 rows of a window
-_MAX_BUCKETS = 8  # csrc/rows.cu dense: buckets of one launch
+_MAX_BUCKETS = 8  # csrc/rows.cu dense: buckets of one launch's table
 _ELL_SHORT = 16  # rows of at most this many entries: a group of lanes each
 _ELL_SPLIT = 64  # rows of at least this many entries: a block of warps each
 
@@ -746,8 +745,6 @@ def dense_bucket_spmm(cols, a, xp, out=None):
     if a.dtype != torch.int8 or a.dim() != 3 or (a.shape[0], a.shape[2]) != (wb, kb):
         raise ValueError(f"a must be int8 [{wb}, wh, {kb}]")
     wh, d = a.shape[1], xp.shape[1]
-    if wh > _MAX_WH:
-        raise ValueError(f"window height {wh}: csrc/rows.cu takes at most {_MAX_WH}")
     out = _row_args(xp, out, (wb, wh, d), dict(cols=cols, a=a))
     if wb and d:
         masks = torch.from_numpy(window_masks(a.cpu().numpy())).to(xp.device)
@@ -755,24 +752,32 @@ def dense_bucket_spmm(cols, a, xp, out=None):
     return out
 
 
+def dense_launch_groups(arrs, plan) -> list:
+    """The buckets of each launch of ``dense_rows``: the plan's non-empty
+    dense buckets, the widest first, in groups of at most ``_MAX_BUCKETS``
+    (the table a launch takes by value; the buckets write disjoint rows, so
+    the split changes no sum)."""
+    buckets = sorted((b for b in range(len(plan.bucket_widths))
+                      if arrs[f"b{b}_wid"].shape[0]), key=lambda b: -plan.bucket_widths[b])
+    return [buckets[i:i + _MAX_BUCKETS] for i in range(0, len(buckets), _MAX_BUCKETS)]
+
+
 def dense_rows(arrs, plan, xp, out):
     """Every real dense window of ``plan`` into ``out`` [N, D] fp32, window
     w's row r at node ``w * window_h + r`` (rows past N write nothing), in
-    one launch over all buckets, the widest first.  ``arrs`` holds the
-    upload's ``b{b}_cols``, ``b{b}_m`` (row masks), ``b{b}_wid`` (window ids)
-    and, for the plain version, ``b{b}_a``."""
+    one launch over all buckets, the widest first, or one launch for each
+    group of ``dense_launch_groups`` where there are more than
+    ``_MAX_BUCKETS``.  ``arrs`` holds the upload's ``b{b}_cols``, ``b{b}_m``
+    (row masks), ``b{b}_wid`` (window ids) and, for the plain version,
+    ``b{b}_a``."""
     if xp.device.type == "cpu":
         return dense_rows_plain(arrs, plan, xp, out)
-    wh = plan.window_h
-    buckets = sorted((b for b in range(len(plan.bucket_widths))
-                      if arrs[f"b{b}_wid"].shape[0]), key=lambda b: -plan.bucket_widths[b])
-    if wh > _MAX_WH:
-        raise ValueError(f"window height {wh}: csrc/rows.cu takes at most {_MAX_WH}")
     _row_args(xp, out, (plan.num_nodes, xp.shape[1]), {})  # the tables: checked at upload
-    if buckets and xp.shape[1]:
-        _dense_launch([(arrs[f"b{b}_cols"], arrs[f"b{b}_m"], arrs[f"b{b}_wid"],
-                        arrs[f"b{b}_wid"].shape[0]) for b in buckets], wh, xp, out,
-                      plan.num_nodes)
+    if xp.shape[1]:
+        for group in dense_launch_groups(arrs, plan):
+            _dense_launch([(arrs[f"b{b}_cols"], arrs[f"b{b}_m"], arrs[f"b{b}_wid"],
+                            arrs[f"b{b}_wid"].shape[0]) for b in group], plan.window_h, xp, out,
+                          plan.num_nodes)
     return out
 
 
@@ -1036,8 +1041,8 @@ def spmm_rows(arrs, x, plan, compute_dtype):
     over theirs, and the spill is added onto the [N, d] slice.  Otherwise
     each population writes its rows of the fp32 [N, d] result (``torch.empty``)
     at their node ids: the band buckets' rows by ``index_copy_``, the dense
-    windows in one launch (``dense_rows``), the ELL and residual rows and
-    the zero rows of the nodes no population owns in another (``ell_rows``);
+    windows in one launch for each eight buckets (``dense_rows``), the ELL
+    and residual rows and the zero rows of the nodes no population owns in another (``ell_rows``);
     the upload checked that these owners partition [0, N).  The spill
     population is added by the take path, and the fp32 sums are rounded
     once to x's dtype.  The row kernels read ``x`` in the compute dtype

@@ -6,9 +6,12 @@ superwindow i computes
 
     Y^T[:, R:R+bh] = X^T[:, S:S+W] @ A_t[W, bh]
 
-with A_t the plan's int8 0/1 block, transposed on the host.  The layout is
-closed under chaining, and the dense update (X W)^T = W^T X^T keeps a
-training step transposed end to end (ops.spmm wires that).
+with A_t the plan's 0/1 block, transposed on the host and stored as the
+plan's ``tband_pack`` says: int8 [Sb, W, bh] (1), nibbles [Sb, W, bh/2] (2)
+or bits [Sb, W/8, bh] (8), uint8 (``expand_at`` gives the int8 block back).
+The kernels read every encoding as it is stored.  The layout is closed under
+chaining, and the dense update (X W)^T = W^T X^T keeps a training step
+transposed end to end (ops.spmm wires that).
 
 The band product is the CUDA kernel ``csrc/tband.cu``; the functions
 ``tband_spmm_direct`` and ``tband_spmm_bucket`` are its wrappers.  The same
@@ -53,6 +56,10 @@ launches = 0
 #: counted in ``launches``.
 kernel_launches = {"tband_spmm_bucket": 0, "tband_fused_direct": 0, "zero_lane_blocks": 0}
 
+#: Launches of csrc/tband.cu's tband_kernel (band and fused forms) by the
+#: A_t encoding they read (``tband_pack``: 1, 2 or 8).
+pack_launches = collections.Counter()
+
 #: The fused kernel's launches by (dt, ht), counted with
 #: ``kernel_launches["tband_fused_direct"]``.
 fused_shapes = collections.Counter()
@@ -71,22 +78,24 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("tband")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hcspmm_tband_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                      i64, i64, i32, vp, i32, vp, i32, i32, i32, vp]
+                                      i64, i64, i32, vp, i32, vp, i32, i32, i32, i32, vp]
     lib.hcspmm_tband_spmm.restype = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.hcspmm_tband_fused.argtypes = [vp] * 7 + [i32] * 5 + [i64, i64] + [i32] * 7 + [ip, vp]
+    lib.hcspmm_tband_fused.argtypes = [vp] * 7 + [i32] * 5 + [i64, i64] + [i32] * 8 + [ip, vp]
     lib.hcspmm_tband_fused.restype = ctypes.c_int
-    lib.hcspmm_tband_config.argtypes = [i32, i32, i32, i32, ip, ctypes.POINTER(i64), ip]
+    lib.hcspmm_tband_config.argtypes = [i32] * 5 + [ip, ctypes.POINTER(i64), ip]
     lib.hcspmm_tband_config.restype = ctypes.c_int
     return lib
 
 
-def launch_config(bh: int, dt: int, x_dtype, out_dtype) -> dict:
+def launch_config(bh: int, dt: int, x_dtype, out_dtype, pack: int = 1) -> dict:
     """The band kernel's launch configuration on the current CUDA device at
-    band height ``bh`` and feature dim ``dt``: its ring ``stages``, dynamic
-    shared memory bytes (``smem``) and resident ``blocks_per_sm``."""
+    band height ``bh``, feature dim ``dt`` and A_t encoding ``pack`` (whose
+    ring stage holds bh/2 bytes a row at pack 2, else bh): its ring
+    ``stages``, dynamic shared memory bytes (``smem``) and resident
+    ``blocks_per_sm``."""
     stages, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    rc = _lib().hcspmm_tband_config(bh, dt, int(x_dtype == torch.bfloat16),
+    rc = _lib().hcspmm_tband_config(bh, dt, pack, int(x_dtype == torch.bfloat16),
                                     int(out_dtype == torch.float32), ctypes.byref(stages),
                                     ctypes.byref(smem), ctypes.byref(blocks))
     if rc != 0:
@@ -104,15 +113,16 @@ _MAX_STAGES = 6
 
 
 def fused_launch(bh: int, dt: int, ht: int, x_elt: int, per_sm: int, reserved: int,
-                 optin: int) -> dict:
+                 optin: int, pack: int = 1) -> dict:
     """The fused kernel's form and ring at band height ``bh``, feature dim
-    ``dt``, out^T rows ``ht`` and X's element bytes ``x_elt`` on a device
-    with ``per_sm`` bytes of shared memory an SM, ``reserved`` of them taken
-    per block and at most ``optin`` for one block (an H100: 233472, 1024,
-    232448).
+    ``dt``, out^T rows ``ht``, X's element bytes ``x_elt`` and A_t encoding
+    ``pack`` on a device with ``per_sm`` bytes of shared memory an SM,
+    ``reserved`` of them taken per block and at most ``optin`` for one block
+    (an H100: 233472, 1024, 232448).
 
-    A stage holds the 64-row A_t slab [64, bh] int8 and X^T's slab [DT, 64]
-    (DT = 32 where dt allows, else 16).  The ``form``:
+    A stage holds the 64-row A_t slab as stored ([64, bh/2] bytes at pack
+    2, else [64, bh]) and X^T's slab [DT, 64] (DT = 32 where dt allows, else
+    16).  The ``form``:
 
     - FUSE_SLAB keeps each warp's sums of one slab ([bh][DT + 1] fp32) and
       out^T tiles of 32 rows in registers: the form wherever ht <= 32, and
@@ -134,7 +144,7 @@ def fused_launch(bh: int, dt: int, ht: int, x_elt: int, per_sm: int, reserved: i
         raise ValueError(f"dt={dt}, ht={ht}, bh={bh}: dt and ht multiples of 16, bh a "
                          f"multiple of 32 up to {_MAX_BH}")
     slab = 32 if dt % 32 == 0 else 16
-    stage = _KT * bh + _KT * slab * x_elt
+    stage = _KT * a_row_bytes(bh, pack) + _KT * slab * x_elt
 
     def sized(stride, extra=0, blocks_options=(2, 1)):
         fixed = _FIXED_SMEM + bh * stride * 4 + extra
@@ -162,9 +172,41 @@ def fused_launch(bh: int, dt: int, ht: int, x_elt: int, per_sm: int, reserved: i
     return dict(form=form, htiles=htiles, slab=slab, wsm=wsm, **cfg)
 
 
+def a_row_bytes(bh: int, pack: int) -> int:
+    """Bytes of a stored A_t row at band height ``bh``: bh/2 at pack 2,
+    else bh (csrc/tband.cu a_row_bytes)."""
+    return bh // 2 if pack == 2 else bh
+
+
+def logical_wh(at, pack: int) -> tuple:
+    """(W, bh) of the 0/1 blocks that ``at`` stores in encoding ``pack``
+    (the reference's _logical_wh, hcspmm_tpu/kernels/tband.py:171)."""
+    _, ws, bhs = at.shape
+    if pack == 2:
+        return ws, bhs * 2
+    if pack == 8:
+        return ws * 8, bhs
+    return ws, bhs
+
+
+def expand_at(at, pack: int):
+    """The int8 0/1 blocks [Sb, W, bh] that ``at`` stores in encoding
+    ``pack`` (the reference's _expand_a, hcspmm_tpu/kernels/tband.py:84):
+    pack 1 is the block itself; pack 2, uint8 [Sb, W, bh/2], holds column j
+    in the low nibble of byte j and column j + bh/2 in its high nibble; pack
+    8, uint8 [Sb, W/8, bh], holds row g*(W/8) + r in bit g of byte row r."""
+    if pack == 1:
+        return at
+    if pack == 2:
+        return torch.cat([at & 15, at >> 4], dim=2).to(torch.int8)
+    if pack == 8:
+        return torch.cat([(at >> g) & 1 for g in range(8)], dim=1).to(torch.int8)
+    raise ValueError(f"pack={pack}: 1, 2 or 8")
+
+
 def check_plan(plan) -> None:
     """Raise NotImplementedError unless ``plan`` runs here with no edge
-    dropped: a square tband plan with int8 A_t (``tband_pack == 1``),
+    dropped: a square tband plan (A_t in any of the three encodings),
     band and spill populations only, every superwindow either covered by
     one band entry or listed as missing (its block is zeroed and its edges
     spill), band slices inside the padded layout, and a spill population
@@ -173,12 +215,8 @@ def check_plan(plan) -> None:
     layout."""
     if not getattr(plan, "tband", False):
         raise NotImplementedError(
-            "not a band_impl='tband' plan: the wide padded layout runs it "
-            "(kernels/block_spmm.py); the row layout is ROADMAP A.7")
-    if plan.tband_pack != 1:
-        raise NotImplementedError(
-            f"tband_pack={plan.tband_pack}: the nibble and 1-bit A_t "
-            "encodings are ROADMAP A.2")
+            "not a band_impl='tband' plan: the wide padded layout or the row "
+            "layout runs it (kernels/block_spmm.py)")
     if plan.dense_nnz or plan.sparse_nnz:
         raise NotImplementedError(
             "tband plans carry band and spill populations only "
@@ -228,8 +266,10 @@ def check_band_arrays(starts: np.ndarray, sw_ids: np.ndarray, w: int, m: int,
 # ---------------------------------------------------------------------------
 
 
-def tband_spmm_bucket_plain(starts, at, xt):
-    """fp32 [dt, Sb*bh]: block i = X^T[:, st[i] : st[i]+W] @ A_t[i]."""
+def tband_spmm_bucket_plain(starts, at, xt, pack=1):
+    """fp32 [dt, Sb*bh]: block i = X^T[:, st[i] : st[i]+W] @ A_t[i], A_t
+    expanded from encoding ``pack`` first (``expand_at``)."""
+    at = expand_at(at, pack)
     sb, w, bh = at.shape
     cols = starts.long()[:, None] + torch.arange(w, device=xt.device)
     xg = xt[:, cols].float()                               # [dt, Sb, W]
@@ -238,14 +278,15 @@ def tband_spmm_bucket_plain(starts, at, xt):
 
 
 def tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=None,
-                            missing=None):
-    """[dt, num_sw*bh] ``out_dtype``: block sw[i] = X^T slice @ A_t[i];
-    entries with sw == num_sw are dropped; the blocks of ``missing8``
-    (runs of eight superwindows) and ``missing`` are zeroed
+                            missing=None, pack=1):
+    """[dt, num_sw*bh] ``out_dtype``: block sw[i] = X^T slice @ A_t[i] (A_t
+    in encoding ``pack``); entries with sw == num_sw are dropped; the blocks
+    of ``missing8`` (runs of eight superwindows) and ``missing`` are zeroed
     (``tspill.zero_lane_blocks_plain``); other unowned blocks stay unset."""
-    sb, _, bh = at.shape
+    sb = at.shape[0]
+    bh = logical_wh(at, pack)[1]
     dt = xt.shape[0]
-    part = tband_spmm_bucket_plain(starts, at, xt).view(dt, sb, bh)
+    part = tband_spmm_bucket_plain(starts, at, xt, pack).view(dt, sb, bh)
     out = torch.empty((dt, num_sw * bh), dtype=out_dtype, device=xt.device)
     keep = sw_ids < num_sw
     out.view(dt, num_sw, bh)[:, sw_ids[keep].long()] = part[:, keep].to(out_dtype)
@@ -255,12 +296,13 @@ def tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=
     return out
 
 
-def tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
+def tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype, pack=1):
     """(agg^T [dt, num_sw*bh], out^T [ht, num_sw*bh]) ``out_dtype``: agg^T as
     ``tband_spmm_direct_plain``, out^T = wt @ agg^T rounded to wt's dtype,
     in fp32."""
-    sb, _, bh = at.shape
-    part = tband_spmm_bucket_plain(starts, at, xt)
+    sb = at.shape[0]
+    bh = logical_wh(at, pack)[1]
+    part = tband_spmm_bucket_plain(starts, at, xt, pack)
     prod = torch.matmul(wt.float(), part.to(wt.dtype).float())
     keep = sw_ids < num_sw
     idx = sw_ids[keep].long()
@@ -277,7 +319,9 @@ def tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda_args(starts, sw_ids, at, xt):
+def _check_cuda_args(starts, sw_ids, at, xt, pack):
+    """Raise unless the kernel takes these arguments; returns the logical
+    (W, bh) of ``at``, stored in encoding ``pack``."""
     dev = xt.device
     if dev.type != "cuda":
         raise ValueError(f"xt lies on {dev}: the band kernel takes CUDA or "
@@ -290,20 +334,23 @@ def _check_cuda_args(starts, sw_ids, at, xt):
             raise ValueError(f"{name} must be contiguous on {dev}")
     if xt.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"xt dtype {xt.dtype}: float32 or bfloat16 only")
-    if at.dtype != torch.int8 or at.dim() != 3:
-        raise ValueError("at must be int8 [Sb, W, bh]")
-    sb, w, bh = at.shape
+    want = torch.int8 if pack == 1 else torch.uint8
+    if pack not in (1, 2, 8) or at.dtype != want or at.dim() != 3:
+        raise ValueError(f"pack={pack}: at must be 3-D {want} (pack 1, 2 or 8: see expand_at)")
+    sb = at.shape[0]
+    w, bh = logical_wh(at, pack)
     dt, m = xt.shape
     for name, t in (("starts", starts), ("sw_ids", sw_ids)):
         if t is not None and (t.dtype != torch.int32 or tuple(t.shape) != (sb,)):
             raise ValueError(f"{name} must be int32 [{sb}]")
     if dt % 16 or w % _KT or w > m or bh % 32 or bh > _MAX_BH:
         raise ValueError(f"unsupported shape: dt={dt} W={w} bh={bh} M={m}")
+    return w, bh
 
 
-def _launch(starts, sw_ids, at, xt, out, num_sw, missing8=None, missing=None):
+def _launch(starts, sw_ids, at, xt, out, num_sw, w, bh, pack, missing8=None, missing=None):
     global launches
-    sb, w, bh = at.shape
+    sb = at.shape[0]
     dt, m = xt.shape
     if at.data_ptr() % 16 or xt.data_ptr() % 16 or m * xt.element_size() % 16:
         raise ValueError("the band kernel's bulk copies need at and xt 16-byte aligned and "
@@ -319,24 +366,27 @@ def _launch(starts, sw_ids, at, xt, out, num_sw, missing8=None, missing=None):
             at.data_ptr(), xt.data_ptr(), out.data_ptr(), sb, w, bh, dt, m,
             out.shape[1], num_sw, *[x for v in ids for x in (
                 None if v is None else v.data_ptr(), 0 if v is None else v.shape[0])],
-            int(xt.dtype == torch.bfloat16), int(out.dtype == torch.float32),
+            pack, int(xt.dtype == torch.bfloat16), int(out.dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csrc/tband.cu launch failed: cudaError {rc}")
     launches += 1
+    pack_launches[pack] += 1
     if any(v is not None for v in ids):
         kernel_launches["zero_lane_blocks"] += 1
 
 
 def tband_spmm_direct(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=None,
-                      missing=None):
+                      missing=None, pack=1):
     """Transposed-band SpMM, direct write: entry i computes superwindow
     ``sw_ids[i]``'s output columns (port of the Pallas kernel at
     hcspmm_tpu/kernels/tband.py:189), and the blocks of the missing
     superwindows are zeroed in the same launch (the reference's
     ``zero_lane_blocks`` after it, hcspmm_tpu/kernels/tspill.py:55).
 
-    starts, sw_ids: int32 [Sb]; at: int8 [Sb, W, bh]; xt: [dt, M] float32
+    starts, sw_ids: int32 [Sb]; at: the 0/1 blocks [Sb, W, bh] in encoding
+    ``pack`` (int8 at 1; uint8 [Sb, W, bh/2] at 2, [Sb, W/8, bh] at 8: see
+    ``expand_at``); xt: [dt, M] float32
     or bfloat16; missing8, missing: int32 ids of aligned runs of eight
     superwindows and of single ones (a plan's ``band_missing_sw8`` and
     ``band_missing_sw``, checked at upload), or None.  Returns [dt,
@@ -345,47 +395,46 @@ def tband_spmm_direct(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=None,
     missing id names are left unset: callers guarantee full cover."""
     if xt.device.type == "cpu":
         return tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype, missing8,
-                                       missing)
-    _check_cuda_args(starts, sw_ids, at, xt)
+                                       missing, pack)
+    w, bh = _check_cuda_args(starts, sw_ids, at, xt, pack)
     if out_dtype not in (xt.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xt's dtype or float32")
-    out = torch.empty((xt.shape[0], num_sw * at.shape[2]), dtype=out_dtype,
-                      device=xt.device)
-    _launch(starts, sw_ids, at, xt, out, num_sw, missing8, missing)
+    out = torch.empty((xt.shape[0], num_sw * bh), dtype=out_dtype, device=xt.device)
+    _launch(starts, sw_ids, at, xt, out, num_sw, w, bh, pack, missing8, missing)
     return out
 
 
-def tband_spmm_bucket(starts, at, xt):
+def tband_spmm_bucket(starts, at, xt, pack=1):
     """Bucket-order form for secondary buckets (port of
     hcspmm_tpu/kernels/tband.py:228): fp32 [dt, Sb*bh], block i from entry
-    i; the caller scatters the blocks."""
+    i; the caller scatters the blocks.  ``at`` as ``tband_spmm_direct``'s."""
     if xt.device.type == "cpu":
-        return tband_spmm_bucket_plain(starts, at, xt)
-    _check_cuda_args(starts, None, at, xt)
-    out = torch.empty((xt.shape[0], at.shape[0] * at.shape[2]),
-                      dtype=torch.float32, device=xt.device)
-    _launch(starts, None, at, xt, out, 0)
+        return tband_spmm_bucket_plain(starts, at, xt, pack)
+    w, bh = _check_cuda_args(starts, None, at, xt, pack)
+    out = torch.empty((xt.shape[0], at.shape[0] * bh), dtype=torch.float32, device=xt.device)
+    _launch(starts, None, at, xt, out, 0, w, bh, pack)
     kernel_launches["tband_spmm_bucket"] += 1
     return out
 
 
-def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
+def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype, pack=1):
     """Fused transposed aggregate and update, direct write (port of the
     Pallas kernel at hcspmm_tpu/kernels/tband.py:277): entry i computes
     superwindow ``sw_ids[i]``'s ``agg^T = X^T[:, st:st+W] @ A_t[i]`` (fp32
     sums) and ``out^T = wt @ agg^T.astype(wt.dtype)`` (fp32 sums).
 
-    wt: [ht, dt] in xt's dtype (ht a multiple of 16).  Returns (agg^T
+    ``at`` as ``tband_spmm_direct``'s, in encoding ``pack``; wt: [ht, dt] in
+    xt's dtype (ht a multiple of 16).  Returns (agg^T
     [dt, num_sw*bh], out^T [ht, num_sw*bh]) in ``out_dtype`` (xt's dtype or
     float32); entries with ``sw_id == num_sw`` write nothing and unowned
     blocks stay unset.  Every dt and ht runs, in the form ``fused_launch``
     picks: the band kernel's ring walks the entry's feature slabs in order
     and each warp adds its columns' share of the update."""
     if xt.device.type == "cpu":
-        return tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype)
-    _check_cuda_args(starts, sw_ids, at, xt)
+        return tband_fused_direct_plain(sw_ids, starts, at, xt, wt, num_sw, out_dtype, pack)
+    w, bh = _check_cuda_args(starts, sw_ids, at, xt, pack)
     dt, m = xt.shape
-    sb, w, bh = at.shape
+    sb = at.shape[0]
     if (wt.device != xt.device or not wt.is_contiguous() or wt.dtype != xt.dtype
             or wt.dim() != 2 or wt.shape[1] != dt or wt.shape[0] % 16):
         raise ValueError(f"wt must be contiguous {xt.dtype} [ht, {dt}], ht a multiple of 16")
@@ -402,11 +451,12 @@ def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
     resident = ctypes.c_int()
     with torch.cuda.device(xt.device):
         cfg = fused_launch(bh, dt, ht, xt.element_size(),
-                           *block_spmm.band_device(xt.device.index)[1:])
+                           *block_spmm.band_device(xt.device.index)[1:], pack)
         rc = _lib().hcspmm_tband_fused(
             starts.data_ptr(), sw_ids.data_ptr(), at.data_ptr(), xt.data_ptr(), wt.data_ptr(),
             agg.data_ptr(), out.data_ptr(), sb, w, bh, dt, ht, m, num_sw * bh, num_sw,
-            cfg["form"], cfg["htiles"], cfg["stages"], cfg["wsm"], int(xt.dtype == torch.bfloat16),
+            cfg["form"], cfg["htiles"], cfg["stages"], cfg["wsm"], pack,
+            int(xt.dtype == torch.bfloat16),
             int(out_dtype == torch.float32), ctypes.byref(resident),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -414,6 +464,7 @@ def tband_fused_direct(sw_ids, starts, at, xt, wt, num_sw, out_dtype):
     last_fused_launch.clear()
     last_fused_launch.update(cfg, resident=resident.value)
     kernel_launches["tband_fused_direct"] += 1
+    pack_launches[pack] += 1
     fused_shapes[(dt, ht)] += 1
     return agg, out
 
@@ -499,14 +550,15 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
     s_main = max(nonempty, key=lambda i: len(plan.band_sw_ids[i]))
     # the uncovered superwindows (their edges ride the spill) are zeroed by
     # the same launch: aligned runs of eight, then the rest
+    pack = plan.tband_pack
     buf = tband_spmm_direct(arrs[f"band{s_main}_sw"], arrs[f"band{s_main}_start"],
                             arrs[f"band{s_main}_at"], xt, num_sw, xt.dtype,
-                            arrs.get("band_missing_sw8"), arrs.get("band_missing_sw"))
+                            arrs.get("band_missing_sw8"), arrs.get("band_missing_sw"), pack)
     b3 = buf.view(dt, num_sw, bh)
     for i in nonempty:
         if i == s_main:
             continue
-        part = tband_spmm_bucket(arrs[f"band{i}_start"], arrs[f"band{i}_at"], xt)
+        part = tband_spmm_bucket(arrs[f"band{i}_start"], arrs[f"band{i}_at"], xt, pack)
         real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
         b3.index_copy_(1, arrs[f"band{i}_sw"][:real].long(),
                        part.view(dt, -1, bh)[:, :real].to(buf.dtype))
@@ -528,7 +580,7 @@ def spmm_tband_fused_padded(arrs, xt, wt, plan):
     xt = xt.contiguous()
     agg, out = tband_fused_direct(arrs[f"band{s}_sw"], arrs[f"band{s}_start"],
                                   arrs[f"band{s}_at"], xt, wt.to(xt.dtype).contiguous(),
-                                  num_sw, xt.dtype)
+                                  num_sw, xt.dtype, plan.tband_pack)
     return out, agg
 
 

@@ -405,9 +405,10 @@ _ROW_SPILL_KEYS = ("ds_gcols", "ds_local", "ds_blk", "ds_lt", "ds_ucols")
 
 def _to_device(plan: ExecutionPlan, device) -> dict:
     """Plan arrays as tensors on ``device``: plain copies of
-    ``device_arrays(dense_band=False)`` plus the dense int8 band blocks
-    (``band{s}_at`` [Sb, W, bh] transposed, ``band{s}_a`` [Sb, bh, Bb]
-    wide), the merges' destination segment tables, the lane merge's
+    ``device_arrays(dense_band=False)`` plus the dense band blocks
+    (``band{s}_at`` transposed, in the plan's ``tband_pack`` encoding:
+    ``plan.band_at_stored``; ``band{s}_a`` int8 [Sb, bh, Bb] wide), the
+    merges' destination segment tables, the lane merge's
     composed columns ``ds_lsrc``, the residual's row starts
     (``sparse_seg_ptr``) and the row layout's owner tables
     (``block_spmm.row_tables``; ``rows_meta`` stays on the host).  A tband
@@ -441,7 +442,7 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
         if transposed:
             tband.check_band_arrays(host[f"band{s}_start"], host[f"band{s}_sw"],
                                     int(w), m, num_sw)
-            out[f"band{s}_at"] = torch.from_numpy(plan.band_at_dense(s)).to(device)
+            out[f"band{s}_at"] = torch.from_numpy(plan.band_at_stored(s)).to(device)
         else:
             block_spmm.check_band_arrays(host[f"band{s}_start"], host[f"band{s}_sw"],
                                          int(w), limit, num_sw)

@@ -18,10 +18,10 @@ and the calibrated LOI selector, fp32), then measures at dim 32:
 It calls only the wrappers that every version of the port's row layout
 has (``dense_bucket_spmm``, ``ell_bucket_spmm``, ``ell_residual_spmm``), or
 the whole-population launches (``dense_rows``, ``ell_rows``) where the
-package has them, so the same file times an older checkout too: copy it to
-the same path there and run the module from each checkout's root, in
-turns, in one session on one card.  Prints the card's name and power
-limit, then one JSON line.
+package has them, so the same file times an older checkout too: copy it
+and ``utils/bench.py`` to the same paths there and run the module from
+each checkout's root, in turns, on one card.  Prints the card's name and
+power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -34,23 +34,7 @@ import time
 import numpy as np
 import torch
 
-
-def device_ms(fn, reps: int, frags) -> float:
-    """Device-busy ms per call of ``fn`` in kernels whose names hold one of
-    ``frags`` (all kernels when empty)."""
-    act = torch.profiler.ProfilerActivity
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and (not frags or any(f in e.name for f in frags)))
-    if not busy:
-        raise AssertionError(f"torch.profiler saw no device time in kernels named {frags}")
-    return busy / 1e3 / reps
+from hcspmm_tpu_torch.utils.bench import device_ms
 
 
 def median_ms(fn, reps: int = 10, trials: int = 7) -> float:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from hcspmm_tpu_torch.kernels import _build, block_spmm
-from hcspmm_tpu_torch.utils.row_bench import device_ms
+from hcspmm_tpu_torch.utils.bench import device_ms
 
 
 def variant_source(src: str, spec: str) -> str:

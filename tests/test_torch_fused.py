@@ -35,6 +35,7 @@ from hcspmm_tpu.train.loop import make_train_step as jax_make_train_step
 
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.format import reorder
+from hcspmm_tpu_torch.format.streams import pack_a_bits, pack_a_nibble
 from hcspmm_tpu_torch.graphs import io
 from hcspmm_tpu_torch.kernels import block_spmm, tband
 from hcspmm_tpu_torch.models.net import Net, net_forward, params_from_jax
@@ -111,6 +112,36 @@ def test_tband_fused_direct_matches_jax(dt, ht, dtype):
     assert rel_err(agg, want) < TOL[dtype]
     agg_w = torch.from_numpy(want).to(dtype).double().numpy()  # agg.astype(wt.dtype)
     assert rel_err(out, as_dtype(wt, dtype) @ agg_w) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt,ht", [(16, 48), (96, 32)])
+@pytest.mark.parametrize("pack", [2, 8])
+def test_tband_fused_direct_packed_matches_jax(pack, dt, ht, dtype):
+    """tband_fused_direct on packed A_t (``tband_pack`` 2, 8; its plain
+    version expands it) against the JAX package's kernel with the same
+    ``pack`` (interpret mode), and bit for bit the unpacked blocks' result."""
+    rng = np.random.RandomState(dt + ht + pack)
+    sb, w, bh, m, trash = 6, 256, 128, 1024, 2
+    at = (rng.rand(sb, w, bh) < 0.05).astype(np.int8)
+    packed = {2: pack_a_nibble, 8: pack_a_bits}[pack](at)
+    st = (rng.randint(0, (m - w) // 128 + 1, sb) * 128).astype(np.int32)
+    sw = entries(rng, sb, trash)
+    xt = rng.randn(dt, m).astype(np.float32)
+    wt = rng.randn(ht, dt).astype(np.float32)
+    num_sw = sb - trash
+    jagg, jout = jax_tband.tband_fused_direct(jnp.asarray(sw), jnp.asarray(st),
+                                              jnp.asarray(packed), jx(xt, dtype), jx(wt, dtype),
+                                              num_sw, JDT[dtype], pack=pack)
+    args = [torch.from_numpy(sw), torch.from_numpy(st), torch.from_numpy(packed),
+            torch.from_numpy(xt).to(dtype), torch.from_numpy(wt).to(dtype), num_sw, dtype]
+    agg, out = tband.tband_fused_direct(*args, pack=pack)
+    assert agg.shape == (dt, num_sw * bh) and out.shape == (ht, num_sw * bh)
+    assert rel_err(agg, jagg.astype(jnp.float32)) < TOL[dtype]
+    assert rel_err(out, jout.astype(jnp.float32)) < TOL[dtype]
+    args[2] = torch.from_numpy(at)
+    agg1, out1 = tband.tband_fused_direct(*args)
+    assert torch.equal(agg, agg1) and torch.equal(out, out1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -304,6 +335,26 @@ def test_fused_layer_cores_match_jax_and_oracle(layout, core, spill, fused_calls
     assert fused_calls[kernel] == 1 if kernel else sum(fused_calls.values()) == 0
     if kernel:
         assert fused_calls["tband" if kernel == "wide" else "wide"] == 0
+
+
+@pytest.mark.parametrize("core", ["gcn", "gin"])
+@pytest.mark.parametrize("pack", [2, 8])
+def test_fused_layer_cores_on_packed_plans_match_jax_and_oracle(pack, core, fused_calls):
+    """The tband fused cores on a ``tband_pack`` 2 or 8 plan: values and
+    gradients against the JAX package's cores on the same config and the
+    oracle, with the one fused launch reading the packed blocks."""
+    graph, cfg, _ = CASES[("tband", False)]
+    op, jop, a = fused_pair(graph, dict(cfg, tband_pack=pack))
+    assert op.arrays["f"]["band0_at"].dtype == torch.uint8
+    rs = np.random.RandomState(4)
+    x = rs.randn(a.shape[0], 24).astype(np.float32)
+    w = (rs.randn(24, 12) * 0.1).astype(np.float32)
+    got = core_case(op, core, "padded", x, w)
+    want = jax_core_case(jop, core, "padded", x, w)
+    for g, j, o in zip(got, want, oracle(a, core, x, w)):
+        assert rel_err(g, j) < RTOL
+        assert rel_err(g, o) < RTOL
+    assert fused_calls == {"tband": 1, "wide": 0}
 
 
 @pytest.mark.parametrize("core", ["gcn", "gin"])
@@ -514,6 +565,26 @@ def test_fused_launch_tband_fits_the_routes(dt, ht, x_elt):
         whole = tband._FIXED_SMEM + bh * (dt + 1) * 4 + 2 * stage <= H100_SMEM["optin"]
         assert cfg["form"] == (tband.FUSE_WHOLE if whole else tband.FUSE_SLAB)
         assert cfg["htiles"] == (1 if whole else -(-ht // 32))
+
+
+@pytest.mark.parametrize("pack", [2, 8])
+@pytest.mark.parametrize("dt,ht", [(32, 32), (96, 32), (64, 608), (192, 32)])
+def test_fused_launch_tband_sizes_the_packed_stage(dt, ht, pack):
+    """The ring's stage holds A_t's slab as stored: half the bytes at pack
+    2 (rows of bh/2 bytes), pack 1's at pack 8 (a byte row a logical row),
+    so pack 2 gets at least pack 1's stages in the same form."""
+    bh = 256
+    one, packed = (tband.fused_launch(bh, dt, ht, 4, **H100_SMEM, pack=p) for p in (1, pack))
+    assert packed["form"] == one["form"] and packed["htiles"] == one["htiles"]
+    slab = packed["slab"]
+    stride = dt + 1 if packed["form"] == tband.FUSE_WHOLE else slab + 1
+    stage = 64 * tband.a_row_bytes(bh, pack) + 64 * slab * 4
+    assert packed["smem"] == (tband._FIXED_SMEM + bh * stride * 4 + packed["wsm"] * dt * 4
+                              + packed["stages"] * stage)
+    if pack == 8:
+        assert packed == one
+    else:
+        assert packed["stages"] >= one["stages"] and stage < 64 * bh + 64 * slab * 4
 
 
 @pytest.mark.parametrize("bh,dt,ht,smem", [(544, 32, 32, H100_SMEM), (256, 40, 32, H100_SMEM),

@@ -78,6 +78,33 @@ def test_plan_equals_jax_plan(case):
         assert_same(got.band_at_dense(s), want.band_at_dense(s), f"band_at_dense({s})")
 
 
+@pytest.mark.parametrize("pack", [1, 2, 8])
+def test_band_at_stored_is_the_uploaded_encoding(pack):
+    """``ExecutionPlan.band_at_stored`` is the one rule for how ``band{s}_at``
+    is stored: it equals the JAX plan's ``device_arrays()`` entry, the
+    port's ``device_arrays()`` and the operator's upload (``_to_device``)
+    both hold it, and it expands back to ``band_at_dense``."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels.tband import expand_at
+    from hcspmm_tpu_torch.ops.spmm import _to_device
+
+    fields = dict(_TBAND, band_mode="always", tband_pack=pack)
+    rp, ci, nn = small_graph(300, 6, span=16)
+    got = build_plan(rp, ci, nn, PlanConfig(**fields))
+    want = jax_build_plan(rp, ci, nn, JaxPlanConfig(**fields)).device_arrays()
+    host, dev = got.device_arrays(), _to_device(got, "cpu")
+    assert len(got.band_widths)
+    for s in range(len(got.band_widths)):
+        stored = got.band_at_stored(s)
+        assert stored.dtype == (np.int8 if pack == 1 else np.uint8)
+        assert_same(stored, want[f"band{s}_at"], f"band_at_stored({s})")
+        assert_same(host[f"band{s}_at"], stored, f"device_arrays band{s}_at")
+        assert np.array_equal(dev[f"band{s}_at"].numpy(), stored)
+        assert np.array_equal(expand_at(torch.from_numpy(stored), pack).numpy(),
+                              got.band_at_dense(s))
+
+
 @pytest.mark.parametrize("mode", ["rcm", "loa", "cluster"])
 def test_reorder_equals_jax_reorder(mode):
     src, dst, n = jax_io.synthetic_blocks(600, 6, 40, seed=3)

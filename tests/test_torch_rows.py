@@ -113,6 +113,28 @@ def test_dense_bucket_spmm_matches_jax(kb, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wh", [32, 64])
+def test_dense_bucket_spmm_tall_windows_match_jax(wh, dtype):
+    """Windows taller than 16 rows (``PlanConfig(window_h=32)``): the
+    reference's kernel takes any height, and so does the port's."""
+    rng = np.random.RandomState(wh)
+    n, wb, kb, d = 300, 5, 64, 24
+    cols = np.stack([np.sort(rng.choice(n, kb, replace=False)) for _ in range(wb)])
+    cols[:, kb - 3:] = n
+    cols = cols.astype(np.int32)
+    a = (rng.rand(wb, wh, kb) < 0.2).astype(np.int8)
+    a[:, :, kb - 3:] = 0
+    x = table(wh, n, d)
+    xj = bf16_values(x) if dtype == torch.bfloat16 else x
+    want = np.asarray(jax_block_spmm.dense_bucket_spmm(
+        jnp.asarray(cols), jnp.asarray(a), jnp.asarray(xj), window_h=wh))
+    got = block_spmm.dense_bucket_spmm(torch.from_numpy(cols), torch.from_numpy(a),
+                                       torch.from_numpy(x).to(dtype))
+    assert got.shape == want.shape == (wb, wh, d)
+    assert rel_err(got, want) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("de,d", [(4, 32), (8, 7), (16, 130)])
 def test_ell_bucket_spmm_matches_jax(de, d, dtype):
     rng = np.random.RandomState(de)
@@ -173,6 +195,24 @@ def edges_graph(src, dst, n):
     return rp, ci, n
 
 
+def bucket_graph(windows=12, seed=0):
+    """Directed graph whose 16-row window w reaches 3 + 4w distinct columns:
+    at the widths of NINE its dense windows fill ten buckets, more than the
+    dense kernel's table of eight."""
+    rs = np.random.RandomState(seed)
+    n = 16 * windows
+    src, dst = [], []
+    for w in range(windows):
+        cols = rs.choice(n, 3 + 4 * w, replace=False)
+        rows = 16 * w + np.arange(16)
+        src += [rows[j % 16] for j in range(len(cols))] + list(np.repeat(rows, 2))
+        dst += list(cols) + list(rs.choice(cols, 32))
+    return edges_graph(src, dst, n)
+
+
+NINE = dict(NEVER, loi_mode="all_dense", bucket_widths=(4, 8, 12, 16, 20, 24, 28, 32, 40, 48))
+
+
 MIXED = dict(band_spill="never", band_h=64, band_widths=(128,), loi_mode="calibrated")
 
 CASES = {
@@ -191,6 +231,9 @@ CASES = {
     "full_cover": (lambda: small_graph(300, 6), dict(band_h=64, band_widths=(128, 256),
                                                      band_mode="always"), 40),
     "default": (lambda: small_graph(101, 12, span=64), {}, 33),
+    "nine_buckets": (bucket_graph, NINE, 24),
+    "window32": (lambda: small_graph(300, 6, span=40), dict(NEVER, loi_mode="calibrated",
+                                                            window_h=32), 20),
 }
 
 
@@ -577,7 +620,8 @@ def test_owner_partition_refuses_a_node_owned_twice_or_by_none():
         block_spmm.check_row_arrays(host, dataclasses.replace(plan, bucket_window_ids=outside))
 
 
-@pytest.mark.parametrize("name", ["mixed", "unaligned", "empty_rows", "residual", "calibrated"])
+@pytest.mark.parametrize("name", ["mixed", "unaligned", "empty_rows", "residual", "calibrated",
+                                  "nine_buckets", "window32"])
 def test_population_launches_write_every_row_by_node_id(name):
     """The whole-population entries (``dense_rows``: every dense bucket;
     ``ell_rows``: ELL, residual and empty rows), through their plain
@@ -607,6 +651,41 @@ def test_population_launches_write_every_row_by_node_id(name):
         jop.arrays["f"], jnp.asarray(x))
     assert rel_err(got, want) < TOL[torch.float32]
     assert rel_err(got, ref) < TOL[torch.float32]
+
+
+def test_dense_launches_split_the_bucket_table():
+    """``dense_rows`` launches once for each group of at most eight
+    non-empty dense buckets (the table a launch takes by value), widest
+    first, every bucket in one group: two launches for the ten buckets of
+    'nine_buckets', one for the others."""
+    for name in ("nine_buckets", "calibrated", "mixed"):
+        op, _, _, _ = both(name)
+        p, arrs = op.plan, op.arrays["f"]
+        groups = block_spmm.dense_launch_groups(arrs, p)
+        order = [b for g in groups for b in g]
+        nonempty = [b for b in range(len(p.bucket_widths)) if len(p.bucket_window_ids[b])]
+        assert sorted(order) == nonempty
+        assert order == sorted(nonempty, key=lambda b: -p.bucket_widths[b])
+        assert all(0 < len(g) <= 8 for g in groups)
+        assert len(groups) == -(-len(nonempty) // 8)
+        if name == "nine_buckets":
+            assert len(nonempty) >= 9 and len(groups) == 2
+
+
+def test_window_heights_16_and_32_agree():
+    """One graph's row plans at window_h 16 and 32 on the same X: both
+    give scipy's product, so they agree with each other to fp32 tolerance."""
+    rp, ci, nn = small_graph(300, 6, span=40)
+    x = np.random.RandomState(3).randn(nn, 20).astype(np.float32)
+    ref = spmm_reference_dense(rp, ci, nn, x)
+    outs = []
+    for wh in (16, 32):
+        op = HybridSpMM(rp, ci, nn, PlanConfig(**dict(NEVER, loi_mode="calibrated", window_h=wh)),
+                        device="cpu")
+        assert op.plan.window_h == wh and op.plan.num_dense_windows
+        outs.append(op(torch.from_numpy(x)))
+        assert rel_err(outs[-1], ref) < TOL[torch.float32]
+    assert rel_err(outs[1], outs[0]) < TOL[torch.float32]
 
 
 def test_backward_plan_has_its_own_owner_tables():
@@ -721,11 +800,13 @@ def test_cuda_spmm_rows_matches_cpu(cd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["calibrated", "mixed", "residual", "unaligned"])
+@pytest.mark.parametrize("name", ["calibrated", "mixed", "residual", "unaligned", "nine_buckets",
+                                  "window32"])
 def test_cuda_population_launches_match_plain(name, dtype):
     """``dense_rows`` and ``ell_rows`` on the card against their plain
     versions (every row they own written, bitwise repeatable), and one
-    SpMM's launches: one of each kernel, the residual riding the ELL one."""
+    SpMM's launches: one ELL launch, the residual riding it, and one dense
+    launch for each group of at most eight dense buckets."""
     _need_cuda()
     graph, cfg, _ = CASES[name]
     rp, ci, nn = graph()
@@ -753,7 +834,7 @@ def test_cuda_population_launches_match_plain(name, dtype):
     torch.cuda.synchronize()
     after = {k: v - before[k] for k, v in block_spmm.row_launches.items()}
     n_res = int(arrs["rows_meta"][3])
-    assert after == {"dense_bucket_spmm": int(p.num_dense_windows > 0),
+    assert after == {"dense_bucket_spmm": len(block_spmm.dense_launch_groups(arrs, p)),
                      "ell_bucket_spmm": int(arrs["rw_node"].shape[0] > 0),
                      "ell_residual": int(n_res > 0)}
 

@@ -258,9 +258,20 @@ def test_spill_plan_gradient_matches_jax_custom_vjp(layout):
 
 @pytest.mark.parametrize("pack", [2, 8])
 def test_packed_a_raises(pack):
+    """The packed A_t encodings (``tband_pack`` 2 and 8) no longer raise:
+    the plan uploads its blocks packed (uint8, the stored shape) and
+    ``apply_padded`` matches the JAX package's operator on the same config
+    and the oracle."""
     rp, ci, nn = small_graph(300, 6)
-    with pytest.raises(NotImplementedError, match="tband_pack"):
-        HybridSpMM(rp, ci, nn, PlanConfig(**dict(TBAND, tband_pack=pack)), device="cpu")
+    op, jop = both(rp, ci, nn, cfg=dict(tband_pack=pack))
+    at = op.arrays["f"]["band0_at"]
+    assert at.dtype == torch.uint8
+    assert tband.logical_wh(at, pack) == (op.plan.band_widths[0], op.plan.band_h)
+    x = np.random.RandomState(0).randn(nn, 16).astype(np.float32)
+    got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 16)
+    want = jop.unpad_output(jop.apply_padded(jop.arrays, jop.pad_input(jnp.asarray(x))), 16)
+    assert rel_err(got, want) < RTOL
+    assert rel_err(got, dense_a(rp, ci, nn) @ x) < RTOL
 
 
 @pytest.mark.parametrize("band_impl", ["wide", "tiled"])

@@ -20,8 +20,10 @@ from hcspmm_tpu.config import PlanConfig as JaxPlanConfig
 from hcspmm_tpu.format.plan import build_plan as jax_build_plan
 from hcspmm_tpu.kernels import tband as jax_tband
 from hcspmm_tpu.kernels import tspill as jax_tspill
+from hcspmm_tpu.ops.spmm import HybridSpMM as JaxHybridSpMM
 
 from hcspmm_tpu_torch.config import PlanConfig
+from hcspmm_tpu_torch.format import streams
 from hcspmm_tpu_torch.graphs import io
 from hcspmm_tpu_torch.kernels import tband
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
@@ -86,6 +88,66 @@ def test_plain_direct_and_bucket_match_jax_kernels(shape):
     got_b = tband.tband_spmm_bucket(t[1], t[2], t[3])
     assert got_b.dtype == torch.float32 and got_b.shape == want_b.shape
     assert rel_err(got_b, want_b) < RTOL
+
+
+PACKERS = {2: streams.pack_a_nibble, 8: streams.pack_a_bits}
+
+
+@pytest.mark.parametrize("pack", [2, 8])
+@pytest.mark.parametrize("shape", list(BAND_SHAPES.values()), ids=list(BAND_SHAPES))
+def test_expand_at_inverts_the_packers(shape, pack):
+    """The packed A_t encodings (``tband_pack`` 2: nibbles, 8: bits):
+    ``expand_at`` gives the int8 0/1 blocks back exactly and ``logical_wh``
+    their (W, bh), at every BAND_SHAPES shape (W/8 from 8 to 112: below 64,
+    64 and its multiples, and 96 and 112, neither); the port's packers give
+    the JAX package's bytes."""
+    dt, trash, w, bh, m = shape
+    at = band_inputs(dt, trash, w=w, bh=bh, m=m, seed=pack + w)[2]
+    packed = PACKERS[pack](at)
+    jpacker = {2: jax_tband.pack_a_nibble, 8: jax_tband.pack_a_bits}[pack]
+    np.testing.assert_array_equal(packed, jpacker(at))
+    t = torch.from_numpy(packed)
+    assert t.dtype == torch.uint8
+    assert tband.logical_wh(t, pack) == (w, bh)
+    got = tband.expand_at(t, pack)
+    assert got.dtype == torch.int8 and torch.equal(got, torch.from_numpy(at))
+
+
+# packed plain versions against the Pallas kernels at a pack: W/8 8 and 112,
+# nibble rows of 16, 48 and 160 bytes, three feature slabs, padded entries
+PACK_SHAPES = ("w64", "w896-bh256", "bh32-dt48", "bh96", "bh320-dt48")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pack", [2, 8])
+@pytest.mark.parametrize("name", PACK_SHAPES)
+def test_plain_packed_direct_and_bucket_match_jax_kernels(name, pack, dtype):
+    """tband_spmm_direct and tband_spmm_bucket on packed A_t (their plain
+    versions on the CPU, which expand it first) against the JAX package's
+    kernels with the same ``pack`` (interpret mode); fp32 within 1e-5, bf16
+    within 1e-2 of max|ref|."""
+    dt, trash, w, bh, m = BAND_SHAPES[name]
+    sw, st, at, xt, num_sw = band_inputs(dt, trash, w=w, bh=bh, m=m, seed=dt + trash)
+    packed = PACKERS[pack](at)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jxt = jnp.asarray(xt).astype(jdt)
+    want = np.asarray(jax_tband.tband_spmm_direct(
+        jnp.asarray(sw), jnp.asarray(st), jnp.asarray(packed), jxt, num_sw, jdt,
+        pack=pack).astype(jnp.float32))
+    t = [torch.from_numpy(v) for v in (sw, st, packed)]
+    xtt = torch.from_numpy(xt).to(dtype)
+    got = tband.tband_spmm_direct(*t, xtt, num_sw, dtype, pack=pack)
+    assert got.shape == want.shape == (dt, num_sw * bh) and got.dtype == dtype
+    tol = RTOL if dtype == torch.float32 else 1e-2
+    assert rel_err(got.float(), want) < tol
+    want_b = np.asarray(jax_tband.tband_spmm_bucket(jnp.asarray(st), jnp.asarray(packed), jxt,
+                                                    pack=pack))
+    got_b = tband.tband_spmm_bucket(t[1], t[2], xtt, pack=pack)
+    assert got_b.dtype == torch.float32 and got_b.shape == want_b.shape
+    assert rel_err(got_b, want_b) < tol
+    # and equal to the unpacked blocks' result
+    assert torch.equal(got, tband.tband_spmm_direct(t[0], t[1], torch.from_numpy(at), xtt,
+                                                    num_sw, dtype))
 
 
 # missing superwindows of a 24-superwindow layout (bh 128): (runs of eight,
@@ -276,6 +338,38 @@ def test_spill_plans_bf16_match_jax_and_scipy(name):
     assert rel_err(got[:, :plan.num_nodes], oracle) < 1e-2
 
 
+@pytest.mark.parametrize("pack", [2, 8])
+@pytest.mark.parametrize("name", ["single_bucket", "two_buckets", "spill", "missing_supers"])
+def test_packed_plans_match_jax_and_scipy(name, pack):
+    """``HybridSpMM`` on a ``PlanConfig(band_impl='tband', tband_pack=p)``
+    plan (full cover with one and two buckets, a spill plan and one with
+    missing superwindows): the upload holds ``band{s}_at`` packed (uint8, the
+    stored shape), and ``apply_padded`` matches the JAX operator on the same
+    config, the unpacked plan's output bit for bit, and scipy."""
+    graph, fields = PLANS[name] if name in PLANS else SPILL_PLANS[name]
+    rp, ci, n = graph()
+    ops = {p: HybridSpMM(rp, ci, n, PlanConfig(**dict(fields, tband_pack=p)), device="cpu")
+           for p in (1, pack)}
+    op = ops[pack]
+    assert op.plan.tband_pack == pack
+    for s, w in enumerate(op.plan.band_widths):
+        at = op.arrays["f"][f"band{s}_at"]
+        if at.shape[0]:
+            assert at.dtype == torch.uint8
+            assert tband.logical_wh(at, pack) == (w, op.plan.band_h)
+            assert torch.equal(tband.expand_at(at, pack), ops[1].arrays["f"][f"band{s}_at"])
+    jop = JaxHybridSpMM(rp, ci, n, JaxPlanConfig(**dict(fields, tband_pack=pack)))
+    x = np.random.RandomState(7).randn(n, 24).astype(np.float32)
+    got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(x)), 24)
+    want = jop.unpad_output(jop.apply_padded(jop.arrays, jop.pad_input(jnp.asarray(x))), 24)
+    assert rel_err(got, want) < RTOL
+    assert torch.equal(got, ops[1].unpad_output(ops[1].apply_padded(
+        ops[1].arrays, ops[1].pad_input(x)), 24))
+    a = sp.csr_matrix((np.ones(len(ci)), ci, rp), shape=(n, n))
+    assert rel_err(got, a @ x.astype(np.float64)) < RTOL
+    assert (op.plan.spill_nnz > 0) == (name not in PLANS)
+
+
 def test_check_band_arrays_rejects_out_of_range_slices():
     st = np.array([0, 128], np.int32)
     sw = np.array([0, 1], np.int32)
@@ -286,6 +380,22 @@ def test_check_band_arrays_rejects_out_of_range_slices():
         tband.check_band_arrays(st, sw, 256, 256, 2)         # st + W > M
     with pytest.raises(ValueError):
         tband.check_band_arrays(st, sw + 2, 256, 384, 2)     # sw > num_sw
+
+
+def test_bench_needs_cuda_and_builds_its_yardstick():
+    """utils/bench.py refuses to run without a card, and its yardstick (the
+    blocks as one CSR matrix) computes the direct mode's product on the
+    owned blocks."""
+    from hcspmm_tpu_torch.utils import bench
+
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            bench.main()
+    sw, st, at, xt, num_sw = band_inputs(16, 2)
+    t = [torch.from_numpy(v) for v in (sw, st, at, xt)]
+    csr = bench.block_csr(t[2].transpose(1, 2), t[1], t[0], num_sw, xt.shape[1])
+    want = tband.tband_spmm_direct(*t, num_sw, torch.float32)
+    assert rel_err(torch.sparse.mm(csr, t[3].T.contiguous()).T, want) < RTOL
 
 
 def test_wrapper_rejects_devices_it_has_no_kernel_for():
@@ -323,6 +433,41 @@ def test_cuda_kernel_matches_plain(dtype, shape):
         wt = torch.randn((16, dt), device="cuda")
         agg, _ = tband.tband_fused_direct(*t, wt, num_sw, dtype)
         assert torch.equal(agg, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(BAND_SHAPES.values()), ids=list(BAND_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_packed_kernels_equal_pack_1(dtype, shape):
+    """The kernel reading packed A_t (``tband_pack`` 2 and 8, never expanded
+    on the card): the direct and bucket modes and the fused forms (ht 32
+    and 96) give the pack-1 kernel's outputs bit for bit, and two runs are
+    bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dt, trash, w, bh, m = shape
+    sw, st, at, xt, num_sw = band_inputs(dt, trash, w=w, bh=bh, m=m, seed=dt + trash)
+    sw, st, xt = (torch.from_numpy(v).cuda() for v in (sw, st, xt))
+    xt = xt.to(dtype)
+    ats = {1: torch.from_numpy(at).cuda(),
+           **{p: torch.from_numpy(f(at)).cuda() for p, f in PACKERS.items()}}
+    wts = [torch.randn((ht, dt), device="cuda").to(dtype) for ht in (32, 96)]
+
+    def outs(p):
+        res = [tband.tband_spmm_direct(sw, st, ats[p], xt, num_sw, dtype, pack=p),
+               tband.tband_spmm_bucket(st, ats[p], xt, pack=p)]
+        for wt in wts:
+            res += tband.tband_fused_direct(sw, st, ats[p], xt, wt, num_sw, dtype, pack=p)
+        return res
+
+    ref = outs(1)
+    for p in PACKERS:
+        before = tband.pack_launches[p]
+        got, again = outs(p), outs(p)
+        torch.cuda.synchronize()
+        assert tband.pack_launches[p] == before + 8
+        for g, a, r in zip(got, again, ref):
+            assert torch.equal(g, a) and torch.equal(g, r)
 
 
 @pytest.mark.cuda

@@ -27,7 +27,7 @@ from hcspmm_tpu_torch.graphs import io
 from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward, params_from_jax
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
 from hcspmm_tpu_torch.train import cli
-from hcspmm_tpu_torch.train.loop import Bound, make_train_step
+from hcspmm_tpu_torch.train.loop import Bound, make_train_step, train
 
 from conftest import small_graph
 
@@ -95,6 +95,31 @@ def test_adam_steps_on_spill_plan_match_jax_train_step():
                  cfg=dict(TBAND, band_widths=(128,), band_mode="auto"))
     assert case[0].plan.spill_nnz > 0
     _adam_steps_match(*case)
+
+
+def test_adam_steps_at_pack_8_match_pack_1_and_jax():
+    """The GCN on a ``tband_pack=8`` plan (A_t uploaded as bits): three Adam
+    steps match JAX's make_train_step on the same config and weights, and
+    ``train.loop.train`` from those weights gives pack 1's losses exactly."""
+    case = setup("gcn", dropout=0.0, cfg=dict(TBAND, tband_pack=8))
+    assert case[0].arrays["f"]["band0_at"].dtype == torch.uint8
+    _adam_steps_match(*case)
+
+    class Losses:
+        def __init__(self):
+            self.v = []
+
+        def log(self, **rec):
+            self.v.append(rec["loss"])
+
+    losses = {}
+    for pack in (1, 8):
+        op, _, net, _, jparams, x = setup("gcn", dropout=0.0, cfg=dict(TBAND, tband_pack=pack))
+        rec = Losses()
+        train(net, op, x, np.ones(x.shape[0], dtype=np.int64), epochs=3, warmup_epochs=1,
+              logger=rec, init_params=params_from_jax(jparams, device=op.device))
+        losses[pack] = rec.v
+    assert len(losses[8]) == 3 and losses[8] == losses[1]
 
 
 WIDE = dict(impl="pallas", band_impl="wide")
