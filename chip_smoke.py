@@ -151,7 +151,26 @@ Phases, each of which raises on failure, with its seconds printed:
     apply_padded against scipy; and the 6-layer GCN trained 3 epochs through
     ``train.loop.train`` at pack 1 and pack 8, composed and in the fused
     mode, every tband_kernel launch of a pack 8 run counted as reading
-    pack 8 and its losses equal to pack 1's bit for bit.
+    pack 8 and its losses equal to pack 1's bit for bit;
+23. the distributed SpMM (``parallel.dist_spmm.DistHybridSpMM``): 4 gloo
+    ranks sharing the card (spawned by ``parallel.dryrun.run_ranks``; they
+    load the libraries phase 2 built) on the full-size DD stand-in in
+    halo (intended and calibrated selectors), band_halo and allgather
+    mode, and 2 ranks on the blocks stand-in in band_halo mode; each mode's
+    SpMM at D 32 against scipy and against the single-process port, 3
+    Adam steps of the 6-layer GCN against the single-process port's from
+    the same weights, each rank's launches of the dense, ELL, band-bucket
+    and band-direct kernels at its shard plan's arrays against their plain
+    versions (bitwise repeatable), and the launch counts of the SpMM and
+    the steps summed over the ranks (each of the four kernels launched in
+    some mode); rank 0's distributed SpMM and step times, the exchange's
+    bytes and the single-process SpMM's time are printed;
+24. checkpoint and elastic restart: a GCN trained through
+    ``train.loop.train`` with a checkpoint every 2 epochs, resumed in a
+    fresh operator, equal bit for bit to a run that continues with a fresh
+    Adam; one SpMM timed and traced by ``utils/profiling.py``; then
+    ``train.elastic.supervise`` over ``cli.main`` with ``--fault-epoch 2``:
+    one failed launch, one resumed launch, 4 epochs.
 
 The second-to-last line is a JSON object with the kernel table (all
 sixteen TPU kernels' counterparts): for each kernel its launches on the
@@ -163,7 +182,9 @@ each pack's time, plain version and bound from phase 22): the larger of the byte
 input read once, each output written once) at 3.35 TB/s and its
 operations at the card's peak rate for their type (fp32 67 TFLOP/s, bf16
 989 TFLOP/s), computed from this run's arrays; beside it the
-Table VI analog, the grouped A/B and the fused training runs.  The last
+Table VI analog, the grouped A/B, the fused training runs and phases
+23-24's results (the launch counts of the distributed runs, summed over
+their ranks, count among the kernels' launches).  The last
 line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero and prints no result.
@@ -2475,6 +2496,434 @@ def train_packed(rp, ci, n, launch_runs, out) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: the distributed SpMM over gloo ranks on the card; checkpoint
+# and elastic restart
+# ---------------------------------------------------------------------------
+
+DIST_NET = dict(model="gcn", num_features=96, hidden=32, num_classes=22, num_layers=6)
+DIST_DIM = 32  # the SpMM checks' width: the 6-layer GCN's hidden width
+DIST_STEPS = 3
+DIST_KERNELS = ("dense_bucket_spmm", "ell_bucket_spmm", "band_bucket_spmm", "band_spmm")
+
+
+def ref_config(config, mode):
+    """The PlanConfig ``build_sharded_plan`` gives each shard, for the
+    single-process reference of the same graph."""
+    if mode == "halo":
+        config = dataclasses.replace(config, band_mode="never")
+    if isinstance(config.band_widths, str):
+        config = dataclasses.replace(config, band_widths=(256, 512, 1024, 2048))
+    return dataclasses.replace(config, band_impl="wide")
+
+
+def dist_inputs(n) -> tuple:
+    """The distributed phase's inputs, made from seeds where they are used
+    (a spawned rank gets only the graph): X [n, 32] for the SpMM and the
+    GCN's features [n, 96], float32."""
+    import numpy as np
+
+    return (np.random.RandomState(0).randn(n, DIST_DIM).astype(np.float32),
+            np.random.RandomState(1).randn(n, DIST_NET["num_features"]).astype(np.float32))
+
+
+def shard_kernels_vs_plain(op, xv) -> dict:
+    """Each row-layout kernel that ``spmm_rows`` runs on this rank's shard
+    plan, launched by its wrapper at the plan's own arrays and the rank's
+    exchanged view ``xv`` [num_cols, D] fp32 and held against its plain
+    version, two runs bitwise equal: the band kernel's direct mode (#14,
+    the main bucket of a full-cover plan; owned blocks compared) and bucket
+    mode (#12, every other bucket with entries), the dense kernel (#10) and
+    the ELL kernel (#11) into zero-filled [N, D] results.  Returns
+    {kernel: max_abs_err}."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm as bs
+
+    p, arrs, n, d = op.plan, op.arrays, op.plan.num_nodes, xv.shape[1]
+    errs = {}
+    real = [s for s in range(len(p.band_widths)) if len(p.band_sw_ids[s])]
+    if real:
+        xb = bs._band_table(xv, p)
+        num_sw = max(p.band_num_sw, -(-n // p.band_h))
+        main = max(real, key=lambda s: len(p.band_sw_ids[s])) if bs.band_covers_all(p) else None
+        for s in real:
+            st, a, sw = arrs[f"band{s}_start"], arrs[f"band{s}_a"], arrs[f"band{s}_sw"]
+            if s == main:
+                own = sw[: len(p.band_sw_ids[s])].long()
+                errs["band_spmm"] = hold_repeatable(
+                    f"rank {op.rank} band{s} direct", lambda: bs.band_bucket_spmm_direct(
+                        sw, st, a, xb, num_sw, torch.float32)[own],
+                    lambda: bs.band_bucket_spmm_direct_plain(sw, st, a, xb, num_sw,
+                                                             torch.float32)[own], "float32")
+            else:
+                errs["band_bucket_spmm"] = max(errs.get("band_bucket_spmm", 0.0), hold_repeatable(
+                    f"rank {op.rank} band{s} bucket", lambda: bs.band_bucket_spmm(st, a, xb),
+                    lambda: bs.band_bucket_spmm_plain(st, a, xb), "float32"))
+    if any(arrs[f"b{b}_wid"].shape[0] for b in range(len(p.bucket_widths))
+           if f"b{b}_wid" in arrs):
+        errs["dense_bucket_spmm"] = hold_repeatable(
+            f"rank {op.rank} dense rows", lambda: bs.dense_rows(
+                arrs, p, xv, torch.zeros((n, d), device=xv.device)),
+            lambda: bs.dense_rows_plain(arrs, p, xv, torch.zeros((n, d), device=xv.device)),
+            "float32")
+    if "rw_node" in arrs:
+        errs["ell_bucket_spmm"] = hold_repeatable(
+            f"rank {op.rank} ELL rows", lambda: bs.ell_rows(
+                arrs, xv, torch.zeros((n, d), device=xv.device)),
+            lambda: bs.ell_rows_plain(arrs["rw_node"], arrs["rw_ptr"], arrs["rw_cols"], xv,
+                                      torch.zeros((n, d), device=xv.device)), "float32")
+    return errs
+
+
+def dist_rank(rank, world, device, cases, params_np, spawned) -> list:
+    """One rank of phase 23 (``parallel.dryrun.run_ranks`` spawns it): for
+    each case, the DistHybridSpMM of its mode over the case's graph; the
+    launch counters zeroed, one SpMM at D 32 and ``DIST_STEPS`` Adam steps
+    of the 6-layer GCN (``dryrun.train_step`` from ``params_np``), the
+    counters read; then the SpMM's rows against scipy, timings (rank 0's
+    are printed) and each kernel of the shard plan against its plain
+    version.  Returns per case this rank's rows of the SpMM, the losses,
+    the trained parameters (rank 0), the counts and the times, and the
+    seconds from ``spawned`` (the parent's clock before the spawn) to this
+    function's start."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+
+    from hcspmm_tpu_torch.models.net import Net, params_from_jax
+    from hcspmm_tpu_torch.parallel import dryrun
+    from hcspmm_tpu_torch.parallel.dist_spmm import DistHybridSpMM
+
+    startup_s = time.time() - spawned
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def step(net, params, op, opt, xin, y, times):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        loss = float(dryrun.train_step(net, params, op, opt, xin, y))  # waits for the card
+        times.append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    results = []
+    for case in cases:
+        t0 = time.perf_counter()
+        op = DistHybridSpMM(case["rp"], case["ci"], case["n"], config=case["config"],
+                            mode=case["mode"], device=device)
+        torch.cuda.synchronize()
+        p = op.plan
+        res = dict(startup_s=startup_s, build_s=time.perf_counter() - t0, rows=p.num_nodes,
+                   cols=p.num_cols,
+                   n_padded=op.n_padded, halo_pair=op.sharded.halo_pair,
+                   far_pair=op.sharded.far_pair, full_cover=bool(p.band_full_cover),
+                   band_entries=[len(v) for v in p.band_sw_ids],
+                   band_capacity=[int(s.shape[0]) for s in p.band_starts],
+                   dense_windows=p.num_dense_windows,
+                   ell_rows=[len(r) for r in p.ell_row_ids], spill_edges=int(p.spill_nnz),
+                   exchange_rows=op.exchange_rows())
+        xg, feat = dist_inputs(case["n"])
+        x, xin = op.local_rows(xg), op.local_rows(feat)
+        y = torch.ones(op.rows_per_shard, dtype=torch.int64, device=op.device)
+        net = Net(**DIST_NET)
+        params = params_from_jax(params_np, device=op.device)
+        opt = dryrun.adam(params)
+        dist.barrier()
+        t0 = time.perf_counter()
+        zero_counts()
+        with torch.no_grad():
+            z = op(x)
+        torch.cuda.synchronize()
+        res["spmm_counts"] = read_counts()
+        step_ms = []
+        losses = [step(net, params, op, opt, xin, y, step_ms) for _ in range(DIST_STEPS)]
+        res["counts"] = read_counts()
+        res["run_s"] = time.perf_counter() - t0
+        res["step_ms"] = step_ms
+        res["losses"] = losses
+        res["z"] = z.cpu().numpy()
+        lo = op.rank * op.rows_per_shard
+        a = sp.csr_matrix((np.ones(len(case["ci"])), case["ci"], case["rp"]),
+                          shape=(case["n"], case["n"]))
+        ref = np.zeros((op.rows_per_shard, DIST_DIM))
+        hi = min(lo + op.rows_per_shard, case["n"])
+        if hi > lo:
+            ref[: hi - lo] = a[lo:hi] @ xg.astype(np.float64)
+        res["scipy_err"] = hold(f"rank {rank} {case['name']} SpMM vs scipy", z, ref, "float32")
+        if rank == 0:  # copies: the timed steps below update the parameters in place
+            res["params"] = [{k: v.detach().cpu().numpy().copy() for k, v in layer.items()}
+                             for layer in params]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            res["spmm_ms"] = wall_ms(lambda: op(x), 5)
+            res["exchange_ms"] = wall_ms(lambda: op.exchange(x), 5)
+            xv = op.exchange(x)
+            res["local_ms"] = cuda_time_ms(lambda: op.local_spmm(xv), 10)
+        res["time_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["kernel_errs"] = shard_kernels_vs_plain(op, xv)
+        res["check_s"] = time.perf_counter() - t0
+        results.append(res)
+        del op, xv
+        torch.cuda.empty_cache()
+    return results
+
+
+def dist_reference(case, params_np, ref_ops) -> dict:
+    """The single-process port on the same graph padded to ``n_padded``
+    rows (``ref_config``'s plan, row layout): the SpMM at D 32, its time,
+    and ``DIST_STEPS`` Adam steps of the 6-layer GCN from ``params_np`` with
+    the distributed step's loss (NLL over the padded rows, all-ones
+    labels)."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.models.net import Net, net_forward, params_from_jax
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+    from hcspmm_tpu_torch.parallel import dryrun
+    from hcspmm_tpu_torch.train.loop import Bound
+
+    n, m = case["n"], case["n_padded"]
+    cfg = ref_config(case["config"], case["mode"])
+    key = (case["graph"], cfg)
+    if key not in ref_ops:
+        rp = np.concatenate([case["rp"], np.full(m - n, case["rp"][-1], case["rp"].dtype)])
+        ref_ops.clear()
+        ref_ops[key] = HybridSpMM(rp, case["ci"], m, cfg, device=DEV)
+    op = ref_ops[key]
+    pad = lambda v: torch.from_numpy(np.concatenate([v, np.zeros((m - n, v.shape[1]),
+                                                                 np.float32)])).to(DEV)
+    x, xin = (pad(v) for v in dist_inputs(n))
+    with torch.no_grad():
+        z = op(x)
+        ms = cuda_time_ms(lambda: op(x), 10)
+    bound = Bound(op)
+    bound.padded_layout = False  # the row layout, as every rank runs it
+    net = Net(**DIST_NET)
+    params = params_from_jax(params_np, device=DEV)
+    opt = dryrun.adam(params)
+    y = torch.ones(m, dtype=torch.int64, device=DEV)
+    losses = []
+    for _ in range(DIST_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = dryrun.nll_sum(net_forward(net, params, bound, xin), y) / m
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    return dict(z=z.cpu().numpy(), ms=ms, losses=losses,
+                params=[{k: v.detach().cpu().numpy() for k, v in layer.items()}
+                        for layer in params])
+
+
+def dist_phase(graphs, launch_runs, out) -> None:
+    """Phase 23: ``DistHybridSpMM`` over gloo ranks sharing the card.  On
+    the full-size DD stand-in (cluster order) at 4 ranks: halo (intended
+    and calibrated selectors), band_halo and allgather; on the blocks
+    stand-in (rcm) band_halo at 2 ranks.  For each: the SpMM against scipy
+    (each rank) and against the single-process port on the same graph, the
+    6-layer GCN's losses and updated parameters after 3 Adam steps against
+    the single-process port's from the same parameters (losses within 1e-5
+    relative, parameters within 1e-4 of each tensor's max|p|), each rank's
+    kernels of its shard plan against their plain versions, and the launch
+    counts of the SpMM and the steps summed over the ranks (each of #10,
+    #11, #12 and #14 must be launched in some mode).  Logs rank 0's
+    distributed SpMM and step times, the exchange's bytes and the
+    single-process SpMM's time."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.models.net import Net, init_net_params
+    from hcspmm_tpu_torch.parallel import dryrun
+
+    params = init_net_params(Net(**DIST_NET), torch.Generator().manual_seed(0), init="glorot",
+                             device="cpu")
+    params_np = [{k: v.detach().numpy() for k, v in layer.items()} for layer in params]
+    worlds = {4: [("DD halo intended", "DD", "halo", PlanConfig(loi_mode="intended")),
+                  ("DD halo calibrated", "DD", "halo", PlanConfig(loi_mode="calibrated")),
+                  ("DD band_halo", "DD", "band_halo", PlanConfig()),
+                  ("DD allgather", "DD", "allgather", PlanConfig())],
+              2: [("blocks band_halo", "blocks", "band_halo", PlanConfig())]}
+    ref_ops = {}
+    for world, specs in worlds.items():
+        cases = []
+        for name, g, mode, cfg in specs:
+            rp, ci, n = graphs[g]
+            cases.append(dict(name=name, graph=g, rp=rp, ci=ci, n=n, mode=mode, config=cfg))
+        t0 = time.perf_counter()
+        ranks = dryrun.run_ranks(dist_rank, world, DEV, (cases, params_np, time.time()))
+        world_s = dict(world_s=time.perf_counter() - t0,
+                       startup_s=max(r[0]["startup_s"] for r in ranks))
+        log(f"  {world} ranks: {world_s['world_s']:.1f} s spawned, run and joined; "
+            f"{world_s['startup_s']:.1f} s of it before the ranks' first case")
+        for i, case in enumerate(cases):
+            per = [r[i] for r in ranks]
+            r0 = per[0]
+            case["n_padded"] = r0["n_padded"]
+            t0 = time.perf_counter()
+            ref = dist_reference(case, params_np, ref_ops)
+            ref_s = time.perf_counter() - t0
+            z = np.concatenate([r["z"] for r in per])
+            err = hold(f"{case['name']} SpMM vs the single-process port", z, ref["z"], "float32")
+            for r in per:
+                if r["losses"] != r0["losses"]:
+                    raise AssertionError(f"{case['name']}: the ranks' losses differ")
+            np.testing.assert_allclose(r0["losses"], ref["losses"], rtol=1e-5)
+            for got, want in zip(r0["params"], ref["params"]):
+                for k in got:
+                    dp = float(np.abs(got[k] - want[k]).max())
+                    if not dp <= 1e-4 * float(np.abs(want[k]).max()):
+                        raise AssertionError(f"{case['name']}: parameter {k} differs by {dp:.3e}")
+            counts = {k: sum(r["counts"][k] for r in per) for k in r0["counts"]}
+            spmm_counts = {k: sum(r["spmm_counts"][k] for r in per) for k in DIST_KERNELS}
+            launch_runs[f"dist {case['name']}"] = counts
+            per_step = {k: (counts[k] - spmm_counts[k]) / DIST_STEPS for k in DIST_KERNELS}
+            kernel_errs = {}
+            for r in per:
+                for k, v in r["kernel_errs"].items():
+                    kernel_errs[k] = max(kernel_errs.get(k, 0.0), v)
+            xbytes = r0["exchange_rows"] * DIST_DIM * 4
+            out[case["name"]] = dict(
+                ranks=world, spmm_ms=r0["spmm_ms"], exchange_ms=r0["exchange_ms"],
+                local_ms=r0["local_ms"], step_ms=r0["step_ms"], single_spmm_ms=ref["ms"],
+                seconds={k: max(r[k] for r in per) for k in ("build_s", "run_s", "time_s",
+                                                              "check_s")} | world_s | {
+                    "reference_s": ref_s},
+                exchange_bytes_per_rank=xbytes,
+                losses=r0["losses"], single_losses=ref["losses"], err_vs_single=err,
+                launches_per_spmm=spmm_counts, launches_per_step=per_step,
+                kernel_errs=kernel_errs,
+                shards=[{k: r[k] for k in ("rows", "cols", "full_cover", "band_entries",
+                                           "band_capacity", "dense_windows", "ell_rows",
+                                           "spill_edges", "halo_pair", "far_pair")}
+                        for r in per])
+            log(f"  {case['name']} ({world} ranks): SpMM {r0['spmm_ms']:.3f} ms (exchange "
+                f"{r0['exchange_ms']:.3f}, local kernels {r0['local_ms']:.4f}), GCN steps "
+                f"{[round(v, 1) for v in r0['step_ms']]} ms, exchange {xbytes} bytes a rank a "
+                f"SpMM (D {DIST_DIM}, "
+                f"fp32); single-process SpMM {ref['ms']:.4f} ms; losses {r0['losses']} vs "
+                f"{ref['losses']}; launches a SpMM {spmm_counts}, a step {per_step}; kernels vs "
+                f"plain {kernel_errs}; seconds {out[case['name']]['seconds']}")
+            log(f"    shards: {out[case['name']]['shards']}")
+    ref_ops.clear()
+    torch.cuda.empty_cache()
+    missing = [k for k in DIST_KERNELS
+               if not sum(launch_runs[f"dist {c}"][k] for c in out)]
+    if missing:
+        raise AssertionError(f"the distributed runs launched none of {missing}")
+
+
+def checkpoint_phase(out) -> None:
+    """Phase 24: the 6-layer GCN trained 4 epochs from glorot weights
+    through ``train.loop.train`` on a synthetic graph of 20,000 nodes
+    (normalized aggregation), saving every 2; resumed from the file in a
+    fresh operator for 3 more epochs, its per-epoch losses and parameters
+    equal bit for bit to a run continuing from the same epoch with a fresh
+    Adam; ``utils/profiling.py``'s device time, roofline and Chrome trace of
+    one SpMM; then ``train.elastic.supervise`` over ``cli.main`` with
+    ``--fault-epoch 2`` (the first launch fails at epoch 2, the relaunch
+    resumes and finishes 4)."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.graphs import io as gio
+    from hcspmm_tpu_torch.models.net import Net, init_net_params
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+    from hcspmm_tpu_torch.train import elastic
+    from hcspmm_tpu_torch.train.loop import train
+    from hcspmm_tpu_torch.utils import profiling
+    from hcspmm_tpu_torch.utils.checkpoint import load_pytree
+
+    class Losses:
+        def __init__(self):
+            self.v = []
+
+        def log(self, **rec):
+            self.v.append(rec["loss"])
+
+    src, dst, n = gio.synthetic_graph(20_000, 8.0, seed=3)
+    rp, ci = gio.to_csr(src, dst, n)
+    x = np.random.RandomState(1).randn(n, 96).astype(np.float32)
+    y = np.ones(n, dtype=np.int64)
+    net = Net(**DIST_NET)
+    cfg = PlanConfig(band_impl="tband")  # the CLI's layout at hidden 32
+
+    def fresh_op():  # normalized: unnormalized sums saturate this net in one step
+        return HybridSpMM(rp, ci, n, cfg, normalize=True, device=DEV)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        op = fresh_op()
+        start = init_net_params(net, torch.Generator().manual_seed(3), init="glorot",
+                                device=op.device)
+        first = train(net, op, x, y, epochs=4, warmup_epochs=0, seed=3, checkpoint_path=path,
+                      checkpoint_every=2, init_params=start)
+        params, meta = load_pytree(path)
+        if meta["epoch"] != 4:
+            raise AssertionError(f"the checkpoint holds epoch {meta['epoch']}, not 4")
+        resumed, straight = Losses(), Losses()
+        res_r = train(net, fresh_op(), x, y, epochs=3,
+                      warmup_epochs=0, seed=3, init_params=params, start_epoch=4, logger=resumed)
+        res_s = train(net, op, x, y, epochs=3, warmup_epochs=0, seed=3,
+                      init_params=first["params"], logger=straight)
+        same = all(torch.equal(a[k], b[k]) for a, b in zip(res_r["params"], res_s["params"])
+                   for k in a)
+        log(f"  resumed losses {resumed.v}, uninterrupted {straight.v}; parameters equal {same}")
+        if resumed.v != straight.v or not same:
+            raise AssertionError("the resumed run differs from the uninterrupted one")
+        xt = torch.from_numpy(x[:, :32].copy()).to(DEV)
+        with torch.no_grad():
+            secs = profiling.device_time(op, xt, iters=10)
+            with profiling.trace(os.path.join(tmp, "trace.json")):
+                op(xt)
+        with open(os.path.join(tmp, "trace.json")) as f:
+            kernels = sum(e.get("cat") == "kernel" for e in json.load(f)["traceEvents"])
+        # bytes: the CSR's column indices and row starts, X read and Z written once
+        roof = profiling.roofline(secs, 4 * (int(rp[-1]) + n + 1) + 2 * n * 32 * 4,
+                                  2 * int(rp[-1]) * 32)
+        log(f"  utils/profiling.py: the normalized row-layout SpMM at D 32 {secs * 1e3:.4f} ms "
+            f"of device time, {roof['gbytes_per_s']:.1f} GB/s, {roof['bound']} bound at "
+            f"{roof['speed_of_light_s'] * 1e3:.4f} ms; its Chrome trace holds {kernels} kernel "
+            "events")
+        out["profiling"] = dict(device_ms=secs * 1e3, trace_kernels=kernels)
+        launches = []
+
+        def runner(argv):
+            launches.append(list(argv))
+            try:
+                run_cli(argv)
+                return 0
+            except RuntimeError as exc:
+                log(f"  launch {len(launches)} failed: {exc}")
+                return 1
+
+        ck = os.path.join(tmp, "elastic")
+        t0 = time.perf_counter()
+        sup = elastic.supervise(["--dataset", "example", "--synthetic-nodes", "4096", *GCN],
+                                checkpoint=ck, total_epochs=4, checkpoint_every=1,
+                                max_restarts=2, fault_epoch=2, runner=runner)
+        log(f"  supervise: {sup} in {time.perf_counter() - t0:.1f} s, launches {launches}")
+        if (sup["restarts"], sup["epochs"], len(launches)) != (1, 4, 2) or "--resume" not in \
+                launches[1]:
+            raise AssertionError(f"supervise: {sup}, launches {launches}")
+        out.update(resumed_losses=resumed.v, uninterrupted_losses=straight.v,
+                   supervise=dict(restarts=sup["restarts"], epochs=sup["epochs"]))
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2923,6 +3372,13 @@ def main() -> int:
         packed_at_plan("GH", real_csr["GH"], gen, packed_res)
         train_packed(rp, ci, n, launch_runs, packed_train)
 
+    dist_res, ckpt_res = {}, {}
+    with Phase("23. the distributed SpMM: gloo ranks sharing the card"):
+        dist_phase({"DD": real_csr["DD"], "blocks": (rp, ci, n)}, launch_runs, dist_res)
+
+    with Phase("24. checkpoint, resume and elastic restart"):
+        checkpoint_phase(ckpt_res)
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -3052,7 +3508,8 @@ def main() -> int:
                         for r in spill_res[("tbstream_merge", cd)]},
                     "epoch_profiles": profiles,
                     "packed_training": {f"pack {k[0]} {k[1]}": v
-                                        for k, v in packed_train.items()}}))
+                                        for k, v in packed_train.items()},
+                    "distributed": dist_res, "checkpoint": ckpt_res}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

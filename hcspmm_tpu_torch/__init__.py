@@ -15,8 +15,11 @@ JAX nor hcspmm_tpu:
 - ``ops``     : the differentiable SpMM (``torch.autograd.Function``) and
                 the layer strategies.
 - ``models``  : GCN / GIN / SAGE layers and networks, the SAG profiler.
-- ``train``   : training loop and command line.
-- ``utils``   : logging.
+- ``parallel``: the row-partitioned distributed SpMM over
+                ``torch.distributed`` (sharded plans, one per rank).
+- ``train``   : training loop, command line, elastic restart.
+- ``utils``   : logging, checkpoints (the JAX package's npz format),
+                profiling.
 """
 
 __version__ = "0.1.0"

@@ -109,11 +109,24 @@ class GraphDataset:
     @classmethod
     def real(cls, name: str, dim: int = 0, num_classes: int = 0,
              seed: int = 0) -> "GraphDataset":
-        """The JAX package's bundled real graphs (hcspmm_tpu.graphs.real)
-        need networkx and scikit-learn; not ported yet (ROADMAP A.8)."""
-        raise NotImplementedError(
-            f"real dataset {name!r}: graphs/real.py is not ported yet "
-            "(ROADMAP A.8)")
+        """Real (non-synthetic) datasets (graphs.real): 'digits-knn[:k]'
+        carries real features and labels (the dim and num_classes arguments
+        are overridden by the data); the classic networkx graphs follow the
+        reference's random-feature / all-ones-label convention
+        (dataset.py:109-121).  Raises ImportError naming networkx or
+        scikit-learn where it is not installed."""
+        from hcspmm_tpu_torch.graphs import real as _real
+
+        t0 = time.perf_counter()
+        if name.startswith("digits-knn"):
+            _, _, k = name.partition(":")
+            src, dst, n, x, y = _real.digits_knn(int(k) if k else 8)
+            ds = cls.from_edges(src, dst, n, x.shape[1], int(y.max()) + 1, seed=seed, t0=t0)
+            ds.x = x
+            ds.y = y
+            return ds
+        src, dst, n = _real.networkx_edges(name)
+        return cls.from_edges(src, dst, n, max(dim, 1), max(num_classes, 2), seed=seed, t0=t0)
 
     @classmethod
     def synthetic(

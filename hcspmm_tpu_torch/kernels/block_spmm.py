@@ -257,14 +257,16 @@ def spmm_padded_supported(plan) -> bool:
 
 def rows_check(plan, a_dtype: str = "int8") -> None:
     """Raise NotImplementedError for the non-tband plans this package does
-    not run: row-partitioned (rectangular or shard-uniform) plans and int4
-    band blocks.  Every other plan runs in the row layout (``spmm_rows``)
-    and, where ``spmm_padded_supported``, also in the wide padded layout
-    (tiled plans through ``band_tiled_spmm``)."""
-    if plan.num_cols != plan.num_nodes or getattr(plan, "shard_uniform", False):
+    not run: shard-uniform proxy plans (the reference's stand-in for every
+    shard under one SPMD trace; here each rank runs its own shard's plan,
+    ``parallel.dist_spmm``) and int4 band blocks.  Every other plan runs in
+    the row layout (``spmm_rows``), rectangular shard plans included, and,
+    where ``spmm_padded_supported``, also in the wide padded layout (tiled
+    plans through ``band_tiled_spmm``)."""
+    if getattr(plan, "shard_uniform", False):
         raise NotImplementedError(
-            "rectangular and shard plans: the row-partitioned distributed "
-            "SpMM (hcspmm_tpu/parallel) is ROADMAP A.10")
+            "shard-uniform proxy plans: each rank runs its own shard's plan "
+            "(hcspmm_tpu_torch.parallel.dist_spmm)")
     if a_dtype == "int4":
         raise NotImplementedError("a_dtype='int4' band blocks are not ported "
                                   "(ROADMAP A.12)")
@@ -998,17 +1000,19 @@ def spmm_fused_rows(arrs, x, w, plan, compute_dtype):
 
 
 def band_table_rows(plan) -> int:
-    """Rows of the row layout's band table: X, its zero row, and zero rows
-    up to the plan's ``xp_rows`` and the padded layout's M, so that every
-    band slice (capacity padding included) lies inside it."""
-    return max(plan.xp_rows, plan.num_nodes + 1, plan.padded_rows)
+    """Rows of the row layout's band table: X's ``num_cols`` rows (the
+    column space, wider than the N output rows on a shard plan), its zero
+    row, and zero rows up to the plan's ``xp_rows`` and the padded layout's
+    M, so that every band slice (capacity padding included) lies inside it."""
+    return max(plan.xp_rows, plan.num_cols + 1, plan.padded_rows)
 
 
 def _band_table(xr, plan):
-    """[band_table_rows, 128-multiple] copy of ``xr`` for the band kernel."""
-    n, d = xr.shape
+    """[band_table_rows, 128-multiple] copy of ``xr`` (all its rows) for the
+    band kernel."""
+    r, d = xr.shape
     xb = torch.zeros((band_table_rows(plan), lane_pad(d)), dtype=xr.dtype, device=xr.device)
-    xb[:n, :d] = xr
+    xb[:r, :d] = xr
     return xb
 
 
@@ -1032,9 +1036,11 @@ def band_covers_all(plan) -> bool:
 
 
 def spmm_rows(arrs, x, plan, compute_dtype):
-    """SpMM in the row layout: x [N, d] -> [N, d] in x's dtype (port of
+    """SpMM in the row layout: x [C, d] -> [N, d] in x's dtype, C the plan's
+    ``num_cols`` (N on a square plan; on a shard plan the rank's column
+    space, its rows and their halo) and N its ``num_nodes`` (port of
     hcspmm_tpu/kernels/block_spmm.py:897 ``spmm_pallas`` on non-tband
-    plans).
+    plans, which also takes its row counts from the plan, never from x).
 
     Full band cover: the most populated band bucket writes every
     superwindow's block directly, the other buckets' blocks are scattered
@@ -1051,8 +1057,8 @@ def spmm_rows(arrs, x, plan, compute_dtype):
     [M, 128-multiple] and sliced back."""
     rows_check(plan)
     n, d = plan.num_nodes, x.shape[1]
-    if x.shape[0] != n:
-        raise ValueError(f"x has {x.shape[0]} rows, the plan {n}")
+    if x.shape[0] != plan.num_cols:
+        raise ValueError(f"x has {x.shape[0]} rows, the plan's column space {plan.num_cols}")
     if getattr(plan, "tiled", False):
         xp = torch.zeros((plan.padded_rows, lane_pad(d)), dtype=compute_dtype, device=x.device)
         xp[:n, :d] = x
@@ -1060,8 +1066,9 @@ def spmm_rows(arrs, x, plan, compute_dtype):
     xr = x.to(compute_dtype).contiguous()
     if band_covers_all(plan):
         num_sw = max(plan.band_num_sw, -(-n // plan.band_h))
-        nonempty = [s for s in range(len(plan.band_widths))
-                    if arrs[f"band{s}_start"].shape[0] > 0]
+        # buckets with real entries: a shard plan's capacity padding (sw_id
+        # == num_sw) may fill a bucket that owns no superwindow of its own
+        nonempty = [s for s in range(len(plan.band_widths)) if len(plan.band_sw_ids[s])]
         xb = _band_table(xr, plan)
         od = x.dtype if x.dtype in (xr.dtype, torch.float32) else torch.float32
         s_main = max(nonempty, key=lambda s: len(plan.band_sw_ids[s]))

@@ -224,7 +224,8 @@ def check_plan(plan) -> None:
     if not plan.band_widths or plan.num_cols != plan.num_nodes:
         raise NotImplementedError(
             "the transposed padded layout needs a square plan with band "
-            "buckets; row-partitioned plans are ROADMAP A.10")
+            "buckets; shard plans build band_impl='wide' and run in the row "
+            "layout (parallel.dist_spmm)")
     m = plan.padded_rows
     num_sw = m // plan.band_h
     covered = sum(len(s) for s in plan.band_sw_ids)

@@ -105,10 +105,12 @@ def _sparse_path_xla(arrs, xp, plan):
 
 
 def _spmm_xla(arrs, x, plan, compute_dtype):
-    """[N, d] -> [N, d] in x's dtype (port of hcspmm_tpu/ops/spmm.py:127):
-    X with zero rows up to the plan's ``xp_rows`` (the pad columns' zero row
-    and band slices near the top), every population in fp32, the
-    ``out_perm`` merge, and the spill population by the take path."""
+    """[C, d] -> [N, d] in x's dtype, C the plan's ``num_cols`` and N its
+    ``num_nodes`` (port of hcspmm_tpu/ops/spmm.py:127; they differ on a
+    shard plan, whose X is the rank's column space): X with zero rows up
+    to the plan's ``xp_rows`` (the pad columns' zero row and band slices
+    near the top), every population in fp32, the ``out_perm`` merge, and
+    the spill population by the take path."""
     n, d = x.shape
     xp = torch.cat([x, torch.zeros((max(plan.xp_rows - n, 1), d), dtype=x.dtype,
                                    device=x.device)]).to(compute_dtype)

@@ -9,8 +9,9 @@ HC-SpMM_main.py:18-64); port of hcspmm_tpu/train/cli.py with its flags.
 ops, no kernel) in the row layout [N, d].  ``--band-impl tiled`` builds the
 tiled band (a plan's (superwindow, 128-row X tile) pairs) where the plan
 builder admits it (full band cover, no spill, band_h a multiple of 128) and
-a wide plan otherwise, as the JAX package does.  Flags whose feature is not
-ported yet raise NotImplementedError naming the ROADMAP item.
+a wide plan otherwise, as the JAX package does.  ``--checkpoint``,
+``--checkpoint-every``, ``--resume`` and ``--fault-epoch`` save, resume and
+fail training as the JAX CLI's do (train.elastic supervises them).
 
 Dataset resolution: a path ending in .txt loads that file ("dst,src"
 1-indexed text per dataset.py:52-53), another existing path goes through
@@ -28,13 +29,13 @@ import torch
 
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.graphs.dataset import GraphDataset
+from hcspmm_tpu_torch.graphs.real import REAL_GRAPHS
 from hcspmm_tpu_torch.models.net import Net
 from hcspmm_tpu_torch.models.sag import SAG
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
 from hcspmm_tpu_torch.train.loop import train
+from hcspmm_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from hcspmm_tpu_torch.utils.logging import stdout_logger
-
-_REAL_GRAPHS = ("karate", "lesmis", "davis", "florentine")  # hcspmm_tpu.graphs.real
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,23 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_ported(args) -> None:
-    for flag, value in (("--checkpoint", args.checkpoint),
-                        ("--resume", args.resume),
-                        ("--checkpoint-every", args.checkpoint_every),
-                        ("--fault-epoch", args.fault_epoch)):
-        if value:
-            raise NotImplementedError(f"{flag}: checkpoint and elastic restart "
-                                      "are ROADMAP A.8")
-
-
 def load_dataset(args) -> GraphDataset:
     name = args.dataset
     if name.endswith(".txt") and os.path.exists(name):
         return GraphDataset.from_txt(name, args.dim, args.classes, args.seed)
     if os.path.exists(name) and name not in (".",):
         return GraphDataset.from_file(name, args.dim, args.classes, args.seed)
-    if name.startswith("digits-knn") or name in _REAL_GRAPHS:
+    if name.startswith("digits-knn") or name in REAL_GRAPHS:
         return GraphDataset.real(name, args.dim, args.classes, args.seed)
     candidate = os.path.join("Dataset", name + ".txt")
     if os.path.exists(candidate):
@@ -187,7 +178,6 @@ def prepare(args, device, logger):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args)
-    _check_ported(args)
     device = resolve_device(args)
     logger = stdout_logger(dataset=args.dataset, model=args.model)
     ds, op = prepare(args, device, logger)
@@ -205,10 +195,26 @@ def main(argv=None) -> int:
         num_classes=args.classes,
         num_layers=args.num_layers,
     )
+    init_params = None
+    start_epoch = 0
+    if args.resume:
+        init_params, meta = load_pytree(args.resume)
+        start_epoch = int(meta.get("epoch", 0))
+        logger.log(event="resume", path=args.resume, **meta)
     res = train(net, op, ds.x, ds.y, epochs=args.epochs, seed=args.seed,
-                logger=logger)
+                logger=logger, init_params=init_params,
+                checkpoint_path=args.checkpoint or None,
+                checkpoint_every=args.checkpoint_every, start_epoch=start_epoch,
+                fault_epoch=args.fault_epoch or None)
     logger.log(event="done", epoch_ms=res["epoch_ms"], final_loss=res["final_loss"],
                warmup_s=res["warmup_s"], device=str(device))
+    if args.checkpoint:
+        # the absolute epoch counter: what the elastic supervisor reads to
+        # decide whether the run is complete
+        save_pytree(args.checkpoint, res["params"],
+                    {"model": args.model, "epoch": start_epoch + args.epochs,
+                     "epochs": args.epochs})
+        print(f"checkpoint saved to {args.checkpoint}")
     return 0
 
 

@@ -19,7 +19,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward
+from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward, params_from_jax
+from hcspmm_tpu_torch.utils.checkpoint import save_pytree
 from hcspmm_tpu_torch.utils.logging import MetricLogger
 
 
@@ -103,16 +104,31 @@ def make_train_step(net: Net, spmm, optimizer: torch.optim.Optimizer):
 def train(net: Net, spmm, x, y, epochs: int = 200, lr: float = 0.01,
           seed: int = 0, warmup_epochs: int = 9,
           logger: Optional[MetricLogger] = None,
-          init_params: Optional[List[Dict]] = None) -> Dict:
+          init_params: Optional[List[Dict]] = None,
+          checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
+          start_epoch: int = 0, fault_epoch: Optional[int] = None) -> Dict:
     """Runs warm-up + timed epochs on ``spmm.device``; returns params and
     timing.  ``epoch_ms`` is the timed epochs' host time, ended by
     ``torch.cuda.synchronize()`` on a CUDA device, over ``epochs``;
     ``warmup_s`` the warm-up epochs' time, first-call costs included.
     Per-epoch losses are logged after the timed loop, so logging adds no
-    device wait inside it."""
+    device wait inside it.
+
+    ``init_params`` resumes from given parameters (tensors, or the NumPy
+    tree of a checkpoint) instead of a fresh draw; the optimizer starts
+    fresh, as in the JAX package.  ``checkpoint_path`` with
+    ``checkpoint_every > 0`` saves the parameters after every that many
+    timed epochs, with the absolute epoch counter ``start_epoch + done`` in
+    the metadata (the persistence half of train.elastic); each save waits
+    for the device, so leave it off for timing runs.  ``fault_epoch``
+    injects a fault: a RuntimeError once the absolute counter reaches it,
+    after any save due then (hcspmm_tpu/train/loop.py:160-245)."""
     device = spmm.device
     x = layout_input(spmm, x)  # one-time layout conversion
     y = torch.as_tensor(y).to(device=device, dtype=torch.int64)
+    if init_params is not None and not isinstance(
+            next(iter(init_params[0].values())), torch.Tensor):
+        init_params = params_from_jax(init_params, device=device)
     params = (init_params if init_params is not None
               else init_net_params(net, torch.Generator().manual_seed(seed),
                                    device=device))
@@ -125,19 +141,30 @@ def train(net: Net, spmm, x, y, epochs: int = 200, lr: float = 0.01,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    def log(losses):
+        if logger is not None:
+            for e, v in enumerate(losses):
+                logger.log(epoch=e, loss=float(v))
+
     start = time.perf_counter()
     for _ in range(warmup_epochs):  # main.py:157-159 dry-run epochs
         step(params, x, y, gen)
     sync()
     warmup_s = time.perf_counter() - start
     start = time.perf_counter()
-    losses = [step(params, x, y, gen) for _ in range(epochs)]
+    losses = []
+    for done in range(1, epochs + 1):
+        losses.append(step(params, x, y, gen))
+        if checkpoint_path and checkpoint_every > 0 and done % checkpoint_every == 0:
+            save_pytree(checkpoint_path, params, {"epoch": start_epoch + done,
+                                                  "loss": float(losses[-1])})
+        if fault_epoch is not None and start_epoch + done >= fault_epoch:
+            log(losses)
+            raise RuntimeError(f"injected fault at epoch {start_epoch + done}")
     sync()
     total = time.perf_counter() - start
     losses = [float(v) for v in losses]
-    if logger is not None:
-        for e, v in enumerate(losses):
-            logger.log(epoch=e, loss=v)
+    log(losses)
     return {
         "params": params,
         "final_loss": losses[-1] if losses else float("nan"),

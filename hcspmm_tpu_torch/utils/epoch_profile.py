@@ -51,7 +51,6 @@ def main(argv=None) -> int:
     parser = cli.build_parser()
     parser.add_argument("--profile-epochs", type=int, default=5)
     args = parser.parse_args(argv)
-    cli._check_ported(args)
     device = cli.resolve_device(args)
     if device.type != "cuda":
         raise RuntimeError("epoch_profile measures a CUDA device")

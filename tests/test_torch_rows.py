@@ -479,8 +479,9 @@ def test_row_and_padded_training_agree():
 
 
 def test_row_layout_gates_name_their_roadmap_items():
-    """int4 band blocks (A.12) and row-partitioned plans (A.10) raise naming
-    their items; the tiled band (A.11) now runs in the row layout."""
+    """int4 band blocks (A.12) raise naming their item; shard-uniform proxy
+    plans raise (each rank runs its own shard plan); rectangular plans
+    (A.10) and the tiled band (A.11) run in the row layout."""
     rp, ci, nn = small_graph(300, 6)
     op = HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tiled", band_h=128), device="cpu")
     x = np.random.RandomState(0).randn(nn, 10).astype(np.float32)
@@ -489,12 +490,20 @@ def test_row_layout_gates_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="A.12"):
         HybridSpMM(rp, ci, nn, PlanConfig(a_dtype="int4"), device="cpu")
     plan = build_plan(rp, ci, nn, PlanConfig(**NEVER))
-    for bad in (dataclasses.replace(plan, num_cols=nn + 8),
-                dataclasses.replace(plan, shard_uniform=True)):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            block_spmm.rows_check(bad)
-        with pytest.raises(NotImplementedError, match="A.10"):
-            port_spmm.make_spmm(bad)
+    bad = dataclasses.replace(plan, shard_uniform=True)
+    with pytest.raises(NotImplementedError, match="shard-uniform"):
+        block_spmm.rows_check(bad)
+    with pytest.raises(NotImplementedError, match="shard-uniform"):
+        port_spmm.make_spmm(bad)
+    # a rectangular plan: 8 more columns than rows, X carrying them
+    rect = build_plan(rp, ci, nn, PlanConfig(**NEVER), num_cols=nn + 8)
+    block_spmm.rows_check(rect)
+    xr = np.concatenate([x, np.random.RandomState(1).randn(8, 10).astype(np.float32)])
+    got = port_spmm.make_spmm(rect)(port_spmm._to_device(rect, "cpu"), None,
+                                    torch.from_numpy(xr))
+    assert rel_err(got, spmm_reference_dense(rp, ci, nn, x)) < 1e-5
+    with pytest.raises(ValueError, match="column space"):
+        port_spmm.make_spmm(rect)(port_spmm._to_device(rect, "cpu"), None, torch.from_numpy(x))
     with pytest.raises(ValueError, match="impl"):
         HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tband", band_h=128, impl="xla"), device="cpu")
 
