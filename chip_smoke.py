@@ -158,17 +158,20 @@ Phases, each of which raises on failure, with its seconds printed:
     halo (intended and calibrated selectors), band_halo and allgather
     mode, and 2 ranks on the blocks stand-in in band_halo mode; each mode's
     SpMM at D 32 against scipy and against the single-process port, 3
-    Adam steps of the 6-layer GCN against the single-process port's from
-    the same weights, each rank's launches of the dense, ELL, band-bucket
-    and band-direct kernels at its shard plan's arrays against their plain
-    versions (bitwise repeatable), and the launch counts of the SpMM and
-    the steps summed over the ranks (each of the four kernels launched in
-    some mode); rank 0's distributed SpMM and step times, the exchange's
-    bytes and the single-process SpMM's time are printed;
+    Adam steps of the 6-layer GCN (and, in band_halo on DD, of the 6-layer
+    GIN, whose exchange runs at the input width) against the
+    single-process port's from the same weights, each rank's launches of
+    the dense, ELL, band-bucket and band-direct kernels at its shard
+    plan's arrays against their plain versions (bitwise repeatable), and
+    each rank's launches of those four in the SpMM and in each model's
+    steps, exactly what its shard plan implies (each of the four launched
+    in some mode); rank 0's distributed SpMM and step times, the
+    exchange's bytes and the single-process SpMM's time are printed;
 24. checkpoint and elastic restart: a GCN trained through
     ``train.loop.train`` with a checkpoint every 2 epochs, resumed in a
     fresh operator, equal bit for bit to a run that continues with a fresh
-    Adam; one SpMM timed and traced by ``utils/profiling.py``; then
+    Adam; one SpMM timed and traced by ``utils/profiling.py`` (the trace
+    must hold its kernels); then
     ``train.elastic.supervise`` over ``cli.main`` with ``--fault-epoch 2``:
     one failed launch, one resumed launch, 4 epochs.
 
@@ -224,6 +227,7 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA's data sheet (SXM)
 # dense): fp32 outside the tensor cores, bf16 on them
 H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 DEV = "cuda"  # the kernels' checks run here (a CPU rehearsal may point it elsewhere)
+PROCESS_START = time.time()  # this process's (or a spawned rank's) import of this file
 WIDE_DESIGN = ("persistent, two blocks an SM; a ring of A tiles [32, Bb] filled by Tensor Memory "
                "Accelerator copies (cp.async where Bb is no 16-byte multiple) under full/empty "
                "mbarriers; eight consumer warps, a row each: its non-zeros found by ballots, "
@@ -2501,20 +2505,13 @@ def train_packed(rp, ci, n, launch_runs, out) -> None:
 # and elastic restart
 # ---------------------------------------------------------------------------
 
-DIST_NET = dict(model="gcn", num_features=96, hidden=32, num_classes=22, num_layers=6)
+DIST_NET = dict(num_features=96, hidden=32, num_classes=22, num_layers=6)
 DIST_DIM = 32  # the SpMM checks' width: the 6-layer GCN's hidden width
 DIST_STEPS = 3
-DIST_KERNELS = ("dense_bucket_spmm", "ell_bucket_spmm", "band_bucket_spmm", "band_spmm")
-
-
-def ref_config(config, mode):
-    """The PlanConfig ``build_sharded_plan`` gives each shard, for the
-    single-process reference of the same graph."""
-    if mode == "halo":
-        config = dataclasses.replace(config, band_mode="never")
-    if isinstance(config.band_widths, str):
-        config = dataclasses.replace(config, band_widths=(256, 512, 1024, 2048))
-    return dataclasses.replace(config, band_impl="wide")
+#: SpMMs of one training step: GIN's first layer needs no input gradient
+DIST_SPMMS = {"gcn": 12, "gin": 11}
+DIST_KERNELS = ("dense_bucket_spmm", "ell_bucket_spmm", "band_bucket_spmm",
+                "band_bucket_spmm_direct")
 
 
 def dist_inputs(n) -> tuple:
@@ -2551,7 +2548,7 @@ def shard_kernels_vs_plain(op, xv) -> dict:
             st, a, sw = arrs[f"band{s}_start"], arrs[f"band{s}_a"], arrs[f"band{s}_sw"]
             if s == main:
                 own = sw[: len(p.band_sw_ids[s])].long()
-                errs["band_spmm"] = hold_repeatable(
+                errs["band_bucket_spmm_direct"] = hold_repeatable(
                     f"rank {op.rank} band{s} direct", lambda: bs.band_bucket_spmm_direct(
                         sw, st, a, xb, num_sw, torch.float32)[own],
                     lambda: bs.band_bucket_spmm_direct_plain(sw, st, a, xb, num_sw,
@@ -2576,17 +2573,43 @@ def shard_kernels_vs_plain(op, xv) -> dict:
     return errs
 
 
+def shard_launches(op) -> dict:
+    """The launches of #10, #11, #12 and #14 that one SpMM must make on
+    this rank's shard plan, from the plan's populations: on a full band
+    cover, the direct mode once (the most populated bucket) and the bucket
+    mode once for each other bucket with entries; otherwise the bucket mode
+    once for each bucket owning rows, the dense kernel once for each eight
+    dense buckets with windows and the ELL kernel once where the row table
+    has rows."""
+    from hcspmm_tpu_torch.kernels import block_spmm as bs
+
+    p, arrs = op.plan, op.arrays
+    if bs.band_covers_all(p):
+        real = sum(1 for v in p.band_sw_ids if len(v))
+        return dict(band_bucket_spmm_direct=1, band_bucket_spmm=real - 1, dense_bucket_spmm=0,
+                    ell_bucket_spmm=0)
+    dense = sum(1 for b in range(len(p.bucket_widths))
+                if f"b{b}_wid" in arrs and arrs[f"b{b}_wid"].shape[0])
+    return dict(band_bucket_spmm_direct=0,
+                band_bucket_spmm=sum(1 for s in range(len(p.band_widths))
+                                     if arrs[f"band{s}_rq"].shape[0]),
+                dense_bucket_spmm=-(-dense // bs._MAX_BUCKETS),
+                ell_bucket_spmm=int("rw_node" in arrs and arrs["rw_node"].shape[0] > 0))
+
+
 def dist_rank(rank, world, device, cases, params_np, spawned) -> list:
     """One rank of phase 23 (``parallel.dryrun.run_ranks`` spawns it): for
-    each case, the DistHybridSpMM of its mode over the case's graph; the
-    launch counters zeroed, one SpMM at D 32 and ``DIST_STEPS`` Adam steps
-    of the 6-layer GCN (``dryrun.train_step`` from ``params_np``), the
-    counters read; then the SpMM's rows against scipy, timings (rank 0's
-    are printed) and each kernel of the shard plan against its plain
-    version.  Returns per case this rank's rows of the SpMM, the losses,
-    the trained parameters (rank 0), the counts and the times, and the
-    seconds from ``spawned`` (the parent's clock before the spawn) to this
-    function's start."""
+    each case, the DistHybridSpMM of its mode over the case's graph; one
+    SpMM at D 32, then for each of the case's models ``DIST_STEPS`` Adam
+    steps of the 6-layer net (``dryrun.train_step`` from ``params_np``),
+    the launch counters zeroed just before each of these runs and read
+    just after; then the SpMM's rows against scipy, timings (rank 0's are
+    printed) and each kernel of the shard plan against its plain version.
+    Returns per case this rank's rows of the SpMM, the launches its plan
+    must make a SpMM (``shard_launches``), the counts, each model's losses
+    and trained parameters (rank 0) and the times, and the seconds from
+    ``spawned`` (the parent's clock before the spawn) to this function's
+    start."""
     import numpy as np
     import scipy.sparse as sp
     import torch
@@ -2633,13 +2656,10 @@ def dist_rank(rank, world, device, cases, params_np, spawned) -> list:
                    band_capacity=[int(s.shape[0]) for s in p.band_starts],
                    dense_windows=p.num_dense_windows,
                    ell_rows=[len(r) for r in p.ell_row_ids], spill_edges=int(p.spill_nnz),
-                   exchange_rows=op.exchange_rows())
+                   exchange_rows=op.exchange_rows(), expect=shard_launches(op))
         xg, feat = dist_inputs(case["n"])
         x, xin = op.local_rows(xg), op.local_rows(feat)
         y = torch.ones(op.rows_per_shard, dtype=torch.int64, device=op.device)
-        net = Net(**DIST_NET)
-        params = params_from_jax(params_np, device=op.device)
-        opt = dryrun.adam(params)
         dist.barrier()
         t0 = time.perf_counter()
         zero_counts()
@@ -2647,12 +2667,21 @@ def dist_rank(rank, world, device, cases, params_np, spawned) -> list:
             z = op(x)
         torch.cuda.synchronize()
         res["spmm_counts"] = read_counts()
-        step_ms = []
-        losses = [step(net, params, op, opt, xin, y, step_ms) for _ in range(DIST_STEPS)]
-        res["counts"] = read_counts()
+        res.update(counts={}, losses={}, step_ms={}, params={})
+        for model in case["models"]:
+            net = Net(model=model, **DIST_NET)
+            params = params_from_jax(params_np[model], device=op.device)
+            opt = dryrun.adam(params)
+            step_ms = []
+            zero_counts()
+            losses = [step(net, params, op, opt, xin, y, step_ms) for _ in range(DIST_STEPS)]
+            res["counts"][model] = read_counts()
+            res["step_ms"][model] = step_ms
+            res["losses"][model] = losses
+            if rank == 0:
+                res["params"][model] = [{k: v.detach().cpu().numpy().copy()
+                                         for k, v in layer.items()} for layer in params]
         res["run_s"] = time.perf_counter() - t0
-        res["step_ms"] = step_ms
-        res["losses"] = losses
         res["z"] = z.cpu().numpy()
         lo = op.rank * op.rows_per_shard
         a = sp.csr_matrix((np.ones(len(case["ci"])), case["ci"], case["rp"]),
@@ -2662,9 +2691,6 @@ def dist_rank(rank, world, device, cases, params_np, spawned) -> list:
         if hi > lo:
             ref[: hi - lo] = a[lo:hi] @ xg.astype(np.float64)
         res["scipy_err"] = hold(f"rank {rank} {case['name']} SpMM vs scipy", z, ref, "float32")
-        if rank == 0:  # copies: the timed steps below update the parameters in place
-            res["params"] = [{k: v.detach().cpu().numpy().copy() for k, v in layer.items()}
-                             for layer in params]
         t0 = time.perf_counter()
         with torch.no_grad():
             res["spmm_ms"] = wall_ms(lambda: op(x), 5)
@@ -2681,22 +2707,23 @@ def dist_rank(rank, world, device, cases, params_np, spawned) -> list:
     return results
 
 
-def dist_reference(case, params_np, ref_ops) -> dict:
+def dist_reference(case, model, params_np, ref_ops) -> dict:
     """The single-process port on the same graph padded to ``n_padded``
-    rows (``ref_config``'s plan, row layout): the SpMM at D 32, its time,
-    and ``DIST_STEPS`` Adam steps of the 6-layer GCN from ``params_np`` with
-    the distributed step's loss (NLL over the padded rows, all-ones
-    labels)."""
+    rows (``dist_spmm.shard_config``'s plan, row layout): the SpMM at D 32,
+    its time, and ``DIST_STEPS`` Adam steps of the 6-layer ``model`` from
+    ``params_np`` with the distributed step's loss (NLL over the padded
+    rows, all-ones labels)."""
     import numpy as np
     import torch
 
     from hcspmm_tpu_torch.models.net import Net, net_forward, params_from_jax
     from hcspmm_tpu_torch.ops.spmm import HybridSpMM
     from hcspmm_tpu_torch.parallel import dryrun
+    from hcspmm_tpu_torch.parallel.dist_spmm import shard_config
     from hcspmm_tpu_torch.train.loop import Bound
 
     n, m = case["n"], case["n_padded"]
-    cfg = ref_config(case["config"], case["mode"])
+    cfg = shard_config(case["config"], case["mode"])
     key = (case["graph"], cfg)
     if key not in ref_ops:
         rp = np.concatenate([case["rp"], np.full(m - n, case["rp"][-1], case["rp"].dtype)])
@@ -2711,7 +2738,7 @@ def dist_reference(case, params_np, ref_ops) -> dict:
         ms = cuda_time_ms(lambda: op(x), 10)
     bound = Bound(op)
     bound.padded_layout = False  # the row layout, as every rank runs it
-    net = Net(**DIST_NET)
+    net = Net(model=model, **DIST_NET)
     params = params_from_jax(params_np, device=DEV)
     opt = dryrun.adam(params)
     y = torch.ones(m, dtype=torch.int64, device=DEV)
@@ -2733,14 +2760,15 @@ def dist_phase(graphs, launch_runs, out) -> None:
     and calibrated selectors), band_halo and allgather; on the blocks
     stand-in (rcm) band_halo at 2 ranks.  For each: the SpMM against scipy
     (each rank) and against the single-process port on the same graph, the
-    6-layer GCN's losses and updated parameters after 3 Adam steps against
-    the single-process port's from the same parameters (losses within 1e-5
-    relative, parameters within 1e-4 of each tensor's max|p|), each rank's
-    kernels of its shard plan against their plain versions, and the launch
-    counts of the SpMM and the steps summed over the ranks (each of #10,
-    #11, #12 and #14 must be launched in some mode).  Logs rank 0's
-    distributed SpMM and step times, the exchange's bytes and the
-    single-process SpMM's time."""
+    6-layer GCN's (and in band_halo on DD also GIN's) losses and updated
+    parameters after 3 Adam steps against the single-process port's from
+    the same parameters (losses within 1e-5 relative, parameters within
+    1e-4 of each tensor's max|p|), each rank's kernels of its shard plan
+    against their plain versions, and each rank's launches of #10, #11,
+    #12 and #14 in the SpMM and in each model's steps, exactly what its
+    shard plan implies (``shard_launches``); each of the four must be
+    launched in some mode.  Logs rank 0's distributed SpMM and step times,
+    the exchange's bytes and the single-process SpMM's time."""
     import numpy as np
     import torch
 
@@ -2748,20 +2776,25 @@ def dist_phase(graphs, launch_runs, out) -> None:
     from hcspmm_tpu_torch.models.net import Net, init_net_params
     from hcspmm_tpu_torch.parallel import dryrun
 
-    params = init_net_params(Net(**DIST_NET), torch.Generator().manual_seed(0), init="glorot",
-                             device="cpu")
-    params_np = [{k: v.detach().numpy() for k, v in layer.items()} for layer in params]
-    worlds = {4: [("DD halo intended", "DD", "halo", PlanConfig(loi_mode="intended")),
-                  ("DD halo calibrated", "DD", "halo", PlanConfig(loi_mode="calibrated")),
-                  ("DD band_halo", "DD", "band_halo", PlanConfig()),
-                  ("DD allgather", "DD", "allgather", PlanConfig())],
-              2: [("blocks band_halo", "blocks", "band_halo", PlanConfig())]}
+    params_np = {}
+    for model in DIST_SPMMS:
+        params = init_net_params(Net(model=model, **DIST_NET), torch.Generator().manual_seed(0),
+                                 init="glorot", device="cpu")
+        params_np[model] = [{k: v.detach().numpy() for k, v in layer.items()}
+                            for layer in params]
+    gcn, both = ("gcn",), ("gcn", "gin")
+    worlds = {4: [("DD halo intended", "DD", "halo", PlanConfig(loi_mode="intended"), gcn),
+                  ("DD halo calibrated", "DD", "halo", PlanConfig(loi_mode="calibrated"), gcn),
+                  ("DD band_halo", "DD", "band_halo", PlanConfig(), both),
+                  ("DD allgather", "DD", "allgather", PlanConfig(), gcn)],
+              2: [("blocks band_halo", "blocks", "band_halo", PlanConfig(), gcn)]}
     ref_ops = {}
     for world, specs in worlds.items():
         cases = []
-        for name, g, mode, cfg in specs:
+        for name, g, mode, cfg, models in specs:
             rp, ci, n = graphs[g]
-            cases.append(dict(name=name, graph=g, rp=rp, ci=ci, n=n, mode=mode, config=cfg))
+            cases.append(dict(name=name, graph=g, rp=rp, ci=ci, n=n, mode=mode, config=cfg,
+                              models=models))
         t0 = time.perf_counter()
         ranks = dryrun.run_ranks(dist_rank, world, DEV, (cases, params_np, time.time()))
         world_s = dict(world_s=time.perf_counter() - t0,
@@ -2771,58 +2804,122 @@ def dist_phase(graphs, launch_runs, out) -> None:
         for i, case in enumerate(cases):
             per = [r[i] for r in ranks]
             r0 = per[0]
+            name = case["name"]
             case["n_padded"] = r0["n_padded"]
-            t0 = time.perf_counter()
-            ref = dist_reference(case, params_np, ref_ops)
-            ref_s = time.perf_counter() - t0
-            z = np.concatenate([r["z"] for r in per])
-            err = hold(f"{case['name']} SpMM vs the single-process port", z, ref["z"], "float32")
-            for r in per:
-                if r["losses"] != r0["losses"]:
-                    raise AssertionError(f"{case['name']}: the ranks' losses differ")
-            np.testing.assert_allclose(r0["losses"], ref["losses"], rtol=1e-5)
-            for got, want in zip(r0["params"], ref["params"]):
-                for k in got:
-                    dp = float(np.abs(got[k] - want[k]).max())
-                    if not dp <= 1e-4 * float(np.abs(want[k]).max()):
-                        raise AssertionError(f"{case['name']}: parameter {k} differs by {dp:.3e}")
-            counts = {k: sum(r["counts"][k] for r in per) for k in r0["counts"]}
+            for rank, r in enumerate(per):
+                expect = {k: r["expect"][k] for k in DIST_KERNELS}
+                check_counts(r["spmm_counts"], expect, 1, exact=True)
+                for model in case["models"]:
+                    check_counts(r["counts"][model], expect, DIST_SPMMS[model] * DIST_STEPS,
+                                 exact=True)
             spmm_counts = {k: sum(r["spmm_counts"][k] for r in per) for k in DIST_KERNELS}
-            launch_runs[f"dist {case['name']}"] = counts
-            per_step = {k: (counts[k] - spmm_counts[k]) / DIST_STEPS for k in DIST_KERNELS}
-            kernel_errs = {}
+            launch_runs[f"dist {name} spmm"] = {k: sum(r["spmm_counts"][k] for r in per)
+                                                 for k in r0["spmm_counts"]}
+            res = dict(ranks=world, spmm_ms=r0["spmm_ms"], exchange_ms=r0["exchange_ms"],
+                       local_ms=r0["local_ms"], exchange_bytes_per_rank=r0["exchange_rows"]
+                       * DIST_DIM * 4, launches_per_spmm=spmm_counts,
+                       expected_per_spmm=[r["expect"] for r in per], models={})
+            t0 = time.perf_counter()
+            for model in case["models"]:
+                ref = dist_reference(case, model, params_np[model], ref_ops)
+                for r in per:
+                    if r["losses"][model] != r0["losses"][model]:
+                        raise AssertionError(f"{name} {model}: the ranks' losses differ")
+                np.testing.assert_allclose(r0["losses"][model], ref["losses"], rtol=1e-5,
+                                           err_msg=f"{name} {model} losses")
+                for got, want in zip(r0["params"][model], ref["params"]):
+                    for k in got:
+                        dp = float(np.abs(got[k] - want[k]).max())
+                        if not dp <= 1e-4 * float(np.abs(want[k]).max()):
+                            raise AssertionError(f"{name} {model}: parameter {k} differs by "
+                                                 f"{dp:.3e}")
+                counts = {k: sum(r["counts"][model][k] for r in per)
+                          for k in r0["counts"][model]}
+                launch_runs[f"dist {name} {model}"] = counts
+                res["models"][model] = dict(
+                    step_ms=r0["step_ms"][model], losses=r0["losses"][model],
+                    single_losses=ref["losses"],
+                    launches_per_step={k: counts[k] / DIST_STEPS for k in DIST_KERNELS})
+            z = np.concatenate([r["z"] for r in per])
+            res["err_vs_single"] = hold(f"{name} SpMM vs the single-process port", z, ref["z"],
+                                        "float32")
+            res["single_spmm_ms"] = ref["ms"]
+            res["kernel_errs"] = {}
             for r in per:
                 for k, v in r["kernel_errs"].items():
-                    kernel_errs[k] = max(kernel_errs.get(k, 0.0), v)
-            xbytes = r0["exchange_rows"] * DIST_DIM * 4
-            out[case["name"]] = dict(
-                ranks=world, spmm_ms=r0["spmm_ms"], exchange_ms=r0["exchange_ms"],
-                local_ms=r0["local_ms"], step_ms=r0["step_ms"], single_spmm_ms=ref["ms"],
-                seconds={k: max(r[k] for r in per) for k in ("build_s", "run_s", "time_s",
-                                                              "check_s")} | world_s | {
-                    "reference_s": ref_s},
-                exchange_bytes_per_rank=xbytes,
-                losses=r0["losses"], single_losses=ref["losses"], err_vs_single=err,
-                launches_per_spmm=spmm_counts, launches_per_step=per_step,
-                kernel_errs=kernel_errs,
-                shards=[{k: r[k] for k in ("rows", "cols", "full_cover", "band_entries",
-                                           "band_capacity", "dense_windows", "ell_rows",
-                                           "spill_edges", "halo_pair", "far_pair")}
-                        for r in per])
-            log(f"  {case['name']} ({world} ranks): SpMM {r0['spmm_ms']:.3f} ms (exchange "
-                f"{r0['exchange_ms']:.3f}, local kernels {r0['local_ms']:.4f}), GCN steps "
-                f"{[round(v, 1) for v in r0['step_ms']]} ms, exchange {xbytes} bytes a rank a "
-                f"SpMM (D {DIST_DIM}, "
-                f"fp32); single-process SpMM {ref['ms']:.4f} ms; losses {r0['losses']} vs "
-                f"{ref['losses']}; launches a SpMM {spmm_counts}, a step {per_step}; kernels vs "
-                f"plain {kernel_errs}; seconds {out[case['name']]['seconds']}")
-            log(f"    shards: {out[case['name']]['shards']}")
+                    res["kernel_errs"][k] = max(res["kernel_errs"].get(k, 0.0), v)
+            res["seconds"] = {k: max(r[k] for r in per) for k in (
+                "build_s", "run_s", "time_s", "check_s")} | world_s | {
+                "reference_s": time.perf_counter() - t0}
+            res["shards"] = [{k: r[k] for k in (
+                "rows", "cols", "full_cover", "band_entries", "band_capacity", "dense_windows",
+                "ell_rows", "spill_edges", "halo_pair", "far_pair")} for r in per]
+            out[name] = res
+            trained = "; ".join(
+                f"{m} steps {[round(v, 1) for v in d['step_ms']]} ms, losses {d['losses']} vs "
+                f"{d['single_losses']}, launches a step {d['launches_per_step']}"
+                for m, d in res["models"].items())
+            log(f"  {name} ({world} ranks): SpMM {r0['spmm_ms']:.3f} ms (exchange "
+                f"{r0['exchange_ms']:.3f}, local kernels {r0['local_ms']:.4f}), exchange "
+                f"{res['exchange_bytes_per_rank']} bytes a rank a SpMM (D {DIST_DIM}, fp32); "
+                f"single-process SpMM {ref['ms']:.4f} ms; launches a SpMM {spmm_counts} "
+                f"(each rank exactly its plan's {[r['expect'] for r in per]}); {trained}; "
+                f"kernels vs plain {res['kernel_errs']}; seconds {res['seconds']}")
+            log(f"    shards: {res['shards']}")
     ref_ops.clear()
     torch.cuda.empty_cache()
     missing = [k for k in DIST_KERNELS
-               if not sum(launch_runs[f"dist {c}"][k] for c in out)]
+               if not sum(v[k] for run, v in launch_runs.items() if run.startswith("dist "))]
     if missing:
         raise AssertionError(f"the distributed runs launched none of {missing}")
+
+
+def checkpoint_graph() -> tuple:
+    """Phase 24's graph: rp, ci, n and its features [n, 96] float32."""
+    import numpy as np
+
+    from hcspmm_tpu_torch.graphs import io as gio
+
+    src, dst, n = gio.synthetic_graph(20_000, 8.0, seed=3)
+    rp, ci = gio.to_csr(src, dst, n)
+    return rp, ci, n, np.random.RandomState(1).randn(n, 96).astype(np.float32)
+
+
+def checkpoint_op(rp, ci, n, device):
+    """Phase 24's operator: the CLI's layout at hidden 32, normalized
+    (unnormalized sums saturate the 6-layer GCN in one step)."""
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+
+    return HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband"), normalize=True, device=device)
+
+
+def profiled_spmm(op, x, path) -> dict:
+    """``utils/profiling.py``'s device time of one SpMM ``op(x)`` and its
+    Chrome trace into ``path``: the device seconds, the trace's kernel
+    events and this process's age when the trace began."""
+    import torch
+
+    from hcspmm_tpu_torch.utils import profiling
+
+    with torch.no_grad():
+        secs = profiling.device_time(op, x, iters=10)
+        age = time.time() - PROCESS_START
+        with profiling.trace(path):
+            op(x)
+    with open(path) as f:
+        kernels = sum(e.get("cat") == "kernel" for e in json.load(f)["traceEvents"])
+    return dict(device_s=secs, kernels=kernels, age_s=age)
+
+
+def trace_rank(rank, world, device, path) -> dict:
+    """``profiled_spmm`` of phase 24's operator in a fresh process
+    (``parallel.dryrun.run_ranks`` spawns it, a world of one)."""
+    import torch
+
+    rp, ci, n, x = checkpoint_graph()
+    op = checkpoint_op(rp, ci, n, device)
+    return profiled_spmm(op, torch.from_numpy(x[:, :32].copy()).to(device), path)
 
 
 def checkpoint_phase(out) -> None:
@@ -2832,16 +2929,17 @@ def checkpoint_phase(out) -> None:
     fresh operator for 3 more epochs, its per-epoch losses and parameters
     equal bit for bit to a run continuing from the same epoch with a fresh
     Adam; ``utils/profiling.py``'s device time, roofline and Chrome trace of
-    one SpMM; then ``train.elastic.supervise`` over ``cli.main`` with
-    ``--fault-epoch 2`` (the first launch fails at epoch 2, the relaunch
-    resumes and finishes 4)."""
+    one SpMM in a freshly spawned process (the phase fails if that trace
+    holds no kernel event) and in this one (logged: torch.profiler lost
+    kernel records in processes minutes old); then
+    ``train.elastic.supervise`` over ``cli.main`` with ``--fault-epoch 2``
+    (the first launch fails at epoch 2, the relaunch resumes and finishes
+    4)."""
     import numpy as np
     import torch
 
-    from hcspmm_tpu_torch.config import PlanConfig
-    from hcspmm_tpu_torch.graphs import io as gio
     from hcspmm_tpu_torch.models.net import Net, init_net_params
-    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+    from hcspmm_tpu_torch.parallel import dryrun
     from hcspmm_tpu_torch.train import elastic
     from hcspmm_tpu_torch.train.loop import train
     from hcspmm_tpu_torch.utils import profiling
@@ -2854,15 +2952,12 @@ def checkpoint_phase(out) -> None:
         def log(self, **rec):
             self.v.append(rec["loss"])
 
-    src, dst, n = gio.synthetic_graph(20_000, 8.0, seed=3)
-    rp, ci = gio.to_csr(src, dst, n)
-    x = np.random.RandomState(1).randn(n, 96).astype(np.float32)
+    rp, ci, n, x = checkpoint_graph()
     y = np.ones(n, dtype=np.int64)
-    net = Net(**DIST_NET)
-    cfg = PlanConfig(band_impl="tband")  # the CLI's layout at hidden 32
+    net = Net(model="gcn", **DIST_NET)
 
-    def fresh_op():  # normalized: unnormalized sums saturate this net in one step
-        return HybridSpMM(rp, ci, n, cfg, normalize=True, device=DEV)
+    def fresh_op():
+        return checkpoint_op(rp, ci, n, DEV)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ck.npz")
@@ -2884,21 +2979,23 @@ def checkpoint_phase(out) -> None:
         log(f"  resumed losses {resumed.v}, uninterrupted {straight.v}; parameters equal {same}")
         if resumed.v != straight.v or not same:
             raise AssertionError("the resumed run differs from the uninterrupted one")
-        xt = torch.from_numpy(x[:, :32].copy()).to(DEV)
-        with torch.no_grad():
-            secs = profiling.device_time(op, xt, iters=10)
-            with profiling.trace(os.path.join(tmp, "trace.json")):
-                op(xt)
-        with open(os.path.join(tmp, "trace.json")) as f:
-            kernels = sum(e.get("cat") == "kernel" for e in json.load(f)["traceEvents"])
+        # in a fresh process, and in this one: torch.profiler lost kernel
+        # records in processes minutes old (PERF.md section 7)
+        fresh = dryrun.run_ranks(trace_rank, 1, DEV, (os.path.join(tmp, "fresh.json"),))[0]
+        here = profiled_spmm(op, torch.from_numpy(x[:, :32].copy()).to(DEV),
+                             os.path.join(tmp, "trace.json"))
         # bytes: the CSR's column indices and row starts, X read and Z written once
-        roof = profiling.roofline(secs, 4 * (int(rp[-1]) + n + 1) + 2 * n * 32 * 4,
+        roof = profiling.roofline(fresh["device_s"], 4 * (int(rp[-1]) + n + 1) + 2 * n * 32 * 4,
                                   2 * int(rp[-1]) * 32)
-        log(f"  utils/profiling.py: the normalized row-layout SpMM at D 32 {secs * 1e3:.4f} ms "
-            f"of device time, {roof['gbytes_per_s']:.1f} GB/s, {roof['bound']} bound at "
-            f"{roof['speed_of_light_s'] * 1e3:.4f} ms; its Chrome trace holds {kernels} kernel "
-            "events")
-        out["profiling"] = dict(device_ms=secs * 1e3, trace_kernels=kernels)
+        log(f"  utils/profiling.py: the normalized tband SpMM at D 32 "
+            f"{fresh['device_s'] * 1e3:.4f} ms of device time, {roof['gbytes_per_s']:.1f} GB/s, "
+            f"{roof['bound']} bound at {roof['speed_of_light_s'] * 1e3:.4f} ms; its Chrome trace "
+            f"holds {fresh['kernels']} kernel events (traced {fresh['age_s']:.1f} s after a fresh "
+            f"process imported this script); in this process ({here['age_s']:.1f} s after) "
+            f"{here['device_s'] * 1e3:.4f} ms and {here['kernels']} kernel events")
+        if not fresh["kernels"]:
+            raise AssertionError("utils/profiling.trace wrote no kernel event of the traced SpMM")
+        out["profiling"] = dict(fresh=fresh, here=here)
         launches = []
 
         def runner(argv):
@@ -3389,9 +3486,10 @@ def main() -> int:
     def row_at(name, graph):
         return next(r for r in row_res[(name, "float32")] if r["graph"] == graph)
 
-    def entry(name, source, replaces, r, shape, err=None, **extra):
+    def entry(name, source, replaces, r, shape, err=None, counter=None, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces, **extra,
-                    launches=launches(name), max_abs_err=r["err"] if err is None else err,
+                    launches=launches(counter or name),
+                    max_abs_err=r["err"] if err is None else err,
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"], shape=shape)
 
@@ -3463,6 +3561,7 @@ def main() -> int:
               ("tbstream_merge", "tspill.cu", "tspill.py:189", merge, {}))],
         entry("band_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:459", wide,
               f"DD wide plan {wide['shape']}, float32, direct write",
+              counter="band_bucket_spmm_direct",
               err=max(v["err"] for (_, _, cd), v in wide_res.items() if cd == "float32"),
               design=WIDE_DESIGN, graph_library_ms=wide["graph_library_ms"],
               plans={f"{k} dp {dp} {cd}": v for (k, dp, cd), v in wide_res.items()}),

@@ -69,9 +69,10 @@ from hcspmm_tpu_torch.kernels._build import load_library
 launches = 0
 
 #: Launches of the other kernels of csrc/block_spmm.cu, and of the band
-#: kernel's bucket and grouped modes (also counted in ``launches``).
-kernel_launches = {"band_bucket_spmm": 0, "band_bucket_spmm_grouped": 0,
-                   "band_fused_spmm_direct": 0, "band_tiled_spmm": 0}
+#: kernel's direct, bucket and grouped modes (also counted in ``launches``).
+kernel_launches = {"band_bucket_spmm_direct": 0, "band_bucket_spmm": 0,
+                   "band_bucket_spmm_grouped": 0, "band_fused_spmm_direct": 0,
+                   "band_tiled_spmm": 0}
 
 #: The fused kernel's launches by (dp, hp), counted with
 #: ``kernel_launches["band_fused_spmm_direct"]``.
@@ -519,6 +520,7 @@ def band_bucket_spmm_direct(sw_ids, starts, a, xp, num_sw, out_dtype):
         raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
     out = torch.empty((num_sw, a.shape[1], xp.shape[1]), dtype=out_dtype, device=xp.device)
     _launch(starts, sw_ids, a, xp, out, num_sw)
+    kernel_launches["band_bucket_spmm_direct"] += 1
     return out
 
 

@@ -34,6 +34,7 @@ single-process SpMM in their place.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -53,6 +54,20 @@ def group_size(group=None) -> int:
         raise RuntimeError("the distributed SpMM needs an initialised process group "
                            "(torch.distributed.init_process_group)")
     return dist.get_world_size(group)
+
+
+def shard_config(config: PlanConfig, mode: str) -> PlanConfig:
+    """The PlanConfig ``build_sharded_plan`` gives every shard of ``mode``
+    (partition.py, carried from the reference, rewrites it at its head: the
+    halo mode carves bands out, string band widths are pinned to the
+    sharded ladder, the band layout is the wide one).  A single-process plan
+    of the same graph built with it is the one the shard plans are cut
+    from: the distributed SpMM's single-card yardstick."""
+    if mode == "halo":
+        config = dataclasses.replace(config, band_mode="never")
+    if isinstance(config.band_widths, str):
+        config = dataclasses.replace(config, band_widths=(256, 512, 1024, 2048))
+    return dataclasses.replace(config, band_impl="wide")
 
 
 class DistHybridSpMM:

@@ -28,6 +28,7 @@ import torch.distributed as dist
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.graphs import io
 from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward, params_from_jax
+from hcspmm_tpu_torch.ops.spmm import default_device
 from hcspmm_tpu_torch.parallel.dist_spmm import DistHybridSpMM
 
 
@@ -46,10 +47,12 @@ def _rank_main(rank: int, world: int, fn: Callable, device: str, backend: str, t
         dist.destroy_process_group()
 
 
-def run_ranks(fn: Callable, world: int, device: str = "cpu", args: Sequence = (),
+def run_ranks(fn: Callable, world: int, device=None, args: Sequence = (),
               timeout_s: float = 600.0) -> List:
     """``fn(rank, world, device, *args)`` in ``world`` spawned processes of
     one process group; returns each rank's result, in rank order.
+    ``device`` None is the CUDA device, and raises where there is none;
+    pass ``"cpu"`` for host ranks.
 
     ``fn`` must be importable by its module path (the workers import it
     afresh); its results travel back through files of a temporary directory.
@@ -58,6 +61,7 @@ def run_ranks(fn: Callable, world: int, device: str = "cpu", args: Sequence = ()
     ``timeout_s`` raises in its rank."""
     import torch.multiprocessing as mp
 
+    device = str(default_device(device))
     backend = ("nccl" if torch.device(device).type == "cuda"
                and torch.cuda.device_count() >= world > 1 else "gloo")
     with tempfile.TemporaryDirectory(prefix="hcspmm_ranks_") as tmp:

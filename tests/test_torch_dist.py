@@ -391,6 +391,14 @@ def test_dist_refuses_wrong_world_size_and_runs_alone():
             dist.destroy_process_group()
 
 
+def test_run_ranks_defaults_to_cuda(monkeypatch):
+    """``run_ranks`` with no device asks for the card and, without one,
+    raises before it spawns a rank rather than run the ranks on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_ranks(dryrun.run_cases, 2, args=([],))
+
+
 def test_dryrun_two_ranks():
     """``parallel.dryrun`` (the analog of ``dryrun_multichip``): GCN and
     GIN steps, halo backward, far rounds and the checkpoint cycle, at two
@@ -412,7 +420,7 @@ def test_new_modules_import_no_jax():
 import sys, tempfile, os
 import numpy as np, torch, torch.distributed as dist
 from hcspmm_tpu_torch.parallel import dist_spmm, dryrun, partition
-from hcspmm_tpu_torch.utils import checkpoint, profiling
+from hcspmm_tpu_torch.utils import checkpoint, profiler_age, profiling
 from hcspmm_tpu_torch.graphs import real
 from hcspmm_tpu_torch.train import elastic
 with tempfile.TemporaryDirectory() as tmp:

@@ -16,6 +16,8 @@ from hcspmm_tpu.parallel.partition import build_sharded_plan as jax_build_sharde
 from hcspmm_tpu.parallel.partition import pad_rows as jax_pad_rows
 
 from hcspmm_tpu_torch.config import PlanConfig
+from hcspmm_tpu_torch.format.plan import build_plan
+from hcspmm_tpu_torch.parallel.dist_spmm import shard_config
 from hcspmm_tpu_torch.parallel.partition import ShardedPlan, build_sharded_plan, pad_rows
 
 from conftest import small_graph
@@ -89,6 +91,22 @@ def test_band_spill_never_raises_as_jax(shards):
     with pytest.raises(ValueError, match="halo window") as got:
         build_sharded_plan(rp, ci, nn, shards, PlanConfig(**fields), mode="band_halo")
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("fields", [{}, dict(band_impl="tband"), dict(loi_mode="calibrated"),
+                                    _BAND], ids=["auto", "tband", "calibrated", "band"])
+@pytest.mark.parametrize("mode", ["allgather", "halo"])
+def test_shard_config_is_the_partitioners(mode, fields):
+    """``dist_spmm.shard_config`` (the single-process yardstick's config)
+    is the rewrite ``build_sharded_plan`` applies: at one shard the shard
+    plan equals the single-process plan built with it."""
+    rp, ci, nn = blocks_rcm()
+    cfg = PlanConfig(**fields)
+    got = build_sharded_plan(rp, ci, nn, 1, cfg, mode=mode).plans[0]
+    want = build_plan(rp, ci, nn, shard_config(cfg, mode))
+    for f in dataclasses.fields(want):
+        assert_same(getattr(got, f.name), getattr(want, f.name), f.name)
+    assert_same(got.device_arrays(), want.device_arrays(), "device_arrays")
 
 
 @pytest.mark.parametrize("rows", [7, 16])

@@ -100,6 +100,16 @@ def test_timer_time_fn_and_trace(tmp_path):
         assert "traceEvents" in json.load(f)
 
 
+def test_profiler_age_needs_a_card(monkeypatch):
+    """``utils/profiler_age.py`` counts the card's kernel records: it
+    refuses to run without a card rather than report a host run."""
+    from hcspmm_tpu_torch.utils import profiler_age
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profiler_age.main(["--probes", "1"])
+
+
 def test_device_time_refuses_a_cpu_run():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: device_time measures it")
