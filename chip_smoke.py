@@ -75,7 +75,8 @@ Phases, each of which raises on failure, with its seconds printed:
     against their plain versions at small odd shapes (dp 20-520); the
     merges must be bitwise deterministic;
 11. on the wide plans of the blocks stand-in, DD, YS and GH: apply_padded
-    at dims 128 and 256 against scipy, and the zero-fill and the merge at
+    at dim 128 (and 256 on the blocks stand-in and DD) against scipy, and
+    the zero-fill and the merge at
     the plan's own arrays (dp 256, fp32 and bf16, timed beside
     torch.sparse.addmm, deterministic; the merge's segment table's longest
     segment and length histogram printed);
@@ -131,9 +132,9 @@ Phases, each of which raises on failure, with its seconds printed:
     ``--single_kernel`` on the blocks stand-in, every SpMM through the
     tiled kernel, and ``apply_padded`` on the tiled plan against scipy;
 20. the layout switch: the 6-layer GCN at hidden 32 through ``cli.main``
-    with ``--band-impl tband``, ``wide`` and ``tiled`` on the blocks
-    stand-in and DD, each twice (tband, wide, tiled, tiled, wide, tband),
-    each run's epoch_ms and layout;
+    with ``--band-impl tband``, ``wide``, ``tiled`` and ``ring`` (a wide
+    plan, as the JAX CLI builds for it) on the blocks stand-in and DD, each
+    once, each run's epoch_ms and layout;
 21. where GH's GCN epochs go: ``utils/epoch_profile.py`` on the tband GCN
     (hidden 32) and the wide GCN (hidden 256), device-busy ms by kernel
     group;
@@ -173,15 +174,33 @@ Phases, each of which raises on failure, with its seconds printed:
     Adam; one SpMM timed and traced by ``utils/profiling.py`` (the trace
     must hold its kernels); then
     ``train.elastic.supervise`` over ``cli.main`` with ``--fault-epoch 2``:
-    one failed launch, one resumed launch, 4 epochs.
+    one failed launch, one resumed launch, 4 epochs;
+25. int4 band blocks (``PlanConfig(a_dtype='int4')``: ``band{s}_a`` and
+    ``tp_a`` on the card as nibbles), which band_kernel, tiled_kernel and
+    band_fused_kernel read as stored (PACK 2): at small odd shapes (Bb 104
+    by cp.async to 4352, dp 128-512, G 1-8, hp 22/256, empty superwindows,
+    values -8..7 besides 0/1) each output bit for bit the int8 launch's,
+    bitwise repeatable and against its plain version; at the blocks
+    stand-in's wide and tiled plans (#14 at dp 128 and 256, #12, #13 at G
+    4, #15 at dp 256, #16 at (256, 256) and (128, 256)), DD's (#14 dp 256)
+    and GH's (#14 dp 128 and 256) the same, each timed in 7 interleaved
+    rounds with its int8 launch and PERF.md's yardstick, with both bounds
+    and A's device bytes; apply_padded at int4 against scipy on GH's wide
+    plan and the blocks tiled plan; the 3-layer GCN and GIN at hidden 256
+    trained 3 epochs through ``train.loop.train`` on the blocks stand-in and
+    GH at int8 and int4, the same launches and fp32 losses equal bit for
+    bit.
 
-The second-to-last line is a JSON object with the kernel table (all
+Two tensors on the card are compared on the card (float64, as on the
+host). The second-to-last line is a JSON object with the kernel table (all
 sixteen TPU kernels' counterparts): for each kernel its launches on the
 main paths run here, its time, its plain version's, one library call's
 where PyTorch has one (torch.sparse.mm, torch.sparse.addmm, index_fill_,
 index_add_, index_select, F.embedding_bag) or, for the fused kernels, the
 composed pair they replace, and its bound (the tband kernels' rows also
-each pack's time, plain version and bound from phase 22): the larger of the bytes it must move (each
+each pack's time, plain version and bound from phase 22, and the wide
+band kernels' rows each int4 row of phase 25: int4 and int8 time,
+yardstick, plain version and both bounds): the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its
 operations at the card's peak rate for their type (fp32 67 TFLOP/s, bf16
 989 TFLOP/s), computed from this run's arrays; beside it the
@@ -297,11 +316,15 @@ def rel_err(got, ref) -> tuple:
 def check(name: str, got, ref, dtype: str) -> float:
     import torch
 
-    if isinstance(got, torch.Tensor):
-        got = got.float().cpu()
-    if isinstance(ref, torch.Tensor):
-        ref = ref.float().cpu()
-    err, rel = rel_err(got, ref)
+    if (isinstance(got, torch.Tensor) and isinstance(ref, torch.Tensor) and got.is_cuda
+            and ref.device == got.device and got.shape == ref.shape):
+        err, rel = device_rel_err(got, ref)
+    else:
+        if isinstance(got, torch.Tensor):
+            got = got.float().cpu()
+        if isinstance(ref, torch.Tensor):
+            ref = ref.float().cpu()
+        err, rel = rel_err(got, ref)
     log(f"  {name}: max_abs_err {err:.3e} rel {rel:.3e} (tol {TOL[dtype]:g})")
     if not rel <= TOL[dtype]:
         raise AssertionError(f"{name}: rel err {rel:.3e} > {TOL[dtype]:g}")
@@ -1088,8 +1111,9 @@ def tband_kernel_report(log_text: str) -> list:
 def band_kernel_report(log_text: str) -> list:
     """ptxas's lines of each instantiation of csrc/block_spmm.cu's
     band_kernel and band_fused_kernel."""
-    return ptxas_report(log_text, r"\d(band_kernel|band_fused_kernel)I(\w+?)Li(\d+)E",
-                        lambda k: f"{k.group(1)}<{types_of(k.group(2))}, NG {k.group(3)}>")
+    return ptxas_report(log_text, r"\d(band_kernel|band_fused_kernel)I(\w+?)Li(\d+)ELi(\d+)E",
+                        lambda k: f"{k.group(1)}<{types_of(k.group(2))}, NG {k.group(3)}, "
+                                  f"PACK {k.group(4)}>")
 
 
 def band_kernel_at_plan(key, op, gen, out, graph) -> None:
@@ -1637,12 +1661,32 @@ def row_layout_phase(rp, ci, n, gen, out, launch_runs) -> None:
     torch.cuda.empty_cache()
 
 
+def device_rel_err(got, ref) -> tuple:
+    """``rel_err`` of two tensors on one card, in float64 on the card (in
+    slices of 2^27 elements): the same numbers without their trip to the
+    host."""
+    g, r = got.reshape(-1), ref.reshape(-1)
+    err = top = 0.0
+    for i in range(0, g.numel(), 1 << 27):
+        gi, ri = g[i:i + (1 << 27)].double(), r[i:i + (1 << 27)].double()
+        e, t = float((gi - ri).abs().max()), float(ri.abs().max())
+        if math.isnan(e) or math.isnan(t):  # as the host's max: NaN wins
+            return math.nan, math.nan
+        err, top = max(err, e), max(top, t)
+    return err, err / max(top, 1e-30)
+
+
 def hold(name: str, got, ref, cd: str) -> float:
-    """rel_err of ``got`` against ``ref`` on the host; raises above TOL[cd]."""
+    """rel_err of ``got`` against ``ref`` (on the card where both lie there,
+    else on the host); raises above TOL[cd]."""
     import torch
 
-    err, rel = rel_err(got.float().cpu() if isinstance(got, torch.Tensor) else got,
-                       ref.float().cpu() if isinstance(ref, torch.Tensor) else ref)
+    if (isinstance(got, torch.Tensor) and isinstance(ref, torch.Tensor) and got.is_cuda
+            and ref.device == got.device and got.shape == ref.shape):
+        err, rel = device_rel_err(got, ref)
+    else:
+        err, rel = rel_err(got.float().cpu() if isinstance(got, torch.Tensor) else got,
+                           ref.float().cpu() if isinstance(ref, torch.Tensor) else ref)
     if not rel <= TOL[cd]:
         raise AssertionError(f"{name}: rel err {rel:.3e} > {TOL[cd]:g}")
     return err
@@ -2501,6 +2545,408 @@ def train_packed(rp, ci, n, launch_runs, out) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 25: int4 band blocks (PlanConfig(a_dtype='int4'))
+# ---------------------------------------------------------------------------
+
+
+def nibbles_on_card(a):
+    """int8 blocks ``a`` on the card as the port's int4 upload stores them
+    (format/streams.py:pack_a_int4)."""
+    import torch
+
+    from hcspmm_tpu_torch.format.streams import pack_a_int4
+
+    return torch.from_numpy(pack_a_int4(a.cpu().numpy())).to(DEV)
+
+
+def same_as_int8(name, fn, a4, a8) -> None:
+    """``fn(a4)`` (twice, bitwise repeatable) equals ``fn(a8)`` bit for bit,
+    every output."""
+    import torch
+
+    got, again, want = fn(a4), fn(a4), fn(a8)
+    got, again, want = ((v,) if isinstance(v, torch.Tensor) else v for v in (got, again, want))
+    for i, (g, r, w) in enumerate(zip(got, again, want)):
+        if not torch.equal(g, r):
+            raise AssertionError(f"{name} (output {i}): two int4 runs differ")
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name} (output {i}): int4 differs from int8")
+
+
+def int4_small_shapes(gen) -> None:
+    """The three kernels reading int4 nibbles (PACK 2) at small odd shapes,
+    fp32 and bf16, each output bitwise repeatable, bit for bit the int8
+    launch's and within tolerance of the plain version fed the nibbles:
+    band_kernel's direct and bucket modes at bh 128 and 256, Bb 104 (rows of
+    52 bytes: cp.async), 640, 1024, 2560 (two 1024-byte steps of the walk)
+    and 4352 (the last box reaching past the row), dp 128-512 (one to four
+    column groups), capacity-padded entries; its grouped mode at G 1-8;
+    band_fused_kernel at dp 128/256, hp 22/256; tiled_kernel on pair streams
+    with empty superwindows, dp 128-384; and A holding every int4 value
+    -8..7 (the value path, not the 0/1 fast path) in each kernel."""
+    import types
+
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+
+    dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    mm, sb, trash = 8192, 7, 2
+
+    def blocks(shape, values):
+        a = (torch.rand(shape, generator=gen) < 0.04).to(torch.int8)
+        if values:  # every int4 value, at the same sparsity
+            a *= torch.randint(-8, 8, shape, generator=gen, dtype=torch.int8)
+        return a.to(DEV)
+
+    for bh, bb, values in ((128, 104, False), (256, 640, False), (128, 1024, False),
+                           (256, 2560, False), (128, 4352, False), (128, 640, True)):
+        a8 = blocks((sb, bh, bb), values)
+        a4 = nibbles_on_card(a8)
+        st = (torch.randint(0, (mm - bb) // 16 + 1, (sb,), generator=gen) * 16).to(DEV,
+                                                                                  torch.int32)
+        sw = torch.cat([torch.randperm(sb - trash, generator=gen),
+                        torch.full((trash,), sb - trash)]).to(DEV, torch.int32)
+        label = f"bh {bh} Bb {bb}{' values -8..7' if values else ''}"
+        for dp in (128, 256, 384, 512):
+            for cd, dtype in dtypes:
+                xp = torch.randn((mm, dp), generator=gen).to(DEV, dtype)
+                for mode, fn, plain in (
+                        ("direct", lambda a: block_spmm.band_bucket_spmm_direct(
+                            sw, st, a, xp, sb - trash, dtype),
+                         lambda: block_spmm.band_bucket_spmm_direct_plain(
+                             sw, st, a4, xp, sb - trash, dtype)),
+                        ("bucket", lambda a: block_spmm.band_bucket_spmm(st, a, xp),
+                         lambda: block_spmm.band_bucket_spmm_plain(st, a4, xp))):
+                    name = f"int4 {mode} {cd} {label} dp {dp}"
+                    same_as_int8(name, fn, a4, a8)
+                    hold(name, fn(a4), plain(), cd if mode == "direct" else "float32")
+                if dp in (128, 256) and bb in (104, 640):
+                    for hp in (22, 256):
+                        wp = (torch.randn((dp, hp), generator=gen) * 0.1).to(DEV, dtype)
+                        name = f"int4 fused {cd} {label} dp {dp} hp {hp}"
+                        same_as_int8(name, lambda a: block_spmm.band_fused_spmm_direct(
+                            sw, st, a, xp, wp, sb - trash, dtype), a4, a8)
+                        hold_repeatable(name, lambda: block_spmm.band_fused_spmm_direct(
+                            sw, st, a4, xp, wp, sb - trash, dtype),
+                            lambda: block_spmm.band_fused_spmm_direct_plain(
+                                sw, st, a4, xp, wp, sb - trash, dtype), cd)
+        a8 = blocks((16, bh, bb), values)
+        a4 = nibbles_on_card(a8)
+        st = (torch.randint(0, (mm - bb) // 16 + 1, (16,), generator=gen) * 16).to(DEV,
+                                                                                  torch.int32)
+        for group in (1, 2, 4, 8):
+            for cd, dtype in dtypes:
+                xp = torch.randn((mm, 256), generator=gen).to(DEV, dtype)
+                name = f"int4 grouped {cd} G {group} {label}"
+                same_as_int8(name, lambda a: block_spmm.band_bucket_spmm_grouped(
+                    st, a, xp, 13, dtype, group), a4, a8)
+                hold(name, block_spmm.band_bucket_spmm_grouped(st, a4, xp, 13, dtype, group),
+                     block_spmm.band_bucket_spmm_grouped_plain(st, a4, xp, 13, dtype, group), cd)
+
+    for bh, values in ((256, False), (128, True)):
+        counts = [0, 3, 1, 6, 2, 0, 4, 5, 1]
+        m = len(counts) * bh
+        arrs8 = tiled_arrays(counts, bh, m // 128, gen)
+        if values:
+            arrs8["tp_a"] *= torch.randint(-8, 8, arrs8["tp_a"].shape, generator=gen,
+                                           dtype=torch.int8).to(DEV)
+        arrs4 = dict(arrs8, tp_a=nibbles_on_card(arrs8["tp_a"]))
+        plan = types.SimpleNamespace(band_h=bh)
+        for dp in (128, 256, 384):
+            for cd, dtype in dtypes:
+                xp = torch.randn((m, dp), generator=gen).to(DEV, dtype)
+                name = f"int4 tiled {cd} bh {bh} dp {dp}{' values -8..7' if values else ''}"
+                same_as_int8(name, lambda arrs: block_spmm.band_tiled_spmm(
+                    arrs, xp, plan, dtype), arrs4, arrs8)
+                hold(name, block_spmm.band_tiled_spmm(arrs4, xp, plan, dtype),
+                     block_spmm.band_tiled_spmm_plain(arrs4, xp, plan, dtype), cd)
+    log("  int4 (PACK 2): band_kernel direct/bucket (bh 128/256, Bb 104-4352, dp 128-512), "
+        "grouped (G 1-8), band_fused_kernel (dp 128/256, hp 22/256) and tiled_kernel (dp "
+        "128-384, empty superwindows), 0/1 blocks and values -8..7, fp32 and bf16: bit for bit "
+        "the int8 launches, bitwise repeatable, within tolerance of the plain versions: pass")
+
+
+def int4_row(label, fns, fn_p, nbytes4, nbytes8, ops, cd, reps, err) -> dict:
+    """An int4 kernel's row: ``fns`` (int4, int8 and the yardstick) timed in
+    7 interleaved rounds (medians), the plain version (fed nibbles) once,
+    and the bounds at int4 and at int8 (A's bytes halved at int4)."""
+    ab = interleaved_ms(fns, reps)
+    p_ms = cuda_time_ms(fn_p, 2)
+    b4, by4 = bound(nbytes4, ops, cd)
+    b8, by8 = bound(nbytes8, ops, cd)
+    log(f"    {label}: int4 {ab['int4']:.4f} ms, int8 {ab['int8']:.4f} ms, yardstick "
+        f"{ab['yardstick']:.4f} ms (medians of 7 interleaved rounds), plain {p_ms:.4f} ms; "
+        f"bound int4 {b4:.4f} ms by {by4}, int8 {b8:.4f} ms by {by8}; int4 "
+        f"{(ab['int8'] - ab['int4']) / ab['int8']:+.1%} faster than int8, {ab['int4'] / b4:.2f}x "
+        "its bound")
+    return dict(err=err, ms=ab["int4"], plain_ms=p_ms, library_ms=ab["yardstick"],
+                bound_ms=b4, bound_by=by4, int8_ms=ab["int8"], int8_bound_ms=b8,
+                int8_bound_by=by8, shape=label)
+
+
+def int4_ops(graph, cfg):
+    """The int8 and the int4 operator of one graph and PlanConfig fields,
+    their plans equal but for the stored blocks."""
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+
+    rp, ci, n = graph
+    return {dt: HybridSpMM(rp, ci, n, PlanConfig(a_dtype=dt, **cfg), device=DEV)
+            for dt in ("int8", "int4")}
+
+
+def a_bytes(op) -> int:
+    """Device bytes of an operator's band blocks and A tiles as uploaded."""
+    return sum(v.numel() * v.element_size() for k, v in op.arrays["f"].items()
+               if k == "tp_a" or (k.startswith("band") and k.endswith("_a")))
+
+
+def int4_at_plans(graphs, gen, out) -> None:
+    """The int4 kernels at the full-size plans, each int4 output equal to
+    the int8 output bit for bit and held against its plain version fed the
+    nibbles, timed in 7 interleaved rounds with the int8 launch and the
+    yardstick of PERF.md §6 (torch.sparse.mm of the band blocks; for the
+    fused kernel the composed pair at int4), with both bounds: on the blocks
+    stand-in's wide plan #14 at dp 128 and 256, #12 at dp 256, #13 at G 4 and
+    dp 128, #16 at (dp, hp) (256, 256) and (128, 256); on its tiled plan #15
+    at dp 256; #14 on DD's wide plan at dp 256 and GH's at dp 128 and 256.
+    A's device bytes at int8 and int4 are printed, and ``apply_padded`` at
+    int4 is held against scipy on GH's wide plan (spill, missing
+    superwindows) and the blocks stand-in's tiled plan.  Rows go into
+    ``out[(kernel, graph, dp)]``."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+    from hcspmm_tpu_torch.ops.spmm import _dot
+
+    def direct_rows(key, ops, dps):
+        p = ops["int8"].plan
+        s = max(range(len(p.band_widths)), key=lambda i: len(p.band_sw_ids[i]))
+        arr8, arr4 = ops["int8"].arrays["f"], ops["int4"].arrays["f"]
+        st, sw = arr8[f"band{s}_start"], arr8[f"band{s}_sw"]
+        a8, a4 = arr8[f"band{s}_a"], arr4[f"band{s}_a"]
+        m, bh = p.padded_rows, p.band_h
+        num_sw = m // bh
+        owned = sw[sw < num_sw].long()
+        band_csr = block_csr(a8, st, sw, num_sw, m)
+        nnz = int(band_csr.values().numel())
+        label = f"Sb {a8.shape[0]}, Bb {a8.shape[2]}, bh {bh}"
+        ring = (block_spmm.band_launch(a4.shape[2], *block_spmm.band_device(0)[1:])
+                if a4.is_cuda else None)
+        log(f"  {key} wide plan: {label}, {nnz} band nnz; A on the card {a_bytes(ops['int8'])} "
+            f"bytes at int8, {a_bytes(ops['int4'])} at int4; the ring at int4 {ring}")
+        for dp in dps:
+            xp = torch.randn((m, dp), generator=gen).to(DEV)
+
+            def direct(a):
+                return block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, xp.dtype)
+
+            got, want = direct(a4), direct(a8)
+            if not (torch.equal(got[owned], direct(a4)[owned])
+                    and torch.equal(got[owned], want[owned])):
+                raise AssertionError(f"{key} int4 direct dp {dp}: not bitwise repeatable or "
+                                     "not equal to int8")
+            err = hold(f"{key} int4 direct dp {dp}", got[owned],
+                       block_spmm.band_bucket_spmm_direct_plain(sw, st, a4, xp, num_sw,
+                                                                xp.dtype)[owned], "float32")
+            del got, want
+            out_b = len(owned) * bh * dp * 4 + m * dp * 4 + 8 * a8.shape[0]
+            out[("band_spmm", key, dp)] = int4_row(
+                f"{key} int4 direct fp32 at {label}, dp {dp} (yardstick: torch.sparse.mm of the "
+                "band blocks)",
+                {"int4": lambda: direct(a4), "int8": lambda: direct(a8),
+                 "yardstick": lambda: torch.sparse.mm(band_csr, xp)},
+                lambda: block_spmm.band_bucket_spmm_direct_plain(sw, st, a4, xp, num_sw,
+                                                                 xp.dtype),
+                a4.numel() + out_b, a8.numel() + out_b, 2 * nnz * dp, "float32", 10, err)
+            log(f"  {key} int4 direct dp {dp}: equal to int8 bit for bit, bitwise repeatable")
+            del xp
+            torch.cuda.empty_cache()
+        return st, sw, a8, a4, band_csr, nnz, label
+
+    rp, ci, n = graphs["blocks"]
+    ops = int4_ops(graphs["blocks"], dict(band_impl="wide"))
+    p = ops["int8"].plan
+    m, bh = p.padded_rows, p.band_h
+    num_sw = m // bh
+    if block_spmm.single_full_bucket(ops["int8"].arrays["f"], p, num_sw) is None:
+        raise AssertionError("the blocks stand-in's wide plan must have one full-cover bucket")
+    st, sw, a8, a4, band_csr, nnz, label = direct_rows("blocks", ops, WIDE_DIMS)
+
+    xp = torch.randn((m, 256), generator=gen).to(DEV)
+    same_as_int8("blocks int4 bucket dp 256", lambda a: block_spmm.band_bucket_spmm(st, a, xp),
+                 a4, a8)
+    err = hold("blocks int4 bucket dp 256", block_spmm.band_bucket_spmm(st, a4, xp),
+               block_spmm.band_bucket_spmm_plain(st, a4, xp), "float32")
+    out_b = a8.shape[0] * bh * 256 * 4 + m * 256 * 4 + 4 * a8.shape[0]
+    out[("band_bucket_spmm", "blocks", 256)] = int4_row(
+        f"blocks int4 bucket mode fp32 at {label}, dp 256 (yardstick: torch.sparse.mm)",
+        {"int4": lambda: block_spmm.band_bucket_spmm(st, a4, xp),
+         "int8": lambda: block_spmm.band_bucket_spmm(st, a8, xp),
+         "yardstick": lambda: torch.sparse.mm(band_csr, xp)},
+        lambda: block_spmm.band_bucket_spmm_plain(st, a4, xp),
+        a4.numel() + out_b, a8.numel() + out_b, 2 * nnz * 256, "float32", 10, err)
+
+    xp = torch.randn((m, 128), generator=gen).to(DEV)
+
+    def grouped(a):
+        return block_spmm.band_bucket_spmm_grouped(st, a, xp, num_sw, xp.dtype, 4)
+
+    same_as_int8("blocks int4 grouped G 4 dp 128", grouped, a4, a8)
+    err = hold("blocks int4 grouped G 4 dp 128", grouped(a4),
+               block_spmm.band_bucket_spmm_grouped_plain(st, a4, xp, num_sw, xp.dtype, 4),
+               "float32")
+    out_b = min(a8.shape[0], num_sw) * bh * 128 * 4 + m * 128 * 4 + 4 * a8.shape[0]
+    out[("band_bucket_spmm_grouped", "blocks", 128)] = int4_row(
+        f"blocks int4 grouped G 4 fp32 at {label}, dp 128 (yardstick: torch.sparse.mm)",
+        {"int4": lambda: grouped(a4), "int8": lambda: grouped(a8),
+         "yardstick": lambda: torch.sparse.mm(band_csr, xp)},
+        lambda: block_spmm.band_bucket_spmm_grouped_plain(st, a4, xp, num_sw, xp.dtype, 4),
+        a4.numel() + out_b, a8.numel() + out_b, 2 * nnz * 128, "float32", 10, err)
+    del xp, band_csr
+
+    for dp, hp in ((256, 256), (128, 256)):
+        xp = torch.randn((m, dp), generator=gen).to(DEV)
+        wp = (torch.randn((dp, hp), generator=gen) * 0.1).to(DEV)
+
+        def fused(a):
+            return block_spmm.band_fused_spmm_direct(sw, st, a, xp, wp, num_sw, xp.dtype)
+
+        def composed():
+            agg = block_spmm.band_bucket_spmm_direct(sw, st, a4, xp, num_sw, xp.dtype)
+            return agg, _dot(agg.view(m, dp), wp).view(num_sw, -1, hp)
+
+        shape = f"{label}, dp {dp}, hp {hp}"
+        same_as_int8(f"blocks int4 fused at {shape}", fused, a4, a8)
+        err = hold_repeatable(f"blocks int4 fused at {shape}", lambda: fused(a4),
+                              lambda: block_spmm.band_fused_spmm_direct_plain(
+                                  sw, st, a4, xp, wp, num_sw, xp.dtype), "float32")
+        io_b = (m * dp + dp * hp + m * (dp + hp)) * 4 + 8 * a8.shape[0]
+        out[("band_fused_spmm_direct", "blocks", (dp, hp))] = int4_row(
+            f"blocks int4 fused fp32 at {shape} (yardstick: the composed pair at int4)",
+            {"int4": lambda: fused(a4), "int8": lambda: fused(a8), "yardstick": composed},
+            lambda: block_spmm.band_fused_spmm_direct_plain(sw, st, a4, xp, wp, num_sw,
+                                                            xp.dtype),
+            a4.numel() + io_b, a8.numel() + io_b, 2 * nnz * dp + 2 * m * dp * hp, "float32", 10,
+            err)
+        del xp, wp
+    del ops, a8, a4
+    torch.cuda.empty_cache()
+
+    ops = int4_ops(graphs["blocks"], dict(band_impl="tiled"))
+    p = ops["int8"].plan
+    if not p.tiled:
+        raise AssertionError("the blocks stand-in's tiled plan must be tiled")
+    m, bh = p.padded_rows, p.band_h
+    num_sw = m // bh
+    arr8, arr4 = ops["int8"].arrays["f"], ops["int4"].arrays["f"]
+    ta = arr8["tp_a"]
+    pairs = ta.shape[0]
+    i, r, k = ta.nonzero(as_tuple=True)
+    ptr, tile = arr8["tp_ptr"], arr8["tp_tile"]
+    owner = torch.repeat_interleave(torch.arange(num_sw, device=DEV), (ptr[1:] - ptr[:-1]).long())
+    t_csr = torch.sparse_coo_tensor(
+        torch.stack([owner[i] * bh + r, tile.long()[i] * 128 + k]),
+        torch.ones(i.numel(), device=DEV), (m, m)).coalesce().to_sparse_csr()
+    t_nnz = int(i.numel())
+    del i, r, k, owner
+    log(f"  blocks tiled plan: {pairs} pairs; A on the card {a_bytes(ops['int8'])} bytes at "
+        f"int8, {a_bytes(ops['int4'])} at int4")
+    xp = torch.randn((m, 256), generator=gen).to(DEV)
+
+    def tiled(arrs):
+        return block_spmm.band_tiled_spmm(arrs, xp, p, xp.dtype)
+
+    same_as_int8("blocks int4 tiled dp 256", tiled, arr4, arr8)
+    err = hold("blocks int4 tiled dp 256", tiled(arr4),
+               block_spmm.band_tiled_spmm_plain(arr4, xp, p, xp.dtype), "float32")
+    io_b = 2 * m * 256 * 4 + 4 * (pairs + num_sw + 1)
+    out[("band_tiled_spmm", "blocks", 256)] = int4_row(
+        f"blocks int4 tiled fp32 at {pairs} pairs, bh {bh}, dp 256 (yardstick: torch.sparse.mm)",
+        {"int4": lambda: tiled(arr4), "int8": lambda: tiled(arr8),
+         "yardstick": lambda: torch.sparse.mm(t_csr, xp)},
+        lambda: block_spmm.band_tiled_spmm_plain(arr4, xp, p, xp.dtype),
+        arr4["tp_a"].numel() + io_b, ta.numel() + io_b, 2 * t_nnz * 256, "float32", 10, err)
+    x = np.random.RandomState(0).randn(n, 256).astype(np.float32)
+    op4 = ops["int4"]
+    with torch.no_grad():
+        got = op4.unpad_output(op4.apply_padded(op4.arrays, op4.pad_input(x)), 256)
+    check("blocks tiled int4 apply_padded dim 256 vs scipy", got, csr_matmul(rp, ci, n, x),
+          "float32")
+    del ops, op4, arr8, arr4, ta, t_csr, xp, got
+    torch.cuda.empty_cache()
+
+    ops = int4_ops(graphs["DD"], dict(band_impl="wide"))
+    direct_rows("DD", ops, (256,))
+    del ops
+    torch.cuda.empty_cache()
+
+    ops = int4_ops(graphs["GH"], dict(band_impl="wide"))
+    direct_rows("GH", ops, WIDE_DIMS)
+    rp, ci, n = graphs["GH"]
+    op4 = ops["int4"]
+    if not (op4.plan.spill_nnz and len(op4.plan.band_missing_sw)):
+        raise AssertionError("GH's wide plan must spill and miss superwindows")
+    x = np.random.RandomState(0).randn(n, 128).astype(np.float32)
+    with torch.no_grad():
+        got = op4.unpad_output(op4.apply_padded(op4.arrays, op4.pad_input(x)), 128)
+    check("GH wide int4 apply_padded dim 128 vs scipy (spill, missing superwindows)", got,
+          csr_matmul(rp, ci, n, x), "float32")
+    del ops, op4, got
+    torch.cuda.empty_cache()
+
+
+def train_int4(graphs, launch_runs, out) -> None:
+    """The 3-layer GCN and GIN (dim 128, hidden 256, classes 40) trained 3
+    epochs through ``train.loop.train`` on the blocks stand-in's and GH's
+    wide plans at int8 and at int4 from the same weights, the launch
+    counters zeroed just before each run and read just after: the int4 run
+    launches what the int8 run does, kernel for kernel, and its fp32 losses
+    equal the int8 run's bit for bit."""
+    import numpy as np
+    import torch
+
+    from hcspmm_tpu_torch.models.net import Net
+    from hcspmm_tpu_torch.train.loop import train
+
+    class Losses:
+        def __init__(self):
+            self.v = []
+
+        def log(self, **rec):
+            self.v.append(rec["loss"])
+
+    for key in ("blocks", "GH"):
+        n = graphs[key][2]
+        ops = int4_ops(graphs[key], dict(band_impl="wide"))
+        xin = torch.from_numpy(np.random.RandomState(1).randn(n, 128).astype(np.float32))
+        y = np.ones(n, dtype=np.int64)
+        for model in ("gcn", "gin"):
+            net = Net(model, 128, 256, 40, 3)
+            runs = {}
+            for dt, op in ops.items():
+                rec = Losses()
+                zero_counts()
+                res = train(net, op, xin, y, epochs=3, warmup_epochs=0, seed=3, logger=rec)
+                counts = read_counts()
+                runs[dt] = (rec.v, counts)
+                log(f"  {key} wide {model} at {dt}: losses {rec.v}, epoch_ms "
+                    f"{res['epoch_ms']:.3f}; launches {counts}")
+                launch_runs[f"{key} {model} wide {dt}"] = counts
+            (l8, c8), (l4, c4) = runs["int8"], runs["int4"]
+            if l4 != l8 or not all(math.isfinite(v) for v in l4):
+                raise AssertionError(f"{key} {model}: int4 losses {l4} differ from int8's {l8}")
+            if c4 != c8:
+                raise AssertionError(f"{key} {model}: int4 launches {c4} differ from int8's {c8}")
+            check_counts(c4, {"band_bucket_spmm_direct": 1}, WIDE_SPMMS[model] * 3)
+            out[(key, model)] = dict(losses=l4, launches=c4["band_bucket_spmm_direct"])
+        del ops
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phases 23-24: the distributed SpMM over gloo ranks on the card; checkpoint
 # and elastic restart
 # ---------------------------------------------------------------------------
@@ -3090,8 +3536,9 @@ def main() -> int:
                 log(f"  tband_kernel fused at bh 256, dt {dt}, ht {ht}, {dtype}: "
                     f"{tband.fused_launch(256, dt, ht, dtype.itemsize, *device[1:])}")
         for bb in (384, 640, 1024):
-            log(f"  band_kernel's ring at Bb {bb}: "
-                f"{block_spmm.band_launch(bb, *device[1:])}")
+            for pack in (1, 2):
+                log(f"  band_kernel's ring at Bb {bb}, PACK {pack}: "
+                    f"{block_spmm.band_launch(bb // pack, *device[1:])}")
         for dp in (128, 256, 3712):
             log(f"  band_kernel fused at Bb 640, dp {dp}, hp 256: "
                 f"{block_spmm.fused_launch(640, dp, 256, *device[1:])}")
@@ -3280,7 +3727,10 @@ def main() -> int:
                     raise AssertionError("the forced plan must take the tile form")
                 if key != "blocks":
                     row_kernels_vs_plain(name, op, gen, row_res)
-                for d in WIDE_DIMS if not extra else (128,):
+                # dim 256 (two column groups) on the blocks stand-in and DD;
+                # YS's and GH's plans at dim 256 are held by phase 9's band
+                # kernel and this phase's merge at dp 256
+                for d in WIDE_DIMS if key in ("blocks", "DD") and not extra else (128,):
                     x = np.random.RandomState(0).randn(nk, d).astype(np.float32)
                     zero_counts()
                     with torch.no_grad():
@@ -3425,20 +3875,21 @@ def main() -> int:
 
         layout_res = {}
         with Phase("20. the layout switch: the 6-layer GCN at hidden 32 through cli.main "
-                   "--band-impl tband, wide and tiled"):
-            # each layout twice, in the order tband wide tiled tiled wide tband: the
+                   "--band-impl tband, wide, tiled and ring"):
+            # each layout once (ring: the wide plan the JAX CLI builds for it); the
             # host clock of these epochs drifts within a call
-            impls = ("tband", "wide", "tiled")
+            impls = ("tband", "wide", "tiled", "ring")
             for key, pth, ro in (("blocks", path, "rcm"), ("DD", paths["DD"], "cluster")):
-                for impl in impls + impls[::-1]:
+                for impl in impls:
                     zero_counts()
                     lines = run_cli(["--dataset", pth, "--reorder", ro, *GCN, "--epochs", "3",
                                      "--band-impl", impl])
                     counts = read_counts()
                     prep, done = records(lines, "preprocess"), records(lines, "done")
-                    if not math.isfinite(done["final_loss"]):
-                        raise AssertionError(f"{key} --band-impl {impl}: final_loss "
-                                             f"{done['final_loss']}")
+                    if not math.isfinite(done["final_loss"]) or (
+                            impl == "ring" and prep["layout"] != "wide"):
+                        raise AssertionError(f"{key} --band-impl {impl}: layout "
+                                             f"{prep['layout']}, final_loss {done['final_loss']}")
                     res = layout_res.setdefault(f"{key} {impl}", dict(layout=prep["layout"],
                                                                       epoch_ms=[]))
                     res["epoch_ms"].append(done["epoch_ms"])
@@ -3476,6 +3927,13 @@ def main() -> int:
     with Phase("24. checkpoint, resume and elastic restart"):
         checkpoint_phase(ckpt_res)
 
+    int4_res, int4_train = {}, {}
+    with Phase("25. int4 band blocks (a_dtype='int4'), read as stored nibbles"):
+        int4_small_shapes(gen)
+        int4_graphs = {"blocks": (rp, ci, n), "DD": real_csr["DD"], "GH": real_csr["GH"]}
+        int4_at_plans(int4_graphs, gen, int4_res)
+        train_int4(int4_graphs, launch_runs, int4_train)
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -3487,9 +3945,10 @@ def main() -> int:
         return next(r for r in row_res[(name, "float32")] if r["graph"] == graph)
 
     def entry(name, source, replaces, r, shape, err=None, counter=None, **extra):
+        errs = [r["err"] if err is None else err] + [
+            v["err"] for v in extra.get("int4", {}).values()]
         return dict(name=name, route="cuda", source=source, replaces=replaces, **extra,
-                    launches=launches(counter or name),
-                    max_abs_err=r["err"] if err is None else err,
+                    launches=launches(counter or name), max_abs_err=max(errs),
                     ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"], shape=shape)
 
@@ -3517,6 +3976,10 @@ def main() -> int:
         return {f"{k[1]} {k[2]} pack {p}": row for k, rows in packed_res.items()
                 if k[0] == kernel for p, row in rows.items()}
 
+    def int4(kernel):
+        """The int4 rows of ``kernel`` phase 25 ran, by graph and width."""
+        return {f"{k[1]} {k[2]}": row for k, row in int4_res.items() if k[0] == kernel}
+
     kernels = [
         entry("tband_spmm", csrc + "tband.cu", tpu + "tband.py:217", band_blocks,
               f"blocks {band_blocks['shape']}, float32, direct write",
@@ -3536,17 +3999,19 @@ def main() -> int:
               ops_rate=tb_fused["ops_rate"], launch=tb_fused["launch"],
               packs=packs("tband_fused_direct")),
         entry("band_bucket_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:317",
-              wide_bucket, wide_bucket["shape"]),
+              wide_bucket, wide_bucket["shape"], int4=int4("band_bucket_spmm")),
         entry("band_bucket_spmm_grouped", csrc + "block_spmm.cu", tpu + "block_spmm.py:414",
-              grouped, grouped["shape"]),
+              grouped, grouped["shape"], int4=int4("band_bucket_spmm_grouped")),
         entry("band_tiled_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:597", tiled,
               tiled["shape"], err=max(v["err"] for k, v in new_res.items()
-                                      if k[0] == "band_tiled_spmm")),
+                                      if k[0] == "band_tiled_spmm"),
+              int4=int4("band_tiled_spmm")),
         entry("band_fused_spmm_direct", csrc + "block_spmm.cu", tpu + "block_spmm.py:666",
               wide_fused, wide_fused["shape"], err=max(
                   v["err"] for k, v in new_res.items() if k[0] == "wide_fused_shapes"),
               design=WIDE_FUSED_DESIGN, band_ms=wide_fused["band_ms"],
-              ops_rate=wide_fused["ops_rate"], launch=wide_fused["launch"]),
+              ops_rate=wide_fused["ops_rate"], launch=wide_fused["launch"],
+              int4=int4("band_fused_spmm_direct")),
         *[entry(name, csrc + source, tpu + replaces, r,
                 f"{r['graph']} {r['shape']}, dt 32, float32",
                 err=max(v["err"] for v in spill_res[(name, "float32")]), **extra)
@@ -3564,7 +4029,8 @@ def main() -> int:
               counter="band_bucket_spmm_direct",
               err=max(v["err"] for (_, _, cd), v in wide_res.items() if cd == "float32"),
               design=WIDE_DESIGN, graph_library_ms=wide["graph_library_ms"],
-              plans={f"{k} dp {dp} {cd}": v for (k, dp, cd), v in wide_res.items()}),
+              plans={f"{k} dp {dp} {cd}": v for (k, dp, cd), v in wide_res.items()},
+              int4=int4("band_spmm")),
         *[entry(name, csrc + source, tpu + replaces, r,
                 f"{r['graph']} wide plan {r['shape']}, float32",
                 err=max(v["err"] for v in row_res[(name, "float32")]))
@@ -3608,6 +4074,7 @@ def main() -> int:
                     "epoch_profiles": profiles,
                     "packed_training": {f"pack {k[0]} {k[1]}": v
                                         for k, v in packed_train.items()},
+                    "int4_training": {f"{k[0]} {k[1]}": v for k, v in int4_train.items()},
                     "distributed": dist_res, "checkpoint": ckpt_res}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

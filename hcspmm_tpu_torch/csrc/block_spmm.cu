@@ -40,6 +40,16 @@
 //   summed in fp32 in k order, in one launch (its design below).
 //   tiled_kernel reads its rows of A from device memory a warp at a time
 //   (add_row).
+// A as stored (template PACK, the plan's a_dtype): int8, one byte a column
+// (PACK 1), or the reference's int4 (a_dtype='int4', PACK 2): nibbles,
+// column 2j in the low nibble of byte j and 2j + 1 in the high one, so a
+// 16-byte chunk holds 32 consecutive columns and a row half the bytes.  Each
+// kernel reads A as stored: the tensor maps and cp.async copies move bytes
+// (Bb / PACK a row), a lane masks the non-zero nibbles of its chunks (32
+// bits a chunk) and walks them in increasing k, and a value, where one is
+// not 0/1, is the nibble sign-extended.  The sums and their order do not
+// depend on PACK, so a PACK 2 launch equals the PACK 1 launch on the same
+// blocks bit for bit.
 //
 // What bounds them.  The blocks are under 1% non-zero (DD's wide plan:
 // 1.38 M edges in 1190 x 256 x 640 bytes of A), so no kernel multiplies the
@@ -207,23 +217,35 @@ __device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// acc += A_row @ X[0 : bb] for one row of an int8 block (bb bytes, a
-// multiple of 4, 4-byte aligned); xb points at X's first band row, offset to
-// this lane's first column (rows dp elements apart).
-template <typename TX, int NG>
+// A as stored (PACK 1: an int8 a column; PACK 2: int4 nibbles, column 2j in
+// the low nibble of byte j and column 2j + 1 in its high nibble, so that a
+// 16-byte chunk holds 32 consecutive columns; format/streams.py:pack_a_int4).
+// The value of a nibble as the reference's signed int4.
+__device__ __forceinline__ int nibble_value(uint32_t v) { return (int)((v & 15u) ^ 8u) - 8; }
+
+// acc += A_row @ X[0 : bb] for one row of a block of A (bb columns, a
+// multiple of 4; the row 4-byte aligned at PACK 1, 2-byte at PACK 2); xb
+// points at X's first band row, offset to this lane's first column (rows dp
+// elements apart).  Lane l reads columns k0 + 4l .. k0 + 4l + 3: 4 bytes, or
+// 2 at PACK 2.
+template <typename TX, int NG, int PACK>
 __device__ __forceinline__ void add_row(const int8_t* __restrict__ arow, int bb,
                                         const TX* __restrict__ xb, long long dp, int lane,
                                         float (&acc)[NG][4]) {
   for (int k0 = 0; k0 < bb; k0 += 128) {
     const int k = k0 + 4 * lane;
-    const uint32_t word = k < bb ? *reinterpret_cast<const uint32_t*>(arow + k) : 0u;
+    uint32_t word = 0u;
+    if (k < bb)
+      word = PACK == 1 ? *reinterpret_cast<const uint32_t*>(arow + k)
+                       : *reinterpret_cast<const uint16_t*>(arow + k / 2);
     // words in column order; the loop below is uniform across the warp
     for (unsigned nz = __ballot_sync(0xffffffffu, word != 0u); nz; nz &= nz - 1) {
       const int src = __ffs(nz) - 1;
       const uint32_t w = __shfl_sync(0xffffffffu, word, src);
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int av = static_cast<int8_t>((w >> (8 * b)) & 0xffu);
+        const int av = PACK == 1 ? static_cast<int8_t>((w >> (8 * b)) & 0xffu)
+                                 : nibble_value(w >> (4 * b));
         if (av == 0) continue;
         const float af = static_cast<float>(av);
         const TX* xr = xb + (long long)(k0 + 4 * src + b) * dp;
@@ -264,37 +286,54 @@ struct RowMap {
   __device__ int operator()(int k) const { return (k >> shift) * box_stride + (k & mask); }
 };
 
-// The non-zero bytes of the 16 bytes of a staged row at k (0 past bb) as a
-// 16-bit mask, byte i at bit i; ``ones`` is cleared if any byte is not 0 or 1.
+// The non-zero columns of the 16 bytes of a staged row at byte k (0 past
+// the row's rb bytes) as a mask, column i of the chunk at bit i: 16 bits
+// (PACK 1) or 32 (PACK 2); ``ones`` is cleared if any column is not 0 or 1.
+template <int PACK>
 __device__ __forceinline__ uint32_t chunk_mask(const unsigned char* arow, RowMap at, int k,
-                                               int bb, bool& ones) {
+                                               int rb, bool& ones) {
   uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (k < bb) {
+  if (k < rb) {
     v = *reinterpret_cast<const uint4*>(arow + at(k));
-    // the words past bb (bb % 16 == 4, 8 or 12) are not A's
-    if (k + 4 >= bb) v.y = 0u;
-    if (k + 8 >= bb) v.z = 0u;
-    if (k + 12 >= bb) v.w = 0u;
+    // the words past rb (rb % 16 == 4, 8 or 12) are not A's
+    if (k + 4 >= rb) v.y = 0u;
+    if (k + 8 >= rb) v.z = 0u;
+    if (k + 12 >= rb) v.w = 0u;
   }
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
   uint32_t m = 0u;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    // the high bit of each byte: set iff the byte is non-zero (no carry
-    // crosses a byte); the multiply gathers the four high bits into bits 28-31
-    const uint32_t hi = (((w[q] & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w[q]) & 0x80808080u;
-    m |= (hi * 0x00204081u) >> 28 << (4 * q);
-    ones &= (w[q] & 0xfefefefeu) == 0u;
+    if (PACK == 1) {
+      // the high bit of each byte: set iff the byte is non-zero (no carry
+      // crosses a byte); the multiply gathers the four high bits into bits 28-31
+      const uint32_t hi = (((w[q] & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w[q]) & 0x80808080u;
+      m |= (hi * 0x00204081u) >> 28 << (4 * q);
+      ones &= (w[q] & 0xfefefefeu) == 0u;
+    } else {
+      // the high bit of each nibble, set iff the nibble is non-zero (no
+      // carry crosses a nibble), moved to bit 4i for nibble i; then the
+      // eight bits gathered into bits 0-7 in three shift steps
+      uint32_t h = ((((w[q] & 0x77777777u) + 0x77777777u) | w[q]) & 0x88888888u) >> 3;
+      h = (h | h >> 3) & 0x03030303u;
+      h = (h | h >> 6) & 0x000f000fu;
+      h = (h | h >> 12) & 0xffu;
+      m |= h << (8 * q);
+      ones &= (w[q] & 0xeeeeeeeeu) == 0u;
+    }
   }
   return m;
 }
 
 // The non-zeros of one SEG-byte step of a staged row, in increasing k, one
 // at a time; warp-uniform (the lanes holding non-zeros come from ballots,
-// each one's 16-bit byte mask from a shuffle).  masks: this lane's byte masks
-// of its chunks at 16*lane (low half) and 512 + 16*lane (high half).
+// each one's column mask from a shuffle).  A lane's chunks are at bytes
+// 16*lane (low half) and 512 + 16*lane (high half) of the step: at PACK 1
+// ``lo`` holds both 16-bit masks (the high half's in its upper bits), at
+// PACK 2 ``lo`` and ``hi`` one 32-bit mask each.
+template <int PACK>
 struct NonZeros {
-  uint32_t masks, lanes, lanes_hi, bits;
+  uint32_t lo, hi, lanes, lanes_hi, bits;
   int base, half;
 
   __device__ bool next(int k0, int& k) {
@@ -306,8 +345,11 @@ struct NonZeros {
       }
       const int src = __ffs(lanes) - 1;
       lanes &= lanes - 1u;
-      bits = __shfl_sync(0xffffffffu, masks, src) >> (16 * half) & 0xffffu;
-      base = k0 + 512 * half + 16 * src;
+      if (PACK == 1)
+        bits = __shfl_sync(0xffffffffu, lo, src) >> (16 * half) & 0xffffu;
+      else
+        bits = __shfl_sync(0xffffffffu, half ? hi : lo, src);
+      base = k0 + (512 * half + 16 * src) * PACK;
     }
     k = base + __ffs(bits) - 1;
     bits &= bits - 1u;
@@ -315,24 +357,38 @@ struct NonZeros {
   }
 };
 
-// acc += A_row @ X[0 : bb] for one row of A staged in shared memory (at).
-// xb points at X's first band row, offset to this lane's first column.  Per
-// SEG bytes each lane reads its two 16-byte chunks and masks their non-zero
-// bytes; the warp then takes the non-zeros in increasing k, U at a time:
-// each one's byte of A (1 where the step holds only 0/1 bytes, else a
+// The value of column k of a staged row (a broadcast read).
+template <int PACK>
+__device__ __forceinline__ float a_value(const unsigned char* arow, RowMap at, int k) {
+  if (PACK == 1) return static_cast<float>(static_cast<int8_t>(arow[at(k)]));
+  return static_cast<float>(nibble_value(arow[at(k >> 1)] >> (4 * (k & 1))));
+}
+
+// acc += A_row @ X[0 : bb] for one row of A staged in shared memory (at)
+// as stored (bb columns in bb / PACK bytes).  xb points at X's first band
+// row, offset to this lane's first column.  Per SEG bytes (SEG * PACK
+// columns) each lane reads its two 16-byte chunks and masks their non-zero
+// columns; the warp then takes the non-zeros in increasing k, U at a time:
+// each one's value of A (1 where the step holds only 0/1 columns, else a
 // broadcast read of the staged row) and its X row's U*NG loads are issued
 // before the batch's FMAs, which run in k order.
-template <typename TX, int NG, int U>
+template <typename TX, int NG, int U, int PACK>
 __device__ __forceinline__ void band_row(const unsigned char* arow, RowMap at, int bb,
                                          const TX* xb, long long dp, int lane,
                                          float (&acc)[NG][4]) {
-  for (int k0 = 0; k0 < bb; k0 += SEG) {
+  const int rb = bb / PACK;
+  for (int k0 = 0; k0 < rb; k0 += SEG) {
     bool ones = true;
-    const uint32_t lo = chunk_mask(arow, at, k0 + 16 * lane, bb, ones);
-    const uint32_t hi = chunk_mask(arow, at, k0 + 512 + 16 * lane, bb, ones);
+    const uint32_t lo = chunk_mask<PACK>(arow, at, k0 + 16 * lane, rb, ones);
+    // at PACK 2 a row of Bb <= 1024 (512 bytes) leaves the high half empty:
+    // the warp (uniformly) skips it
+    const uint32_t hi = PACK == 1 || k0 + 512 < rb
+                            ? chunk_mask<PACK>(arow, at, k0 + 512 + 16 * lane, rb, ones)
+                            : 0u;
     ones = __all_sync(0xffffffffu, ones);
-    NonZeros nz{lo | hi << 16, __ballot_sync(0xffffffffu, lo != 0u),
-                __ballot_sync(0xffffffffu, hi != 0u), 0u, 0, 0};
+    NonZeros<PACK> nz{PACK == 1 ? lo | hi << 16 : lo, PACK == 1 ? 0u : hi,
+                      __ballot_sync(0xffffffffu, lo != 0u), __ballot_sync(0xffffffffu, hi != 0u),
+                      0u, 0, 0};
     for (bool more = true; more;) {
       bool ok[U];
       float af[U];
@@ -340,10 +396,10 @@ __device__ __forceinline__ void band_row(const unsigned char* arow, RowMap at, i
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         int k = 0;
-        ok[u] = more && nz.next(k0, k);
+        ok[u] = more && nz.next(k0 * PACK, k);
         more = ok[u];
         if (ok[u]) {
-          af[u] = ones ? 1.f : static_cast<float>(static_cast<int8_t>(arow[at(k)]));
+          af[u] = ones ? 1.f : a_value<PACK>(arow, at, k);
           const TX* xr = xb + (long long)k * dp;
 #pragma unroll
           for (int g = 0; g < NG; ++g) v[u][g] = gather4(xr + g * 128);
@@ -371,15 +427,16 @@ __device__ __forceinline__ void band_row(const unsigned char* arow, RowMap at, i
 // next unit from ``counter`` (zero at launch; each block takes one when it
 // needs one, so blocks that drew heavy units take fewer), and for each item
 // writes the item's (entry, first row) into its ring stage's header and
-// fills the stage: A's rows [rows, bb] of the entry as nbox boxes
-// [rows][box_w], a tensor copy each (``tma``; amap: A as [Sb*bh rows, bb]
-// int8, box [rows][box_w]; boxes reaching past bb land zeros), or, where bb
-// is no 16-byte multiple, 4-byte cp.async copies by the producer warp's 32
-// lanes (box_w >= bb, one box).  A header of entry -1 ends the block.
+// fills the stage: A's rows [rows, bb] of the entry as stored (rb = bb /
+// PACK bytes a row) as nbox boxes [rows][box_w], a tensor copy each
+// (``tma``; amap: A as [Sb*bh rows, rb] bytes, box [rows][box_w] bytes;
+// boxes reaching past rb land zeros), or, where rb is no 16-byte multiple,
+// 4-byte cp.async copies by the producer warp's 32 lanes (box_w >= rb, one
+// box).  A header of entry -1 ends the block.
 // Consumer warp w takes the item's rows w, w + BAND_WARPS, ...: for each
 // NG*128-column slab of dp it sums the row (band_row) and stores it, 16
 // bytes a lane (fp32).
-template <typename TX, typename TO, int NG>
+template <typename TX, typename TO, int NG, int PACK>
 __global__ void __launch_bounds__((BAND_WARPS + 1) * 32, 2)
 band_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict__ starts,
             const int32_t* __restrict__ sw, const int8_t* __restrict__ a,
@@ -414,7 +471,8 @@ band_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict_
     // cp.async every lane copies ----
     if (tma && lane != 0) return;
     const long long total_rows = (long long)sb * bh;
-    const int words = bb / 4;
+    const int rb = bb / PACK;
+    const int words = rb / 4;
     int t = 0;
     // the next free stage, once the consumers are done with its last item
     auto claim = [&]() {
@@ -442,7 +500,7 @@ band_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict_
         } else {
           for (int e = lane; e < rows * words; e += 32) {
             const int r = e / words, q = e - r * words;
-            if (r0 + r < total_rows) cp_async4(dst + r * box_w + 4 * q, a + (r0 + r) * bb + 4 * q);
+            if (r0 + r < total_rows) cp_async4(dst + r * box_w + 4 * q, a + (r0 + r) * rb + 4 * q);
           }
           cp_async_arrive(&full[slot]);
           if (lane == 0) bar_arrive(&full[slot]);
@@ -474,7 +532,7 @@ band_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict_
       TO* orow = out + (blk * bh + r0 + rr) * dp + 4 * lane;
       for (int c = 0; c < dp; c += NG * 128) {
         float acc[NG][4] = {};
-        band_row<TX, NG, U>(stage + rr * box_w, at, bb, xb + c, dp, lane, acc);
+        band_row<TX, NG, U, PACK>(stage + rr * box_w, at, bb, xb + c, dp, lane, acc);
 #pragma unroll
         for (int g = 0; g < NG; ++g) store4(orow + c + g * 128, acc[g]);
       }
@@ -502,12 +560,13 @@ struct Tile {
   int arows, box_w, nbox, tma;
 };
 
-// Loads rows [r0, r0 + arows) of A (as [Sb*bh, bb]) into ``dst``: thread 0
-// issues the tensor copies, completed on ``full``; or every thread issues
-// its share of 4-byte cp.async copies, completed by cp_async_wait_all.
+// Loads rows [r0, r0 + arows) of A (as stored: [Sb*bh, rb] bytes) into
+// ``dst``: thread 0 issues the tensor copies, completed on ``full``; or every
+// thread issues its share of 4-byte cp.async copies, completed by
+// cp_async_wait_all.
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap& amap,
                                           const int8_t* a, long long r0, long long total_rows,
-                                          int bb, Tile t, uint64_t* full) {
+                                          int rb, Tile t, uint64_t* full) {
   if (t.tma) {
     if (threadIdx.x == 0) {
       fence_proxy_async();
@@ -516,10 +575,10 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap&
         tensor_load(dst + b * t.arows * t.box_w, &amap, b * t.box_w, (int)r0, full);
     }
   } else {
-    const int words = bb / 4;
+    const int words = rb / 4;
     for (int e = threadIdx.x; e < t.arows * words; e += FUSED_THREADS) {
       const int r = e / words, q = e - r * words;
-      if (r0 + r < total_rows) cp_async4(dst + r * t.box_w + 4 * q, a + (r0 + r) * bb + 4 * q);
+      if (r0 + r < total_rows) cp_async4(dst + r * t.box_w + 4 * q, a + (r0 + r) * rb + 4 * q);
     }
   }
 }
@@ -664,7 +723,7 @@ __device__ __forceinline__ void w_product(const TO* __restrict__ agg, int nr,
 // and stores them to ``agg``; after a barrier, the first tile of the next
 // unit is requested, so that its copy runs during this unit's update
 // (w_product), which reads the rows back from L2.
-template <typename TX, typename TO, int NG>
+template <typename TX, typename TO, int NG, int PACK>
 __global__ void __launch_bounds__(FUSED_THREADS, 1)
 band_fused_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict__ starts,
                   const int32_t* __restrict__ sw, const int8_t* __restrict__ a,
@@ -682,6 +741,7 @@ band_fused_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __res
   const int nchunk = (bh + FR - 1) / FR;
   const int nunits = sb * nchunk;
   const long long total_rows = (long long)sb * bh;
+  const int rb = bb / PACK;
   // at one column group, twice band_kernel's batch: one block an SM leaves
   // registers for more loads in flight a warp (at more, the tile spills)
   constexpr int U = NG == 1 ? 2 * batch_of<NG>() : batch_of<NG>();
@@ -696,7 +756,7 @@ band_fused_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __res
   __syncthreads();
   int unit = *next_unit;
   if (unit >= 0)
-    load_tile(tile, amap, a, (long long)(unit / nchunk) * bh + unit % nchunk * FR, total_rows, bb,
+    load_tile(tile, amap, a, (long long)(unit / nchunk) * bh + unit % nchunk * FR, total_rows, rb,
               t, full);
   unsigned parity = 0u;
   while (unit >= 0) {
@@ -710,14 +770,14 @@ band_fused_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __res
         TO* orow = agg + (blk * bh + u0 + c0r + rr) * dp + 4 * lane;
         for (int c = 0; c < dp; c += NG * 128) {
           float acc[NG][4] = {};
-          band_row<TX, NG, U>(tile + rr * t.box_w, at, bb, xb + c, dp, lane, acc);
+          band_row<TX, NG, U, PACK>(tile + rr * t.box_w, at, bb, xb + c, dp, lane, acc);
 #pragma unroll
           for (int g = 0; g < NG; ++g) store4(orow + c + g * 128, acc[g]);
         }
       }
       __syncthreads();  // the tile's readers are done (and the unit's rows are out)
       if (c0r + t.arows < nr) {
-        load_tile(tile, amap, a, (long long)i * bh + u0 + c0r + t.arows, total_rows, bb, t,
+        load_tile(tile, amap, a, (long long)i * bh + u0 + c0r + t.arows, total_rows, rb, t,
                   full);
       } else {
         if (threadIdx.x == 0) *next_unit = claim_unit(counter, sw, nunits, nchunk, num_sw);
@@ -725,7 +785,7 @@ band_fused_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __res
         const int nu = *next_unit;
         if (nu >= 0)
           load_tile(tile, amap, a, (long long)(nu / nchunk) * bh + nu % nchunk * FR, total_rows,
-                    bb, t, full);
+                    rb, t, full);
       }
     }
     if (hp <= 128)
@@ -739,7 +799,8 @@ band_fused_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __res
 }
 
 // Grid: x = (superwindow s, 32-row chunk), chunk fastest; y = column slab.
-template <typename TX, typename TO, int NG>
+// A tile's row is TILE columns as stored: TILE / PACK bytes.
+template <typename TX, typename TO, int NG, int PACK>
 __global__ void __launch_bounds__(WARPS * 32)
 tiled_kernel(const int32_t* __restrict__ ptr, const int32_t* __restrict__ tile,
              const int8_t* __restrict__ a, const TX* __restrict__ x, TO* __restrict__ out,
@@ -756,7 +817,7 @@ tiled_kernel(const int32_t* __restrict__ ptr, const int32_t* __restrict__ tile,
   for (int r = r_lo + warp; r < r_hi; r += WARPS) {
     float acc[NG][4] = {};
     for (int p = p0; p < p1; ++p)
-      add_row<TX, NG>(a + ((long long)p * bh + r) * TILE, TILE,
+      add_row<TX, NG, PACK>(a + ((long long)p * bh + r) * (TILE / PACK), TILE,
                       x + (long long)tile[p] * TILE * dp + col0, dp, lane, acc);
     TO* orow = out + (s * bh + r) * dp + col0;
 #pragma unroll
@@ -799,7 +860,7 @@ struct Ring {
   int rows, box_w, nbox, stages, tma;
 };
 
-template <typename TX, typename TO, int NG>
+template <typename TX, typename TO, int NG, int PACK>
 cudaError_t launch_band(const void* starts, const void* sw, const void* a, const void* x,
                         void* out, void* counter, int sb, int bh, int bb, int dp, int num_sw,
                         int group, Ring ring, cudaStream_t stream) {
@@ -809,7 +870,7 @@ cudaError_t launch_band(const void* starts, const void* sw, const void* a, const
   const size_t smem =
       BAND_FIXED_SMEM + (size_t)ring.stages * ring.rows * ring.box_w * ring.nbox;
   if (smem > (size_t)d.optin) return cudaErrorInvalidValue;
-  auto kernel = band_kernel<TX, TO, NG>;
+  auto kernel = band_kernel<TX, TO, NG, PACK>;
   // the cap is the kernel's, not this shape's: let it take any
   static int opted[16] = {};
   if (d.dev < 16 && !opted[d.dev]) {
@@ -822,13 +883,13 @@ cudaError_t launch_band(const void* starts, const void* sw, const void* a, const
   if (e != cudaSuccess) return e;
   if (blocks < 1) return cudaErrorInvalidConfiguration;
   CUtensorMap amap = {};
-  if (ring.tma && !encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, (long long)sb * bh, bb,
-                             ring.rows, ring.box_w, CU_TENSOR_MAP_SWIZZLE_NONE))
+  if (ring.tma && !encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, (long long)sb * bh,
+                             bb / PACK, ring.rows, ring.box_w, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   const long long units = (long long)(sb / group) * ((bh + ring.rows - 1) / ring.rows);
   const long long slots = (long long)blocks * d.sms;
-  band_kernel<TX, TO, NG><<<(unsigned)(units < slots ? units : slots), (BAND_WARPS + 1) * 32,
-                            smem, stream>>>(
+  band_kernel<TX, TO, NG, PACK><<<(unsigned)(units < slots ? units : slots),
+                                  (BAND_WARPS + 1) * 32, smem, stream>>>(
       amap, static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
       static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<TO*>(out),
       static_cast<int*>(counter), sb, bh, bb, dp, num_sw, group, ring.rows, ring.box_w, ring.nbox,
@@ -842,13 +903,13 @@ size_t fused_smem(const Tile& t) {
   return FUSED_FIXED_SMEM + (size_t)t.arows * t.box_w * t.nbox + FUSED_SLAB_SMEM;
 }
 
-// Resident blocks an SM of band_fused_kernel<TX, TO, NG> with ``smem``
-// bytes on device ``d``; the kernel's shared-memory cap is raised to the
-// device's opt-in most on first use.
-template <typename TX, typename TO, int NG>
+// Resident blocks an SM of band_fused_kernel<TX, TO, NG, PACK> with
+// ``smem`` bytes on device ``d``; the kernel's shared-memory cap is raised
+// to the device's opt-in most on first use.
+template <typename TX, typename TO, int NG, int PACK>
 cudaError_t fused_blocks(const Device& d, size_t smem, int* blocks) {
   if (smem > (size_t)d.optin) return cudaErrorInvalidValue;
-  auto kernel = band_fused_kernel<TX, TO, NG>;
+  auto kernel = band_fused_kernel<TX, TO, NG, PACK>;
   static int opted[16] = {};
   if (d.dev < 16 && !opted[d.dev]) {
     const cudaError_t e =
@@ -862,7 +923,7 @@ cudaError_t fused_blocks(const Device& d, size_t smem, int* blocks) {
   return *blocks < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
-template <typename TX, typename TO, int NG>
+template <typename TX, typename TO, int NG, int PACK>
 cudaError_t launch_fused(const void* starts, const void* sw, const void* a, const void* x,
                          const void* w, void* agg, void* out, void* counter, int sb, int bh,
                          int bb, int dp, int hp, int num_sw, Tile t, int* blocks_out,
@@ -872,17 +933,17 @@ cudaError_t launch_fused(const void* starts, const void* sw, const void* a, cons
   if (e != cudaSuccess) return e;
   const size_t smem = fused_smem(t);
   int blocks = 0;
-  e = fused_blocks<TX, TO, NG>(d, smem, &blocks);
+  e = fused_blocks<TX, TO, NG, PACK>(d, smem, &blocks);
   if (e != cudaSuccess) return e;
   if (blocks_out != nullptr) *blocks_out = blocks;
   CUtensorMap amap = {};
-  if (t.tma && !encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, (long long)sb * bh, bb,
-                          t.arows, t.box_w, CU_TENSOR_MAP_SWIZZLE_NONE))
+  if (t.tma && !encode_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, (long long)sb * bh,
+                          bb / PACK, t.arows, t.box_w, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   const long long units = (long long)sb * ((bh + FR - 1) / FR);
   const long long slots = (long long)blocks * d.sms;
-  band_fused_kernel<TX, TO, NG><<<(unsigned)(units < slots ? units : slots), FUSED_THREADS,
-                                  smem, stream>>>(
+  band_fused_kernel<TX, TO, NG, PACK><<<(unsigned)(units < slots ? units : slots),
+                                        FUSED_THREADS, smem, stream>>>(
       amap, static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
       static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<const TX*>(w),
       static_cast<TO*>(agg), static_cast<TO*>(out), static_cast<int*>(counter), sb, bh, bb, dp,
@@ -890,12 +951,12 @@ cudaError_t launch_fused(const void* starts, const void* sw, const void* a, cons
   return cudaGetLastError();
 }
 
-template <typename TX, typename TO, int NG>
+template <typename TX, typename TO, int NG, int PACK>
 cudaError_t launch_tiled(const void* ptr, const void* tile, const void* a, const void* x,
                          void* out, int num_sw, int bh, int dp, cudaStream_t stream) {
   const int nchunk = (bh + ROWS - 1) / ROWS;
   const dim3 grid((unsigned)num_sw * nchunk, (unsigned)(dp / (NG * 128)));
-  tiled_kernel<TX, TO, NG><<<grid, WARPS * 32, 0, stream>>>(
+  tiled_kernel<TX, TO, NG, PACK><<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(tile),
       static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<TO*>(out), bh, dp,
       nchunk);
@@ -929,7 +990,7 @@ cudaError_t dispatch_types(int x_bf16, int out_f32, F f) {
 struct BandArgs {
   const void *starts, *sw, *a, *x;
   void *out, *counter;
-  int sb, bh, bb, dp, num_sw, group;
+  int sb, bh, bb, dp, num_sw, group, pack;
   Ring ring;
   cudaStream_t stream;
   template <typename TX, typename TO>
@@ -937,8 +998,9 @@ struct BandArgs {
     const BandArgs& b;
     template <int NG>
     cudaError_t run() const {
-      return launch_band<TX, TO, NG>(b.starts, b.sw, b.a, b.x, b.out, b.counter, b.sb, b.bh, b.bb,
-                                     b.dp, b.num_sw, b.group, b.ring, b.stream);
+      auto launch = b.pack == 2 ? launch_band<TX, TO, NG, 2> : launch_band<TX, TO, NG, 1>;
+      return launch(b.starts, b.sw, b.a, b.x, b.out, b.counter, b.sb, b.bh, b.bb, b.dp, b.num_sw,
+                    b.group, b.ring, b.stream);
     }
   };
   template <typename TX, typename TO>
@@ -948,7 +1010,7 @@ struct BandArgs {
 struct FusedArgs {
   const void *starts, *sw, *a, *x, *w;
   void *agg, *out, *counter;
-  int sb, bh, bb, dp, hp, num_sw;
+  int sb, bh, bb, dp, hp, num_sw, pack;
   Tile tile;
   int* blocks_out;
   cudaStream_t stream;
@@ -957,39 +1019,42 @@ struct FusedArgs {
     const FusedArgs& f;
     template <int NG>
     cudaError_t run() const {
-      return launch_fused<TX, TO, NG>(f.starts, f.sw, f.a, f.x, f.w, f.agg, f.out, f.counter,
-                                      f.sb, f.bh, f.bb, f.dp, f.hp, f.num_sw, f.tile, f.blocks_out,
-                                      f.stream);
+      auto launch = f.pack == 2 ? launch_fused<TX, TO, NG, 2> : launch_fused<TX, TO, NG, 1>;
+      return launch(f.starts, f.sw, f.a, f.x, f.w, f.agg, f.out, f.counter, f.sb, f.bh, f.bb, f.dp,
+                    f.hp, f.num_sw, f.tile, f.blocks_out, f.stream);
     }
   };
   template <typename TX, typename TO>
   cudaError_t run() const { return dispatch_ng(dp, ByNg<TX, TO>{*this}); }
 };
 
-// The ring's arguments as hcspmm_band_spmm's note states them.
-bool ring_ok(const void* a, int sb, int bh, int bb, int dp, int rows, int box_w, int nbox,
-             int stages, int tma) {
-  if (bh <= 0 || bb <= 0 || bb % 4 || dp <= 0 || dp % 128 || rows < 1 || rows > 256 ||
+// The ring's arguments as hcspmm_band_spmm's note states them (bb columns
+// of A stored PACK to a byte: rb = bb / pack bytes a row).
+bool ring_ok(const void* a, int sb, int bh, int bb, int pack, int dp, int rows, int box_w,
+             int nbox, int stages, int tma) {
+  if ((pack != 1 && pack != 2) || bb % (4 * pack)) return false;
+  const int rb = bb / pack;
+  if (bh <= 0 || rb <= 0 || dp <= 0 || dp % 128 || rows < 1 || rows > 256 ||
       stages < 2 || stages > BAND_MAX_STAGES || box_w % 16 || (long long)sb * bh > 0x7fffffffLL)
     return false;
-  return tma ? !(bb % 16 || (uintptr_t)a % 16 || box_w <= 0 || box_w > 256 || nbox < 1 ||
-                 (nbox > 1 && (box_w & (box_w - 1))) || (long long)nbox * box_w < bb ||
-                 (long long)(nbox - 1) * box_w >= bb)
-             : (nbox == 1 && box_w >= bb);
+  return tma ? !(rb % 16 || (uintptr_t)a % 16 || box_w <= 0 || box_w > 256 || nbox < 1 ||
+                 (nbox > 1 && (box_w & (box_w - 1))) || (long long)nbox * box_w < rb ||
+                 (long long)(nbox - 1) * box_w >= rb)
+             : (nbox == 1 && box_w >= rb);
 }
 
 struct TiledArgs {
   const void *ptr, *tile, *a, *x;
   void* out;
-  int num_sw, bh, dp;
+  int num_sw, bh, dp, pack;
   cudaStream_t stream;
   template <typename TX, typename TO>
   struct ByNg {
     const TiledArgs& t;
     template <int NG>
     cudaError_t run() const {
-      return launch_tiled<TX, TO, NG>(t.ptr, t.tile, t.a, t.x, t.out, t.num_sw, t.bh, t.dp,
-                                      t.stream);
+      auto launch = t.pack == 2 ? launch_tiled<TX, TO, NG, 2> : launch_tiled<TX, TO, NG, 1>;
+      return launch(t.ptr, t.tile, t.a, t.x, t.out, t.num_sw, t.bh, t.dp, t.stream);
     }
   };
   template <typename TX, typename TO>
@@ -999,28 +1064,32 @@ struct TiledArgs {
 }  // namespace
 
 // starts, sw: int32 [sb] (sw may be null: block id = entry index);
-// a: int8 [sb, bh, bb]; x: [m, dp] fp32 (x_bf16 == 0) or bf16; out:
+// a: [sb, bh, bb] as stored: int8 (pack 1) or int4 nibbles, uint8 [sb, bh,
+// bb / 2] (pack 2; the nibble order above); x: [m, dp] fp32 (x_bf16 == 0) or
+// bf16; out:
 // [rows, dp], fp32 when out_f32 != 0, else the type of x; counter: one int32,
 // 0 at launch, the blocks' work counter.  Entries whose
 // block id is >= num_sw write nothing; a unit of work is ``group``
 // consecutive entries (sb % group == 0).  rows, box_w, nbox, stages and tma
 // shape the ring (kernels/block_spmm.py:band_launch): a stage is A's rows
 // [rows] of an entry as nbox boxes of box_w bytes, by tensor copies (tma: a
-// 16-aligned, bb % 16 == 0, box_w a 16-multiple <= 256 and a power of two
-// where nbox > 1, nbox * box_w >= bb)
-// or by cp.async (box_w a 16-multiple >= bb, nbox 1).  Returns a cudaError_t
+// 16-aligned, rb = bb / pack bytes a row with rb % 16 == 0, box_w a
+// 16-multiple <= 256 and a power of two where nbox > 1, nbox * box_w >= rb)
+// or by cp.async (box_w a 16-multiple >= rb, nbox 1); bb is a multiple of 4 *
+// pack.  Returns a cudaError_t
 // (0 = launched).  The caller checks on the host that st + bb <= m for every
 // entry, that sw lies in [0, num_sw], and that every output block it reads
 // is written by exactly one entry.
 extern "C" int hcspmm_band_spmm(const void* starts, const void* sw, const void* a,
                                 const void* x, void* out, void* counter, int sb, int bh, int bb,
                                 int dp, int num_sw, int group, int rows, int box_w, int nbox,
-                                int stages, int tma, int x_bf16, int out_f32, void* stream) {
+                                int stages, int tma, int pack, int x_bf16, int out_f32,
+                                void* stream) {
   if (sb <= 0) return 0;
   if (counter == nullptr || group <= 0 || sb % group ||
-      !ring_ok(a, sb, bh, bb, dp, rows, box_w, nbox, stages, tma))
+      !ring_ok(a, sb, bh, bb, pack, dp, rows, box_w, nbox, stages, tma))
     return (int)cudaErrorInvalidValue;
-  const BandArgs args{starts, sw, a, x, out, counter, sb, bh, bb, dp, num_sw, group,
+  const BandArgs args{starts, sw, a, x, out, counter, sb, bh, bb, dp, num_sw, group, pack,
                       Ring{rows, box_w, nbox, stages, tma}, static_cast<cudaStream_t>(stream)};
   return (int)dispatch_types(x_bf16, out_f32, args);
 }
@@ -1039,22 +1108,25 @@ extern "C" int hcspmm_band_device(int* sms, int* per_sm, int* reserved, int* opt
 }
 
 // ptr: int32 [num_sw + 1] pair runs (non-decreasing, ptr[num_sw] = pairs);
-// tile: int32 [pairs] 128-row X tile of each pair; a: int8 [pairs, bh, 128];
-// x: [m, dp]; out: [num_sw, bh, dp] (types as hcspmm_band_spmm).  The caller
+// tile: int32 [pairs] 128-row X tile of each pair; a: [pairs, bh, 128] as
+// stored, int8 (pack 1) or uint8 nibbles [pairs, bh, 64] (pack 2); x: [m,
+// dp]; out: [num_sw, bh, dp] (types as hcspmm_band_spmm).  The caller
 // checks on the host that every tile lies inside x and every run is
 // non-empty (an empty superwindow has one zero pair).
 extern "C" int hcspmm_tiled_spmm(const void* ptr, const void* tile, const void* a,
-                                 const void* x, void* out, int num_sw, int bh, int dp,
+                                 const void* x, void* out, int num_sw, int bh, int dp, int pack,
                                  int x_bf16, int out_f32, void* stream) {
   if (num_sw <= 0) return 0;
-  if (bh <= 0 || dp <= 0 || dp % 128 ||
+  if (bh <= 0 || dp <= 0 || dp % 128 || (pack != 1 && pack != 2) ||
       (long long)num_sw * ((bh + ROWS - 1) / ROWS) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const TiledArgs args{ptr, tile, a, x, out, num_sw, bh, dp, static_cast<cudaStream_t>(stream)};
+  const TiledArgs args{ptr, tile, a, x, out, num_sw, bh, dp, pack,
+                       static_cast<cudaStream_t>(stream)};
   return (int)dispatch_types(x_bf16, out_f32, args);
 }
 
-// starts, sw: int32 [sb]; a: int8 [sb, bh, bb]; x: [m, dp]; w: [dp, hp] in
+// starts, sw: int32 [sb]; a: [sb, bh, bb] as hcspmm_band_spmm's, stored at
+// ``pack``; x: [m, dp]; w: [dp, hp] in
 // x's type; agg: [rows, dp] and out: [rows, hp], fp32 when out_f32 != 0,
 // else x's type; counter as hcspmm_band_spmm's.  Entries with sw >= num_sw
 // write nothing.  band_fused_kernel: units of FR rows of an entry, A staged
@@ -1065,13 +1137,13 @@ extern "C" int hcspmm_tiled_spmm(const void* ptr, const void* tile, const void* 
 extern "C" int hcspmm_band_fused(const void* starts, const void* sw, const void* a,
                                  const void* x, const void* w, void* agg, void* out,
                                  void* counter, int sb, int bh, int bb, int dp, int hp,
-                                 int num_sw, int arows, int box_w, int nbox, int tma, int x_bf16,
-                                 int out_f32, int* blocks_per_sm, void* stream) {
+                                 int num_sw, int arows, int box_w, int nbox, int tma, int pack,
+                                 int x_bf16, int out_f32, int* blocks_per_sm, void* stream) {
   if (sb <= 0) return 0;
   if (counter == nullptr || sw == nullptr || w == nullptr || hp <= 0 ||
-      !ring_ok(a, sb, bh, bb, dp, arows, box_w, nbox, 2, tma))
+      !ring_ok(a, sb, bh, bb, pack, dp, arows, box_w, nbox, 2, tma))
     return (int)cudaErrorInvalidValue;
-  const FusedArgs args{starts, sw, a, x, w, agg, out, counter, sb, bh, bb, dp, hp, num_sw,
+  const FusedArgs args{starts, sw, a, x, w, agg, out, counter, sb, bh, bb, dp, hp, num_sw, pack,
                        Tile{arows, box_w, nbox, tma}, blocks_per_sm,
                        static_cast<cudaStream_t>(stream)};
   return (int)dispatch_types(x_bf16, out_f32, args);

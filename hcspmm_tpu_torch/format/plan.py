@@ -58,6 +58,14 @@ def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
     return np.concatenate([x, pad])
 
 
+def _store_a(a: np.ndarray, a_dtype: str) -> np.ndarray:
+    """Dense int8 blocks ``a`` in the device encoding ``a_dtype``."""
+    if a_dtype == "int4":
+        from hcspmm_tpu_torch.format.streams import pack_a_int4
+        return pack_a_int4(a)
+    return a
+
+
 def _ragged_arange(lens: np.ndarray) -> np.ndarray:
     """Vectorized ``concat([arange(l) for l in lens])``."""
     lens = np.asarray(lens, dtype=np.int64)
@@ -242,6 +250,8 @@ class ExecutionPlan:
     #   (possibly packed) instead of band{s}_a; starts are 128-aligned;
     #   the padded activation layout is X^T [dt, M]
     tband_pack: int = 1  # A_t device encoding: 1 int8 / 2 nibble / 8 bit
+    a_dtype: str = "int8"  # band{s}_a / tp_a device encoding (config.a_dtype;
+    #   'int8' on tband plans, which carry no band{s}_a): band_a_stored
     shard_uniform: bool = False  # proxy plan standing in for N capacity-
     #   padded shard plans under one shard_map trace: kernel dispatch may
     #   consult only capacity shapes (never per-shard real counts), and
@@ -276,6 +286,12 @@ class ExecutionPlan:
         if len(e):
             a[e[:, 0], e[:, 1], e[:, 2]] = 1
         return a
+
+    def tiled_a_stored(self) -> np.ndarray:
+        """``tiled_a_dense()`` as the device holds it: int8 [P, band_h,
+        tile_w] at ``a_dtype='int8'``, uint8 int4 nibbles [P, band_h,
+        tile_w/2] at 'int4' (``streams.pack_a_int4``)."""
+        return _store_a(self.tiled_a_dense(), self.a_dtype)
 
     # ---- stats (host-only; for roofline/logging) ----
     nnz: int = 0
@@ -336,6 +352,13 @@ class ExecutionPlan:
         if len(e):
             a[e[:, 0], e[:, 1], e[:, 2]] = 1
         return a
+
+    def band_a_stored(self, s: int) -> np.ndarray:
+        """``band_a_dense(s)`` as the device holds it: int8 [Sb, band_h, Bb]
+        at ``a_dtype='int8'``, uint8 int4 nibbles [Sb, band_h, Bb/2] at
+        'int4' (``streams.pack_a_int4``: column 2j in the low nibble of byte
+        j, 2j + 1 in the high one)."""
+        return _store_a(self.band_a_dense(s), self.a_dtype)
 
     def band_at_dense(self, s: int) -> np.ndarray:
         """TRANSPOSED dense int8 band blocks [Sb, Bb, band_h] for bucket
@@ -759,6 +782,9 @@ def build_plan(
     """``num_nodes`` counts rows; ``num_cols`` (default: square) sets the
     column space for a rectangular row-block shard of the adjacency."""
     num_cols = num_nodes if num_cols is None else num_cols
+    a_dtype = getattr(config, "a_dtype", "int8")
+    if a_dtype not in ("int8", "int4"):
+        raise ValueError(f"a_dtype must be 'int8' or 'int4', got {a_dtype!r}")
     wa = analysis or analyze_windows(
         row_pointers,
         column_index,
@@ -2062,6 +2088,7 @@ def build_plan(
         band_full_cover=band_full_cover if band_widths else False,
         tband=tband,
         tband_pack=int(getattr(config, "tband_pack", 1)) if tband else 1,
+        a_dtype="int8" if tband else a_dtype,
         band_num_sw=num_sw if band_widths else 0,
         xp_rows=xp_rows,
         **tiled_fields,

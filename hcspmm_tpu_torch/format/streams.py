@@ -321,3 +321,28 @@ def pack_a_bits(at):
     for i in range(8):
         out |= a[:, i * g:(i + 1) * g, :] << i
     return out
+
+
+def pack_a_int4(a):
+    """Host-side int4 packing of the wide layout's band blocks and the tiled
+    pairs' A tiles along their last (column) axis: uint8 [..., Bb/2] where
+    the LOW nibble of byte j holds column 2j and the HIGH nibble column
+    2j + 1, as two's-complement int4 (the reference's ``astype(jnp.int4)``
+    of values in [-8, 7]; band blocks hold 0/1).  A 16-byte chunk then holds
+    32 consecutive columns, which csrc/block_spmm.cu reads as stored.  This
+    differs from ``pack_a_nibble``'s halves order for the transposed
+    blocks."""
+    a = np.asarray(a)
+    if a.shape[-1] % 2:
+        raise ValueError(f"an int4 row needs an even column count, got {a.shape[-1]}")
+    u = a.astype(np.uint8) & 15
+    return (u[..., 0::2] | (u[..., 1::2] << 4)).astype(np.uint8)
+
+
+def unpack_a_int4(p):
+    """The int8 blocks [..., 2 * last] that ``pack_a_int4`` stored, each
+    nibble sign-extended."""
+    p = np.asarray(p, dtype=np.uint8)
+    lo, hi = (p & 15).astype(np.int8), (p >> 4).astype(np.int8)
+    out = np.stack([lo, hi], axis=-1).reshape(p.shape[:-1] + (2 * p.shape[-1],))
+    return ((out ^ 8) - 8).astype(np.int8)

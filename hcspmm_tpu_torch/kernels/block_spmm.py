@@ -8,8 +8,13 @@ feature dim are zero), and superwindow i computes
 
     out[R : R+bh] = A[i] [bh, Bb] @ xp[st : st+Bb]
 
-with A the plan's int8 0/1 block and st a 16-aligned start clamped into M
-at plan build.  The layout is closed under chaining: a GNN layer's dense
+with A the plan's 0/1 block and st a 16-aligned start clamped into M at
+plan build.  A is stored as the plan's ``a_dtype`` says
+(``plan.band_a_stored``, ``plan.tiled_a_stored``): int8 [.., Bb], or, at
+'int4', uint8 nibbles [.., Bb/2] (column 2j in the low nibble of byte j,
+2j + 1 in the high one); the kernels read either as stored (template
+``PACK`` 1 or 2), and the plain versions expand nibbles first
+(``expand_a``).  The layout is closed under chaining: a GNN layer's dense
 update is ``xp @ pad(W)`` and the next SpMM reads its output unchanged.
 
 The band product is the CUDA kernel ``csrc/block_spmm.cu``;
@@ -94,9 +99,9 @@ row_launches = {"dense_bucket_spmm": 0, "ell_bucket_spmm": 0, "ell_residual": 0}
 def _lib() -> ctypes.CDLL:
     lib = load_library("block_spmm")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hcspmm_band_spmm.argtypes = [vp] * 6 + [i32] * 13 + [vp]
-    lib.hcspmm_tiled_spmm.argtypes = [vp] * 5 + [i32] * 5 + [vp]
-    lib.hcspmm_band_fused.argtypes = [vp] * 8 + [i32] * 12 + [ctypes.POINTER(i32), vp]
+    lib.hcspmm_band_spmm.argtypes = [vp] * 6 + [i32] * 14 + [vp]
+    lib.hcspmm_tiled_spmm.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    lib.hcspmm_band_fused.argtypes = [vp] * 8 + [i32] * 13 + [ctypes.POINTER(i32), vp]
     lib.hcspmm_band_device.argtypes = [ctypes.POINTER(i32)] * 4
     for fn in (lib.hcspmm_band_spmm, lib.hcspmm_tiled_spmm, lib.hcspmm_band_fused,
                lib.hcspmm_band_device):
@@ -140,33 +145,50 @@ _FUSED_SLAB_SMEM = 2 * _FUSED_SLAB * (_FUSED_ROWS + _FUSED_COLS) * 4
 _FUSED_FIXED_SMEM = 128 + 64
 
 
-def _boxes(bb, aligned):
-    """(tma, box_w, nbox): how a row of A of ``bb`` bytes is staged."""
-    if bb % 16 == 0 and aligned:
-        box_w = next(w for w in (256, 128, 64, 32, 16) if bb % w == 0)
-        if bb // box_w > 8:
+def _boxes(rb, aligned):
+    """(tma, box_w, nbox): how a row of A of ``rb`` bytes is staged."""
+    if rb % 16 == 0 and aligned:
+        box_w = next(w for w in (256, 128, 64, 32, 16) if rb % w == 0)
+        if rb // box_w > 8:
             box_w = 256
-        return True, box_w, -(-bb // box_w)
-    return False, -(-bb // 16) * 16, 1
+        return True, box_w, -(-rb // box_w)
+    return False, -(-rb // 16) * 16, 1
 
 
+def a_pack(a) -> int:
+    """How a band block or A tile tensor is stored: 1 for int8 [.., Bb], 2
+    for int4 nibbles, uint8 [.., Bb/2]; raises for anything else."""
+    if a.dim() != 3 or a.dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"a must be int8 [Sb, bh, Bb] or int4 nibbles uint8 [Sb, bh, Bb/2], "
+                         f"got {a.dtype} {tuple(a.shape)}")
+    return 1 if a.dtype == torch.int8 else 2
 
 
-def band_launch(bb: int, per_sm: int, reserved: int, optin: int, aligned: bool = True) -> dict:
-    """The band kernel's ring at band width ``bb`` on a device with
-    ``per_sm`` bytes of shared memory an SM, ``reserved`` of them taken per
-    block and at most ``optin`` for one block (an H100: 233472, 1024,
-    232448).
+def expand_a(a):
+    """The int8 blocks [.., Bb] that ``a`` stores: ``a`` itself at int8,
+    each nibble of uint8 [.., Bb/2] sign-extended at int4 (column 2j from
+    the low nibble of byte j, 2j + 1 from the high one)."""
+    if a.dtype != torch.uint8:
+        return a
+    nib = torch.stack([a & 15, a >> 4], dim=-1).reshape(a.shape[:-1] + (2 * a.shape[-1],))
+    return ((nib.to(torch.int16) ^ 8) - 8).to(torch.int8)
+
+
+def band_launch(rb: int, per_sm: int, reserved: int, optin: int, aligned: bool = True) -> dict:
+    """The band kernel's ring for rows of A of ``rb`` bytes as stored (the
+    band width Bb at int8, Bb / 2 at int4) on a device with ``per_sm`` bytes
+    of shared memory an SM, ``reserved`` of them taken per block and at most
+    ``optin`` for one block (an H100: 233472, 1024, 232448).
 
     A stage holds ``rows`` rows of A (32, halved until two stages fit in one
-    block) as ``nbox`` boxes of ``box_w`` bytes.  With ``tma`` (bb a
+    block) as ``nbox`` boxes of ``box_w`` bytes.  With ``tma`` (a row a
     16-byte multiple and A 16-byte ``aligned``) a tensor copy fills each
-    box: the widest of 256, 128, 64, 32, 16 bytes that divides bb, or 256
-    with the last box reaching past bb (zero-filled) where that would take
-    more than eight boxes.  Otherwise 4-byte cp.async copies stage each row
-    whole, padded to 16 bytes.  ``stages`` (2-8) is as many as leave
+    box: the widest of 256, 128, 64, 32, 16 bytes that divides the row, or
+    256 with the last box reaching past it (zero-filled) where that would
+    take more than eight boxes.  Otherwise 4-byte cp.async copies stage each
+    row whole, padded to 16 bytes.  ``stages`` (2-8) is as many as leave
     three blocks an SM; ``smem`` is the block's dynamic shared memory."""
-    tma, box_w, nbox = _boxes(bb, aligned)
+    tma, box_w, nbox = _boxes(rb, aligned)
     row_bytes = box_w * nbox
     rows = _BAND_ROWS
     while rows > 1 and _BAND_FIXED_SMEM + 2 * rows * row_bytes > optin:
@@ -176,15 +198,16 @@ def band_launch(bb: int, per_sm: int, reserved: int, optin: int, aligned: bool =
     stages = min(max(fit, _BAND_STAGES[0]), _BAND_STAGES[1])
     smem = _BAND_FIXED_SMEM + stages * stage
     if smem > optin:
-        raise ValueError(f"band width {bb}: two ring stages of one row take {smem} bytes of "
+        raise ValueError(f"rows of {rb} bytes: two ring stages of one row take {smem} bytes of "
                          f"shared memory, more than a block's {optin}")
     return dict(tma=tma, box_w=box_w, nbox=nbox, rows=rows, stages=stages, smem=smem)
 
 
-def fused_launch(bb: int, dp: int, hp: int, per_sm: int, reserved: int, optin: int,
+def fused_launch(rb: int, dp: int, hp: int, per_sm: int, reserved: int, optin: int,
                  aligned: bool = True) -> dict:
-    """The fused kernel's launch at band width ``bb``, dp and hp, on a device
-    as ``band_launch`` takes it.  A row of A is staged as band_launch stages
+    """The fused kernel's launch for rows of A of ``rb`` bytes as stored,
+    dp and hp, on a device as ``band_launch`` takes it.  A row of A is
+    staged as band_launch stages
     it (``tma``, ``box_w``, ``nbox``); the A tile holds ``arows`` rows (the
     unit's 128, halved until the tile and the update's slabs fit one block);
     ``smem`` is the block's dynamic shared memory, ``blocks_per_sm`` one.
@@ -193,18 +216,18 @@ def fused_launch(bb: int, dp: int, hp: int, per_sm: int, reserved: int, optin: i
     or 128 where hp <= 128),
     ``passes`` (ceil(hp / tile_cols)) and ``ng`` (128-column groups of a band
     pass over dp).  Raises ValueError for a dp that is no multiple of 128,
-    hp < 1, or a band width of which not even one row fits beside the
+    hp < 1, or rows of A so wide that not even one fits beside the
     slabs."""
     if dp <= 0 or dp % 128 or hp <= 0:
         raise ValueError(f"dp={dp}, hp={hp}: dp a positive multiple of 128, hp positive")
-    tma, box_w, nbox = _boxes(bb, aligned)
+    tma, box_w, nbox = _boxes(rb, aligned)
     fixed = _FUSED_FIXED_SMEM + _FUSED_SLAB_SMEM
     arows = _FUSED_ROWS
     while arows > 1 and fixed + arows * box_w * nbox > optin:
         arows //= 2
     smem = fixed + arows * box_w * nbox
     if smem > optin:
-        raise ValueError(f"band width {bb}: one row of A beside the update's slabs takes {smem} "
+        raise ValueError(f"rows of {rb} bytes: one row of A beside the update's slabs takes {smem} "
                          f"bytes of shared memory, more than a block's {optin}")
     groups = dp // 128
     cols = 128 if hp <= 128 else _FUSED_COLS
@@ -256,21 +279,19 @@ def spmm_padded_supported(plan) -> bool:
     return True
 
 
-def rows_check(plan, a_dtype: str = "int8") -> None:
+def rows_check(plan) -> None:
     """Raise NotImplementedError for the non-tband plans this package does
     not run: shard-uniform proxy plans (the reference's stand-in for every
     shard under one SPMD trace; here each rank runs its own shard's plan,
-    ``parallel.dist_spmm``) and int4 band blocks.  Every other plan runs in
-    the row layout (``spmm_rows``), rectangular shard plans included, and,
-    where ``spmm_padded_supported``, also in the wide padded layout (tiled
-    plans through ``band_tiled_spmm``)."""
+    ``parallel.dist_spmm``).  Every other plan runs in the row layout
+    (``spmm_rows``), rectangular shard plans included, and, where
+    ``spmm_padded_supported``, also in the wide padded layout (tiled plans
+    through ``band_tiled_spmm``), with its band blocks at either
+    ``a_dtype``."""
     if getattr(plan, "shard_uniform", False):
         raise NotImplementedError(
             "shard-uniform proxy plans: each rank runs its own shard's plan "
             "(hcspmm_tpu_torch.parallel.dist_spmm)")
-    if a_dtype == "int4":
-        raise NotImplementedError("a_dtype='int4' band blocks are not ported "
-                                  "(ROADMAP A.12)")
 
 
 def check_plan(plan) -> None:
@@ -315,14 +336,15 @@ def check_plan(plan) -> None:
 
 
 def check_band_arrays(starts: np.ndarray, sw_ids: np.ndarray, w: int, m: int,
-                      num_sw: int) -> None:
+                      num_sw: int, pack: int = 1) -> None:
     """Host check of one bucket's entries before upload: the kernel reads
     xp[st : st+Bb] unchecked, so every slice (capacity padding included:
-    bucket mode computes it) must lie inside [0, M)."""
+    bucket mode computes it) must lie inside [0, M); a row of A stored
+    ``pack`` columns to a byte must be whole 4-byte words."""
     st = np.asarray(starts, dtype=np.int64)
     sw = np.asarray(sw_ids, dtype=np.int64)
-    if w % 4:
-        raise ValueError(f"band width {w} is not a multiple of 4")
+    if w % (4 * pack):
+        raise ValueError(f"band width {w} is not a multiple of {4 * pack}")
     if len(st) and ((st % 16).any() or st.min() < 0 or st.max() + w > m):
         raise ValueError(f"band starts must be 16-aligned with st + {w} <= {m}")
     if len(sw) != len(st) or (len(sw) and (sw.min() < 0 or sw.max() > num_sw)):
@@ -335,7 +357,9 @@ def check_band_arrays(starts: np.ndarray, sw_ids: np.ndarray, w: int, m: int,
 
 
 def band_bucket_spmm_plain(starts, a, xp):
-    """fp32 [Sb, bh, dp]: block i = A[i] @ xp[st[i] : st[i]+Bb]."""
+    """fp32 [Sb, bh, dp]: block i = A[i] @ xp[st[i] : st[i]+Bb] (``a`` as
+    stored, int8 or int4 nibbles: ``expand_a``)."""
+    a = expand_a(a)
     bb = a.shape[2]
     rows = starts.long()[:, None] + torch.arange(bb, device=xp.device)
     return torch.einsum("sbk,skd->sbd", a.float(), xp[rows].float())
@@ -378,7 +402,7 @@ def band_tiled_spmm_plain(arrs, xp, plan, out_dtype):
     ptr = arrs["tp_ptr"].long()
     num_sw = ptr.shape[0] - 1
     pairs = int(ptr[-1])
-    tile, a = arrs["tp_tile"][:pairs].long(), arrs["tp_a"]
+    tile, a = arrs["tp_tile"][:pairs].long(), expand_a(arrs["tp_a"])
     owner = torch.repeat_interleave(torch.arange(num_sw, device=xp.device), ptr[1:] - ptr[:-1])
     rows = tile[:, None] * TILE_W + torch.arange(TILE_W, device=xp.device)
     part = torch.einsum("pbk,pkd->pbd", a.float(), xp[rows].float())
@@ -471,29 +495,29 @@ def _check_cuda_args(starts, sw_ids, a, xp):
             raise ValueError(f"{name} must be contiguous on {dev}")
     if xp.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"xp dtype {xp.dtype}: float32 or bfloat16 only")
-    if a.dtype != torch.int8 or a.dim() != 3:
-        raise ValueError("a must be int8 [Sb, bh, Bb]")
-    sb, bh, bb = a.shape
+    pack = a_pack(a)
+    sb, bh, bb = a.shape[0], a.shape[1], a.shape[2] * pack
     m, dp = xp.shape
     for name, t in (("starts", starts), ("sw_ids", sw_ids)):
         if t is not None and (t.dtype != torch.int32 or tuple(t.shape) != (sb,)):
             raise ValueError(f"{name} must be int32 [{sb}]")
-    if dp % 128 or bb % 4 or bb > m:
+    if dp % 128 or bb % (4 * pack) or bb > m:
         raise ValueError(f"unsupported shape: dp={dp} Bb={bb} bh={bh} M={m}")
+    return pack
 
 
-def _launch(starts, sw_ids, a, xp, out, num_sw, group=1):
+def _launch(starts, sw_ids, a, xp, out, num_sw, pack, group=1):
     global launches
-    sb, bh, bb = a.shape
+    sb, bh, bb = a.shape[0], a.shape[1], a.shape[2] * pack
     with torch.cuda.device(xp.device):
-        ring = band_launch(bb, *band_device(xp.device.index)[1:],
+        ring = band_launch(a.shape[2], *band_device(xp.device.index)[1:],
                            aligned=a.data_ptr() % 16 == 0)
         counter = torch.zeros(1, dtype=torch.int32, device=xp.device)  # the blocks' work counter
         rc = _lib().hcspmm_band_spmm(
             starts.data_ptr(), None if sw_ids is None else sw_ids.data_ptr(), a.data_ptr(),
             xp.data_ptr(), out.data_ptr(), counter.data_ptr(), sb, bh, bb, xp.shape[1], num_sw,
             group, ring["rows"], ring["box_w"], ring["nbox"], ring["stages"], int(ring["tma"]),
-            int(xp.dtype == torch.bfloat16), int(out.dtype == torch.float32),
+            pack, int(xp.dtype == torch.bfloat16), int(out.dtype == torch.float32),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "band_kernel")
     launches += 1
@@ -509,17 +533,18 @@ def band_bucket_spmm_direct(sw_ids, starts, a, xp, num_sw, out_dtype):
     ``sw_ids[i]``'s output rows (port of the Pallas kernel at
     hcspmm_tpu/kernels/block_spmm.py:424).
 
-    starts, sw_ids: int32 [Sb]; a: int8 [Sb, bh, Bb]; xp: [M, dp] float32
-    or bfloat16.  Returns [num_sw, bh, dp] in ``out_dtype`` (xp's dtype or
-    float32).  Entries with ``sw_id == num_sw`` write nothing, and blocks no
-    entry owns are left unset: callers zero or overwrite them."""
+    starts, sw_ids: int32 [Sb]; a: int8 [Sb, bh, Bb], or int4 nibbles uint8
+    [Sb, bh, Bb/2] (``a_pack``); xp: [M, dp] float32 or bfloat16.  Returns
+    [num_sw, bh, dp] in ``out_dtype`` (xp's dtype or float32).  Entries with
+    ``sw_id == num_sw`` write nothing, and blocks no entry owns are left
+    unset: callers zero or overwrite them."""
     if xp.device.type == "cpu":
         return band_bucket_spmm_direct_plain(sw_ids, starts, a, xp, num_sw, out_dtype)
-    _check_cuda_args(starts, sw_ids, a, xp)
+    pack = _check_cuda_args(starts, sw_ids, a, xp)
     if out_dtype not in (xp.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
     out = torch.empty((num_sw, a.shape[1], xp.shape[1]), dtype=out_dtype, device=xp.device)
-    _launch(starts, sw_ids, a, xp, out, num_sw)
+    _launch(starts, sw_ids, a, xp, out, num_sw, pack)
     kernel_launches["band_bucket_spmm_direct"] += 1
     return out
 
@@ -530,10 +555,10 @@ def band_bucket_spmm(starts, a, xp):
     entry i; the caller scatters the blocks."""
     if xp.device.type == "cpu":
         return band_bucket_spmm_plain(starts, a, xp)
-    _check_cuda_args(starts, None, a, xp)
+    pack = _check_cuda_args(starts, None, a, xp)
     out = torch.empty((a.shape[0], a.shape[1], xp.shape[1]), dtype=torch.float32,
                       device=xp.device)
-    _launch(starts, None, a, xp, out, a.shape[0])
+    _launch(starts, None, a, xp, out, a.shape[0], pack)
     kernel_launches["band_bucket_spmm"] += 1
     return out
 
@@ -558,12 +583,12 @@ def band_bucket_spmm_grouped(starts, a, xp, num_sw, out_dtype, group: int = 4):
     group = grouped_size(a.shape[0], group)
     if xp.device.type == "cpu":
         return band_bucket_spmm_grouped_plain(starts, a, xp, num_sw, out_dtype, group)
-    _check_cuda_args(starts, None, a, xp)
+    pack = _check_cuda_args(starts, None, a, xp)
     if out_dtype not in (xp.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
     out = torch.empty((min(a.shape[0], num_sw), a.shape[1], xp.shape[1]), dtype=out_dtype,
                       device=xp.device)
-    _launch(starts, None, a, xp, out, num_sw, group)
+    _launch(starts, None, a, xp, out, num_sw, pack, group)
     kernel_launches["band_bucket_spmm_grouped"] += 1
     return out
 
@@ -589,26 +614,26 @@ def band_fused_spmm_direct(sw_ids, starts, a, xp, w, num_sw, out_dtype):
     then reads them back from L2 in slabs for the update."""
     if xp.device.type == "cpu":
         return band_fused_spmm_direct_plain(sw_ids, starts, a, xp, w, num_sw, out_dtype)
-    _check_cuda_args(starts, sw_ids, a, xp)
+    pack = _check_cuda_args(starts, sw_ids, a, xp)
     dp = xp.shape[1]
     if (w.device != xp.device or not w.is_contiguous() or w.dtype != xp.dtype
             or w.dim() != 2 or w.shape[0] != dp):
         raise ValueError(f"w must be contiguous {xp.dtype} [{dp}, hp] on {xp.device}")
     if out_dtype not in (xp.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
-    sb, bh, bb = a.shape
+    sb, bh, bb = a.shape[0], a.shape[1], a.shape[2] * pack
     hp = w.shape[1]
     agg = torch.empty((num_sw, bh, dp), dtype=out_dtype, device=xp.device)
     out = torch.empty((num_sw, bh, hp), dtype=out_dtype, device=xp.device)
     resident = ctypes.c_int()
     with torch.cuda.device(xp.device):
-        cfg = fused_launch(bb, dp, hp, *band_device(xp.device.index)[1:],
+        cfg = fused_launch(a.shape[2], dp, hp, *band_device(xp.device.index)[1:],
                            aligned=a.data_ptr() % 16 == 0)
         counter = torch.zeros(1, dtype=torch.int32, device=xp.device)  # the blocks' work counter
         rc = _lib().hcspmm_band_fused(
             starts.data_ptr(), sw_ids.data_ptr(), a.data_ptr(), xp.data_ptr(), w.data_ptr(),
             agg.data_ptr(), out.data_ptr(), counter.data_ptr(), sb, bh, bb, dp, hp, num_sw,
-            cfg["arows"], cfg["box_w"], cfg["nbox"], int(cfg["tma"]),
+            cfg["arows"], cfg["box_w"], cfg["nbox"], int(cfg["tma"]), pack,
             int(xp.dtype == torch.bfloat16), int(out_dtype == torch.float32),
             ctypes.byref(resident), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "band_fused_kernel")
@@ -632,7 +657,8 @@ def band_tiled_spmm(arrs, xp, plan, out_dtype):
     hcspmm_tpu/kernels/block_spmm.py:561).  Superwindow s sums its run of
     pairs ``tp_ptr[s] <= p < tp_ptr[s+1]``: ``tp_a[p] [bh, 128] @
     xp[tp_tile[p]*128 : +128]`` in fp32, and writes its block once; an empty
-    superwindow's one pair has a zero A tile.  The ring-cache schedule
+    superwindow's one pair has a zero A tile.  ``tp_a`` is int8 [P, bh,
+    128], or int4 nibbles uint8 [P, bh, 64] (``a_pack``).  The ring-cache schedule
     (``tp_fetch``/``tp_late``) changes no value and is only checked on the
     host (``check_tiled_arrays``)."""
     if xp.device.type == "cpu":
@@ -645,10 +671,11 @@ def band_tiled_spmm(arrs, xp, plan, out_dtype):
     for name, t in (("tp_ptr", ptr), ("tp_tile", tile), ("tp_a", a)):
         if t.device != xp.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {xp.device}")
-    if (a.dtype != torch.int8 or a.dim() != 3 or a.shape[1:] != (plan.band_h, TILE_W)
-            or ptr.dtype != torch.int32 or tile.dtype != torch.int32):
-        raise ValueError(f"tp_a must be int8 [P, {plan.band_h}, {TILE_W}], tp_ptr and "
-                         "tp_tile int32")
+    pack = a_pack(a)
+    if (a.shape[1:] != (plan.band_h, TILE_W // pack) or ptr.dtype != torch.int32
+            or tile.dtype != torch.int32):
+        raise ValueError(f"tp_a must be int8 [P, {plan.band_h}, {TILE_W}] or uint8 nibbles "
+                         f"[P, {plan.band_h}, {TILE_W // 2}], tp_ptr and tp_tile int32")
     if dp % 128 or m != num_sw * plan.band_h:
         raise ValueError(f"xp [{m}, {dp}]: dp a multiple of 128, M = {num_sw} x "
                          f"{plan.band_h}")
@@ -658,7 +685,7 @@ def band_tiled_spmm(arrs, xp, plan, out_dtype):
     with torch.cuda.device(xp.device):
         rc = _lib().hcspmm_tiled_spmm(
             ptr.data_ptr(), tile.data_ptr(), a.data_ptr(), xp.data_ptr(), out.data_ptr(),
-            num_sw, plan.band_h, dp, int(xp.dtype == torch.bfloat16),
+            num_sw, plan.band_h, dp, pack, int(xp.dtype == torch.bfloat16),
             int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "tiled_kernel")
     kernel_launches["band_tiled_spmm"] += 1

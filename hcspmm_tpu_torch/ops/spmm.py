@@ -70,10 +70,11 @@ class _SpMM(torch.autograd.Function):
 
 def _band_path_xla(arrs, xp, plan):
     """Band buckets: the contiguous X slice of each superwindow as a
-    gather, one fp32 batched product per bucket -> [Sb*bh, D] each."""
+    gather, one fp32 batched product per bucket -> [Sb*bh, D] each (int4
+    blocks expanded first)."""
     outs = []
     for s in range(len(plan.band_widths)):
-        a = arrs[f"band{s}_a"]
+        a = block_spmm.expand_a(arrs[f"band{s}_a"])
         sb, bh, bb = a.shape
         idx = arrs[f"band{s}_start"].long()[:, None] + torch.arange(bb, device=xp.device)
         part = torch.einsum("sbk,skd->sbd", a.float(), xp[idx].float())
@@ -409,15 +410,17 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     """Plan arrays as tensors on ``device``: plain copies of
     ``device_arrays(dense_band=False)`` plus the dense band blocks
     (``band{s}_at`` transposed, in the plan's ``tband_pack`` encoding:
-    ``plan.band_at_stored``; ``band{s}_a`` int8 [Sb, bh, Bb] wide), the
+    ``plan.band_at_stored``; ``band{s}_a`` [Sb, bh, Bb] wide, in its
+    ``a_dtype``: ``plan.band_a_stored``, int8 or int4 nibbles), the
     merges' destination segment tables, the lane merge's
     composed columns ``ds_lsrc``, the residual's row starts
     (``sparse_seg_ptr``) and the row layout's owner tables
     (``block_spmm.row_tables``; ``rows_meta`` stays on the host).  A tband
     plan on the lane path drops the row
     merge arrays it never reads.  A tiled plan uploads its pair stream, the
-    pair runs ``tp_ptr`` and its A tiles ``tp_a`` [P, bh, 128] instead of
-    dense band blocks.  The band entries, the row populations' indices,
+    pair runs ``tp_ptr`` and its A tiles ``tp_a`` [P, bh, 128]
+    (``plan.tiled_a_stored``, int8 or int4 nibbles) instead of dense band
+    blocks.  The band entries, the row populations' indices,
     ``out_perm``, every spill index array and the pair stream are checked on
     the host first: the kernels read them unchecked."""
     m = plan.padded_rows
@@ -436,7 +439,7 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
         "cpu" if k in block_spmm.HOST_KEYS else device) for k, v in host.items()}
     if tiled:
-        out["tp_a"] = torch.from_numpy(plan.tiled_a_dense()).to(device)
+        out["tp_a"] = torch.from_numpy(plan.tiled_a_stored()).to(device)
     # band slices must fit the padded layout where it runs, else the row
     # layout's band table
     limit = m if block_spmm.spmm_padded_supported(plan) else block_spmm.band_table_rows(plan)
@@ -447,9 +450,10 @@ def _to_device(plan: ExecutionPlan, device) -> dict:
             out[f"band{s}_at"] = torch.from_numpy(plan.band_at_stored(s)).to(device)
         else:
             block_spmm.check_band_arrays(host[f"band{s}_start"], host[f"band{s}_sw"],
-                                         int(w), limit, num_sw)
+                                         int(w), limit, num_sw,
+                                         2 if plan.a_dtype == "int4" else 1)
             if not tiled:  # the tiled kernel reads tp_a only
-                out[f"band{s}_a"] = torch.from_numpy(plan.band_a_dense(s)).to(device)
+                out[f"band{s}_a"] = torch.from_numpy(plan.band_a_stored(s)).to(device)
     return out
 
 
@@ -496,7 +500,7 @@ class HybridSpMM:
             self.plan_bwd = build_plan(rp_t, ci_t, num_nodes, config)
         for p in (self.plan, self.plan_bwd):
             if p is not None and not getattr(p, "tband", False):
-                block_spmm.rows_check(p, config.a_dtype)
+                block_spmm.rows_check(p)
         # raises NotImplementedError for a plan that would drop edges
         self._fn = make_spmm(self.plan, self.plan_bwd, config.compute_dtype, config.impl)
         self._fused = make_fused_ops(self.plan, self.plan_bwd, config.compute_dtype,

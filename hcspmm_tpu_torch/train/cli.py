@@ -9,7 +9,9 @@ HC-SpMM_main.py:18-64); port of hcspmm_tpu/train/cli.py with its flags.
 ops, no kernel) in the row layout [N, d].  ``--band-impl tiled`` builds the
 tiled band (a plan's (superwindow, 128-row X tile) pairs) where the plan
 builder admits it (full band cover, no spill, band_h a multiple of 128) and
-a wide plan otherwise, as the JAX package does.  ``--checkpoint``,
+a wide plan otherwise, as the JAX package does; ``--band-impl ring`` (the
+reference's deleted kernel) is passed to PlanConfig as the JAX CLI passes
+it, and the plan builder builds a wide plan for it.  ``--checkpoint``,
 ``--checkpoint-every``, ``--resume`` and ``--fault-epoch`` save, resume and
 fail training as the JAX CLI's do (train.elastic supervises them).
 
@@ -131,10 +133,6 @@ def prepare(args, device, logger):
         # dim <= 64 regime (the input dim may exceed it), else the wide
         # padded layout
         band_impl = "tband" if max(args.hidden, args.classes) <= 64 else "wide"
-    if band_impl == "ring":
-        raise NotImplementedError("band layout 'ring': the reference deleted its "
-                                  "kernel and builds wide plans for it (ROADMAP A.12); "
-                                  "pass --band-impl wide")
     cfg = PlanConfig(
         bucket_widths=tuple(int(v) for v in args.bucket_widths.split(",")),
         loi_mode=args.loi_mode,

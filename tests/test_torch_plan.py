@@ -35,6 +35,8 @@ CASES = {
         _TBAND, **_TINY_CAPS, spill_hub_mb=64 * 64 / 1e6, spill_hub_min_cov=0.01,
         spill_hub_min_reuse=0.0)),
     "wide": ((300, 6, 16), dict()),
+    "wide_ring": ((300, 6, 16), dict(band_impl="ring")),
+    "wide_int4": ((300, 6, 16), dict(a_dtype="int4")),
     "wide_spill": ((500, 8, 400), dict(band_widths=(128,), band_mode="auto")),
     "rows_no_band": ((300, 6, 16), dict(band_mode="never")),
 }

@@ -479,16 +479,18 @@ def test_row_and_padded_training_agree():
 
 
 def test_row_layout_gates_name_their_roadmap_items():
-    """int4 band blocks (A.12) raise naming their item; shard-uniform proxy
-    plans raise (each rank runs its own shard plan); rectangular plans
-    (A.10) and the tiled band (A.11) run in the row layout."""
+    """int4 band blocks (once refused, A.12) run and match the oracle;
+    shard-uniform proxy plans raise (each rank runs its own shard plan);
+    rectangular plans (A.10) and the tiled band (A.11) run in the row
+    layout."""
     rp, ci, nn = small_graph(300, 6)
     op = HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tiled", band_h=128), device="cpu")
     x = np.random.RandomState(0).randn(nn, 10).astype(np.float32)
     assert op.plan.tiled
     assert rel_err(op(torch.from_numpy(x)), spmm_reference_dense(rp, ci, nn, x)) < 1e-5
-    with pytest.raises(NotImplementedError, match="A.12"):
-        HybridSpMM(rp, ci, nn, PlanConfig(a_dtype="int4"), device="cpu")
+    op4 = HybridSpMM(rp, ci, nn, PlanConfig(a_dtype="int4"), device="cpu")
+    assert op4.arrays["f"]["band0_a"].dtype == torch.uint8
+    assert rel_err(op4(torch.from_numpy(x)), spmm_reference_dense(rp, ci, nn, x)) < 1e-5
     plan = build_plan(rp, ci, nn, PlanConfig(**NEVER))
     bad = dataclasses.replace(plan, shard_uniform=True)
     with pytest.raises(NotImplementedError, match="shard-uniform"):

@@ -259,20 +259,16 @@ def test_cli_impl_xla_trains_on_cpu(tmp_path, capsys, model):
     ["--checkpoint", "c.npz"], ["--resume", "c.npz"], ["--checkpoint-every", "1"],
     ["--fault-epoch", "1"], ["--dataset", "karate"],
 ])
-def test_cli_unported_flags_raise(flags, tmp_path, monkeypatch):
-    """The one flag whose feature is not ported (``--band-impl ring``,
-    A.12) raises naming its ROADMAP item; the others run: ``--band-impl
-    tiled`` (A.11) and the real graph ``karate`` train, the checkpoint flags
-    (A.8) save and resume, and ``--fault-epoch`` fails training at its
-    epoch."""
+def test_cli_unported_flags_raise(flags, tmp_path, monkeypatch, capsys):
+    """The flags of the features ported after the first slices run:
+    ``--band-impl tiled`` (A.11), ``--band-impl ring`` (a wide plan, as the
+    JAX CLI builds for it) and the real graph ``karate`` train, the
+    checkpoint flags (A.8) save and resume, and ``--fault-epoch`` fails
+    training at its epoch."""
     from hcspmm_tpu_torch.utils.checkpoint import load_pytree
 
     monkeypatch.chdir(tmp_path)  # relative checkpoint paths land here
     argv = ["--synthetic-nodes", "500", "--epochs", "1", "--device", "cpu", *flags]
-    if flags == ["--band-impl", "ring"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv)
-        return
     if flags[0] == "--fault-epoch":
         with pytest.raises(RuntimeError, match="injected fault at epoch 1"):
             cli.main(argv)
@@ -280,6 +276,9 @@ def test_cli_unported_flags_raise(flags, tmp_path, monkeypatch):
     if flags[0] == "--resume":
         assert cli.main(argv[:-2] + ["--checkpoint", "c.npz"]) == 0
     assert cli.main(argv) == 0
+    if flags == ["--band-impl", "ring"]:
+        prep = [r for r in _records(capsys.readouterr().out) if r.get("event") == "preprocess"]
+        assert prep[0]["layout"] == "wide"
     if flags[0] in ("--checkpoint", "--resume"):
         assert load_pytree("c.npz")[1]["epoch"] == 1
 
