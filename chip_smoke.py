@@ -189,7 +189,21 @@ Phases, each of which raises on failure, with its seconds printed:
     plan and the blocks tiled plan; the 3-layer GCN and GIN at hidden 256
     trained 3 epochs through ``train.loop.train`` on the blocks stand-in and
     GH at int8 and int4, the same launches and fp32 losses equal bit for
-    bit.
+    bit;
+26. the tools (``hcspmm_tpu_torch/tools``), each plan they time first held
+    against A @ x in float64 on the card with exactly one dense launch
+    (eight buckets a launch) and one ELL launch a SpMM where the plan has
+    those rows: ``calibrate_loi``'s grid at 4 uniques x 2 fills
+    (``TOOLS_GRID``, 16,384 windows a shape), its mixed calibration on the
+    DD stand-in in generator order (9 bins; the H100 coefficients, the
+    selector's accuracy, and the fit's, all_dense's, all_sparse's and
+    today's ``LOI_TPU_V5E`` plan's end-to-end times printed),
+    ``ablate_loi`` at three biases on its 65,536-node locality graph,
+    ``ablate_loa`` on DD (no reorder, LOA, cluster; one round), and
+    ``ablate_fusion`` on the blocks stand-in's tband (dim 32) and wide (dim
+    96) plans, the fused kernel launched, and DD's tband plan (spill: it
+    composes), the composed core's aggregate against A @ x and the fused
+    core's outputs against the composed core's.
 
 Two tensors on the card are compared on the card (float64, as on the
 host). The second-to-last line is a JSON object with the kernel table (all
@@ -205,7 +219,7 @@ input read once, each output written once) at 3.35 TB/s and its
 operations at the card's peak rate for their type (fp32 67 TFLOP/s, bf16
 989 TFLOP/s), computed from this run's arrays; beside it the
 Table VI analog, the grouped A/B, the fused training runs and phases
-23-24's results (the launch counts of the distributed runs, summed over
+23-24's and 26's results (the launch counts of the distributed runs, summed over
 their ranks, count among the kernels' launches).  The last
 line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
@@ -245,6 +259,10 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA's data sheet (SXM)
 # Peak operations a second by the inputs' type (NVIDIA's data sheet, SXM,
 # dense): fp32 outside the tensor cores, bf16 on them
 H100_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# phase 26: the calibration's reduced grid, and ablate_loi's biases (all dense, the
+# reference's threshold, all sparse)
+TOOLS_GRID = ["--uniques", "8,32,64,256", "--fills", "0.1,0.9", "--copies", "16384"]
+TOOLS_BIASES = (-12.0, -3.149, 1000.0)
 DEV = "cuda"  # the kernels' checks run here (a CPU rehearsal may point it elsewhere)
 PROCESS_START = time.time()  # this process's (or a spawned rank's) import of this file
 WIDE_DESIGN = ("persistent, two blocks an SM; a ring of A tiles [32, Bb] filled by Tensor Memory "
@@ -3467,6 +3485,144 @@ def checkpoint_phase(out) -> None:
     torch.cuda.empty_cache()
 
 
+def card_csr(rp, ci, n, dev):
+    """The binary CSR matrix (rp, ci) [n, n] in float64 on ``dev``."""
+    import numpy as np
+    import torch
+
+    return torch.sparse_csr_tensor(torch.from_numpy(np.asarray(rp, np.int64)),
+                                   torch.from_numpy(np.asarray(ci, np.int64)),
+                                   torch.ones(len(ci), dtype=torch.float64), size=(n, n)).to(dev)
+
+
+def hold_row_plan(name, op, rp, ci, n, dim, cd, gen) -> float:
+    """A row-layout plan a tool times: its SpMM ``op(x)`` of a random x
+    [n, dim] in ``cd`` against A @ x in float64 on the card (A from the
+    plan's CSR), and the row kernels' launches of that SpMM, exactly one
+    dense launch for each eight non-empty dense buckets and one ELL launch
+    where the plan has ELL, residual or empty rows (the residual riding
+    it)."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm
+    from hcspmm_tpu_torch.tools import common
+
+    x = torch.randn((n, dim), generator=gen).to(device=op.device, dtype=getattr(torch, cd))
+    with torch.no_grad():
+        launches = common.row_launches_of(lambda: op(x))
+        got = op(x)
+    n_hub, n_mid, n_short, n_res = op.arrays["f"]["rows_meta"].tolist()
+    rows = n_hub + n_mid + n_short
+    need = {"dense_bucket_spmm": len(block_spmm.dense_launch_groups(op.arrays["f"], op.plan)),
+            "ell_bucket_spmm": int(rows > 0), "ell_residual": int(rows > 0 and n_res > 0)}
+    if launches != need:
+        raise AssertionError(f"{name}: row launches {launches}, the plan implies {need}")
+    return check(f"{name}: {launches['dense_bucket_spmm']} dense and "
+                 f"{launches['ell_bucket_spmm']} ELL launch a SpMM; vs A @ x", got,
+                 torch.sparse.mm(card_csr(rp, ci, n, op.device), x.double()), cd)
+
+
+def tools_phase(dd_raw, dd_cluster, blocks, gen, out) -> None:
+    """Phase 26: the four tools of ``hcspmm_tpu_torch/tools`` on the card,
+    each plan they time held first (``hold_row_plan``; the fusion cores
+    against each other and their aggregate against A @ x).  ``dd_raw`` is
+    the DD stand-in in its generator's order (the mixed calibration's
+    target, LOA's 'none'), ``dd_cluster`` the same graph in cluster order,
+    ``blocks`` the blocks stand-in (rcm)."""
+    import argparse
+
+    import torch
+
+    from hcspmm_tpu_torch.format import reorder
+    from hcspmm_tpu_torch.tools import ablate_fusion, ablate_loa, ablate_loi, calibrate_loi
+
+    dev = torch.device(DEV)
+    plain_time_path = calibrate_loi.time_path
+
+    def checked_time_path(rp, ci, n, dim, mode, dtype="bfloat16", coeffs=None, device=None):
+        op = calibrate_loi.path_op(rp, ci, n, mode, dtype, coeffs, device)
+        hold_row_plan(f"    {mode}, {n} nodes", op, rp, ci, n, dim, dtype, gen)
+        return calibrate_loi.time_op(op, dim)
+
+    calibrate_loi.time_path = checked_time_path
+    try:
+        t0 = time.perf_counter()
+        args = calibrate_loi.build_parser().parse_args(TOOLS_GRID)
+        args.device = dev
+        co = calibrate_loi.calibrate_grid(args)
+        out["grid"] = dict(coefficients=dataclasses.asdict(co), seconds=time.perf_counter() - t0)
+        log(f"  grid {' '.join(TOOLS_GRID)}: {co} ({out['grid']['seconds']:.1f} s)")
+        t0 = time.perf_counter()
+        args = calibrate_loi.build_parser().parse_args(
+            ["--mixed", "standin:DD", "--max-bins", "9", "--copies", "1000000"])
+        args.device = dev
+        res = calibrate_loi.calibrate_mixed(args, graph=dd_raw)
+    finally:
+        calibrate_loi.time_path = plain_time_path
+    e2e = res["end_to_end_s"]
+    if set(e2e) != {"calibrated", "all_dense", "all_sparse", "LOI_TPU_V5E"}:
+        raise AssertionError(f"the mixed end-to-end runs that ended: {sorted(e2e)}")
+    out["mixed DD"] = dict(coefficients=dataclasses.asdict(res["coefficients"]),
+                           accuracy_windows=res["accuracy"][0], accuracy_nnz=res["accuracy"][1],
+                           end_to_end_us={k: v * 1e6 for k, v in e2e.items()},
+                           seconds=time.perf_counter() - t0)
+    log(f"  H100 coefficients (mixed standin:DD, 9 bins): {res['coefficients']}; selector "
+        f"accuracy {res['accuracy'][0]:.1%} of windows ({res['accuracy'][1]:.1%} of nnz); "
+        "end to end " + ", ".join(f"{k} {v * 1e6:.1f} us" for k, v in e2e.items())
+        + f" ({out['mixed DD']['seconds']:.1f} s)")
+
+    t0 = time.perf_counter()
+    args = argparse.Namespace(nodes=65536, degree=8.0, span=16)
+    rp, ci, nn = ablate_loi.locality_graph(args)
+    x = torch.randn((nn, 96), generator=gen).to(device=dev, dtype=torch.bfloat16)
+    out["ablate_loi"] = []
+    for bias, op, prep_s in ablate_loi.bias_ops(rp, ci, nn, TOOLS_BIASES, "bfloat16", dev):
+        hold_row_plan(f"  ablate_loi bias {bias}", op, rp, ci, nn, 96, "bfloat16", gen)
+        out["ablate_loi"].append(ablate_loi.record(bias, op, prep_s, x))
+        log("  " + json.dumps(out["ablate_loi"][-1]))
+        del op
+    log(f"  ablate_loi: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rp0, ci0, n = dd_raw
+    ops = ablate_loa.variants(rp0, ci0, n, dev, cluster=(*dd_cluster[:2], None))
+    known = {"none": (rp0, ci0), "cluster": dd_cluster[:2]}
+    for name, (op, _, perm) in ops.items():
+        rpv, civ = known[name] if name in known else reorder.apply_permutation(rp0, ci0, n, perm)
+        hold_row_plan(f"  ablate_loa DD {name}", op, rpv, civ, n, 32, "bfloat16", gen)
+    x = torch.randn((n, 32), generator=gen).to(device=dev, dtype=torch.bfloat16)
+    out["ablate_loa"] = ablate_loa.round_record(ops, x, {"graph": "DD", "scale": 1.0,
+                                                         "nnz": int(rp0[-1]), "dim": 32,
+                                                         "round": 0})
+    log("  " + json.dumps(out["ablate_loa"]) + f" ({time.perf_counter() - t0:.1f} s)")
+    del ops
+
+    t0 = time.perf_counter()
+    out["ablate_fusion"] = []
+    for key, (rp, ci, n), dim, impl, fused_kernel in (
+            ("blocks", blocks, 32, "tband", "tband_fused_direct"),
+            ("blocks", blocks, 96, "wide", "band_fused_spmm_direct"),
+            ("DD", dd_cluster, 32, "tband", None)):
+        op = ablate_fusion.fusion_op(rp, ci, n, impl, dev)
+        fused, composed, available, xp = ablate_fusion.cores(op, dim, dim)
+        with torch.no_grad():
+            agg = op.unpad_output(composed(xp)[1], dim)
+            ref = torch.sparse.mm(card_csr(rp, ci, n, dev), op.unpad_output(xp, dim).double())
+        check(f"  ablate_fusion {key} {impl} dim {dim}: the composed core's aggregate vs A @ x",
+              agg, ref, "bfloat16")
+        zero_counts()
+        rec = ablate_fusion.measure(key, 1.0, dim, dim, impl, op=op)
+        fused_launches = read_counts()
+        if available != (fused_kernel is not None) or (
+                fused_kernel and not fused_launches[fused_kernel]):
+            raise AssertionError(f"ablate_fusion {key} {impl}: fused kernel available "
+                                 f"{available}, launches {fused_launches}")
+        out["ablate_fusion"].append(rec)
+        del op, fused, composed, xp
+    log(f"  ablate_fusion: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3934,6 +4090,14 @@ def main() -> int:
         int4_at_plans(int4_graphs, gen, int4_res)
         train_int4(int4_graphs, launch_runs, int4_train)
 
+    tools_res = {}
+    with Phase("26. the tools: the LOI selector's refit, the LOI, LOA and fusion ablations"):
+        t0 = time.perf_counter()
+        s_e, d_e, n_dd = real_edges["DD"]
+        tools_phase((*gio.to_csr(s_e, d_e, n_dd), n_dd), real_csr["DD"], (rp, ci, n), gen,
+                    tools_res)
+        tools_res["seconds"] = time.perf_counter() - t0
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -4075,7 +4239,7 @@ def main() -> int:
                     "packed_training": {f"pack {k[0]} {k[1]}": v
                                         for k, v in packed_train.items()},
                     "int4_training": {f"{k[0]} {k[1]}": v for k, v in int4_train.items()},
-                    "distributed": dist_res, "checkpoint": ckpt_res}))
+                    "distributed": dist_res, "checkpoint": ckpt_res, "tools": tools_res}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
