@@ -1558,13 +1558,13 @@ def row_kernels_at_plan(key, op, gen, out) -> None:
 
 
 def profile_epochs(net, op, x, y, params, epochs: int = 5) -> tuple:
-    """(wall ms, device-busy ms, busy ms by kernel group) per epoch of
+    """(wall ms, device-busy ms, busy ms by launching span) per epoch of
     ``epochs`` training steps under torch.profiler, grouped as
     ``utils/epoch_profile.py`` groups them."""
     import torch
 
     from hcspmm_tpu_torch.train.loop import layout_input, make_train_step
-    from hcspmm_tpu_torch.utils.epoch_profile import group_of
+    from hcspmm_tpu_torch.utils.epoch_profile import profile_steps
 
     step = make_train_step(net, op, torch.optim.Adam(
         [t for layer in params for t in layer.values()], lr=0.01))
@@ -1573,20 +1573,8 @@ def profile_epochs(net, op, x, y, params, epochs: int = 5) -> tuple:
     gen = torch.Generator(device=op.device).manual_seed(0)
     step(params, x, y, gen)
     torch.cuda.synchronize()
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(epochs):
-            step(params, x, y, gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / epochs
-    groups = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            g = group_of(e.name)
-            groups[g] = groups.get(g, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / epochs
-    groups = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
-    return wall, sum(groups.values()), groups
+    res = profile_steps(lambda: step(params, x, y, gen), epochs)
+    return res["wall_ms"], sum(res["ms"].values()), res["ms"]
 
 
 def row_layout_phase(rp, ci, n, gen, out, launch_runs) -> None:

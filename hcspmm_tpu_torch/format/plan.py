@@ -49,6 +49,7 @@ import numpy as np
 
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.format.windows import WindowAnalysis, analyze_windows
+from hcspmm_tpu_torch.utils import profiling
 
 
 def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
@@ -770,6 +771,7 @@ def _build_ts2_segments(cols2d: np.ndarray, uc_all: np.ndarray,
     return (segs, pieces_pm, ranks_pm.astype(np.int32), laneg)
 
 
+@profiling.spanned("format.plan")
 def build_plan(
     row_pointers: np.ndarray,
     column_index: np.ndarray,
@@ -780,11 +782,18 @@ def build_plan(
     caps: PlanCaps = PlanCaps(),
 ) -> ExecutionPlan:
     """``num_nodes`` counts rows; ``num_cols`` (default: square) sets the
-    column space for a rectangular row-block shard of the adjacency."""
+    column space for a rectangular row-block shard of the adjacency.  With
+    tracing on (``utils.profiling``) the build is a ``format.plan`` span in
+    phases: ``.windows`` (window analysis), ``.band`` (band widths and
+    placement, the tiled pairs), ``.spill`` (the spill population and its
+    row streams), ``.lanes`` (the tband lane streams, hub and T1/T2
+    tables), ``.rows`` (routing, dense buckets, ELL, residual) and
+    ``.merge`` (the merge permutation)."""
     num_cols = num_nodes if num_cols is None else num_cols
     a_dtype = getattr(config, "a_dtype", "int8")
     if a_dtype not in ("int8", "int4"):
         raise ValueError(f"a_dtype must be 'int8' or 'int4', got {a_dtype!r}")
+    profiling.phase("format.plan.windows")
     wa = analysis or analyze_windows(
         row_pointers,
         column_index,
@@ -809,6 +818,7 @@ def build_plan(
     rp64 = np.asarray(row_pointers, dtype=np.int64)
     degrees = np.diff(rp64)
 
+    profiling.phase("format.plan.band")
     # -------------------- banded superwindows --------------------
     # Decide, per band_h-row superwindow, whether its whole column extent
     # streams as one contiguous block (see module docstring).  Selected
@@ -1473,6 +1483,7 @@ def build_plan(
         if dense_routed_w is not None:
             band_window_mask &= ~dense_routed_w
 
+        profiling.phase("format.plan.spill")
         # ---- spill population (sorted by row: CSR edge order) ----
         spill_nnz = int(spill_mask_e.sum())
         if spill_nnz or caps.num_spill_rows or caps.num_spill_edges:
@@ -1688,6 +1699,7 @@ def build_plan(
                 lane_fields = {}
                 if (tband and config.spill_lane != "off"
                         and ds_kind == "block"):
+                    profiling.phase("format.plan.lanes")
                     # lane chunks get their OWN (larger) group: [dt,
                     # G*128] destination blocks are dt/128 the bytes of
                     # the row layout's [G*128, 128], so a 4x group
@@ -1838,6 +1850,7 @@ def build_plan(
                             g_lane = ts_slot[
                                 np.searchsorted(uc_l, g_lane)]
                     lane_fields["ds_laneg"] = g_lane.astype(np.int32)
+                    profiling.phase("format.plan.spill")
                 ds_uc = None
                 if compact_ok:
                     # two-level gather: remap chunk gather indices into
@@ -1863,6 +1876,7 @@ def build_plan(
                                    else bool(config.ds_gather_f32)),
                     **lane_fields)
 
+    profiling.phase("format.plan.band")
     # -------------------- tiled band pair stream --------------------
     tiled_fields = {}
     if (
@@ -1879,6 +1893,7 @@ def build_plan(
             wa, sw_of_edge, int(config.band_tile_slots),
         )
 
+    profiling.phase("format.plan.rows")
     kmax = widths[-1]
     if dense_routed_w is not None:
         # spill-mode three-way routing already decided per window
@@ -2019,6 +2034,7 @@ def build_plan(
     sparse_edge_col = _pad_to(s_cols, es, c)
     sparse_edge_seg = _pad_to(s_segs, es, rs)
 
+    profiling.phase("format.plan.merge")
     # -------------------- merge permutation --------------------
     # concat layout: [band buckets Sb*band_h rows each][dense buckets
     # Wb*wh rows each][ELL buckets Rb rows each][residual Rs rows][1 zero

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from hcspmm_tpu_torch.format.windows import NATIVE_DIR
+from hcspmm_tpu_torch.utils import profiling
 
 _SRC = os.path.join(NATIVE_DIR, "loa.cpp")
 _LIB_CACHE: Optional[ctypes.CDLL] = None
@@ -49,22 +50,24 @@ def _cluster_lib() -> Optional[ctypes.CDLL]:
         f"hcspmm_torch_cluster_{os.getuid()}_{int(os.path.getmtime(_CL_SRC))}.so",
     )
     if not os.path.exists(so_path):
-        try:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
-                 "-fPIC", "-o", so_path, _CL_SRC],
-                check=True, capture_output=True, timeout=120,
-            )
-        except (subprocess.SubprocessError, FileNotFoundError):
+        with profiling.span("build.compile"):
             try:
                 subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", so_path,
-                     _CL_SRC],
+                    ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
+                     "-fPIC", "-o", so_path, _CL_SRC],
                     check=True, capture_output=True, timeout=120,
                 )
             except (subprocess.SubprocessError, FileNotFoundError):
-                _CL_FAILED = True
-                return None
+                try:
+                    subprocess.run(
+                        ["g++", "-O3", "-shared", "-fPIC", "-o", so_path,
+                         _CL_SRC],
+                        check=True, capture_output=True, timeout=120,
+                    )
+                except (subprocess.SubprocessError, FileNotFoundError):
+                    _CL_FAILED = True
+                    return None
+        profiling.record_build("cluster")
     try:
         lib = ctypes.CDLL(so_path)
     except OSError:
@@ -91,15 +94,17 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         f"hcspmm_torch_loa_{os.getuid()}_{int(os.path.getmtime(_SRC))}.so",
     )
     if not os.path.exists(so_path):
-        try:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", so_path, _SRC],
-                check=True, capture_output=True, timeout=120,
-            )
-        except (subprocess.SubprocessError, FileNotFoundError):
-            _LIB_FAILED = True
-            return None
+        with profiling.span("build.compile"):
+            try:
+                subprocess.run(
+                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                     "-o", so_path, _SRC],
+                    check=True, capture_output=True, timeout=120,
+                )
+            except (subprocess.SubprocessError, FileNotFoundError):
+                _LIB_FAILED = True
+                return None
+        profiling.record_build("loa")
     try:
         lib = ctypes.CDLL(so_path)
     except OSError:
@@ -192,6 +197,7 @@ def loa_reorder_py(rp, ci, rp_in, ci_in, n: int, window_h: int = 16,
     return perm
 
 
+@profiling.spanned("format.reorder")
 def loa_reorder(row_pointers, column_index, num_nodes: int,
                 window_h: int = 16, max_cols: int = 0, hub_cap: int = 4096,
                 symmetric: bool = True, backend: str = "auto") -> np.ndarray:
@@ -221,6 +227,7 @@ def loa_reorder(row_pointers, column_index, num_nodes: int,
                           max_cols, hub_cap)
 
 
+@profiling.spanned("format.reorder")
 def rcm_reorder(row_pointers, column_index, num_nodes: int) -> np.ndarray:
     """Reverse Cuthill-McKee ordering (bandwidth minimizer) for the banded
     execution path; ``perm[new_row] = old_row``."""
@@ -466,6 +473,7 @@ def _pack_groups(labels: np.ndarray, within_pos: np.ndarray,
     return out
 
 
+@profiling.spanned("format.reorder")
 def cluster_reorder(row_pointers, column_index, num_nodes: int,
                     band_h: int = 256, iters: int = 30) -> np.ndarray:
     """Community-locality ordering for the banded path on *mixed*
@@ -493,6 +501,7 @@ def cluster_reorder(row_pointers, column_index, num_nodes: int,
     return _pack_groups(labels, rcm_pos, num_nodes, band_h)
 
 
+@profiling.spanned("format.reorder")
 def apply_permutation(row_pointers, column_index, num_nodes: int,
                       perm: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Relabel vertices: returns CSR of ``A[perm][:, perm]``.

@@ -37,6 +37,7 @@ import numpy as np
 
 from hcspmm_tpu_torch.config import BLK_H, BLK_W, LOICoefficients
 from hcspmm_tpu_torch.format import loi
+from hcspmm_tpu_torch.utils import profiling
 
 #: The package's own copy of the C++ host passes (``native/``), compiled on
 #: first use with g++; without a compiler the NumPy fallbacks run.
@@ -64,21 +65,23 @@ def _native_lib() -> Optional[ctypes.CDLL]:
         f"hcspmm_torch_preprocess_{os.getuid()}_{int(os.path.getmtime(_SRC))}.so",
     )
     if not os.path.exists(so_path):
-        try:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
-                 "-fPIC", "-o", so_path, _SRC],
-                check=True, capture_output=True, timeout=120,
-            )
-        except (subprocess.SubprocessError, FileNotFoundError):
-            try:  # toolchains without OpenMP
+        with profiling.span("build.compile"):
+            try:
                 subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", so_path, _SRC],
+                    ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
+                     "-fPIC", "-o", so_path, _SRC],
                     check=True, capture_output=True, timeout=120,
                 )
             except (subprocess.SubprocessError, FileNotFoundError):
-                _LIB_FAILED = True
-                return None
+                try:  # toolchains without OpenMP
+                    subprocess.run(
+                        ["g++", "-O3", "-shared", "-fPIC", "-o", so_path, _SRC],
+                        check=True, capture_output=True, timeout=120,
+                    )
+                except (subprocess.SubprocessError, FileNotFoundError):
+                    _LIB_FAILED = True
+                    return None
+        profiling.record_build("preprocess")
     try:
         lib = ctypes.CDLL(so_path)
     except OSError:

@@ -18,6 +18,8 @@ import os
 import shutil
 import subprocess
 
+from hcspmm_tpu_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hcspmm_tpu_torch")
@@ -51,18 +53,22 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it.
 
     nvcc's output, with ptxas's register and shared-memory report, is kept
-    beside the library as ``<library>.log``.  Raises on a failed build."""
+    beside the library as ``<library>.log``; a build is a ``build.compile``
+    span and counts under ``build.compiled.<name>`` (``utils.profiling``).
+    Raises on a failed build."""
     so = library_path(name)
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        res = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
-            capture_output=True, text=True, timeout=600)
+        with profiling.span("build.compile"):
+            res = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+                capture_output=True, text=True, timeout=600)
         with open(so + ".log", "w") as f:
             f.write(res.stdout + res.stderr)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n"
                                f"{res.stdout}{res.stderr}")
         os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+        profiling.record_build(name)
     return ctypes.CDLL(so)

@@ -67,6 +67,7 @@ import torch
 from hcspmm_tpu_torch.config import TILED_SCALAR_PAD
 from hcspmm_tpu_torch.kernels import dstream, tspill
 from hcspmm_tpu_torch.kernels._build import load_library
+from hcspmm_tpu_torch.utils import profiling
 
 #: Launches of the band kernel of csrc/block_spmm.cu (every mode), counted
 #: where a wrapper launches it (never by the plain versions).  chip_smoke.py
@@ -910,10 +911,22 @@ def apply_spill(out, arrs, xsrc, plan):
     the take path."""
     if not (plan.has_spill and "spill_rows" in arrs):
         return out
-    if ("ds_blk" in arrs and out.shape[0] == plan.ds_rows
-            and out.shape[1] == xsrc.shape[1]):
-        return dstream.dstream_spill(arrs, xsrc, out, plan)
-    return _spill_take(out, arrs, xsrc, plan)
+    profiling.count("spmm.spill_edges", plan.spill_nnz)
+    with profiling.span("spmm.spill.rows"):
+        if ("ds_blk" in arrs and out.shape[0] == plan.ds_rows
+                and out.shape[1] == xsrc.shape[1]):
+            return dstream.dstream_spill(arrs, xsrc, out, plan)
+        return _spill_take(out, arrs, xsrc, plan)
+
+
+def _spill_take_rows(out, arrs, xsrc, plan):
+    """The row layout's spill: the take path onto ``out`` [N, d], spanned
+    and counted as ``apply_spill`` is."""
+    if not (plan.has_spill and "spill_rows" in arrs):
+        return out
+    profiling.count("spmm.spill_edges", plan.spill_nnz)
+    with profiling.span("spmm.spill.rows"):
+        return _spill_take(out, arrs, xsrc, plan)
 
 
 def spmm_wide_padded(arrs, xp, plan, compute_dtype):
@@ -931,26 +944,28 @@ def spmm_wide_padded(arrs, xp, plan, compute_dtype):
     if m != plan.padded_rows:
         raise ValueError(f"xp has {m} rows, the plan's layout {plan.padded_rows}")
     if getattr(plan, "tiled", False):
-        return band_tiled_spmm(arrs, xp, plan, xp.dtype).view(m, dp)
+        with profiling.span("spmm.band"):
+            return band_tiled_spmm(arrs, xp, plan, xp.dtype).view(m, dp)
     bh = plan.band_h
     num_sw = m // bh
     nonempty = [i for i in range(len(plan.band_widths))
                 if arrs[f"band{i}_start"].shape[0] > 0]
-    if not nonempty:
-        buf = torch.zeros((m, dp), dtype=xp.dtype, device=xp.device)
-        return apply_spill(buf, arrs, xp, plan)
-    s_main = max(nonempty, key=lambda i: len(plan.band_sw_ids[i]))
-    b3 = band_direct_dispatch(arrs, s_main, xp, num_sw, xp.dtype)
-    for i in nonempty:
-        if i == s_main:
-            continue
-        part = band_bucket_spmm(arrs[f"band{i}_start"], arrs[f"band{i}_a"], xp)
-        real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
-        b3.index_copy_(0, arrs[f"band{i}_sw"][:real].long(), part[:real].to(b3.dtype))
-    buf = b3.view(m, dp)
-    for key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
-        if key in arrs:
-            buf = tspill.zero_row_blocks(buf, arrs[key], w)
+    with profiling.span("spmm.band"):
+        if not nonempty:
+            buf = torch.zeros((m, dp), dtype=xp.dtype, device=xp.device)
+        else:
+            s_main = max(nonempty, key=lambda i: len(plan.band_sw_ids[i]))
+            b3 = band_direct_dispatch(arrs, s_main, xp, num_sw, xp.dtype)
+            for i in nonempty:
+                if i == s_main:
+                    continue
+                part = band_bucket_spmm(arrs[f"band{i}_start"], arrs[f"band{i}_a"], xp)
+                real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
+                b3.index_copy_(0, arrs[f"band{i}_sw"][:real].long(), part[:real].to(b3.dtype))
+            buf = b3.view(m, dp)
+            for key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
+                if key in arrs:
+                    buf = tspill.zero_row_blocks(buf, arrs[key], w)
     return apply_spill(buf, arrs, xp, plan)
 
 
@@ -1098,32 +1113,30 @@ def spmm_rows(arrs, x, plan, compute_dtype):
         # buckets with real entries: a shard plan's capacity padding (sw_id
         # == num_sw) may fill a bucket that owns no superwindow of its own
         nonempty = [s for s in range(len(plan.band_widths)) if len(plan.band_sw_ids[s])]
-        xb = _band_table(xr, plan)
-        od = x.dtype if x.dtype in (xr.dtype, torch.float32) else torch.float32
-        s_main = max(nonempty, key=lambda s: len(plan.band_sw_ids[s]))
-        b3 = band_direct_dispatch(arrs, s_main, xb, num_sw, od)
-        for s in nonempty:
-            if s != s_main:
-                part = band_bucket_spmm(arrs[f"band{s}_start"], arrs[f"band{s}_a"], xb)
-                real = len(plan.band_sw_ids[s])
-                b3.index_copy_(0, arrs[f"band{s}_sw"][:real].long(), part[:real].to(od))
-        out = b3.view(-1, xb.shape[1])[:n, :d].contiguous()
-        if plan.has_spill and "spill_rows" in arrs:
-            out = _spill_take(out, arrs, xr, plan)
-        return out.to(x.dtype)
+        with profiling.span("spmm.band"):
+            xb = _band_table(xr, plan)
+            od = x.dtype if x.dtype in (xr.dtype, torch.float32) else torch.float32
+            s_main = max(nonempty, key=lambda s: len(plan.band_sw_ids[s]))
+            b3 = band_direct_dispatch(arrs, s_main, xb, num_sw, od)
+            for s in nonempty:
+                if s != s_main:
+                    part = band_bucket_spmm(arrs[f"band{s}_start"], arrs[f"band{s}_a"], xb)
+                    real = len(plan.band_sw_ids[s])
+                    b3.index_copy_(0, arrs[f"band{s}_sw"][:real].long(), part[:real].to(od))
+            out = b3.view(-1, xb.shape[1])[:n, :d].contiguous()
+        return _spill_take_rows(out, arrs, xr, plan).to(x.dtype)
 
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     banded = [s for s in range(len(plan.band_widths)) if arrs[f"band{s}_rq"].shape[0]]
-    xb = _band_table(xr, plan) if banded else None
-    for s in banded:
-        part = band_bucket_spmm(arrs[f"band{s}_start"], arrs[f"band{s}_a"], xb)
-        out.index_copy_(0, arrs[f"band{s}_rnode"],
-                        part.view(-1, xb.shape[1]).index_select(0, arrs[f"band{s}_rq"])[:, :d])
+    with profiling.span("spmm.band"):
+        xb = _band_table(xr, plan) if banded else None
+        for s in banded:
+            part = band_bucket_spmm(arrs[f"band{s}_start"], arrs[f"band{s}_a"], xb)
+            out.index_copy_(0, arrs[f"band{s}_rnode"],
+                            part.view(-1, xb.shape[1]).index_select(0, arrs[f"band{s}_rq"])[:, :d])
     dense_rows(arrs, plan, xr, out)
     ell_rows(arrs, xr, out)
-    if plan.has_spill and "spill_rows" in arrs:
-        out = _spill_take(out, arrs, xr, plan)
-    return out.to(x.dtype)
+    return _spill_take_rows(out, arrs, xr, plan).to(x.dtype)
 
 
 def sparse_seg_ptr(seg, rs: int) -> np.ndarray:

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from hcspmm_tpu_torch.kernels import block_spmm, tspill
 from hcspmm_tpu_torch.kernels._build import load_library
+from hcspmm_tpu_torch.utils import profiling
 
 #: Launches of the band kernel of csrc/tband.cu (both modes), counted
 #: where a wrapper launches it (never by the plain versions).  chip_smoke.py
@@ -495,10 +496,11 @@ def _row_spill(buf, arrs, xt, plan):
     wide = (plan.spill_nnz >= _SPILL_WIDE_MIN_EDGES and dt < 128
             and tbl_mb <= _SPILL_WIDE_MAX_TABLE_MB)
     pad = (0, 128 - dt) if wide else (0, 0)
-    out_u = F.pad(buf.T, pad).contiguous()
-    x_u = F.pad(xt.T, pad).contiguous()
-    out_u = block_spmm.apply_spill(out_u, arrs, x_u, plan)
-    return out_u[:, :dt].T.contiguous()
+    with profiling.span("spmm.spill.rows"):  # the relayouts too
+        out_u = F.pad(buf.T, pad).contiguous()
+        x_u = F.pad(xt.T, pad).contiguous()
+        out_u = block_spmm.apply_spill(out_u, arrs, x_u, plan)
+        return out_u[:, :dt].T.contiguous()
 
 
 def _tband_apply_spill(buf, arrs, xt, plan):
@@ -514,18 +516,21 @@ def _tband_apply_spill(buf, arrs, xt, plan):
         return buf
     if "ds_tlocal" not in arrs:
         return _row_spill(buf, arrs, xt, plan)
+    profiling.count("spmm.spill_edges", plan.spill_nnz)
     if "hub_lo" in arrs:
-        h = tspill.mxgather_lanes(xt, arrs["hub_lo"], arrs["hub_rel"], span=plan.ts_span)
-        buf = tspill.tbstream_merge(h, arrs["ds_h_tlocal"], arrs["ds_h_lblk"], buf,
-                                    group=plan.ds_hgroup, gidx=arrs["ds_h_laneg"],
-                                    segs=tspill.segments_of(arrs, "ds_h_lseg"))
-    if "ts_lo" in arrs:
-        src = tspill.mxgather_lanes(xt, arrs["ts_lo"], arrs["ts_rel"], span=plan.ts_span)
-    else:
-        src = xt
-    return tspill.tbstream_merge(src, arrs["ds_tlocal"], arrs["ds_lblk"], buf,
-                                 group=plan.ds_lgroup, gidx=arrs["ds_lsrc"],
-                                 segs=tspill.segments_of(arrs, "ds_lseg"))
+        with profiling.span("spmm.spill.hub"):
+            h = tspill.mxgather_lanes(xt, arrs["hub_lo"], arrs["hub_rel"], span=plan.ts_span)
+            buf = tspill.tbstream_merge(h, arrs["ds_h_tlocal"], arrs["ds_h_lblk"], buf,
+                                        group=plan.ds_hgroup, gidx=arrs["ds_h_laneg"],
+                                        segs=tspill.segments_of(arrs, "ds_h_lseg"))
+    with profiling.span("spmm.spill.cold"):
+        if "ts_lo" in arrs:
+            src = tspill.mxgather_lanes(xt, arrs["ts_lo"], arrs["ts_rel"], span=plan.ts_span)
+        else:
+            src = xt
+        return tspill.tbstream_merge(src, arrs["ds_tlocal"], arrs["ds_lblk"], buf,
+                                     group=plan.ds_lgroup, gidx=arrs["ds_lsrc"],
+                                     segs=tspill.segments_of(arrs, "ds_lseg"))
 
 
 def spmm_tband_padded(arrs, xt, plan, compute_dtype):
@@ -545,24 +550,26 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
     num_sw = m // bh
     nonempty = [i for i in range(len(plan.band_widths))
                 if arrs[f"band{i}_start"].shape[0] > 0]
-    if not nonempty:
-        buf = torch.zeros((dt, m), dtype=xt.dtype, device=xt.device)
-        return _tband_apply_spill(buf, arrs, xt, plan)
-    s_main = max(nonempty, key=lambda i: len(plan.band_sw_ids[i]))
-    # the uncovered superwindows (their edges ride the spill) are zeroed by
-    # the same launch: aligned runs of eight, then the rest
-    pack = plan.tband_pack
-    buf = tband_spmm_direct(arrs[f"band{s_main}_sw"], arrs[f"band{s_main}_start"],
-                            arrs[f"band{s_main}_at"], xt, num_sw, xt.dtype,
-                            arrs.get("band_missing_sw8"), arrs.get("band_missing_sw"), pack)
-    b3 = buf.view(dt, num_sw, bh)
-    for i in nonempty:
-        if i == s_main:
-            continue
-        part = tband_spmm_bucket(arrs[f"band{i}_start"], arrs[f"band{i}_at"], xt, pack)
-        real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
-        b3.index_copy_(1, arrs[f"band{i}_sw"][:real].long(),
-                       part.view(dt, -1, bh)[:, :real].to(buf.dtype))
+    with profiling.span("spmm.band"):
+        if not nonempty:
+            buf = torch.zeros((dt, m), dtype=xt.dtype, device=xt.device)
+        else:
+            s_main = max(nonempty, key=lambda i: len(plan.band_sw_ids[i]))
+            # the uncovered superwindows (their edges ride the spill) are
+            # zeroed by the same launch: aligned runs of eight, then the rest
+            pack = plan.tband_pack
+            buf = tband_spmm_direct(arrs[f"band{s_main}_sw"], arrs[f"band{s_main}_start"],
+                                    arrs[f"band{s_main}_at"], xt, num_sw, xt.dtype,
+                                    arrs.get("band_missing_sw8"), arrs.get("band_missing_sw"),
+                                    pack)
+            b3 = buf.view(dt, num_sw, bh)
+            for i in nonempty:
+                if i == s_main:
+                    continue
+                part = tband_spmm_bucket(arrs[f"band{i}_start"], arrs[f"band{i}_at"], xt, pack)
+                real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
+                b3.index_copy_(1, arrs[f"band{i}_sw"][:real].long(),
+                               part.view(dt, -1, bh)[:, :real].to(buf.dtype))
     return _tband_apply_spill(buf, arrs, xt, plan)
 
 

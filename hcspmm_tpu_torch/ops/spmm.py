@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.format.plan import ExecutionPlan, build_plan, transpose_csr
 from hcspmm_tpu_torch.kernels import block_spmm, dstream, tband, tspill
+from hcspmm_tpu_torch.utils import profiling
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -50,17 +51,42 @@ def _dtype(name: str) -> torch.dtype:
 
 class _SpMM(torch.autograd.Function):
     """``fwd(x)`` with gradient ``bwd(g)``: both are SpMMs over plan arrays
-    that are not differentiated."""
+    that are not differentiated; each is one ``spmm.fwd`` or ``spmm.bwd``
+    span."""
 
     @staticmethod
     def forward(ctx, x, fwd, bwd):
-        ctx.bwd = bwd
-        ctx.x_dtype = x.dtype
-        return fwd(x)
+        with profiling.span("spmm.fwd"):
+            ctx.bwd = bwd
+            ctx.x_dtype = x.dtype
+            return fwd(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.bwd(g.contiguous()).to(ctx.x_dtype), None, None
+        with profiling.span("spmm.bwd"):
+            return ctx.bwd(g.contiguous()).to(ctx.x_dtype), None, None
+
+
+class _Scale(torch.autograd.Function):
+    """``(v * inv).to(dtype)`` for a per-row scale ``inv`` that is not
+    differentiated (D^-1/2 broadcast over the layout), forward and backward
+    each one ``spmm.scale`` span.  The gradient is autograd's for the
+    composed form (``ToCopyBackward0`` then ``MulBackward0``), so values and
+    gradients equal it bit for bit.  Each scaling stays a node of its own:
+    folded into the SpMM's node, the backward would hold its incoming
+    gradient through the SpMM and raise the step's peak memory."""
+
+    @staticmethod
+    def forward(ctx, v, inv, dtype):
+        with profiling.span("spmm.scale"):
+            ctx.inv, ctx.v_dtype = inv, v.dtype
+            return (v * inv).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        with profiling.span("spmm.scale"):
+            inv, vd = ctx.inv, ctx.v_dtype
+            return (g.to(torch.promote_types(vd, inv.dtype)) * inv).to(vd), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -406,6 +432,7 @@ def make_fused_ops_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan]
 _ROW_SPILL_KEYS = ("ds_gcols", "ds_local", "ds_blk", "ds_lt", "ds_ucols")
 
 
+@profiling.spanned("format.upload")
 def _to_device(plan: ExecutionPlan, device) -> dict:
     """Plan arrays as tensors on ``device``: plain copies of
     ``device_arrays(dense_band=False)`` plus the dense band blocks
@@ -604,18 +631,20 @@ class HybridSpMM:
     def dense_padded(self, xp, w):
         """Dense update ``X W`` in the padded layout: (pad W)^T @ xt
         transposed, xp @ pad(W) wide."""
-        if not self.transposed:
-            return torch.matmul(xp, self.pad_weight(w, xp))
-        ht = tband.sublane_pad(w.shape[1])
-        wt = F.pad(w.T.to(xp.dtype), (0, xp.shape[0] - w.shape[0], 0, ht - w.shape[1]))
-        return torch.matmul(wt, xp)
+        with profiling.span("models.dense"):
+            if not self.transposed:
+                return torch.matmul(xp, self.pad_weight(w, xp))
+            ht = tband.sublane_pad(w.shape[1])
+            wt = F.pad(w.T.to(xp.dtype), (0, xp.shape[0] - w.shape[0], 0, ht - w.shape[1]))
+            return torch.matmul(wt, xp)
 
     def apply_padded(self, arrays, xp: torch.Tensor) -> torch.Tensor:
-        """SpMM in the padded layout."""
+        """SpMM in the padded layout (normalized: D^-1/2 on both sides,
+        each scaling a ``_Scale`` node)."""
         if "inv_sqrt_deg" in arrays:
             inv = self._inv_lanes(arrays["inv_sqrt_deg"], xp)
-            xs = (xp * inv).to(xp.dtype)
-            return (self._padded_core(arrays, xs) * inv).to(xp.dtype)
+            xs = _Scale.apply(xp, inv, xp.dtype)
+            return _Scale.apply(self._padded_core(arrays, xs), inv, xp.dtype)
         return self._padded_core(arrays, xp)
 
     def _padded_core(self, arrays, xp):
@@ -660,8 +689,8 @@ class HybridSpMM:
         """Row-layout SpMM [N, d] -> [N, d]."""
         if "inv_sqrt_deg" in arrays:
             inv = arrays["inv_sqrt_deg"][:, None]
-            xs = (x * inv).to(x.dtype)
-            return (self._fn(arrays["f"], arrays["b"], xs) * inv).to(x.dtype)
+            xs = _Scale.apply(x, inv, x.dtype)
+            return _Scale.apply(self._fn(arrays["f"], arrays["b"], xs), inv, x.dtype)
         return self._fn(arrays["f"], arrays["b"], x)
 
     def gcn_apply(self, arrays, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -669,19 +698,20 @@ class HybridSpMM:
         ``apply`` in normalized mode; the fused backward where the plan
         prefers it)."""
         if "inv_sqrt_deg" in arrays:
-            return self.apply(arrays, _dot(x, w))
+            return self.apply(arrays, self.dense(x, w))
         return self._fused["gcn"](arrays["f"], arrays["b"], x, w)
 
     def gin_apply(self, arrays, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """GIN layer core (A x) w in the row layout; the aggregate is kept
         for dW (from the fused forward where the plan prefers it)."""
         if "inv_sqrt_deg" in arrays:
-            return _dot(self.apply(arrays, x), w)
+            return self.dense(self.apply(arrays, x), w)
         return self._fused["gin"](arrays["f"], arrays["b"], x, w)
 
     def dense(self, x, w):
         """Dense update ``x w`` in the row layout."""
-        return _dot(x, w)
+        with profiling.span("models.dense"):
+            return _dot(x, w)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.arrays, x)

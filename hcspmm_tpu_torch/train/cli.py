@@ -37,6 +37,7 @@ from hcspmm_tpu_torch.models.sag import SAG
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
 from hcspmm_tpu_torch.train.loop import train
 from hcspmm_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+from hcspmm_tpu_torch.utils import profiling
 from hcspmm_tpu_torch.utils.logging import stdout_logger
 
 
@@ -173,6 +174,14 @@ def prepare(args, device, logger):
     return ds, op
 
 
+def compiled_libraries() -> dict:
+    """The libraries this process built, by name, and how often: the CUDA
+    kernels' (``kernels/_build.py``) and the native reorder passes'
+    (``format/reorder.py``); empty when every one was built before."""
+    pre = "build.compiled."
+    return {k[len(pre):]: v for k, v in profiling.counters().items() if k.startswith(pre)}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args)
@@ -205,7 +214,7 @@ def main(argv=None) -> int:
                 checkpoint_every=args.checkpoint_every, start_epoch=start_epoch,
                 fault_epoch=args.fault_epoch or None)
     logger.log(event="done", epoch_ms=res["epoch_ms"], final_loss=res["final_loss"],
-               warmup_s=res["warmup_s"], device=str(device))
+               warmup_s=res["warmup_s"], device=str(device), compiled=compiled_libraries())
     if args.checkpoint:
         # the absolute epoch counter: what the elastic supervisor reads to
         # decide whether the run is complete

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional
 import torch
 
 from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward, params_from_jax
+from hcspmm_tpu_torch.utils import profiling
 from hcspmm_tpu_torch.utils.checkpoint import save_pytree
 from hcspmm_tpu_torch.utils.logging import MetricLogger
 
@@ -79,7 +80,10 @@ def make_train_step(net: Net, spmm, optimizer: torch.optim.Optimizer):
     forward, NLL, backward and one optimizer step.  ``x`` is raw [N, d]
     or already in the training layout (``layout_input``); ``gen`` draws the
     dropout mask (None needs ``net.dropout == 0``).  The loss comes back as
-    a device tensor, so the step never waits for the device."""
+    a device tensor, so the step never waits for the device.  With tracing on
+    (``utils.profiling``) a step is a ``train.step`` span, which starts a
+    new step id, over ``train.forward``, ``train.backward`` and
+    ``train.optimizer``."""
     bound = Bound(spmm)
 
     def out_slice(h):
@@ -89,14 +93,18 @@ def make_train_step(net: Net, spmm, optimizer: torch.optim.Optimizer):
         out_slice = None  # row layout: the logits are [N, classes] already
 
     def train_step(params, x, y, gen=None):
-        x = layout_input(spmm, x)
-        optimizer.zero_grad(set_to_none=True)
-        logp = net_forward(net, params, bound, x, dropout_gen=gen,
-                           train=True, out_slice=out_slice)
-        loss = nll_loss(logp, y)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with profiling.span("train.step", step=True):
+            x = layout_input(spmm, x)
+            optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train.forward"):
+                logp = net_forward(net, params, bound, x, dropout_gen=gen,
+                                   train=True, out_slice=out_slice)
+                loss = nll_loss(logp, y)
+            with profiling.span("train.backward"):
+                loss.backward()
+            with profiling.span("train.optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return train_step
 

@@ -5,15 +5,20 @@
 
 Takes the command line's flags (``train.cli``), builds the dataset, plan
 and model as it does, runs the 9 warm-up epochs, then traces
-``--profile-epochs`` epochs with torch.profiler.  Prints one JSON line:
-the wall milliseconds per epoch (host clock, ended by a synchronise), the
-device-busy milliseconds per epoch by kernel group, and the share of the
-wall in which the device ran no kernel.  Needs a CUDA device.
+``--profile-epochs`` epochs with torch.profiler and the program's spans on
+(``utils.profiling``).  Prints one JSON line: the wall milliseconds per
+epoch (host clock, ended by a synchronise), the device-busy milliseconds
+and launches per epoch by the program span that launched each operation
+(``profiling.launched_by``; ``no span`` for one launched outside every
+span), and the share of the wall in which the device ran no operation.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import tempfile
 import time
 
 import torch
@@ -21,30 +26,39 @@ import torch
 from hcspmm_tpu_torch.models.net import Net, init_net_params
 from hcspmm_tpu_torch.train import cli
 from hcspmm_tpu_torch.train.loop import layout_input, make_train_step
+from hcspmm_tpu_torch.utils import profiling
 from hcspmm_tpu_torch.utils.logging import stdout_logger
 
-#: kernel-name fragments -> group, first match wins
-GROUPS = (
-    ("fused_kernel", "fused kernel"),
-    ("tiled_kernel", "tiled band kernel"),
-    ("band_kernel", "band kernel"),
-    ("dense_window_kernel", "dense window kernel"),
-    ("ell_row_kernel", "ELL kernel"),
-    ("merge_kernel", "spill merge"),
-    ("mxgather_kernel", "mxgather"),
-    ("zero_kernel", "zero-fill"),
-    ("zero_rows_kernel", "zero-fill"),
-    ("index", "takes and scatters"),
-    ("gather", "takes and scatters"),
-    ("gemm", "dense products"),
-    ("cutlass", "dense products"),
-    ("Memcpy", "copies"),
-    ("Memset", "copies"),
-)
+NO_SPAN = "no span"
 
 
-def group_of(name: str) -> str:
-    return next((g for frag, g in GROUPS if frag in name), "other")
+def profile_steps(step, epochs: int) -> dict:
+    """Wall ms an epoch, and device ms and launches an epoch by launching
+    span, of ``epochs`` calls of ``step()`` under torch.profiler with the
+    program's spans on (a synchronise ends them)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiling.reset()
+    with torch.profiler.profile(activities=acts) as prof:
+        with profiling.tracing():
+            t0 = time.perf_counter()
+            for _ in range(epochs):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    names = {r["name"] for r in profiling.spans()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    busy, launches = {}, {}
+    for _, _, dur, owner in profiling.launched_by(events, names):
+        key = owner or NO_SPAN
+        busy[key] = busy.get(key, 0.0) + dur / 1e3
+        launches[key] = launches.get(key, 0) + 1
+    return {"wall_ms": wall_ms / epochs,
+            "ms": {k: v / epochs for k, v in sorted(busy.items(), key=lambda kv: -kv[1])},
+            "launches": {k: v / epochs for k, v in launches.items()}}
 
 
 def main(argv=None) -> int:
@@ -67,28 +81,15 @@ def main(argv=None) -> int:
         step(params, x, y, gen)
     torch.cuda.synchronize()
     n = args.profile_epochs
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            loss = step(params, x, y, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy, launches = {}, {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        g = group_of(evt.name)
-        busy[g] = busy.get(g, 0.0) + (evt.time_range.end - evt.time_range.start) / 1e3
-        launches[g] = launches.get(g, 0) + 1
-    total = sum(busy.values())
+    losses = []
+    res = profile_steps(lambda: losses.append(step(params, x, y, gen)), n)
+    total = sum(res["ms"].values())
     print(json.dumps({
         "event": "epoch_profile", "dataset": args.dataset, "model": args.model,
-        "compute_dtype": args.compute_dtype, "epochs": n, "final_loss": float(loss),
-        "wall_ms_per_epoch": wall_ms / n, "busy_ms_per_epoch": total / n,
-        "idle_share": 1.0 - total / wall_ms,
-        "ms_per_epoch": {g: v / n for g, v in sorted(busy.items(), key=lambda kv: -kv[1])},
-        "launches_per_epoch": {g: v / n for g, v in launches.items()},
+        "compute_dtype": args.compute_dtype, "epochs": n, "final_loss": float(losses[-1]),
+        "wall_ms_per_epoch": res["wall_ms"], "busy_ms_per_epoch": total,
+        "idle_share": 1.0 - total / res["wall_ms"],
+        "ms_per_epoch": res["ms"], "launches_per_epoch": res["launches"],
         "device": torch.cuda.get_device_name(0),
     }))
     return 0

@@ -84,20 +84,31 @@ def test_roofline_names_the_bound():
 
 
 def test_timer_time_fn_and_trace(tmp_path):
-    t = profiling.Timer()
-    with t.span("a"):
-        torch.ones(8).sum()
-    with t.span("a"):
-        pass
-    assert set(t.records) == {"a"} and t.records["a"] > 0
+    """Spans and counters record only inside ``tracing()``; ``time_fn``
+    averages calls; ``trace`` writes a Chrome trace with the program's spans
+    on, each a host range beside the operations."""
+    profiling.reset()
+    with profiling.span("off"):
+        profiling.count("n")
+    with profiling.tracing():
+        with profiling.span("a"):
+            torch.ones(8).sum()
+        with profiling.span("a"):
+            profiling.count("n", 2)
+    recs = [r for r in profiling.spans() if r["name"] != profiling.CLOCK]
+    assert [r["name"] for r in recs] == ["a", "a"] and profiling.counters() == {"n": 2}
+    assert all(r["end_ns"] >= r["start_ns"] for r in recs)
     calls = []
     assert profiling.time_fn(lambda v: calls.append(v), 1, rounds=3, warmup=2) > 0
     assert calls == [1] * 5
     path = str(tmp_path / "trace.json")
     with profiling.trace(path):
-        torch.ones(64).cumsum(0)
+        with profiling.span("b"):
+            torch.ones(64).cumsum(0)
     with open(path) as f:
-        assert "traceEvents" in json.load(f)
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"b", profiling.CLOCK} <= names
+    profiling.reset()
 
 
 def test_profiler_age_needs_a_card(monkeypatch):
