@@ -203,7 +203,23 @@ Phases, each of which raises on failure, with its seconds printed:
     ``ablate_fusion`` on the blocks stand-in's tband (dim 32) and wide (dim
     96) plans, the fused kernel launched, and DD's tband plan (spill: it
     composes), the composed core's aggregate against A @ x and the fused
-    core's outputs against the composed core's.
+    core's outputs against the composed core's;
+27. D^-1/2 inside the wide kernels (``HybridSpMM.folds_scale``) at the
+    plans the gcn3 benchmark cells build (the GH and YS stand-ins, cluster
+    order, the CLI's PlanConfig at the wide layout, normalised), fp32, dp
+    128 and 256: band_kernel's scaled mode (direct and bucket mode), the
+    scaled row merge (both plans: the block form, YS's over its compact
+    table), each bitwise repeatable and held against its scaled plain
+    version and its composed form (X scaled, the unscaled kernel, the rows
+    scaled), and the scaled take path against its composed form at the same
+    plans' arrays; the operator's forward and
+    backward SpMM with the launch counters zeroed just before and read
+    after (one scaled direct launch and one ``spmm.scale_folded`` a SpMM),
+    held against the composed form; scaled against unscaled kernel and
+    folded against composed SpMM in interleaved rounds, beside the scaled
+    kernel's bound.  ``python3 chip_smoke.py --scaled`` runs this phase
+    alone (with the build of its two libraries and their ptxas lines) and
+    prints its rows as the last line.
 
 Two tensors on the card are compared on the card (float64, as on the
 host). The second-to-last line is a JSON object with the kernel table (all
@@ -219,7 +235,7 @@ input read once, each output written once) at 3.35 TB/s and its
 operations at the card's peak rate for their type (fp32 67 TFLOP/s, bf16
 989 TFLOP/s), computed from this run's arrays; beside it the
 Table VI analog, the grouped A/B, the fused training runs and phases
-23-24's and 26's results (the launch counts of the distributed runs, summed over
+23-24's, 26's and 27's results (the launch counts of the distributed runs, summed over
 their ranks, count among the kernels' launches).  The last
 line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
@@ -1067,6 +1083,239 @@ def ranges_plan(plan, num_ranges=3):
                                ds_group=grp, ds_meta=meta, ds_kind="tile", ds_ucols=None)
 
 
+def gcn3_wide_op(rp, ci, n, dev):
+    """The operator the gcn3 benchmark cells build: the CLI's PlanConfig at
+    the wide layout (its defaults for every other flag), fp32, normalised."""
+    from hcspmm_tpu_torch.config import PlanConfig
+    from hcspmm_tpu_torch.ops.spmm import HybridSpMM
+    from hcspmm_tpu_torch.train import cli
+
+    d = cli.build_parser().parse_args([])
+    cfg = PlanConfig(bucket_widths=tuple(int(v) for v in d.bucket_widths.split(",")),
+                     loi_mode=d.loi_mode, compute_dtype="float32", impl=d.impl,
+                     band_impl="wide", spill_impl=d.spill_impl)
+    return HybridSpMM(rp, ci, n, cfg, normalize=True, device=dev)
+
+
+def scaled_at_plan(key, op, gen, out, dims=WIDE_DIMS, reps=10) -> None:
+    """D^-1/2 inside the wide kernels (``HybridSpMM.folds_scale``) at
+    ``op``'s own arrays, fp32, at each width of ``dims``:
+
+    - band_kernel's scaled mode, direct (the main bucket) and bucket mode
+      (every bucket), given ``scale`` and each entry's superwindow: two runs
+      bitwise equal, held at TOL against the scaled plain version and
+      against the composed form (X scaled, the unscaled kernel, the rows
+      scaled);
+    - the plan's spill chain in its scaled form: the row merge (block or tile
+      form; the compact table's column scales gathered with it) with
+      ``cscale``/``rscale``, likewise, and ``dstream_spill``'s call equal to
+      the direct one; and the take path (whose arrays every spilling plan
+      carries, whichever route it runs) against its composed form;
+    - the operator's SpMM, forward and backward, with the launch counters
+      zeroed just before and read after: the scaled kernels launched, one
+      ``spmm.scale_folded`` a SpMM, output and input gradient held against
+      the composed form;
+    - scaled against unscaled kernel, and the folded SpMM against the
+      composed one, in 7 interleaved rounds (medians), beside the scaled
+      kernel's bound.
+
+    Rows go into ``out[(key, name, dp)]``."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import block_spmm, dstream, tspill
+    from hcspmm_tpu_torch.utils import profiling
+
+    dev = torch.device(DEV)
+    cd, f32 = "float32", torch.float32
+    p, arrs = op.plan, op.arrays["f"]
+    if not (op.folds_scale and "inv_sqrt_deg_rows" in op.arrays):
+        raise AssertionError(f"{key}: the wide plan must apply D^-1/2 inside its kernels")
+    scale = op.arrays["inv_sqrt_deg_rows"]
+    m, bh = p.padded_rows, p.band_h
+    num_sw = m // bh
+    row_s = scale.view(num_sw, bh)  # each superwindow's rows' scales
+    nonempty = [i for i in range(len(p.band_widths)) if len(p.band_sw_ids[i])]
+    s_main = max(nonempty, key=lambda i: len(p.band_sw_ids[i]))
+    sw, st, a = arrs[f"band{s_main}_sw"], arrs[f"band{s_main}_start"], arrs[f"band{s_main}_a"]
+    real = sw < num_sw
+    owned = sw[real].long()
+    nnz = int(a[real].count_nonzero())
+    merge = "ds_blk" in arrs and p.ds_rows == m
+    ucols = arrs.get("ds_ucols")
+    route = (("take path" if not merge else f"{p.ds_kind} merge, group {p.ds_group}")
+             + (f", compact table of {ucols.shape[0]} rows" if merge and ucols is not None else "")
+             + (", column ranges" if merge and p.ds_meta is not None else ""))
+    log(f"  {key} gcn3 wide plan: buckets (Sb) {[len(p.band_sw_ids[i]) for i in nonempty]}, main "
+        f"Sb {a.shape[0]}, Bb {a.shape[2]}, bh {bh}, {len(owned)} of {num_sw} superwindows, "
+        f"{nnz} band nnz; spill {p.spill_nnz} edges by the {route}")
+    for dp in dims:
+        xp = torch.randn((m, dp), generator=gen).to(dev)
+        base = torch.randn((m, dp), generator=gen).to(dev)
+        xs = xp * scale[:, None]
+
+        # band_kernel, direct mode at the main bucket
+        def direct(s=None):
+            return block_spmm.band_bucket_spmm_direct(sw, st, a, xp, num_sw, f32, s)
+
+        got = direct(scale)
+        if not torch.equal(got[owned], direct(scale)[owned]):
+            raise AssertionError(f"{key} dp {dp}: two scaled band_kernel runs differ")
+        ref = block_spmm.band_bucket_spmm_direct_plain(sw, st, a, xp, num_sw, f32, scale)
+        err = hold(f"{key} scaled direct dp {dp} vs plain", got[owned], ref[owned], cd)
+        del ref
+        comp = block_spmm.band_bucket_spmm_direct(sw, st, a, xs, num_sw, f32) * row_s[..., None]
+        err = max(err, hold(f"{key} scaled direct dp {dp} vs composed", got[owned], comp[owned],
+                            cd))
+        del got, comp
+        # bucket mode at every bucket (the main one included)
+        for i in nonempty:
+            sw_i, st_i, a_i = arrs[f"band{i}_sw"], arrs[f"band{i}_start"], arrs[f"band{i}_a"]
+            n_i = len(p.band_sw_ids[i])  # capacity padding trails the real entries
+            part = block_spmm.band_bucket_spmm(st_i, a_i, xp, scale, sw_i)
+            ref = block_spmm.band_bucket_spmm_plain(st_i, a_i, xp, scale, sw_i)
+            err = max(err, hold(f"{key} scaled bucket {i} dp {dp} vs plain", part, ref, cd))
+            del ref
+            comp = (block_spmm.band_bucket_spmm(st_i, a_i, xs)[:n_i]
+                    * row_s[sw_i[:n_i].long()][..., None])
+            err = max(err, hold(f"{key} scaled bucket {i} dp {dp} vs composed", part[:n_i],
+                                comp, cd))
+            del part, comp
+        ab = interleaved_ms({"scaled": lambda: direct(scale), "unscaled": direct}, reps)
+        b_ms, b_by = bound(a.numel() + m * dp * 4 + len(owned) * bh * dp * 4 + 8 * a.shape[0]
+                           + 4 * m, 2 * nnz * dp, cd)
+        shape = f"Sb {a.shape[0]}, Bb {a.shape[2]}, bh {bh}, dp {dp}"
+        log(f"    {key} band_kernel direct {shape}, fp32: scaled {ab['scaled']:.4f} ms, "
+            f"unscaled {ab['unscaled']:.4f} ms ({ab['scaled'] / ab['unscaled'] - 1:+.1%}), "
+            f"bound {b_ms:.4f} ms by {b_by}; scaled {ab['scaled'] / b_ms:.2f}x the bound")
+        out[(key, "band_bucket_spmm_direct", dp)] = dict(
+            err=err, ms=ab["scaled"], unscaled_ms=ab["unscaled"], bound_ms=b_ms, bound_by=b_by,
+            shape=shape)
+
+        # the spill chain: the plan's row merge where it has one, and the
+        # take path (every spilling plan carries its arrays) in any case
+        zeros = torch.zeros_like(base)
+        for way in ("merge",) * merge + ("take",) * ("spill_edge_col" in arrs):
+            if way == "merge":
+                def spill(s=None, x=xp, o=None):
+                    return dstream.dstream_spill(arrs, x, base.clone() if o is None else o, p, s)
+
+                got = spill(scale)
+                if not torch.equal(got, spill(scale)):
+                    raise AssertionError(f"{key} dp {dp}: two scaled row merges differ")
+                comp = base + scale[:, None] * spill(x=xs, o=zeros.clone())
+                err = hold(f"{key} scaled {route} dp {dp} vs composed", got, comp, cd)
+                del comp
+                name, label = ("bstream_merge" if p.ds_kind == "block" else "dstream_merge"), route
+                if p.ds_meta is None:
+                    fn, plain = merge_pair(p.ds_kind)
+                    t = [arrs["ds_gcols"], arrs["ds_local"], arrs["ds_blk"]]
+                    if p.ds_kind != "block":
+                        t.append(arrs["ds_lt"])
+                    src, cs = ((xp, scale) if ucols is None else
+                               (xp.index_select(0, ucols), scale.index_select(0, ucols)))
+                    segs = tspill.segments_of(arrs, "ds_seg")
+                    direct_m = fn(*t, src, base.clone(), group=p.ds_group, segs=segs,
+                                  cscale=cs, rscale=scale)
+                    if not torch.equal(direct_m, got):
+                        raise AssertionError(f"{key} dp {dp}: dstream_spill's scaled merge "
+                                             f"differs from {name}'s direct call")
+                    del direct_m
+                    ref = plain(*t, src, base.clone(), group=p.ds_group, cscale=cs, rscale=scale)
+                    err = max(err, hold(f"{key} scaled {name} dp {dp} vs plain", got, ref, cd))
+                    del ref
+                    dest, gcols = merge_slots(p.ds_kind, *t, p.ds_group)
+                    touched = int((segs[0] >= 0).sum())
+                    sources = int(torch.unique(gcols.clamp(max=src.shape[0] - 1)).numel())
+                    nbytes = (sources * dp * 4 + gcols.numel() * 4 + 2 * touched * dp * 4
+                              + (segs[0].numel() + segs[1].numel()) * 4
+                              + 4 * (sources + touched))
+                    buf = base.clone()
+                    fns = {"scaled": lambda: fn(*t, src, buf, group=p.ds_group, segs=segs,
+                                                cscale=cs, rscale=scale),
+                           "unscaled": lambda: fn(*t, src, buf, group=p.ds_group, segs=segs)}
+                    ops_n = gcols.numel() * dp
+                else:
+                    buf = base.clone()
+                    fns = {"scaled": lambda: spill(scale, o=buf), "unscaled": lambda: spill(o=buf)}
+                    nbytes, ops_n = m * dp * 12, p.spill_nnz * dp
+            else:
+                name = "take path"
+                label = "take path" + ("" if not merge else ", not the plan's route")
+                got = block_spmm._spill_take(base.clone(), arrs, xp, p, scale)
+                comp = base + scale[:, None] * block_spmm._spill_take(zeros.clone(), arrs, xs, p)
+                err = hold(f"{key} scaled take path dp {dp} vs composed", got, comp, cd)
+                del comp
+                rows = int(block_spmm._spill_rows(arrs, p, m).shape[0])
+                nbytes = (p.spill_nnz * (dp * 4 + 8) + 2 * rows * dp * 4
+                          + 4 * (p.spill_nnz + rows))
+                ops_n = p.spill_nnz * dp
+                buf = base.clone()
+                fns = {"scaled": lambda: block_spmm._spill_take(buf, arrs, xp, p, scale),
+                       "unscaled": lambda: block_spmm._spill_take(buf, arrs, xp, p)}
+            del got
+            ab = interleaved_ms(fns, reps)
+            b_ms, b_by = bound(nbytes, ops_n, cd)
+            log(f"    {key} {name} ({label}) dp {dp}, fp32: scaled {ab['scaled']:.4f} ms, "
+                f"unscaled {ab['unscaled']:.4f} ms ({ab['scaled'] / ab['unscaled'] - 1:+.1%}), "
+                f"bound {b_ms:.4f} ms by {b_by}; scaled {ab['scaled'] / b_ms:.2f}x the bound")
+            out[(key, name, dp)] = dict(err=err, ms=ab["scaled"], unscaled_ms=ab["unscaled"],
+                                        bound_ms=b_ms, bound_by=b_by, shape=f"{label}, dp {dp}")
+            del buf, fns
+        del zeros
+
+        # the operator's SpMM, forward and backward, launches counted
+        xv = xp.clone().requires_grad_(True)
+        zero_counts()
+        profiling.reset()
+        with profiling.tracing():
+            z = op.apply_padded(op.arrays, xv)
+            z.backward(base)
+        counts, folded = read_counts(), profiling.counters().get("spmm.scale_folded", 0)
+        profiling.reset()
+        if dev.type == "cuda":  # the plain versions (a CPU rehearsal) count no launch
+            check_counts(counts, {"band_bucket_spmm_direct": 1}, 2, exact=True)
+            if merge:
+                check_counts(counts, {"bstream_merge" if p.ds_kind == "block"
+                                      else "dstream_merge": 1}, 2)
+        if folded != 2:
+            raise AssertionError(f"{key} dp {dp}: spmm.scale_folded {folded}, not 2")
+        xc = xp.clone().requires_grad_(True)
+        zc = op._padded_core(op.arrays, xc * scale[:, None]) * scale[:, None]
+        zc.backward(base)
+        err = max(hold(f"{key} folded SpMM dp {dp} vs composed", z.detach(), zc.detach(), cd),
+                  hold(f"{key} folded SpMM's input gradient dp {dp} vs composed", xv.grad,
+                       xc.grad, cd))
+        log(f"    {key} dp {dp}: a forward and a backward SpMM launched "
+            f"{ {k: v for k, v in counts.items() if v} }, spmm.scale_folded {folded}")
+        del xv, z, xc, zc
+        with torch.no_grad():
+            ab = interleaved_ms({
+                "folded": lambda: op.apply_padded(op.arrays, xp),
+                "composed": lambda: op._padded_core(op.arrays, xp * scale[:, None])
+                * scale[:, None]}, max(reps // 2, 2))
+        log(f"    {key} SpMM dp {dp}, fp32: folded {ab['folded']:.4f} ms, composed "
+            f"{ab['composed']:.4f} ms ({ab['folded'] / ab['composed'] - 1:+.1%})")
+        out[(key, "spmm", dp)] = dict(err=err, ms=ab["folded"], composed_ms=ab["composed"],
+                                      launches={k: v for k, v in counts.items() if v},
+                                      scale_folded=folded)
+        del xp, xs, base
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def scaled_phase(graphs, gen, out) -> None:
+    """Phase 27: ``scaled_at_plan`` at the gcn3 cells' plans, the GH and YS
+    stand-ins in cluster order (``graphs``: key -> (rp, ci, n))."""
+    import torch
+
+    for key in ("GH", "YS"):
+        t0 = time.perf_counter()
+        op = gcn3_wide_op(*graphs[key], torch.device(DEV))
+        log(f"  {key} gcn3 plan and upload {time.perf_counter() - t0:.1f} s")
+        scaled_at_plan(key, op, gen, out)
+        del op
+
+
 def median_ms(fn, reps: int, trials: int = 7) -> tuple:
     """(median, 2nd, 6th) of ``trials`` CUDA-event timings of ``reps`` calls."""
     v = sorted(cuda_time_ms(fn, reps) for _ in range(trials))
@@ -1128,10 +1377,20 @@ def tband_kernel_report(log_text: str) -> list:
 
 def band_kernel_report(log_text: str) -> list:
     """ptxas's lines of each instantiation of csrc/block_spmm.cu's
-    band_kernel and band_fused_kernel."""
-    return ptxas_report(log_text, r"\d(band_kernel|band_fused_kernel)I(\w+?)Li(\d+)ELi(\d+)E",
+    band_kernel (unscaled and SCALED) and band_fused_kernel."""
+    return ptxas_report(log_text,
+                        r"\d(band_kernel|band_fused_kernel)I(\w+?)Li(\d+)ELi(\d+)E(?:Lb([01])E)?",
                         lambda k: f"{k.group(1)}<{types_of(k.group(2))}, NG {k.group(3)}, "
-                                  f"PACK {k.group(4)}>")
+                                  f"PACK {k.group(4)}{', SCALED' if k.group(5) == '1' else ''}>")
+
+
+def merge_kernel_report(log_text: str) -> list:
+    """ptxas's lines of each instantiation of csrc/dstream.cu's
+    merge_kernel (vector or scalar form, unscaled or SCALED)."""
+    return ptxas_report(log_text, r"merge_kernelILb([01])E(\w+?)Lb([01])EE",
+                        lambda k: f"merge_kernel<{'vector' if k.group(1) == '1' else 'scalar'}, "
+                                  f"{types_of(k.group(2))}"
+                                  f"{', SCALED' if k.group(3) == '1' else ''}>")
 
 
 def band_kernel_at_plan(key, op, gen, out, graph) -> None:
@@ -3669,6 +3928,9 @@ def main() -> int:
         with open(_build.library_path("block_spmm") + ".log") as f:
             for line in band_kernel_report(f.read()):
                 log("  " + line)
+        with open(_build.library_path("dstream") + ".log") as f:
+            for line in merge_kernel_report(f.read()):
+                log("  " + line)
         for bh, dtype in ((256, torch.float32), (256, torch.bfloat16), (512, torch.float32)):
             for pack in (1, 2, 8):
                 log(f"  tband_kernel at bh {bh}, dt 32, {dtype}, pack {pack}: "
@@ -4086,6 +4348,10 @@ def main() -> int:
                     tools_res)
         tools_res["seconds"] = time.perf_counter() - t0
 
+    scaled_res = {}
+    with Phase("27. D^-1/2 inside the wide kernels at the gcn3 cells' plans (GH, YS)"):
+        scaled_phase(real_csr, gen, scaled_res)
+
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
 
@@ -4182,7 +4448,9 @@ def main() -> int:
               err=max(v["err"] for (_, _, cd), v in wide_res.items() if cd == "float32"),
               design=WIDE_DESIGN, graph_library_ms=wide["graph_library_ms"],
               plans={f"{k} dp {dp} {cd}": v for (k, dp, cd), v in wide_res.items()},
-              int4=int4("band_spmm")),
+              int4=int4("band_spmm"),
+              scaled={f"{k} dp {dp}": v for (k, name, dp), v in scaled_res.items()
+                      if name == "band_bucket_spmm_direct"}),
         *[entry(name, csrc + source, tpu + replaces, r,
                 f"{r['graph']} wide plan {r['shape']}, float32",
                 err=max(v["err"] for v in row_res[(name, "float32")]))
@@ -4227,12 +4495,52 @@ def main() -> int:
                     "packed_training": {f"pack {k[0]} {k[1]}": v
                                         for k, v in packed_train.items()},
                     "int4_training": {f"{k[0]} {k[1]}": v for k, v in int4_train.items()},
-                    "distributed": dist_res, "checkpoint": ckpt_res, "tools": tools_res}))
+                    "distributed": dist_res, "checkpoint": ckpt_res, "tools": tools_res,
+                    "scaled": {f"{k} {name} dp {dp}": v
+                               for (k, name, dp), v in scaled_res.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
 
 
+def scaled_main() -> int:
+    """``python3 chip_smoke.py --scaled``: phase 27 alone, after phase 1's
+    versions and the build of the two libraries it runs (with ptxas's lines
+    of band_kernel and merge_kernel); its rows as one JSON line."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import _build, block_spmm, dstream
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device "
+                         "(torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
+    log(smi)
+    with Phase("2. build csrc/block_spmm.cu and csrc/dstream.cu"):
+        block_spmm._lib()
+        dstream._lib()
+        for name, report in (("block_spmm", band_kernel_report), ("dstream", merge_kernel_report)):
+            with open(_build.library_path(name) + ".log") as f:
+                for line in report(f.read()):
+                    log("  " + line)
+    gen = torch.Generator().manual_seed(0)
+    graphs = {}
+    with Phase("6. the GH and YS stand-ins, cluster order"):
+        for key in ("GH", "YS"):
+            graphs[key] = real_graph(key)[2:]
+    res = {}
+    with Phase("27. D^-1/2 inside the wide kernels at the gcn3 cells' plans (GH, YS)"):
+        scaled_phase(graphs, gen, res)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(smi)
+    log(json.dumps({"scaled": {f"{k} {name} dp {dp}": v for (k, name, dp), v in res.items()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(scaled_main() if sys.argv[1:] == ["--scaled"] else main())

@@ -371,11 +371,15 @@ __device__ __forceinline__ float a_value(const unsigned char* arow, RowMap at, i
 // columns; the warp then takes the non-zeros in increasing k, U at a time:
 // each one's value of A (1 where the step holds only 0/1 columns, else a
 // broadcast read of the staged row) and its X row's U*NG loads are issued
-// before the batch's FMAs, which run in k order.
-template <typename TX, int NG, int U, int PACK>
+// before the batch's FMAs, which run in k order.  SCALED: each value of A
+// is multiplied by cs[k], the column scale of X's band row k (one broadcast
+// load a non-zero, issued with its X row's), so the FMA takes the scale as
+// its operand; where the step holds only 0/1 columns the operand is cs[k]
+// itself, with no multiply.
+template <typename TX, int NG, int U, int PACK, bool SCALED = false>
 __device__ __forceinline__ void band_row(const unsigned char* arow, RowMap at, int bb,
                                          const TX* xb, long long dp, int lane,
-                                         float (&acc)[NG][4]) {
+                                         float (&acc)[NG][4], const float* cs = nullptr) {
   const int rb = bb / PACK;
   for (int k0 = 0; k0 < rb; k0 += SEG) {
     bool ones = true;
@@ -399,7 +403,12 @@ __device__ __forceinline__ void band_row(const unsigned char* arow, RowMap at, i
         ok[u] = more && nz.next(k0 * PACK, k);
         more = ok[u];
         if (ok[u]) {
-          af[u] = ones ? 1.f : a_value<PACK>(arow, at, k);
+          if (SCALED) {
+            const float c = __ldg(cs + k);
+            af[u] = ones ? c : a_value<PACK>(arow, at, k) * c;
+          } else {
+            af[u] = ones ? 1.f : a_value<PACK>(arow, at, k);
+          }
           const TX* xr = xb + (long long)k * dp;
 #pragma unroll
           for (int g = 0; g < NG; ++g) v[u][g] = gather4(xr + g * 128);
@@ -436,13 +445,21 @@ __device__ __forceinline__ void band_row(const unsigned char* arow, RowMap at, i
 // Consumer warp w takes the item's rows w, w + BAND_WARPS, ...: for each
 // NG*128-column slab of dp it sums the row (band_row) and stores it, 16
 // bytes a lane (fp32).
-template <typename TX, typename TO, int NG, int PACK>
+// SCALED (a diagonal scale D over X's and out's rows, D X and D out: the
+// normalised operator D A D X): X's band row k enters the sums times
+// scale[st + k], and each sum is multiplied once by scale[ssw[i] * bh + r]
+// at its store, r the row within the block: the superwindow's own row,
+// which in bucket mode is ssw[i] and not the block id i.  A row past
+// scale_rows (capacity padding in bucket mode, whose blocks the caller
+// drops) is scaled by 0.
+template <typename TX, typename TO, int NG, int PACK, bool SCALED>
 __global__ void __launch_bounds__((BAND_WARPS + 1) * 32, 2)
 band_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict__ starts,
             const int32_t* __restrict__ sw, const int8_t* __restrict__ a,
             const TX* __restrict__ x, TO* __restrict__ out, int* __restrict__ counter, int sb,
             int bh, int bb, int dp, int num_sw, int group, int rows, int box_w, int nbox,
-            int stages, int tma) {
+            int stages, int tma, const float* __restrict__ scale,
+            const int32_t* __restrict__ ssw, long long scale_rows) {
   extern __shared__ __align__(16) unsigned char band_smem[];
   unsigned char* ring =
       band_smem + (RING_ALIGN - smem_addr(band_smem) % RING_ALIGN) % RING_ALIGN;
@@ -528,13 +545,22 @@ band_kernel(const __grid_constant__ CUtensorMap amap, const int32_t* __restrict_
     const long long blk = sw != nullptr ? sw[item.x] : item.x;
     const int r0 = item.y;
     const TX* xb = x + (long long)starts[item.x] * dp + 4 * lane;
+    const float* cs = SCALED ? scale + starts[item.x] : nullptr;
+    const long long srow0 = SCALED ? (long long)ssw[item.x] * bh + r0 : 0;
     for (int rr = warp; rr < rows && r0 + rr < bh; rr += BAND_WARPS) {
       TO* orow = out + (blk * bh + r0 + rr) * dp + 4 * lane;
+      const float rs = SCALED && srow0 + rr < scale_rows ? __ldg(scale + srow0 + rr) : 0.f;
       for (int c = 0; c < dp; c += NG * 128) {
         float acc[NG][4] = {};
-        band_row<TX, NG, U, PACK>(stage + rr * box_w, at, bb, xb + c, dp, lane, acc);
+        band_row<TX, NG, U, PACK, SCALED>(stage + rr * box_w, at, bb, xb + c, dp, lane, acc, cs);
 #pragma unroll
-        for (int g = 0; g < NG; ++g) store4(orow + c + g * 128, acc[g]);
+        for (int g = 0; g < NG; ++g) {
+          if (SCALED) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[g][q] *= rs;
+          }
+          store4(orow + c + g * 128, acc[g]);
+        }
       }
     }
     __syncwarp();
@@ -860,17 +886,18 @@ struct Ring {
   int rows, box_w, nbox, stages, tma;
 };
 
-template <typename TX, typename TO, int NG, int PACK>
+template <typename TX, typename TO, int NG, int PACK, bool SCALED>
 cudaError_t launch_band(const void* starts, const void* sw, const void* a, const void* x,
                         void* out, void* counter, int sb, int bh, int bb, int dp, int num_sw,
-                        int group, Ring ring, cudaStream_t stream) {
+                        int group, Ring ring, const void* scale, const void* ssw,
+                        long long scale_rows, cudaStream_t stream) {
   Device d;
   cudaError_t e = device_of(&d);
   if (e != cudaSuccess) return e;
   const size_t smem =
       BAND_FIXED_SMEM + (size_t)ring.stages * ring.rows * ring.box_w * ring.nbox;
   if (smem > (size_t)d.optin) return cudaErrorInvalidValue;
-  auto kernel = band_kernel<TX, TO, NG, PACK>;
+  auto kernel = band_kernel<TX, TO, NG, PACK, SCALED>;
   // the cap is the kernel's, not this shape's: let it take any
   static int opted[16] = {};
   if (d.dev < 16 && !opted[d.dev]) {
@@ -888,12 +915,13 @@ cudaError_t launch_band(const void* starts, const void* sw, const void* a, const
     return cudaErrorInvalidValue;
   const long long units = (long long)(sb / group) * ((bh + ring.rows - 1) / ring.rows);
   const long long slots = (long long)blocks * d.sms;
-  band_kernel<TX, TO, NG, PACK><<<(unsigned)(units < slots ? units : slots),
-                                  (BAND_WARPS + 1) * 32, smem, stream>>>(
+  band_kernel<TX, TO, NG, PACK, SCALED><<<(unsigned)(units < slots ? units : slots),
+                                          (BAND_WARPS + 1) * 32, smem, stream>>>(
       amap, static_cast<const int32_t*>(starts), static_cast<const int32_t*>(sw),
       static_cast<const int8_t*>(a), static_cast<const TX*>(x), static_cast<TO*>(out),
       static_cast<int*>(counter), sb, bh, bb, dp, num_sw, group, ring.rows, ring.box_w, ring.nbox,
-      ring.stages, ring.tma);
+      ring.stages, ring.tma, static_cast<const float*>(scale), static_cast<const int32_t*>(ssw),
+      scale_rows);
   return cudaGetLastError();
 }
 
@@ -992,15 +1020,21 @@ struct BandArgs {
   void *out, *counter;
   int sb, bh, bb, dp, num_sw, group, pack;
   Ring ring;
+  const void *scale, *ssw;
+  long long scale_rows;
   cudaStream_t stream;
   template <typename TX, typename TO>
   struct ByNg {
     const BandArgs& b;
     template <int NG>
     cudaError_t run() const {
-      auto launch = b.pack == 2 ? launch_band<TX, TO, NG, 2> : launch_band<TX, TO, NG, 1>;
+      auto launch = b.scale != nullptr
+                        ? (b.pack == 2 ? launch_band<TX, TO, NG, 2, true>
+                                       : launch_band<TX, TO, NG, 1, true>)
+                        : (b.pack == 2 ? launch_band<TX, TO, NG, 2, false>
+                                       : launch_band<TX, TO, NG, 1, false>);
       return launch(b.starts, b.sw, b.a, b.x, b.out, b.counter, b.sb, b.bh, b.bb, b.dp, b.num_sw,
-                    b.group, b.ring, b.stream);
+                    b.group, b.ring, b.scale, b.ssw, b.scale_rows, b.stream);
     }
   };
   template <typename TX, typename TO>
@@ -1076,21 +1110,30 @@ struct TiledArgs {
 // 16-aligned, rb = bb / pack bytes a row with rb % 16 == 0, box_w a
 // 16-multiple <= 256 and a power of two where nbox > 1, nbox * box_w >= rb)
 // or by cp.async (box_w a 16-multiple >= rb, nbox 1); bb is a multiple of 4 *
-// pack.  Returns a cudaError_t
+// pack.  scale (may be null: the unscaled kernel): fp32 [scale_rows], a
+// diagonal scale over x's rows and the superwindows' rows, applied to X's
+// band rows in the sums and to each output row at its store (band_kernel's
+// SCALED); ssw: int32 [sb], each entry's superwindow, whose rows' scales
+// its block takes (sw itself in direct mode; bucket mode writes block i but
+// scales it by superwindow ssw[i]'s rows).  Returns a cudaError_t
 // (0 = launched).  The caller checks on the host that st + bb <= m for every
 // entry, that sw lies in [0, num_sw], and that every output block it reads
-// is written by exactly one entry.
+// is written by exactly one entry; with scale, that scale_rows covers x's m
+// rows.
 extern "C" int hcspmm_band_spmm(const void* starts, const void* sw, const void* a,
                                 const void* x, void* out, void* counter, int sb, int bh, int bb,
                                 int dp, int num_sw, int group, int rows, int box_w, int nbox,
                                 int stages, int tma, int pack, int x_bf16, int out_f32,
+                                const void* scale, const void* ssw, long long scale_rows,
                                 void* stream) {
   if (sb <= 0) return 0;
   if (counter == nullptr || group <= 0 || sb % group ||
-      !ring_ok(a, sb, bh, bb, pack, dp, rows, box_w, nbox, stages, tma))
+      !ring_ok(a, sb, bh, bb, pack, dp, rows, box_w, nbox, stages, tma) ||
+      (scale != nullptr && (ssw == nullptr || scale_rows <= 0)))
     return (int)cudaErrorInvalidValue;
   const BandArgs args{starts, sw, a, x, out, counter, sb, bh, bb, dp, num_sw, group, pack,
-                      Ring{rows, box_w, nbox, stages, tma}, static_cast<cudaStream_t>(stream)};
+                      Ring{rows, box_w, nbox, stages, tma}, scale, ssw, scale_rows,
+                      static_cast<cudaStream_t>(stream)};
   return (int)dispatch_types(x_bf16, out_f32, args);
 }
 

@@ -30,6 +30,12 @@
 // the reference's one-hot dot would spread 0 * NaN.  A bf16 xsrc is widened
 // in registers, so the reference's ds_gather_f32 cast changes no value here.
 //
+// Scaled form (SCALED; the normalised operator D A D X, D a diagonal scale
+// that the band kernel applies to the band part of out already): a
+// segment's slots are summed as fmaf(x, cscale[col], sum) from 0, col the
+// slot's (clamped) row of xsrc, and the row gets out[row] + rscale[row] *
+// sum, one fmaf, in short and long segments alike.
+//
 // What bounds it: bytes, once enough segments are in flight.  Each touched
 // row of out is read and written once, each real slot's xsrc row (dp * elt
 // bytes) read once, plus 4 bytes of index a slot and 8 a segment.  The
@@ -114,25 +120,34 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, int n, const float (&v)
 }
 
 // acc += the xsrc rows of slots [e0, e1) at this lane's columns, in slot
-// order, U gathers in flight.
-template <bool VECTOR, typename TX>
+// order, U gathers in flight; SCALED, each times its row's cscale (loaded
+// with the gathers).
+template <bool VECTOR, bool SCALED, typename TX>
 __device__ __forceinline__ void add_slots(const int32_t* __restrict__ gcols,
                                           const TX* __restrict__ xcol, long long e0,
                                           long long e1, long long xrows, long long dp, int n,
-                                          float (&acc)[VEC]) {
+                                          float (&acc)[VEC], const float* __restrict__ cscale) {
   for (long long e = e0; e < e1; e += U) {
     long long g[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) g[u] = e + u < e1 ? min((long long)gcols[e + u], xrows - 1) : -1;
     float v[U][VEC];
+    float cs[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u)
+    for (int u = 0; u < U; ++u) {
       if (g[u] >= 0) load8<VECTOR>(xcol + g[u] * dp, n, v[u]);
+      if (SCALED) cs[u] = g[u] >= 0 ? __ldg(cscale + g[u]) : 0.f;
+    }
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (g[u] >= 0) {
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] += v[u][i];
+        for (int i = 0; i < VEC; ++i) {
+          if (SCALED)
+            acc[i] = fmaf(v[u][i], cs[u], acc[i]);
+          else
+            acc[i] += v[u][i];
+        }
       }
   }
 }
@@ -140,12 +155,13 @@ __device__ __forceinline__ void add_slots(const int32_t* __restrict__ gcols,
 // Grid: x = n_long blocks (one long segment each), then ceil(S / (THREADS /
 // g)) blocks of short segments; y = column slab of g * VEC columns.
 // Dynamic shared memory (long blocks): THREADS * VEC fp32 partials.
-template <bool VECTOR, typename TX, typename TO>
+template <bool VECTOR, typename TX, typename TO, bool SCALED>
 __global__ void __launch_bounds__(THREADS, 4)
 merge_kernel(const int32_t* __restrict__ gcols, const int32_t* __restrict__ seg_row,
              const int32_t* __restrict__ seg_ptr, const int32_t* __restrict__ seg_long,
              const TX* __restrict__ xsrc, TO* __restrict__ out, int segs, int n_long,
-             int long_min, int g, long long xrows, int dp) {
+             int long_min, int g, long long xrows, int dp, const float* __restrict__ cscale,
+             const float* __restrict__ rscale) {
   const int groups = THREADS / g;
   const int q = threadIdx.x / g;
   const int col = blockIdx.y * g * VEC + (threadIdx.x % g) * VEC;
@@ -160,8 +176,20 @@ merge_kernel(const int32_t* __restrict__ gcols, const int32_t* __restrict__ seg_
     if (row < 0 || e1 - e0 > long_min) return;  // sentinel run, or a long block's
     TO* orow = out + row * dp + col;
     float acc[VEC];
-    load8<VECTOR>(orow, n, acc);
-    add_slots<VECTOR>(gcols, xsrc + col, e0, e1, xrows, dp, n, acc);
+    if (SCALED) {
+      // the slots' sum first, then the row (read after it: fewer registers live)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+      add_slots<VECTOR, SCALED>(gcols, xsrc + col, e0, e1, xrows, dp, n, acc, cscale);
+      const float rs = __ldg(rscale + row);
+      float o[VEC];
+      load8<VECTOR>(orow, n, o);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = fmaf(acc[i], rs, o[i]);
+    } else {
+      load8<VECTOR>(orow, n, acc);
+      add_slots<VECTOR, SCALED>(gcols, xsrc + col, e0, e1, xrows, dp, n, acc, cscale);
+    }
     store8<VECTOR>(orow, n, acc);
     return;
   }
@@ -174,8 +202,8 @@ merge_kernel(const int32_t* __restrict__ gcols, const int32_t* __restrict__ seg_
   const long long len = seg_ptr[s + 1] - e0;
   float acc[VEC] = {};
   if (n > 0)
-    add_slots<VECTOR>(gcols, xsrc + col, e0 + len * q / groups, e0 + len * (q + 1) / groups,
-                      xrows, dp, n, acc);
+    add_slots<VECTOR, SCALED>(gcols, xsrc + col, e0 + len * q / groups,
+                              e0 + len * (q + 1) / groups, xrows, dp, n, acc, cscale);
   const int slab = g * VEC;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) part[q * slab + (threadIdx.x % g) * VEC + i] = acc[i];
@@ -184,15 +212,22 @@ merge_kernel(const int32_t* __restrict__ gcols, const int32_t* __restrict__ seg_
   if (threadIdx.x < slab && c < dp) {
     TO* o = out + row * dp + c;
     float a = to_f32(*o);
-    for (int p = 0; p < groups; ++p) a += part[p * slab + threadIdx.x];
+    if (SCALED) {
+      float sum = 0.f;
+      for (int p = 0; p < groups; ++p) sum += part[p * slab + threadIdx.x];
+      a = fmaf(sum, __ldg(rscale + row), a);
+    } else {
+      for (int p = 0; p < groups; ++p) a += part[p * slab + threadIdx.x];
+    }
     store1(o, a);
   }
 }
 
-template <bool VECTOR, typename TX, typename TO>
+template <bool VECTOR, typename TX, typename TO, bool SCALED>
 cudaError_t launch(const void* gcols, const void* seg_row, const void* seg_ptr,
                    const void* seg_long, const void* xsrc, void* out, int segs, int n_long,
-                   int long_min, long long xrows, int dp, cudaStream_t stream) {
+                   int long_min, long long xrows, int dp, const float* cscale,
+                   const float* rscale, cudaStream_t stream) {
   int g = 1;  // lanes a segment: the fewest whose VEC columns each cover dp, at most 32
   while (g < 32 && g * VEC < dp) g *= 2;
   const int groups = THREADS / g;
@@ -201,26 +236,28 @@ cudaError_t launch(const void* gcols, const void* seg_row, const void* seg_ptr,
   const size_t smem = n_long ? (size_t)THREADS * VEC * sizeof(float) : 0;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_kernel<VECTOR, TX, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        merge_kernel<VECTOR, TX, TO, SCALED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
   }
-  merge_kernel<VECTOR, TX, TO><<<grid, THREADS, smem, stream>>>(
+  merge_kernel<VECTOR, TX, TO, SCALED><<<grid, THREADS, smem, stream>>>(
       static_cast<const int32_t*>(gcols), static_cast<const int32_t*>(seg_row),
       static_cast<const int32_t*>(seg_ptr), static_cast<const int32_t*>(seg_long),
       static_cast<const TX*>(xsrc), static_cast<TO*>(out), segs, n_long, long_min, g, xrows,
-      dp);
+      dp, cscale, rscale);
   return cudaGetLastError();
 }
 
 template <typename TX, typename TO>
 cudaError_t dispatch(int vector, const void* gcols, const void* seg_row, const void* seg_ptr,
                      const void* seg_long, const void* xsrc, void* out, int segs, int n_long,
-                     int long_min, long long xrows, int dp, cudaStream_t stream) {
-  if (vector)
-    return launch<true, TX, TO>(gcols, seg_row, seg_ptr, seg_long, xsrc, out, segs, n_long,
-                                long_min, xrows, dp, stream);
-  return launch<false, TX, TO>(gcols, seg_row, seg_ptr, seg_long, xsrc, out, segs, n_long,
-                               long_min, xrows, dp, stream);
+                     int long_min, long long xrows, int dp, const float* cscale,
+                     const float* rscale, cudaStream_t stream) {
+  auto run = rscale != nullptr
+                 ? (vector ? launch<true, TX, TO, true> : launch<false, TX, TO, true>)
+                 : (vector ? launch<true, TX, TO, false> : launch<false, TX, TO, false>);
+  return run(gcols, seg_row, seg_ptr, seg_long, xsrc, out, segs, n_long, long_min, xrows, dp,
+             cscale, rscale, stream);
 }
 
 }  // namespace
@@ -230,26 +267,33 @@ cudaError_t dispatch(int vector, const void* gcols, const void* seg_row, const v
 // [segs + 1] slot offsets into gcols; seg_long: int32 [n_long] the segments
 // longer than long_min slots; xsrc: [xrows, dp]; out: [rows, dp].  x_bf16 /
 // out_bf16 pick bfloat16 over fp32 for xsrc / out; vector != 0 promises dp
-// % 8 == 0 and 16-byte aligned xsrc and out.  Returns a cudaError_t (0 =
+// % 8 == 0 and 16-byte aligned xsrc and out.  cscale and rscale, both or
+// neither (null: the unscaled kernel): fp32 [xrows], a scale for each row
+// of xsrc, and fp32, one for each row of out; they take the scaled form
+// above.  Returns a cudaError_t (0 =
 // launched).  The caller checks every index on the host before upload.
 extern "C" int hcspmm_row_merge(const void* gcols, const void* seg_row, const void* seg_ptr,
                                 const void* seg_long, const void* xsrc, void* out, int segs,
                                 int n_long, int long_min, long long xrows, int dp, int x_bf16,
-                                int out_bf16, int vector, void* stream) {
+                                int out_bf16, int vector, const void* cscale, const void* rscale,
+                                void* stream) {
   if (segs <= 0 || dp <= 0) return 0;
-  if (xrows <= 0 || n_long < 0 || long_min < 1 || (vector && dp % VEC))
+  if (xrows <= 0 || n_long < 0 || long_min < 1 || (vector && dp % VEC) ||
+      (cscale == nullptr) != (rscale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* cs = static_cast<const float*>(cscale);
+  const float* rs = static_cast<const float*>(rscale);
   if (x_bf16 && out_bf16)
     return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(vector, gcols, seg_row, seg_ptr, seg_long,
                                                        xsrc, out, segs, n_long, long_min, xrows,
-                                                       dp, s);
+                                                       dp, cs, rs, s);
   if (x_bf16)
     return (int)dispatch<__nv_bfloat16, float>(vector, gcols, seg_row, seg_ptr, seg_long, xsrc,
-                                               out, segs, n_long, long_min, xrows, dp, s);
+                                               out, segs, n_long, long_min, xrows, dp, cs, rs, s);
   if (out_bf16)
     return (int)dispatch<float, __nv_bfloat16>(vector, gcols, seg_row, seg_ptr, seg_long, xsrc,
-                                               out, segs, n_long, long_min, xrows, dp, s);
+                                               out, segs, n_long, long_min, xrows, dp, cs, rs, s);
   return (int)dispatch<float, float>(vector, gcols, seg_row, seg_ptr, seg_long, xsrc, out, segs,
-                                     n_long, long_min, xrows, dp, s);
+                                     n_long, long_min, xrows, dp, cs, rs, s);
 }

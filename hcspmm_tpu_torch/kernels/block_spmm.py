@@ -100,7 +100,7 @@ row_launches = {"dense_bucket_spmm": 0, "ell_bucket_spmm": 0, "ell_residual": 0}
 def _lib() -> ctypes.CDLL:
     lib = load_library("block_spmm")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.hcspmm_band_spmm.argtypes = [vp] * 6 + [i32] * 14 + [vp]
+    lib.hcspmm_band_spmm.argtypes = [vp] * 6 + [i32] * 14 + [vp, vp, ctypes.c_longlong, vp]
     lib.hcspmm_tiled_spmm.argtypes = [vp] * 5 + [i32] * 6 + [vp]
     lib.hcspmm_band_fused.argtypes = [vp] * 8 + [i32] * 13 + [ctypes.POINTER(i32), vp]
     lib.hcspmm_band_device.argtypes = [ctypes.POINTER(i32)] * 4
@@ -357,19 +357,37 @@ def check_band_arrays(starts: np.ndarray, sw_ids: np.ndarray, w: int, m: int,
 # ---------------------------------------------------------------------------
 
 
-def band_bucket_spmm_plain(starts, a, xp):
+def block_row_scale(scale, sw_ids, bh):
+    """fp32 [Sb, bh]: the scale of each row of each entry's superwindow,
+    ``scale[sw[i] * bh + r]``, 0 past the scale (capacity padding)."""
+    rows = sw_ids.long()[:, None] * bh + torch.arange(bh, device=scale.device)
+    inside = rows < scale.shape[0]
+    return torch.where(inside, scale[rows.clamp(max=scale.shape[0] - 1)], 0.0)
+
+
+def band_bucket_spmm_plain(starts, a, xp, scale=None, sw_ids=None):
     """fp32 [Sb, bh, dp]: block i = A[i] @ xp[st[i] : st[i]+Bb] (``a`` as
-    stored, int8 or int4 nibbles: ``expand_a``)."""
+    stored, int8 or int4 nibbles: ``expand_a``).  With ``scale`` (fp32 [M]
+    over xp's rows): block i = D_i A[i] D xp slice, the slice's rows times
+    their scales and each row of the block times ``block_row_scale``'s
+    (the rows of superwindow ``sw_ids[i]``)."""
     a = expand_a(a)
     bb = a.shape[2]
     rows = starts.long()[:, None] + torch.arange(bb, device=xp.device)
-    return torch.einsum("sbk,skd->sbd", a.float(), xp[rows].float())
+    xs = xp[rows].float()
+    if scale is not None:
+        xs = xs * scale[rows][..., None]
+    part = torch.einsum("sbk,skd->sbd", a.float(), xs)
+    if scale is not None:
+        part = part * block_row_scale(scale, sw_ids, a.shape[1])[..., None]
+    return part
 
 
-def band_bucket_spmm_direct_plain(sw_ids, starts, a, xp, num_sw, out_dtype):
-    """[num_sw, bh, dp] ``out_dtype``: block sw[i] = A[i] @ xp slice;
-    entries with sw == num_sw are dropped, unowned blocks stay unset."""
-    part = band_bucket_spmm_plain(starts, a, xp)
+def band_bucket_spmm_direct_plain(sw_ids, starts, a, xp, num_sw, out_dtype, scale=None):
+    """[num_sw, bh, dp] ``out_dtype``: block sw[i] = A[i] @ xp slice (with
+    ``scale``, as ``band_bucket_spmm_plain`` scales it); entries with sw ==
+    num_sw are dropped, unowned blocks stay unset."""
+    part = band_bucket_spmm_plain(starts, a, xp, scale, sw_ids)
     out = torch.empty((num_sw,) + part.shape[1:], dtype=out_dtype, device=xp.device)
     keep = sw_ids < num_sw
     out[sw_ids[keep].long()] = part[keep].to(out_dtype)
@@ -507,9 +525,23 @@ def _check_cuda_args(starts, sw_ids, a, xp):
     return pack
 
 
-def _launch(starts, sw_ids, a, xp, out, num_sw, pack, group=1):
+def _check_scale(scale, ssw, xp, sb):
+    """``scale`` fp32 [M] over xp's rows and ``ssw`` int32 [Sb] on xp's
+    device, contiguous (the band kernel reads them unchecked)."""
+    if (scale.device != xp.device or not scale.is_contiguous() or scale.dtype != torch.float32
+            or tuple(scale.shape) != (xp.shape[0],)):
+        raise ValueError(f"scale must be contiguous float32 [{xp.shape[0]}] on {xp.device}")
+    if (ssw is None or ssw.device != xp.device or not ssw.is_contiguous()
+            or ssw.dtype != torch.int32 or tuple(ssw.shape) != (sb,)):
+        raise ValueError(f"a scaled launch needs each entry's superwindow: int32 [{sb}] on "
+                         f"{xp.device}")
+
+
+def _launch(starts, sw_ids, a, xp, out, num_sw, pack, group=1, scale=None, ssw=None):
     global launches
     sb, bh, bb = a.shape[0], a.shape[1], a.shape[2] * pack
+    if scale is not None:
+        _check_scale(scale, ssw, xp, sb)
     with torch.cuda.device(xp.device):
         ring = band_launch(a.shape[2], *band_device(xp.device.index)[1:],
                            aligned=a.data_ptr() % 16 == 0)
@@ -519,7 +551,8 @@ def _launch(starts, sw_ids, a, xp, out, num_sw, pack, group=1):
             xp.data_ptr(), out.data_ptr(), counter.data_ptr(), sb, bh, bb, xp.shape[1], num_sw,
             group, ring["rows"], ring["box_w"], ring["nbox"], ring["stages"], int(ring["tma"]),
             pack, int(xp.dtype == torch.bfloat16), int(out.dtype == torch.float32),
-            torch.cuda.current_stream().cuda_stream)
+            None if scale is None else scale.data_ptr(), None if scale is None else ssw.data_ptr(),
+            0 if scale is None else scale.shape[0], torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "band_kernel")
     launches += 1
 
@@ -529,7 +562,7 @@ def _raise_on(rc, kernel):
         raise RuntimeError(f"csrc/block_spmm.cu {kernel} launch failed: cudaError {rc}")
 
 
-def band_bucket_spmm_direct(sw_ids, starts, a, xp, num_sw, out_dtype):
+def band_bucket_spmm_direct(sw_ids, starts, a, xp, num_sw, out_dtype, scale=None):
     """Row-layout band SpMM, direct write: entry i computes superwindow
     ``sw_ids[i]``'s output rows (port of the Pallas kernel at
     hcspmm_tpu/kernels/block_spmm.py:424).
@@ -538,28 +571,32 @@ def band_bucket_spmm_direct(sw_ids, starts, a, xp, num_sw, out_dtype):
     [Sb, bh, Bb/2] (``a_pack``); xp: [M, dp] float32 or bfloat16.  Returns
     [num_sw, bh, dp] in ``out_dtype`` (xp's dtype or float32).  Entries with
     ``sw_id == num_sw`` write nothing, and blocks no entry owns are left
-    unset: callers zero or overwrite them."""
+    unset: callers zero or overwrite them.  ``scale`` (fp32 [M], a diagonal
+    D over xp's rows and the output's): the block is D A D xp, the kernel
+    scaling X's rows in its sums and each output row at its store."""
     if xp.device.type == "cpu":
-        return band_bucket_spmm_direct_plain(sw_ids, starts, a, xp, num_sw, out_dtype)
+        return band_bucket_spmm_direct_plain(sw_ids, starts, a, xp, num_sw, out_dtype, scale)
     pack = _check_cuda_args(starts, sw_ids, a, xp)
     if out_dtype not in (xp.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xp's dtype or float32")
     out = torch.empty((num_sw, a.shape[1], xp.shape[1]), dtype=out_dtype, device=xp.device)
-    _launch(starts, sw_ids, a, xp, out, num_sw, pack)
+    _launch(starts, sw_ids, a, xp, out, num_sw, pack, scale=scale, ssw=sw_ids)
     kernel_launches["band_bucket_spmm_direct"] += 1
     return out
 
 
-def band_bucket_spmm(starts, a, xp):
+def band_bucket_spmm(starts, a, xp, scale=None, sw_ids=None):
     """Bucket-order form for secondary buckets (port of
     hcspmm_tpu/kernels/block_spmm.py:290): fp32 [Sb, bh, dp], block i from
-    entry i; the caller scatters the blocks."""
+    entry i; the caller scatters the blocks.  ``scale`` as
+    ``band_bucket_spmm_direct``'s, with ``sw_ids`` (int32 [Sb]) naming the
+    superwindow whose rows' scales block i takes."""
     if xp.device.type == "cpu":
-        return band_bucket_spmm_plain(starts, a, xp)
+        return band_bucket_spmm_plain(starts, a, xp, scale, sw_ids)
     pack = _check_cuda_args(starts, None, a, xp)
     out = torch.empty((a.shape[0], a.shape[1], xp.shape[1]), dtype=torch.float32,
                       device=xp.device)
-    _launch(starts, None, a, xp, out, a.shape[0], pack)
+    _launch(starts, None, a, xp, out, a.shape[0], pack, scale=scale, ssw=sw_ids)
     kernel_launches["band_bucket_spmm"] += 1
     return out
 
@@ -594,11 +631,11 @@ def band_bucket_spmm_grouped(starts, a, xp, num_sw, out_dtype, group: int = 4):
     return out
 
 
-def band_direct_dispatch(arrs, s, xp, num_sw, out_dtype):
+def band_direct_dispatch(arrs, s, xp, num_sw, out_dtype, scale=None):
     """Direct-write band call for bucket ``s`` of the uploaded plan arrays
     (the reference's ``band_direct_dispatch``, block_spmm.py:325)."""
     return band_bucket_spmm_direct(arrs[f"band{s}_sw"], arrs[f"band{s}_start"],
-                                   arrs[f"band{s}_a"], xp, num_sw, out_dtype)
+                                   arrs[f"band{s}_a"], xp, num_sw, out_dtype, scale)
 
 
 def band_fused_spmm_direct(sw_ids, starts, a, xp, w, num_sw, out_dtype):
@@ -880,13 +917,18 @@ def ell_rows(arrs, xp, out):
 # ---------------------------------------------------------------------------
 
 
-def _spill_seg(arrs, xsrc, plan):
+def _spill_seg(arrs, xsrc, plan, scale=None):
     """fp32 [Rs, D]: each spill row's sum of its spilled edges' rows of
-    ``xsrc`` (clip mode; port of hcspmm_tpu/kernels/block_spmm.py:729)."""
-    xe = xsrc.index_select(0, arrs["spill_edge_col"].clamp(max=xsrc.shape[0] - 1))
+    ``xsrc`` (clip mode; port of hcspmm_tpu/kernels/block_spmm.py:729),
+    each row times its ``scale`` where one is given (fp32 over xsrc's
+    rows)."""
+    cols = arrs["spill_edge_col"].clamp(max=xsrc.shape[0] - 1)
+    xe = xsrc.index_select(0, cols).float()
+    if scale is not None:
+        xe = xe.mul_(scale.index_select(0, cols)[:, None])
     seg = torch.zeros((plan.num_spill_rows + 1, xsrc.shape[1]), dtype=torch.float32,
                       device=xsrc.device)
-    seg.index_add_(0, arrs["spill_edge_seg"], xe.float())
+    seg.index_add_(0, arrs["spill_edge_seg"], xe)
     return seg[: plan.num_spill_rows]
 
 
@@ -896,27 +938,33 @@ def _spill_rows(arrs, plan, m):
     return arrs["spill_rows"][: int(np.count_nonzero(plan.spill_rows < m))]
 
 
-def _spill_take(out, arrs, xsrc, plan):
+def _spill_take(out, arrs, xsrc, plan, scale=None):
     """The take path (port of hcspmm_tpu/kernels/block_spmm.py:729-765):
     gather each spilled edge's row of ``xsrc`` (clip mode), segment-sum by
-    spill row in fp32, and add each row's sum onto ``out``."""
+    spill row in fp32, and add each row's sum onto ``out``.  ``scale`` (fp32
+    [M] over xsrc's and out's rows): the gathered rows times their scales,
+    each sum times its row's; arrays of the spill's size, never [M, D]."""
     rows = _spill_rows(arrs, plan, out.shape[0])
-    return out.index_add_(0, rows, _spill_seg(arrs, xsrc, plan)[: rows.shape[0]].to(out.dtype))
+    seg = _spill_seg(arrs, xsrc, plan, scale)[: rows.shape[0]]
+    if scale is not None:
+        seg = seg.mul_(scale.index_select(0, rows)[:, None])
+    return out.index_add_(0, rows, seg.to(out.dtype))
 
 
-def apply_spill(out, arrs, xsrc, plan):
+def apply_spill(out, arrs, xsrc, plan, scale=None):
     """Add the spill population onto ``out`` [M, d] in place (port of
     hcspmm_tpu/kernels/block_spmm.py:745): the row merge when the plan
     carries its streams and ``out`` is the full padded row space, else
-    the take path."""
+    the take path.  ``scale`` (fp32 [M]): the spill of D A D xsrc, onto an
+    ``out`` that holds the scaled band part."""
     if not (plan.has_spill and "spill_rows" in arrs):
         return out
     profiling.count("spmm.spill_edges", plan.spill_nnz)
     with profiling.span("spmm.spill.rows"):
         if ("ds_blk" in arrs and out.shape[0] == plan.ds_rows
                 and out.shape[1] == xsrc.shape[1]):
-            return dstream.dstream_spill(arrs, xsrc, out, plan)
-        return _spill_take(out, arrs, xsrc, plan)
+            return dstream.dstream_spill(arrs, xsrc, out, plan, scale)
+        return _spill_take(out, arrs, xsrc, plan, scale)
 
 
 def _spill_take_rows(out, arrs, xsrc, plan):
@@ -937,12 +985,27 @@ def spmm_wide_padded(arrs, xp, plan, compute_dtype):
     write); the missing superwindows' blocks are zeroed (aligned runs of
     eight first); the spill population is added last.  With no band entry
     at all the buffer starts as zeros.  A tiled plan is one
-    ``band_tiled_spmm`` (it never spills)."""
+    ``band_tiled_spmm`` (it never spills).
+
+    ``arrs["row_scale"]``, where present (fp32 [M], a diagonal D with 1 on
+    the pad rows; not on tiled plans), computes D A D xp: the band kernel
+    and the row merge (or the take path) apply D as they sum, with no pass
+    over [M, dp] of their own; counted in ``spmm.scale_folded``.  D is a
+    per-call operand that travels in a copy of the static plan arrays
+    (``make_spmm_padded`` adds it for the call), because this 4-argument
+    signature is the one ``benchmark/tests/test_bench_faults.py`` patches;
+    any plan dict that carries ``row_scale`` is therefore a scaled SpMM.
+    It belongs in an explicit argument once that test can follow."""
     check_plan(plan)
     xp = xp.to(compute_dtype).contiguous()
     m, dp = xp.shape
     if m != plan.padded_rows:
         raise ValueError(f"xp has {m} rows, the plan's layout {plan.padded_rows}")
+    scale = arrs.get("row_scale")
+    if scale is not None:
+        if getattr(plan, "tiled", False):
+            raise ValueError("the tiled band takes no scale: scale its input and output")
+        profiling.count("spmm.scale_folded")
     if getattr(plan, "tiled", False):
         with profiling.span("spmm.band"):
             return band_tiled_spmm(arrs, xp, plan, xp.dtype).view(m, dp)
@@ -955,18 +1018,19 @@ def spmm_wide_padded(arrs, xp, plan, compute_dtype):
             buf = torch.zeros((m, dp), dtype=xp.dtype, device=xp.device)
         else:
             s_main = max(nonempty, key=lambda i: len(plan.band_sw_ids[i]))
-            b3 = band_direct_dispatch(arrs, s_main, xp, num_sw, xp.dtype)
+            b3 = band_direct_dispatch(arrs, s_main, xp, num_sw, xp.dtype, scale)
             for i in nonempty:
                 if i == s_main:
                     continue
-                part = band_bucket_spmm(arrs[f"band{i}_start"], arrs[f"band{i}_a"], xp)
+                part = band_bucket_spmm(arrs[f"band{i}_start"], arrs[f"band{i}_a"], xp, scale,
+                                        arrs[f"band{i}_sw"])
                 real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
                 b3.index_copy_(0, arrs[f"band{i}_sw"][:real].long(), part[:real].to(b3.dtype))
             buf = b3.view(m, dp)
             for key, w in (("band_missing_sw8", 8 * bh), ("band_missing_sw", bh)):
                 if key in arrs:
                     buf = tspill.zero_row_blocks(buf, arrs[key], w)
-    return apply_spill(buf, arrs, xp, plan)
+    return apply_spill(buf, arrs, xp, plan, scale)
 
 
 def single_full_bucket(arrs, plan, num_sw):

@@ -55,7 +55,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("dstream")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hcspmm_row_merge.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i32, i32,
-                                     i32, i32, vp]
+                                     i32, i32, vp, vp, vp]
     lib.hcspmm_row_merge.restype = ctypes.c_int
     return lib
 
@@ -65,11 +65,14 @@ def _lib() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 
-def _merge_plain(gcols, local, chunk_base, sentinel, xsrc, out, span):
+def _merge_plain(gcols, local, chunk_base, sentinel, xsrc, out, span, cscale=None,
+                 rscale=None):
     """In place: out[chunk_base[c] + local[e]] += xsrc[min(gcols[e], R-1)]
     for every slot e of chunk c = e // 128 with local < sentinel; fp32
     sums over an fp32 copy of the touched blocks, written back once in
-    out's dtype."""
+    out's dtype.  With ``cscale`` and ``rscale`` (the scaled form): each
+    row's slots are summed from zero, each times ``cscale`` of its xsrc
+    row, and the row gets ``rscale[row]`` times its sum."""
     c = chunk_base.shape[0]
     if c == 0:
         return out
@@ -81,22 +84,31 @@ def _merge_plain(gcols, local, chunk_base, sentinel, xsrc, out, span):
     ublk, inv = torch.unique(dest // span, return_inverse=True)
     b3 = out.view(m // span, span, dp)
     acc = b3[ublk].float().reshape(-1, dp)
-    acc.index_add_(0, inv * span + dest % span, xsrc.index_select(0, cols).float())
+    vals = xsrc.index_select(0, cols).float()
+    if rscale is None:
+        acc.index_add_(0, inv * span + dest % span, vals)
+    else:
+        vals = vals * cscale[cols][:, None]
+        sums = torch.zeros_like(acc).index_add_(0, inv * span + dest % span, vals)
+        rows = (ublk[:, None] * span + torch.arange(span, device=out.device)).reshape(-1)
+        acc.addcmul_(sums, rscale[rows][:, None])
     b3[ublk] = acc.view(-1, span, dp).to(out.dtype)
     return out
 
 
-def bstream_merge_plain(gcols, local, blk, xsrc, out, *, group: int):
+def bstream_merge_plain(gcols, local, blk, xsrc, out, *, group: int, cscale=None,
+                        rscale=None):
     """Block form: chunk c goes to block blk[c] of group*128 rows."""
     span = group * 128
-    return _merge_plain(gcols, local, blk.long() * span, span, xsrc, out, span)
+    return _merge_plain(gcols, local, blk.long() * span, span, xsrc, out, span, cscale, rscale)
 
 
-def dstream_merge_plain(gcols, local, blk, lt, xsrc, out, *, group: int):
+def dstream_merge_plain(gcols, local, blk, lt, xsrc, out, *, group: int, cscale=None,
+                        rscale=None):
     """Tile form: chunk c goes to tile lt[c] of block blk[c // group]."""
     span = group * 128
     base = blk.long().repeat_interleave(group)[: lt.shape[0]] * span + lt.long() * 128
-    return _merge_plain(gcols, local, base, 128, xsrc, out, span)
+    return _merge_plain(gcols, local, base, 128, xsrc, out, span, cscale, rscale)
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +137,7 @@ def row_segments(local, blk, lt, group: int, chunks: int) -> tuple:
     return segment_table(row_dest(local, blk, lt, group, chunks), _ROW_LONG)
 
 
-def _launch(name, gcols, local, blk, lt, segs, xsrc, out, group):
+def _launch(name, gcols, local, blk, lt, segs, xsrc, out, group, cscale=None, rscale=None):
     dev = out.device
     if dev.type != "cuda":
         raise ValueError(f"out lies on {dev}: the merge kernel takes CUDA or CPU tensors")
@@ -155,6 +167,12 @@ def _launch(name, gcols, local, blk, lt, segs, xsrc, out, group):
             raise ValueError(f"{key} must be int32, not {t.dtype}")
     if seg_ptr.shape[0] != seg_row.shape[0] + 1:
         raise ValueError("seg_ptr must hold one more offset than seg_row")
+    if (cscale is None) != (rscale is None):
+        raise ValueError("the scaled form takes both cscale and rscale")
+    for key, t, rows in (("cscale", cscale, xsrc.shape[0]), ("rscale", rscale, m)):
+        if t is not None and (t.device != dev or not t.is_contiguous()
+                              or t.dtype != torch.float32 or tuple(t.shape) != (rows,)):
+            raise ValueError(f"{key} must be contiguous float32 [{rows}] on {dev}")
     vector = dp % 8 == 0 and xsrc.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
         rc = _lib().hcspmm_row_merge(
@@ -162,14 +180,16 @@ def _launch(name, gcols, local, blk, lt, segs, xsrc, out, group):
             xsrc.data_ptr(), out.data_ptr(), seg_row.shape[0], seg_long.shape[0], _ROW_LONG,
             xsrc.shape[0], dp, int(xsrc.dtype == torch.bfloat16),
             int(out.dtype == torch.bfloat16), int(vector),
-            torch.cuda.current_stream().cuda_stream)
+            None if cscale is None else cscale.data_ptr(),
+            None if rscale is None else rscale.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csrc/dstream.cu {name} launch failed: cudaError {rc}")
     launches[name] += 1
     return out
 
 
-def bstream_merge(gcols, local, blk, xsrc, out, *, group: int, segs=None):
+def bstream_merge(gcols, local, blk, xsrc, out, *, group: int, segs=None, cscale=None,
+                  rscale=None):
     """``out += scatter-add of xsrc[gcols] by destination row``, in place,
     block-wide chunks (port of hcspmm_tpu/kernels/dstream.py:253, its take
     included); returns out.
@@ -180,41 +200,55 @@ def bstream_merge(gcols, local, blk, xsrc, out, *, group: int, segs=None):
     [C] nondecreasing; xsrc: [R, dp]; out: [M, dp].  ``segs``: the stream's
     ``row_segments`` as int32 tensors on out's device (computed here when
     None).  Each touched row is summed in fp32 and written once in out's
-    dtype; the kernel's sums are deterministic."""
+    dtype; the kernel's sums are deterministic.  ``rscale`` (fp32 [M]) and
+    ``cscale`` (fp32 [R]), both or neither: the scaled form, ``out[row] +=
+    rscale[row] * sum of cscale[col] * xsrc[col]`` (csrc/dstream.cu)."""
     if out.device.type == "cpu":
-        return bstream_merge_plain(gcols, local, blk, xsrc, out, group=group)
-    return _launch("bstream_merge", gcols, local, blk, None, segs, xsrc, out, group)
+        return bstream_merge_plain(gcols, local, blk, xsrc, out, group=group, cscale=cscale,
+                                   rscale=rscale)
+    return _launch("bstream_merge", gcols, local, blk, None, segs, xsrc, out, group, cscale,
+                   rscale)
 
 
-def dstream_merge(gcols, local, blk, lt, xsrc, out, *, group: int, segs=None):
+def dstream_merge(gcols, local, blk, lt, xsrc, out, *, group: int, segs=None, cscale=None,
+                  rscale=None):
     """The tile-pure form of ``bstream_merge`` (port of
     hcspmm_tpu/kernels/dstream.py:408, its take included): step s merges
     chunks s*group .. s*group+group-1 into block blk[s], chunk c into tile
     lt[c]; local: int32 [ceil(S/8)*8, group*128], each slot's row within its
-    tile, the sentinel 128 drops it.  ``segs`` as ``bstream_merge``'s."""
+    tile, the sentinel 128 drops it.  ``segs``, ``cscale`` and ``rscale`` as
+    ``bstream_merge``'s."""
     if out.device.type == "cpu":
-        return dstream_merge_plain(gcols, local, blk, lt, xsrc, out, group=group)
-    return _launch("dstream_merge", gcols, local, blk, lt, segs, xsrc, out, group)
+        return dstream_merge_plain(gcols, local, blk, lt, xsrc, out, group=group, cscale=cscale,
+                                   rscale=rscale)
+    return _launch("dstream_merge", gcols, local, blk, lt, segs, xsrc, out, group, cscale,
+                   rscale)
 
 
-def dstream_spill(arrs, xsrc, out, plan):
+def dstream_spill(arrs, xsrc, out, plan, scale=None):
     """Add the spill population onto ``out`` [M, dp] in place through the
     row merge (port of hcspmm_tpu/kernels/dstream.py:469): the ``ds_ucols``
     compact-table take first when the plan has one, then the block form,
     the tile form, or the tile form once per column range, each range
     gathering from its slice ``xsrc[r0 : r0 + range_rows]`` (start clamped
-    as the reference's dynamic_slice) and rounding to out's dtype."""
+    as the reference's dynamic_slice) and rounding to out's dtype.
+    ``scale`` (fp32 [M] over xsrc's and out's rows): the merges' scaled
+    form; the compact table's column scales are gathered with it ([U])."""
+    cscale = scale
     if "ds_ucols" in arrs:
         xsrc = xsrc.index_select(0, arrs["ds_ucols"])
+        if scale is not None:
+            cscale = scale.index_select(0, arrs["ds_ucols"])
     g = plan.ds_group
     if getattr(plan, "ds_kind", "tile") == "block":
         return bstream_merge(arrs["ds_gcols"], arrs["ds_local"], arrs["ds_blk"], xsrc, out,
-                             group=g, segs=segments_of(arrs, "ds_seg"))
+                             group=g, segs=segments_of(arrs, "ds_seg"), cscale=cscale,
+                             rscale=scale)
     meta = getattr(plan, "ds_meta", None)
     if meta is None:
         return dstream_merge(arrs["ds_gcols"], arrs["ds_local"], arrs["ds_blk"],
                              arrs["ds_lt"], xsrc, out, group=g,
-                             segs=segments_of(arrs, "ds_seg"))
+                             segs=segments_of(arrs, "ds_seg"), cscale=cscale, rscale=scale)
     rr = int(meta["range_rows"])
     for p, (s0, s1, c0, c1, l0, l1) in enumerate(_ranges(meta)):
         if s1 == s0:
@@ -223,7 +257,8 @@ def dstream_spill(arrs, xsrc, out, plan):
         out = dstream_merge(arrs["ds_gcols"][c0 * 128: c1 * 128], arrs["ds_local"][l0:l1],
                             arrs["ds_blk"][s0:s1], arrs["ds_lt"][c0:c1],
                             xsrc[r0: r0 + rr], out, group=g,
-                            segs=segments_of(arrs, f"ds_seg{p}"))
+                            segs=segments_of(arrs, f"ds_seg{p}"),
+                            cscale=None if scale is None else cscale[r0: r0 + rr], rscale=scale)
     return out
 
 

@@ -281,7 +281,12 @@ def make_spmm_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = No
     [dt, M] or wide [M, dp]) -> the same layout: ``spmm_p(arrs_f, arrs_b,
     xp)``; None when the plans lack that path (as the reference's
     ``make_spmm_padded``: the caller uses the row layout).  Raises
-    NotImplementedError for a plan this package does not run."""
+    NotImplementedError for a plan this package does not run.
+
+    On wide plans that are not tiled, ``spmm_p(arrs_f, arrs_b, xp, scale)``
+    with a diagonal scale D (fp32 [M]) is D A D xp, backward D A^T D dZ, each
+    one SpMM whose kernels apply D (``block_spmm.spmm_wide_padded``, handed
+    D as the plan arrays' ``row_scale`` for the call)."""
     pb = plan if plan_bwd is None else plan_bwd
     for p in (plan, pb):
         if getattr(p, "tband", False):
@@ -300,7 +305,9 @@ def make_spmm_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = No
             block_spmm.check_plan(p)
     cd = _dtype(compute_dtype)
 
-    def spmm_p(arrs_f, arrs_b, xp):
+    def spmm_p(arrs_f, arrs_b, xp, scale=None):
+        if scale is not None:
+            arrs_f, arrs_b = {**arrs_f, "row_scale": scale}, {**arrs_b, "row_scale": scale}
         return _SpMM.apply(xp, lambda v: core(arrs_f, v, plan, cd),
                            lambda g: core(arrs_b, g, pb, cd))
 
@@ -546,8 +553,14 @@ class HybridSpMM:
         #: 1/deg — mean aggregation (GraphSAGE mean_N = D^-1 A X)
         self.arrays["inv_deg"] = torch.from_numpy(1.0 / deg).to(self.device)
         if normalize:
-            self.arrays["inv_sqrt_deg"] = torch.from_numpy(
-                1.0 / np.sqrt(deg)).to(self.device)
+            inv = 1.0 / np.sqrt(deg)
+            self.arrays["inv_sqrt_deg"] = torch.from_numpy(inv).to(self.device)
+            if self.folds_scale:
+                #: D^-1/2 over the wide layout's M rows, 1 on the pad rows:
+                #: the band kernel and the row merge apply it
+                self.arrays["inv_sqrt_deg_rows"] = torch.from_numpy(np.pad(
+                    inv, (0, self.plan.padded_rows - len(inv)), constant_values=1.0)).to(
+                        self.device)
 
     # ---- padded layout: [dt, M] -> [dt, M] or [M, dp] -> [M, dp] ----
 
@@ -568,6 +581,15 @@ class HybridSpMM:
         the wide [M, dp] (and for a plan without the padded path, whose
         fallback slices rows)."""
         return bool(getattr(self.plan, "tband", False)) and self.supports_padded
+
+    @property
+    def folds_scale(self) -> bool:
+        """True when ``apply_padded`` applies D^-1/2 inside the SpMM's
+        kernels (the wide padded path on plans that are not tiled); the
+        tband layout, tiled plans and the row layout scale as ``_Scale``
+        nodes around it."""
+        return (self.supports_padded and not self.transposed
+                and not any(getattr(p, "tiled", False) for p in (self.plan, self.plan_bwd)))
 
     def is_padded(self, x) -> bool:
         """True when ``x`` already has the padded layout's shape (an [N, d]
@@ -640,7 +662,11 @@ class HybridSpMM:
 
     def apply_padded(self, arrays, xp: torch.Tensor) -> torch.Tensor:
         """SpMM in the padded layout (normalized: D^-1/2 on both sides,
-        each scaling a ``_Scale`` node)."""
+        applied by the SpMM's kernels where ``folds_scale``, else each
+        scaling a ``_Scale`` node)."""
+        if "inv_sqrt_deg_rows" in arrays and "inv_sqrt_deg" in arrays:
+            return self._fn_padded(arrays["f"], arrays["b"], xp,
+                                   arrays["inv_sqrt_deg_rows"]).to(xp.dtype)
         if "inv_sqrt_deg" in arrays:
             inv = self._inv_lanes(arrays["inv_sqrt_deg"], xp)
             xs = _Scale.apply(xp, inv, xp.dtype)
