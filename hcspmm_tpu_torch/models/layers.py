@@ -52,24 +52,19 @@ class GINConv:
         return fused.aggregate_then_update(spmm, x, params["weights"])
 
 
-def init_sage_params(gen: torch.Generator, input_dim: int, output_dim: int,
-                     init: str = "randn") -> dict:
-    return {
-        "w_self": init_conv_params(gen, input_dim, output_dim, init)["weights"],
-        "w_neigh": init_conv_params(gen, input_dim, output_dim, init)["weights"],
-    }
-
-
 class SAGEConv:
-    """GraphSAGE-mean layer (extension; no reference equivalent):
-    ``Z = X W_self + mean_N(X) W_neigh`` with ``mean_N = D^-1 A X``, both
-    dense updates in the bound operator's layout."""
+    """GraphSAGE-mean layer (Hamilton, Ying and Leskovec, NeurIPS 2017,
+    Algorithm 1 line 5; extension, no reference equivalent):
+    ``Z = [X | mean_N(X)] W`` with ``mean_N = D^-1 A X`` and one weight
+    ``W`` [2 d_in, d_out], the self rows first, computed as
+    ``X W[:d_in] + mean_N(X) W[d_in:]`` in the bound operator's layout
+    (``dense_sum``)."""
 
     def __init__(self, fixed: int = FIXED_HIDDEN):
         self.fixed = fixed
 
     def __call__(self, params, spmm: Callable, x: torch.Tensor) -> torch.Tensor:
+        w = params["weights"]
+        d = w.shape[0] // 2
         agg = spmm.mean(x)
-        hs = spmm.dense(x, params["w_self"]).float()
-        hn = spmm.dense(agg, params["w_neigh"]).float()
-        return (hs + hn).to(x.dtype)
+        return spmm.dense_sum(x, w[:d], agg, w[d:])

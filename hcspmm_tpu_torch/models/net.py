@@ -9,7 +9,7 @@ log_softmax.  Dropout p=0.5 (F.dropout, HC-SpMM_main.py:82).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +22,6 @@ from hcspmm_tpu_torch.models.layers import (
     GINConv,
     SAGEConv,
     init_conv_params,
-    init_sage_params,
 )
 
 
@@ -44,6 +43,12 @@ class Net:
         dims.append((self.hidden, self.num_classes, FIXED_FINAL))
         return dims
 
+    def weight_shapes(self) -> List[Tuple[int, int]]:
+        """[rows, d_out] of each layer's one weight leaf: SAGE's W stacks
+        its self and neighbour rows (GraphSAGE's CONCAT), 2 d_in rows."""
+        k = 2 if self.model == "sage" else 1
+        return [(k * din, dout) for din, dout, _ in self.layer_dims()]
+
     def conv(self, fixed: int):
         if self.model == "gcn":
             return GCNConv(fixed)
@@ -61,17 +66,40 @@ def init_net_params(net: Net, gen: torch.Generator, init: str = "randn", *,
     """Per-layer parameter dicts, drawn on the host from ``gen`` and moved
     to ``device`` (the operator's, as ``train.loop.train`` passes it) as
     leaf tensors that require grad."""
-    make = init_sage_params if net.model == "sage" else init_conv_params
-    return [{k: _leaf(v, device) for k, v in make(gen, din, dout, init).items()}
-            for din, dout, _ in net.layer_dims()]
+    return [{k: _leaf(v, device) for k, v in init_conv_params(gen, rows, dout, init).items()}
+            for rows, dout in net.weight_shapes()]
 
 
 def params_from_jax(params, *, device) -> List[Dict[str, torch.Tensor]]:
     """The JAX package's parameter list (dicts of ``weights`` or
     ``w_self``/``w_neigh`` arrays, as numpy or jax arrays) as this
-    package's parameters: float32 leaf tensors on ``device``."""
+    package's parameters: float32 leaf tensors on ``device``.  A SAGE
+    layer's ``w_self`` and ``w_neigh`` [d_in, d_out] become its one
+    ``weights`` [2 d_in, d_out], ``w_self`` on top."""
+    def leaves(layer):
+        if "w_self" in layer:
+            return {"weights": np.concatenate([np.asarray(layer["w_self"], np.float32),
+                                               np.asarray(layer["w_neigh"], np.float32)])}
+        return layer
+
     return [{k: _leaf(torch.from_numpy(np.array(v, dtype=np.float32)), device)
-             for k, v in layer.items()} for layer in params]
+             for k, v in leaves(layer).items()} for layer in params]
+
+
+def params_to_jax(net: Net, params) -> List[Dict]:
+    """The inverse of ``params_from_jax``: this package's parameters in the
+    JAX package's form, as the checkpoints hold them, so that a checkpoint
+    written here loads in either package.  A SAGE layer's one ``weights``
+    [2 d_in, d_out] is split into ``w_self`` (the top rows) and ``w_neigh``;
+    the other models' leaves pass as they are."""
+    if net.model != "sage":
+        return params
+    out = []
+    for layer in params:
+        w = layer["weights"]
+        d = w.shape[0] // 2
+        out.append({"w_self": w[:d], "w_neigh": w[d:]})
+    return out
 
 
 def net_forward(net: Net, params: List[Dict], spmm: Callable, x: torch.Tensor,

@@ -69,24 +69,30 @@ class _SpMM(torch.autograd.Function):
 
 class _Scale(torch.autograd.Function):
     """``(v * inv).to(dtype)`` for a per-row scale ``inv`` that is not
-    differentiated (D^-1/2 broadcast over the layout), forward and backward
-    each one ``spmm.scale`` span.  The gradient is autograd's for the
-    composed form (``ToCopyBackward0`` then ``MulBackward0``), so values and
-    gradients equal it bit for bit.  Each scaling stays a node of its own:
-    folded into the SpMM's node, the backward would hold its incoming
-    gradient through the SpMM and raise the step's peak memory."""
+    differentiated (D^-1/2, or the mean aggregation's D^-1, broadcast over
+    the layout), forward and backward each one span named ``span``, and
+    each counting one ``counter`` where one is given.  The gradient is
+    autograd's for the composed form (``ToCopyBackward0`` then
+    ``MulBackward0``), so values and gradients equal it bit for bit.  Each
+    scaling stays a node of its own: folded into the SpMM's node, the
+    backward would hold its incoming gradient through the SpMM and raise the
+    step's peak memory."""
 
     @staticmethod
-    def forward(ctx, v, inv, dtype):
-        with profiling.span("spmm.scale"):
-            ctx.inv, ctx.v_dtype = inv, v.dtype
+    def forward(ctx, v, inv, dtype, span="spmm.scale", counter=None):
+        if counter:
+            profiling.count(counter)
+        with profiling.span(span):
+            ctx.inv, ctx.v_dtype, ctx.span, ctx.counter = inv, v.dtype, span, counter
             return (v * inv).to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        with profiling.span("spmm.scale"):
+        if ctx.counter:
+            profiling.count(ctx.counter)
+        with profiling.span(ctx.span):
             inv, vd = ctx.inv, ctx.v_dtype
-            return (g.to(torch.promote_types(vd, inv.dtype)) * inv).to(vd), None, None
+            return (g.to(torch.promote_types(vd, inv.dtype)) * inv).to(vd), None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -650,15 +656,27 @@ class HybridSpMM:
         return F.pad(w.to(xp.dtype), (0, block_spmm.lane_pad(w.shape[1]) - w.shape[1],
                                       0, xp.shape[1] - w.shape[0]))
 
-    def dense_padded(self, xp, w):
-        """Dense update ``X W`` in the padded layout: (pad W)^T @ xt
-        transposed, xp @ pad(W) wide."""
-        with profiling.span("models.dense"):
-            if not self.transposed:
-                return torch.matmul(xp, self.pad_weight(w, xp))
+    def _product_padded(self, xp, w, acc=None):
+        """``X W`` in the padded layout, (pad W)^T @ xt transposed and xp @
+        pad(W) wide; added into ``acc`` in place where one is given."""
+        if self.transposed:
             ht = tband.sublane_pad(w.shape[1])
-            wt = F.pad(w.T.to(xp.dtype), (0, xp.shape[0] - w.shape[0], 0, ht - w.shape[1]))
-            return torch.matmul(wt, xp)
+            a = F.pad(w.T.to(xp.dtype), (0, xp.shape[0] - w.shape[0], 0, ht - w.shape[1]))
+            b = xp
+        else:
+            a, b = xp, self.pad_weight(w, xp)
+        return torch.matmul(a, b) if acc is None else acc.addmm_(a, b)
+
+    def dense_padded(self, xp, w):
+        """Dense update ``X W`` in the padded layout."""
+        with profiling.span("models.dense"):
+            return self._product_padded(xp, w)
+
+    def dense_sum_padded(self, xp, w1, yp, w2):
+        """``X W1 + Y W2`` in the padded layout: ``X W1``, then ``Y W2``
+        added into it, so no [M, 2 dp] concatenation is built."""
+        with profiling.span("models.dense"):
+            return self._product_padded(yp, w2, self._product_padded(xp, w1))
 
     def apply_padded(self, arrays, xp: torch.Tensor) -> torch.Tensor:
         """SpMM in the padded layout (normalized: D^-1/2 on both sides,
@@ -698,15 +716,18 @@ class HybridSpMM:
 
     def mean_apply(self, arrays, x: torch.Tensor) -> torch.Tensor:
         """Mean aggregation ``D^-1 A X`` in the row layout (raw aggregate
-        whatever ``normalize`` says: SAGE's own scaling)."""
+        whatever ``normalize`` says: SAGE's own scaling), D^-1 a ``_Scale``
+        node (span ``spmm.scale.mean``, counter ``spmm.mean``)."""
         agg = self._fn(arrays["f"], arrays["b"], x)
-        return (agg * arrays["inv_deg"][:, None]).to(x.dtype)
+        return _Scale.apply(agg, arrays["inv_deg"][:, None], x.dtype, "spmm.scale.mean",
+                            "spmm.mean")
 
     def mean_apply_padded(self, arrays, xp: torch.Tensor) -> torch.Tensor:
         """Mean aggregation in the padded layout (padded rows have
-        inv_deg == 1, so they stay exactly zero)."""
+        inv_deg == 1, so they stay exactly zero), D^-1 as in ``mean_apply``."""
         inv = self._inv_lanes(arrays["inv_deg"], xp)
-        return (self._padded_core(arrays, xp) * inv).to(xp.dtype)
+        return _Scale.apply(self._padded_core(arrays, xp), inv, xp.dtype, "spmm.scale.mean",
+                            "spmm.mean")
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         return self.mean_apply(self.arrays, x)
@@ -738,6 +759,13 @@ class HybridSpMM:
         """Dense update ``x w`` in the row layout."""
         with profiling.span("models.dense"):
             return _dot(x, w)
+
+    def dense_sum(self, x, w1, y, w2):
+        """``x w1 + y w2`` in the row layout, as ``dense_sum_padded``
+        (fp32), in x's dtype."""
+        with profiling.span("models.dense"):
+            out = torch.matmul(x.float(), w1.float())
+            return out.addmm_(y.float(), w2.float()).to(x.dtype)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.arrays, x)

@@ -32,7 +32,7 @@ import torch
 from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.graphs.dataset import GraphDataset
 from hcspmm_tpu_torch.graphs.real import REAL_GRAPHS
-from hcspmm_tpu_torch.models.net import Net
+from hcspmm_tpu_torch.models.net import Net, params_to_jax
 from hcspmm_tpu_torch.models.sag import SAG
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
 from hcspmm_tpu_torch.train.loop import train
@@ -218,7 +218,7 @@ def main(argv=None) -> int:
     if args.checkpoint:
         # the absolute epoch counter: what the elastic supervisor reads to
         # decide whether the run is complete
-        save_pytree(args.checkpoint, res["params"],
+        save_pytree(args.checkpoint, params_to_jax(net, res["params"]),
                     {"model": args.model, "epoch": start_epoch + args.epochs,
                      "epochs": args.epochs})
         print(f"checkpoint saved to {args.checkpoint}")

@@ -67,6 +67,7 @@ def run_with_recovery(
     hook only.  Returns the final ``train`` result dict plus ``restarts``
     and ``resumed_from`` (the epoch each attempt continued at).
     """
+    from hcspmm_tpu_torch.models.net import params_to_jax
     from hcspmm_tpu_torch.train.loop import train
 
     faults: List[int] = list(fault_epochs)
@@ -80,6 +81,7 @@ def run_with_recovery(
             # left to run — return the persisted state
             res = {"params": params, "final_loss": float("nan"),
                    "epoch_ms": 0.0, "total_s": 0.0}
+            tree = params
             break
         try:
             res = train(
@@ -93,6 +95,7 @@ def run_with_recovery(
                 logger=logger,
                 **train_kwargs,
             )
+            tree = params_to_jax(net, res["params"])
             break
         except (KeyboardInterrupt, SystemExit):
             raise
@@ -108,7 +111,7 @@ def run_with_recovery(
                     f"elastic recovery exhausted after {max_restarts} "
                     f"restarts") from exc
     # completion marker: resume-after-done is a no-op
-    save_pytree(checkpoint_path, res["params"],
+    save_pytree(checkpoint_path, tree,
                 {"epoch": epochs, "loss": res.get("final_loss", float("nan"))})
     res["restarts"] = restarts
     res["resumed_from"] = resumed_from

@@ -19,7 +19,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward, params_from_jax
+from hcspmm_tpu_torch.models.net import (Net, init_net_params, net_forward, params_from_jax,
+                                         params_to_jax)
 from hcspmm_tpu_torch.utils import profiling
 from hcspmm_tpu_torch.utils.checkpoint import save_pytree
 from hcspmm_tpu_torch.utils.logging import MetricLogger
@@ -33,7 +34,7 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 class Bound:
     """The operator with its plan arrays bound, in its padded layout when
     it has the closed padded path, else in the row layout: what the layers
-    call (``gcn_fused``/``gin_fused``/``mean``/``dense``)."""
+    call (``gcn_fused``/``gin_fused``/``mean``/``dense_sum``)."""
 
     def __init__(self, spmm):
         self._op = spmm
@@ -60,10 +61,10 @@ class Bound:
             return self._op.mean_apply_padded(self._arrs, x)
         return self._op.mean_apply(self._arrs, x)
 
-    def dense(self, x, w):
+    def dense_sum(self, x, w1, y, w2):
         if self.padded_layout:
-            return self._op.dense_padded(x, w)
-        return self._op.dense(x, w)
+            return self._op.dense_sum_padded(x, w1, y, w2)
+        return self._op.dense_sum(x, w1, y, w2)
 
 
 def layout_input(spmm, x) -> torch.Tensor:
@@ -164,8 +165,8 @@ def train(net: Net, spmm, x, y, epochs: int = 200, lr: float = 0.01,
     for done in range(1, epochs + 1):
         losses.append(step(params, x, y, gen))
         if checkpoint_path and checkpoint_every > 0 and done % checkpoint_every == 0:
-            save_pytree(checkpoint_path, params, {"epoch": start_epoch + done,
-                                                  "loss": float(losses[-1])})
+            save_pytree(checkpoint_path, params_to_jax(net, params),
+                        {"epoch": start_epoch + done, "loss": float(losses[-1])})
         if fault_epoch is not None and start_epoch + done >= fault_epoch:
             log(losses)
             raise RuntimeError(f"injected fault at epoch {start_epoch + done}")

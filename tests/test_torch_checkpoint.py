@@ -15,7 +15,7 @@ from hcspmm_tpu.utils.checkpoint import load_pytree as jax_load_pytree
 from hcspmm_tpu.utils.checkpoint import save_pytree as jax_save_pytree
 
 from hcspmm_tpu_torch.config import PlanConfig
-from hcspmm_tpu_torch.models.net import Net, params_from_jax
+from hcspmm_tpu_torch.models.net import Net, params_from_jax, params_to_jax
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
 from hcspmm_tpu_torch.train import cli
 from hcspmm_tpu_torch.train.loop import train
@@ -24,20 +24,25 @@ from hcspmm_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from conftest import small_graph
 
 
+DIMS = dict(num_features=12, hidden=8, num_classes=5, num_layers=3)
+
+
 def jax_params(model):
-    net = JaxNet(model=model, num_features=12, hidden=8, num_classes=5, num_layers=3)
-    return jax_init_net_params(net, jax.random.PRNGKey(7))
+    return jax_init_net_params(JaxNet(model=model, **DIMS), jax.random.PRNGKey(7))
 
 
 def trees():
-    """name -> (the port's tree, the same tree for the JAX package)."""
+    """name -> (the port's tree, the same tree for the JAX package, the
+    tree the port's checkpoints write: a SAGE layer's one W split into the
+    JAX package's ``w_self`` and ``w_neigh``)."""
     out = {}
     for model in ("gcn", "sage"):
         p = jax_params(model)
-        out[model] = (params_from_jax(p, device="cpu"), p)
+        params = params_from_jax(p, device="cpu")
+        out[model] = (params, p, params_to_jax(Net(model=model, **DIMS), params))
     nested = {"b": [np.ones((2, 2), np.float32), {"c": np.float32(1.5)}],
               "a": np.arange(3), "t": (np.zeros(2), None), "s": 3}
-    out["nested"] = (nested, nested)
+    out["nested"] = (nested, nested, nested)
     return out
 
 
@@ -57,9 +62,9 @@ def leaves_equal(got, want):
 
 @pytest.mark.parametrize("name", ["gcn", "sage", "nested"])
 def test_port_checkpoint_loads_in_jax(tmp_path, name):
-    port_tree, jax_tree = trees()[name]
+    _, jax_tree, written = trees()[name]
     ours, theirs = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
-    save_pytree(ours, port_tree, {"epoch": 3, "loss": 0.5})
+    save_pytree(ours, written, {"epoch": 3, "loss": 0.5})
     jax_save_pytree(theirs, jax_tree, {"epoch": 3, "loss": 0.5})
     assert raw(ours, "__treedef__") == raw(theirs, "__treedef__")
     assert raw(ours, "__meta__") == raw(theirs, "__meta__")
@@ -71,7 +76,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path, name):
 
 @pytest.mark.parametrize("name", ["gcn", "sage", "nested"])
 def test_jax_checkpoint_loads_in_port(tmp_path, name):
-    port_tree, jax_tree = trees()[name]
+    port_tree, jax_tree, _ = trees()[name]
     path = str(tmp_path / "jax")  # the suffix-less name the CLI records
     jax_save_pytree(path, jax_tree, {"epoch": 9})
     tree, meta = load_pytree(path)
@@ -173,6 +178,32 @@ def test_resume_equals_an_uninterrupted_run_with_a_fresh_adam(tmp_path):
 
 CLI = ["--dataset", "example", "--synthetic-nodes", "64", "--synthetic-degree", "4",
        "--dim", "8", "--hidden", "8", "--classes", "4", "--num_layers", "2", "--device", "cpu"]
+
+
+def test_sage_checkpoint_of_a_training_run_loads_in_jax(tmp_path):
+    """A SAGE run's checkpoint holds the JAX package's tree (each layer's
+    ``w_self`` and ``w_neigh``, W's top and bottom rows), and resuming from
+    it in the port gives back the trained W."""
+    _, op, x, y = setup()
+    net = Net(model="sage", num_features=8, hidden=8, num_classes=3, num_layers=2)
+    path = str(tmp_path / "sage.npz")
+    res = train(net, op, x, y, epochs=2, warmup_epochs=0, seed=3, checkpoint_path=path,
+                checkpoint_every=1)
+    tree, meta = jax_load_pytree(path)
+    assert meta["epoch"] == 2
+    jnet = JaxNet(model="sage", num_features=8, hidden=8, num_classes=3, num_layers=2)
+    want = jax_init_net_params(jnet, jax.random.PRNGKey(0))
+    assert jax.tree.structure(tree) == jax.tree.structure(want)
+    for layer, jlayer, wlayer in zip(res["params"], tree, want):
+        w = layer["weights"].detach().numpy()
+        d = w.shape[0] // 2
+        for k in wlayer:
+            assert np.asarray(jlayer[k]).shape == np.asarray(wlayer[k]).shape
+        np.testing.assert_array_equal(jlayer["w_self"], w[:d])
+        np.testing.assert_array_equal(jlayer["w_neigh"], w[d:])
+    back = params_from_jax(load_pytree(path)[0], device="cpu")
+    for a, b in zip(back, res["params"]):
+        assert sorted(a) == ["weights"] and torch.equal(a["weights"], b["weights"].detach())
 
 
 def test_cli_checkpoint_resume_and_fault_flags(tmp_path, capsys):

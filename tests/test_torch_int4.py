@@ -44,6 +44,7 @@ from hcspmm_tpu_torch.ops.spmm import HybridSpMM, _to_device, spmm_reference_den
 from hcspmm_tpu_torch.train.loop import make_train_step
 
 from conftest import small_graph
+from torch_params import assert_params_match_jax
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -432,10 +433,7 @@ def test_adam_steps_at_int4_match_jax_train_step(model):
     for loss in losses["int4"]:
         jparams, jstate, jloss = jstep(jparams, jstate, jnp.asarray(x), jnp.asarray(y), key)
         np.testing.assert_allclose(loss, float(jloss), rtol=1e-4)
-    for layer, jlayer in zip(params4, jparams):
-        for k in jlayer:
-            np.testing.assert_allclose(layer[k].detach().numpy(), np.asarray(jlayer[k]),
-                                       rtol=1e-4, atol=1e-6)
+    assert_params_match_jax(params4, jparams)
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,7 @@ from hcspmm_tpu_torch.ops.spmm import HybridSpMM, spmm_reference_dense
 from hcspmm_tpu_torch.train.loop import Bound, make_train_step, train
 
 from conftest import small_graph
+from torch_params import assert_params_match_jax
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -447,10 +448,7 @@ def test_row_layout_forward_and_adam_steps_match_jax(model, cfg):
         jparams, jstate, jloss = jstep(jparams, jstate, jnp.asarray(x), jnp.asarray(y), key)
         loss = step(params, torch.from_numpy(x), torch.from_numpy(y))
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
-    for layer, jlayer in zip(params, jparams):
-        for k in jlayer:
-            np.testing.assert_allclose(layer[k].detach().numpy(), np.asarray(jlayer[k]),
-                                       rtol=1e-4, atol=1e-6)
+    assert_params_match_jax(params, jparams)
 
 
 def test_row_and_padded_training_agree():

@@ -6,7 +6,8 @@ through the ``profiling.clock`` anchor; the D^-1/2 scalings, as autograd
 nodes of their own in the tband and row layouts (equal bit for bit to the
 composed form, with its peak memory) and inside the SpMM's kernels in the
 wide layout (equal to it within the kernels' tolerance, at most its peak
-memory); and the build counts on the CLI's ``done`` line."""
+memory); a SAGE step's mean scalings (``spmm.scale.mean``, counter
+``spmm.mean``); and the build counts on the CLI's ``done`` line."""
 
 import gc
 import threading
@@ -130,6 +131,63 @@ def test_span_tree_of_a_gcn_step(ops, layout):
         want["spmm.scale_folded"] = n_spmm
     assert profiling.counters() == want
     assert op.plan.spill_nnz > 0
+
+
+@pytest.mark.parametrize("layout", sorted(PLANS))
+def test_sage_step_spans_and_counts_its_mean_scalings(layout):
+    """One 3-layer SAGE step (``models.layers.SAGEConv``, unnormalised):
+    each layer's mean aggregation is a ``spmm.fwd`` then its D^-1 as a
+    ``spmm.scale.mean`` span before the layer's ``models.dense``; the
+    backward runs 2 of each, the first layer's input needing no gradient, so
+    the step holds 5 ``spmm.scale.mean`` spans (3 forward, 2 backward) and
+    the counter ``spmm.mean`` reads 5.  The benchmark's spans profile counts
+    a kernel launched inside such a span under ``spmm.scale``
+    (``kernels.scale_ms``)."""
+    from benchmark import spans, traces
+
+    (n, deg, span), fields = PLANS[layout]
+    op = HybridSpMM(*small_graph(n, deg, span=span), PlanConfig(**fields), device="cpu")
+    net = Net(model="sage", num_features=24, hidden=16, num_classes=5, num_layers=LAYERS,
+              dropout=0.5)
+    params = init_net_params(net, torch.Generator().manual_seed(0), init="glorot",
+                             device="cpu")
+    assert [tuple(p["weights"].shape) for p in params] == [(48, 16), (32, 16), (32, 5)]
+    step = make_train_step(net, op, torch.optim.Adam([p["weights"] for p in params]))
+    x = layout_input(op, torch.randn((op.plan.num_nodes, 24),
+                                     generator=torch.Generator().manual_seed(1)))
+    y = torch.randint(0, 5, (op.plan.num_nodes,), generator=torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    step(params, x, y, gen)
+    profiling.reset()
+    with profiling.tracing():
+        step(params, x, y, gen)
+    recs = [r for r in profiling.spans() if r["name"] != profiling.CLOCK]
+    (root,) = [r for r in recs if r["name"] == "train.step"]
+    fwd, bwd, _ = children(recs, root)
+    assert [r["name"] for r in children(recs, fwd)] == [
+        "spmm.fwd", "spmm.scale.mean", "models.dense"] * LAYERS
+    assert [r["name"] for r in children(recs, bwd)] == ["spmm.scale.mean", "spmm.bwd"] * (
+        LAYERS - 1)
+    means = [r for r in recs if r["name"] == "spmm.scale.mean"]
+    assert len(means) == 5 and not [r for r in recs if r["name"] == "spmm.scale"]
+    assert profiling.counters() == {"spmm.mean": 5,
+                                    "spmm.spill_edges": 5 * op.plan.spill_nnz}
+
+    # the spans as a trace's host ranges, a 1 us kernel launched in each mean
+    events = [{"ph": "X", "cat": "user_annotation", "name": r["name"], "tid": r["thread"],
+               "ts": r["start_ns"] / 1e3, "dur": (r["end_ns"] - r["start_ns"]) / 1e3}
+              for r in recs]
+    for corr, r in enumerate(means):
+        mid = (r["start_ns"] + r["end_ns"]) / 2e3
+        events += [{"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                    "tid": r["thread"], "ts": mid, "dur": 0.0, "args": {"correlation": corr}},
+                   {"ph": "X", "cat": "kernel", "name": "elementwise_kernel<MulFunctor>",
+                    "tid": 7, "ts": mid, "dur": 1.0, "args": {"correlation": corr}}]
+    ops, launches, ranges = spans.parse(events, {r["name"] for r in recs})
+    red = spans.reduce(spans.attribute(ops, launches, ranges), ranges,
+                       (root["start_ns"] / 1e3, root["end_ns"] / 1e3 + 10), traces.kernel_table())
+    assert red["ms"] == {"spmm.scale.mean": pytest.approx(5e-3)}
+    assert spans.span_ms(red, "spmm.scale") == pytest.approx(5e-3)
 
 
 def test_a_thread_without_spans_joins_the_open_step():

@@ -30,6 +30,7 @@ from hcspmm_tpu_torch.train import cli
 from hcspmm_tpu_torch.train.loop import Bound, make_train_step, train
 
 from conftest import small_graph
+from torch_params import assert_params_match_jax
 
 TBAND = dict(impl="pallas", band_impl="tband", band_h=128, band_mode="always")
 DIMS = dict(num_features=24, hidden=16, num_classes=5, num_layers=3)
@@ -172,10 +173,7 @@ def _adam_steps_match(op, jop, net, jnet, jparams, x):
         jparams, jstate, jloss = jstep(jparams, jstate, jnp.asarray(x), jnp.asarray(y), key)
         loss = step(params, torch.from_numpy(x), torch.from_numpy(y))
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
-    for layer, jlayer in zip(params, jparams):
-        for k in jlayer:
-            np.testing.assert_allclose(layer[k].detach().numpy(), np.asarray(jlayer[k]),
-                                       rtol=1e-4, atol=1e-6)
+    assert_params_match_jax(params, jparams)
 
 
 def _npz_graph(tmp_path):
