@@ -18,6 +18,7 @@ from typing import Callable, Dict
 import torch
 
 from hcspmm_tpu_torch.ops import fused
+from hcspmm_tpu_torch.utils import profiling
 
 FIXED_HIDDEN, FIXED_FIRST, FIXED_FINAL = 0, 1, 2
 
@@ -56,9 +57,24 @@ class SAGEConv:
     """GraphSAGE-mean layer (Hamilton, Ying and Leskovec, NeurIPS 2017,
     Algorithm 1 line 5; extension, no reference equivalent):
     ``Z = [X | mean_N(X)] W`` with ``mean_N = D^-1 A X`` and one weight
-    ``W`` [2 d_in, d_out], the self rows first, computed as
-    ``X W[:d_in] + mean_N(X) W[d_in:]`` in the bound operator's layout
-    (``dense_sum``)."""
+    ``W`` [2 d_in, d_out], the self rows first, in the bound operator's
+    layout.
+
+    The order follows the shapes, as DGL's ``SAGEConv`` chooses
+    ``lin_before_mp``: the layer projects before it aggregates,
+    ``X W[:d_in] + D^-1 A (X W[d_in:])``, the self product added into the
+    mean's output (``dense_add``), where that runs fewer SpMM columns than
+    aggregating first, ``X W[:d_in] + mean_N(X) W[d_in:]`` (``dense_sum``);
+    ties keep the second.  An SpMM's columns are the bound operator's
+    ``spmm_width`` (the padded layout's lanes or sublanes, the raw width in
+    the row layout) at d_out projecting first, at d_in aggregating first.
+    Under autograd the backward runs one more SpMM of that width where the
+    input takes a gradient, and projecting first also where only the weight
+    does (dW of the neighbour rows is X^T A^T D^-1 dZ), so a first layer
+    projects first only where it more than halves the width.  In real
+    arithmetic both orders are the same function; projecting first keeps no
+    [M, d_in] aggregate for dW.  Each forward that projects first counts
+    ``models.sage_project_first``."""
 
     def __init__(self, fixed: int = FIXED_HIDDEN):
         self.fixed = fixed
@@ -66,5 +82,10 @@ class SAGEConv:
     def __call__(self, params, spmm: Callable, x: torch.Tensor) -> torch.Tensor:
         w = params["weights"]
         d = w.shape[0] // 2
-        agg = spmm.mean(x)
-        return spmm.dense_sum(x, w[:d], agg, w[d:])
+        grad = torch.is_grad_enabled()
+        agg_spmms = 1 + (grad and x.requires_grad)
+        proj_spmms = 1 + (grad and (x.requires_grad or w.requires_grad))
+        if proj_spmms * spmm.spmm_width(w.shape[1]) < agg_spmms * spmm.spmm_width(d):
+            profiling.count("models.sage_project_first")
+            return spmm.dense_add(spmm.mean(spmm.dense(x, w[d:])), x, w[:d])
+        return spmm.dense_sum(x, w[:d], spmm.mean(x), w[d:])

@@ -639,6 +639,11 @@ class HybridSpMM:
             out = xp[:n] if d is None else xp[:n, :d]
         return out if dtype is None else out.to(dtype)
 
+    def padded_width(self, d: int) -> int:
+        """The padded layout's feature width for ``d`` features: 16-row
+        granules transposed, 128-column lanes wide."""
+        return tband.sublane_pad(d) if self.transposed else block_spmm.lane_pad(d)
+
     def _inv_lanes(self, inv, xp):
         """Per-row scale broadcast over the padded layout; padded rows get
         1."""
@@ -677,6 +682,12 @@ class HybridSpMM:
         added into it, so no [M, 2 dp] concatenation is built."""
         with profiling.span("models.dense"):
             return self._product_padded(yp, w2, self._product_padded(xp, w1))
+
+    def dense_add_padded(self, accp, xp, w):
+        """``acc + X W`` in the padded layout, added into ``accp`` in place,
+        so no second output buffer is built."""
+        with profiling.span("models.dense"):
+            return self._product_padded(xp, w, accp)
 
     def apply_padded(self, arrays, xp: torch.Tensor) -> torch.Tensor:
         """SpMM in the padded layout (normalized: D^-1/2 on both sides,
@@ -766,6 +777,12 @@ class HybridSpMM:
         with profiling.span("models.dense"):
             out = torch.matmul(x.float(), w1.float())
             return out.addmm_(y.float(), w2.float()).to(x.dtype)
+
+    def dense_add(self, acc, x, w):
+        """``acc + x w`` in the row layout, in fp32 (in place where ``acc``
+        is fp32), in acc's dtype."""
+        with profiling.span("models.dense"):
+            return acc.float().addmm_(x.float(), w.float()).to(acc.dtype)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.arrays, x)

@@ -34,7 +34,8 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 class Bound:
     """The operator with its plan arrays bound, in its padded layout when
     it has the closed padded path, else in the row layout: what the layers
-    call (``gcn_fused``/``gin_fused``/``mean``/``dense_sum``)."""
+    call (``gcn_fused``/``gin_fused``/``mean``/``dense``/``dense_sum``/
+    ``dense_add``, and ``spmm_width``, the width its SpMM runs at)."""
 
     def __init__(self, spmm):
         self._op = spmm
@@ -61,10 +62,24 @@ class Bound:
             return self._op.mean_apply_padded(self._arrs, x)
         return self._op.mean_apply(self._arrs, x)
 
+    def spmm_width(self, d):
+        """The width an SpMM of ``d`` features runs at in this layout."""
+        return self._op.padded_width(d) if self.padded_layout else d
+
+    def dense(self, x, w):
+        if self.padded_layout:
+            return self._op.dense_padded(x, w)
+        return self._op.dense(x, w)
+
     def dense_sum(self, x, w1, y, w2):
         if self.padded_layout:
             return self._op.dense_sum_padded(x, w1, y, w2)
         return self._op.dense_sum(x, w1, y, w2)
+
+    def dense_add(self, acc, x, w):
+        if self.padded_layout:
+            return self._op.dense_add_padded(acc, x, w)
+        return self._op.dense_add(acc, x, w)
 
 
 def layout_input(spmm, x) -> torch.Tensor:
