@@ -204,7 +204,7 @@ Phases, each of which raises on failure, with its seconds printed:
     96) plans, the fused kernel launched, and DD's tband plan (spill: it
     composes), the composed core's aggregate against A @ x and the fused
     core's outputs against the composed core's;
-27. D^-1/2 inside the wide kernels (``HybridSpMM.folds_scale``) at the
+27. D^-1/2 inside the wide kernels (``WideLayout.folds_scale``) at the
     plans the gcn3 benchmark cells build (the GH and YS stand-ins, cluster
     order, the CLI's PlanConfig at the wide layout, normalised), fp32, dp
     128 and 256: band_kernel's scaled mode (direct and bucket mode), the
@@ -1098,7 +1098,7 @@ def gcn3_wide_op(rp, ci, n, dev):
 
 
 def scaled_at_plan(key, op, gen, out, dims=WIDE_DIMS, reps=10) -> None:
-    """D^-1/2 inside the wide kernels (``HybridSpMM.folds_scale``) at
+    """D^-1/2 inside the wide kernels (``WideLayout.folds_scale``) at
     ``op``'s own arrays, fp32, at each width of ``dims``:
 
     - band_kernel's scaled mode, direct (the main bucket) and bucket mode
@@ -1128,9 +1128,9 @@ def scaled_at_plan(key, op, gen, out, dims=WIDE_DIMS, reps=10) -> None:
     dev = torch.device(DEV)
     cd, f32 = "float32", torch.float32
     p, arrs = op.plan, op.arrays["f"]
-    if not (op.folds_scale and "inv_sqrt_deg_rows" in op.arrays):
+    if not op.layout.folds_scale:
         raise AssertionError(f"{key}: the wide plan must apply D^-1/2 inside its kernels")
-    scale = op.arrays["inv_sqrt_deg_rows"]
+    scale = op.layout._inv_sqrt.view(-1)  # D^-1/2 over the M rows, 1 on the pad rows
     m, bh = p.padded_rows, p.band_h
     num_sw = m // bh
     row_s = scale.view(num_sw, bh)  # each superwindow's rows' scales
@@ -1280,7 +1280,7 @@ def scaled_at_plan(key, op, gen, out, dims=WIDE_DIMS, reps=10) -> None:
         if folded != 2:
             raise AssertionError(f"{key} dp {dp}: spmm.scale_folded {folded}, not 2")
         xc = xp.clone().requires_grad_(True)
-        zc = op._padded_core(op.arrays, xc * scale[:, None]) * scale[:, None]
+        zc = op.layout.raw(xc * scale[:, None]) * scale[:, None]
         zc.backward(base)
         err = max(hold(f"{key} folded SpMM dp {dp} vs composed", z.detach(), zc.detach(), cd),
                   hold(f"{key} folded SpMM's input gradient dp {dp} vs composed", xv.grad,
@@ -1291,7 +1291,7 @@ def scaled_at_plan(key, op, gen, out, dims=WIDE_DIMS, reps=10) -> None:
         with torch.no_grad():
             ab = interleaved_ms({
                 "folded": lambda: op.apply_padded(op.arrays, xp),
-                "composed": lambda: op._padded_core(op.arrays, xp * scale[:, None])
+                "composed": lambda: op.layout.raw(xp * scale[:, None])
                 * scale[:, None]}, max(reps // 2, 2))
         log(f"    {key} SpMM dp {dp}, fp32: folded {ab['folded']:.4f} ms, composed "
             f"{ab['composed']:.4f} ms ({ab['folded'] / ab['composed'] - 1:+.1%})")
@@ -3431,7 +3431,6 @@ def dist_reference(case, model, params_np, ref_ops) -> dict:
     from hcspmm_tpu_torch.ops.spmm import HybridSpMM
     from hcspmm_tpu_torch.parallel import dryrun
     from hcspmm_tpu_torch.parallel.dist_spmm import shard_config
-    from hcspmm_tpu_torch.train.loop import Bound
 
     n, m = case["n"], case["n_padded"]
     cfg = shard_config(case["config"], case["mode"])
@@ -3447,8 +3446,6 @@ def dist_reference(case, model, params_np, ref_ops) -> dict:
     with torch.no_grad():
         z = op(x)
         ms = cuda_time_ms(lambda: op(x), 10)
-    bound = Bound(op)
-    bound.padded_layout = False  # the row layout, as every rank runs it
     net = Net(model=model, **DIST_NET)
     params = params_from_jax(params_np, device=DEV)
     opt = dryrun.adam(params)
@@ -3456,7 +3453,7 @@ def dist_reference(case, model, params_np, ref_ops) -> dict:
     losses = []
     for _ in range(DIST_STEPS):
         opt.zero_grad(set_to_none=True)
-        loss = dryrun.nll_sum(net_forward(net, params, bound, xin), y) / m
+        loss = dryrun.nll_sum(net_forward(net, params, op.rows, xin), y) / m
         loss.backward()
         opt.step()
         losses.append(float(loss.detach()))
@@ -3886,7 +3883,6 @@ def main() -> int:
     from hcspmm_tpu_torch.kernels import _build, block_spmm, dstream, tband, tspill
     from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward
     from hcspmm_tpu_torch.ops.spmm import HybridSpMM, _to_device
-    from hcspmm_tpu_torch.train.loop import Bound
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4073,10 +4069,10 @@ def main() -> int:
                                      device="cpu")
             op2c = HybridSpMM(rp2, ci2, n2, cfg2, device="cpu")
             with torch.no_grad():
-                lp_cpu = net_forward(net, params, Bound(op2c), op2c.pad_input(x2),
+                lp_cpu = net_forward(net, params, op2c.layout, op2c.pad_input(x2),
                                      out_slice=lambda h: op2c.unpad_output(h, 22))
                 params_dev = [{k: v.to(dev) for k, v in p.items()} for p in params]
-                lp_dev = net_forward(net, params_dev, Bound(op2), op2.pad_input(x2),
+                lp_dev = net_forward(net, params_dev, op2.layout, op2.pad_input(x2),
                                      out_slice=lambda h: op2.unpad_output(h, 22))
             check("6-layer GCN log-probs, card vs CPU, small graph", lp_dev, lp_cpu,
                   "float32")

@@ -990,9 +990,9 @@ def spmm_wide_padded(arrs, xp, plan, compute_dtype):
     ``arrs["row_scale"]``, where present (fp32 [M], a diagonal D with 1 on
     the pad rows; not on tiled plans), computes D A D xp: the band kernel
     and the row merge (or the take path) apply D as they sum, with no pass
-    over [M, dp] of their own; counted in ``spmm.scale_folded``.  D is a
-    per-call operand that travels in a copy of the static plan arrays
-    (``make_spmm_padded`` adds it for the call), because this 4-argument
+    over [M, dp] of their own; counted in ``spmm.scale_folded``.  D is an
+    operand that travels in a copy of the static plan arrays
+    (``ops.spmm.WideLayout`` builds that copy once), because this 4-argument
     signature is the one ``benchmark/tests/test_bench_faults.py`` patches;
     any plan dict that carries ``row_scale`` is therefore a scaled SpMM.
     It belongs in an explicit argument once that test can follow."""

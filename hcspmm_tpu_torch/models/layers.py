@@ -6,7 +6,13 @@ port of hcspmm_tpu/models/layers.py.
   sane extension;
 - each layer carries a ``fixed`` strategy in {0: hidden, 1: first,
   2: final} (GNN_model.py:277-282); numerically all three reduce to the two
-  op orders of ops.fused.
+  op orders, the layout's ``gcn`` (Z = A (X W), the reference's
+  update-then-aggregate) and ``gin`` (Z = (A X) W, aggregate-then-update,
+  the aggregate kept for dW).
+
+``spmm`` is the operator's layout (``HybridSpMM.layout``, an
+``ops.spmm`` layout class, or ``parallel.dist_spmm.DistHybridSpMM``): it
+owns the activation layout, so it supplies the layer cores.
 
 Parameters are plain dicts of tensors; ``torch.Generator`` draws them.
 """
@@ -17,7 +23,6 @@ from typing import Callable, Dict
 
 import torch
 
-from hcspmm_tpu_torch.ops import fused
 from hcspmm_tpu_torch.utils import profiling
 
 FIXED_HIDDEN, FIXED_FIRST, FIXED_FINAL = 0, 1, 2
@@ -40,7 +45,7 @@ class GCNConv:
         self.fixed = fixed
 
     def __call__(self, params, spmm: Callable, x: torch.Tensor) -> torch.Tensor:
-        return fused.update_then_aggregate(spmm, x, params["weights"])
+        return spmm.gcn(x, params["weights"])
 
 
 class GINConv:
@@ -50,22 +55,21 @@ class GINConv:
         self.fixed = fixed
 
     def __call__(self, params, spmm: Callable, x: torch.Tensor) -> torch.Tensor:
-        return fused.aggregate_then_update(spmm, x, params["weights"])
+        return spmm.gin(x, params["weights"])
 
 
 class SAGEConv:
     """GraphSAGE-mean layer (Hamilton, Ying and Leskovec, NeurIPS 2017,
     Algorithm 1 line 5; extension, no reference equivalent):
     ``Z = [X | mean_N(X)] W`` with ``mean_N = D^-1 A X`` and one weight
-    ``W`` [2 d_in, d_out], the self rows first, in the bound operator's
-    layout.
+    ``W`` [2 d_in, d_out], the self rows first, in the layout ``spmm``.
 
     The order follows the shapes, as DGL's ``SAGEConv`` chooses
     ``lin_before_mp``: the layer projects before it aggregates,
     ``X W[:d_in] + D^-1 A (X W[d_in:])``, the self product added into the
     mean's output (``dense_add``), where that runs fewer SpMM columns than
     aggregating first, ``X W[:d_in] + mean_N(X) W[d_in:]`` (``dense_sum``);
-    ties keep the second.  An SpMM's columns are the bound operator's
+    ties keep the second.  An SpMM's columns are the layout's
     ``spmm_width`` (the padded layout's lanes or sublanes, the raw width in
     the row layout) at d_out projecting first, at d_in aggregating first.
     Under autograd the backward runs one more SpMM of that width where the

@@ -1,13 +1,17 @@
 """Differentiable hybrid SpMM ``Z = A @ X`` for a binary adjacency A.
 
-Port of hcspmm_tpu/ops/spmm.py over its three layouts: the row layout
-[N, d] (every plan; ``kernels/block_spmm.py:spmm_rows`` with its dense,
-ELL and residual populations, ``tband.spmm_tband`` on tband plans) and
-the two padded layouts, the transposed band (``plan.tband``, X^T [dt, M],
-kernels/tband.py) and the wide layout ([M, dp], kernels/block_spmm.py),
-which plans with the closed padded path use.  ``impl='xla'`` is the
-reference's gather + einsum + segment-sum form in plain torch ops
-(``_spmm_xla``), with no kernel.
+Port of hcspmm_tpu/ops/spmm.py over its three activation layouts, one
+class each, which ``HybridSpMM`` chooses once, when it is built: the row
+layout ``RowLayout`` [N, d] (every plan; ``kernels/block_spmm.py:spmm_rows``
+with its dense, ELL and residual populations, ``tband.spmm_tband`` on
+tband plans) and the two padded layouts of plans with the closed padded
+path, the transposed band ``TbandLayout`` (``plan.tband``, X^T [dt, M],
+kernels/tband.py) and the wide ``WideLayout`` ([M, dp],
+kernels/block_spmm.py).  Each layout holds the plan arrays and implements
+the layer protocol ``models.layers`` calls (the SpMM, the GCN and GIN
+cores, the mean aggregation, the dense updates, ``pad``/``unpad``).
+``impl='xla'`` is the reference's gather + einsum + segment-sum form in
+plain torch ops (``_spmm_xla``), with no kernel.
 
 Forward and backward aggregation are the same operator: the backward of
 ``A @ X`` is ``A^T @ dZ``, which is the forward SpMM on the same plan when
@@ -33,6 +37,7 @@ instead of losing edges.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -156,41 +161,24 @@ def _spmm_xla(arrs, x, plan, compute_dtype):
     return out.to(x.dtype)
 
 
-def _rows_impl(plan, cd, impl):
-    """The row-layout SpMM ``fn(arrs, x [N, d])`` of one plan."""
+def _rows_impl(plan, arrs, cd, impl):
+    """The row-layout SpMM ``x [C, d] -> [N, d]`` of one plan over its
+    arrays ``arrs``: ``spmm_rows`` (tband plans: ``spmm_tband``) for
+    'pallas', ``_spmm_xla`` for 'xla'.  Raises for a plan this package does
+    not run."""
     if impl == "xla":
         if getattr(plan, "tband", False):
             raise ValueError("impl='xla' runs band_impl='wide' plans (the reference's "
                              "CLI builds them under xla); tband plans have no xla form")
         block_spmm.rows_check(plan)
-        return lambda arrs, x: _spmm_xla(arrs, x, plan, cd)
+        return lambda x: _spmm_xla(arrs, x, plan, cd)
     if impl != "pallas":
         raise ValueError(f"unknown impl: {impl}")
     if getattr(plan, "tband", False):
         tband.check_plan(plan)
-        return lambda arrs, x: tband.spmm_tband(arrs, x, plan, cd)
+        return lambda x: tband.spmm_tband(arrs, x, plan, cd)
     block_spmm.rows_check(plan)
-    return lambda arrs, x: block_spmm.spmm_rows(arrs, x, plan, cd)
-
-
-def _build_impls(plan, pb, cd, impl):
-    """(forward, backward) row-layout SpMMs: ``spmm_rows`` (tband plans:
-    ``spmm_tband``) for 'pallas', ``_spmm_xla`` for 'xla'."""
-    return _rows_impl(plan, cd, impl), _rows_impl(pb, cd, impl)
-
-
-def make_spmm(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
-              compute_dtype: str = "float32", impl: str = "pallas"):
-    """Differentiable row-layout SpMM ``spmm(arrs_f, arrs_b, x [N, d]) ->
-    [N, d]``.  ``plan_bwd=None`` reuses the forward plan in the backward
-    (symmetric structure)."""
-    pb = plan if plan_bwd is None else plan_bwd
-    fwd, bwd = _build_impls(plan, pb, _dtype(compute_dtype), impl)
-
-    def spmm(arrs_f, arrs_b, x):
-        return _SpMM.apply(x, lambda v: fwd(arrs_f, v), lambda g: bwd(arrs_b, g))
-
-    return spmm
+    return lambda x: block_spmm.spmm_rows(arrs, x, plan, cd)
 
 
 def _dot(x, w):
@@ -225,220 +213,371 @@ class _LayerCore(torch.autograd.Function):
         return dx, dw, None, None
 
 
-def make_fused_ops(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
-                   compute_dtype: str = "float32", impl: str = "pallas"):
-    """The GCN and GIN layer cores in the row layout (port of
-    hcspmm_tpu/ops/spmm.py:522): ``gcn(arrs_f, arrs_b, x, w) = A (x w)`` and
-    ``gin(...) = (A x) w``.  Composed by default: under autograd the GCN
-    backward is one SpMM of dZ and two products, dX = (A^T dZ) w^T and dW =
-    x^T (A^T dZ); the GIN backward keeps the aggregate for dW and runs one
-    SpMM of dZ w^T.  With ``prefer_fused_kernel`` on the plan (impl
-    'pallas'), the GCN backward computes (A^T dZ) w^T and A^T dZ in one fused
-    launch on the backward plan and the GIN forward (A x) w and A x in one
-    on the forward plan (``block_spmm.spmm_fused_rows``, which falls back to
-    the SpMM and a product where the plan has no single full-cover band
-    bucket), as the reference's ``_fused_impl`` does."""
-    cd = _dtype(compute_dtype)
-    pb = plan if plan_bwd is None else plan_bwd
-    spmm = make_spmm(plan, plan_bwd, compute_dtype, impl)
-    fwd_rows, bwd_rows = _build_impls(plan, pb, cd, impl)
-
-    def fused(p, rows, arrs, x, w):
-        if impl == "pallas" and _prefers_fused(p):
-            res = block_spmm.spmm_fused_rows(arrs, x, w, p, cd)
-            if res is not None:
-                return res
-        agg = rows(arrs, x)
-        return _dot(agg, w), agg
-
-    def gcn(arrs_f, arrs_b, x, w):
-        if not (impl == "pallas" and _prefers_fused(pb)):
-            return spmm(arrs_f, arrs_b, _dot(x, w))
-
-        def fwd(x_, w_):
-            return fwd_rows(arrs_f, _dot(x_, w_)), (x_, w_)
-
-        def bwd(x_, w_, g, need_dx):
-            dx, adz = fused(pb, bwd_rows, arrs_b, g, w_.T.to(g.dtype))
-            return dx.to(x_.dtype), torch.matmul(x_.float().T, adz.float()).to(w_.dtype)
-
-        return _LayerCore.apply(x, w, fwd, bwd)
-
-    def gin(arrs_f, arrs_b, x, w):
-        if not (impl == "pallas" and _prefers_fused(plan)):
-            return _dot(spmm(arrs_f, arrs_b, x), w)
-
-        def fwd(x_, w_):
-            out, agg = fused(plan, fwd_rows, arrs_f, x_, w_)
-            return out, (w_, agg)
-
-        def bwd(w_, agg, g, need_dx):
-            dx = bwd_rows(arrs_b, _dot(g, w_.T).to(agg.dtype)).to(agg.dtype) if need_dx else None
-            return dx, torch.matmul(agg.float().T, g.float()).to(w_.dtype)
-
-        return _LayerCore.apply(x, w, fwd, bwd)
-
-    return {"gcn": gcn, "gin": gin}
-
-
-def make_spmm_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
-                     compute_dtype: str = "float32"):
-    """Differentiable SpMM over the plan's closed padded layout (transposed
-    [dt, M] or wide [M, dp]) -> the same layout: ``spmm_p(arrs_f, arrs_b,
-    xp)``; None when the plans lack that path (as the reference's
-    ``make_spmm_padded``: the caller uses the row layout).  Raises
-    NotImplementedError for a plan this package does not run.
-
-    On wide plans that are not tiled, ``spmm_p(arrs_f, arrs_b, xp, scale)``
-    with a diagonal scale D (fp32 [M]) is D A D xp, backward D A^T D dZ, each
-    one SpMM whose kernels apply D (``block_spmm.spmm_wide_padded``, handed
-    D as the plan arrays' ``row_scale`` for the call)."""
-    pb = plan if plan_bwd is None else plan_bwd
-    for p in (plan, pb):
-        if getattr(p, "tband", False):
-            tband.check_plan(p)
-        else:
-            block_spmm.rows_check(p)
-    if not (getattr(pb, "tband", False) == getattr(plan, "tband", False)
-            and pb.padded_rows == plan.padded_rows
-            and all(block_spmm.spmm_padded_supported(p) for p in (plan, pb))):
-        return None
-    if getattr(plan, "tband", False):
-        core = tband.spmm_tband_padded
-    else:
-        core = block_spmm.spmm_wide_padded
-        for p in (plan, pb):
-            block_spmm.check_plan(p)
-    cd = _dtype(compute_dtype)
-
-    def spmm_p(arrs_f, arrs_b, xp, scale=None):
-        if scale is not None:
-            arrs_f, arrs_b = {**arrs_f, "row_scale": scale}, {**arrs_b, "row_scale": scale}
-        return _SpMM.apply(xp, lambda v: core(arrs_f, v, plan, cd),
-                           lambda g: core(arrs_b, g, pb, cd))
-
-    return spmm_p
-
-
 def _pad_w_lane(w, dpin, dtype):
     """W [d, h] zero-padded to the wide layout's [dpin, 128-multiple]."""
     return F.pad(w.to(dtype), (0, block_spmm.lane_pad(w.shape[1]) - w.shape[1],
                                0, dpin - w.shape[0]))
 
 
-def _make_fused_ops_tband(plan, pb, cd):
-    """The fused GCN/GIN layer cores in the transposed padded layout [dt, M]
-    (port of hcspmm_tpu/ops/spmm.py:279): the dense update is W^T X^T, and
-    the fused launch (``tband.spmm_tband_fused_padded``) gives (W-form @
-    agg^T, agg^T).  Weights stay unpadded; gradients are sliced back."""
+def _pad_wt(w, dint, dtype):
+    """(pad W)^T [ht, dint]: the transposed layout's update W^T X^T."""
+    ht = tband.sublane_pad(w.shape[1])
+    return F.pad(w.T.to(dtype), (0, dint - w.shape[0], 0, ht - w.shape[1]))
 
-    def _wt(w, dint, dtype):
-        # transposed padded weight [ht, dint] = (pad W)^T
-        ht = tband.sublane_pad(w.shape[1])
-        return F.pad(w.T.to(dtype), (0, dint - w.shape[0], 0, ht - w.shape[1]))
 
-    def _wf(w, dint, ht, dtype):
-        # forward-form padded weight [dint, ht] (left-multiplies agg^T)
-        return F.pad(w.to(dtype), (0, ht - w.shape[1], 0, dint - w.shape[0]))
+def _pad_wf(w, dint, ht, dtype):
+    """Forward-form padded weight [dint, ht] (left-multiplies agg^T)."""
+    return F.pad(w.to(dtype), (0, ht - w.shape[1], 0, dint - w.shape[0]))
 
-    def _dw(xt, adzt, w):
-        # the two transposed activations contracted over M
-        return torch.matmul(xt.float(), adzt.float().T)[: w.shape[0], : w.shape[1]].to(w.dtype)
 
-    def fused(p, arrs, xt, wform):
+class _Layout:
+    """The layer protocol in one activation layout, the operator's plan
+    arrays bound: what ``models.layers`` calls.  ``layout(x)`` is the SpMM,
+    normalised as the operator is; ``gcn`` and ``gin`` the layer cores;
+    ``mean`` GraphSAGE's D^-1 A X (the raw aggregate whatever ``normalize``
+    says); ``dense``, ``dense_sum`` and ``dense_add`` the updates X W, X W1 +
+    Y W2 and acc + X W; ``spmm_width(d)`` the width an SpMM of d features
+    runs at; ``pad`` and ``unpad`` the conversions from and to [N, d].
+
+    A subclass gives the layout's shape (``pad``, ``unpad``, ``is_padded``,
+    ``spmm_width``, ``_lanes``, ``_product``), its unnormalised SpMM
+    ``raw`` and, where the kernel-fusion mode runs, the fused layer cores
+    (``_gcn_fwd``/``_gcn_bwd``, ``_gin_fwd``/``_gin_bwd``).  The
+    normalisation is chosen once, here: none, or D^-1/2 as a ``_Scale``
+    node on each side of ``raw``; ``WideLayout`` has a third form, D^-1/2
+    inside its kernels (``folds_scale``).  The fused cores run only
+    unnormalised, where the plan (the backward plan for GCN, the forward
+    plan for GIN) has ``prefer_fused_kernel`` set when the core is called;
+    elsewhere the cores compose the SpMM and ``dense``."""
+
+    transposed = False
+    #: True where D^-1/2 runs inside the SpMM's kernels
+    folds_scale = False
+
+    def __init__(self, plan, plan_bwd, arrays, device, compute_dtype="float32",
+                 normalize=False, fusable=True):
+        """``arrays``: the operator's (``f`` and ``b``, the plan arrays;
+        ``inv_deg``; ``inv_sqrt_deg`` where ``normalize``)."""
+        self.plan = plan
+        self.plan_bwd = plan if plan_bwd is None else plan_bwd
+        self.device = torch.device(device)
+        self._arrays = arrays
+        self._cd = _dtype(compute_dtype)
+        self._fused = fusable and not normalize
+        self._agg = self.raw
+        if normalize:
+            self._inv_sqrt = self._lanes(arrays["inv_sqrt_deg"])
+            self._agg = self._scaled
+
+    def raw(self, x):
+        """The unnormalised SpMM A x, one ``_SpMM`` node."""
+        return _SpMM.apply(x, self._fwd, self._bwd)
+
+    def _scaled(self, x):
+        inv = self._inv_sqrt
+        return _Scale.apply(self.raw(_Scale.apply(x, inv, x.dtype)), inv, x.dtype)
+
+    def __call__(self, x):
+        return self._agg(x)
+
+    @functools.cached_property
+    def _inv_deg(self):
+        return self._lanes(self._arrays["inv_deg"])
+
+    def mean(self, x):
+        """``D^-1 A X``, D^-1 a ``_Scale`` node (span ``spmm.scale.mean``,
+        counter ``spmm.mean``); pad rows scale by 1 and stay zero."""
+        return _Scale.apply(self.raw(x), self._inv_deg, x.dtype, "spmm.scale.mean",
+                            "spmm.mean")
+
+    def gcn(self, x, w):
+        """GCN layer core A (X W); backward: one SpMM of dZ, then the two
+        dense products, or, in the fused mode, one fused launch for (A^T dZ)
+        W^T and A^T dZ."""
+        if self._fused and _prefers_fused(self.plan_bwd):
+            return _LayerCore.apply(x, w, self._gcn_fwd, self._gcn_bwd)
+        return self(self.dense(x, w))
+
+    def gin(self, x, w):
+        """GIN layer core (A X) W (one fused launch in the fused mode); the
+        aggregate is the residual kept for dW."""
+        if self._fused and _prefers_fused(self.plan):
+            return _LayerCore.apply(x, w, self._gin_fwd, self._gin_bwd)
+        return self.dense(self(x), w)
+
+    def dense(self, x, w):
+        """Dense update ``X W``."""
+        with profiling.span("models.dense"):
+            return self._product(x, w).to(x.dtype)
+
+    def dense_sum(self, x, w1, y, w2):
+        """``X W1 + Y W2``: ``X W1``, then ``Y W2`` added into it, so no
+        [M, 2 dp] concatenation is built."""
+        with profiling.span("models.dense"):
+            return self._product(y, w2, self._product(x, w1)).to(x.dtype)
+
+    def dense_add(self, acc, x, w):
+        """``acc + X W``, added into ``acc`` in place where it has the
+        product's dtype, so no second output buffer is built."""
+        with profiling.span("models.dense"):
+            return self._product(x, w, acc).to(acc.dtype)
+
+
+class RowLayout(_Layout):
+    """The row layout [N, d], which every plan runs (the JAX operator's
+    ``apply``): ``spmm_rows`` with its dense, ELL and residual populations,
+    ``spmm_tband`` on tband plans, or the plain ``_spmm_xla`` for
+    ``impl='xla'``.  Its updates run in fp32 and round to the input's
+    dtype; the fused cores (``impl='pallas'``) launch
+    ``block_spmm.spmm_fused_rows``, which composes where the plan has no
+    single full-cover band bucket.  A plan with more columns than rows (a
+    shard's) takes X of its ``num_cols`` rows."""
+
+    def __init__(self, plan, plan_bwd, arrays, device, compute_dtype="float32",
+                 normalize=False, impl="pallas"):
+        cd = _dtype(compute_dtype)
+        self._fwd = _rows_impl(plan, arrays["f"], cd, impl)
+        self._bwd = _rows_impl(plan if plan_bwd is None else plan_bwd, arrays["b"], cd, impl)
+        super().__init__(plan, plan_bwd, arrays, device, compute_dtype, normalize,
+                         fusable=impl == "pallas")
+
+    def spmm_width(self, d):
+        return d
+
+    def is_padded(self, x):
+        """False: ``pad`` only moves [N, d] to the device."""
+        return False
+
+    def pad(self, x):
+        return torch.as_tensor(x).to(self.device)
+
+    def unpad(self, h, d=None):
+        return h[:, :d]
+
+    def _lanes(self, inv):
+        return inv[:, None]
+
+    def _product(self, x, w, acc=None):
+        a, b = x.float(), w.float()
+        return torch.matmul(a, b) if acc is None else acc.float().addmm_(a, b)
+
+    def _fused_update(self, p, spmm, arrs, x, w):
+        if _prefers_fused(p):
+            res = block_spmm.spmm_fused_rows(arrs, x, w, p, self._cd)
+            if res is not None:
+                return res
+        agg = spmm(x)
+        return _dot(agg, w), agg
+
+    def _gcn_fwd(self, x, w):
+        return self._fwd(_dot(x, w)), (x, w)
+
+    def _gcn_bwd(self, x, w, g, need_dx):
+        dx, adz = self._fused_update(self.plan_bwd, self._bwd, self._arrays["b"], g,
+                                     w.T.to(g.dtype))
+        return dx.to(x.dtype), torch.matmul(x.float().T, adz.float()).to(w.dtype)
+
+    def _gin_fwd(self, x, w):
+        out, agg = self._fused_update(self.plan, self._fwd, self._arrays["f"], x, w)
+        return out, (w, agg)
+
+    def _gin_bwd(self, w, agg, g, need_dx):
+        dx = self._bwd(_dot(g, w.T).to(agg.dtype)).to(agg.dtype) if need_dx else None
+        return dx, torch.matmul(agg.float().T, g.float()).to(w.dtype)
+
+
+class TbandLayout(_Layout):
+    """The transposed band X^T [dt, M] (``plan.tband``; dt a multiple of
+    16): each SpMM one ``tband.spmm_tband_padded``, the update W^T X^T, and
+    the fused cores ``tband.spmm_tband_fused_padded``, which gives (W-form
+    @ agg^T, agg^T).  Weights stay unpadded; gradients are sliced back."""
+
+    transposed = True
+
+    def __init__(self, plan, plan_bwd, arrays, device, compute_dtype="float32",
+                 normalize=False):
+        pb = plan if plan_bwd is None else plan_bwd
+        cd, core = _dtype(compute_dtype), tband.spmm_tband_padded
+        self._fwd = lambda v: core(arrays["f"], v, plan, cd)
+        self._bwd = lambda g: core(arrays["b"], g, pb, cd)
+        super().__init__(plan, plan_bwd, arrays, device, compute_dtype, normalize)
+
+    def spmm_width(self, d):
+        return tband.sublane_pad(d)
+
+    def is_padded(self, x):
+        return x.shape[1] == self.plan.padded_rows and x.shape[0] % 16 == 0
+
+    def pad(self, x):
+        x = torch.as_tensor(x)
+        n, d = x.shape
+        xp = torch.zeros((tband.sublane_pad(d), self.plan.padded_rows), dtype=self._cd,
+                         device=self.device)
+        xp[:d, :n] = x.T.to(device=self.device, dtype=self._cd)
+        return xp
+
+    def unpad(self, h, d=None):
+        return h[:d, : self.plan.num_nodes].T
+
+    def _lanes(self, inv):
+        return F.pad(inv, (0, self.plan.padded_rows - inv.shape[0]), value=1.0)[None, :]
+
+    def _product(self, x, w, acc=None):
+        a = _pad_wt(w, x.shape[0], x.dtype)
+        return torch.matmul(a, x) if acc is None else acc.addmm_(a, x)
+
+    def _fused_update(self, p, spmm, arrs, xt, wform):
         if _prefers_fused(p):
             res = tband.spmm_tband_fused_padded(arrs, xt, wform, p)
             if res is not None:
                 return res
-        agg = tband.spmm_tband_padded(arrs, xt, p, cd)
+        agg = spmm(xt)
         return _dot(wform, agg).to(xt.dtype), agg
 
-    def gcn(arrs_f, arrs_b, xt, w):
-        def fwd(x_, w_):
-            h = _dot(_wt(w_, x_.shape[0], x_.dtype), x_)
-            return tband.spmm_tband_padded(arrs_f, h, plan, cd), (x_, w_)
+    @staticmethod
+    def _dw(xt, adzt, w):
+        # the two transposed activations contracted over M
+        return torch.matmul(xt.float(), adzt.float().T)[: w.shape[0], : w.shape[1]].to(w.dtype)
 
-        def bwd(x_, w_, g, need_dx):
-            # one fused launch: adz^T = (A^T dZ)^T and dX^T = W_pad adz^T
-            dxt, adzt = fused(pb, arrs_b, g, _wf(w_, x_.shape[0], g.shape[0], g.dtype))
-            return dxt.to(x_.dtype), _dw(x_, adzt, w_)
+    def _gcn_fwd(self, x, w):
+        return self._fwd(_dot(_pad_wt(w, x.shape[0], x.dtype), x)), (x, w)
 
-        return _LayerCore.apply(xt, w, fwd, bwd)
+    def _gcn_bwd(self, x, w, g, need_dx):
+        # one fused launch: adz^T = (A^T dZ)^T and dX^T = W_pad adz^T
+        dxt, adzt = self._fused_update(self.plan_bwd, self._bwd, self._arrays["b"], g,
+                                       _pad_wf(w, x.shape[0], g.shape[0], g.dtype))
+        return dxt.to(x.dtype), self._dw(x, adzt, w)
 
-    def gin(arrs_f, arrs_b, xt, w):
-        def fwd(x_, w_):
-            out, agg = fused(plan, arrs_f, x_, _wt(w_, x_.shape[0], x_.dtype))
-            return out, (w_, agg)
+    def _gin_fwd(self, x, w):
+        out, agg = self._fused_update(self.plan, self._fwd, self._arrays["f"], x,
+                                      _pad_wt(w, x.shape[0], x.dtype))
+        return out, (w, agg)
 
-        def bwd(w_, agg, g, need_dx):
-            dxt = None
-            if need_dx:
-                daggt = _dot(_wf(w_, agg.shape[0], g.shape[0], g.dtype), g)
-                dxt = tband.spmm_tband_padded(arrs_b, daggt, pb, cd).to(g.dtype)
-            return dxt, _dw(agg, g, w_)
-
-        return _LayerCore.apply(xt, w, fwd, bwd)
-
-    return {"gcn": gcn, "gin": gin}
+    def _gin_bwd(self, w, agg, g, need_dx):
+        dxt = None
+        if need_dx:
+            dxt = self._bwd(_dot(_pad_wf(w, agg.shape[0], g.shape[0], g.dtype), g)).to(g.dtype)
+        return dxt, self._dw(agg, g, w)
 
 
-def make_fused_ops_padded(plan: ExecutionPlan, plan_bwd: Optional[ExecutionPlan] = None,
-                          compute_dtype: str = "float32"):
-    """The fused GCN/GIN layer cores over the closed padded layout (port of
-    hcspmm_tpu/ops/spmm.py:369), for the kernel-fusion mode: ``gcn(arrs_f,
-    arrs_b, xp, w)`` = A (Xp W) whose backward is one fused launch on the
-    backward plan giving dX = (A^T dZ) W^T and A^T dZ (dW from the kept A^T
-    dZ), and ``gin(...)`` = (A Xp) W as one fused launch keeping the
-    aggregate for dW.  Each fused call composes the SpMM and a product
-    where ``prefer_fused_kernel`` is unset on its plan or the fused wrapper
-    returns None.  Weights stay unpadded.  None when the plans lack the
-    padded path."""
-    pb = plan if plan_bwd is None else plan_bwd
-    if make_spmm_padded(plan, plan_bwd, compute_dtype) is None:
-        return None
-    cd = _dtype(compute_dtype)
-    if getattr(plan, "tband", False):
-        return _make_fused_ops_tband(plan, pb, cd)
-    core = block_spmm.spmm_wide_padded
+class _WideShape(_Layout):
+    """The wide layout's shape [M, dp] (dp a multiple of 128): padding,
+    the per-row scales and the update X pad(W)."""
 
-    def _dw_of(m, w):
-        return m[: w.shape[0], : w.shape[1]].to(w.dtype)
+    def spmm_width(self, d):
+        return block_spmm.lane_pad(d)
 
-    def fused(p, arrs, xp, wp):
+    def is_padded(self, x):
+        return x.shape[0] == self.plan.padded_rows and x.shape[1] % 128 == 0
+
+    def pad(self, x):
+        x = torch.as_tensor(x)
+        n, d = x.shape
+        xp = torch.zeros((self.plan.padded_rows, block_spmm.lane_pad(d)), dtype=self._cd,
+                         device=self.device)
+        xp[:n, :d] = x.to(device=self.device, dtype=self._cd)
+        return xp
+
+    def unpad(self, h, d=None):
+        return h[: self.plan.num_nodes, :d]
+
+    def _lanes(self, inv):
+        return F.pad(inv, (0, self.plan.padded_rows - inv.shape[0]), value=1.0)[:, None]
+
+    def _product(self, x, w, acc=None):
+        b = _pad_w_lane(w, x.shape[1], x.dtype)
+        return torch.matmul(x, b) if acc is None else acc.addmm_(x, b)
+
+
+class WideLayout(_WideShape):
+    """The wide padded layout [M, dp]: each SpMM one
+    ``block_spmm.spmm_wide_padded``, the fused cores
+    ``block_spmm.spmm_fused_wide_padded``.  Normalised on plans that are not
+    tiled, D^-1/2 runs inside the SpMM's kernels (``folds_scale``): the
+    SpMM is D A D X, its backward D A^T D dZ, with D (1 on the pad rows)
+    handed to ``spmm_wide_padded`` as the plan arrays' ``row_scale``."""
+
+    def __init__(self, plan, plan_bwd, arrays, device, compute_dtype="float32",
+                 normalize=False):
+        pb = plan if plan_bwd is None else plan_bwd
+        for p in (plan, pb):
+            block_spmm.check_plan(p)
+        cd, core = _dtype(compute_dtype), block_spmm.spmm_wide_padded
+        self._fwd = lambda v: core(arrays["f"], v, plan, cd)
+        self._bwd = lambda g: core(arrays["b"], g, pb, cd)
+        super().__init__(plan, plan_bwd, arrays, device, compute_dtype, normalize)
+        if normalize and not any(getattr(p, "tiled", False) for p in (plan, pb)):
+            self.folds_scale = True
+            scale = self._inv_sqrt.view(-1)
+            af, ab = {**arrays["f"], "row_scale": scale}, {**arrays["b"], "row_scale": scale}
+            self._fwd_scaled = lambda v: core(af, v, plan, cd)
+            self._bwd_scaled = lambda g: core(ab, g, pb, cd)
+            self._agg = self._folded
+
+    def _folded(self, x):
+        return _SpMM.apply(x, self._fwd_scaled, self._bwd_scaled).to(x.dtype)
+
+    def _fused_update(self, p, spmm, arrs, xp, wp):
         if _prefers_fused(p):
             res = block_spmm.spmm_fused_wide_padded(arrs, xp, wp, p)
             if res is not None:
                 return res
-        agg = core(arrs, xp, p, cd)
+        agg = spmm(xp)
         return _dot(agg, wp), agg
 
-    def gcn(arrs_f, arrs_b, xp, w):
-        def fwd(x_, w_):
-            return core(arrs_f, _dot(x_, _pad_w_lane(w_, x_.shape[1], x_.dtype)), plan, cd), (x_, w_)
+    @staticmethod
+    def _dw(m, w):
+        return m[: w.shape[0], : w.shape[1]].to(w.dtype)
 
-        def bwd(x_, w_, g, need_dx):
-            # one fused launch: dX = (A^T dZ) W^T and the A^T dZ residual
-            wp = _pad_w_lane(w_, x_.shape[1], g.dtype)
-            dx, adz = fused(pb, arrs_b, g, wp.T.contiguous())
-            return dx.to(x_.dtype), _dw_of(torch.matmul(x_.float().T, adz.float()), w_)
+    def _gcn_fwd(self, x, w):
+        return self._fwd(_dot(x, _pad_w_lane(w, x.shape[1], x.dtype))), (x, w)
 
-        return _LayerCore.apply(xp, w, fwd, bwd)
+    def _gcn_bwd(self, x, w, g, need_dx):
+        # one fused launch: dX = (A^T dZ) W^T and the A^T dZ residual
+        wp = _pad_w_lane(w, x.shape[1], g.dtype)
+        dx, adz = self._fused_update(self.plan_bwd, self._bwd, self._arrays["b"], g,
+                                     wp.T.contiguous())
+        return dx.to(x.dtype), self._dw(torch.matmul(x.float().T, adz.float()), w)
 
-    def gin(arrs_f, arrs_b, xp, w):
-        def fwd(x_, w_):
-            out, agg = fused(plan, arrs_f, x_, _pad_w_lane(w_, x_.shape[1], x_.dtype))
-            return out, (w_, agg)
+    def _gin_fwd(self, x, w):
+        out, agg = self._fused_update(self.plan, self._fwd, self._arrays["f"], x,
+                                      _pad_w_lane(w, x.shape[1], x.dtype))
+        return out, (w, agg)
 
-        def bwd(w_, agg, g, need_dx):
-            dx = None
-            if need_dx:
-                wp = _pad_w_lane(w_, agg.shape[1], g.dtype)
-                dx = core(arrs_b, _dot(g, wp.T), pb, cd).to(g.dtype)
-            return dx, _dw_of(torch.matmul(agg.float().T, g.float()), w_)
+    def _gin_bwd(self, w, agg, g, need_dx):
+        dx = None
+        if need_dx:
+            dx = self._bwd(_dot(g, _pad_w_lane(w, agg.shape[1], g.dtype).T)).to(g.dtype)
+        return dx, self._dw(torch.matmul(agg.float().T, g.float()), w)
 
-        return _LayerCore.apply(xp, w, fwd, bwd)
 
-    return {"gcn": gcn, "gin": gin}
+class _RowsPadded(_WideShape):
+    """The padded view of a plan without the closed padded path, as the
+    JAX operator falls back: [M, dp] as the wide layout, each SpMM the row
+    layout's on the first N rows, padded again; the cores compose."""
+
+    def __init__(self, rows, plan, plan_bwd, arrays, device, compute_dtype="float32",
+                 normalize=False):
+        self._rows = rows
+        super().__init__(plan, plan_bwd, arrays, device, compute_dtype, normalize,
+                         fusable=False)
+
+    def raw(self, x):
+        n = self.plan.num_nodes
+        return F.pad(self._rows.raw(x[:n]).to(x.dtype), (0, 0, 0, x.shape[0] - n))
+
+
+def padded_layout(plan, plan_bwd=None):
+    """The closed padded layout of the plans, ``TbandLayout`` (tband plans)
+    or ``WideLayout``; None where they lack that path (dense, ELL or
+    residual populations: the row layout, as the reference's
+    ``make_spmm_padded`` returns None)."""
+    pb = plan if plan_bwd is None else plan_bwd
+    if not (getattr(pb, "tband", False) == getattr(plan, "tband", False)
+            and pb.padded_rows == plan.padded_rows
+            and all(block_spmm.spmm_padded_supported(p) for p in (plan, pb))):
+        return None
+    return TbandLayout if getattr(plan, "tband", False) else WideLayout
 
 
 #: row-layout merge arrays the transposed lane path never reads
@@ -512,12 +651,19 @@ class HybridSpMM:
     """CSR graph -> plan(s) -> differentiable operator on ``device``.
 
     The analog of the reference flow ``HYGNN.preprocess(...)`` +
-    ``HCSPMM.forward*``: construction runs preprocessing and uploads the
-    plan arrays; ``apply``/``__call__`` aggregate in the row layout [N, d];
-    ``apply_padded`` in the plan's padded layout (transposed X^T [dt, M]
-    for tband plans, wide [M, dp] otherwise), through the row op when the
-    plan lacks the closed padded path (``supports_padded`` False: dense,
-    ELL or residual populations, or ``impl='xla'``).
+    ``HCSPMM.forward*``: construction runs preprocessing, uploads the plan
+    arrays and builds the layouts, once: ``rows``, the row layout [N, d]
+    (``apply``, ``__call__`` and the other unpadded names), and ``padded``,
+    the plan's padded layout (``apply_padded`` and the other ``_padded``
+    names, ``pad_input``, ``unpad_output``): ``TbandLayout`` X^T [dt, M] for
+    tband plans, ``WideLayout`` [M, dp] otherwise, or, where the plan lacks
+    the closed padded path (``supports_padded`` False: dense, ELL or
+    residual populations, or ``impl='xla'``), the wide shape over the row
+    op.  ``layout`` is the one the training loop runs: ``padded`` where the
+    path exists, else ``rows``.  The JAX operator's names keep its
+    ``arrays`` argument, ``self.arrays`` at every caller; it selects
+    nothing: the layouts hold the arrays bound, and ``normalize`` decides
+    the normalisation.
     """
 
     def __init__(self, row_pointers: np.ndarray, column_index: np.ndarray,
@@ -528,7 +674,8 @@ class HybridSpMM:
         normalization); False is the reference's unweighted sum.
         ``symmetric=False`` builds the backward plan on A^T.  ``device``:
         None is the CUDA device (a RuntimeError without one); pass
-        ``device="cpu"`` to run the kernels' plain versions on the host."""
+        ``device="cpu"`` to run the kernels' plain versions on the host.
+        Raises NotImplementedError for a plan that would drop edges."""
         self.config = config
         self.normalize = normalize
         self.device = default_device(device)
@@ -538,254 +685,85 @@ class HybridSpMM:
         else:
             rp_t, ci_t = transpose_csr(row_pointers, column_index, num_nodes)
             self.plan_bwd = build_plan(rp_t, ci_t, num_nodes, config)
-        for p in (self.plan, self.plan_bwd):
-            if p is not None and not getattr(p, "tband", False):
-                block_spmm.rows_check(p)
-        # raises NotImplementedError for a plan that would drop edges
-        self._fn = make_spmm(self.plan, self.plan_bwd, config.compute_dtype, config.impl)
-        self._fused = make_fused_ops(self.plan, self.plan_bwd, config.compute_dtype,
-                                     config.impl)
-        self._fn_padded = (make_spmm_padded(self.plan, self.plan_bwd, config.compute_dtype)
-                           if config.impl == "pallas" else None)
-        self._fused_padded = (make_fused_ops_padded(self.plan, self.plan_bwd,
-                                                    config.compute_dtype)
-                              if config.impl == "pallas" else None)
         arrs_f = _to_device(self.plan, self.device)
         arrs_b = arrs_f if self.plan_bwd is None else _to_device(self.plan_bwd,
                                                                  self.device)
-        #: plan arrays on the device; ``apply(arrays, x)`` threads them
+        #: plan arrays on the device, bound into the layouts
         self.arrays = {"f": arrs_f, "b": arrs_b}
         deg = np.maximum(np.diff(np.asarray(row_pointers)), 1).astype(np.float32)
         #: 1/deg — mean aggregation (GraphSAGE mean_N = D^-1 A X)
         self.arrays["inv_deg"] = torch.from_numpy(1.0 / deg).to(self.device)
         if normalize:
-            inv = 1.0 / np.sqrt(deg)
-            self.arrays["inv_sqrt_deg"] = torch.from_numpy(inv).to(self.device)
-            if self.folds_scale:
-                #: D^-1/2 over the wide layout's M rows, 1 on the pad rows:
-                #: the band kernel and the row merge apply it
-                self.arrays["inv_sqrt_deg_rows"] = torch.from_numpy(np.pad(
-                    inv, (0, self.plan.padded_rows - len(inv)), constant_values=1.0)).to(
-                        self.device)
-
-    # ---- padded layout: [dt, M] -> [dt, M] or [M, dp] -> [M, dp] ----
-
-    @property
-    def supports_padded(self) -> bool:
-        """True when ``apply_padded`` runs the closed padded path; False
-        when it falls back to the row op (train.loop then trains in the
-        row layout [N, d])."""
-        return self._fn_padded is not None
-
-    @property
-    def padded_rows(self) -> int:
-        return self.plan.padded_rows
+            self.arrays["inv_sqrt_deg"] = torch.from_numpy(1.0 / np.sqrt(deg)).to(self.device)
+        kw = dict(plan=self.plan, plan_bwd=self.plan_bwd, arrays=self.arrays,
+                  device=self.device, compute_dtype=config.compute_dtype, normalize=normalize)
+        self.rows = RowLayout(impl=config.impl, **kw)
+        padded = padded_layout(self.plan, self.plan_bwd) if config.impl == "pallas" else None
+        #: True when ``apply_padded`` runs the closed padded path; False when
+        #: it falls back to the row op (train.loop then trains in [N, d])
+        self.supports_padded = padded is not None
+        self.padded = padded(**kw) if padded else _RowsPadded(self.rows, **kw)
+        self.layout = self.padded if padded else self.rows
 
     @property
     def transposed(self) -> bool:
         """True when the padded layout is the tband X^T [dt, M]; False for
         the wide [M, dp] (and for a plan without the padded path, whose
         fallback slices rows)."""
-        return bool(getattr(self.plan, "tband", False)) and self.supports_padded
+        return self.padded.transposed
 
-    @property
-    def folds_scale(self) -> bool:
-        """True when ``apply_padded`` applies D^-1/2 inside the SpMM's
-        kernels (the wide padded path on plans that are not tiled); the
-        tband layout, tiled plans and the row layout scale as ``_Scale``
-        nodes around it."""
-        return (self.supports_padded and not self.transposed
-                and not any(getattr(p, "tiled", False) for p in (self.plan, self.plan_bwd)))
-
-    def is_padded(self, x) -> bool:
-        """True when ``x`` already has the padded layout's shape (an [N, d]
-        input of that very shape pads to itself)."""
-        if self.transposed:
-            return x.shape[1] == self.padded_rows and x.shape[0] % 16 == 0
-        return x.shape[0] == self.padded_rows and x.shape[1] % 128 == 0
-
-    def _fused_mode(self, arrays, plan) -> bool:
-        """True when a padded layer core runs as the reference's custom VJP
-        with the fused kernel: the padded path exists, the aggregation is not
-        normalized, and ``plan`` (the backward plan for GCN, the forward
-        plan for GIN) has ``prefer_fused_kernel`` set."""
-        return (self._fused_padded is not None and "inv_sqrt_deg" not in arrays
-                and _prefers_fused(plan))
+    # ---- padded layout: [dt, M] -> [dt, M] or [M, dp] -> [M, dp] ----
 
     def pad_input(self, x) -> torch.Tensor:
         """[N, d] -> the padded layout in the compute dtype on the
-        operator's device (one-time cost; the layout then stays closed):
-        [dt, M] transposed, [M, dp] otherwise (also without the padded
-        path, whose fallback slices its first N rows)."""
-        x = torch.as_tensor(x)
-        n, d = x.shape
-        dtype = _dtype(self.config.compute_dtype)
-        m = self.plan.padded_rows
-        if self.transposed:
-            xp = torch.zeros((tband.sublane_pad(d), m), dtype=dtype, device=self.device)
-            xp[:d, :n] = x.T.to(device=self.device, dtype=dtype)
-        else:
-            xp = torch.zeros((m, -(-d // 128) * 128), dtype=dtype, device=self.device)
-            xp[:n, :d] = x.to(device=self.device, dtype=dtype)
-        return xp
+        operator's device (one-time cost; the layout then stays closed)."""
+        return self.padded.pad(x)
 
     def unpad_output(self, xp: torch.Tensor, d: Optional[int] = None,
                      dtype=None) -> torch.Tensor:
         """The padded layout -> [N, d]."""
-        n = self.plan.num_nodes
-        if self.transposed:
-            out = (xp[:, :n] if d is None else xp[:d, :n]).T
-        else:
-            out = xp[:n] if d is None else xp[:n, :d]
-        return out if dtype is None else out.to(dtype)
-
-    def padded_width(self, d: int) -> int:
-        """The padded layout's feature width for ``d`` features: 16-row
-        granules transposed, 128-column lanes wide."""
-        return tband.sublane_pad(d) if self.transposed else block_spmm.lane_pad(d)
-
-    def _inv_lanes(self, inv, xp):
-        """Per-row scale broadcast over the padded layout; padded rows get
-        1."""
-        if self.transposed:
-            return F.pad(inv, (0, xp.shape[1] - inv.shape[0]), value=1.0)[None, :]
-        return F.pad(inv, (0, xp.shape[0] - inv.shape[0]), value=1.0)[:, None]
-
-    def pad_weight(self, w, xp):
-        """W [d, h] as the wide layout's [dp, hp] (zero rows and columns),
-        in xp's dtype.  The transposed layout has no right-multiply form:
-        use ``dense_padded``."""
-        if self.transposed:
-            raise ValueError("tband layout: use dense_padded(xp, w), the update is "
-                             "W^T @ X^T")
-        return F.pad(w.to(xp.dtype), (0, block_spmm.lane_pad(w.shape[1]) - w.shape[1],
-                                      0, xp.shape[1] - w.shape[0]))
-
-    def _product_padded(self, xp, w, acc=None):
-        """``X W`` in the padded layout, (pad W)^T @ xt transposed and xp @
-        pad(W) wide; added into ``acc`` in place where one is given."""
-        if self.transposed:
-            ht = tband.sublane_pad(w.shape[1])
-            a = F.pad(w.T.to(xp.dtype), (0, xp.shape[0] - w.shape[0], 0, ht - w.shape[1]))
-            b = xp
-        else:
-            a, b = xp, self.pad_weight(w, xp)
-        return torch.matmul(a, b) if acc is None else acc.addmm_(a, b)
-
-    def dense_padded(self, xp, w):
-        """Dense update ``X W`` in the padded layout."""
-        with profiling.span("models.dense"):
-            return self._product_padded(xp, w)
-
-    def dense_sum_padded(self, xp, w1, yp, w2):
-        """``X W1 + Y W2`` in the padded layout: ``X W1``, then ``Y W2``
-        added into it, so no [M, 2 dp] concatenation is built."""
-        with profiling.span("models.dense"):
-            return self._product_padded(yp, w2, self._product_padded(xp, w1))
-
-    def dense_add_padded(self, accp, xp, w):
-        """``acc + X W`` in the padded layout, added into ``accp`` in place,
-        so no second output buffer is built."""
-        with profiling.span("models.dense"):
-            return self._product_padded(xp, w, accp)
+        return self.padded.unpad(xp, d).to(dtype)
 
     def apply_padded(self, arrays, xp: torch.Tensor) -> torch.Tensor:
-        """SpMM in the padded layout (normalized: D^-1/2 on both sides,
-        applied by the SpMM's kernels where ``folds_scale``, else each
-        scaling a ``_Scale`` node)."""
-        if "inv_sqrt_deg_rows" in arrays and "inv_sqrt_deg" in arrays:
-            return self._fn_padded(arrays["f"], arrays["b"], xp,
-                                   arrays["inv_sqrt_deg_rows"]).to(xp.dtype)
-        if "inv_sqrt_deg" in arrays:
-            inv = self._inv_lanes(arrays["inv_sqrt_deg"], xp)
-            xs = _Scale.apply(xp, inv, xp.dtype)
-            return _Scale.apply(self._padded_core(arrays, xs), inv, xp.dtype)
-        return self._padded_core(arrays, xp)
-
-    def _padded_core(self, arrays, xp):
-        if self._fn_padded is not None:
-            return self._fn_padded(arrays["f"], arrays["b"], xp)
-        # no closed padded path: the row op on the first N rows, re-padded
-        n = self.plan.num_nodes
-        out = self._fn(arrays["f"], arrays["b"], xp[:n])
-        return F.pad(out.to(xp.dtype), (0, 0, 0, xp.shape[0] - n))
+        """SpMM in the padded layout (normalized: D^-1/2 on both sides)."""
+        return self.padded(xp)
 
     def gcn_apply_padded(self, arrays, xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """GCN layer core A (X W) in the padded layout; backward: one SpMM
-        of dZ, then the two dense products, or, in the fused mode, one fused
-        launch for (A^T dZ) W^T and A^T dZ."""
-        if self._fused_mode(arrays, self.plan_bwd or self.plan):
-            return self._fused_padded["gcn"](arrays["f"], arrays["b"], xp, w)
-        return self.apply_padded(arrays, self.dense_padded(xp, w))
+        """GCN layer core A (X W) in the padded layout."""
+        return self.padded.gcn(xp, w)
 
     def gin_apply_padded(self, arrays, xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """GIN layer core (A X) W in the padded layout (one fused launch in
-        the fused mode); the aggregate is the residual kept for dW."""
-        if self._fused_mode(arrays, self.plan):
-            return self._fused_padded["gin"](arrays["f"], arrays["b"], xp, w)
-        return self.dense_padded(self.apply_padded(arrays, xp), w)
-
-    def mean_apply(self, arrays, x: torch.Tensor) -> torch.Tensor:
-        """Mean aggregation ``D^-1 A X`` in the row layout (raw aggregate
-        whatever ``normalize`` says: SAGE's own scaling), D^-1 a ``_Scale``
-        node (span ``spmm.scale.mean``, counter ``spmm.mean``)."""
-        agg = self._fn(arrays["f"], arrays["b"], x)
-        return _Scale.apply(agg, arrays["inv_deg"][:, None], x.dtype, "spmm.scale.mean",
-                            "spmm.mean")
+        """GIN layer core (A X) W in the padded layout."""
+        return self.padded.gin(xp, w)
 
     def mean_apply_padded(self, arrays, xp: torch.Tensor) -> torch.Tensor:
-        """Mean aggregation in the padded layout (padded rows have
-        inv_deg == 1, so they stay exactly zero), D^-1 as in ``mean_apply``."""
-        inv = self._inv_lanes(arrays["inv_deg"], xp)
-        return _Scale.apply(self._padded_core(arrays, xp), inv, xp.dtype, "spmm.scale.mean",
-                            "spmm.mean")
+        """Mean aggregation ``D^-1 A X`` in the padded layout."""
+        return self.padded.mean(xp)
 
-    def mean(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mean_apply(self.arrays, x)
+    # ---- row layout: [N, d] -> [N, d] ----
 
     def apply(self, arrays, x: torch.Tensor) -> torch.Tensor:
         """Row-layout SpMM [N, d] -> [N, d]."""
-        if "inv_sqrt_deg" in arrays:
-            inv = arrays["inv_sqrt_deg"][:, None]
-            xs = _Scale.apply(x, inv, x.dtype)
-            return _Scale.apply(self._fn(arrays["f"], arrays["b"], xs), inv, x.dtype)
-        return self._fn(arrays["f"], arrays["b"], x)
+        return self.rows(x)
 
     def gcn_apply(self, arrays, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """GCN layer core A (x w) in the row layout (composed through
-        ``apply`` in normalized mode; the fused backward where the plan
-        prefers it)."""
-        if "inv_sqrt_deg" in arrays:
-            return self.apply(arrays, self.dense(x, w))
-        return self._fused["gcn"](arrays["f"], arrays["b"], x, w)
+        """GCN layer core A (x w) in the row layout."""
+        return self.rows.gcn(x, w)
 
     def gin_apply(self, arrays, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """GIN layer core (A x) w in the row layout; the aggregate is kept
-        for dW (from the fused forward where the plan prefers it)."""
-        if "inv_sqrt_deg" in arrays:
-            return self.dense(self.apply(arrays, x), w)
-        return self._fused["gin"](arrays["f"], arrays["b"], x, w)
+        """GIN layer core (A x) w in the row layout."""
+        return self.rows.gin(x, w)
 
-    def dense(self, x, w):
-        """Dense update ``x w`` in the row layout."""
-        with profiling.span("models.dense"):
-            return _dot(x, w)
+    def mean_apply(self, arrays, x: torch.Tensor) -> torch.Tensor:
+        """Mean aggregation ``D^-1 A X`` in the row layout (the raw
+        aggregate whatever ``normalize`` says: SAGE's own scaling)."""
+        return self.rows.mean(x)
 
-    def dense_sum(self, x, w1, y, w2):
-        """``x w1 + y w2`` in the row layout, as ``dense_sum_padded``
-        (fp32), in x's dtype."""
-        with profiling.span("models.dense"):
-            out = torch.matmul(x.float(), w1.float())
-            return out.addmm_(y.float(), w2.float()).to(x.dtype)
-
-    def dense_add(self, acc, x, w):
-        """``acc + x w`` in the row layout, in fp32 (in place where ``acc``
-        is fp32), in acc's dtype."""
-        with profiling.span("models.dense"):
-            return acc.float().addmm_(x.float(), w.float()).to(acc.dtype)
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        return self.rows.mean(x)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self.apply(self.arrays, x)
+        return self.rows(x)
 
 
 def spmm_reference_dense(row_pointers, column_index, num_nodes, x):

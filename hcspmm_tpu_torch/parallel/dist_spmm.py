@@ -233,13 +233,13 @@ class DistHybridSpMM:
         the same exchange and plan on the cotangent."""
         return _SpMM.apply(x_local, self._apply, self._apply)
 
-    # the layer cores models.layers reaches through ops.fused
+    # the layer cores models.layers calls
 
-    def gcn_fused(self, x, w):
+    def gcn(self, x, w):
         """GCN layer core A (x w)."""
         return self(_dot(x, w))
 
-    def gin_fused(self, x, w):
+    def gin(self, x, w):
         """GIN layer core (A x) w."""
         return _dot(self(x), w)
 

@@ -64,7 +64,7 @@ def cores(op: HybridSpMM, dim: int, hidden: int, seed: int = 0) -> tuple:
     rng.randn(dim, hidden)
     w_core = torch.from_numpy(rng.randn(dim, dim).astype(np.float32) * 0.1).to(cd)
     xp = op.pad_input(x)
-    if getattr(plan, "tband", False):
+    if op.transposed:
         wf = torch.zeros((xp.shape[0], xp.shape[0]), dtype=cd, device=op.device)  # [ht, dt]
         wf[:dim, :dim] = w_core
 
@@ -134,7 +134,7 @@ def measure(key, scale, dim, hidden, band_impl, mode=None, device=None, op=None)
     f_med, c_med = t["fused"][2], t["composed"][2]
     rec = dict(
         table="VI-analog", graph=key, dim=dim, nnz=nnz,
-        band_impl=band_impl, layout=("tband" if getattr(plan, "tband", False) else "padded"),
+        band_impl=band_impl, layout=("tband" if op.transposed else "padded"),
         fused_kernel_available=bool(available),
         spill_frac=round(getattr(plan, "spill_nnz", 0) / nnz, 3),
         fused_us=[round(v * 1e6, 1) for v in t["fused"]],

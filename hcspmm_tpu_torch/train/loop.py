@@ -4,11 +4,12 @@ hcspmm_tpu/train/loop.py.
 Parity: Adam lr=0.01 (main.py:115; ``torch.optim.Adam`` has optax.adam's
 defaults and update), loss = NLL of the log-softmax output against the
 all-ones labels over every node (main.py:125), 9 warm-up epochs, then the
-timed epochs (main.py:157-166).  Activations run in the operator's padded
-layout (transposed [dt, M] or wide [M, dp]) where it has the closed padded
-path, and only the final logits are sliced (by ``unpad_output``) before
-the softmax; otherwise (``supports_padded`` False: dense, ELL or residual
-populations, or ``impl='xla'``) they stay [N, d] in the row layout, as
+timed epochs (main.py:157-166).  Activations run in the operator's
+``layout``, chosen when it was built: its padded layout (transposed [dt,
+M] or wide [M, dp]) where it has the closed padded path, and only the final
+logits are sliced (by the layout's ``unpad``) before the softmax;
+otherwise (``supports_padded`` False: dense, ELL or residual populations,
+or ``impl='xla'``) they stay [N, d] in the row layout, as
 hcspmm_tpu/train/loop.py:54-140 does.
 """
 
@@ -31,64 +32,12 @@ def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -log_probs.gather(1, labels[:, None]).mean()
 
 
-class Bound:
-    """The operator with its plan arrays bound, in its padded layout when
-    it has the closed padded path, else in the row layout: what the layers
-    call (``gcn_fused``/``gin_fused``/``mean``/``dense``/``dense_sum``/
-    ``dense_add``, and ``spmm_width``, the width its SpMM runs at)."""
-
-    def __init__(self, spmm):
-        self._op = spmm
-        self._arrs = spmm.arrays
-        self.padded_layout = spmm.supports_padded
-
-    def __call__(self, x):
-        if self.padded_layout:
-            return self._op.apply_padded(self._arrs, x)
-        return self._op.apply(self._arrs, x)
-
-    def gcn_fused(self, x, w):
-        if self.padded_layout:
-            return self._op.gcn_apply_padded(self._arrs, x, w)
-        return self._op.gcn_apply(self._arrs, x, w)
-
-    def gin_fused(self, x, w):
-        if self.padded_layout:
-            return self._op.gin_apply_padded(self._arrs, x, w)
-        return self._op.gin_apply(self._arrs, x, w)
-
-    def mean(self, x):
-        if self.padded_layout:
-            return self._op.mean_apply_padded(self._arrs, x)
-        return self._op.mean_apply(self._arrs, x)
-
-    def spmm_width(self, d):
-        """The width an SpMM of ``d`` features runs at in this layout."""
-        return self._op.padded_width(d) if self.padded_layout else d
-
-    def dense(self, x, w):
-        if self.padded_layout:
-            return self._op.dense_padded(x, w)
-        return self._op.dense(x, w)
-
-    def dense_sum(self, x, w1, y, w2):
-        if self.padded_layout:
-            return self._op.dense_sum_padded(x, w1, y, w2)
-        return self._op.dense_sum(x, w1, y, w2)
-
-    def dense_add(self, acc, x, w):
-        if self.padded_layout:
-            return self._op.dense_add_padded(acc, x, w)
-        return self._op.dense_add(acc, x, w)
-
-
 def layout_input(spmm, x) -> torch.Tensor:
-    """``x`` in the layout the loop trains in, on ``spmm.device``: the
-    padded layout when the operator has it (an input already padded stays
-    as it is), else [N, d] as given."""
-    if spmm.supports_padded:
-        return x if spmm.is_padded(x) else spmm.pad_input(x)
-    return torch.as_tensor(x).to(spmm.device)
+    """``x`` in the layout the loop trains in (``spmm.layout``), on
+    ``spmm.device``: the padded layout when the operator has it (an input
+    already padded stays as it is), else [N, d] as given."""
+    layout = spmm.layout
+    return x if layout.is_padded(x) else layout.pad(x)
 
 
 def make_train_step(net: Net, spmm, optimizer: torch.optim.Optimizer):
@@ -100,20 +49,17 @@ def make_train_step(net: Net, spmm, optimizer: torch.optim.Optimizer):
     (``utils.profiling``) a step is a ``train.step`` span, which starts a
     new step id, over ``train.forward``, ``train.backward`` and
     ``train.optimizer``."""
-    bound = Bound(spmm)
+    layout = spmm.layout
 
     def out_slice(h):
-        return spmm.unpad_output(h, net.num_classes)
-
-    if not bound.padded_layout:
-        out_slice = None  # row layout: the logits are [N, classes] already
+        return layout.unpad(h, net.num_classes)
 
     def train_step(params, x, y, gen=None):
         with profiling.span("train.step", step=True):
             x = layout_input(spmm, x)
             optimizer.zero_grad(set_to_none=True)
             with profiling.span("train.forward"):
-                logp = net_forward(net, params, bound, x, dropout_gen=gen,
+                logp = net_forward(net, params, layout, x, dropout_gen=gen,
                                    train=True, out_slice=out_slice)
                 loss = nll_loss(logp, y)
             with profiling.span("train.backward"):

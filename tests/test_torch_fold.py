@@ -1,5 +1,5 @@
 """The normalised wide operator D^-1/2 A D^-1/2 with D^-1/2 applied inside
-the kernels (``HybridSpMM.folds_scale``: the band kernel's scaled mode, the
+the kernels (``WideLayout.folds_scale``: the band kernel's scaled mode, the
 row merge's scaled form, the take path's scaled gathers) against the
 composed form the operator runs elsewhere: ``X * D^-1/2``, the unscaled
 SpMM, ``* D^-1/2``, differentiated by autograd.  Outputs and input
@@ -115,7 +115,7 @@ def check_shape(op, what):
     """The plan has what its case is there to cover."""
     p, arrs = op.plan, op.arrays["f"]
     longs = [v for k, v in arrs.items() if k.startswith("ds_seg") and k.endswith("_long")]
-    assert op.folds_scale and "inv_sqrt_deg_rows" in op.arrays
+    assert op.layout.folds_scale and op.layout._agg == op.layout._folded
     if what == "buckets":
         assert sum(len(s) > 0 for s in p.band_sw_ids) >= 2
     elif what == "missing":
@@ -146,8 +146,8 @@ def folded_and_composed(op, x, cot):
     d = x.shape[1]
 
     def composed(xp):
-        inv = op._inv_lanes(arrays["inv_sqrt_deg"], xp)
-        return (op._padded_core(arrays, (xp * inv).to(xp.dtype)) * inv).to(xp.dtype)
+        inv = op.layout._lanes(arrays["inv_sqrt_deg"])
+        return (op.layout.raw((xp * inv).to(xp.dtype)) * inv).to(xp.dtype)
 
     res = []
     for fn in (lambda v: op.apply_padded(arrays, v), composed):
@@ -206,8 +206,8 @@ def test_tiled_tband_and_row_layouts_keep_the_scale_nodes():
     tb = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas", band_impl="tband", band_h=128,
                                            band_widths=(128,)), normalize=True, device="cpu")
     for op in (tiled, tb):
-        assert op.supports_padded and not op.folds_scale
-        assert "inv_sqrt_deg_rows" not in op.arrays
+        assert op.supports_padded and not op.layout.folds_scale
+        assert op.layout._agg == op.layout._scaled and op.rows._agg == op.rows._scaled
     assert tiled.plan.tiled and tb.transposed
     xp = tiled.pad_input(torch.randn(nn, 8))
     with pytest.raises(ValueError, match="tiled"):

@@ -40,7 +40,7 @@ from hcspmm_tpu_torch.graphs import io
 from hcspmm_tpu_torch.kernels import block_spmm, tband
 from hcspmm_tpu_torch.models.net import Net, net_forward, params_from_jax
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM, spmm_reference_dense
-from hcspmm_tpu_torch.train.loop import Bound, make_train_step
+from hcspmm_tpu_torch.train.loop import make_train_step
 
 from conftest import small_graph
 
@@ -436,7 +436,7 @@ def test_fused_network_with_jax_weights_matches_jax(layout, model):
     x = np.random.RandomState(0).randn(op.plan.num_nodes, 24).astype(np.float32)
     y = np.ones(x.shape[0], dtype=np.int64)
     with torch.no_grad():
-        got = net_forward(net, params_from_jax(jparams, device=op.device), Bound(op),
+        got = net_forward(net, params_from_jax(jparams, device=op.device), op.layout,
                           op.pad_input(x), out_slice=lambda v: op.unpad_output(v, 5))
     assert rel_err(got, jax_net_forward(jnet, jparams, jop, jnp.asarray(x))) < RTOL
     opt = optax.adam(0.01)
@@ -477,7 +477,7 @@ def test_fused_routes_return_none_where_jax_does():
         assert len([v for v in op.plan.band_sw_ids if len(v)]) == 1 + (len(cfg["band_widths"]) > 1)
     op = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas", band_impl="tband", band_h=128,
                                            band_mode="always"), device="cpu")
-    assert block_spmm.spmm_fused_wide_padded(op.arrays["f"], torch.zeros(op.padded_rows, 128),
+    assert block_spmm.spmm_fused_wide_padded(op.arrays["f"], torch.zeros(op.plan.padded_rows, 128),
                                              torch.zeros(128, 128), op.plan) is None
     assert block_spmm.spmm_fused_rows(op.arrays["f"], torch.zeros(nn, 16), torch.zeros(16, 8),
                                       op.plan, torch.float32) is None

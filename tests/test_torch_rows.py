@@ -47,7 +47,7 @@ from hcspmm_tpu_torch.models.net import Net, net_forward, params_from_jax
 from hcspmm_tpu_torch.models.sag import SAG
 from hcspmm_tpu_torch.ops import spmm as port_spmm
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM, spmm_reference_dense
-from hcspmm_tpu_torch.train.loop import Bound, make_train_step, train
+from hcspmm_tpu_torch.train.loop import make_train_step, train
 
 from conftest import small_graph
 from torch_params import assert_params_match_jax
@@ -430,9 +430,9 @@ def test_row_layout_forward_and_adam_steps_match_jax(model, cfg):
     torch.optim.Adam against optax.adam through JAX's make_train_step, both
     in the row layout; losses and parameters within rtol 1e-4."""
     op, jop, net, jnet, jparams, x = model_case(model, cfg)
-    assert not op.supports_padded and not Bound(op).padded_layout
+    assert not op.supports_padded and op.layout is op.rows
     with torch.no_grad():
-        got = net_forward(net, params_from_jax(jparams, device=op.device), Bound(op),
+        got = net_forward(net, params_from_jax(jparams, device=op.device), op.layout,
                           torch.from_numpy(x))
     want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
     assert rel_err(got, want) < 1e-5
@@ -494,16 +494,17 @@ def test_row_layout_gates_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="shard-uniform"):
         block_spmm.rows_check(bad)
     with pytest.raises(NotImplementedError, match="shard-uniform"):
-        port_spmm.make_spmm(bad)
+        port_spmm.RowLayout(bad, None, {"f": None, "b": None}, "cpu")
     # a rectangular plan: 8 more columns than rows, X carrying them
     rect = build_plan(rp, ci, nn, PlanConfig(**NEVER), num_cols=nn + 8)
     block_spmm.rows_check(rect)
     xr = np.concatenate([x, np.random.RandomState(1).randn(8, 10).astype(np.float32)])
-    got = port_spmm.make_spmm(rect)(port_spmm._to_device(rect, "cpu"), None,
-                                    torch.from_numpy(xr))
+    rows = port_spmm.RowLayout(rect, None, {"f": port_spmm._to_device(rect, "cpu"), "b": None},
+                               "cpu")
+    got = rows(torch.from_numpy(xr))
     assert rel_err(got, spmm_reference_dense(rp, ci, nn, x)) < 1e-5
     with pytest.raises(ValueError, match="column space"):
-        port_spmm.make_spmm(rect)(port_spmm._to_device(rect, "cpu"), None, torch.from_numpy(x))
+        rows(torch.from_numpy(x))
     with pytest.raises(ValueError, match="impl"):
         HybridSpMM(rp, ci, nn, PlanConfig(band_impl="tband", band_h=128, impl="xla"), device="cpu")
 
@@ -512,7 +513,7 @@ def test_make_spmm_padded_returns_none_without_the_padded_path():
     rp, ci, nn = small_graph(300, 6)
     for cfg, has in ((NEVER, False), (MIXED, False), ({}, True)):
         plan = build_plan(rp, ci, nn, PlanConfig(**cfg))
-        assert (port_spmm.make_spmm_padded(plan) is not None) == has
+        assert (port_spmm.padded_layout(plan) is not None) == has
         assert block_spmm.spmm_padded_supported(plan) == jax_block_spmm.spmm_padded_supported(
             build_plan(rp, ci, nn, PlanConfig(**cfg)))
 

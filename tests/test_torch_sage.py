@@ -34,7 +34,7 @@ from hcspmm_tpu_torch.format import reorder
 from hcspmm_tpu_torch.models.layers import FIXED_FINAL, SAGEConv
 from hcspmm_tpu_torch.models.net import Net, net_forward
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
-from hcspmm_tpu_torch.train.loop import Bound, layout_input, make_train_step
+from hcspmm_tpu_torch.train.loop import layout_input, make_train_step
 from hcspmm_tpu_torch.utils import profiling
 
 CFG = {"num_layers": 3, "dim": 20, "hidden": 72, "classes": 7, "dropout": 0.0, "lr": 0.01,
@@ -124,7 +124,7 @@ def _port(case, layout, compute_dtype="float32"):
     out_slice = ((lambda h: op.unpad_output(h, cfg["classes"], torch.float32))
                  if op.supports_padded else None)
     with torch.no_grad():
-        logits = net_forward(net, params, Bound(op), x, out_slice=out_slice)
+        logits = net_forward(net, params, op.layout, x, out_slice=out_slice)
     step = make_train_step(net, op, torch.optim.Adam(
         [p["weights"] for p in params], lr=cfg["lr"], betas=tuple(cfg["betas"]),
         eps=cfg["eps"]))
@@ -177,7 +177,7 @@ def test_an_input_without_gradient_projects_first_where_it_halves(layout):
     form's."""
     rp, ci, n = _graph()
     op = _op((rp, ci, n), layout)
-    bound = Bound(op)
+    lay = op.layout
     for d_in, d_out, grad, first in [(20, 16, True, False), (300, 7, True, True),
                                      (20, 16, False, layout != "wide")]:
         x = layout_input(op, torch.randn((n, d_in), generator=torch.Generator().manual_seed(1)))
@@ -185,10 +185,10 @@ def test_an_input_without_gradient_projects_first_where_it_halves(layout):
         w.requires_grad_(grad)
         profiling.reset()
         with profiling.tracing():
-            got = SAGEConv()({"weights": w}, bound, x)
+            got = SAGEConv()({"weights": w}, lay, x)
         assert profiling.counters().get("models.sage_project_first", 0) == int(first)
         profiling.reset()
-        want = bound.dense_sum(x, w[:d_in], bound.mean(x), w[d_in:])
+        want = lay.dense_sum(x, w[:d_in], lay.mean(x), w[d_in:])
         assert _rel(got, want) < TOL["logits"]
         if grad:
             (dw,) = torch.autograd.grad(got.square().sum(), w)
@@ -217,19 +217,19 @@ def test_projecting_first_keeps_no_aggregate_for_the_backward(layout):
     ``peak_mem_gib`` of a SAGE cell loses with the new order."""
     rp, ci, n = _graph()
     op = _op((rp, ci, n), layout)
-    bound = Bound(op)
+    lay = op.layout
     hidden, classes = HIDDEN[1], CFG["classes"]
     x = layout_input(op, torch.randn((n, hidden), generator=torch.Generator().manual_seed(1)))
     x.requires_grad_(True)
     w = torch.randn((2 * hidden, classes), generator=torch.Generator().manual_seed(2),
                     requires_grad=True)
-    assert bound.spmm_width(classes) < bound.spmm_width(hidden)
+    assert lay.spmm_width(classes) < lay.spmm_width(hidden)
     profiling.reset()
     with profiling.tracing():
-        new = _saved(lambda: SAGEConv(FIXED_FINAL)({"weights": w}, bound, x))
+        new = _saved(lambda: SAGEConv(FIXED_FINAL)({"weights": w}, lay, x))
     assert profiling.counters()["models.sage_project_first"] == 1
     profiling.reset()
-    old = _saved(lambda: bound.dense_sum(x, w[:hidden], bound.mean(x), w[hidden:]))
+    old = _saved(lambda: lay.dense_sum(x, w[:hidden], lay.mean(x), w[hidden:]))
     xptr = x.untyped_storage().data_ptr()
     assert xptr in new and xptr in old
 

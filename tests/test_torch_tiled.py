@@ -325,14 +325,16 @@ def test_cli_single_kernel_band_impl_tiled_on_cpu(tmp_path, capsys):
 
 
 def test_tiled_plans_through_make_spmm_padded():
-    """make_spmm_padded and check_plan admit tiled plans (and rows_check no
-    longer refuses them)."""
+    """The padded layout and check_plan admit tiled plans (and rows_check no
+    longer refuses them): their layout is the wide one, fused cores and
+    all."""
     rp, ci, nn = blocks_graph()
     plan = build_plan(rp, ci, nn, PlanConfig(**tiled_cfg()))
     block_spmm.rows_check(plan)
     block_spmm.check_plan(plan)
-    assert port_spmm.make_spmm_padded(plan) is not None
-    assert port_spmm.make_fused_ops_padded(plan) is not None
+    assert port_spmm.padded_layout(plan) is port_spmm.WideLayout
+    arrs = port_spmm._to_device(plan, "cpu")
+    assert port_spmm.WideLayout(plan, None, {"f": arrs, "b": arrs}, "cpu")._fused
 
 
 # ---------------------------------------------------------------------------

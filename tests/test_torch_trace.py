@@ -1,13 +1,14 @@
 """The port's spans and counters (hcspmm_tpu_torch/utils/profiling.py) on a
 normalised GCN step: nothing recorded and no clock read while tracing is
-off; the span tree of a step on a tband and on a wide plan that spill; the
-spill counter; the spans as ranges of a torch.profiler trace, placed
-through the ``profiling.clock`` anchor; the D^-1/2 scalings, as autograd
-nodes of their own in the tband and row layouts (equal bit for bit to the
-composed form, with its peak memory) and inside the SpMM's kernels in the
-wide layout (equal to it within the kernels' tolerance, at most its peak
-memory); a SAGE step's mean scalings (``spmm.scale.mean``, counter
-``spmm.mean``); and the build counts on the CLI's ``done`` line."""
+off; the span tree of a step in every layout (a tband and a wide plan that
+spill, a tiled plan and a row-layout plan); the spill counter; the spans as
+ranges of a torch.profiler trace, placed through the ``profiling.clock``
+anchor; the D^-1/2 scalings, as autograd nodes of their own in the tband,
+tiled and row layouts (equal bit for bit to the composed form, with its
+peak memory) and inside the SpMM's kernels in the wide layout (equal to it
+within the kernels' tolerance, at most its peak memory); a SAGE step's
+mean scalings (``spmm.scale.mean``, counter ``spmm.mean``); and the build
+counts on the CLI's ``done`` line."""
 
 import gc
 import threading
@@ -24,7 +25,7 @@ from hcspmm_tpu_torch.utils import profiling
 
 from conftest import small_graph
 
-# (graph, PlanConfig fields): each plan spills in every SpMM
+# (graph, PlanConfig fields): the tband and wide plans spill in every SpMM
 PLANS = {
     "tband": ((1400, 9, 1300), dict(
         impl="pallas", band_impl="tband", band_h=128, band_widths=(128,), band_mode="auto",
@@ -32,11 +33,18 @@ PLANS = {
         spill_hub_mb=64 * 64 / 1e6, spill_hub_min_cov=0.01, spill_hub_min_reuse=0.0)),
     "wide": ((500, 8, 400), dict(impl="pallas", band_impl="wide", band_h=128,
                                  band_widths=(128,), ds_kind="block")),
+    "tiled": ((500, 8, 400), dict(impl="pallas", band_impl="tiled", band_h=128)),
+    "rows": ((500, 8, 400), dict(impl="pallas", band_mode="never")),
 }
-#: the spill spans each plan's SpMM runs, in order
-SPILL = {"tband": ["spmm.spill.hub", "spmm.spill.cold"], "wide": ["spmm.spill.rows"]}
+#: the spill spans each plan's SpMM runs, in order (none: the plan never spills)
+SPILL = {"tband": ["spmm.spill.hub", "spmm.spill.cold"], "wide": ["spmm.spill.rows"],
+         "tiled": [], "rows": []}
 #: the layouts whose SpMM kernels apply D^-1/2 (no ``spmm.scale`` around them)
-FOLDED = {"tband": False, "wide": True}
+FOLDED = {"tband": False, "wide": True, "tiled": False, "rows": False}
+#: the layouts where the SAGE net's last layer (16 -> 5) projects first: the
+#: row layout's SpMM runs 5 columns against 16; the padded layouts pad both
+#: widths alike (16 sublanes, 128 lanes)
+SAGE_PROJECTS_FIRST = {"rows"}
 #: the wide kernels' tolerance (tests/test_torch_wide.py), relative to max |ref|
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 LAYERS = 3
@@ -94,11 +102,12 @@ def test_tracing_off_records_nothing_and_reads_no_clock(ops, layout, monkeypatch
 @pytest.mark.parametrize("layout", sorted(PLANS))
 def test_span_tree_of_a_gcn_step(ops, layout):
     """One ``train.step`` over forward, backward and optimizer; each SpMM
-    a ``spmm.fwd`` or ``spmm.bwd`` holding the band and the spill chain,
-    between its two ``spmm.scale`` scalings in the tband layout and alone in
+    a ``spmm.fwd`` or ``spmm.bwd`` holding the band and the spill chain (the
+    tiled and row-layout plans spill nothing), between its two
+    ``spmm.scale`` scalings in the tband, tiled and row layouts and alone in
     the wide layout, whose kernels scale (``spmm.scale_folded`` counts one
-    a SpMM there, none in the tband layout); every span of the step with the
-    step's id."""
+    a SpMM there, none elsewhere); every span of the step with the step's
+    id."""
     op = ops[layout]
     step = make_step(op)
     step()
@@ -129,18 +138,19 @@ def test_span_tree_of_a_gcn_step(ops, layout):
     want = {"spmm.spill_edges": n_spmm * op.plan.spill_nnz}
     if FOLDED[layout]:
         want["spmm.scale_folded"] = n_spmm
-    assert profiling.counters() == want
-    assert op.plan.spill_nnz > 0
+    assert profiling.counters() == {k: v for k, v in want.items() if v}
+    assert (op.plan.spill_nnz > 0) == bool(SPILL[layout])
 
 
 @pytest.mark.parametrize("layout", sorted(PLANS))
 def test_sage_step_spans_and_counts_its_mean_scalings(layout):
     """One 3-layer SAGE step (``models.layers.SAGEConv``, unnormalised):
     each layer's mean aggregation is a ``spmm.fwd`` then its D^-1 as a
-    ``spmm.scale.mean`` span before the layer's ``models.dense``; the
-    backward runs 2 of each, the first layer's input needing no gradient, so
-    the step holds 5 ``spmm.scale.mean`` spans (3 forward, 2 backward) and
-    the counter ``spmm.mean`` reads 5.  The benchmark's spans profile counts
+    ``spmm.scale.mean`` span before the layer's ``models.dense`` (after one
+    where the last layer projects first); the backward runs 2 of each, the
+    first layer's input needing no gradient, so the step holds 5
+    ``spmm.scale.mean`` spans (3 forward, 2 backward) and the counter
+    ``spmm.mean`` reads 5.  The benchmark's spans profile counts
     a kernel launched inside such a span under ``spmm.scale``
     (``kernels.scale_ms``)."""
     from benchmark import spans, traces
@@ -164,14 +174,17 @@ def test_sage_step_spans_and_counts_its_mean_scalings(layout):
     recs = [r for r in profiling.spans() if r["name"] != profiling.CLOCK]
     (root,) = [r for r in recs if r["name"] == "train.step"]
     fwd, bwd, _ = children(recs, root)
-    assert [r["name"] for r in children(recs, fwd)] == [
-        "spmm.fwd", "spmm.scale.mean", "models.dense"] * LAYERS
+    first = layout in SAGE_PROJECTS_FIRST
+    agg_first = ["spmm.fwd", "spmm.scale.mean", "models.dense"]
+    assert [r["name"] for r in children(recs, fwd)] == agg_first * (LAYERS - 1) + (
+        ["models.dense", *agg_first] if first else agg_first)
     assert [r["name"] for r in children(recs, bwd)] == ["spmm.scale.mean", "spmm.bwd"] * (
         LAYERS - 1)
     means = [r for r in recs if r["name"] == "spmm.scale.mean"]
     assert len(means) == 5 and not [r for r in recs if r["name"] == "spmm.scale"]
-    assert profiling.counters() == {"spmm.mean": 5,
-                                    "spmm.spill_edges": 5 * op.plan.spill_nnz}
+    want = {"spmm.mean": 5, "spmm.spill_edges": 5 * op.plan.spill_nnz,
+            "models.sage_project_first": int(first)}
+    assert profiling.counters() == {k: v for k, v in want.items() if v}
 
     # the spans as a trace's host ranges, a 1 us kernel launched in each mean
     events = [{"ph": "X", "cat": "user_annotation", "name": r["name"], "tid": r["thread"],
@@ -261,26 +274,27 @@ def test_spans_are_profiler_ranges_placed_by_the_clock_anchor(ops):
 def test_scale_nodes_equal_the_composed_form(layout, dtype):
     """The D^-1/2 scalings against the composed form the operator ran
     before (two broadcast products around the SpMM, differentiated by
-    autograd): as ``_Scale`` nodes (the tband padded layout and the row
-    layout) outputs and gradients ``torch.equal``; inside the wide kernels,
+    autograd): as ``_Scale`` nodes (the tband and tiled padded layouts, the
+    padded view of a row-layout plan, and the row layout) outputs and
+    gradients ``torch.equal``; inside the wide kernels,
     whose FMA rounds once where the composed form rounds twice, within the
     kernels' tolerance ``TOL``."""
     op = make_op(layout, dtype)
-    assert op.folds_scale == FOLDED[layout]
+    assert op.layout.folds_scale == FOLDED[layout]
     n, d = op.plan.num_nodes, 20
     gen = torch.Generator().manual_seed(5)
     x = torch.randn((n, d), generator=gen)
     arrays = op.arrays
 
     def composed_padded(xp):
-        inv = op._inv_lanes(arrays["inv_sqrt_deg"], xp)
+        inv = op.padded._lanes(arrays["inv_sqrt_deg"])
         xs = (xp * inv).to(xp.dtype)
-        return (op._padded_core(arrays, xs) * inv).to(xp.dtype)
+        return (op.padded.raw(xs) * inv).to(xp.dtype)
 
     def composed_rows(v):
         inv = arrays["inv_sqrt_deg"][:, None]
         xs = (v * inv).to(v.dtype)
-        return (op._fn(arrays["f"], arrays["b"], xs) * inv).to(v.dtype)
+        return (op.rows.raw(xs) * inv).to(v.dtype)
 
     cases = (
         (op.pad_input(x), lambda v: op.apply_padded(arrays, v), composed_padded,
@@ -329,8 +343,8 @@ def test_scale_nodes_keep_the_composed_forms_peak_memory(ops, layout, monkeypatc
     memory events) with the scalings as ``_Scale`` nodes equals the
     composed form's: the backward frees each incoming gradient after its
     scaling, before the SpMM runs.  With the scalings inside the wide
-    kernels it is at most the composed form's (without the scale
-    ``inv_sqrt_deg_rows`` the operator composes)."""
+    kernels it is at most the composed form's (the wide layout composing as
+    the tiled one does)."""
     from hcspmm_tpu_torch.ops import spmm as spmm_mod
 
     def peak():
@@ -361,7 +375,8 @@ def test_scale_nodes_keep_the_composed_forms_peak_memory(ops, layout, monkeypatc
 
     nodes = peak()
     if FOLDED[layout]:
-        monkeypatch.delitem(ops[layout].arrays, "inv_sqrt_deg_rows")
+        lay = ops[layout].layout
+        monkeypatch.setattr(lay, "_agg", lay._scaled)
     monkeypatch.setattr(spmm_mod._Scale, "apply", lambda v, inv, dtype: (v * inv).to(dtype))
     composed = peak()
     assert nodes > 0 and composed > 0

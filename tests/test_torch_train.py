@@ -27,7 +27,7 @@ from hcspmm_tpu_torch.graphs import io
 from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward, params_from_jax
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
 from hcspmm_tpu_torch.train import cli
-from hcspmm_tpu_torch.train.loop import Bound, make_train_step, train
+from hcspmm_tpu_torch.train.loop import make_train_step, train
 
 from conftest import small_graph
 from torch_params import assert_params_match_jax
@@ -61,7 +61,7 @@ def test_net_forward_matches_jax(model):
     op, jop, net, jnet, jparams, x = setup(model)
     want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
     with torch.no_grad():
-        got = net_forward(net, params_from_jax(jparams, device=op.device), Bound(op),
+        got = net_forward(net, params_from_jax(jparams, device=op.device), op.layout,
                           op.pad_input(x), out_slice=lambda h: op.unpad_output(h, net.num_classes))
     assert got.shape == want.shape == (x.shape[0], DIMS["num_classes"])
     assert rel_err(got, want) < 1e-5
@@ -75,7 +75,7 @@ def test_net_forward_on_wide_plan_matches_jax(model):
                                            dims=dict(DIMS, hidden=130))
     want = jax_net_forward(jnet, jparams, jop, jnp.asarray(x))
     with torch.no_grad():
-        got = net_forward(net, params_from_jax(jparams, device=op.device), Bound(op),
+        got = net_forward(net, params_from_jax(jparams, device=op.device), op.layout,
                           op.pad_input(x), out_slice=lambda h: op.unpad_output(h, net.num_classes))
     assert got.shape == want.shape == (x.shape[0], DIMS["num_classes"])
     assert rel_err(got, want) < 1e-5
@@ -156,7 +156,7 @@ def test_train_step_takes_a_padded_wide_input():
         step = make_train_step(net, op, torch.optim.Adam(
             [t for layer in params for t in layer.values()], lr=0.01))
         losses.append(float(step(params, xin, y)))
-    assert op.is_padded(op.pad_input(x)) and not op.is_padded(torch.from_numpy(x))
+    assert op.layout.is_padded(op.pad_input(x)) and not op.layout.is_padded(torch.from_numpy(x))
     assert losses[0] == losses[1]
 
 
@@ -300,7 +300,6 @@ from hcspmm_tpu_torch.config import PlanConfig
 from hcspmm_tpu_torch.graphs import io
 from hcspmm_tpu_torch.models.net import Net, init_net_params, net_forward
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
-from hcspmm_tpu_torch.train.loop import Bound
 import hcspmm_tpu_torch.train.cli
 src, dst, n = io.synthetic_blocks(400, 5, 50, seed=1)
 rp, ci = io.to_csr(src, dst, n)
@@ -308,7 +307,7 @@ op = HybridSpMM(rp, ci, n, PlanConfig(band_impl="tband", band_h=128), device="cp
 net = Net("gcn", 8, 16, 4, 2)
 params = init_net_params(net, torch.Generator().manual_seed(0), device=op.device)
 x = np.random.RandomState(0).randn(n, 8).astype(np.float32)
-lp = net_forward(net, params, Bound(op), op.pad_input(x),
+lp = net_forward(net, params, op.layout, op.pad_input(x),
                  out_slice=lambda h: op.unpad_output(h, 4))
 assert lp.shape == (n, 4) and bool(torch.isfinite(lp).all())
 from hcspmm_tpu_torch.train.loop import make_train_step
