@@ -219,7 +219,25 @@ Phases, each of which raises on failure, with its seconds printed:
     folded against composed SpMM in interleaved rounds, beside the scaled
     kernel's bound.  ``python3 chip_smoke.py --scaled`` runs this phase
     alone (with the build of its two libraries and their ptxas lines) and
-    prints its rows as the last line.
+    prints its rows as the last line;
+28. D^-1/2 inside the tband kernels (``TbandLayout.folds_scale``) at the
+    plans the gcn6 benchmark cells build (the GH and YS stand-ins, cluster
+    order, the CLI's PlanConfig at the tband layout, normalised), fp32, dt
+    32: tband_kernel's scaled mode (direct, with the missing superwindows
+    zeroed in the same launch, and bucket mode), each bitwise repeatable,
+    held against its scaled plain version and equal bit for bit to its
+    composed form (X^T D, the unscaled kernel, the lanes scaled); the
+    scaled ``mxgather_lanes`` (hub and T1 tables) equal to its plain
+    version and to the gather of X^T D; the scaled lane merges (hub and
+    cold streams, from X^T with its column scale where the plan has no T1),
+    repeatable and held against their plain versions and composed forms;
+    the operator's forward and backward SpMM with its launches counted and
+    ``spmm.scale_folded`` 2, against the composed form; each scaled kernel
+    against its unscaled mode and the folded SpMM against the composed one
+    in interleaved rounds, beside the scaled kernel's bound.  ``python3
+    chip_smoke.py --scaled-tband`` runs this phase alone (with the build of
+    csrc/tband.cu and csrc/tspill.cu and ptxas's lines of the SCALED
+    instantiations) and prints its rows as the last line.
 
 Two tensors on the card are compared on the card (float64, as on the
 host). The second-to-last line is a JSON object with the kernel table (all
@@ -235,7 +253,7 @@ input read once, each output written once) at 3.35 TB/s and its
 operations at the card's peak rate for their type (fp32 67 TFLOP/s, bf16
 989 TFLOP/s), computed from this run's arrays; beside it the
 Table VI analog, the grouped A/B, the fused training runs and phases
-23-24's, 26's and 27's results (the launch counts of the distributed runs, summed over
+23-24's, 26's, 27's and 28's results (the launch counts of the distributed runs, summed over
 their ranks, count among the kernels' launches).  The last
 line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or outside a checkout of the
@@ -1083,9 +1101,10 @@ def ranges_plan(plan, num_ranges=3):
                                ds_group=grp, ds_meta=meta, ds_kind="tile", ds_ucols=None)
 
 
-def gcn3_wide_op(rp, ci, n, dev):
-    """The operator the gcn3 benchmark cells build: the CLI's PlanConfig at
-    the wide layout (its defaults for every other flag), fp32, normalised."""
+def cell_op(rp, ci, n, dev, band_impl):
+    """The operator a GCN benchmark cell builds: the CLI's PlanConfig at the
+    layout ``band_impl`` ('wide': the gcn3 cells; 'tband': the gcn6 cells)
+    with its defaults for every other flag, fp32, normalised."""
     from hcspmm_tpu_torch.config import PlanConfig
     from hcspmm_tpu_torch.ops.spmm import HybridSpMM
     from hcspmm_tpu_torch.train import cli
@@ -1093,7 +1112,7 @@ def gcn3_wide_op(rp, ci, n, dev):
     d = cli.build_parser().parse_args([])
     cfg = PlanConfig(bucket_widths=tuple(int(v) for v in d.bucket_widths.split(",")),
                      loi_mode=d.loi_mode, compute_dtype="float32", impl=d.impl,
-                     band_impl="wide", spill_impl=d.spill_impl)
+                     band_impl=band_impl, spill_impl=d.spill_impl)
     return HybridSpMM(rp, ci, n, cfg, normalize=True, device=dev)
 
 
@@ -1310,9 +1329,229 @@ def scaled_phase(graphs, gen, out) -> None:
 
     for key in ("GH", "YS"):
         t0 = time.perf_counter()
-        op = gcn3_wide_op(*graphs[key], torch.device(DEV))
+        op = cell_op(*graphs[key], torch.device(DEV), "wide")
         log(f"  {key} gcn3 plan and upload {time.perf_counter() - t0:.1f} s")
         scaled_at_plan(key, op, gen, out)
+        del op
+
+
+def scaled_tband_at_plan(key, op, gen, out, dt=32, reps=10) -> None:
+    """D^-1/2 inside the tband kernels (``TbandLayout.folds_scale``) at
+    ``op``'s own arrays, fp32, X^T [dt, M]:
+
+    - tband_kernel's scaled mode, direct (the main bucket, the missing
+      superwindows zeroed in the same launch) and bucket mode (every
+      bucket): two runs bitwise equal, held at TOL against the scaled plain
+      version, and bit for bit against the composed form (X^T D, the
+      unscaled kernel, times D);
+    - ``mxgather_lanes`` scaled (the hub and T1 tables the plan has): equal
+      to its scaled plain version bit for bit and to the gather of X^T D,
+      two runs bitwise equal;
+    - the lane merges scaled (hub and cold streams; from X^T itself with
+      its column scale where the plan has no T1 table): two runs bitwise
+      equal, held at TOL against the scaled plain version and the composed
+      form (buf + D times the unscaled merge of the scaled sources onto
+      zeros);
+    - the operator's SpMM, forward and backward, with the launch counters
+      zeroed just before and read after: the plan's band, gather and merge
+      launches and one ``spmm.scale_folded`` a SpMM, output and input
+      gradient held against the composed form;
+    - each scaled kernel against its unscaled mode, and the folded SpMM
+      against the composed one, in 7 interleaved rounds (medians), beside
+      the scaled kernel's bound.
+
+    Rows go into ``out[(key, name)]``."""
+    import torch
+
+    from hcspmm_tpu_torch.kernels import tband, tspill
+    from hcspmm_tpu_torch.utils import profiling
+
+    dev = torch.device(DEV)
+    cd, f32 = "float32", torch.float32
+    p, arrs = op.plan, op.arrays["f"]
+    if not op.layout.folds_scale:
+        raise AssertionError(f"{key}: the tband plan must apply D^-1/2 inside its kernels")
+    scale = op.layout._inv_sqrt.view(-1)  # D^-1/2 over the M lanes, 1 on the pad lanes
+    m, bh, pack = p.padded_rows, p.band_h, p.tband_pack
+    num_sw = m // bh
+    nonempty = [i for i in range(len(p.band_widths)) if len(p.band_sw_ids[i])]
+    s_main = max(nonempty, key=lambda i: len(p.band_sw_ids[i]))
+    sw, st, at = (arrs[f"band{s_main}_{k}"] for k in ("sw", "start", "at"))
+    m8, m1 = arrs.get("band_missing_sw8"), arrs.get("band_missing_sw")
+    # the direct launch writes the main bucket's blocks and the missing ones
+    written = torch.zeros(num_sw, dtype=torch.bool, device=dev)
+    written[sw[sw < num_sw].long()] = True
+    if m8 is not None:
+        written[(m8.long()[:, None] * 8 + torch.arange(8, device=dev)).flatten()] = True
+    if m1 is not None:
+        written[m1.long()] = True
+    cols = written.repeat_interleave(bh)
+    nnz = int(tband.expand_at(at, pack)[: int((sw < num_sw).sum())].count_nonzero())
+    xt = torch.randn((dt, m), generator=gen).to(dev)
+    base = torch.randn((dt, m), generator=gen).to(dev)
+    xs = xt * scale
+    tables = [w for w, k in (("hub", "hub_lo"), ("T1", "ts_lo")) if k in arrs]
+    log(f"  {key} gcn6 tband plan: buckets (Sb) {[len(p.band_sw_ids[i]) for i in nonempty]}, "
+        f"main Sb {at.shape[0]}, W {p.band_widths[s_main]}, bh {bh}, pack {pack}, "
+        f"{int(written.sum())} of {num_sw} superwindows written by the direct launch, {nnz} band "
+        f"nnz; spill {p.spill_nnz} edges, tables {tables or 'none (the cold merge reads X^T)'}")
+
+    def ab_row(name, fns, nbytes, ops_n, err, shape, **extra):
+        ab = interleaved_ms(fns, reps)
+        b_ms, b_by = bound(nbytes, ops_n, cd)
+        log(f"    {key} {name} ({shape}), fp32: scaled {ab['scaled']:.4f} ms, unscaled "
+            f"{ab['unscaled']:.4f} ms ({ab['scaled'] / ab['unscaled'] - 1:+.1%}), bound "
+            f"{b_ms:.4f} ms by {b_by}; scaled {ab['scaled'] / b_ms:.2f}x the bound")
+        out[(key, name)] = dict(err=err, ms=ab["scaled"], unscaled_ms=ab["unscaled"],
+                                bound_ms=b_ms, bound_by=b_by, shape=shape, **extra)
+
+    # tband_kernel, direct mode at the main bucket
+    def direct(s=None, x=xt):
+        return tband.tband_spmm_direct(sw, st, at, x, num_sw, f32, m8, m1, pack, s)
+
+    got = direct(scale)
+    if not torch.equal(got[:, cols], direct(scale)[:, cols]):
+        raise AssertionError(f"{key}: two scaled tband_kernel runs differ")
+    ref = tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, f32, m8, m1, pack, scale)
+    err = hold(f"{key} scaled direct vs plain", got[:, cols], ref[:, cols], cd)
+    del ref
+    comp = direct(x=xs) * scale
+    if not torch.equal(got[:, cols], comp[:, cols]):
+        raise AssertionError(f"{key}: the scaled direct launch differs from the composed form")
+    log(f"  {key} scaled direct launch: repeatable, and equal bit for bit to the composed form")
+    del got, comp
+    # bucket mode at every bucket (the main one included)
+    for i in nonempty:
+        sw_i, st_i, at_i = (arrs[f"band{i}_{k}"] for k in ("sw", "start", "at"))
+        n_i = len(p.band_sw_ids[i])  # capacity padding trails the real entries
+        part = tband.tband_spmm_bucket(st_i, at_i, xt, pack, scale, sw_i)
+        if not torch.equal(part, tband.tband_spmm_bucket(st_i, at_i, xt, pack, scale, sw_i)):
+            raise AssertionError(f"{key}: two scaled bucket launches differ")
+        ref = tband.tband_spmm_bucket_plain(st_i, at_i, xt, pack, scale, sw_i)
+        err = max(err, hold(f"{key} scaled bucket {i} vs plain", part, ref, cd))
+        lanes = (sw_i[:n_i].long()[:, None] * bh + torch.arange(bh, device=dev)).flatten()
+        comp = tband.tband_spmm_bucket(st_i, at_i, xs, pack)[:, : n_i * bh] * scale[lanes]
+        if not torch.equal(part[:, : n_i * bh], comp):
+            raise AssertionError(f"{key}: scaled bucket {i} differs from the composed form")
+        del part, ref, comp
+    shape = f"Sb {at.shape[0]}, W {p.band_widths[s_main]}, bh {bh}, dt {dt}, pack {pack}"
+    ab_row("tband_spmm", {"scaled": lambda: direct(scale), "unscaled": direct},
+           at.numel() + 2 * m * dt * 4 + 8 * at.shape[0] + 4 * m, 2 * nnz * dt, err, shape)
+
+    # the spill chain: each gather, then each merge
+    srcs = {}
+    for what, lo_key, rel_key in (("hub", "hub_lo", "hub_rel"), ("T1", "ts_lo", "ts_rel")):
+        if lo_key not in arrs:
+            continue
+        lo, rel = arrs[lo_key], arrs[rel_key]
+
+        def gather(s=None, x=xt, lo=lo, rel=rel):
+            return tspill.mxgather_lanes(x, lo, rel, span=p.ts_span, scale=s)
+
+        got = gather(scale)
+        if not (torch.equal(got, gather(scale))
+                and torch.equal(got, tspill.mxgather_lanes_plain(xt, lo, rel, scale))
+                and torch.equal(got, gather(x=xs))):
+            raise AssertionError(f"{key} {what}: the scaled mxgather is not repeatable or "
+                                 "differs from its plain version or the gather of X^T D")
+        srcs[what] = got
+        real = int((rel >= 0).sum())
+        ab_row(f"mxgather_lanes {what}", {"scaled": lambda g=gather: g(scale), "unscaled": gather},
+               real * dt * 4 + got.numel() * 4 + rel.numel() * 4 + lo.numel() * 4 + 4 * real,
+               0, 0.0, f"{what}: {lo.shape[0]} chunks x k {rel.shape[2]}, span {p.ts_span}")
+    if srcs:
+        log(f"  {key} scaled mxgather: repeatable, equal to its plain version and to the gather "
+            "of X^T D bit for bit")
+    streams = []
+    if "hub_lo" in arrs:
+        streams.append(("hub", srcs["hub"], None, arrs["ds_h_laneg"], arrs["ds_h_tlocal"],
+                        arrs["ds_h_lblk"], "ds_h_lseg", p.ds_hgroup))
+    t1 = srcs.get("T1")
+    streams.append(("cold", xt if t1 is None else t1, scale if t1 is None else None,
+                    arrs["ds_lsrc"], arrs["ds_tlocal"], arrs["ds_lblk"], "ds_lseg", p.ds_lgroup))
+    for what, src, cs, gidx, local, blk, seg_key, group in streams:
+        segs = tspill.segments_of(arrs, seg_key)
+
+        def merge(buf, s=None, c=None, src=src, gidx=gidx, local=local, blk=blk, group=group,
+                  segs=segs):
+            return tspill.tbstream_merge(src, local, blk, buf, group=group, gidx=gidx, segs=segs,
+                                         rscale=s, cscale=c)
+
+        got = merge(base.clone(), scale, cs)
+        if not torch.equal(got, merge(base.clone(), scale, cs)):
+            raise AssertionError(f"{key} {what}: two scaled lane merges differ")
+        ref = tspill.tbstream_merge_plain(src, local, blk, base.clone(), group=group, gidx=gidx,
+                                          rscale=scale, cscale=cs)
+        err = hold(f"{key} scaled {what} merge vs plain", got, ref, cd)
+        del ref
+        src_c = src if cs is None else src * cs
+        comp = base + scale * tspill.tbstream_merge(src_c, local, blk, torch.zeros_like(base),
+                                                    group=group, gidx=gidx, segs=segs)
+        err = max(err, hold(f"{key} scaled {what} merge vs composed", got, comp, cd))
+        del got, comp, src_c
+        span = group * 128
+        loc = local[: blk.shape[0]].long()
+        keep = loc < span
+        real = int(keep.sum())
+        touched = int((segs[0] >= 0).sum())
+        sources = int(torch.unique(gidx[: keep.numel()][keep.reshape(-1)]).numel())
+        buf = base.clone()
+        ab_row(f"tbstream_merge {what}",
+               {"scaled": lambda m_=merge, b=buf, c=cs: m_(b, scale, c),
+                "unscaled": lambda m_=merge, b=buf: m_(b)},
+               sources * dt * 4 + real * 4 + 2 * touched * dt * 4 + segs[1].numel() * 4
+               + segs[0].numel() * 4 + 4 * touched + (4 * sources if cs is not None else 0),
+               real * dt, err, f"{what}: {blk.shape[0]} chunks x bw {local.shape[1]}, group "
+               f"{group}, {segs[0].shape[0]} segments"
+               + (", from X^T with its column scale" if cs is not None else ""))
+        del buf
+
+    # the operator's SpMM, forward and backward, launches counted
+    xv = xt.clone().requires_grad_(True)
+    zero_counts()
+    profiling.reset()
+    with profiling.tracing():
+        z = op.apply_padded(op.arrays, xv)
+        z.backward(base)
+    counts, folded = read_counts(), profiling.counters().get("spmm.scale_folded", 0)
+    profiling.reset()
+    if dev.type == "cuda":  # the plain versions (a CPU rehearsal) count no launch
+        check_counts(counts, {"tband_spmm": len(nonempty), "mxgather_lanes": len(tables),
+                              "tbstream_merge": len(streams)}, 2, exact=True)
+    if folded != 2:
+        raise AssertionError(f"{key}: spmm.scale_folded {folded}, not 2")
+    xc = xt.clone().requires_grad_(True)
+    zc = op.layout.raw(xc * scale) * scale
+    zc.backward(base)
+    err = max(hold(f"{key} folded SpMM vs composed", z.detach(), zc.detach(), cd),
+              hold(f"{key} folded SpMM's input gradient vs composed", xv.grad, xc.grad, cd))
+    log(f"    {key}: a forward and a backward SpMM launched "
+        f"{ {k: v for k, v in counts.items() if v} }, spmm.scale_folded {folded}")
+    del xv, z, xc, zc
+    with torch.no_grad():
+        ab = interleaved_ms({"folded": lambda: op.apply_padded(op.arrays, xt),
+                             "composed": lambda: op.layout.raw(xt * scale) * scale},
+                            max(reps // 2, 2))
+    log(f"    {key} SpMM dt {dt}, fp32: folded {ab['folded']:.4f} ms, composed "
+        f"{ab['composed']:.4f} ms ({ab['folded'] / ab['composed'] - 1:+.1%})")
+    out[(key, "spmm")] = dict(err=err, ms=ab["folded"], composed_ms=ab["composed"],
+                              launches={k: v for k, v in counts.items() if v},
+                              scale_folded=folded)
+    del xt, xs, base
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def scaled_tband_phase(graphs, gen, out) -> None:
+    """Phase 28: ``scaled_tband_at_plan`` at the gcn6 cells' plans, the GH
+    and YS stand-ins in cluster order (``graphs``: key -> (rp, ci, n))."""
+    import torch
+
+    for key in ("GH", "YS"):
+        t0 = time.perf_counter()
+        op = cell_op(*graphs[key], torch.device(DEV), "tband")
+        log(f"  {key} gcn6 plan and upload {time.perf_counter() - t0:.1f} s")
+        scaled_tband_at_plan(key, op, gen, out)
         del op
 
 
@@ -1368,11 +1607,27 @@ def types_of(mangled: str) -> str:
 FORMS = {"0": "band", "1": "fused SLAB", "2": "fused WHOLE", "3": "fused ONE"}
 
 
-def tband_kernel_report(log_text: str) -> list:
-    """ptxas's lines of each instantiation of csrc/tband.cu's tband_kernel."""
-    return ptxas_report(log_text, r"tband_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
-                        lambda k: f"tband_kernel<{types_of(k.group(1))}, DT {k.group(2)}, COLS "
-                                  f"{k.group(3)}, {FORMS[k.group(4)]}, PACK {k.group(5)}>")
+def tband_kernel_report(log_text: str, pattern: str = "") -> list:
+    """ptxas's lines of each instantiation of csrc/tband.cu's tband_kernel
+    (band form unscaled or SCALED, and the fused forms) whose line matches
+    ``pattern``."""
+    lines = ptxas_report(
+        log_text, r"tband_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
+        lambda k: f"tband_kernel<{types_of(k.group(1))}, DT {k.group(2)}, COLS {k.group(3)}, "
+                  f"{FORMS[k.group(4)]}, PACK {k.group(5)}"
+                  f"{', SCALED' if k.group(6) == '1' else ''}>")
+    return [v for v in lines if pattern in v]
+
+
+def tspill_kernel_report(log_text: str) -> list:
+    """ptxas's lines of csrc/tspill.cu's mxgather_kernel and merge_kernel
+    (unscaled, SCALED, SCALED with column scales)."""
+    elt = {"j": "fp32", "t": "bf16", "f": "fp32", "13__nv_bfloat16": "bf16"}
+    return ptxas_report(
+        log_text, r"(mxgather_kernel|merge_kernel)I(j|t|f|13__nv_bfloat16)Lb([01])E(?:Lb([01])E)?",
+        lambda k: f"{k.group(1)}<{elt[k.group(2)]}"
+                  f"{', SCALED' if k.group(3) == '1' else ''}"
+                  f"{', column scales' if k.group(4) == '1' else ''}>")
 
 
 def band_kernel_report(log_text: str) -> list:
@@ -3921,6 +4176,9 @@ def main() -> int:
         with open(_build.library_path("tband") + ".log") as f:
             for line in tband_kernel_report(f.read()):
                 log("  " + line)
+        with open(_build.library_path("tspill") + ".log") as f:
+            for line in tspill_kernel_report(f.read()):
+                log("  " + line)
         with open(_build.library_path("block_spmm") + ".log") as f:
             for line in band_kernel_report(f.read()):
                 log("  " + line)
@@ -4347,6 +4605,9 @@ def main() -> int:
     scaled_res = {}
     with Phase("27. D^-1/2 inside the wide kernels at the gcn3 cells' plans (GH, YS)"):
         scaled_phase(real_csr, gen, scaled_res)
+    tband_scaled = {}
+    with Phase("28. D^-1/2 inside the tband kernels at the gcn6 cells' plans (GH, YS)"):
+        scaled_tband_phase(real_csr, gen, tband_scaled)
 
     def launches(name):
         return sum(run[name] for run in launch_runs.values())
@@ -4390,6 +4651,11 @@ def main() -> int:
         return {f"{k[1]} {k[2]} pack {p}": row for k, rows in packed_res.items()
                 if k[0] == kernel for p, row in rows.items()}
 
+    def tband_scaled_rows(kernel):
+        """Phase 28's rows of ``kernel`` (scaled against unscaled), by plan."""
+        return {f"{k} {name}": v for (k, name), v in tband_scaled.items()
+                if name.split(" ")[0] == kernel}
+
     def int4(kernel):
         """The int4 rows of ``kernel`` phase 25 ran, by graph and width."""
         return {f"{k[1]} {k[2]}": row for k, row in int4_res.items() if k[0] == kernel}
@@ -4400,7 +4666,7 @@ def main() -> int:
               err=max([v["err"] for (_, cd), v in band_res.items() if cd == "float32"]
                       + [v["err"] for k, v in packs("tband_spmm").items() if "float32" in k]),
               design=TBAND_DESIGN, plans={f"{k} {cd}": v for (k, cd), v in band_res.items()},
-              packs=packs("tband_spmm")),
+              packs=packs("tband_spmm"), scaled=tband_scaled_rows("tband_spmm")),
         entry("tband_spmm_bucket", csrc + "tband.cu", tpu + "tband.py:246", tb_bucket,
               tb_bucket["shape"], err=max([tb_bucket["err"]] + [
                   v["err"] for v in packs("tband_spmm_bucket").values()]),
@@ -4436,8 +4702,10 @@ def main() -> int:
                          "the missing lists less the same launch without them",
                   direct_with_ms=zero["direct_with_ms"],
                   direct_without_ms=zero["direct_without_ms"])),
-              ("mxgather_lanes", "tspill.cu", "tspill.py:351", mxg, {}),
-              ("tbstream_merge", "tspill.cu", "tspill.py:189", merge, {}))],
+              ("mxgather_lanes", "tspill.cu", "tspill.py:351", mxg,
+               dict(scaled=tband_scaled_rows("mxgather_lanes"))),
+              ("tbstream_merge", "tspill.cu", "tspill.py:189", merge,
+               dict(scaled=tband_scaled_rows("tbstream_merge"))))],
         entry("band_spmm", csrc + "block_spmm.cu", tpu + "block_spmm.py:459", wide,
               f"DD wide plan {wide['shape']}, float32, direct write",
               counter="band_bucket_spmm_direct",
@@ -4493,20 +4761,37 @@ def main() -> int:
                     "int4_training": {f"{k[0]} {k[1]}": v for k, v in int4_train.items()},
                     "distributed": dist_res, "checkpoint": ckpt_res, "tools": tools_res,
                     "scaled": {f"{k} {name} dp {dp}": v
-                               for (k, name, dp), v in scaled_res.items()}}))
+                               for (k, name, dp), v in scaled_res.items()},
+                    "scaled_tband": {f"{k} {name}": v for (k, name), v in tband_scaled.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
 
 
-def scaled_main() -> int:
-    """``python3 chip_smoke.py --scaled``: phase 27 alone, after phase 1's
-    versions and the build of the two libraries it runs (with ptxas's lines
-    of band_kernel and merge_kernel); its rows as one JSON line."""
+def tband_build_report(log_text: str) -> list:
+    """Phase 28's ptxas lines: each SCALED band-form instantiation of
+    tband_kernel at PACK 1 beside its unscaled twin, the most registers and
+    spill bytes over every SCALED instantiation, and csrc/tspill.cu's
+    kernels (from the two builds' logs, joined)."""
+    scaled = tband_kernel_report(log_text, ", SCALED>")
+    lines = [v for v in tband_kernel_report(log_text, "band, PACK 1") if "fused" not in v]
+    regs = [int(v.split(": ")[1].split(" ")[0]) for v in scaled]
+    spills = [v.split("spill stores/loads ")[1].split(" ")[0] for v in scaled]
+    return lines + [f"{len(scaled)} SCALED tband_kernel instantiations: at most {max(regs)} "
+                    f"registers, spill stores/loads {sorted(set(spills))} bytes"]
+
+
+def scaled_main(which: str) -> int:
+    """``python3 chip_smoke.py --scaled`` (phase 27: the wide layout's
+    scaled kernels, after the build of csrc/block_spmm.cu and
+    csrc/dstream.cu) or ``--scaled-tband`` (phase 28: the tband layout's,
+    after the build of csrc/tband.cu and csrc/tspill.cu) alone, after phase
+    1's versions, with ptxas's lines of the built scaled kernels; its rows as
+    one JSON line."""
     import torch
 
-    from hcspmm_tpu_torch.kernels import _build, block_spmm, dstream
+    from hcspmm_tpu_torch.kernels import _build, block_spmm, dstream, tband, tspill
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
@@ -4517,26 +4802,53 @@ def scaled_main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
     log(smi)
-    with Phase("2. build csrc/block_spmm.cu and csrc/dstream.cu"):
-        block_spmm._lib()
-        dstream._lib()
-        for name, report in (("block_spmm", band_kernel_report), ("dstream", merge_kernel_report)):
-            with open(_build.library_path(name) + ".log") as f:
-                for line in report(f.read()):
+    wide = which == "wide"
+    libs = (("block_spmm", block_spmm._lib), ("dstream", dstream._lib)) if wide else (
+        ("tband", tband._lib), ("tspill", tspill._lib))
+    with Phase(f"2. build {' and '.join(f'csrc/{n}.cu' for n, _ in libs)}"):
+        for name, load in libs:
+            t0 = time.perf_counter()
+            load()
+            log(f"  csrc/{name}.cu: nvcc {time.perf_counter() - t0:.1f} s")
+        if wide:
+            for name, report in (("block_spmm", band_kernel_report),
+                                 ("dstream", merge_kernel_report)):
+                with open(_build.library_path(name) + ".log") as f:
+                    for line in report(f.read()):
+                        log("  " + line)
+        else:
+            with open(_build.library_path("tband") + ".log") as f:
+                for line in tband_build_report(f.read()):
                     log("  " + line)
+            with open(_build.library_path("tspill") + ".log") as f:
+                for line in tspill_kernel_report(f.read()):
+                    log("  " + line)
+            f32 = torch.float32
+            for pack in (1, 2, 8):
+                for scaled in (False, True):
+                    log(f"  tband_kernel at bh 256, dt 32, fp32, pack {pack}"
+                        f"{', scaled' if scaled else ''}: "
+                        f"{tband.launch_config(256, 32, f32, f32, pack, scaled)}")
     gen = torch.Generator().manual_seed(0)
     graphs = {}
     with Phase("6. the GH and YS stand-ins, cluster order"):
         for key in ("GH", "YS"):
             graphs[key] = real_graph(key)[2:]
     res = {}
-    with Phase("27. D^-1/2 inside the wide kernels at the gcn3 cells' plans (GH, YS)"):
-        scaled_phase(graphs, gen, res)
+    if wide:
+        with Phase("27. D^-1/2 inside the wide kernels at the gcn3 cells' plans (GH, YS)"):
+            scaled_phase(graphs, gen, res)
+        rows = {f"{k} {name} dp {dp}": v for (k, name, dp), v in res.items()}
+    else:
+        with Phase("28. D^-1/2 inside the tband kernels at the gcn6 cells' plans (GH, YS)"):
+            scaled_tband_phase(graphs, gen, res)
+        rows = {f"{k} {name}": v for (k, name), v in res.items()}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    log(json.dumps({"scaled": {f"{k} {name} dp {dp}": v for (k, name, dp), v in res.items()}}))
+    log(json.dumps({"scaled" if wide else "scaled_tband": rows}))
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(scaled_main() if sys.argv[1:] == ["--scaled"] else main())
+    MODE = {"--scaled": "wide", "--scaled-tband": "tband"}.get(" ".join(sys.argv[1:]))
+    raise SystemExit(scaled_main(MODE) if MODE else main())

@@ -107,6 +107,22 @@
 // Lane l tests bit (k0 + k) / G of its column's byte of row k (a multiply
 // by G's reciprocal, no division and no shuffle).
 //
+// The scaled mode (SCALED, band form only: the normalised operator D A D X,
+// D a diagonal fp32 scale over the M lanes, 1 on the pad lanes): the
+// producer lands the stage's KT column scales, scale[st[i] + k0 ...], with
+// its boxes (one 256-byte bulk copy, counted on the stage's barrier); lane l
+// multiplies its x of row k by the row's scale as it reads it (a broadcast
+// read of shared memory beside the x read), one multiply a row a lane ahead
+// of the column loop, and each column's sums are multiplied by the output
+// lane's scale, scale[ssw[i] * bh + c], at the store (0 past the scale:
+// bucket mode's capacity padding, whose blocks the caller drops).  Read
+// from global memory in the row loop instead, the scale's latency cost the
+// kernel 20% at GH's gcn6 plan.
+// x * scale rounds once, as the composed form's X * D does, and the sums
+// are the same fmaf chains, so in fp32 a column's value equals the composed
+// form's (D X, the unscaled kernel, times D) bit for bit.  The zero items
+// stay zero.  The fused forms have no scaled mode (they run unnormalised).
+//
 // The fused forms (tband_fused_direct: agg^T as above and out^T = W^T
 // round_as(agg^T), round_as the reference's agg.astype(wt.dtype)).  At the
 // blocks stand-in (dt 32, ht 32) the update is 0.69 GFLOP, 0.010 ms at the
@@ -229,7 +245,9 @@ __host__ __device__ constexpr int a_row_bytes(int bh, int pack) { return pack ==
 // stages, each the A_t slab as rb/CW boxes [KT][CW] bytes (rb =
 // a_row_bytes) and the X^T slab as
 // KT/XW boxes [DT][XW] of TX (XW = 128 bytes of TX), all as the tensor
-// copies land them; then each consumer warp's sums, [COLS columns][stride]
+// copies land them; in the scaled mode, each stage's KT column scales (fp32,
+// SCALE_BYTES a stage, outside the stages so that these keep the swizzle
+// atom's alignment); then each consumer warp's sums, [COLS columns][stride]
 // fp32, stride DT + 1 (the fused kernel's whole-entry form: dt + 1; the
 // pad word makes both the by-feature updates and the by-column stores
 // conflict-free); then the fused kernel's staged W^T (wt_bytes); then
@@ -238,6 +256,7 @@ template <typename TX, int DT>
 struct Layout {
   static constexpr int XW = 128 / (int)sizeof(TX);
   static constexpr int ACC_STRIDE = DT + 1;
+  static constexpr int SCALE_BYTES = KT * (int)sizeof(float);
   static __host__ __device__ int stage_bytes(int rb) {
     return KT * rb + KT * DT * (int)sizeof(TX);
   }
@@ -245,9 +264,9 @@ struct Layout {
     return bh * stride * (int)sizeof(float);
   }
   static __host__ __device__ size_t smem(int bh, int rb, int stages, int stride = ACC_STRIDE,
-                                         int wsm = 0, int dt = 0) {
-    return SWIZZLE_ATOM + (size_t)stages * stage_bytes(rb) + acc_bytes(bh, stride) +
-           wt_bytes(wsm, dt) + BAR_BYTES;
+                                         int wsm = 0, int dt = 0, bool scaled = false) {
+    return SWIZZLE_ATOM + (size_t)stages * (stage_bytes(rb) + (scaled ? SCALE_BYTES : 0)) +
+           acc_bytes(bh, stride) + wt_bytes(wsm, dt) + BAR_BYTES;
   }
 };
 
@@ -453,14 +472,19 @@ __device__ __forceinline__ void whole_product(const float* sums, int stride, int
 // registers, and stores the tile after the last slab.  WHOLE: the sums of
 // slab d0 land at column d0 of a stride of dt + 1, and after the last slab
 // the warp runs wt_product over all dt for each 32-row tile of out^T.
-template <typename TX, typename TO, int DT, int COLS, int FUSE, int PACK>
+// SCALED (FUSE == BAND only): ``scale`` fp32 [scale_n] over X^T's lanes and
+// the output's, ``ssw`` [sb] each entry's superwindow (sw in direct mode),
+// as the scaled mode's note says.
+template <typename TX, typename TO, int DT, int COLS, int FUSE, int PACK, bool SCALED>
 __global__ void __launch_bounds__(MAX_BH + 32, (FUSE == SLAB || FUSE == ONE) && COLS == 16 ? 2 : 1)
 tband_kernel(const __grid_constant__ AMaps<PACK> amaps, const __grid_constant__ CUtensorMap xmap,
              const int32_t* __restrict__ starts, const int32_t* __restrict__ sw,
              const int32_t* __restrict__ miss8, int n8, const int32_t* __restrict__ miss1,
              int n1, TO* __restrict__ out, int sb, int w, int bh, int cw, int nchunk,
              long long out_cols, int num_sw, int stages, const TX* __restrict__ wt,
-             TO* __restrict__ wout, int ht, int htiles, int wsm) {
+             TO* __restrict__ wout, int ht, int htiles, int wsm, const float* __restrict__ scale,
+             const int32_t* __restrict__ ssw, long long scale_n) {
+  static_assert(!SCALED || FUSE == BAND, "only the band form has a scaled mode");
   using L = Layout<TX, DT>;
   constexpr int XW = L::XW;
   extern __shared__ __align__(16) unsigned char tband_smem[];
@@ -470,10 +494,12 @@ tband_kernel(const __grid_constant__ AMaps<PACK> amaps, const __grid_constant__ 
   const int stage_bytes = L::stage_bytes(rb);
   const int dt = nchunk * DT;
   const int stride = FUSE == WHOLE ? dt + 1 : L::ACC_STRIDE;
-  float* sums = reinterpret_cast<float*>(ring + stages * stage_bytes);
+  // SCALED: each stage's X^T column scales, [stages][KT] fp32
+  float* xscales = reinterpret_cast<float*>(ring + stages * stage_bytes);
+  float* sums = xscales + (SCALED ? stages * KT : 0);
   // SLAB, ONE: W^T staged as [dt][wsm] fp32 (wsm = 32 * htiles), or none
   float* wts = wsm ? sums + bh * stride : nullptr;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes +
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(sums) +
                                                L::acc_bytes(bh, stride) + wt_bytes(wsm, dt));
   uint64_t* empty = full + MAX_STAGES;  // [stages]: consumers done with the stage
   const int nwarps = bh / COLS;
@@ -510,7 +536,9 @@ tband_kernel(const __grid_constant__ AMaps<PACK> amaps, const __grid_constant__ 
       unsigned char* a_dst = ring + slot * stage_bytes;
       unsigned char* x_dst = a_dst + KT * rb;
       const int i = it.entry(), k0 = it.k0(), x0 = starts[i] + k0;
-      bar_arrive_expect(&full[slot], stage_bytes);
+      bar_arrive_expect(&full[slot], stage_bytes + (SCALED ? L::SCALE_BYTES : 0));
+      if constexpr (SCALED)
+        bulk_load(xscales + slot * KT, scale + x0, L::SCALE_BYTES, &full[slot]);
       if constexpr (PACK == 8) {
         // logical row k0 + j: byte row (k0 + j) % G of plane (k0 + j) / G; each
         // run of byte rows up to a plane's end lands at stage rows j onward
@@ -617,10 +645,15 @@ tband_kernel(const __grid_constant__ AMaps<PACK> amaps, const __grid_constant__ 
         return lane < COLS ? v : 0;
       }
     };
+    const float* xsc = xscales + slot * KT;  // SCALED: the stage's X^T column scales
     auto x_of = [&](int k) {
-      return lane < DT ? to_f32(*reinterpret_cast<const TX*>(
-                             x_s + k / XW * DT * 128 + swz(xrow + k % XW * (int)sizeof(TX), 7)))
-                       : 0.f;
+      if (lane >= DT) return 0.f;
+      const float x = to_f32(*reinterpret_cast<const TX*>(
+          x_s + k / XW * DT * 128 + swz(xrow + k % XW * (int)sizeof(TX), 7)));
+      if constexpr (SCALED)
+        return x * xsc[k];
+      else
+        return x;
     };
     if (rows) {
       int k = __ffsll((long long)rows) - 1;
@@ -659,9 +692,15 @@ tband_kernel(const __grid_constant__ AMaps<PACK> amaps, const __grid_constant__ 
       if (FUSE == BAND || it.sub() == 0) {
         TO* o_col = out + col0 + lane;
         if (lane < COLS) {
+          float rs = 1.f;  // SCALED: the output lane's scale
+          if constexpr (SCALED) {
+            const long long r = (long long)ssw[i] * bh + warp * COLS + lane;
+            rs = r < scale_n ? __ldg(scale + r) : 0.f;
+          }
 #pragma unroll 4
           for (int d = 0; d < DT; ++d) {
-            store(o_col + (long long)(d0 + d) * out_cols, acc_s[lane * stride + d]);
+            const float v = acc_s[lane * stride + d];
+            store(o_col + (long long)(d0 + d) * out_cols, SCALED ? v * rs : v);
             if (FUSE == BAND) acc_s[lane * stride + d] = 0.f;
           }
         }
@@ -708,16 +747,17 @@ tband_kernel(const __grid_constant__ AMaps<PACK> amaps, const __grid_constant__ 
 // Consumer columns a warp at band height bh (tband_kernel's COLS).
 constexpr int cols_of(int bh) { return bh <= 256 ? 16 : 32; }
 
-// Stages, shared memory and resident blocks an SM of tband_kernel<TX, TO,
-// DT, cols_of(bh)> at band height bh on the current device: as many stages
-// (2..MAX_STAGES) as leave two blocks an SM in shared memory.  Kept per
-// instantiation, band height and device, so a launch queries nothing.
+// Stages, shared memory and resident blocks an SM of the band form
+// tband_kernel<TX, TO, DT, cols_of(bh), BAND, PACK, SCALED> at band height
+// bh on the current device: as many stages (2..MAX_STAGES) as leave two
+// blocks an SM in shared memory.  Kept per instantiation, band height and
+// device, so a launch queries nothing.
 struct Config {
   int dev = -1, stages = 0, blocks_per_sm = 0, sms = 0;
   size_t smem = 0;
 };
 
-template <typename TX, typename TO, int DT, int COLS, int PACK>
+template <typename TX, typename TO, int DT, int COLS, int PACK, bool SCALED>
 cudaError_t launch_config(int bh, Config* cfg) {
   using L = Layout<TX, DT>;
   const int rb = a_row_bytes(bh, PACK);
@@ -739,11 +779,11 @@ cudaError_t launch_config(int bh, Config* cfg) {
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   const long long fit = ((long long)per_sm / 2 - reserved - (long long)L::smem(bh, rb, 0)) /
-                        L::stage_bytes(rb);
+                        (L::stage_bytes(rb) + (SCALED ? L::SCALE_BYTES : 0));
   const int stages = (int)(fit < 2 ? 2 : fit > MAX_STAGES ? MAX_STAGES : fit);
-  const size_t smem = L::smem(bh, rb, stages);
+  const size_t smem = L::smem(bh, rb, stages, L::ACC_STRIDE, 0, 0, SCALED);
   if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  auto kernel = tband_kernel<TX, TO, DT, COLS, BAND, PACK>;
+  auto kernel = tband_kernel<TX, TO, DT, COLS, BAND, PACK, SCALED>;
   // the cap is the kernel's, not this band height's: let it take any
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e == cudaSuccess)
@@ -761,13 +801,18 @@ cudaError_t launch_config(int bh, Config* cfg) {
 }
 
 // One launch's operands: A_t (PACK's encoding) and its logical shape [sb,
-// w, bh], X^T [dt, m], the output's columns, the superwindows.
+// w, bh], X^T [dt, m], the output's columns, the superwindows; the scaled
+// mode's scale [scale_n] and each entry's superwindow ssw (scale null: the
+// unscaled kernel).
 struct Operands {
   const void *starts, *sw, *at, *xt;
   void* out;
   int sb, w, bh, dt, pack;
   long long m, out_cols;
   int num_sw;
+  const float* scale;
+  const int32_t* ssw;
+  long long scale_n;
 };
 
 // The superwindows a direct launch zeroes (tband_kernel's zero items).
@@ -801,7 +846,7 @@ cudaError_t fused_blocks(int bh, size_t smem, int* blocks, int* sms) {
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   if (smem > (size_t)optin || dev >= 16) return cudaErrorInvalidValue;
-  auto kernel = tband_kernel<TX, TO, DT, COLS, FUSE, PACK>;
+  auto kernel = tband_kernel<TX, TO, DT, COLS, FUSE, PACK, false>;
   if (!opted[dev]) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (e != cudaSuccess) return e;
@@ -820,7 +865,7 @@ size_t fused_smem(int fuse, int bh, int pack, int dt, int stages, int wsm) {
                               fuse == WHOLE ? dt + 1 : DT + 1, wsm, dt);
 }
 
-template <typename TX, typename TO, int DT, int COLS, int FUSE, int PACK>
+template <typename TX, typename TO, int DT, int COLS, int FUSE, int PACK, bool SCALED>
 cudaError_t launch_cols(const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
   const int sb = o.sb, w = o.w, bh = o.bh, dt = o.dt;
   int stages = 0, blocks = 0, sms = 0;
@@ -828,7 +873,7 @@ cudaError_t launch_cols(const Operands& o, Missing miss, Fused f, cudaStream_t s
   cudaError_t e;
   if constexpr (FUSE == BAND) {
     Config c;
-    e = launch_config<TX, TO, DT, COLS, PACK>(bh, &c);
+    e = launch_config<TX, TO, DT, COLS, PACK, SCALED>(bh, &c);
     stages = c.stages, blocks = c.blocks_per_sm, sms = c.sms, smem = c.smem;
   } else {
     stages = f.stages;
@@ -862,47 +907,51 @@ cudaError_t launch_cols(const Operands& o, Missing miss, Fused f, cudaStream_t s
   const long long items = FUSE == BAND ? ((long long)sb + 8LL * miss.n8 + miss.n1) * nchunk
                                        : (long long)sb * (FUSE == SLAB ? f.htiles : 1);
   const long long slots = (long long)blocks * sms;
-  tband_kernel<TX, TO, DT, COLS, FUSE, PACK>
+  tband_kernel<TX, TO, DT, COLS, FUSE, PACK, SCALED>
       <<<(unsigned)(items < slots ? items : slots), bh / COLS * 32 + 32, smem, stream>>>(
           amaps, xmap, static_cast<const int32_t*>(o.starts), static_cast<const int32_t*>(o.sw),
           miss.ids8, miss.n8, miss.ids1, miss.n1, static_cast<TO*>(o.out), sb, w, bh, cw, nchunk,
           o.out_cols, o.num_sw, stages, static_cast<const TX*>(f.wt), static_cast<TO*>(f.wout),
-          f.ht, f.htiles, f.wsm);
+          f.ht, f.htiles, f.wsm, o.scale, o.ssw, o.scale_n);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TO, int DT, int FUSE, int PACK>
+template <typename TX, typename TO, int DT, int FUSE, int PACK, bool SCALED>
 cudaError_t launch_pack(const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
-  if (cols_of(o.bh) == 16) return launch_cols<TX, TO, DT, 16, FUSE, PACK>(o, miss, f, stream);
-  return launch_cols<TX, TO, DT, 32, FUSE, PACK>(o, miss, f, stream);
+  if (cols_of(o.bh) == 16)
+    return launch_cols<TX, TO, DT, 16, FUSE, PACK, SCALED>(o, miss, f, stream);
+  return launch_cols<TX, TO, DT, 32, FUSE, PACK, SCALED>(o, miss, f, stream);
 }
 
-template <typename TX, typename TO, int DT, int FUSE>
+template <typename TX, typename TO, int DT, int FUSE, bool SCALED>
 cudaError_t launch(const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
-  if (o.pack == 2) return launch_pack<TX, TO, DT, FUSE, 2>(o, miss, f, stream);
-  if (o.pack == 8) return launch_pack<TX, TO, DT, FUSE, 8>(o, miss, f, stream);
-  return launch_pack<TX, TO, DT, FUSE, 1>(o, miss, f, stream);
+  if (o.pack == 2) return launch_pack<TX, TO, DT, FUSE, 2, SCALED>(o, miss, f, stream);
+  if (o.pack == 8) return launch_pack<TX, TO, DT, FUSE, 8, SCALED>(o, miss, f, stream);
+  return launch_pack<TX, TO, DT, FUSE, 1, SCALED>(o, miss, f, stream);
 }
 
-template <typename TX, typename TO, int DT, int PACK>
+template <typename TX, typename TO, int DT, int PACK, bool SCALED>
 cudaError_t config_cols(int bh, Config* c) {
-  return cols_of(bh) == 16 ? launch_config<TX, TO, DT, 16, PACK>(bh, c)
-                           : launch_config<TX, TO, DT, 32, PACK>(bh, c);
+  return cols_of(bh) == 16 ? launch_config<TX, TO, DT, 16, PACK, SCALED>(bh, c)
+                           : launch_config<TX, TO, DT, 32, PACK, SCALED>(bh, c);
 }
 
-template <typename TX, typename TO, int DT>
+template <typename TX, typename TO, int DT, bool SCALED>
 cudaError_t config_of(int bh, int pack, Config* c) {
-  return pack == 2   ? config_cols<TX, TO, DT, 2>(bh, c)
-         : pack == 8 ? config_cols<TX, TO, DT, 8>(bh, c)
-                     : config_cols<TX, TO, DT, 1>(bh, c);
+  return pack == 2   ? config_cols<TX, TO, DT, 2, SCALED>(bh, c)
+         : pack == 8 ? config_cols<TX, TO, DT, 8, SCALED>(bh, c)
+                     : config_cols<TX, TO, DT, 1, SCALED>(bh, c);
 }
 
+// The fused forms and the band form unscaled, or the band form's scaled
+// mode where the operands carry a scale (only it is instantiated SCALED).
 template <typename TX, typename TO, int DT>
 cudaError_t launch_fuse(int fuse, const Operands& o, Missing miss, Fused f, cudaStream_t stream) {
-  if (fuse == ONE) return launch<TX, TO, DT, ONE>(o, miss, f, stream);
-  if (fuse == SLAB) return launch<TX, TO, DT, SLAB>(o, miss, f, stream);
-  if (fuse == WHOLE) return launch<TX, TO, DT, WHOLE>(o, miss, f, stream);
-  return launch<TX, TO, DT, BAND>(o, miss, f, stream);
+  if (fuse == ONE) return launch<TX, TO, DT, ONE, false>(o, miss, f, stream);
+  if (fuse == SLAB) return launch<TX, TO, DT, SLAB, false>(o, miss, f, stream);
+  if (fuse == WHOLE) return launch<TX, TO, DT, WHOLE, false>(o, miss, f, stream);
+  if (o.scale != nullptr) return launch<TX, TO, DT, BAND, true>(o, miss, f, stream);
+  return launch<TX, TO, DT, BAND, false>(o, miss, f, stream);
 }
 
 template <typename TX, typename TO>
@@ -935,6 +984,19 @@ bool aligned(const void* at, const void* xt, long long m, int x_bf16) {
   return (uintptr_t)at % 16 == 0 && (uintptr_t)xt % 16 == 0 && m * (x_bf16 ? 2 : 4) % 16 == 0;
 }
 
+// hcspmm_tband_config's types and mode.
+template <bool SCALED>
+cudaError_t config_types(int bh, int dt, int pack, int x_bf16, int out_f32, Config* c) {
+  if (!x_bf16)
+    return dt % 32 ? config_of<float, float, 16, SCALED>(bh, pack, c)
+                   : config_of<float, float, 32, SCALED>(bh, pack, c);
+  if (out_f32)
+    return dt % 32 ? config_of<__nv_bfloat16, float, 16, SCALED>(bh, pack, c)
+                   : config_of<__nv_bfloat16, float, 32, SCALED>(bh, pack, c);
+  return dt % 32 ? config_of<__nv_bfloat16, __nv_bfloat16, 16, SCALED>(bh, pack, c)
+                 : config_of<__nv_bfloat16, __nv_bfloat16, 32, SCALED>(bh, pack, c);
+}
+
 }  // namespace
 
 // starts, sw: int32 [sb] (sw may be null: bucket mode); at: the [sb, w, bh]
@@ -943,46 +1005,46 @@ bool aligned(const void* at, const void* xt, long long m, int x_bf16) {
 // 0) or bf16; out: [dt, out_cols], fp32 when out_f32 != 0, else the type of
 // xt.  Direct mode also zeroes the blocks of the missing superwindows:
 // columns [8*bh*miss8[i], +8*bh) and [bh*miss1[i], +bh) of every row (miss8:
-// int32 [n8], miss1: int32 [n1]; null when empty).  Returns a cudaError_t (0 =
-// launched).  The caller guarantees st + w <= m for every entry, that every
-// output block it reads is written by exactly one entry or missing id, and
-// that the ids lie inside out.
+// int32 [n8], miss1: int32 [n1]; null when empty).  scale (may be null: the
+// unscaled kernel): fp32 [scale_n], a diagonal D over xt's lanes and the
+// superwindows' output lanes; ssw: int32 [sb], each entry's superwindow
+// (sw in direct mode); entry i's block is then (X^T D)[:, st[i] : st[i] + w]
+// @ A_t[i], its column c times scale[ssw[i] * bh + c] (0 past scale_n).  Returns a
+// cudaError_t (0 = launched).  The caller guarantees st + w <= m for every
+// entry, that every output block it reads is written by exactly one entry or
+// missing id, that the ids lie inside out, and, with scale, that scale_n
+// covers xt's m lanes.
 extern "C" int hcspmm_tband_spmm(const void* starts, const void* sw, const void* at,
                                  const void* xt, void* out, int sb, int w, int bh, int dt,
                                  long long m, long long out_cols, int num_sw, const void* miss8,
                                  int n8, const void* miss1, int n1, int pack, int x_bf16,
-                                 int out_f32, void* stream) {
+                                 int out_f32, const void* scale, const void* ssw,
+                                 long long scale_n, void* stream) {
   if (sb <= 0 && n8 <= 0 && n1 <= 0) return 0;
   if (sb < 0 || n8 < 0 || n1 < 0 || !shapes_ok(w, bh, dt, pack) ||
-      ((n8 || n1) && sw == nullptr))
+      ((n8 || n1) && sw == nullptr) ||
+      (scale != nullptr && (ssw == nullptr || scale_n < m || (uintptr_t)scale % 16)))
     return (int)cudaErrorInvalidValue;
   // the zero items store 16 bytes a lane
   if (!aligned(at, xt, m, x_bf16) || (uintptr_t)out % 16) return (int)cudaErrorInvalidValue;
   const Missing miss{static_cast<const int32_t*>(miss8), static_cast<const int32_t*>(miss1), n8,
                      n1};
   return launch_types(BAND, Operands{starts, sw, at, xt, out, sb, w, bh, dt, pack, m, out_cols,
-                                     num_sw},
+                                     num_sw, static_cast<const float*>(scale),
+                                     static_cast<const int32_t*>(ssw), scale_n},
                       miss, Fused{nullptr, nullptr, 0, 1, 0, 0, nullptr}, x_bf16, out_f32, stream);
 }
 
 // The band kernel's launch configuration at band height bh, feature dim dt,
-// A_t encoding ``pack`` and the given types on the current device: ring
-// stages, dynamic shared memory bytes and resident blocks an SM.  Returns a
-// cudaError_t.
-extern "C" int hcspmm_tband_config(int bh, int dt, int pack, int x_bf16, int out_f32,
+// A_t encoding ``pack``, the given types and its scaled mode (scaled != 0)
+// or not on the current device: ring stages, dynamic shared memory bytes and
+// resident blocks an SM.  Returns a cudaError_t.
+extern "C" int hcspmm_tband_config(int bh, int dt, int pack, int x_bf16, int out_f32, int scaled,
                                    int* stages, long long* smem, int* blocks_per_sm) {
   if (!shapes_ok(KT, bh, dt, pack) || (!x_bf16 && !out_f32)) return (int)cudaErrorInvalidValue;
   Config c;
-  cudaError_t e;
-  if (!x_bf16)
-    e = dt % 32 ? config_of<float, float, 16>(bh, pack, &c)
-                : config_of<float, float, 32>(bh, pack, &c);
-  else if (out_f32)
-    e = dt % 32 ? config_of<__nv_bfloat16, float, 16>(bh, pack, &c)
-                : config_of<__nv_bfloat16, float, 32>(bh, pack, &c);
-  else
-    e = dt % 32 ? config_of<__nv_bfloat16, __nv_bfloat16, 16>(bh, pack, &c)
-                : config_of<__nv_bfloat16, __nv_bfloat16, 32>(bh, pack, &c);
+  const cudaError_t e = scaled ? config_types<true>(bh, dt, pack, x_bf16, out_f32, &c)
+                               : config_types<false>(bh, dt, pack, x_bf16, out_f32, &c);
   *stages = c.stages;
   *smem = (long long)c.smem;
   *blocks_per_sm = c.blocks_per_sm;
@@ -1014,7 +1076,7 @@ extern "C" int hcspmm_tband_fused(const void* starts, const void* sw, const void
   if (!aligned(at, xt, m, x_bf16) || (uintptr_t)wt % 16 || out_cols % 2)
     return (int)cudaErrorInvalidValue;
   return launch_types(fuse, Operands{starts, sw, at, xt, agg, sb, w, bh, dt, pack, m, out_cols,
-                                     num_sw},
+                                     num_sw, nullptr, nullptr, 0},
                       Missing{nullptr, nullptr, 0, 0},
                       Fused{wt, out, ht, htiles, stages, wsm, blocks_per_sm}, x_bf16, out_f32,
                       stream);

@@ -72,6 +72,17 @@ __device__ __forceinline__ void tensor_load(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// ``bytes`` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global memory into shared memory at ``dst`` by one bulk
+// copy; completion is counted on ``bar`` in bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // A 4-byte asynchronous copy from global to shared memory (both 4-byte
 // aligned).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -140,6 +151,13 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elt, const void* 
                CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  // cuTensorMapEncodeTiled needs a current context, which a host thread has
+  // only after a runtime call that makes one current: an autograd worker
+  // whose first CUDA work is this launch (its tensors from the caching
+  // allocator's free blocks) has none.  cudaSetDevice makes the device's
+  // primary context current.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elt};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};

@@ -525,23 +525,24 @@ def _check_cuda_args(starts, sw_ids, a, xp):
     return pack
 
 
-def _check_scale(scale, ssw, xp, sb):
-    """``scale`` fp32 [M] over xp's rows and ``ssw`` int32 [Sb] on xp's
-    device, contiguous (the band kernel reads them unchecked)."""
-    if (scale.device != xp.device or not scale.is_contiguous() or scale.dtype != torch.float32
-            or tuple(scale.shape) != (xp.shape[0],)):
-        raise ValueError(f"scale must be contiguous float32 [{xp.shape[0]}] on {xp.device}")
-    if (ssw is None or ssw.device != xp.device or not ssw.is_contiguous()
+def _check_scale(scale, ssw, m, dev, sb):
+    """``scale`` fp32 [m] (the band's rows, or the tband kernel's lanes) and
+    ``ssw`` int32 [Sb] on ``dev``, contiguous (the band kernels read them
+    unchecked)."""
+    if (scale.device != dev or not scale.is_contiguous() or scale.dtype != torch.float32
+            or tuple(scale.shape) != (m,)):
+        raise ValueError(f"scale must be contiguous float32 [{m}] on {dev}")
+    if (ssw is None or ssw.device != dev or not ssw.is_contiguous()
             or ssw.dtype != torch.int32 or tuple(ssw.shape) != (sb,)):
         raise ValueError(f"a scaled launch needs each entry's superwindow: int32 [{sb}] on "
-                         f"{xp.device}")
+                         f"{dev}")
 
 
 def _launch(starts, sw_ids, a, xp, out, num_sw, pack, group=1, scale=None, ssw=None):
     global launches
     sb, bh, bb = a.shape[0], a.shape[1], a.shape[2] * pack
     if scale is not None:
-        _check_scale(scale, ssw, xp, sb)
+        _check_scale(scale, ssw, xp.shape[0], xp.device, sb)
     with torch.cuda.device(xp.device):
         ring = band_launch(a.shape[2], *band_device(xp.device.index)[1:],
                            aligned=a.data_ptr() % 16 == 0)

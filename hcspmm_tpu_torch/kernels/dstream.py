@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from hcspmm_tpu_torch.kernels._build import load_library
-from hcspmm_tpu_torch.kernels.tspill import (_check_in, _need, segment_arrays,
+from hcspmm_tpu_torch.kernels.tspill import (_check_in, _check_scale, _need, segment_arrays,
                                              segment_table, segments_of)
 
 #: Launches of csrc/dstream.cu's merge through each wrapper, counted where
@@ -169,10 +169,8 @@ def _launch(name, gcols, local, blk, lt, segs, xsrc, out, group, cscale=None, rs
         raise ValueError("seg_ptr must hold one more offset than seg_row")
     if (cscale is None) != (rscale is None):
         raise ValueError("the scaled form takes both cscale and rscale")
-    for key, t, rows in (("cscale", cscale, xsrc.shape[0]), ("rscale", rscale, m)):
-        if t is not None and (t.device != dev or not t.is_contiguous()
-                              or t.dtype != torch.float32 or tuple(t.shape) != (rows,)):
-            raise ValueError(f"{key} must be contiguous float32 [{rows}] on {dev}")
+    _check_scale("cscale", cscale, xsrc.shape[0], dev)
+    _check_scale("rscale", rscale, m, dev)
     vector = dp % 8 == 0 and xsrc.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
         rc = _lib().hcspmm_row_merge(

@@ -27,9 +27,11 @@ The direct launch also zeroes the missing superwindows' blocks (the
 reference's ``zero_lane_blocks``, folded in), and the spill chain then adds
 the edges the band does not hold (``_tband_apply_spill``:
 kernels/tspill.py, or the legacy path through the row layout's merge in
-kernels/block_spmm.py and kernels/dstream.py).  ``check_plan`` admits the
-plans the reference's ``spmm_padded_supported`` admits on this layout;
-the rest raise instead of losing edges.
+kernels/block_spmm.py and kernels/dstream.py).  Normalised (the plan
+arrays' ``row_scale``), every one of them applies D^-1/2 as it reads and
+stores: the band kernel's scaled mode, the chain's scaled forms.
+``check_plan`` admits the plans the reference's ``spmm_padded_supported``
+admits on this layout; the rest raise instead of losing edges.
 """
 
 from __future__ import annotations
@@ -79,26 +81,29 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("tband")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hcspmm_tband_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                      i64, i64, i32, vp, i32, vp, i32, i32, i32, i32, vp]
+                                      i64, i64, i32, vp, i32, vp, i32, i32, i32, i32, vp, vp,
+                                      i64, vp]
     lib.hcspmm_tband_spmm.restype = ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     lib.hcspmm_tband_fused.argtypes = [vp] * 7 + [i32] * 5 + [i64, i64] + [i32] * 8 + [ip, vp]
     lib.hcspmm_tband_fused.restype = ctypes.c_int
-    lib.hcspmm_tband_config.argtypes = [i32] * 5 + [ip, ctypes.POINTER(i64), ip]
+    lib.hcspmm_tband_config.argtypes = [i32] * 6 + [ip, ctypes.POINTER(i64), ip]
     lib.hcspmm_tband_config.restype = ctypes.c_int
     return lib
 
 
-def launch_config(bh: int, dt: int, x_dtype, out_dtype, pack: int = 1) -> dict:
+def launch_config(bh: int, dt: int, x_dtype, out_dtype, pack: int = 1,
+                  scaled: bool = False) -> dict:
     """The band kernel's launch configuration on the current CUDA device at
     band height ``bh``, feature dim ``dt`` and A_t encoding ``pack`` (whose
-    ring stage holds bh/2 bytes a row at pack 2, else bh): its ring
-    ``stages``, dynamic shared memory bytes (``smem``) and resident
-    ``blocks_per_sm``."""
+    ring stage holds bh/2 bytes a row at pack 2, else bh), in its scaled
+    mode where ``scaled``: its ring ``stages``, dynamic shared memory bytes
+    (``smem``) and resident ``blocks_per_sm``."""
     stages, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     rc = _lib().hcspmm_tband_config(bh, dt, pack, int(x_dtype == torch.bfloat16),
-                                    int(out_dtype == torch.float32), ctypes.byref(stages),
-                                    ctypes.byref(smem), ctypes.byref(blocks))
+                                    int(out_dtype == torch.float32), int(scaled),
+                                    ctypes.byref(stages), ctypes.byref(smem),
+                                    ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"csrc/tband.cu launch configuration failed: cudaError {rc}")
     return dict(stages=stages.value, smem=smem.value, blocks_per_sm=blocks.value)
@@ -268,27 +273,35 @@ def check_band_arrays(starts: np.ndarray, sw_ids: np.ndarray, w: int, m: int,
 # ---------------------------------------------------------------------------
 
 
-def tband_spmm_bucket_plain(starts, at, xt, pack=1):
+def tband_spmm_bucket_plain(starts, at, xt, pack=1, scale=None, sw_ids=None):
     """fp32 [dt, Sb*bh]: block i = X^T[:, st[i] : st[i]+W] @ A_t[i], A_t
-    expanded from encoding ``pack`` first (``expand_at``)."""
+    expanded from encoding ``pack`` first (``expand_at``).  With ``scale``
+    (fp32 [M] over xt's lanes): the slice's columns times their scales, and
+    column c of block i times ``scale[sw_ids[i] * bh + c]``
+    (``block_spmm.block_row_scale``: 0 past the scale)."""
     at = expand_at(at, pack)
     sb, w, bh = at.shape
     cols = starts.long()[:, None] + torch.arange(w, device=xt.device)
     xg = xt[:, cols].float()                               # [dt, Sb, W]
+    if scale is not None:
+        xg = xg * scale[cols]
     out = torch.einsum("dsw,swb->dsb", xg, at.float())     # [dt, Sb, bh]
+    if scale is not None:
+        out = out * block_spmm.block_row_scale(scale, sw_ids, bh)
     return out.reshape(xt.shape[0], sb * bh)
 
 
 def tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=None,
-                            missing=None, pack=1):
+                            missing=None, pack=1, scale=None):
     """[dt, num_sw*bh] ``out_dtype``: block sw[i] = X^T slice @ A_t[i] (A_t
-    in encoding ``pack``); entries with sw == num_sw are dropped; the blocks
+    in encoding ``pack``; with ``scale``, as ``tband_spmm_bucket_plain``
+    scales it); entries with sw == num_sw are dropped; the blocks
     of ``missing8`` (runs of eight superwindows) and ``missing`` are zeroed
     (``tspill.zero_lane_blocks_plain``); other unowned blocks stay unset."""
     sb = at.shape[0]
     bh = logical_wh(at, pack)[1]
     dt = xt.shape[0]
-    part = tband_spmm_bucket_plain(starts, at, xt, pack).view(dt, sb, bh)
+    part = tband_spmm_bucket_plain(starts, at, xt, pack, scale, sw_ids).view(dt, sb, bh)
     out = torch.empty((dt, num_sw * bh), dtype=out_dtype, device=xt.device)
     keep = sw_ids < num_sw
     out.view(dt, num_sw, bh)[:, sw_ids[keep].long()] = part[:, keep].to(out_dtype)
@@ -350,18 +363,22 @@ def _check_cuda_args(starts, sw_ids, at, xt, pack):
     return w, bh
 
 
-def _launch(starts, sw_ids, at, xt, out, num_sw, w, bh, pack, missing8=None, missing=None):
+def _launch(starts, sw_ids, at, xt, out, num_sw, w, bh, pack, missing8=None, missing=None,
+            scale=None, ssw=None):
     global launches
     sb = at.shape[0]
     dt, m = xt.shape
-    if at.data_ptr() % 16 or xt.data_ptr() % 16 or m * xt.element_size() % 16:
-        raise ValueError("the band kernel's bulk copies need at and xt 16-byte aligned and "
-                         f"xt's rows a multiple of 16 bytes (M={m})")
+    if (at.data_ptr() % 16 or xt.data_ptr() % 16 or m * xt.element_size() % 16
+            or (scale is not None and scale.data_ptr() % 16)):
+        raise ValueError("the band kernel's bulk copies need at, xt and scale 16-byte aligned "
+                         f"and xt's rows a multiple of 16 bytes (M={m})")
     ids = [v if v is not None and v.shape[0] else None for v in (missing8, missing)]
     for name, v in zip(("missing8", "missing"), ids):
         if v is not None and (v.device != xt.device or v.dtype != torch.int32
                               or not v.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32 on {xt.device}")
+    if scale is not None:
+        block_spmm._check_scale(scale, ssw, m, xt.device, sb)
     with torch.cuda.device(xt.device):
         rc = _lib().hcspmm_tband_spmm(
             starts.data_ptr(), None if sw_ids is None else sw_ids.data_ptr(),
@@ -369,6 +386,8 @@ def _launch(starts, sw_ids, at, xt, out, num_sw, w, bh, pack, missing8=None, mis
             out.shape[1], num_sw, *[x for v in ids for x in (
                 None if v is None else v.data_ptr(), 0 if v is None else v.shape[0])],
             pack, int(xt.dtype == torch.bfloat16), int(out.dtype == torch.float32),
+            None if scale is None else scale.data_ptr(),
+            None if scale is None else ssw.data_ptr(), 0 if scale is None else m,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csrc/tband.cu launch failed: cudaError {rc}")
@@ -379,7 +398,7 @@ def _launch(starts, sw_ids, at, xt, out, num_sw, w, bh, pack, missing8=None, mis
 
 
 def tband_spmm_direct(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=None,
-                      missing=None, pack=1):
+                      missing=None, pack=1, scale=None):
     """Transposed-band SpMM, direct write: entry i computes superwindow
     ``sw_ids[i]``'s output columns (port of the Pallas kernel at
     hcspmm_tpu/kernels/tband.py:189), and the blocks of the missing
@@ -394,27 +413,34 @@ def tband_spmm_direct(sw_ids, starts, at, xt, num_sw, out_dtype, missing8=None,
     ``band_missing_sw``, checked at upload), or None.  Returns [dt,
     num_sw*bh] in ``out_dtype`` (xt's dtype or float32).  Entries with
     ``sw_id == num_sw`` write nothing, and blocks neither an entry nor a
-    missing id names are left unset: callers guarantee full cover."""
+    missing id names are left unset: callers guarantee full cover.
+    ``scale`` (fp32 [M], a diagonal D over xt's lanes and the output's):
+    the product of X^T D, each output lane times its scale (the kernel's
+    scaled mode: X^T's values scaled as they are read, the sums at their
+    store); the missing blocks stay zero."""
     if xt.device.type == "cpu":
         return tband_spmm_direct_plain(sw_ids, starts, at, xt, num_sw, out_dtype, missing8,
-                                       missing, pack)
+                                       missing, pack, scale)
     w, bh = _check_cuda_args(starts, sw_ids, at, xt, pack)
     if out_dtype not in (xt.dtype, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: xt's dtype or float32")
     out = torch.empty((xt.shape[0], num_sw * bh), dtype=out_dtype, device=xt.device)
-    _launch(starts, sw_ids, at, xt, out, num_sw, w, bh, pack, missing8, missing)
+    _launch(starts, sw_ids, at, xt, out, num_sw, w, bh, pack, missing8, missing, scale, sw_ids)
     return out
 
 
-def tband_spmm_bucket(starts, at, xt, pack=1):
+def tband_spmm_bucket(starts, at, xt, pack=1, scale=None, sw_ids=None):
     """Bucket-order form for secondary buckets (port of
     hcspmm_tpu/kernels/tband.py:228): fp32 [dt, Sb*bh], block i from entry
-    i; the caller scatters the blocks.  ``at`` as ``tband_spmm_direct``'s."""
+    i; the caller scatters the blocks.  ``at`` as ``tband_spmm_direct``'s.
+    ``scale`` as ``tband_spmm_direct``'s, with ``sw_ids`` (int32 [Sb])
+    naming the superwindow whose lanes' scales block i takes (0 past M: the
+    capacity padding)."""
     if xt.device.type == "cpu":
-        return tband_spmm_bucket_plain(starts, at, xt, pack)
+        return tband_spmm_bucket_plain(starts, at, xt, pack, scale, sw_ids)
     w, bh = _check_cuda_args(starts, None, at, xt, pack)
     out = torch.empty((xt.shape[0], at.shape[0] * bh), dtype=torch.float32, device=xt.device)
-    _launch(starts, None, at, xt, out, 0, w, bh, pack)
+    _launch(starts, None, at, xt, out, 0, w, bh, pack, scale=scale, ssw=sw_ids)
     kernel_launches["tband_spmm_bucket"] += 1
     return out
 
@@ -484,12 +510,13 @@ _SPILL_WIDE_MIN_EDGES = 100_000
 _SPILL_WIDE_MAX_TABLE_MB = 256.0
 
 
-def _row_spill(buf, arrs, xt, plan):
+def _row_spill(buf, arrs, xt, plan, scale=None):
     """The legacy spill path (``spill_lane='off'``, or ``spill_impl=
     'take'``; hcspmm_tpu/kernels/tband.py:391-406): both operands go to the
     row layout [M, dt] (padded to 128 columns for large spills), the row
     layout's ``apply_spill`` adds the population (the row merge when the
-    plan carries its streams, else the take path), and the result comes
+    plan carries its streams, else the take path; ``scale``, over the M
+    lanes that are its rows, in their scaled forms), and the result comes
     back transposed."""
     dt, m = buf.shape
     tbl_mb = m * 128 * xt.element_size() / 1e6
@@ -499,11 +526,11 @@ def _row_spill(buf, arrs, xt, plan):
     with profiling.span("spmm.spill.rows"):  # the relayouts too
         out_u = F.pad(buf.T, pad).contiguous()
         x_u = F.pad(xt.T, pad).contiguous()
-        out_u = block_spmm.apply_spill(out_u, arrs, x_u, plan)
+        out_u = block_spmm.apply_spill(out_u, arrs, x_u, plan, scale)
         return out_u[:, :dt].T.contiguous()
 
 
-def _tband_apply_spill(buf, arrs, xt, plan):
+def _tband_apply_spill(buf, arrs, xt, plan, scale=None):
     """Add the spill population onto ``buf`` (port of
     hcspmm_tpu/kernels/tband.py:343).  Lane path (``ds_tlocal`` present, in
     place): the hub stream first (mxgather hub table, then the merge
@@ -511,26 +538,37 @@ def _tband_apply_spill(buf, arrs, xt, plan):
     straight from the mxgather T1 table (``ts_lo``) or from xt itself
     through ``ds_lsrc``, the per-slot column composed at upload from the T2
     tables or the plan's one take (``tspill.check_spill_arrays``): no
-    gathered copy is made.  Otherwise the legacy row-layout path."""
+    gathered copy is made.  Otherwise the legacy row-layout path.
+
+    ``scale`` (fp32 [M]): the spill of D A D xt onto a ``buf`` that holds
+    the scaled band part: the gathers scale each value by its source lane's
+    scale, the merges add each lane's sum times its own (and, merging from
+    xt itself, scale each slot by its column's); the legacy path takes the
+    row layout's scaled forms."""
     if not (plan.has_spill and "spill_rows" in arrs):
         return buf
     if "ds_tlocal" not in arrs:
-        return _row_spill(buf, arrs, xt, plan)
+        return _row_spill(buf, arrs, xt, plan, scale)
     profiling.count("spmm.spill_edges", plan.spill_nnz)
     if "hub_lo" in arrs:
         with profiling.span("spmm.spill.hub"):
-            h = tspill.mxgather_lanes(xt, arrs["hub_lo"], arrs["hub_rel"], span=plan.ts_span)
+            h = tspill.mxgather_lanes(xt, arrs["hub_lo"], arrs["hub_rel"], span=plan.ts_span,
+                                      scale=scale)
             buf = tspill.tbstream_merge(h, arrs["ds_h_tlocal"], arrs["ds_h_lblk"], buf,
                                         group=plan.ds_hgroup, gidx=arrs["ds_h_laneg"],
-                                        segs=tspill.segments_of(arrs, "ds_h_lseg"))
+                                        segs=tspill.segments_of(arrs, "ds_h_lseg"),
+                                        rscale=scale)
     with profiling.span("spmm.spill.cold"):
+        cscale = None
         if "ts_lo" in arrs:
-            src = tspill.mxgather_lanes(xt, arrs["ts_lo"], arrs["ts_rel"], span=plan.ts_span)
+            src = tspill.mxgather_lanes(xt, arrs["ts_lo"], arrs["ts_rel"], span=plan.ts_span,
+                                        scale=scale)
         else:
-            src = xt
+            src, cscale = xt, scale
         return tspill.tbstream_merge(src, arrs["ds_tlocal"], arrs["ds_lblk"], buf,
                                      group=plan.ds_lgroup, gidx=arrs["ds_lsrc"],
-                                     segs=tspill.segments_of(arrs, "ds_lseg"))
+                                     segs=tspill.segments_of(arrs, "ds_lseg"), rscale=scale,
+                                     cscale=cscale)
 
 
 def spmm_tband_padded(arrs, xt, plan, compute_dtype):
@@ -540,12 +578,24 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
     superwindows' blocks; each other bucket's blocks are scattered over the
     blocks it owns (unset by the direct write); the spill population is
     added last.  With no band
-    entry at all the buffer starts as zeros."""
+    entry at all the buffer starts as zeros.
+
+    ``arrs["row_scale"]``, where present (fp32 [M], a diagonal D with 1 on
+    the pad lanes), computes D A D xt: the band kernel's scaled mode and the
+    spill chain's scaled forms apply D as they read and store, with no pass
+    over [dt, M] of their own; counted in ``spmm.scale_folded``.  As in
+    ``block_spmm.spmm_wide_padded``, D travels in a copy of the static plan
+    arrays (``ops.spmm.TbandLayout`` builds it once), because this
+    4-argument signature is the one ``benchmark/tests/test_bench_faults.py``
+    patches; any plan dict that carries ``row_scale`` is a scaled SpMM."""
     check_plan(plan)
     xt = xt.to(compute_dtype).contiguous()
     dt, m = xt.shape
     if m != plan.padded_rows:
         raise ValueError(f"xt has {m} lanes, the plan's layout {plan.padded_rows}")
+    scale = arrs.get("row_scale")
+    if scale is not None:
+        profiling.count("spmm.scale_folded")
     bh = plan.band_h
     num_sw = m // bh
     nonempty = [i for i in range(len(plan.band_widths))
@@ -561,16 +611,17 @@ def spmm_tband_padded(arrs, xt, plan, compute_dtype):
             buf = tband_spmm_direct(arrs[f"band{s_main}_sw"], arrs[f"band{s_main}_start"],
                                     arrs[f"band{s_main}_at"], xt, num_sw, xt.dtype,
                                     arrs.get("band_missing_sw8"), arrs.get("band_missing_sw"),
-                                    pack)
+                                    pack, scale)
             b3 = buf.view(dt, num_sw, bh)
             for i in nonempty:
                 if i == s_main:
                     continue
-                part = tband_spmm_bucket(arrs[f"band{i}_start"], arrs[f"band{i}_at"], xt, pack)
+                part = tband_spmm_bucket(arrs[f"band{i}_start"], arrs[f"band{i}_at"], xt, pack,
+                                         scale, arrs[f"band{i}_sw"])
                 real = len(plan.band_sw_ids[i])  # capacity padding trails the real entries
                 b3.index_copy_(1, arrs[f"band{i}_sw"][:real].long(),
                                part.view(dt, -1, bh)[:, :real].to(buf.dtype))
-    return _tband_apply_spill(buf, arrs, xt, plan)
+    return _tband_apply_spill(buf, arrs, xt, plan, scale)
 
 
 def spmm_tband_fused_padded(arrs, xt, wt, plan):

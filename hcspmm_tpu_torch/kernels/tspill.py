@@ -17,7 +17,9 @@ the host at upload and the merge gathers through it.  The three kernels are
 (or raises) and runs the plain PyTorch version beside it for CPU tensors,
 and counts its launches in ``launches``.  ``segmented_gather`` (the
 reference's T2 take, in torch index ops) is what ``ds_lsrc`` is held
-against.
+against.  The normalised operator D A D X^T (``tband.spmm_tband_padded``
+given ``row_scale``) runs the gather and the merge in their scaled forms
+(``scale``; ``rscale`` and ``cscale``): no pass over [dt, M] of its own.
 
 ``check_spill_arrays`` checks every spill index array on the host before
 upload and builds the merges' destination segment tables
@@ -49,9 +51,10 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("tspill")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hcspmm_zero_row_blocks.argtypes = [vp, vp, i32, i64, i32, i32, vp]
-    lib.hcspmm_mxgather_lanes.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i64, i32, vp]
+    lib.hcspmm_mxgather_lanes.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i64, i32, vp,
+                                          vp]
     lib.hcspmm_tbstream_merge.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i64, i64,
-                                          i32, i32, vp]
+                                          i32, i32, vp, vp, vp]
     for fn in (lib.hcspmm_zero_row_blocks, lib.hcspmm_mxgather_lanes,
                lib.hcspmm_tbstream_merge):
         fn.restype = ctypes.c_int
@@ -80,6 +83,14 @@ def _check_cuda(ref: torch.Tensor, **named) -> None:
                 raise ValueError(f"{name} dtype {t.dtype}: float32 or bfloat16 only")
         elif t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, not {t.dtype}")
+
+
+def _check_scale(name: str, scale, n: int, dev) -> None:
+    """A scale is None or contiguous fp32 [n] on ``dev`` (the kernels read
+    it unchecked)."""
+    if scale is not None and (scale.dtype != torch.float32 or not scale.is_contiguous()
+                              or tuple(scale.shape) != (n,) or scale.device != dev):
+        raise ValueError(f"{name} must be contiguous float32 [{n}] on {dev}")
 
 
 def mx_width(chunks: int, k: int) -> int:
@@ -159,38 +170,54 @@ def zero_row_blocks_plain(buf, ids, w: int):
     return buf
 
 
-def mxgather_lanes_plain(xt, lo, rel):
+def mxgather_lanes_plain(xt, lo, rel, scale=None):
     """[dt, mx_width(C, k)]: column c*k+j = xt[:, lo[c]+rel[c,0,j]], zero
-    where rel == -1 and in the tail chunks."""
+    where rel == -1 and in the tail chunks.  With ``scale`` (fp32 [M]): each
+    value times its source lane's scale, rounded to xt's dtype."""
     c, k = rel.shape[0], rel.shape[2]
     r = rel.reshape(c, k).long()
     idx = (lo.long()[:, None] + r.clamp(min=0)).reshape(-1)
     vals = xt.index_select(1, idx)
+    if scale is not None:
+        vals = (vals * scale[idx]).to(xt.dtype)
     out = torch.zeros((xt.shape[0], mx_width(c, k)), dtype=xt.dtype, device=xt.device)
     out[:, : c * k] = torch.where((r >= 0).reshape(1, -1), vals, out[:, : c * k])
     return out
 
 
-def tbstream_merge_plain(src, local_t, blk, buf, *, group: int, gidx=None):
+def tbstream_merge_plain(src, local_t, blk, buf, *, group: int, gidx=None, rscale=None,
+                         cscale=None):
     """In place: buf[:, blk[c]*span + local_t[c, j]] += gathered[:, c*bw + j]
     for local_t < span = group*128, where gathered is ``src`` itself or,
     with ``gidx``, ``src.index_select(1, gidx)`` (the reference's take);
     fp32 sums over an fp32 copy of the touched blocks, written back once in
-    buf's dtype."""
+    buf's dtype.  With ``rscale`` (fp32 [M]): each lane's slots are summed
+    from zero, each times ``cscale`` of its column of src where that is
+    given, and the lane gets ``rscale[lane]`` times its sum."""
     dt, m = buf.shape
     span = group * 128
     bw = local_t.shape[1]
     c = blk.shape[0]
     if c == 0:
         return buf
-    gathered = src if gidx is None else src.index_select(1, gidx[: c * bw].long())
+    cols = (gidx[: c * bw].long() if gidx is not None
+            else torch.arange(c * bw, device=src.device))
+    gathered = src.index_select(1, cols)
     ublk, inv = torch.unique_consecutive(blk.long(), return_inverse=True)
     loc = local_t[:c].reshape(-1).long()
     keep = loc < span
     dest = (inv.repeat_interleave(bw) * span + loc)[keep]
     b3 = buf.view(dt, m // span, span)
     acc = b3[:, ublk].float().reshape(dt, -1)
-    acc.index_add_(1, dest, gathered[:, : c * bw][:, keep].float())
+    vals = gathered[:, keep].float()
+    if rscale is None:
+        acc.index_add_(1, dest, vals)
+    else:
+        if cscale is not None:
+            vals = vals * cscale[cols[keep]]
+        sums = torch.zeros_like(acc).index_add_(1, dest, vals)
+        lanes = (ublk[:, None] * span + torch.arange(span, device=buf.device)).reshape(-1)
+        acc.addcmul_(sums, rscale[lanes])
     b3[:, ublk] = acc.view(dt, -1, span).to(buf.dtype)
     return buf
 
@@ -219,15 +246,18 @@ def zero_row_blocks(buf, ids, w: int):
     return buf
 
 
-def mxgather_lanes(xt, lo, rel, *, span: int):
+def mxgather_lanes(xt, lo, rel, *, span: int, scale=None):
     """Compact table [dt, mx_width(C, k)] in xt's dtype: column c*k+j =
     xt[:, lo[c]+rel[c,0,j]], exact zeros where rel == -1 and in the tail
     chunks (port of hcspmm_tpu/kernels/tspill.py:280).  lo: int32 [C]
     128-aligned slab bases with lo + span <= M; rel: int32 [C, 1, k] in
-    [-1, span), checked on the host (``check_spill_arrays``)."""
+    [-1, span), checked on the host (``check_spill_arrays``).  ``scale``
+    (fp32 [M]): each value times its source lane's scale, rounded once to
+    xt's dtype (the table of X^T D)."""
     if xt.device.type == "cpu":
-        return mxgather_lanes_plain(xt, lo, rel)
+        return mxgather_lanes_plain(xt, lo, rel, scale)
     _check_cuda(xt, xt=xt, lo=lo, rel=rel)
+    _check_scale("scale", scale, xt.shape[1], xt.device)
     c, k = rel.shape[0], rel.shape[2]
     if tuple(lo.shape) != (c,) or rel.dim() != 3 or rel.shape[1] != 1:
         raise ValueError(f"lo must be [C] and rel [C, 1, k]: {tuple(lo.shape)}, "
@@ -241,11 +271,12 @@ def mxgather_lanes(xt, lo, rel, *, span: int):
     with torch.cuda.device(xt.device):
         _run("mxgather_lanes", _lib().hcspmm_mxgather_lanes, xt.data_ptr(), lo.data_ptr(),
              rel.data_ptr(), out.data_ptr(), c, out.shape[1] // k, k, dt, m,
-             xt.element_size())
+             xt.element_size(), None if scale is None else scale.data_ptr())
     return out
 
 
-def tbstream_merge(src, local_t, blk, buf, *, group: int, gidx=None, segs=None):
+def tbstream_merge(src, local_t, blk, buf, *, group: int, gidx=None, segs=None, rscale=None,
+                   cscale=None):
     """``buf += scatter-add of src columns by destination lane``, in place;
     returns buf (port of hcspmm_tpu/kernels/tspill.py:151, with the take
     before it folded in).
@@ -259,9 +290,16 @@ def tbstream_merge(src, local_t, blk, buf, *, group: int, gidx=None, segs=None):
     [dt, M].
     ``segs``: the stream's ``lane_segments`` as int32 tensors on buf's
     device (computed here, and gidx checked, when None).  Each lane is summed
-    in fp32 and written once; the kernel's sums are deterministic."""
+    in fp32 and written once; the kernel's sums are deterministic.
+    ``rscale`` (fp32 [M]): the scaled form, each lane's sum from zero times
+    ``rscale[lane]`` added into buf; ``cscale`` (fp32 [W], only with rscale):
+    each slot's value times its column's first (a merge straight from X^T,
+    whose values no scaled gather has scaled)."""
+    if cscale is not None and rscale is None:
+        raise ValueError("a column scale comes with a row scale")
     if buf.device.type == "cpu":
-        return tbstream_merge_plain(src, local_t, blk, buf, group=group, gidx=gidx)
+        return tbstream_merge_plain(src, local_t, blk, buf, group=group, gidx=gidx,
+                                    rscale=rscale, cscale=cscale)
     c, bw = blk.shape[0], local_t.shape[1]
     if segs is None:
         if gidx is not None:
@@ -283,12 +321,15 @@ def tbstream_merge(src, local_t, blk, buf, *, group: int, gidx=None, segs=None):
         raise ValueError(f"unsupported shapes: src {tuple(src.shape)}, local "
                          f"{tuple(local_t.shape)}, blk [{c}], buf {tuple(buf.shape)}, "
                          f"group {group}")
+    _check_scale("rscale", rscale, m, buf.device)
+    _check_scale("cscale", cscale, src.shape[1], buf.device)
     with torch.cuda.device(buf.device):
         _run("tbstream_merge", _lib().hcspmm_tbstream_merge, src.data_ptr(),
              None if gidx is None else gidx.data_ptr(), segs[0].data_ptr(),
              segs[1].data_ptr(), segs[2].data_ptr(), buf.data_ptr(), segs[0].shape[0],
              segs[2].shape[0], _LANE_LONG, src.shape[1], m, dt,
-             int(buf.dtype == torch.bfloat16))
+             int(buf.dtype == torch.bfloat16),
+             *[None if v is None else v.data_ptr() for v in (rscale, cscale)])
     return buf
 
 

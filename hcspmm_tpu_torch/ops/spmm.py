@@ -244,11 +244,12 @@ class _Layout:
     ``raw`` and, where the kernel-fusion mode runs, the fused layer cores
     (``_gcn_fwd``/``_gcn_bwd``, ``_gin_fwd``/``_gin_bwd``).  The
     normalisation is chosen once, here: none, or D^-1/2 as a ``_Scale``
-    node on each side of ``raw``; ``WideLayout`` has a third form, D^-1/2
-    inside its kernels (``folds_scale``).  The fused cores run only
-    unnormalised, where the plan (the backward plan for GCN, the forward
-    plan for GIN) has ``prefer_fused_kernel`` set when the core is called;
-    elsewhere the cores compose the SpMM and ``dense``."""
+    node on each side of ``raw``; ``TbandLayout`` and ``WideLayout`` have a
+    third form, D^-1/2 inside their kernels (``_fold``, ``folds_scale``).
+    The fused cores run only unnormalised, where the plan (the backward
+    plan for GCN, the forward plan for GIN) has ``prefer_fused_kernel`` set
+    when the core is called; elsewhere the cores compose the SpMM and
+    ``dense``."""
 
     transposed = False
     #: True where D^-1/2 runs inside the SpMM's kernels
@@ -276,6 +277,23 @@ class _Layout:
     def _scaled(self, x):
         inv = self._inv_sqrt
         return _Scale.apply(self.raw(_Scale.apply(x, inv, x.dtype)), inv, x.dtype)
+
+    def _fold(self, core, plan, plan_bwd, arrays):
+        """D^-1/2 inside the SpMM's kernels: the SpMM is D A D x, one
+        ``_SpMM`` node whose backward is D A^T D dZ, with D (the lanes of
+        ``inv_sqrt_deg``, 1 on the pad lanes) handed to ``core`` as the plan
+        arrays' ``row_scale``, in copies of the forward and backward arrays
+        made once, here."""
+        self.folds_scale = True
+        scale = self._inv_sqrt.view(-1)
+        af, ab = {**arrays["f"], "row_scale": scale}, {**arrays["b"], "row_scale": scale}
+        cd = self._cd
+        self._fwd_scaled = lambda v: core(af, v, plan, cd)
+        self._bwd_scaled = lambda g: core(ab, g, plan_bwd, cd)
+        self._agg = self._folded
+
+    def _folded(self, x):
+        return _SpMM.apply(x, self._fwd_scaled, self._bwd_scaled).to(x.dtype)
 
     def __call__(self, x):
         return self._agg(x)
@@ -390,7 +408,12 @@ class TbandLayout(_Layout):
     """The transposed band X^T [dt, M] (``plan.tband``; dt a multiple of
     16): each SpMM one ``tband.spmm_tband_padded``, the update W^T X^T, and
     the fused cores ``tband.spmm_tband_fused_padded``, which gives (W-form
-    @ agg^T, agg^T).  Weights stay unpadded; gradients are sliced back."""
+    @ agg^T, agg^T).  Weights stay unpadded; gradients are sliced back.
+    Normalised, D^-1/2 runs inside the SpMM's kernels (``folds_scale``):
+    the band kernel's scaled mode and the lane spill chain's scaled gathers
+    and merges; a plan whose spill takes the legacy row path
+    (``spill_lane='off'`` or ``spill_impl='take'``) folds it through the row
+    layout's scaled merge or take path (``block_spmm.apply_spill``)."""
 
     transposed = True
 
@@ -401,6 +424,8 @@ class TbandLayout(_Layout):
         self._fwd = lambda v: core(arrays["f"], v, plan, cd)
         self._bwd = lambda g: core(arrays["b"], g, pb, cd)
         super().__init__(plan, plan_bwd, arrays, device, compute_dtype, normalize)
+        if normalize:
+            self._fold(core, plan, pb, arrays)
 
     def spmm_width(self, d):
         return tband.sublane_pad(d)
@@ -493,9 +518,9 @@ class WideLayout(_WideShape):
     """The wide padded layout [M, dp]: each SpMM one
     ``block_spmm.spmm_wide_padded``, the fused cores
     ``block_spmm.spmm_fused_wide_padded``.  Normalised on plans that are not
-    tiled, D^-1/2 runs inside the SpMM's kernels (``folds_scale``): the
-    SpMM is D A D X, its backward D A^T D dZ, with D (1 on the pad rows)
-    handed to ``spmm_wide_padded`` as the plan arrays' ``row_scale``."""
+    tiled, D^-1/2 runs inside the SpMM's kernels (``folds_scale``, ``_fold``):
+    the band kernel's scaled mode and the row merge's or take path's scaled
+    forms."""
 
     def __init__(self, plan, plan_bwd, arrays, device, compute_dtype="float32",
                  normalize=False):
@@ -507,15 +532,7 @@ class WideLayout(_WideShape):
         self._bwd = lambda g: core(arrays["b"], g, pb, cd)
         super().__init__(plan, plan_bwd, arrays, device, compute_dtype, normalize)
         if normalize and not any(getattr(p, "tiled", False) for p in (plan, pb)):
-            self.folds_scale = True
-            scale = self._inv_sqrt.view(-1)
-            af, ab = {**arrays["f"], "row_scale": scale}, {**arrays["b"], "row_scale": scale}
-            self._fwd_scaled = lambda v: core(af, v, plan, cd)
-            self._bwd_scaled = lambda g: core(ab, g, pb, cd)
-            self._agg = self._folded
-
-    def _folded(self, x):
-        return _SpMM.apply(x, self._fwd_scaled, self._bwd_scaled).to(x.dtype)
+            self._fold(core, plan, pb, arrays)
 
     def _fused_update(self, p, spmm, arrs, xp, wp):
         if _prefers_fused(p):

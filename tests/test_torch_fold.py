@@ -1,16 +1,22 @@
-"""The normalised wide operator D^-1/2 A D^-1/2 with D^-1/2 applied inside
-the kernels (``WideLayout.folds_scale``: the band kernel's scaled mode, the
-row merge's scaled form, the take path's scaled gathers) against the
-composed form the operator runs elsewhere: ``X * D^-1/2``, the unscaled
-SpMM, ``* D^-1/2``, differentiated by autograd.  Outputs and input
-gradients agree within the wide kernels' tolerance (tests/test_torch_wide.py
-``TOL``): the folded FMA rounds once where the composed form rounds twice.
+"""The normalised padded operators D^-1/2 A D^-1/2 with D^-1/2 applied
+inside the kernels (``folds_scale``) against the composed form the operator
+runs elsewhere: ``X * D^-1/2``, the unscaled SpMM, ``* D^-1/2``,
+differentiated by autograd.  Outputs and input gradients agree within the
+wide kernels' tolerance (tests/test_torch_wide.py ``TOL``): the folded sums
+round once where the composed form rounds twice.
 
-The plans cover two band buckets (bucket mode scales its blocks by their
-superwindows' rows), a missing superwindow, the row merge in block form,
-tile form, column ranges and the compact table, with long and short
-segments, the take path, and int4 band blocks.  ``spmm.scale_folded``
-counts one a SpMM in the wide layout and none in the tband layout.
+The wide layout (``WideLayout``: the band kernel's scaled mode, the row
+merge's scaled form, the take path's scaled gathers): plans with two band
+buckets (bucket mode scales its blocks by their superwindows' rows), a
+missing superwindow, the row merge in block form, tile form, column ranges
+and the compact table, with long and short segments, the take path, and
+int4 band blocks.  The tband layout (``TbandLayout``: tband_kernel's scaled
+mode, the lane spill chain's scaled gathers and merges, or the row layout's
+scaled spill on the legacy path): plans with hub + T1 + T2 tables, T1
+alone, no T1 (the cold merge reads X^T itself, scaled by its columns), a
+missing superwindow, two band buckets, A_t packed at 2 and 8, and the
+legacy row merge and take path.  ``spmm.scale_folded`` counts one a SpMM in
+both layouts.
 
 This file imports no JAX, so that its ``cuda`` tests, the same comparisons
 on the card (CUDA kernels, scaled and unscaled, against their plain
@@ -24,9 +30,10 @@ import pytest
 import torch
 
 from hcspmm_tpu_torch.config import PlanConfig
-from hcspmm_tpu_torch.format.streams import build_bstream, build_dstream, pack_a_int4
+from hcspmm_tpu_torch.format.streams import (build_bstream, build_dstream, pack_a_bits,
+                                              pack_a_int4, pack_a_nibble)
 from hcspmm_tpu_torch.graphs import io
-from hcspmm_tpu_torch.kernels import block_spmm, dstream
+from hcspmm_tpu_torch.kernels import block_spmm, dstream, tband, tspill
 from hcspmm_tpu_torch.models.net import Net, init_net_params
 from hcspmm_tpu_torch.ops.spmm import HybridSpMM
 from hcspmm_tpu_torch.train.loop import layout_input, make_train_step
@@ -99,16 +106,57 @@ PLANS = {
              "int4"),
 }
 
+TBAND = dict(impl="pallas", band_impl="tband", band_h=128, band_widths=(128,),
+             band_mode="auto")
+TBAND_T1 = dict(TBAND, ts_table_mb=1e-3, ts_span=256, ts_k=32)
+TBAND_HUB = dict(TBAND_T1, ts2_table_mb=48 * 64 / 1e6, spill_hub_mb=64 * 64 / 1e6,
+                 spill_hub_min_cov=0.01, spill_hub_min_reuse=0.0)
+
+
+def lane_graph():
+    """Local edges reaching far: the tband plan's spill needs the T1 and T2
+    tables and, with the hub caps, a hub stream."""
+    return small_graph(1400, 9, span=1300)
+
+
+#: the tband layout's plans: name -> (graph, PlanConfig fields, what it must have)
+TBAND_PLANS = {
+    "hub_t1_t2": (lane_graph, TBAND_HUB, "hub"),
+    "t1_only": (lane_graph, TBAND_T1, "t1"),
+    "no_t1": (lambda: small_graph(500, 8, span=400), TBAND, "no_t1"),
+    "missing_sw": (random_graph, TBAND, "missing"),
+    "two_buckets": (lambda: small_graph(700, 10, span=500), dict(TBAND, band_widths=(128, 256)),
+                    "buckets"),
+    "pack2": (lane_graph, dict(TBAND_HUB, tband_pack=2), "hub"),
+    "pack8": (lane_graph, dict(TBAND_HUB, tband_pack=8), "hub"),
+    "row_merge": (lambda: small_graph(500, 8, span=400),
+                  dict(TBAND, spill_lane="off", spill_impl="dstream", ds_kind="block"),
+                  "row_merge"),
+    "row_take": (lambda: small_graph(500, 8, span=400), dict(TBAND, spill_impl="take"), "take"),
+}
+
 _GRAPHS = {}
+
+
+def graph_of(graph):
+    if graph not in _GRAPHS:
+        _GRAPHS[graph] = graph()
+    return _GRAPHS[graph]
 
 
 def make_op(name, dtype="float32", device="cpu"):
     graph, fields, _ = PLANS[name]
-    if graph not in _GRAPHS:
-        _GRAPHS[graph] = graph()
-    rp, ci, nn = _GRAPHS[graph]
-    return HybridSpMM(rp, ci, nn, PlanConfig(compute_dtype=dtype, **WIDE, **fields),
+    return HybridSpMM(*graph_of(graph), PlanConfig(compute_dtype=dtype, **WIDE, **fields),
                       normalize=True, device=device)
+
+
+def make_tband_op(name, dtype="float32", device="cpu"):
+    graph, fields, what = TBAND_PLANS[name]
+    op = HybridSpMM(*graph_of(graph), PlanConfig(compute_dtype=dtype, **fields),
+                    normalize=True, device=device)
+    check_tband_shape(op, what)
+    assert op.plan.tband_pack == fields.get("tband_pack", 1)
+    return op
 
 
 def check_shape(op, what):
@@ -132,6 +180,29 @@ def check_shape(op, what):
         # long segments (a thread block each) beside short ones
         assert any(v.numel() for v in longs)
         assert p.spill_nnz > sum(int(v.numel()) for v in longs)
+
+
+def check_tband_shape(op, what):
+    """The tband plan has what its case is there to cover, and folds."""
+    p, arrs = op.plan, op.arrays["f"]
+    assert op.transposed and op.layout.folds_scale and op.layout._agg == op.layout._folded
+    assert op.rows._agg == op.rows._scaled  # the row layout keeps its nodes
+    assert p.spill_nnz > 0 or what == "buckets"
+    lane = "ds_tlocal" in arrs
+    if what == "hub":
+        assert lane and "hub_lo" in arrs and "ts_lo" in arrs and p.ts2_segs
+    elif what == "t1":
+        assert lane and "ts_lo" in arrs and "hub_lo" not in arrs and not p.ts2_segs
+    elif what == "no_t1":
+        assert lane and "ts_lo" not in arrs and "hub_lo" not in arrs
+    elif what == "missing":
+        assert len(p.band_missing_sw) > 0 and lane
+    elif what == "buckets":
+        assert sum(len(s) > 0 for s in p.band_sw_ids) >= 2
+    elif what == "row_merge":
+        assert not lane and "ds_blk" in arrs and p.ds_rows == p.padded_rows
+    elif what == "take":
+        assert not lane and "ds_blk" not in arrs
 
 
 def rel_err(got, want):
@@ -159,37 +230,72 @@ def folded_and_composed(op, x, cot):
     return res
 
 
-def check_against_composed(name, dtype, device):
-    op = make_op(name, dtype, device)
-    check_shape(op, PLANS[name][2])
+def check_against_composed(op, dtype, d=40):
+    """The folded operator's output and input gradient against the composed
+    form's at TOL, and the closure of its padded layout."""
     gen = torch.Generator().manual_seed(7)
     n = op.plan.num_nodes
-    x = torch.randn((n, 40), generator=gen).to(device)
-    cot = torch.randn((n, 40), generator=gen).to(device)
+    x = torch.randn((n, d), generator=gen).to(op.device)
+    cot = torch.randn((n, d), generator=gen).to(op.device)
     (out, gx), (want, want_gx) = folded_and_composed(op, x, cot)
     assert out.dtype == want.dtype == gx.dtype == DTYPES[dtype]
     tol = TOL[DTYPES[dtype]]
     assert rel_err(out, want) < tol
     assert rel_err(gx, want_gx) < tol
-    # the closure: pad rows and columns stay zero
+    # the closure: pad rows (lanes) and columns (feature rows) stay zero
     full = op.apply_padded(op.arrays, op.pad_input(x))
-    assert not full[n:].any() and not full[:, 40:].any()
+    if op.transposed:
+        full = full.T
+    assert not full[n:].any() and not full[:, d:].any()
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_folded_scale_equals_the_composed_form(name, dtype):
-    check_against_composed(name, dtype, "cpu")
+    op = make_op(name, dtype)
+    check_shape(op, PLANS[name][2])
+    check_against_composed(op, dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(TBAND_PLANS))
+def test_tband_folded_scale_equals_the_composed_form(name, dtype):
+    """The tband layout's folded SpMM (``spmm_tband_padded`` given
+    ``row_scale``) against the composed form, forward and backward."""
+    check_against_composed(make_tband_op(name, dtype), dtype, d=20)
+
+
+def dense_oracle(rp, ci, n):
+    """float64 (A, D^-1/2 as a vector) of a CSR graph."""
+    a = np.zeros((n, n))
+    for r in range(n):
+        a[r, ci[rp[r]: rp[r + 1]]] = 1.0
+    return a, 1.0 / np.sqrt(np.maximum(a.sum(1), 1.0))
+
+
+@pytest.mark.parametrize("name", sorted(TBAND_PLANS))
+def test_tband_folded_scale_matches_the_dense_oracle(name):
+    """The folded tband operator is D^-1/2 A D^-1/2 X and its input
+    gradient D^-1/2 A^T D^-1/2 G, held against float64."""
+    op = make_tband_op(name)
+    rp, ci, n = graph_of(TBAND_PLANS[name][0])
+    a, inv = dense_oracle(rp, ci, n)
+    rs = np.random.RandomState(3)
+    x, cot = rs.randn(n, 20), rs.randn(n, 20)
+    xv = op.pad_input(torch.from_numpy(x).float()).requires_grad_(True)
+    out = op.apply_padded(op.arrays, xv)
+    out.backward(op.pad_input(torch.from_numpy(cot).float()))
+    want = inv[:, None] * (a @ (inv[:, None] * x))
+    want_g = inv[:, None] * (a.T @ (inv[:, None] * cot))
+    assert rel_err(op.unpad_output(out, 20), torch.from_numpy(want)) < 1e-5
+    assert rel_err(op.unpad_output(xv.grad, 20), torch.from_numpy(want_g)) < 1e-5
 
 
 def test_folded_scale_matches_the_dense_oracle():
     """The folded operator is D^-1/2 A D^-1/2 X, held against float64."""
     op = make_op("block")
-    rp, ci, n = _GRAPHS[PLANS["block"][0]]
-    a = np.zeros((n, n))
-    for r in range(n):
-        a[r, ci[rp[r]: rp[r + 1]]] = 1.0
-    inv = 1.0 / np.sqrt(np.maximum(a.sum(1), 1.0))
+    rp, ci, n = graph_of(PLANS["block"][0])
+    a, inv = dense_oracle(rp, ci, n)
     x = np.random.RandomState(3).randn(n, 24)
     got = op.unpad_output(op.apply_padded(op.arrays, op.pad_input(torch.from_numpy(x).float())), 24)
     want = inv[:, None] * (a @ (inv[:, None] * x))
@@ -197,17 +303,20 @@ def test_folded_scale_matches_the_dense_oracle():
 
 
 def test_tiled_tband_and_row_layouts_keep_the_scale_nodes():
-    """Only the wide padded path on plans that are not tiled folds: the
-    tiled band, the tband layout and the row layout scale around the SpMM,
-    and the band wrapper refuses a scale on a tiled plan."""
+    """The tiled band and the row layout scale around the SpMM, and the
+    band wrapper refuses a scale on a tiled plan; the tband layout folds,
+    as the wide layout does on plans that are not tiled (its row layout
+    keeps the nodes)."""
     rp, ci, nn = small_graph(300, 6)
     tiled = HybridSpMM(rp, ci, nn, PlanConfig(**dict(WIDE, band_impl="tiled", band_h=128)),
                        normalize=True, device="cpu")
     tb = HybridSpMM(rp, ci, nn, PlanConfig(impl="pallas", band_impl="tband", band_h=128,
                                            band_widths=(128,)), normalize=True, device="cpu")
+    assert tiled.supports_padded and not tiled.layout.folds_scale
+    assert tiled.layout._agg == tiled.layout._scaled
+    assert tb.supports_padded and tb.layout.folds_scale and tb.layout._agg == tb.layout._folded
     for op in (tiled, tb):
-        assert op.supports_padded and not op.layout.folds_scale
-        assert op.layout._agg == op.layout._scaled and op.rows._agg == op.rows._scaled
+        assert op.rows._agg == op.rows._scaled
     assert tiled.plan.tiled and tb.transposed
     xp = tiled.pad_input(torch.randn(nn, 8))
     with pytest.raises(ValueError, match="tiled"):
@@ -220,15 +329,15 @@ def test_tiled_tband_and_row_layouts_keep_the_scale_nodes():
         tb.apply_padded(tb.arrays, tb.pad_input(torch.randn(nn, 8)))
         wide.apply(wide.arrays, torch.randn(wide.plan.num_nodes, 8))  # the row layout
     names = [r["name"] for r in profiling.spans() if r["name"] != profiling.CLOCK]
-    assert names.count("spmm.scale") == 6
-    assert "spmm.scale_folded" not in profiling.counters()
+    assert names.count("spmm.scale") == 4  # the tiled band's two, the row layout's two
+    assert profiling.counters().get("spmm.scale_folded") == 1  # the tband SpMM
     profiling.reset()
 
 
 @pytest.mark.parametrize("band_impl", ["wide", "tband"])
 def test_scale_folded_counts_each_spmm_of_a_gcn_step(band_impl):
     """``spmm.scale_folded``: two a layer a step (its forward and its
-    backward SpMM) in the wide layout, none in the tband layout."""
+    backward SpMM) in the wide layout and in the tband layout."""
     layers = 3
     if band_impl == "wide":
         op = make_op("block")
@@ -254,7 +363,7 @@ def test_scale_folded_counts_each_spmm_of_a_gcn_step(band_impl):
             step(params, x, y, gen)
     got = profiling.counters().get("spmm.scale_folded", 0)
     profiling.reset()
-    assert got == (2 * layers * 2 if band_impl == "wide" else 0)
+    assert got == 2 * layers * 2
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +421,115 @@ def test_scaled_merge_plain_is_the_scaled_scatter(kind):
     assert rel_err(got, want) < 1e-6
 
 
+PACKERS = {1: lambda at: at, 2: pack_a_nibble, 8: pack_a_bits}
+
+
+def tband_inputs(seed, pack=1, dt=32, w=256, bh=128, m=1024, real=5, trash=2):
+    """tband_kernel's operands: ``real`` entries on distinct superwindows
+    (a permutation) then ``trash`` capacity-padded ones (sw == num_sw), 0/1
+    A_t blocks [Sb, W, bh] in encoding ``pack``, 128-aligned starts with st
+    + W <= M, X^T [dt, M], a positive scale over the M lanes, and the
+    superwindows no entry owns (``missing``); num_sw = M / bh."""
+    rng = np.random.RandomState(seed)
+    num_sw = m // bh
+    owned = rng.permutation(num_sw)
+    sw = np.concatenate([owned[:real], np.full(trash, num_sw)]).astype(np.int32)
+    at = (rng.rand(real + trash, w, bh) < 0.05).astype(np.int8)
+    st = (rng.randint(0, (m - w) // 128 + 1, real + trash) * 128).astype(np.int32)
+    xt = rng.randn(dt, m).astype(np.float32)
+    scale = (0.1 + rng.rand(m)).astype(np.float32)
+    missing = np.sort(owned[real:]).astype(np.int32)
+    t = [torch.from_numpy(v) for v in (sw, st, PACKERS[pack](at), xt, scale, missing)]
+    return (*t, num_sw)
+
+
+@pytest.mark.parametrize("pack", sorted(PACKERS))
+def test_scaled_tband_plain_is_the_scaled_product(pack):
+    """The band product's scaled plain versions (direct and bucket) equal
+    the composed form bit for bit in fp32: X^T D, the unscaled plain
+    version, each output lane times its scale; the capacity padding's
+    blocks scale by 0, the missing superwindows stay zero."""
+    sw, st, at, xt, scale, missing, num_sw = tband_inputs(pack, pack)
+    f32 = torch.float32
+    got = tband.tband_spmm_direct_plain(sw, st, at, xt, num_sw, f32, missing=missing, pack=pack,
+                                        scale=scale)
+    want = tband.tband_spmm_direct_plain(sw, st, at, xt * scale, num_sw, f32, missing=missing,
+                                         pack=pack) * scale
+    assert torch.equal(got, want)
+    assert not got.view(xt.shape[0], num_sw, -1)[:, missing.long()].any()
+    part = tband.tband_spmm_bucket_plain(st, at, xt, pack, scale, sw)
+    bh = part.shape[1] // sw.shape[0]
+    real = sw < num_sw
+    blocks = part.view(xt.shape[0], -1, bh)
+    assert torch.equal(blocks[:, real], got.view(xt.shape[0], num_sw, bh)[:, sw[real].long()])
+    assert not blocks[:, ~real].any()
+
+
+def lane_table_inputs(seed, dtype, m=2048, span=256, c=7, k=32, dt=16):
+    """mxgather's operands: 128-aligned slab bases with lo + span <= M,
+    offsets in [-1, span), X^T and a positive scale over the M lanes."""
+    rng = np.random.RandomState(seed)
+    lo = torch.from_numpy((rng.randint(0, (m - span) // 128 + 1, c) * 128).astype(np.int32))
+    rel = torch.from_numpy(rng.randint(-1, span, (c, 1, k)).astype(np.int32))
+    xt = torch.from_numpy(rng.randn(dt, m).astype(np.float32)).to(dtype)
+    scale = torch.from_numpy((0.1 + rng.rand(m)).astype(np.float32))
+    return xt, lo, rel, scale, span
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_scaled_mxgather_plain_is_the_table_of_the_scaled_lanes(dtype):
+    """The scaled gather equals the gather of (X^T D) rounded to X^T's
+    dtype, bit for bit; the pads stay zero."""
+    xt, lo, rel, scale, _ = lane_table_inputs(1, DTYPES[dtype])
+    got = tspill.mxgather_lanes_plain(xt, lo, rel, scale)
+    assert got.dtype == xt.dtype
+    assert torch.equal(got, tspill.mxgather_lanes_plain((xt * scale).to(xt.dtype), lo, rel))
+    assert not got[:, : rel.numel()][:, (rel.reshape(-1) < 0)].any()
+
+
+def lane_merge_case(name, device="cpu", dtype=torch.float32, hub=False):
+    """A tband plan's cold (or hub) lane stream with its source: the
+    scaled T1 (hub) table and no column scale, or X^T itself and its
+    column scale (a plan with no T1); X^T, a buffer, the scale over M."""
+    op = make_tband_op(name, device=device)
+    arrs, p = op.arrays["f"], op.plan
+    scale = op.layout._inv_sqrt.view(-1)
+    gen = torch.Generator().manual_seed(11)
+    xt = torch.randn((16, p.padded_rows), generator=gen).to(device, dtype)
+    buf = torch.randn((16, p.padded_rows), generator=gen).to(device, dtype)
+    pre = "hub" if hub else "ts"
+    if f"{pre}_lo" in arrs:
+        src = tspill.mxgather_lanes_plain(xt, arrs[f"{pre}_lo"], arrs[f"{pre}_rel"], scale)
+        cscale = None
+    else:
+        src, cscale = xt, scale
+    stream = (arrs["ds_h_tlocal"], arrs["ds_h_lblk"]) if hub else (arrs["ds_tlocal"],
+                                                                      arrs["ds_lblk"])
+    kw = dict(group=p.ds_hgroup if hub else p.ds_lgroup,
+              gidx=arrs["ds_h_laneg"] if hub else arrs["ds_lsrc"])
+    segs = tspill.segments_of(arrs, "ds_h_lseg" if hub else "ds_lseg")
+    return src, stream, buf, scale, cscale, kw, segs
+
+
+@pytest.mark.parametrize("case", ["t1", "x_itself", "hub"])
+def test_scaled_lane_merge_plain_is_the_scaled_scatter(case):
+    """The lane merge's scaled plain version: buf + D (sum of the slots'
+    values, each times its column's scale where the merge reads X^T),
+    against float64; a column scale alone is refused."""
+    name = {"t1": "t1_only", "x_itself": "no_t1", "hub": "hub_t1_t2"}[case]
+    src, stream, buf, scale, cscale, kw, _ = lane_merge_case(name, hub=case == "hub")
+    assert (cscale is None) == (case != "x_itself")
+    got = tspill.tbstream_merge_plain(src, *stream, buf.clone(), rscale=scale, cscale=cscale,
+                                      **kw)
+    src_c = src if cscale is None else src * cscale
+    sums = tspill.tbstream_merge_plain(src_c, *stream, torch.zeros_like(buf), **kw)
+    want = buf.double() + scale.double() * sums.double()
+    assert rel_err(got, want) < 1e-6
+    assert not torch.equal(got, buf)
+    with pytest.raises(ValueError, match="row scale"):
+        tspill.tbstream_merge(src, *stream, buf.clone(), cscale=scale, **kw)
+
+
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernels
 # ---------------------------------------------------------------------------
@@ -319,8 +537,8 @@ def test_scaled_merge_plain_is_the_scaled_scatter(kind):
 
 def _need_cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: csrc/block_spmm.cu and csrc/dstream.cu have no "
-                    "CPU mode")
+        pytest.skip("needs a CUDA device: csrc/block_spmm.cu, csrc/dstream.cu, csrc/tband.cu "
+                    "and csrc/tspill.cu have no CPU mode")
 
 
 @pytest.mark.cuda
@@ -328,7 +546,9 @@ def _need_cuda():
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_cuda_folded_scale_equals_the_composed_form(name, dtype):
     _need_cuda()
-    check_against_composed(name, dtype, "cuda")
+    op = make_op(name, dtype, "cuda")
+    check_shape(op, PLANS[name][2])
+    check_against_composed(op, dtype)
 
 
 @pytest.mark.cuda
@@ -396,3 +616,129 @@ def test_cuda_scaled_merges_match_plain_and_are_deterministic(kind, dtype):
     for one in (dict(cscale=scale), dict(rscale=scale)):
         with pytest.raises(ValueError, match="both"):
             fn(*t, x, out0.clone(), group=8, **one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(TBAND_PLANS))
+def test_cuda_tband_folded_scale_equals_the_composed_form(name, dtype):
+    _need_cuda()
+    check_against_composed(make_tband_op(name, dtype, "cuda"), dtype, d=20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", sorted(PACKERS))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_scaled_tband_kernel_matches_plain(dtype, pack):
+    """tband_kernel's scaled mode, direct (the missing superwindows zeroed
+    in the same launch) and bucket mode, against its plain version, two
+    runs bitwise equal; in fp32 equal bit for bit to the composed form (X^T
+    D, the unscaled kernel, times D) where no spill follows; its unscaled
+    mode against the unscaled plain version."""
+    _need_cuda()
+    dt = DTYPES[dtype]
+    for shape in (dict(dt=32, w=256, bh=128, m=1024), dict(dt=16, w=896, bh=256, m=2048),
+                  dict(dt=48, w=192, bh=320, m=1280, real=3)):
+        sw, st, at, xt, scale, missing, num_sw = (
+            v.cuda() if torch.is_tensor(v) else v for v in tband_inputs(pack, pack, **shape))
+        xv = xt.to(dt)
+
+        def direct(s=None, x=xv):
+            return tband.tband_spmm_direct(sw, st, at, x, num_sw, dt, missing=missing,
+                                           pack=pack, scale=s)
+
+        got, again = direct(scale), direct(scale)
+        part = tband.tband_spmm_bucket(st, at, xv, pack, scale, sw)
+        part_again = tband.tband_spmm_bucket(st, at, xv, pack, scale, sw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(part, part_again)
+        ref = tband.tband_spmm_direct_plain(sw, st, at, xv, num_sw, dt, missing=missing,
+                                            pack=pack, scale=scale)
+        assert rel_err(got, ref) < TOL[dt]
+        assert rel_err(part, tband.tband_spmm_bucket_plain(st, at, xv, pack, scale, sw)) < 1e-5
+        bh = part.shape[1] // sw.shape[0]
+        assert not part.view(xv.shape[0], -1, bh)[:, sw == num_sw].any()
+        if dt == torch.float32:
+            assert torch.equal(got, direct(x=xv * scale) * scale)
+        bare = direct()
+        assert rel_err(bare, tband.tband_spmm_direct_plain(sw, st, at, xv, num_sw, dt,
+                                                           missing=missing, pack=pack)) < TOL[dt]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_scaled_mxgather_matches_plain(dtype):
+    """The scaled gather equals its plain version bit for bit (a copy
+    times one scale, rounded once) and two runs are bitwise equal; so does
+    the unscaled one."""
+    _need_cuda()
+    xt, lo, rel, scale, span = (v.cuda() if torch.is_tensor(v) else v
+                                for v in lane_table_inputs(2, DTYPES[dtype]))
+    for s in (scale, None):
+        got = tspill.mxgather_lanes(xt, lo, rel, span=span, scale=s)
+        again = tspill.mxgather_lanes(xt, lo, rel, span=span, scale=s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got, tspill.mxgather_lanes_plain(xt, lo, rel, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["t1", "x_itself", "hub"])
+def test_cuda_scaled_lane_merge_matches_plain(case, dtype):
+    """The lane merge's scaled forms (from a scaled table; from X^T itself
+    with its column scale) against the plain version, two runs bitwise
+    equal; the unscaled form against its own."""
+    _need_cuda()
+    dt = DTYPES[dtype]
+    name = {"t1": "t1_only", "x_itself": "no_t1", "hub": "hub_t1_t2"}[case]
+    src, stream, buf, scale, cscale, kw, segs = lane_merge_case(name, "cuda", dt,
+                                                                hub=case == "hub")
+    for rs, cs in ((scale, cscale), (None, None)):
+        got = tspill.tbstream_merge(src, *stream, buf.clone(), segs=segs, rscale=rs,
+                                    cscale=cs, **kw)
+        again = tspill.tbstream_merge(src, *stream, buf.clone(), segs=segs, rscale=rs,
+                                      cscale=cs, **kw)
+        ref = tspill.tbstream_merge_plain(src, *stream, buf.clone(), rscale=rs, cscale=cs, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert rel_err(got, ref) < TOL[dt]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+def test_cuda_tband_kernel_launches_from_a_fresh_thread(scaled):
+    """A host thread whose first CUDA work is the band launch (its output
+    from the caching allocator's free blocks, so that no runtime call has
+    made a context current there, as in an autograd worker whose first node
+    is the SpMM's backward) launches it and gets the main thread's result:
+    the tensor maps are encoded under the device's current context."""
+    import threading
+
+    _need_cuda()
+    sw, st, at, xt, scale, missing, num_sw = (
+        v.cuda() if torch.is_tensor(v) else v for v in tband_inputs(5))
+    s = scale if scaled else None
+
+    def direct():
+        return tband.tband_spmm_direct(sw, st, at, xt, num_sw, torch.float32, missing=missing,
+                                       scale=s)
+
+    want = direct()
+    spare = direct()
+    torch.cuda.synchronize()
+    del spare  # a free block of the output's size for the thread's output
+    res = {}
+
+    def run():
+        try:
+            res["out"] = direct()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            res["err"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "err" not in res, res.get("err")
+    assert torch.equal(res["out"], want)

@@ -3,10 +3,10 @@ normalised GCN step: nothing recorded and no clock read while tracing is
 off; the span tree of a step in every layout (a tband and a wide plan that
 spill, a tiled plan and a row-layout plan); the spill counter; the spans as
 ranges of a torch.profiler trace, placed through the ``profiling.clock``
-anchor; the D^-1/2 scalings, as autograd nodes of their own in the tband,
-tiled and row layouts (equal bit for bit to the composed form, with its
-peak memory) and inside the SpMM's kernels in the wide layout (equal to it
-within the kernels' tolerance, at most its peak memory); a SAGE step's
+anchor; the D^-1/2 scalings, as autograd nodes of their own in the tiled
+and row layouts (equal bit for bit to the composed form, with its peak
+memory) and inside the SpMM's kernels in the tband and wide layouts (equal
+to it within the kernels' tolerance, at most its peak memory); a SAGE step's
 mean scalings (``spmm.scale.mean``, counter ``spmm.mean``); and the build
 counts on the CLI's ``done`` line."""
 
@@ -40,7 +40,7 @@ PLANS = {
 SPILL = {"tband": ["spmm.spill.hub", "spmm.spill.cold"], "wide": ["spmm.spill.rows"],
          "tiled": [], "rows": []}
 #: the layouts whose SpMM kernels apply D^-1/2 (no ``spmm.scale`` around them)
-FOLDED = {"tband": False, "wide": True, "tiled": False, "rows": False}
+FOLDED = {"tband": True, "wide": True, "tiled": False, "rows": False}
 #: the layouts where the SAGE net's last layer (16 -> 5) projects first: the
 #: row layout's SpMM runs 5 columns against 16; the padded layouts pad both
 #: widths alike (16 sublanes, 128 lanes)
@@ -104,10 +104,10 @@ def test_span_tree_of_a_gcn_step(ops, layout):
     """One ``train.step`` over forward, backward and optimizer; each SpMM
     a ``spmm.fwd`` or ``spmm.bwd`` holding the band and the spill chain (the
     tiled and row-layout plans spill nothing), between its two
-    ``spmm.scale`` scalings in the tband, tiled and row layouts and alone in
-    the wide layout, whose kernels scale (``spmm.scale_folded`` counts one
-    a SpMM there, none elsewhere); every span of the step with the step's
-    id."""
+    ``spmm.scale`` scalings in the tiled and row layouts and alone in the
+    tband and wide layouts, whose kernels scale (``spmm.scale_folded``
+    counts one a SpMM there, none elsewhere); every span of the step with
+    the step's id."""
     op = ops[layout]
     step = make_step(op)
     step()
@@ -274,11 +274,11 @@ def test_spans_are_profiler_ranges_placed_by_the_clock_anchor(ops):
 def test_scale_nodes_equal_the_composed_form(layout, dtype):
     """The D^-1/2 scalings against the composed form the operator ran
     before (two broadcast products around the SpMM, differentiated by
-    autograd): as ``_Scale`` nodes (the tband and tiled padded layouts, the
-    padded view of a row-layout plan, and the row layout) outputs and
-    gradients ``torch.equal``; inside the wide kernels,
-    whose FMA rounds once where the composed form rounds twice, within the
-    kernels' tolerance ``TOL``."""
+    autograd): as ``_Scale`` nodes (the tiled padded layout, the padded view
+    of a row-layout plan, and the row layout) outputs and gradients
+    ``torch.equal``; inside the tband and wide kernels, whose sums round
+    once where the composed form rounds twice, within the kernels'
+    tolerance ``TOL``."""
     op = make_op(layout, dtype)
     assert op.layout.folds_scale == FOLDED[layout]
     n, d = op.plan.num_nodes, 20
@@ -342,8 +342,8 @@ def test_scale_nodes_keep_the_composed_forms_peak_memory(ops, layout, monkeypatc
     """A normalised step's peak of live host memory (torch.profiler's
     memory events) with the scalings as ``_Scale`` nodes equals the
     composed form's: the backward frees each incoming gradient after its
-    scaling, before the SpMM runs.  With the scalings inside the wide
-    kernels it is at most the composed form's (the wide layout composing as
+    scaling, before the SpMM runs.  With the scalings inside the tband or
+    wide kernels it is at most the composed form's (the layout composing as
     the tiled one does)."""
     from hcspmm_tpu_torch.ops import spmm as spmm_mod
 
